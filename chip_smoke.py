@@ -7,22 +7,36 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
 2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
-3. kernel parity — each kernel against its plain PyTorch version on the card,
-   at the serving shapes (the arxiv-width GCN plan: E ~ 2.33 M edges,
-   F = 128 per feature chunk, N = 169,344 rows) and at edge cases (padded
-   out-of-range ids, empty segments, a hub vertex, F in {1, 33, 128}, a
-   strided column slice), f32 and bf16; timed with CUDA events (mean over
+3. kernel parity — each of the five kernels against its plain PyTorch
+   version on the card, at the training shape (the arxiv-width GCN plan:
+   E ~ 2.33 M edges, F = 128 per feature chunk, N = 169,344 rows) and at
+   edge cases (padded out-of-range ids, empty segments, a 3000-edge hub,
+   F in {1, 33, 128, 256}, strided and unaligned column slices), f32 and
+   bf16, two launches with equal bits; timed with CUDA events (mean over
    back-to-back calls after warmup) beside the plain version, the one-call
-   PyTorch equivalent where there is one, and the memory-bound floor;
+   PyTorch equivalent where there is one, and the bound (bytes over HBM
+   bandwidth or operations over the f32 peak, the larger);
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
    ``full_logits()`` bit for bit, the fused kernel must launch 4 times per
-   forward, and ``full_logits()`` must match the same model and graph run on
-   the CPU (plain path) within 1e-4; request latency p50/p99 per bucket;
+   forward and no backward kernel at all, and ``full_logits()`` must match
+   the same model and graph run on the CPU (plain path) within 1e-4;
+   request latency p50/p99 per bucket;
 5. serve SAGE — same width, a few requests, the segment-sum kernel's
    launches checked per forward;
-6. the kernels line (one JSON object), then the device line (last line).
+6. train bench_gcn — bench.py's GCN training step on the port (random
+   arxiv-shaped graph, unweighted, Adam 1e-3): 2 warm-up and 10 timed steps;
+   every step launches the fused kernel, its act form, the fused-backward
+   kernel and the segment sum 4 times each; step 0's loss and every
+   gradient match the CPU plain path within 1e-4; the loss falls; step ms
+   p50/p99 and the device-busy share (torch.profiler);
+7. train ogb_gcn — ``python -m dgraph_tpu_torch.train``'s ``main`` at arxiv
+   width (symmetric-norm weights, Adam 5e-3) with the sorted-row-gather
+   kernel on: every step launches it and the segment sum 8 times each and
+   the backward pair never; step 0's gradients match the CPU plain path
+   within 1e-4;
+then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
 ``[chip_smoke]`` progress lines; details land in
@@ -47,6 +61,7 @@ F32_OPS_PER_S = 67e12
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SERVE_TOL = 1e-4
+GRAD_TOL = 1e-4
 OUT_DIR = "chiprun_out"
 
 
@@ -119,17 +134,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(e_valid: int, n: int, f: int, elem: int, *, bias: bool, weighted: bool,
-          ops_per_elem: int) -> tuple:
-    """Least time for one call: each input read once, each output written
-    once, over HBM bandwidth; against the elementwise ops over the f32 peak."""
-    nbytes = e_valid * f * elem + 4 * e_valid + n * f * elem  # data, ids, out
-    if bias:
-        nbytes += n * f * elem
-    if weighted:
-        nbytes += 4 * e_valid
+def bound(nbytes: float, ops: float) -> tuple:
+    """Least time for one call (ms): the bytes it must move (each input
+    read once, each output written once) over HBM bandwidth, against its
+    elementwise operations over the f32 peak; the larger wins."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = e_valid * f * ops_per_elem / F32_OPS_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -163,8 +173,75 @@ def edge_case_ids(n: int, seed: int = 0):
     return np.concatenate([np.sort(np.concatenate([real, hub])), pad]).astype(np.int32)
 
 
+def kernel_cases(seg, data, ids, bias, n, w, *, g=None, x=None):
+    """{kernel: [(label, kernel call, plain call)]} on one set of inputs:
+    the five kernels, kernel 1 and its act form weighted and unweighted,
+    kernel 2 plain and with the relu input op. ``g`` and ``x`` are the
+    vertex-sized operands of kernels 4 and 3 (default: ``bias``)."""
+    g = bias if g is None else g
+    x = g if x is None else x
+    cases = {k: [] for k in seg.KERNELS}
+    for ew, tag in ((w, "w"), (None, "unw")):
+        for name, wrapper, plain in (
+                ("sorted_segment_sum_bias_relu", seg.sorted_segment_sum_bias_relu,
+                 seg.sorted_segment_sum_bias_relu_plain),
+                ("sorted_segment_sum_act", seg.sorted_segment_sum_act,
+                 seg.sorted_segment_sum_act_plain)):
+            cases[name].append((tag, lambda f=wrapper, e=ew: f(data, ids, bias, n, edge_weight=e),
+                                lambda f=plain, e=ew: f(data, ids, bias, n, edge_weight=e)))
+    for op in ("none", "relu"):
+        cases["sorted_segment_sum"].append(
+            (op, lambda o=op: seg.sorted_segment_sum(data, ids, n, input_op=o),
+             lambda o=op: seg.sorted_segment_sum_plain(data, ids, n, input_op=o)))
+    cases["fused_bwd_gd"].append(("", lambda: seg.fused_bwd_gd(data, g, bias, ids),
+                                  lambda: seg.fused_bwd_gd_plain(data, g, bias, ids)))
+    cases["sorted_row_gather"].append(("", lambda: seg.sorted_row_gather(x, ids),
+                                       lambda: seg.sorted_row_gather_plain(x, ids)))
+    return cases
+
+
+def main_shape_bytes(kernel, tag, e, e_valid, n, f, b) -> tuple:
+    """(bytes, ops) one call must move and compute at the training shape:
+    each input read once and each output written once; rows with an
+    out-of-range id are read by no kernel, but every output row is written."""
+    weighted = tag == "w"
+    if kernel == "sorted_segment_sum_bias_relu":
+        return (e_valid * f * b + 4 * e_valid + 2 * n * f * b + 4 * e_valid * weighted,
+                e_valid * f * (4 if weighted else 3))
+    if kernel == "sorted_segment_sum_act":
+        return (e_valid * f * b + 4 * e_valid + n * f * b + 4 * n * f + 4 * e_valid * weighted,
+                e_valid * f * (4 if weighted else 3))
+    if kernel == "sorted_segment_sum":
+        return e_valid * f * b + 4 * e_valid + n * f * b, e_valid * f * (2 if tag == "relu" else 1)
+    if kernel == "fused_bwd_gd":
+        return 2 * e * f * b + 4 * e + 2 * n * f * b, e_valid * f * 3
+    if kernel == "sorted_row_gather":
+        return n * f * b + 4 * e + e * f * b, 0
+    raise KeyError(kernel)
+
+
+def library_call(kernel, tag, data, ids, n, e_valid, x):
+    """The one PyTorch call that computes the same function, or None:
+    ``index_add_`` for kernel 2's plain sum (f32 only: in bf16 it sums in
+    bf16) and ``index_select`` on the zero-row-extended table for kernel 3.
+    Kernel 1 (both forms) and kernel 4 have none."""
+    import torch
+
+    if kernel == "sorted_segment_sum" and tag == "none" and data.dtype == torch.float32:
+        ids_v, data_v = ids[:e_valid].long(), data[:e_valid]
+        return lambda: torch.zeros(n, data.shape[1], dtype=data.dtype,
+                                   device=data.device).index_add_(0, ids_v, data_v)
+    if kernel == "sorted_row_gather":
+        x_ext = torch.cat([x, x.new_zeros(1, x.shape[1])])
+        folded = torch.where((ids >= 0) & (ids < x.shape[0]), ids, x.shape[0]).long()
+        return lambda: x_ext.index_select(0, folded)
+    return None
+
+
 def phase_kernels(graph) -> dict:
-    """Parity of both kernels with their plain versions, and their times."""
+    """Parity of every kernel with its plain version, its times, and two
+    launches with equal bits: at the training shape (the arxiv-width plan's
+    owner ids, F = 128) and at edge cases."""
     import numpy as np
     import torch
 
@@ -189,79 +266,46 @@ def phase_kernels(graph) -> dict:
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         data = torch.randn(e_pad, F, generator=gen, device=dev).to(dtype)
         bias = torch.randn(n, F, generator=gen, device=dev).to(dtype)
-        elem = data.element_size()
-        # kernel 1: the GCN path's fused aggregation (weighted) and unweighted
-        for weighted in (True, False):
-            ew = w if weighted else None
-            name = f"sorted_segment_sum_bias_relu {dtype_name} {'w' if weighted else 'unw'} F={F}"
-            got = seg.sorted_segment_sum_bias_relu(data, ids, bias, n, edge_weight=ew)
-            want = seg.sorted_segment_sum_bias_relu_plain(data, ids, bias, n, edge_weight=ew)
-            torch.cuda.synchronize()
-            err = check_close(name, got, want, dtype_name)
-            note("sorted_segment_sum_bias_relu", dtype_name, err)
-            again = seg.sorted_segment_sum_bias_relu(data, ids, bias, n, edge_weight=ew)
-            if not torch.equal(got, again):
-                fail(f"{name}: two launches differ (kernel must be deterministic)")
-            b_ms, b_by = bound(e_valid, n, F, elem, bias=True, weighted=weighted,
-                               ops_per_elem=4 if weighted else 3)
-            rec = {
-                "kernel": "sorted_segment_sum_bias_relu", "case": name,
-                "dtype": dtype_name, "weighted": weighted, "E": e_pad,
-                "E_valid": e_valid, "N": n, "F": F, "max_abs_err": err,
-                "ms": time_ms(lambda: seg.sorted_segment_sum_bias_relu(
-                    data, ids, bias, n, edge_weight=ew)),
-                "plain_ms": time_ms(lambda: seg.sorted_segment_sum_bias_relu_plain(
-                    data, ids, bias, n, edge_weight=ew), reps=5, warmup=1),
-                "row_ptr_ms": time_ms(lambda: seg._row_ptr(ids, n)),
-                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            }
-            records.append(rec)
-            log(f"{name}: err {err:.3g} kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        # kernel 2: the SAGE neighbour sum (and relu input op)
-        for op in ("none", "relu"):
-            name = f"sorted_segment_sum {dtype_name} {op} F={F}"
-            got = seg.sorted_segment_sum(data, ids, n, input_op=op)
-            want = seg.sorted_segment_sum_plain(data, ids, n, input_op=op)
-            torch.cuda.synchronize()
-            err = check_close(name, got, want, dtype_name)
-            note("sorted_segment_sum", dtype_name, err)
-            again = seg.sorted_segment_sum(data, ids, n, input_op=op)
-            if not torch.equal(got, again):
-                fail(f"{name}: two launches differ (kernel must be deterministic)")
-            b_ms, b_by = bound(e_valid, n, F, elem, bias=False, weighted=False,
-                               ops_per_elem=2 if op == "relu" else 1)
-            lib_ms = None
-            if op == "none" and dtype == torch.float32:
-                # index_add_ is the same function only in f32 (in bf16 it
-                # accumulates in bf16), so it is the yardstick only there
-                ids_v, data_v = ids[:e_valid].long(), data[:e_valid]
-                lib = torch.zeros(n, F, dtype=dtype, device=dev).index_add_(0, ids_v, data_v)
-                if not torch.allclose(lib.float(), want.float(), rtol=TOL[dtype_name],
-                                      atol=TOL[dtype_name]):
-                    fail(f"{name}: index_add_ yardstick disagrees with plain")
-                lib_ms = time_ms(lambda: torch.zeros(n, F, dtype=dtype, device=dev)
-                                 .index_add_(0, ids_v, data_v))
-            rec = {
-                "kernel": "sorted_segment_sum", "case": name, "dtype": dtype_name,
-                "input_op": op, "E": e_pad, "E_valid": e_valid, "N": n, "F": F,
-                "max_abs_err": err,
-                "ms": time_ms(lambda: seg.sorted_segment_sum(data, ids, n, input_op=op)),
-                "plain_ms": time_ms(lambda: seg.sorted_segment_sum_plain(
-                    data, ids, n, input_op=op), reps=5, warmup=1),
-                "row_ptr_ms": time_ms(lambda: seg._row_ptr(ids, n)),
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            }
-            records.append(rec)
-            log(f"{name}: err {err:.3g} kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms library {lib_ms} ms bound {b_ms:.4f} ms")
-        del data, bias
+        g = torch.randn(n, F, generator=gen, device=dev).to(dtype)
+        b = data.element_size()
+        for kernel, cases in kernel_cases(seg, data, ids, bias, n, w, g=g).items():
+            for tag, run, plain in cases:
+                name = " ".join(x for x in (kernel, dtype_name, tag, f"F={F}") if x)
+                got = run()
+                want = plain()
+                torch.cuda.synchronize()
+                err = check_close(name, got, want, dtype_name)
+                note(kernel, dtype_name, err)
+                if not torch.equal(got, run()):
+                    fail(f"{name}: two launches differ (kernel must be deterministic)")
+                del got, want
+                nbytes, ops = main_shape_bytes(kernel, tag, e_pad, e_valid, n, F, b)
+                b_ms, b_by = bound(nbytes, ops)
+                lib = library_call(kernel, tag, data, ids, n, e_valid, g)
+                if lib is not None and not torch.allclose(lib().float(), plain().float(),
+                                                          rtol=TOL[dtype_name], atol=TOL[dtype_name]):
+                    fail(f"{name}: the library yardstick disagrees with plain")
+                rec = {
+                    "kernel": kernel, "case": name, "dtype": dtype_name, "tag": tag,
+                    "E": e_pad, "E_valid": e_valid, "N": n, "F": F, "max_abs_err": err,
+                    "ms": time_ms(run),
+                    "plain_ms": time_ms(plain, reps=5, warmup=1),
+                    "library_ms": None if lib is None else time_ms(lib),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                }
+                if kernel.startswith("sorted_segment_sum"):
+                    rec["row_ptr_ms"] = time_ms(lambda: seg._row_ptr(ids, n))
+                records.append(rec)
+                log(f"{name}: err {err:.3g} kernel {rec['ms']:.4f} ms plain "
+                    f"{rec['plain_ms']:.4f} ms library {rec['library_ms']} ms bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+        del data, bias, g
 
-    # edge cases: empty segments, hub, padded ids, F in {1, 33, 128}, strided
-    # column slices (the GCN's bias chunk), an unaligned slice (scalar path).
-    # Values are multiples of 1/4 (weights too): exact in bf16, and their
-    # sums exact in f32 in any order, so the hub's 3000-term sums compare
-    # free of summation-order noise
+    # edge cases: empty segments, hub, padded ids, F in {1, 33, 128, 256},
+    # strided column slices (the GCN's bias chunk), an unaligned slice
+    # (scalar path). Values are multiples of 1/4 (weights too): exact in
+    # bf16, and their sums exact in f32 in any order, so the hub's
+    # 3000-term sums compare free of summation-order noise
     def quarters(*shape, lo=-8, hi=9):
         return torch.randint(lo, hi, shape, generator=gen, device=dev).float() / 4
 
@@ -272,24 +316,20 @@ def phase_kernels(graph) -> dict:
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for F_ in (1, 33, 128, 256):
             wide = quarters(e_small, F_ + 5).to(dtype)
-            bias_wide = quarters(n_small, 2 * F_).to(dtype)
-            views = {"contiguous": (wide[:, :F_].contiguous(), bias_wide[:, :F_].contiguous()),
-                     "strided": (wide[:, :F_], bias_wide[:, F_:]),
-                     "unaligned": (wide[:, 1:F_ + 1], bias_wide[:, 1:F_ + 1])}
-            for layout, (d, b) in views.items():
-                for ew in (None, w_small):
-                    name = f"bias_relu edge {dtype_name} F={F_} {layout} w={ew is not None}"
-                    got = seg.sorted_segment_sum_bias_relu(d, ids_small, b, n_small, edge_weight=ew)
-                    want = seg.sorted_segment_sum_bias_relu_plain(d, ids_small, b, n_small,
-                                                                  edge_weight=ew)
-                    note("sorted_segment_sum_bias_relu", dtype_name,
-                         check_close(name, got, want, dtype_name))
-                for op in ("none", "relu"):
-                    name = f"sum edge {dtype_name} F={F_} {layout} {op}"
-                    got = seg.sorted_segment_sum(d, ids_small, n_small, input_op=op)
-                    want = seg.sorted_segment_sum_plain(d, ids_small, n_small, input_op=op)
-                    note("sorted_segment_sum", dtype_name,
-                         check_close(name, got, want, dtype_name))
+            table = quarters(n_small, 2 * F_ + 1).to(dtype)
+            views = {"contiguous": (wide[:, :F_].contiguous(), table[:, :F_].contiguous(),
+                                    table[:, F_:2 * F_].contiguous()),
+                     "strided": (wide[:, :F_], table[:, F_:2 * F_], table[:, :F_]),
+                     "unaligned": (wide[:, 1:F_ + 1], table[:, 1:F_ + 1], table[:, F_ + 1:])}
+            for layout, (d, bvec, gvec) in views.items():
+                cases = kernel_cases(seg, d, ids_small, bvec, n_small, w_small, g=gvec)
+                for kernel, runs in cases.items():
+                    for tag, run, plain in runs:
+                        name = f"{kernel} edge {dtype_name} F={F_} {layout} {tag}"
+                        got = run()
+                        note(kernel, dtype_name, check_close(name, got, plain(), dtype_name))
+                        if not torch.equal(got, run()):
+                            fail(f"{name}: two launches differ")
     torch.cuda.synchronize()
     log(f"edge cases passed; worst abs err {worst}")
     return {"records": records,
@@ -326,14 +366,14 @@ def cpu_reference(engine, graph):
     """The engine's model and graph on the CPU (plain PyTorch path)."""
     import torch
 
-    from dgraph_tpu_torch.serve.engine import default_batch_args
+    from dgraph_tpu_torch.train.loop import model_apply
 
     model = copy.deepcopy(engine.model).cpu()
     batch = {"x": graph.features[0]}
     if graph.edge_weight is not None:
         batch["edge_weight"] = graph.edge_weight[0]
     with torch.inference_mode():
-        return model(*default_batch_args(batch, graph.plan.shard(0))).numpy()
+        return model_apply(model, batch, graph.plan.shard(0)).numpy()
 
 
 def serve_path(model: str, kernel: str, per_forward, n_requests: int) -> dict:
@@ -371,6 +411,10 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int) -> dict:
     if launches[kernel] != per_forward * forwards or forwards == 0:
         fail(f"{model}: {kernel} launched {launches[kernel]} times over "
              f"{forwards} forwards (want {per_forward} per forward)")
+    backward_only = ("sorted_segment_sum_act", "fused_bwd_gd", "sorted_row_gather")
+    if any(launches[k] for k in backward_only):
+        fail(f"{model}: serving (inference_mode, gather flag off) launched a "
+             f"training kernel: {launches}")
     full = engine.full_logits()
     if not np.isfinite(full).all() or full.shape != (1, graph.plan.n_src_pad, cfg.num_classes):
         fail(f"{model}: full logits non-finite or shape {full.shape}")
@@ -411,6 +455,216 @@ def sage_launches_per_forward(cfg) -> int:
     return sum(math.ceil(w / config.gather_col_block) + 1 for w in widths)
 
 
+# --- phases 6 and 7 --------------------------------------------------------
+
+
+def grads_of(model) -> dict:
+    return {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def cpu_step0(model_cpu, batch, plan, loss_fn) -> tuple:
+    """(loss, grads) of one forward and backward of ``model_cpu`` on the
+    CPU plain path: the oracle of a card step's gradients."""
+    from dgraph_tpu_torch.train.loop import model_apply
+
+    b = {k: v[0] for k, v in batch.items()}
+    model_cpu.zero_grad(set_to_none=True)
+    loss = loss_fn(model_apply(model_cpu, b, plan.shard(0)), b["y"], b["mask"])
+    loss.backward()
+    return float(loss.detach()), grads_of(model_cpu)
+
+
+def check_grads(what, got: dict, want: dict) -> float:
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        if not torch.isfinite(got[k]).all():
+            fail(f"{what}: non-finite gradient {k}")
+        err = float((got[k] - w).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got[k], w, rtol=GRAD_TOL, atol=GRAD_TOL):
+            fail(f"{what}: gradient {k} differs from the CPU plain path "
+                 f"(max abs err {err}, tol {GRAD_TOL})")
+    return worst
+
+
+def check_step_launches(what, step, counts, want) -> None:
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"{what}: step {step} launched {k} {counts[k]} times (want {n}); "
+                 f"counts {counts}")
+
+
+def phase_train_bench_gcn() -> dict:
+    """bench.py's bench_gcn (bench.py:428-534) on the port: the arxiv-shaped
+    random graph, GCN F=128 H=256 C=40, unweighted, Adam 1e-3, f32. Two
+    warm-up steps, ten timed (CUDA events around each, under
+    torch.profiler for the busy share); launches checked every step;
+    step 0's loss and every gradient against the CPU plain path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from dgraph_tpu_torch.ops import segment as seg
+    from dgraph_tpu_torch.train.loop import masked_cross_entropy
+    from dgraph_tpu_torch.train.profile import bench_gcn_setup, device_ops
+
+    t0 = time.perf_counter()
+    model, step, batch_d, plan, batch, model_cpu = bench_gcn_setup(torch.device("cuda"))
+    setup_s = time.perf_counter() - t0
+    chunks = 2 * math.ceil(256 / 128)  # 2 layers of H = 256
+    # kernel 2 runs once per chunk as the VJP of the src-side take (the
+    # halo sort route's backward); no other sorted sum is on this path
+    want = {"sorted_segment_sum_bias_relu": chunks, "sorted_segment_sum_act": chunks,
+            "fused_bwd_gd": chunks, "sorted_segment_sum": chunks, "sorted_row_gather": 0}
+    losses, total, ms = [], dict.fromkeys(want, 0), []
+    grads0 = None
+
+    def one(i):
+        nonlocal grads0
+        seg.reset_launch_counts()
+        m = step(batch_d)
+        counts = seg.launch_counts()
+        check_step_launches("train bench_gcn", i, counts, want)
+        for k in total:
+            total[k] += counts[k]
+        losses.append(m["loss"])
+        if i == 0:
+            grads0 = grads_of(model)
+
+    for i in range(2):
+        one(i)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    events = []
+    with torch.profiler.profile(activities=activities) as prof:
+        t_wall = time.perf_counter()
+        for i in range(2, 12):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            one(i)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train bench_gcn: the loss did not fall over 12 steps: {losses}")
+    t = time.perf_counter()
+    loss_cpu, grads_cpu = cpu_step0(model_cpu, batch, plan, masked_cross_entropy)
+    cpu_s = time.perf_counter() - t
+    if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"train bench_gcn: step-0 loss {losses[0]} vs CPU {loss_cpu}")
+    grad_err = check_grads("train bench_gcn", grads0, grads_cpu)
+    ops = device_ops(prof, len(ms))
+    busy = sum(o["device_ms_per_step"] for o in ops)
+    prof_rec = {"device_ms_per_step": busy, "wall_ms_per_step": wall_ms / len(ms),
+                "device_busy_share": busy * len(ms) / wall_ms, "ops": ops}
+    rec = {"config": "bench_gcn", "E": int(plan.num_edges[0]), "e_pad": plan.e_pad,
+           "n_pad": plan.n_src_pad, "losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.percentile(ms, 50)), "step_ms_p99": float(np.percentile(ms, 99)),
+           "launches_per_step": want, "launches": total, "step0_loss_cpu": loss_cpu,
+           "grad_max_abs_err": grad_err, "setup_s": setup_s, "cpu_reference_s": cpu_s,
+           "profile": prof_rec}
+    log(f"train bench_gcn: E={rec['E']} e_pad={plan.e_pad}; step ms p50 "
+        f"{rec['step_ms_p50']:.3f} p99 {rec['step_ms_p99']:.3f}; device busy "
+        f"{prof_rec['device_busy_share']:.1%} ({prof_rec['device_ms_per_step']:.3f} ms of "
+        f"{prof_rec['wall_ms_per_step']:.3f} ms a step, profiler on); loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {want}; step-0 grads vs CPU "
+        f"max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)")
+    for o in prof_rec["ops"][:10]:
+        log(f"  {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
+    del model, step, batch_d
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_ogb_gcn() -> dict:
+    """experiments/ogb_gcn.py's GCN at arxiv width through ``python -m
+    dgraph_tpu_torch.train``'s main: SBM graph (V=169,343, F=128, C=40,
+    average degree 13.77), symmetric-norm edge weights, H=256, Adam 5e-3,
+    with the sorted-row-gather kernel switched on. Launches checked every
+    step; step 0's gradients against the CPU plain path."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.ops import segment as seg
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.profile import ogb_gcn_config
+    from dgraph_tpu_torch.weights import init_params
+
+    cfg = ogb_gcn_config()
+    cfg.epochs, cfg.log_path = 4, os.path.join(OUT_DIR, "train_ogb_gcn.jsonl")
+    chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+    # the composed backward's bias-row and cotangent-row takes (kernel 3),
+    # its d_bias sum and the src-side take's VJP (kernel 2); the weighted op
+    # never takes the pair (kernel 4, act)
+    want = {"sorted_row_gather": 2 * chunks, "sorted_segment_sum": 2 * chunks,
+            "sorted_segment_sum_act": 0, "fused_bwd_gd": 0}
+    per_step, grads0 = [], {}
+
+    def on_step(epoch, t):
+        counts = seg.launch_counts()
+        seg.reset_launch_counts()
+        check_step_launches("train ogb_gcn", epoch, counts, want)
+        # 4 fused forwards a train step, 4 more when the step ran an eval
+        evals = int(epoch % 10 == 0 or epoch == cfg.epochs - 1)
+        if counts["sorted_segment_sum_bias_relu"] != chunks * (1 + evals):
+            fail(f"train ogb_gcn: step {epoch} fused forward launches {counts}")
+        per_step.append(counts)
+        if epoch == 0:
+            grads0.update(grads_of(t.model))
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    config.use_pallas_gather = True
+    try:
+        seg.reset_launch_counts()
+        t0 = time.perf_counter()
+        # the CLI's JSON lines go to stderr: stdout keeps this script's two
+        with contextlib.redirect_stdout(sys.stderr):
+            res = cli.main(cfg, on_step=on_step)
+        run_s = time.perf_counter() - t0
+        t = res["training"]
+        model_cpu = init_params(GCN(t.graph.features.shape[-1], cfg.hidden,
+                                    cfg.data.num_classes, SingleComm(),
+                                    num_layers=cfg.num_layers), seed=0)
+        batch = dict(t.graph.batch("train"), y=t.graph.labels)
+        tc = time.perf_counter()
+        loss_cpu, grads_cpu = cpu_step0(model_cpu, batch, t.graph.plan, t.loss_fn)
+        cpu_s = time.perf_counter() - tc
+    finally:
+        config.use_pallas_gather = None
+    losses = [r["loss"] for r in res["records"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train ogb_gcn: non-finite loss {losses}")
+    if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"train ogb_gcn: step-0 loss {losses[0]} vs CPU {loss_cpu}")
+    grad_err = check_grads("train ogb_gcn", grads0, grads_cpu)
+    ms = [r["wall_ms"] for r in res["records"]]
+    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    rec = {"config": "ogb_gcn", "E": t.graph.num_edges, "e_pad": t.graph.plan.e_pad,
+           "losses": losses, "step_wall_ms": ms,
+           "step_ms_p50_excl_first": float(np.percentile(ms[1:], 50)),
+           "avg_epoch_ms_excl_first": res["avg_epoch_ms_excl_first"],
+           "launches_per_step": want, "launches": launches, "step0_loss_cpu": loss_cpu,
+           "grad_max_abs_err": grad_err, "run_s": run_s, "cpu_reference_s": cpu_s}
+    log(f"train ogb_gcn (gather kernel on): E={rec['E']}; step wall ms {ms}; loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {want}; step-0 grads vs "
+        f"CPU max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)")
+    del res, t
+    torch.cuda.empty_cache()
+    return rec
+
+
 # --- main --------------------------------------------------------------------
 
 
@@ -447,34 +701,42 @@ def main() -> None:
     sage = serve_path("sage", "sorted_segment_sum",
                       sage_launches_per_forward(arxiv_config("sage")), 8)
 
-    log("phase 6: kernels line")
-    main_case = {
-        "sorted_segment_sum_bias_relu": "sorted_segment_sum_bias_relu float32 w F=128",
-        "sorted_segment_sum": "sorted_segment_sum float32 none F=128",
-    }
-    launches = {"sorted_segment_sum_bias_relu": gcn["launches"]["sorted_segment_sum_bias_relu"],
-                "sorted_segment_sum": sage["launches"]["sorted_segment_sum"]}
+    log("phase 6: train bench_gcn")
+    bench = phase_train_bench_gcn()
+
+    log("phase 7: train ogb_gcn (python -m dgraph_tpu_torch.train, gather kernel on)")
+    ogb = phase_train_ogb_gcn()
+
+    log("kernels line")
     from dgraph_tpu_torch.ops.segment import KERNELS
 
+    # each kernel's main case and the launches of the path it serves
+    main_case = {
+        "sorted_segment_sum_bias_relu": ("sorted_segment_sum_bias_relu float32 w F=128",
+                                         gcn["launches"]),
+        "sorted_segment_sum": ("sorted_segment_sum float32 none F=128", sage["launches"]),
+        "sorted_segment_sum_act": ("sorted_segment_sum_act float32 unw F=128",
+                                   bench["launches"]),
+        "fused_bwd_gd": ("fused_bwd_gd float32 F=128", bench["launches"]),
+        "sorted_row_gather": ("sorted_row_gather float32 F=128", ogb["launches"]),
+    }
     line = []
-    for name, (_, _, replaces) in KERNELS.items():
-        rec = next(r for r in kernels["records"] if r["case"] == main_case[name])
-        line.append({
-            "name": name, "route": "cuda",
-            "source": "dgraph_tpu_torch/csrc/sorted_segment.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "kernel_ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "case": rec["case"],
-        })
-    for name in launches:
-        if launches[name] <= 0:
+    for name, k in KERNELS.items():
+        case, path_launches = main_case[name]
+        rec = next(r for r in kernels["records"] if r["case"] == case)
+        if path_launches[name] <= 0:
             fail(f"{name} was never launched on its path")
+        line.append({
+            "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": path_launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "case": case,
+        })
     os.makedirs(OUT_DIR, exist_ok=True)
     detail = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": build, "kernels": kernels, "serve": [gcn, sage],
+              "train": [bench, ogb],
               "total_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)

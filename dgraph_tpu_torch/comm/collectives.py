@@ -3,8 +3,9 @@
 
 Every function takes the PER-RANK plan (:meth:`EdgePlan.shard`). With one
 rank there is no collective: the halo exchange only reads the (all-masked)
-send lists, exactly as the reference's ``axis_name=None`` path does. The
-multi-rank exchange (``torch.distributed``) is a later slice.
+send lists, exactly as the reference's ``axis_name=None`` path does, and
+autograd differentiates it as written. The multi-rank exchange
+(``torch.distributed``) is a later slice.
 """
 
 from __future__ import annotations
@@ -70,10 +71,22 @@ def halo_extend(x: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
 
 def local_take(full: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
     """Per-edge rows from the (halo-extended) vertex table; masked edges
-    are zero. The edge mask (0/1) is folded into the ids — a masked edge
-    takes an out-of-range id, which the gather fills with a zero row — so
-    the ``[e_pad, F]`` result is written once, with no multiply pass."""
-    idx = torch.where(plan.edge_mask > 0, _side_index(plan, side), full.shape[0])
+    are zero and take no gradient (the reference's ``taken * edge_mask``,
+    collectives.py:954-987), with no ``[e_pad, F]`` multiply pass:
+
+    - halo side: the edge mask is folded into the ids (a masked edge takes
+      an out-of-range id, which the gather fills with a zero row); the
+      backward runs through the plan's sorting permutation when it has one;
+    - owner side of an owner-sorted plan: the plan's ids as they are, which
+      keeps them sorted — masked edges already carry the out-of-range
+      ``n_owner_pad`` (``plan.check_owner_padding``) — so the backward is
+      the sorted segment sum and, with ``config.use_pallas_gather``, the
+      forward the sorted-row-gather kernel."""
+    idx = _side_index(plan, side)
+    if side != plan.halo_side and plan.ids_sorted(side):
+        return local_ops.take_rows(full, idx, indices_are_sorted=True,
+                                   gather_mv=plan.gather_mv)
+    idx = torch.where(plan.edge_mask > 0, idx, full.shape[0])
     if side == plan.halo_side and plan.halo_sort_perm is not None:
         return local_ops.take_rows_sort_route(
             full, idx, plan.halo_sort_perm, plan.halo_sorted_ids)
@@ -92,7 +105,8 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
     n_pad = _side_npad(plan, side)
     if side != plan.halo_side:
         if plan.ids_sorted(side):
-            return local_ops.sorted_segment_sum_any(edata, idx, n_pad)
+            return local_ops.sorted_segment_sum_any(edata, idx, n_pad,
+                                                    gather_mv=plan.gather_mv)
         return local_ops.segment_sum(edata, idx, n_pad)
     n_full = n_pad + plan.world_size * plan.halo.s_pad
     if plan.halo_sort_perm is not None:
@@ -117,7 +131,7 @@ def scatter_bias_relu(
     bias = bias.to(edata.dtype)
     if plan.ids_sorted(side):
         return local_ops.sorted_segment_sum_bias_relu_any(
-            edata, idx, bias, n_pad, edge_weight=edge_weight)
+            edata, idx, bias, n_pad, edge_weight=edge_weight, gather_mv=plan.gather_mv)
     m = torch.relu(edata + gather(bias, plan, side))
     if edge_weight is not None:
         m = m * edge_weight[:, None].to(m.dtype)

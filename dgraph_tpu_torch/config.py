@@ -3,7 +3,9 @@
 Counterpart of ``dgraph_tpu/config.py``. The Pallas kill switches have no
 counterpart: on a CUDA tensor a kernel wrapper launches its kernel or
 raises, and on a CPU tensor it runs its plain version, so there is nothing
-to switch.
+to switch. The one opt-in flag the reference keeps for a kernel that is off
+by default, ``use_pallas_gather`` (the sorted-row-gather kernel), is here
+with its name and semantics.
 """
 
 from __future__ import annotations
@@ -11,6 +13,13 @@ from __future__ import annotations
 import os
 
 import torch
+
+
+def _env_flag(name: str, default=False):
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
 
 # Compute dtype for model matmuls (params stay float32). Models resolve
 # dtype=None through resolve_compute_dtype(), so
@@ -43,6 +52,18 @@ def resolve_compute_dtype(dtype):
 # every per-edge intermediate is at most this many columns wide. 0 disables
 # chunking.
 gather_col_block: int = int(os.environ.get("DGRAPH_TPU_GATHER_COL_BLOCK", "128"))
+
+
+# The sorted-row-gather kernel (ops.segment.sorted_row_gather) for the row
+# takes by sorted owner ids: owner-side take_rows and the backward's
+# cotangent and bias-row takes. Tri-state as in the reference, whose auto
+# state is OFF: it engages only on an explicit DGRAPH_TPU_PALLAS_GATHER=1
+# (or by setting this attribute to True). Off, those takes are index_select.
+use_pallas_gather = _env_flag("DGRAPH_TPU_PALLAS_GATHER", None)
+
+
+def pallas_gather_enabled() -> bool:
+    return use_pallas_gather is True
 
 
 def default_device(device=None) -> torch.device:

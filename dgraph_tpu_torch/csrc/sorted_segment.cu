@@ -5,6 +5,9 @@
 //     out[v] = sum_{e: ids[e]=v} op(data[e]),  op in {identity, relu}
 //   dg_sorted_segment_sum_bias_relu  replaces _kernel_bias_relu  (pallas_segment.py:259)
 //     out[v] = sum_{e: ids[e]=v} w[e] * relu(data[e] + bias[v])
+//   dg_sorted_segment_sum_act        replaces its epilogue="act" form (:306-307, :384-388)
+//     out[v] = sum_{e: ids[e]=v} w[e] * 1[data[e] + bias[v] > 0]   (f32 output)
+//     the backward's d_bias reduction: d_bias = out * g, from one pass over data
 //
 // The TPU form is a one-hot [block_e, block_n] MXU contraction over a
 // (vertex block, edge chunk) grid with a VMEM-resident output: it exists
@@ -15,12 +18,13 @@
 //
 //   - one warp owns one output row and a slice of feature columns; a lane
 //     holds one 16-byte vector of consecutive features (4 f32 or 8 bf16, so
-//     a slice is 128 f32 or 256 bf16 columns; a scalar path for a ragged or
-//     unaligned group);
+//     a slice is 128 f32 or 256 bf16 columns; a scalar path, chosen per
+//     launch, when a row is unaligned or not a whole number of vectors wide);
 //   - when the row is narrower than the slice the warp splits into
 //     32 / L edge groups of L lanes, which take every (32/L)-th edge and are
 //     summed with a fixed shuffle tree at the end (SAGE's degree count has
-//     F = 1: all 32 lanes then walk edges);
+//     F = 1: all 32 lanes then walk edges); L is a power of two, and lanes
+//     map to groups by shifts;
 //   - accumulation is in f32 registers, the row is written once, and there
 //     are no atomics, so every run gives the same bits. Element offsets are
 //     64-bit.
@@ -34,102 +38,22 @@
 // relu in f32; times f32(w); the message is rounded to the data dtype; the
 // sum is f32; the output is cast to the data dtype. For the plain sum with
 // input_op=relu, relu applies to the data-dtype value before the f32 sum.
+// The act form decides the mask on the same f32 pre-activation as the
+// forward (so the forward's and the backward's masks agree), rounds w*act to
+// the data dtype like the message, and writes its f32 sum unrounded: a
+// degree-sized count would saturate in bf16.
 //
 // Plain C interface, loaded with ctypes (dgraph_tpu_torch/ops/_build.py).
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec.cuh"
 
 namespace {
 
+using namespace dg;
+
 constexpr int kWarpsPerBlock = 8;
-
-// Features per lane: kVecsPerLane 16-byte vectors (4 f32 or 8 bf16 each);
-// a warp slice covers 32 lanes' worth of columns.
-constexpr int kVecsPerLane = 1;
-template <typename T>
-constexpr int kPerVec = 16 / sizeof(T);
-template <typename T>
-constexpr int kVec = kVecsPerLane * kPerVec<T>;
-template <typename T>
-constexpr int kColsPerWarp = 32 * kVec<T>;
-
-enum DType : int { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-
-// NaN-propagating relu (matches jnp.maximum(x, 0) and torch.relu)
-__device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
-
-// Load n (<= kVec) consecutive features starting at p into v (zeros past n).
-// VEC: p is 16-byte aligned, so a full group is kVecsPerLane 16-byte loads.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, int n, float* v) {
-  constexpr int W = kVec<T>;
-  constexpr int P = kPerVec<T>;
-  if (VEC && n == W) {
-#pragma unroll
-    for (int j = 0; j < kVecsPerLane; ++j) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + j * P));
-      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (sizeof(T) == 4) {
-          v[j * P + i] = __uint_as_float(w[i]);
-        } else {
-          // bf16 -> f32 is exact: the bf16 bits are the high half of the f32
-          v[j * P + 2 * i] = __uint_as_float(w[i] << 16);
-          v[j * P + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < W; ++i) v[i] = i < n ? to_f32(p[i]) : 0.f;
-  }
-}
-
-template <typename T, bool VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, int n, const float* v) {
-  constexpr int W = kVec<T>;
-  constexpr int P = kPerVec<T>;
-  if (VEC && n == W) {
-#pragma unroll
-    for (int j = 0; j < kVecsPerLane; ++j) {
-      const float* u = v + j * P;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (sizeof(T) == 4)
-          w[i] = __float_as_uint(u[i]);
-        else
-          w[i] = bf16_bits(u[2 * i]) | (bf16_bits(u[2 * i + 1]) << 16);
-      }
-      *reinterpret_cast<uint4*>(p + j * P) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-      if (i < n) p[i] = from_f32<T>(v[i]);
-  }
-}
 
 // Where this lane works: the output row, its feature group and how many of
 // those features are real, its edge group, and the number of edge groups.
@@ -142,25 +66,25 @@ struct LaneTile {
 };
 
 template <typename T>
-__device__ __forceinline__ LaneTile lane_tile(int F, int lanes_per_edge) {
+__device__ __forceinline__ LaneTile lane_tile(int F, int lanes_log2) {
   constexpr int W = kVec<T>;
   LaneTile t;
   const int lane = threadIdx.x & 31;
   t.row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   const int col0 = blockIdx.y * kColsPerWarp<T>;
   const int slice = min(kColsPerWarp<T>, F - col0);
-  const int fg = lane & (lanes_per_edge - 1);
+  const int fg = lane & ((1 << lanes_log2) - 1);
   t.col = col0 + W * fg;
   t.ncols = max(0, min(W, col0 + slice - t.col));
-  t.egroup = lane / lanes_per_edge;
-  t.ngroups = 32 / lanes_per_edge;
+  t.egroup = lane >> lanes_log2;
+  t.ngroups = 32 >> lanes_log2;
   return t;
 }
 
 // Sum the edge groups' partial sums (fixed tree: deterministic).
 template <int W>
-__device__ __forceinline__ void reduce_groups(float* acc, int lanes_per_edge) {
-  for (int off = lanes_per_edge; off < 32; off <<= 1) {
+__device__ __forceinline__ void reduce_groups(float* acc, int lanes_log2) {
+  for (int off = 1 << lanes_log2; off < 32; off <<= 1) {
 #pragma unroll
     for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
   }
@@ -170,9 +94,9 @@ template <typename T, bool VEC, bool RELU>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 segment_sum_kernel(const T* __restrict__ data, int64_t data_stride,
                    const int64_t* __restrict__ row_ptr, T* __restrict__ out,
-                   int64_t n_rows, int F, int lanes_per_edge) {
+                   int64_t n_rows, int F, int lanes_log2) {
   constexpr int W = kVec<T>;
-  const LaneTile t = lane_tile<T>(F, lanes_per_edge);
+  const LaneTile t = lane_tile<T>(F, lanes_log2);
   if (t.row >= n_rows) return;  // whole warp leaves together
   float acc[W];
 #pragma unroll
@@ -187,20 +111,21 @@ segment_sum_kernel(const T* __restrict__ data, int64_t data_stride,
       for (int i = 0; i < W; ++i) acc[i] += RELU ? relu(v[i]) : v[i];
     }
   }
-  reduce_groups<W>(acc, lanes_per_edge);
+  reduce_groups<W>(acc, lanes_log2);
   if (t.egroup == 0 && t.ncols > 0)
-    store_vec<T, VEC>(out + t.row * F + t.col, t.ncols, acc);
+    store_vec<T, W, VEC>(out + t.row * F + t.col, t.ncols, acc);
 }
 
-template <typename T, bool VEC, bool WEIGHTED>
+// O is the data dtype T for the relu form and float for the act form.
+template <typename T, typename O, bool VEC, bool WEIGHTED, bool ACT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 segment_sum_bias_relu_kernel(const T* __restrict__ data, int64_t data_stride,
                              const T* __restrict__ bias, int64_t bias_stride,
                              const float* __restrict__ weight,
-                             const int64_t* __restrict__ row_ptr, T* __restrict__ out,
-                             int64_t n_rows, int F, int lanes_per_edge) {
+                             const int64_t* __restrict__ row_ptr, O* __restrict__ out,
+                             int64_t n_rows, int F, int lanes_log2) {
   constexpr int W = kVec<T>;
-  const LaneTile t = lane_tile<T>(F, lanes_per_edge);
+  const LaneTile t = lane_tile<T>(F, lanes_log2);
   if (t.row >= n_rows) return;
   float acc[W];
 #pragma unroll
@@ -217,15 +142,16 @@ segment_sum_bias_relu_kernel(const T* __restrict__ data, int64_t data_stride,
       const float w = WEIGHTED ? __ldg(weight + e) : 1.f;
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        float m = relu(v[i] + b[i]);
+        const float pre = v[i] + b[i];
+        float m = ACT ? (pre > 0.f ? 1.f : 0.f) : relu(pre);
         if (WEIGHTED) m *= w;
         acc[i] += to_f32(from_f32<T>(m));  // message rounded to the data dtype
       }
     }
   }
-  reduce_groups<W>(acc, lanes_per_edge);
+  reduce_groups<W>(acc, lanes_log2);
   if (t.egroup == 0 && t.ncols > 0)
-    store_vec<T, VEC>(out + t.row * F + t.col, t.ncols, acc);
+    store_vec<O, W, VEC>(out + t.row * F + t.col, t.ncols, acc);
 }
 
 template <typename T>
@@ -234,22 +160,12 @@ dim3 grid_for(int64_t n_rows, int F) {
               static_cast<unsigned>((F + kColsPerWarp<T> - 1) / kColsPerWarp<T>));
 }
 
-// Lanes per edge group: the smallest power of two covering the slice's
-// feature groups.
-template <typename T>
-int lanes_for(int F) {
-  const int groups = (min(F, kColsPerWarp<T>) + kVec<T> - 1) / kVec<T>;
-  int L = 1;
-  while (L < groups) L <<= 1;
-  return L;
-}
-
 template <typename T, bool VEC, bool RELU>
 void launch_sum(const void* data, int64_t data_stride, const void* row_ptr, void* out,
                 int64_t n_rows, int F, cudaStream_t stream) {
   segment_sum_kernel<T, VEC, RELU><<<grid_for<T>(n_rows, F), kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(data), data_stride, static_cast<const int64_t*>(row_ptr),
-      static_cast<T*>(out), n_rows, F, lanes_for<T>(F));
+      static_cast<T*>(out), n_rows, F, lanes_log2_for<T>(F));
 }
 
 template <typename T>
@@ -264,36 +180,36 @@ void dispatch_sum(const void* data, int64_t data_stride, const void* row_ptr, vo
   }
 }
 
-template <typename T, bool VEC, bool WEIGHTED>
+template <typename T, typename O, bool VEC, bool WEIGHTED, bool ACT>
 void launch_bias_relu(const void* data, int64_t data_stride, const void* bias,
                       int64_t bias_stride, const void* weight, const void* row_ptr,
                       void* out, int64_t n_rows, int F, cudaStream_t stream) {
-  segment_sum_bias_relu_kernel<T, VEC, WEIGHTED>
+  segment_sum_bias_relu_kernel<T, O, VEC, WEIGHTED, ACT>
       <<<grid_for<T>(n_rows, F), kWarpsPerBlock * 32, 0, stream>>>(
           static_cast<const T*>(data), data_stride, static_cast<const T*>(bias), bias_stride,
           static_cast<const float*>(weight), static_cast<const int64_t*>(row_ptr),
-          static_cast<T*>(out), n_rows, F, lanes_for<T>(F));
+          static_cast<O*>(out), n_rows, F, lanes_log2_for<T>(F));
 }
 
-template <typename T>
+template <typename T, typename O, bool ACT>
 void dispatch_bias_relu(const void* data, int64_t data_stride, const void* bias,
                         int64_t bias_stride, const void* weight, const void* row_ptr,
                         void* out, int64_t n_rows, int F, int vec, cudaStream_t s) {
   const bool weighted = weight != nullptr;
   if (vec) {
     if (weighted)
-      launch_bias_relu<T, true, true>(data, data_stride, bias, bias_stride, weight, row_ptr,
-                                      out, n_rows, F, s);
+      launch_bias_relu<T, O, true, true, ACT>(data, data_stride, bias, bias_stride, weight,
+                                              row_ptr, out, n_rows, F, s);
     else
-      launch_bias_relu<T, true, false>(data, data_stride, bias, bias_stride, weight, row_ptr,
-                                       out, n_rows, F, s);
+      launch_bias_relu<T, O, true, false, ACT>(data, data_stride, bias, bias_stride, weight,
+                                               row_ptr, out, n_rows, F, s);
   } else {
     if (weighted)
-      launch_bias_relu<T, false, true>(data, data_stride, bias, bias_stride, weight, row_ptr,
-                                       out, n_rows, F, s);
+      launch_bias_relu<T, O, false, true, ACT>(data, data_stride, bias, bias_stride, weight,
+                                               row_ptr, out, n_rows, F, s);
     else
-      launch_bias_relu<T, false, false>(data, data_stride, bias, bias_stride, weight, row_ptr,
-                                        out, n_rows, F, s);
+      launch_bias_relu<T, O, false, false, ACT>(data, data_stride, bias, bias_stride, weight,
+                                                row_ptr, out, n_rows, F, s);
   }
 }
 
@@ -329,11 +245,31 @@ int dg_sorted_segment_sum_bias_relu(const void* data, long long data_stride,
   if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    dispatch_bias_relu<float>(data, data_stride, bias, bias_stride, weight, row_ptr, out,
-                              n_rows, F, vec, s);
+    dispatch_bias_relu<float, float, false>(data, data_stride, bias, bias_stride, weight,
+                                            row_ptr, out, n_rows, F, vec, s);
   else if (dtype == kBF16)
-    dispatch_bias_relu<__nv_bfloat16>(data, data_stride, bias, bias_stride, weight, row_ptr,
-                                      out, n_rows, F, vec, s);
+    dispatch_bias_relu<__nv_bfloat16, __nv_bfloat16, false>(
+        data, data_stride, bias, bias_stride, weight, row_ptr, out, n_rows, F, vec, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n_rows, F] float32 (contiguous) = sum_e w[e] * 1[data[e] + bias[row] > 0]
+// over the CSR offsets row_ptr; the other arguments as for
+// dg_sorted_segment_sum_bias_relu.
+int dg_sorted_segment_sum_act(const void* data, long long data_stride, const void* bias,
+                              long long bias_stride, const void* weight, const void* row_ptr,
+                              void* out, long long n_rows, int F, int dtype, int vec,
+                              void* stream) {
+  if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    dispatch_bias_relu<float, float, true>(data, data_stride, bias, bias_stride, weight,
+                                           row_ptr, out, n_rows, F, vec, s);
+  else if (dtype == kBF16)
+    dispatch_bias_relu<__nv_bfloat16, float, true>(data, data_stride, bias, bias_stride,
+                                                   weight, row_ptr, out, n_rows, F, vec, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

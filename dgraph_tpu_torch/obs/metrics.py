@@ -1,14 +1,74 @@
-"""Host-side metrics registry — a copy of ``dgraph_tpu/obs/metrics.py``'s
-``Metrics`` (without the JAX step-metrics pytree).
+"""Runtime metrics — counterpart of ``dgraph_tpu/obs/metrics.py``.
 
-Counters, gauges and histograms with quantile snapshots; one lock, so the
-serve batcher's worker thread and client threads can share a registry.
+- :class:`Metrics`: the host-side registry of counters, gauges and
+  histograms with quantile snapshots; one lock, so the serve batcher's
+  worker thread and client threads can share a registry.
+- :class:`StepMetrics` and :func:`step_record`: what a train step returns
+  (``train.loop.make_train_step(step_metrics=True)``) and the one JSONL
+  record per step built from it, in the reference's schema.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import threading
+from typing import Any, Optional
+
+STEP_SCHEMA_VERSION = 1
+
+# fields serialized into / parsed out of a step record, in schema order;
+# nonfinite_skipped (0.0/1.0) is set only by guarded steps
+_STEP_FIELDS = ("loss", "accuracy", "grad_norm", "mask_count",
+                "nonfinite_skipped")
+
+
+@dataclasses.dataclass
+class StepMetrics:
+    """One train step's metrics: tensors (or floats) that stay on the
+    device until :meth:`record` reads them. Unset fields (None) are left
+    out of the record."""
+
+    loss: Any = None
+    accuracy: Any = None
+    grad_norm: Any = None
+    mask_count: Any = None
+    nonfinite_skipped: Any = None
+
+    # dict-style access, so call sites written against the metrics dict
+    # (``m["loss"]``) take a StepMetrics unchanged
+    def __getitem__(self, key: str):
+        if key not in _STEP_FIELDS:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def record(self, **extra) -> dict:
+        """One JSONL-ready dict: floats only, schema-stamped. ``extra``
+        carries host-side context (step index, wall_ms...)."""
+        out = {"kind": "step", "schema": STEP_SCHEMA_VERSION}
+        for name in _STEP_FIELDS:
+            v = getattr(self, name)
+            if v is not None:
+                out[name] = float(v)
+        out.update(extra)
+        return out
+
+    @classmethod
+    def from_record(cls, rec: dict) -> "StepMetrics":
+        """Inverse of :meth:`record` (extras are dropped)."""
+        if rec.get("kind") != "step":
+            raise ValueError(f"not a step record: kind={rec.get('kind')!r}")
+        return cls(**{k: rec[k] for k in _STEP_FIELDS if k in rec})
+
+
+def step_record(metrics, *, step: int, wall_ms: Optional[float] = None, **extra) -> dict:
+    """The step record from a :class:`StepMetrics` or a metrics dict, so a
+    loop logs one schema whichever form its step returns."""
+    if not isinstance(metrics, StepMetrics):
+        metrics = StepMetrics(**{k: metrics[k] for k in _STEP_FIELDS if k in metrics})
+    if wall_ms is not None:
+        extra["wall_ms"] = round(float(wall_ms), 3)
+    return metrics.record(step=int(step), **extra)
 
 # quantiles every histogram snapshot reports: the serving SLO trio
 DEFAULT_QUANTILES = (0.5, 0.95, 0.99)

@@ -26,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # one shared library per source, all built by one nvcc each
-SOURCES = {"sorted_segment": "sorted_segment.cu"}
+SOURCES = {"sorted_segment": "sorted_segment.cu", "sorted_gather": "sorted_gather.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,22 @@ SIGNATURES = {
             _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int,
             _c.c_int, _c.c_void_p,
+        ),
+        "dg_sorted_segment_sum_act": (
+            _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
+            _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int,
+            _c.c_int, _c.c_void_p,
+        ),
+    },
+    "sorted_gather": {
+        "dg_sorted_row_gather": (
+            _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_longlong,
+            _c.c_longlong, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
+        ),
+        "dg_fused_bwd_gd": (
+            _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
+            _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_longlong,
+            _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
         ),
     },
 }
@@ -75,9 +91,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where source ``name`` builds to: keyed by the source bytes and flags."""
-    src = CSRC_DIR / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where source ``name`` builds to: keyed by the bytes of the source and
+    of the shared headers (``csrc/*.cuh``), and by the flags."""
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}.so"
 
 

@@ -1,35 +1,51 @@
-"""Sorted-segment reductions: the two CUDA kernels' wrappers and plain versions.
+"""Sorted-id kernels: their wrappers, plain versions and autograd.
 
 Counterpart of ``dgraph_tpu/ops/pallas_segment.py``:
 
 - :func:`sorted_segment_sum` replaces ``_kernel`` (pallas_segment.py:39,
-  public ``sorted_segment_sum`` :225): ``out[v] = Σ_{e: ids[e]=v} op(data[e])``;
+  public ``sorted_segment_sum`` :225): ``out[v] = Σ_{e: ids[e]=v} op(data[e])``.
+  Its backward is the row take ``g[ids]`` (times ``1[data > 0]`` for
+  ``input_op="relu"``), as in ``_make_sss`` (:209-219);
 - :func:`sorted_segment_sum_bias_relu` replaces ``_kernel_bias_relu``
   (pallas_segment.py:259, public ``sorted_segment_sum_bias_relu`` :479):
   ``out[v] = Σ_{e: ids[e]=v} w[e]·relu(data[e] + bias[v])`` with no ``[E, F]``
-  message tensor in device memory.
+  message tensor in device memory. Its backward takes the reference's two
+  routes (``_make_ssbr``, :399-473): unweighted with ``gather_mv > 0``, the
+  kernel pair :func:`fused_bwd_gd` + :func:`sorted_segment_sum_act`;
+  otherwise the composed route (two row takes, a mask and a sorted sum);
+- :func:`sorted_segment_sum_act` replaces the ``epilogue="act"`` form of
+  ``_kernel_bias_relu`` (:306-307, :384-388): ``out[v] = Σ w[e]·1[data[e] +
+  bias[v] > 0]`` in f32, the backward's ``d_bias`` reduction;
+- :func:`fused_bwd_gd` replaces ``_fused_bwd_kernel`` (:671, built by
+  ``_make_fused_bwd`` :732): ``gd[e] = g[ids[e]]·1[data[e] + bias[ids[e]] > 0]``;
+- :func:`sorted_row_gather` replaces ``_gather_kernel`` (:595, public
+  ``sorted_row_gather`` :773): ``x[ids]``; its backward is the sorted sum
+  (:657-665).
 
-Both take MONOTONE (sorted) segment ids; ids outside ``[0, N)`` are dropped
-(the plan pads owner ids with ``n_pad``). The CUDA sources are
-``csrc/sorted_segment.cu``, a CSR segment reduction (the design note is
-there): ``row_ptr = searchsorted(ids, arange(N+1))`` plays the part of the
-TPU kernel's chunk schedule and drops out-of-range ids by construction.
+All take MONOTONE (sorted) ids; ids outside ``[0, N)`` are dropped by the
+reductions and give zero rows in the gathers (the plan pads owner ids with
+``n_pad``). The CUDA sources are ``csrc/sorted_segment.cu`` (the CSR
+reductions: ``row_ptr = searchsorted(ids, arange(N+1))`` plays the part of
+the TPU kernel's chunk schedule and drops out-of-range ids by construction)
+and ``csrc/sorted_gather.cu`` (the row gathers); the design notes are there.
 
 Device rule: on a CPU tensor a wrapper runs its plain PyTorch version
-(``*_plain``, which autograd differentiates); on a CUDA tensor it launches
-its kernel or raises — there is no fallback. Each wrapper counts its
-launches in ``<wrapper>.launches`` (set to 0 with :func:`reset_launch_counts`).
-
-This slice is forward only: on a CUDA tensor that requires grad, with grad
-mode on, a wrapper raises ``NotImplementedError``; the backward kernels come
-with the training slice.
+(``*_plain``); on a CUDA tensor it launches its kernel or raises — there is
+no fallback. The autograd Functions are the same on both devices, so the
+CPU tests run the backward routes the card runs. Each wrapper counts its
+launches in ``<wrapper>.launches`` (set to 0 with :func:`reset_launch_counts`);
+a launch inside a backward counts for the kernel it launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from dgraph_tpu_torch import config as _cfg
+from dgraph_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,6 +60,15 @@ def _valid_range(ids: torch.Tensor, n: int) -> tuple[int, int]:
     return lo, hi
 
 
+def _take_zero(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]`` with zero rows for ids outside ``[0, N)`` (negative ids
+    too: the sorted kernels' convention)."""
+    n = x.shape[0]
+    ids = ids.long()
+    x_ext = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return x_ext.index_select(0, torch.where((ids >= 0) & (ids < n), ids, n))
+
+
 def sorted_segment_sum_plain(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *,
     input_op: str = "none",
@@ -51,8 +76,7 @@ def sorted_segment_sum_plain(
     """Plain version of :func:`sorted_segment_sum`: ``index_add`` over the
     valid ids. ``input_op="relu"`` applies relu in the data dtype; the sum
     is f32 and the result is cast back to the data dtype."""
-    if input_op not in ("none", "relu"):
-        raise ValueError(f"input_op must be 'none' or 'relu', got {input_op!r}")
+    _check_input_op(input_op)
     lo, hi = _valid_range(segment_ids, num_segments)
     d = data[lo:hi]
     if input_op == "relu":
@@ -63,38 +87,65 @@ def sorted_segment_sum_plain(
     return out.to(data.dtype)
 
 
-def sorted_segment_sum_bias_relu_plain(
-    data: torch.Tensor, segment_ids: torch.Tensor, bias: torch.Tensor,
-    num_segments: int, *, edge_weight: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain version of :func:`sorted_segment_sum_bias_relu`, in the TPU
-    kernel's rounding order: bias rounded to the data dtype; ``pre =
-    f32(data) + f32(bias)``; relu in f32; times ``f32(w)``; the message
-    rounded to the data dtype; f32 sum; output cast to the data dtype."""
+def _bias_epilogue_plain(data, segment_ids, bias, num_segments, edge_weight, act):
+    """The fused kernel's rounding order: bias rounded to the data dtype;
+    ``pre = f32(data) + f32(bias)``; relu (or the 0/1 mask for ``act``) in
+    f32; times ``f32(w)``; the message rounded to the data dtype; f32 sum."""
     lo, hi = _valid_range(segment_ids, num_segments)
     ids = segment_ids[lo:hi].long()
-    bias_rows = bias.to(data.dtype).index_select(0, ids).float()
-    m = torch.relu(data[lo:hi].float() + bias_rows)
+    pre = data[lo:hi].float() + bias.to(data.dtype).index_select(0, ids).float()
+    m = (pre > 0).float() if act else torch.relu(pre)
     if edge_weight is not None:
         m = m * edge_weight[lo:hi, None].float()
     m = m.to(data.dtype).float()
     out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
                       device=data.device)
-    return out.index_add(0, ids, m).to(data.dtype)
+    return out.index_add(0, ids, m)
 
 
-# --- kernel wrappers -------------------------------------------------------
+def sorted_segment_sum_bias_relu_plain(
+    data: torch.Tensor, segment_ids: torch.Tensor, bias: torch.Tensor,
+    num_segments: int, *, edge_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`sorted_segment_sum_bias_relu`, in the TPU
+    kernel's rounding order; the output is cast to the data dtype."""
+    return _bias_epilogue_plain(data, segment_ids, bias, num_segments,
+                                edge_weight, act=False).to(data.dtype)
 
 
-def _forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            "the CUDA segment kernels are forward only; their backward "
-            "kernels come with the training slice of the port (run under "
-            "torch.inference_mode() or torch.no_grad())"
-        )
+def sorted_segment_sum_act_plain(
+    data: torch.Tensor, segment_ids: torch.Tensor, bias: torch.Tensor,
+    num_segments: int, *, edge_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`sorted_segment_sum_act`: ``Σ w·1[pre > 0]``
+    in the same rounding order; the output stays f32."""
+    return _bias_epilogue_plain(data, segment_ids, bias, num_segments,
+                                edge_weight, act=True)
+
+
+def fused_bwd_gd_plain(data: torch.Tensor, g: torch.Tensor, bias: torch.Tensor,
+                       segment_ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`fused_bwd_gd`: ``g[ids] * 1[f32(data) +
+    f32(bias[ids]) > 0]`` with g and bias rounded to the data dtype, zero
+    rows for ids outside ``[0, N)``, output in the data dtype."""
+    g_rows = _take_zero(g.to(data.dtype), segment_ids)
+    bias_rows = _take_zero(bias.to(data.dtype), segment_ids)
+    act = (data.float() + bias_rows.float() > 0).float()
+    return (g_rows.float() * act).to(data.dtype)
+
+
+def sorted_row_gather_plain(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`sorted_row_gather`: ``x[ids]``, zero rows for
+    ids outside ``[0, N)``."""
+    return _take_zero(x, ids)
+
+
+# --- argument checks -------------------------------------------------------
+
+
+def _check_input_op(input_op: str) -> None:
+    if input_op not in ("none", "relu"):
+        raise ValueError(f"input_op must be 'none' or 'relu', got {input_op!r}")
 
 
 def _check_rows(name: str, t: torch.Tensor, dtype, cols: int) -> None:
@@ -111,11 +162,30 @@ def _row_stride(t: torch.Tensor) -> int:
 
 
 def _vec_ok(*tensors) -> bool:
-    """Every row start is 16-byte aligned: a lane's feature group (4 f32 or
-    8 bf16) is then one vector load or store."""
+    """Every row starts 16-byte aligned and is a whole number of 16-byte
+    vectors wide: every lane's feature group (4 f32 or 8 bf16) is then one
+    full vector load or store, and the kernel takes its vector path with no
+    per-lane test."""
     for t in tensors:
-        if t.data_ptr() % 16 or (_row_stride(t) * t.element_size()) % 16:
+        b = t.element_size()
+        if t.data_ptr() % 16 or (_row_stride(t) * b) % 16 or (t.shape[1] * b) % 16:
             return False
+    return True
+
+
+def unit_cols(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its columns are contiguous (what the kernels take),
+    else a contiguous copy: cotangents reach a backward in any layout."""
+    return t if t.dim() != 2 or t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA
+    tensor (the kernel launches); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"no sorted-id kernel for device {t.device}")
     return True
 
 
@@ -137,6 +207,15 @@ def _check_cuda_inputs(data, segment_ids):
         raise ValueError("segment_ids and data must be on one device")
 
 
+def _check_vertex_operand(name, t, data, num_rows):
+    _check_rows(name, t, data.dtype, data.shape[1])
+    if t.shape[0] != num_rows or t.device != data.device:
+        raise ValueError(
+            f"{name} must be [{num_rows}, {data.shape[1]}] on {data.device}, got "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+
+
 def _row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """CSR offsets [N+1] (int64) of sorted ids; ids outside [0, N) fall
     before row_ptr[0] or after row_ptr[N], so no row sees them."""
@@ -145,29 +224,27 @@ def _row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(ids, rows)
 
 
+def _ids32(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The gathers' int32 ids; int64 ids are clamped to [-1, N] first, which
+    keeps every out-of-range id out of range."""
+    if ids.dtype == torch.int64:
+        ids = ids.clamp(-1, num_rows).to(torch.int32)
+    return ids.contiguous()
+
+
 def _stream() -> int:
     """PyTorch's current CUDA stream, as the handle the C interface takes."""
     return torch.cuda.current_stream().cuda_stream
 
 
-def sorted_segment_sum(
-    data: torch.Tensor,  # [E, F], unit column stride
-    segment_ids: torch.Tensor,  # [E] int32/int64, MONOTONE non-decreasing
-    num_segments: int,
-    *,
-    input_op: str = "none",  # "none" | "relu" (fused input epilogue)
-) -> torch.Tensor:
-    """Segment sum for sorted ids; rows with ids outside [0, num_segments)
-    are dropped. Returns ``[num_segments, F]`` in the data dtype (f32 sum)."""
-    if input_op not in ("none", "relu"):
-        raise ValueError(f"input_op must be 'none' or 'relu', got {input_op!r}")
-    if data.device.type == "cpu":
+# --- launches (kernel on a CUDA tensor, plain version on a CPU tensor) -----
+
+
+def _segment_sum(data, segment_ids, num_segments, input_op):
+    if not _on_card(data):
         return sorted_segment_sum_plain(data, segment_ids, num_segments,
                                         input_op=input_op)
-    if data.device.type != "cuda":
-        raise RuntimeError(f"no segment kernel for device {data.device}")
     _check_cuda_inputs(data, segment_ids)
-    _forward_only(data)
     E, F = data.shape
     out = torch.empty((num_segments, F), dtype=data.dtype, device=data.device)
     if num_segments == 0 or F == 0:
@@ -175,8 +252,6 @@ def sorted_segment_sum(
     if E == 0:
         return out.zero_()
     row_ptr = _row_ptr(segment_ids, num_segments)
-    from dgraph_tpu_torch.ops import _build
-
     lib = _build.load("sorted_segment")
     rc = lib.dg_sorted_segment_sum(
         data.data_ptr(), _row_stride(data), row_ptr.data_ptr(), out.data_ptr(),
@@ -188,6 +263,228 @@ def sorted_segment_sum(
     return out
 
 
+def _bias_epilogue(data, segment_ids, bias, num_segments, edge_weight, act):
+    """The fused kernel in its relu form (output in the data dtype) or its
+    act form (f32 output)."""
+    if not _on_card(data):
+        plain = sorted_segment_sum_act_plain if act else sorted_segment_sum_bias_relu_plain
+        return plain(data, segment_ids, bias, num_segments, edge_weight=edge_weight)
+    _check_cuda_inputs(data, segment_ids)
+    E, F = data.shape
+    _check_vertex_operand("bias", bias, data, num_segments)
+    w = None
+    if edge_weight is not None:
+        if edge_weight.shape != (E,) or edge_weight.device != data.device:
+            raise ValueError(f"edge_weight must be [{E}] on {data.device}")
+        w = edge_weight.to(torch.float32).contiguous()
+    out_dtype = torch.float32 if act else data.dtype
+    out = torch.empty((num_segments, F), dtype=out_dtype, device=data.device)
+    if num_segments == 0 or F == 0:
+        return out
+    if E == 0:
+        return out.zero_()
+    row_ptr = _row_ptr(segment_ids, num_segments)
+    lib = _build.load("sorted_segment")
+    fn = lib.dg_sorted_segment_sum_act if act else lib.dg_sorted_segment_sum_bias_relu
+    rc = fn(
+        data.data_ptr(), _row_stride(data), bias.data_ptr(), _row_stride(bias),
+        None if w is None else w.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+        num_segments, F, _KERNEL_DTYPES[data.dtype],
+        int(_vec_ok(data, bias, out)), _stream(),
+    )
+    if act:
+        _build.check(rc, "dg_sorted_segment_sum_act")
+        sorted_segment_sum_act.launches += 1
+    else:
+        _build.check(rc, "dg_sorted_segment_sum_bias_relu")
+        sorted_segment_sum_bias_relu.launches += 1
+    return out
+
+
+def _row_gather(x, ids):
+    if not _on_card(x):
+        return sorted_row_gather_plain(x, ids)
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the CUDA row gather takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, F], got {tuple(x.shape)}")
+    _check_rows("x", x, x.dtype, x.shape[1])
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64) or ids.device != x.device:
+        raise ValueError(f"ids must be int32/int64 [E] on {x.device}")
+    N, F = x.shape
+    E = ids.shape[0]
+    out = torch.empty((E, F), dtype=x.dtype, device=x.device)
+    if E == 0 or F == 0:
+        return out
+    if N == 0:
+        return out.zero_()
+    ids = _ids32(ids, N)
+    lib = _build.load("sorted_gather")
+    rc = lib.dg_sorted_row_gather(
+        x.data_ptr(), _row_stride(x), ids.data_ptr(), out.data_ptr(), E, N, F,
+        _KERNEL_DTYPES[x.dtype], int(_vec_ok(x, out)), _stream(),
+    )
+    _build.check(rc, "dg_sorted_row_gather")
+    sorted_row_gather.launches += 1
+    return out
+
+
+# --- the non-differentiable kernel wrappers (backward-internal) -----------
+
+
+def sorted_segment_sum_act(
+    data: torch.Tensor,  # [E, F] per-edge stream, unit column stride
+    segment_ids: torch.Tensor,  # [E] MONOTONE owner-side ids
+    bias: torch.Tensor,  # [num_segments, F], data dtype
+    num_segments: int,
+    *,
+    edge_weight: Optional[torch.Tensor] = None,  # [E]
+) -> torch.Tensor:
+    """``out[v] = Σ_{e: ids[e]=v} w[e]·1[data[e] + bias[v] > 0]`` for sorted
+    ids, ``[num_segments, F]`` float32 (a degree-sized count saturates in
+    bf16). Decides the mask exactly as the forward kernel does."""
+    return _bias_epilogue(data, segment_ids, bias, num_segments, edge_weight, act=True)
+
+
+def fused_bwd_gd(
+    data: torch.Tensor,  # [E, F]
+    g: torch.Tensor,  # [N, F] output cotangent, data dtype
+    bias: torch.Tensor,  # [N, F], data dtype
+    segment_ids: torch.Tensor,  # [E] MONOTONE owner-side ids
+) -> torch.Tensor:
+    """``gd[e] = g[ids[e]]·1[data[e] + bias[ids[e]] > 0]``, ``[E, F]`` in the
+    data dtype, zero rows for ids outside ``[0, N)``: the fused scatter's
+    data gradient in one pass, with no ``[E, F]`` intermediate."""
+    if not _on_card(data):
+        return fused_bwd_gd_plain(data, g, bias, segment_ids)
+    _check_cuda_inputs(data, segment_ids)
+    N = g.shape[0]
+    _check_vertex_operand("g", g, data, N)
+    _check_vertex_operand("bias", bias, data, N)
+    E, F = data.shape
+    out = torch.empty((E, F), dtype=data.dtype, device=data.device)
+    if E == 0 or F == 0:
+        return out
+    if N == 0:
+        return out.zero_()
+    ids = _ids32(segment_ids, N)
+    lib = _build.load("sorted_gather")
+    rc = lib.dg_fused_bwd_gd(
+        data.data_ptr(), _row_stride(data), g.data_ptr(), _row_stride(g),
+        bias.data_ptr(), _row_stride(bias), ids.data_ptr(), out.data_ptr(), E, N, F,
+        _KERNEL_DTYPES[data.dtype], int(_vec_ok(data, g, bias, out)), _stream(),
+    )
+    _build.check(rc, "dg_fused_bwd_gd")
+    fused_bwd_gd.launches += 1
+    return out
+
+
+def take_sorted(g: torch.Tensor, ids: torch.Tensor, gather_mv: int) -> torch.Tensor:
+    """Backward-side row take by PLAN-SORTED ids (the reference's
+    ``_take_sorted``, pallas_segment.py:327-340): the sorted-row-gather
+    kernel when ``config.use_pallas_gather`` is on and the plan carried a
+    span hint (``gather_mv > 0``), else ``ops.local.row_take`` (an
+    ``index_select``; out-of-range ids give zero rows either way)."""
+    if gather_mv > 0 and _cfg.pallas_gather_enabled():
+        return _row_gather(g, ids)
+    from dgraph_tpu_torch.ops.local import row_take
+
+    return row_take(g, ids)
+
+
+# --- autograd --------------------------------------------------------------
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, input_op, gather_mv):
+        relu = input_op == "relu"
+        ctx.save_for_backward(segment_ids, data if relu else None)
+        ctx.relu, ctx.gather_mv = relu, gather_mv
+        return _segment_sum(data, segment_ids, num_segments, input_op)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        segment_ids, data = ctx.saved_tensors
+        gd = take_sorted(unit_cols(g), segment_ids, ctx.gather_mv)
+        if ctx.relu:
+            gd = gd * (data > 0).to(gd.dtype)
+        return gd, None, None, None, None
+
+
+class _SortedSegmentSumBiasRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, bias, edge_weight, num_segments, gather_mv):
+        # remat-style: the only per-edge tensor kept is the input stream
+        ctx.save_for_backward(data, segment_ids, bias, edge_weight)
+        ctx.num_segments, ctx.gather_mv = num_segments, gather_mv
+        return _bias_epilogue(data, segment_ids, bias, num_segments, edge_weight, act=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        data, ids, bias, w = ctx.saved_tensors
+        n, mv = ctx.num_segments, ctx.gather_mv
+        cdt = data.dtype
+        g = unit_cols(g)
+        if w is None and mv > 0:
+            # the kernel pair: gd from one pass over data, d_bias's Σact
+            # from one more; no [E, F] intermediate in device memory
+            gd = fused_bwd_gd(data, g.to(cdt), bias.to(cdt), ids)
+            d_bias = sorted_segment_sum_act(data, ids, bias, n) * g.float()
+            return gd, None, d_bias.to(bias.dtype), None, None, None
+        # composed route: recompute the mask from the two row takes. Every
+        # [E, F] tensor stays in the compute dtype; the mask is decided in
+        # f32 on the bias rounded as the forward rounded it
+        bias_rows = take_sorted(bias.to(cdt), ids, mv)
+        pre = data.float() + bias_rows.float()
+        act = (pre > 0).to(cdt)
+        g_rows = take_sorted(g.to(cdt), ids, mv)
+        wc = w[:, None].to(cdt) if w is not None else None
+        gd = g_rows * act if wc is None else g_rows * act * wc
+        d_bias = _segment_sum(act if wc is None else act * wc, ids, n, "none")
+        d_bias = d_bias.float() * g.float()
+        d_w = None
+        if w is not None and ctx.needs_input_grad[3]:
+            d_w = (g_rows * pre.clamp_min(0)).sum(-1).to(w.dtype)
+        return gd.to(data.dtype), None, d_bias.to(bias.dtype), d_w, None, None
+
+
+class _SortedRowGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = x.shape[0]
+        return _row_gather(x, ids)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        # the exact transpose: the sorted segment sum of the cotangent rows
+        return _segment_sum(unit_cols(g), ids, ctx.num_rows, "none"), None
+
+
+# --- the differentiable kernel wrappers ------------------------------------
+
+
+def sorted_segment_sum(
+    data: torch.Tensor,  # [E, F], unit column stride
+    segment_ids: torch.Tensor,  # [E] int32/int64, MONOTONE non-decreasing
+    num_segments: int,
+    *,
+    input_op: str = "none",  # "none" | "relu" (fused input epilogue)
+    gather_mv: int = 0,  # the plan's span hint: > 0 lets the backward's row
+    # take use sorted_row_gather when config.use_pallas_gather is on
+) -> torch.Tensor:
+    """Segment sum for sorted ids; rows with ids outside [0, num_segments)
+    are dropped. Returns ``[num_segments, F]`` in the data dtype (f32 sum).
+    Differentiable: the backward is ``g[ids]`` (zero for dropped rows)."""
+    _check_input_op(input_op)
+    return _SortedSegmentSum.apply(data, segment_ids, num_segments, input_op, gather_mv)
+
+
 def sorted_segment_sum_bias_relu(
     data: torch.Tensor,  # [E, F] per-edge stream, unit column stride
     segment_ids: torch.Tensor,  # [E] MONOTONE owner-side ids
@@ -195,66 +492,62 @@ def sorted_segment_sum_bias_relu(
     num_segments: int,
     *,
     edge_weight: Optional[torch.Tensor] = None,  # [E] post-activation scale
+    gather_mv: int = 0,  # the plan's span hint: > 0 selects the unweighted
+    # op's backward kernel pair, and lets the composed backward's row takes
+    # use sorted_row_gather when config.use_pallas_gather is on
 ) -> torch.Tensor:
     """``out[v] = Σ_{e: ids[e]=v} w[e]·relu(data[e] + bias[v])`` for sorted
     ids, without an ``[E, F]`` message tensor. ``bias`` must already be in
-    the data dtype (the dispatch point, ``ops.local``, casts it)."""
-    if data.device.type == "cpu":
-        return sorted_segment_sum_bias_relu_plain(
-            data, segment_ids, bias, num_segments, edge_weight=edge_weight)
-    if data.device.type != "cuda":
-        raise RuntimeError(f"no segment kernel for device {data.device}")
-    _check_cuda_inputs(data, segment_ids)
-    E, F = data.shape
-    _check_rows("bias", bias, data.dtype, F)
-    if bias.shape[0] != num_segments or bias.device != data.device:
-        raise ValueError(
-            f"bias must be [{num_segments}, {F}] on {data.device}, got "
-            f"{tuple(bias.shape)} on {bias.device}"
-        )
-    w = None
-    if edge_weight is not None:
-        if edge_weight.shape != (E,) or edge_weight.device != data.device:
-            raise ValueError(f"edge_weight must be [{E}] on {data.device}")
-        w = edge_weight.to(torch.float32).contiguous()
-    _forward_only(data, bias, edge_weight)
-    out = torch.empty((num_segments, F), dtype=data.dtype, device=data.device)
-    if num_segments == 0 or F == 0:
-        return out
-    if E == 0:
-        return out.zero_()
-    row_ptr = _row_ptr(segment_ids, num_segments)
-    from dgraph_tpu_torch.ops import _build
+    the data dtype (the dispatch point, ``ops.local``, casts it).
+    Differentiable in data, bias and edge_weight (remat-style backward)."""
+    return _SortedSegmentSumBiasRelu.apply(data, segment_ids, bias, edge_weight,
+                                           num_segments, gather_mv)
 
-    lib = _build.load("sorted_segment")
-    rc = lib.dg_sorted_segment_sum_bias_relu(
-        data.data_ptr(), _row_stride(data), bias.data_ptr(), _row_stride(bias),
-        None if w is None else w.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-        num_segments, F, _KERNEL_DTYPES[data.dtype],
-        int(_vec_ok(data, bias, out)), _stream(),
-    )
-    _build.check(rc, "dg_sorted_segment_sum_bias_relu")
-    sorted_segment_sum_bias_relu.launches += 1
-    return out
+
+def sorted_row_gather(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]`` for sorted ids, ``[E, F]`` in x's dtype, zero rows for ids
+    outside ``[0, N)``. Differentiable: the backward is the sorted segment
+    sum of the cotangent rows."""
+    return _SortedRowGather.apply(x, ids)
 
 
 sorted_segment_sum.launches = 0
 sorted_segment_sum_bias_relu.launches = 0
+sorted_segment_sum_act.launches = 0
+fused_bwd_gd.launches = 0
+sorted_row_gather.launches = 0
+
+
+class Kernel(NamedTuple):
+    wrapper: object
+    plain: object
+    replaces: str  # the TPU kernel, file:line
+    source: str  # the CUDA source, path in the repo
+
+
+_SEG_CU = "dgraph_tpu_torch/csrc/sorted_segment.cu"
+_GATHER_CU = "dgraph_tpu_torch/csrc/sorted_gather.cu"
+_PALLAS = "dgraph_tpu/ops/pallas_segment.py"
 
 # every kernel wrapper of this module, with the TPU kernel it replaces
 KERNELS = {
-    "sorted_segment_sum": (sorted_segment_sum, sorted_segment_sum_plain,
-                           "dgraph_tpu/ops/pallas_segment.py:39"),
-    "sorted_segment_sum_bias_relu": (sorted_segment_sum_bias_relu,
-                                     sorted_segment_sum_bias_relu_plain,
-                                     "dgraph_tpu/ops/pallas_segment.py:259"),
+    "sorted_segment_sum": Kernel(sorted_segment_sum, sorted_segment_sum_plain,
+                                 f"{_PALLAS}:39", _SEG_CU),
+    "sorted_segment_sum_bias_relu": Kernel(
+        sorted_segment_sum_bias_relu, sorted_segment_sum_bias_relu_plain,
+        f"{_PALLAS}:259", _SEG_CU),
+    "sorted_segment_sum_act": Kernel(sorted_segment_sum_act, sorted_segment_sum_act_plain,
+                                     f"{_PALLAS}:306", _SEG_CU),
+    "fused_bwd_gd": Kernel(fused_bwd_gd, fused_bwd_gd_plain, f"{_PALLAS}:671", _GATHER_CU),
+    "sorted_row_gather": Kernel(sorted_row_gather, sorted_row_gather_plain,
+                                f"{_PALLAS}:595", _GATHER_CU),
 }
 
 
 def reset_launch_counts() -> None:
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    for k in KERNELS.values():
+        k.wrapper.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+    return {name: k.wrapper.launches for name, k in KERNELS.items()}

@@ -521,6 +521,27 @@ def _finalize_plan(
     return plan, layout
 
 
+def _masked_owner_ids_in_range(plan: EdgePlan) -> bool:
+    """True when a masked edge of an owner-sorted plan carries an in-range
+    owner-side id (a stacked plan or a per-rank view; read on the host)."""
+    if not plan.owner_sorted:
+        return False
+    halo_src = plan.halo_side == "src"
+    own = (plan.dst_index if halo_src else plan.src_index).cpu().numpy()
+    n_own = plan.n_dst_pad if halo_src else plan.n_src_pad
+    return bool((own[plan.edge_mask.cpu().numpy() <= 0] < n_own).any())
+
+
+def check_owner_padding(plan: EdgePlan) -> None:
+    """Raise ValueError unless every masked edge of an owner-sorted plan
+    carries an out-of-range owner-side id (``n_owner_pad``): the sorted
+    kernels then drop it, and the owner-side take reads a zero row for it,
+    with the ids as they are and still sorted."""
+    if _masked_owner_ids_in_range(plan):
+        raise ValueError("invalid EdgePlan: masked edges carry in-range owner-side "
+                         "ids; the sorted owner-side take would read them")
+
+
 def validate_plan(plan: EdgePlan) -> None:
     """Host-side structural validation of a stacked plan: index bounds, send
     lists, edge counts and the halo sort route. Raises ValueError."""
@@ -554,6 +575,8 @@ def validate_plan(plan: EdgePlan) -> None:
         own = dst if plan.halo_side == "src" else src
         if (np.diff(own, axis=1) < 0).any():
             errors.append("owner-side ids not monotone")
+        if _masked_owner_ids_in_range(plan):
+            errors.append("masked edges carry in-range owner-side ids")
     if plan.halo_sort_perm is not None:
         perm = plan.halo_sort_perm.cpu().numpy()
         sids = plan.halo_sorted_ids.cpu().numpy()

@@ -25,15 +25,7 @@ from dgraph_tpu_torch.config import default_device
 from dgraph_tpu_torch.obs.metrics import Metrics
 from dgraph_tpu_torch.serve.bucketing import BucketLadder, pad_ids
 from dgraph_tpu_torch.serve.errors import QueueFull, ServeError
-
-
-def default_batch_args(b: dict, plan) -> list:
-    """Model arguments from one rank's batch: (x, plan, [edge_weight]) —
-    the GCN-family signature (the reference's ``train.loop._batch_args``)."""
-    args = [b["x"], plan]
-    if "edge_weight" in b:
-        args.append(b["edge_weight"])
-    return args
+from dgraph_tpu_torch.train.loop import model_apply
 
 
 class ServeEngine:
@@ -109,9 +101,8 @@ class ServeEngine:
 
     def _logits(self) -> torch.Tensor:
         """Full-graph logits ``[W, n_pad, C]`` on the device."""
-        args = default_batch_args(self._batch, self._plan)
         with torch.inference_mode():
-            out = self.model(*args)[None]
+            out = model_apply(self.model, self._batch, self._plan)[None]
         self.forwards += 1
         return out
 

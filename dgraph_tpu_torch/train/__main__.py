@@ -1,0 +1,253 @@
+"""``python -m dgraph_tpu_torch.train`` — full-graph node classification.
+
+Counterpart of ``experiments/ogb_gcn.py`` (``main``, :117-227) at world size
+1: trains GCN (symmetric-norm edge weights) or GraphSAGE on a synthetic SBM
+graph, or on an ``.npz`` with edge_index/features/labels/<split>_mask
+(``--data.path``), with Adam at ``--lr``. Writes one ``step_record`` JSON
+line per step (an eval every 10 steps and at the last), the test accuracy,
+and a final ``avg_epoch_ms_excl_first`` line, to stdout and appended to
+``--log_path``. Runs on ``cuda`` unless ``--device cpu``; with no card it
+raises.
+
+    python -m dgraph_tpu_torch.train --model gcn --epochs 100
+    python -m dgraph_tpu_torch.train --device cpu --epochs 3 --data.num_nodes 500
+
+The multilevel partitioner is not ported; at one rank the partition does
+not change the result, so the default is ``random``. Not ported yet: the
+OGB loaders (``--data.ogb_name``), GAT and the GraphTransformer, world
+sizes above 1, and the reference's start-up, plan-footprint and timing
+records.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+import types
+import typing
+from typing import Callable, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class DataConfig:
+    path: Optional[str] = None  # npz with edge_index [2,E], features, labels, masks
+    ogb_name: Optional[str] = None  # OGB loaders: not ported yet
+    root: str = "dataset"
+    num_nodes: int = 5000  # synthetic SBM size when path is None
+    num_classes: int = 8
+    feat_dim: int = 64
+    avg_degree: float = 10.0
+    partition: str = "random"  # random | block | round_robin | rcm
+
+
+@dataclasses.dataclass
+class Config:
+    """Full-graph GCN / GraphSAGE training on one card."""
+
+    model: str = "gcn"  # gcn | sage (gat | gt are not ported yet)
+    hidden: int = 128
+    num_layers: int = 2
+    lr: float = 5e-3
+    epochs: int = 100
+    world_size: int = 0  # 0 = all devices; only 1 rank in this slice
+    log_path: str = "logs/ogb_gcn_torch.jsonl"
+    step_metrics: bool = False  # grad norm and mask count in each record
+    device: str = ""  # "" = cuda (raises with no card); "cpu" for the plain path
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+
+def _num_classes(labels: np.ndarray) -> int:
+    # multi-label float targets ([V, C]): C is the width
+    if labels.ndim > 1:
+        return int(labels.shape[1])
+    return int(labels.max()) + 1
+
+
+def load_data(cfg: DataConfig) -> dict:
+    """The graph to train on: the npz at ``cfg.path`` or a synthetic SBM."""
+    if cfg.ogb_name:
+        raise NotImplementedError(
+            "the OGB loaders are not ported yet; export the dataset to an npz "
+            "and pass --data.path")
+    if cfg.path:
+        z = np.load(cfg.path)
+        masks = {k.removesuffix("_mask"): z[k] for k in z.files if k.endswith("_mask")}
+        if "valid" in masks and "val" not in masks:
+            masks["val"] = masks.pop("valid")
+        return {
+            "edge_index": z["edge_index"], "features": z["features"],
+            "labels": z["labels"], "masks": masks,
+            "num_classes": _num_classes(np.asarray(z["labels"])),
+        }
+    from dgraph_tpu_torch.data import synthetic
+
+    return synthetic.sbm_classification_graph(
+        num_nodes=cfg.num_nodes, num_classes=cfg.num_classes,
+        feat_dim=cfg.feat_dim, avg_degree=cfg.avg_degree,
+    )
+
+
+def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
+    """Graph, seeded model, Adam and the train/eval steps, on ``device``
+    (default ``cfg.device``, else ``cuda``; raises with no card before any
+    work). ``graph`` stays on the CPU; ``batches`` and ``plan`` are on the
+    device."""
+    import torch
+
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.config import default_device
+    from dgraph_tpu_torch.data import DistributedGraph
+    from dgraph_tpu_torch.models import GCN, GraphSAGE
+    from dgraph_tpu_torch.train.loop import (
+        init_params, make_eval_step, make_train_step, masked_bce_multilabel,
+        masked_cross_entropy,
+    )
+
+    dev = default_device(device if device is not None else (cfg.device or None))
+    if cfg.world_size not in (0, 1):
+        raise NotImplementedError(
+            f"world_size={cfg.world_size}: training above one rank is slice 3 "
+            "of the port (multi-rank training)")
+    if cfg.model in ("gat", "gt", "graph_transformer"):
+        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
+    if cfg.model not in ("gcn", "sage"):
+        raise SystemExit(f"unknown model {cfg.model}")
+    data = load_data(cfg.data)
+    graph = DistributedGraph.from_global(
+        data["edge_index"], data["features"], data["labels"], data["masks"],
+        world_size=1, partition_method=cfg.data.partition,
+        add_symmetric_norm=cfg.model == "gcn",
+    )
+    F, C, comm = graph.features.shape[-1], data["num_classes"], SingleComm()
+    if cfg.model == "gcn":
+        model = GCN(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
+    else:
+        model = GraphSAGE(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
+    init_params(model, seed=0).to(dev)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    loss_fn = (masked_bce_multilabel if graph.labels.dim() > 2 else masked_cross_entropy)
+    plan = graph.plan.to(dev)
+
+    def batch(split):
+        b = dict(graph.batch(split), y=graph.labels)
+        return {k: v.to(dev) for k, v in b.items()}
+
+    splits = ["train", "val"] + (["test"] if "test" in graph.masks else [])
+    return types.SimpleNamespace(
+        device=dev, graph=graph, model=model, optimizer=optimizer, plan=plan,
+        loss_fn=loss_fn, batches={s: batch(s) for s in splits},
+        train_step=make_train_step(model, optimizer, plan, loss_fn=loss_fn,
+                                   step_metrics=cfg.step_metrics),
+        eval_step=make_eval_step(model, plan, loss_fn=loss_fn),
+    )
+
+
+class _Log:
+    """JSON lines to stdout and appended to ``path`` (none when empty)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def write(self, rec: dict) -> None:
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(line + "\n")
+
+
+def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
+    """Train ``cfg.epochs`` steps. ``on_step(epoch, training)`` runs after
+    each step (the step's gradients are still on the parameters). Returns
+    {"records", "avg_epoch_ms_excl_first", "training"}."""
+    import torch
+
+    from dgraph_tpu_torch.obs.metrics import step_record
+
+    t = build_training(cfg)
+    log = _Log(cfg.log_path)
+    records, epoch_times = [], []
+
+    def sync():
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+
+    for epoch in range(cfg.epochs):
+        sync()
+        t0 = time.perf_counter()
+        m = t.train_step(t.batches["train"])
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        epoch_times.append(dt)
+        rec = step_record(m, step=epoch, wall_ms=dt)
+        rec["epoch"] = epoch  # legacy key, kept for plot scripts
+        if epoch % 10 == 0 or epoch == cfg.epochs - 1:
+            ev = t.eval_step(t.batches["val"])
+            rec["val_acc"] = float(ev["accuracy"])
+            rec["val_loss"] = float(ev["loss"])
+        log.write(rec)
+        records.append(rec)
+        if on_step is not None:
+            on_step(epoch, t)
+    if "test" in t.batches:
+        te = t.eval_step(t.batches["test"])
+        log.write({"test_acc": float(te["accuracy"]), "test_loss": float(te["loss"])})
+    # the mean excludes the first step, the reference's convention
+    avg = round(float(np.mean(epoch_times[1:])), 2) if len(epoch_times) > 1 else None
+    log.write({"avg_epoch_ms_excl_first": avg})
+    return {"records": records, "avg_epoch_ms_excl_first": avg, "training": t}
+
+
+def parse_config(argv=None) -> Config:
+    """``Config()`` with ``--field value`` / ``--data.field value`` (or
+    ``key=value``) overrides, coerced to the annotated field type."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--help" in argv or "-h" in argv:
+        print(Config.__doc__)
+        for f in dataclasses.fields(Config):
+            print(f"  --{f.name} (default {f.default!r})")
+        for f in dataclasses.fields(DataConfig):
+            print(f"  --data.{f.name} (default {f.default!r})")
+        raise SystemExit(0)
+    cfg = Config()
+    pairs, it = [], iter(argv)
+    for tok in it:
+        if tok.startswith("--"):
+            key = tok[2:]
+            pairs.append(key.split("=", 1) if "=" in key else (key, next(it, "true")))
+        elif "=" in tok:
+            pairs.append(tok.split("=", 1))
+        else:
+            raise SystemExit(f"override must be key=value or --key value, got {tok!r}")
+    for key, raw in pairs:
+        obj, parts = cfg, key.split(".")
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        hints = typing.get_type_hints(type(obj))
+        if parts[-1] not in hints:
+            raise SystemExit(f"unknown config field: {key}")
+        setattr(obj, parts[-1], _coerce(raw, hints[parts[-1]]))
+    return cfg
+
+
+def _coerce(raw: str, ann):
+    if typing.get_origin(ann) in (typing.Union, types.UnionType):  # Optional[X]
+        if raw.lower() in ("none", "null"):
+            return None
+        ann = next(a for a in typing.get_args(ann) if a is not type(None))
+    if ann is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    if ann in (int, float, str):
+        return ann(raw)
+    return raw
+
+
+if __name__ == "__main__":
+    main(parse_config())

@@ -1,0 +1,163 @@
+"""Where a training step spends its device time, by op.
+
+    python -m dgraph_tpu_torch.train.profile [--config bench_gcn|ogb_gcn] [--steps 5]
+        [--gather] [--out DIR]
+
+Builds one of the two arxiv-width training configurations on the card,
+runs two warm-up steps, then records ``--steps`` train steps under
+``torch.profiler`` (CPU and CUDA activities):
+
+- ``bench_gcn``: ``bench.py``'s ``bench_gcn`` (bench.py:428-534) on the port
+  — ``random_edges(169343, 1166243, seed=0)``, one rank, dst-owned edges,
+  ``pad_multiple=128``, GCN F=128 H=256 C=40 with 2 layers, no edge weight,
+  random features and labels from seed 0, Adam 1e-3;
+- ``ogb_gcn``: ``python -m dgraph_tpu_torch.train``'s model and graph at
+  arxiv width (SBM, V=169,343, F=128, C=40, average degree 13.77,
+  symmetric-norm edge weights, H=256, Adam 5e-3).
+
+``--gather`` switches the sorted-row-gather kernel on
+(``config.use_pallas_gather``). Prints the card (``nvidia-smi``), the wall
+time per step, the device-busy share and the device kernels and copies by
+time; writes the same as JSON to ``DIR/train_profile_<config>.json``
+(default ``chiprun_out``). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+
+def bench_gcn_setup(device):
+    """(model, optimizer step, batch on ``device``, stacked plan on the
+    CPU, CPU batch, CPU copy of the initial model) for bench_gcn."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.data.synthetic import ARXIV_EDGES, ARXIV_NODES, random_edges
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.plan import build_edge_plan, validate_plan
+    from dgraph_tpu_torch.train.loop import make_train_step
+    from dgraph_tpu_torch.weights import init_params
+
+    V, F, C, H = ARXIV_NODES, 128, 40, 256
+    plan, _ = build_edge_plan(random_edges(V, ARXIV_EDGES, seed=0), np.zeros(V, np.int32),
+                              world_size=1, edge_owner="dst", pad_multiple=128)
+    validate_plan(plan)
+    n = plan.n_src_pad
+    gen = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randn(1, n, F, generator=gen),
+             "y": torch.randint(0, C, (1, n), generator=gen, dtype=torch.int32),
+             "mask": (torch.arange(n) < V).float()[None]}
+    model = init_params(GCN(F, H, C, SingleComm(), num_layers=2), seed=2)
+    model_cpu = copy.deepcopy(model)
+    model.to(device)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                           plan.to(device))
+    batch_d = {k: v.to(device) for k, v in batch.items()}
+    return model, step, batch_d, plan, batch, model_cpu
+
+
+def ogb_gcn_config():
+    """The CLI's Config for ogb_gcn at arxiv width."""
+    from dgraph_tpu_torch.data.synthetic import ARXIV_AVG_DEGREE, ARXIV_NODES
+    from dgraph_tpu_torch.train.__main__ import Config, DataConfig
+
+    return Config(model="gcn", hidden=256, num_layers=2, lr=5e-3, device="cuda",
+                  data=DataConfig(num_nodes=ARXIV_NODES, num_classes=40, feat_dim=128,
+                                  avg_degree=ARXIV_AVG_DEGREE))
+
+
+def device_ops(prof, steps: int) -> list:
+    """Device kernels and copies by self time per step, largest first."""
+    from torch.autograd import DeviceType
+
+    ops = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            ops.append({"name": evt.key, "count": evt.count,
+                        "device_ms_per_step": evt.self_device_time_total / 1e3 / steps})
+    return sorted(ops, key=lambda o: -o["device_ms_per_step"])
+
+
+def profile_steps(step, steps: int) -> dict:
+    """``steps`` calls of ``step()`` under torch.profiler, timed on the host
+    clock to a final synchronize: wall and device ms per step, the
+    device-busy share and the device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ops = device_ops(prof, steps)
+    busy = sum(o["device_ms_per_step"] for o in ops)
+    return {"steps": steps, "wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
+            "device_busy_share": busy / wall_ms, "ops": ops}
+
+
+def profile(config: str = "bench_gcn", steps: int = 5, gather: bool = False,
+            out_dir: str = "chiprun_out") -> dict:
+    import torch
+
+    from dgraph_tpu_torch import config as _cfg
+
+    if not torch.cuda.is_available():
+        raise SystemExit("train.profile measures the card: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    old = _cfg.use_pallas_gather
+    _cfg.use_pallas_gather = True if gather else old
+    try:
+        if config == "bench_gcn":
+            _, step, batch, *_ = bench_gcn_setup(dev)
+        elif config == "ogb_gcn":
+            from dgraph_tpu_torch.train.__main__ import build_training
+
+            t = build_training(ogb_gcn_config())
+            step, batch = t.train_step, t.batches["train"]
+        else:
+            raise SystemExit(f"unknown config {config}")
+        for _ in range(2):
+            step(batch)
+        rec = profile_steps(lambda: step(batch), steps)
+    finally:
+        _cfg.use_pallas_gather = old
+    rec.update(nvidia_smi=smi, config=config, gather_kernel=gather)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"train_profile_{config}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default="bench_gcn", choices=("bench_gcn", "ogb_gcn"))
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--gather", action="store_true")
+    p.add_argument("--out", default="chiprun_out")
+    a = p.parse_args(argv)
+    rec = profile(a.config, a.steps, a.gather, a.out)
+    print(rec["nvidia_smi"])
+    print(f"{a.config} (gather kernel {'on' if a.gather else 'off'}): wall "
+          f"{rec['wall_ms_per_step']:.3f} ms/step, device busy {rec['device_ms_per_step']:.3f} ms "
+          f"({rec['device_busy_share']:.1%})")
+    for o in rec["ops"][:25]:
+        print(f"  {o['device_ms_per_step']:9.4f} ms  x{o['count']:<5d} {o['name'][:90]}")
+
+
+if __name__ == "__main__":
+    main()

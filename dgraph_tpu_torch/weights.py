@@ -41,6 +41,25 @@ def params_from_jax(tree: Mapping) -> dict:
     return out
 
 
+def params_to_jax(state_dict: Mapping) -> dict:
+    """``state_dict`` -> flax variables ``{'params': tree}`` of float32
+    numpy arrays: the inverse of :func:`params_from_jax` (a ``weight`` goes
+    back to a transposed ``kernel``)."""
+    tree: dict = {}
+    for key, val in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = val.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        elif leaf != "bias":
+            raise KeyError(f"unknown state_dict leaf {key}")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation with flax ``Dense``'s defaults: kernels from a
     truncated normal of variance 1/fan_in (lecun_normal), biases zero. The

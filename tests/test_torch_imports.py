@@ -39,7 +39,8 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("dgraph_tpu_torch/ops/segment.py", "dgraph_tpu_torch/serve/engine.py",
-                 "dgraph_tpu_torch/plan.py", "chip_smoke.py"):
+                 "dgraph_tpu_torch/plan.py", "dgraph_tpu_torch/train/loop.py",
+                 "dgraph_tpu_torch/train/__main__.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
 
@@ -49,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import dgraph_tpu_torch.serve.__main__, dgraph_tpu_torch.ops.local\n"
         "import dgraph_tpu_torch.models, dgraph_tpu_torch.weights\n"
+        "import dgraph_tpu_torch.train.loop, dgraph_tpu_torch.train.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -60,9 +62,12 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         pytest.skip("a card is present: the default device is cuda here")
     from dgraph_tpu_torch.config import default_device
     from dgraph_tpu_torch.serve.__main__ import build_serving
+    from dgraph_tpu_torch.train.__main__ import Config, build_training
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_serving()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_training(Config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_device()
     assert default_device("cpu") == torch.device("cpu")
@@ -74,8 +79,10 @@ def test_nvcc_command_targets_hopper():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags and "-O3" in flags
-    lib = _build.library_path("sorted_segment")
-    assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
-    src = (_build.CSRC_DIR / "sorted_segment.cu").read_text()
-    for fn in _build.SIGNATURES["sorted_segment"]:
-        assert f"int {fn}(" in src
+    assert set(_build.SOURCES) == set(_build.SIGNATURES) == {"sorted_segment", "sorted_gather"}
+    for name, source in _build.SOURCES.items():
+        lib = _build.library_path(name)
+        assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+        src = (_build.CSRC_DIR / source).read_text()
+        for fn in _build.SIGNATURES[name]:
+            assert f"int {fn}(" in src

@@ -159,5 +159,10 @@ def test_cpu_calls_are_not_kernel_launches():
     ids = torch.from_numpy(IDS)
     seg.sorted_segment_sum(x, ids, N)
     seg.sorted_segment_sum_bias_relu(x, ids, torch.zeros(N, 3), N)
+    seg.sorted_segment_sum_act(x, ids, torch.zeros(N, 3), N)
+    seg.fused_bwd_gd(x, torch.zeros(N, 3), torch.zeros(N, 3), ids)
+    seg.sorted_row_gather(torch.zeros(N, 3), ids)
     assert seg.launch_counts() == {"sorted_segment_sum": 0,
-                                   "sorted_segment_sum_bias_relu": 0}
+                                   "sorted_segment_sum_bias_relu": 0,
+                                   "sorted_segment_sum_act": 0, "fused_bwd_gd": 0,
+                                   "sorted_row_gather": 0}
