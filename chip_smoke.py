@@ -7,15 +7,20 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
 2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
-3. kernel parity — each of the five kernels against its plain PyTorch
-   version on the card, at the training shape (the arxiv-width GCN plan:
-   E ~ 2.33 M edges, F = 128 per feature chunk, N = 169,344 rows) and at
-   edge cases (padded out-of-range ids, empty segments, a 3000-edge hub,
-   F in {1, 33, 128, 256}, strided and unaligned column slices), f32 and
-   bf16, two launches with equal bits; timed with CUDA events (mean over
-   back-to-back calls after warmup) beside the plain version, the one-call
-   PyTorch equivalent where there is one, and the bound (bytes over HBM
-   bandwidth or operations over the f32 peak, the larger);
+3. kernel parity — each of the eight kernels against its plain PyTorch
+   version on the card, f32 and bf16, two launches with equal bits; timed
+   with CUDA events (mean over back-to-back calls after warmup) beside the
+   plain version, the one-call PyTorch equivalent where there is one, and
+   the bound (bytes over HBM bandwidth or operations over the peak for the
+   type, the larger). The five sorted-id kernels at the training shape (the
+   arxiv-width GCN plan: E ~ 2.33 M edges, F = 128 per feature chunk,
+   N = 169,344 rows) and at edge cases (padded out-of-range ids, empty
+   segments, a 3000-edge hub, F in {1, 33, 128, 256}, strided and unaligned
+   column slices); the three flash-attention kernels at the lm_flash shape
+   (T = 8192, H = 4, D = 128, causal; yardstick
+   ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
+   T = 200, a padded tail or every key masked, causal or not), then the
+   autograd Function's gradients against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
@@ -36,6 +41,13 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    kernel on: every step launches it and the segment sum 8 times each and
    the backward pair never; step 0's gradients match the CPU plain path
    within 1e-4;
+8. train lm_flash — ``python -m dgraph_tpu_torch.train.lm``'s ``main`` with
+   experiments/long_context_lm.py's LM at head width 128 (T = 8192, latent
+   512, 4 heads, 2 layers, vocab 64, Adam 3e-3): 2 warm-up and 10 timed
+   steps; every step launches the forward, dK/dV and dQ attention kernels
+   once a layer and no other kernel; step 0's loss and every gradient match
+   the CPU plain path within 1e-4; the loss falls; an eval forward launches
+   only the forward kernel; step ms p50/p99 and the device-busy share;
 then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
@@ -54,12 +66,16 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# non-tensor-core float32 rate the kernels' adds and multiplies run at
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
+# non-tensor-core float32 rate and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the attention kernels sum up to T = 8192 products in another order than
+# the plain version; bf16 outputs are rounded once from f32 on both sides
+ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
 OUT_DIR = "chiprun_out"
@@ -134,12 +150,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, dtype_name: str = "float32") -> tuple:
     """Least time for one call (ms): the bytes it must move (each input
     read once, each output written once) over HBM bandwidth, against its
-    elementwise operations over the f32 peak; the larger wins."""
+    operations over the card's peak for the input type (f32 outside the
+    tensor cores, bf16 on them); the larger wins."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / OPS_PER_S[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,10 +164,10 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def check_close(name, got, want, dtype_name) -> float:
+def check_close(name, got, want, dtype_name, tols=TOL) -> float:
     import torch
 
-    tol = TOL[dtype_name]
+    tol = tols[dtype_name]
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
              f"{tuple(want.shape)} {want.dtype}")
@@ -333,6 +350,161 @@ def phase_kernels(graph) -> dict:
     torch.cuda.synchronize()
     log(f"edge cases passed; worst abs err {worst}")
     return {"records": records,
+            "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()}}
+
+
+def attention_work(kernel, T, H, D, b, pairs) -> tuple:
+    """(bytes, ops) of one call: q, k, v (and dO) read once, the outputs
+    (and lse, di) once; 2·D operations a pair per product — QKᵀ and PV in
+    the forward, QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q for dK/dV, QKᵀ, dO Vᵀ and dS K
+    for dQ."""
+    x = T * H * D * b
+    rows = 4 * H * T
+    if kernel == "flash_attention_fwd":
+        return 3 * x + x + rows, 2 * 2 * D * H * pairs
+    if kernel == "flash_attention_bwd_dkv":
+        return 4 * x + 2 * rows + 2 * x, 4 * 2 * D * H * pairs
+    return 4 * x + 2 * rows + x, 3 * 2 * D * H * pairs
+
+
+def attention_cases(att, q, k, v, do, kw):
+    """{kernel: (kernel call, plain call)} on one set of inputs; the
+    backward kernels read the plain forward's lse and di."""
+    out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+    di = att.row_dot(out_p, do)
+    rest = (q, k, v, do, lse_p, di)
+    return {
+        "flash_attention_fwd": (lambda: att.flash_attention_fwd(q, k, v, **kw),
+                                lambda: att.flash_attention_fwd_plain(q, k, v, **kw)),
+        "flash_attention_bwd_dkv": (lambda: att.flash_attention_bwd_dkv(*rest, **kw),
+                                    lambda: att.flash_attention_bwd_dkv_plain(*rest, **kw)),
+        "flash_attention_bwd_dq": (lambda: att.flash_attention_bwd_dq(*rest, **kw),
+                                   lambda: att.flash_attention_bwd_dq_plain(*rest, **kw)),
+    }
+
+
+def check_attention(name, got, want, dtype_name) -> float:
+    """Kernel against plain: every output (O and lse; dK and dV; dQ); lse
+    is f32 and held to the f32 tolerance."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        dn = "float32" if w.dtype == torch.float32 else dtype_name
+        err = max(err, check_close(f"{name} output {i}", g, w, dn, ATT_TOL))
+    return err
+
+
+def sdpa_calls(q, k, v, do, causal):
+    """``scaled_dot_product_attention`` on the ``[1, H, T, D]`` layout (the
+    yardstick, timed here and used nowhere in the port): its forward, and
+    its backward, which gives dQ, dK and dV in one call."""
+    import torch
+    import torch.nn.functional as F
+
+    q4, k4, v4, do4 = (t.permute(1, 0, 2).unsqueeze(0).contiguous() for t in (q, k, v, do))
+    leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    fwd = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    bwd = lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True)
+    return fwd, bwd, out.detach()[0].permute(1, 0, 2)
+
+
+def phase_attention() -> dict:
+    """The three flash-attention kernels against their plain versions on
+    the card: at the lm_flash shape (T = 8192, H = 4, D = 128, causal, f32
+    and bf16, timed beside the plain version, SDPA and the bound) and at edge
+    cases (D in {32, 64, 128}, T = 200, no mask / a padded tail / every key
+    masked, causal or not), two launches with equal bits each; then the
+    autograd Function's gradients against autograd of ``dense_attention``."""
+    import torch
+
+    from dgraph_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records, worst = [], {}
+
+    def run_case(name, kernel, run, plain, dtype_name):
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        err = check_attention(name, got, want, dtype_name)
+        worst[(kernel, dtype_name)] = max(worst.get((kernel, dtype_name), 0.0), err)
+        again = run()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        again if isinstance(again, tuple) else (again,)):
+            if not torch.equal(a, b):
+                fail(f"{name}: two launches differ (kernel must be deterministic)")
+        return err
+
+    T, H, D = LM_T, LM_H, LM_D
+    pairs = T * (T + 1) // 2  # causal, no mask: the work this input needs
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q, k, v, do = (torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        kw = dict(causal=True)
+        sdpa_fwd, sdpa_bwd, sdpa_out = sdpa_calls(q, k, v, do, True)
+        for kernel, (run, plain) in attention_cases(att, q, k, v, do, kw).items():
+            name = f"{kernel} {dtype_name} T={T} H={H} D={D} causal"
+            err = run_case(name, kernel, run, plain, dtype_name)
+            nbytes, ops = attention_work(kernel, T, H, D, q.element_size(), pairs)
+            b_ms, b_by = bound(nbytes, ops, dtype_name)
+            lib = sdpa_fwd if kernel == "flash_attention_fwd" else sdpa_bwd
+            rec = {"kernel": kernel, "case": name, "dtype": dtype_name, "T": T, "H": H, "D": D,
+                   "causal": True, "pairs": pairs, "max_abs_err": err, "ms": time_ms(run),
+                   "plain_ms": time_ms(plain, reps=3, warmup=1), "library_ms": time_ms(lib),
+                   "library": "sdpa forward" if lib is sdpa_fwd else "sdpa backward (dQ, dK, dV)",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            records.append(rec)
+            log(f"{name}: err {err:.3g} kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} "
+                f"ms {rec['library']} {rec['library_ms']:.3f} ms bound {b_ms:.3f} ms ({b_by})")
+        # the yardstick need only compute the same function: held to the
+        # bf16 tolerance in both types (its f32 path may round inside)
+        want = att.flash_attention_fwd_plain(q, k, v, **kw)[0]
+        if not torch.allclose(sdpa_out.float(), want.float(), rtol=ATT_TOL["bfloat16"],
+                              atol=ATT_TOL["bfloat16"]):
+            fail(f"sdpa {dtype_name}: the library yardstick disagrees with plain "
+                 f"(max abs err {max_err(sdpa_out, want)})")
+        del q, k, v, do, sdpa_fwd, sdpa_bwd, sdpa_out, want
+        torch.cuda.empty_cache()
+
+    T = 200
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for D in (32, 64, 128):
+            q, k, v, do = (torch.randn(T, 2, D, generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            for mask in ("none", "tail", "all"):
+                m = None if mask == "none" else torch.ones(T, device=dev)
+                if m is not None:
+                    m[T - 37 if mask == "tail" else 0:] = 0
+                for causal in (False, True):
+                    kw = dict(causal=causal, kv_mask=m)
+                    for kernel, (run, plain) in attention_cases(att, q, k, v, do, kw).items():
+                        run_case(f"{kernel} edge {dtype_name} T={T} D={D} mask={mask} "
+                                 f"causal={causal}", kernel, run, plain, dtype_name)
+
+    grad_err = 0.0
+    q, k, v, cot = (torch.randn(T, 2, 128, generator=gen, device=dev) for _ in range(4))
+    for mask in ("none", "tail"):
+        m = None if mask == "none" else (torch.arange(T, device=dev) < T - 37).float()
+        for causal in (False, True):
+            res = []
+            for fn in (att.flash_attention, att.dense_attention):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = fn(*leaves, causal=causal, kv_mask=m)
+                out.backward(cot)
+                res.append([out.detach()] + [t.grad for t in leaves])
+            for what, a, b in zip(("out", "dq", "dk", "dv"), *res):
+                grad_err = max(grad_err, check_close(
+                    f"flash_attention autograd {what} mask={mask} causal={causal}", a, b,
+                    "float32", ATT_TOL))
+    torch.cuda.synchronize()
+    log(f"attention edge cases and autograd passed; worst abs err {worst}; autograd vs "
+        f"dense_attention {grad_err:.3g}")
+    return {"records": records, "autograd_max_abs_err": grad_err,
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()}}
 
 
@@ -665,6 +837,117 @@ def phase_train_ogb_gcn() -> dict:
     return rec
 
 
+# --- phase 8 -----------------------------------------------------------------
+
+
+def phase_train_lm_flash() -> dict:
+    """experiments/long_context_lm.py's LM at head width 128 (lm_flash:
+    ``--seq_len 8192 --latent 512 --num_heads 4 --num_layers 2 --vocab 64
+    --attn_impl ulysses --world_size 1``, Adam 3e-3, causal) through ``python
+    -m dgraph_tpu_torch.train.lm``'s ``main``: 2 warm-up and 10 timed steps
+    (host clock around each, the last 10 under torch.profiler); every step
+    launches each attention kernel once a layer and no other kernel; step
+    0's loss and every gradient against the same model and batch on the CPU
+    plain path; the loss falls; an eval forward launches only the forward
+    kernel, once a layer."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train import lm
+    from dgraph_tpu_torch.train.profile import device_ops, lm_flash_config
+
+    cfg = dataclasses.replace(lm_flash_config(), steps=12, log_every=1,
+                              log_path=os.path.join(OUT_DIR, "train_lm_flash.jsonl"))
+    L = cfg.num_layers
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(flash_attention_fwd=L, flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L)
+    per_step, grads0, tokens0 = [], {}, []
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(i, t, tokens):
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        check_step_launches("train lm_flash", i, counts, want)
+        per_step.append(counts)
+        if i == 0:
+            grads0.update(grads_of(t.model))
+            tokens0.append(tokens.cpu())
+        if i == 1:
+            prof.start()  # steps 2-11
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # the CLI's JSON lines go to stderr: stdout keeps this script's two
+    with contextlib.redirect_stdout(sys.stderr):
+        res = lm.main(cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    prof.stop()
+    run_s = time.perf_counter() - t0
+    t = res["training"]
+    launches = {k: sum(c[k] for c in per_step) for k in want}
+
+    kernels.reset_launch_counts()
+    te = time.perf_counter()
+    eval_loss = float(t.eval_step(t.next_batch()))
+    eval_ms = (time.perf_counter() - te) * 1e3
+    eval_counts = kernels.launch_counts()
+    want_eval = dict.fromkeys(want, 0)
+    want_eval["flash_attention_fwd"] = L
+    if eval_counts != want_eval or not math.isfinite(eval_loss):
+        fail(f"train lm_flash: an eval forward launched {eval_counts} (want {want_eval}), "
+             f"loss {eval_loss}")
+
+    losses = [r["loss"] for r in res["records"]]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train lm_flash: the loss did not fall over 12 steps: {losses}")
+    del t, res["training"]
+    torch.cuda.empty_cache()
+
+    tc = time.perf_counter()
+    cpu = lm.build_lm(cfg, device="cpu")
+    tok = cpu.next_batch()
+    if not torch.equal(tok, tokens0[0]):
+        fail("train lm_flash: the CPU reference drew another first batch")
+    loss_cpu = lm.lm_loss(cpu.model(tok, cpu.positions), tok)
+    loss_cpu.backward()
+    loss_cpu = float(loss_cpu.detach())
+    cpu_s = time.perf_counter() - tc
+    if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"train lm_flash: step-0 loss {losses[0]} vs CPU {loss_cpu}")
+    grad_err = check_grads("train lm_flash", grads0, grads_of(cpu.model))
+    del cpu
+
+    ms = res["step_ms"][2:]
+    ops = device_ops(prof, len(ms))
+    busy = sum(o["device_ms_per_step"] for o in ops)
+    wall = sum(ms) / len(ms)
+    rec = {"config": "lm_flash", "T": cfg.seq_len, "latent": cfg.latent, "heads": cfg.num_heads,
+           "layers": L, "losses": losses, "step_ms_all": res["step_ms"], "step_ms": ms,
+           "step_ms_p50": float(np.percentile(ms, 50)), "step_ms_p99": float(np.percentile(ms, 99)),
+           "launches_per_step": want, "launches": launches, "eval_launches": eval_counts,
+           "eval_ms": eval_ms, "step0_loss_cpu": loss_cpu, "grad_max_abs_err": grad_err,
+           "run_s": run_s, "cpu_reference_s": cpu_s,
+           "profile": {"device_ms_per_step": busy, "wall_ms_per_step": wall,
+                       "device_busy_share": busy / wall, "ops": ops}}
+    log(f"train lm_flash: T={cfg.seq_len} L={cfg.latent} H={cfg.num_heads} layers={L}; step ms "
+        f"p50 {rec['step_ms_p50']:.3f} p99 {rec['step_ms_p99']:.3f} (steps 2-11, host clock, "
+        f"profiler on); device busy {busy / wall:.1%} ({busy:.3f} of {wall:.3f} ms a step); "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; eval forward {eval_ms:.2f} ms; step-0 "
+        f"grads vs CPU max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)")
+    for o in ops[:10]:
+        log(f"  {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 # --- main --------------------------------------------------------------------
 
 
@@ -692,6 +975,8 @@ def main() -> None:
     kernels = phase_kernels(graph)
     del graph
     torch.cuda.empty_cache()
+    attention = phase_attention()
+    kernels["records"] += attention["records"]
 
     log("phase 4: serve GCN")
     gcn_chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
@@ -707,8 +992,11 @@ def main() -> None:
     log("phase 7: train ogb_gcn (python -m dgraph_tpu_torch.train, gather kernel on)")
     ogb = phase_train_ogb_gcn()
 
+    log("phase 8: train lm_flash (python -m dgraph_tpu_torch.train.lm)")
+    lm_flash = phase_train_lm_flash()
+
     log("kernels line")
-    from dgraph_tpu_torch.ops.segment import KERNELS
+    from dgraph_tpu_torch.ops.kernels import KERNELS
 
     # each kernel's main case and the launches of the path it serves
     main_case = {
@@ -720,6 +1008,9 @@ def main() -> None:
         "fused_bwd_gd": ("fused_bwd_gd float32 F=128", bench["launches"]),
         "sorted_row_gather": ("sorted_row_gather float32 F=128", ogb["launches"]),
     }
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        main_case[name] = (f"{name} float32 T={LM_T} H={LM_H} D={LM_D} causal",
+                           lm_flash["launches"])
     line = []
     for name, k in KERNELS.items():
         case, path_launches = main_case[name]
@@ -735,8 +1026,8 @@ def main() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     detail = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build": build, "kernels": kernels, "serve": [gcn, sage],
-              "train": [bench, ogb],
+              "build": build, "kernels": kernels, "attention": attention,
+              "serve": [gcn, sage], "train": [bench, ogb, lm_flash],
               "total_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)

@@ -9,13 +9,16 @@ It imports neither ``jax`` nor ``dgraph_tpu``: whatever it needs from the
 reference's numpy-only modules (partitioners, the plan builder, synthetic
 data, serving errors and bucketing) it keeps as its own copy.
 
-Every Pallas kernel that the served forward reaches is a hand-written CUDA
-kernel for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and bound
-with ``ctypes`` (``ops/_build.py``). On CPU tensors the kernel wrappers run
-their plain PyTorch versions; on CUDA tensors they launch the kernel or raise.
+Every Pallas kernel on a ported path (the sorted-id kernels of GNN serving
+and training, Pallas' flash attention of the sequence LM) is a hand-written
+CUDA kernel for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and
+bound with ``ctypes`` (``ops/_build.py``). On CPU tensors the kernel wrappers
+run their plain PyTorch versions; on CUDA tensors they launch the kernel or
+raise.
 
 Entry points (``serve.build_serving``, ``serve.ServeEngine``, ``python -m
-dgraph_tpu_torch.serve``) run on ``cuda`` unless the caller passes
+dgraph_tpu_torch.serve``, ``python -m dgraph_tpu_torch.train`` and ``python
+-m dgraph_tpu_torch.train.lm``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise.
 """
 

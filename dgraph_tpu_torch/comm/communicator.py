@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 from dgraph_tpu_torch.comm import collectives
+from dgraph_tpu_torch.ops.attention import flash_attention
 from dgraph_tpu_torch.plan import EdgePlan
 
 
@@ -44,3 +45,16 @@ class SingleComm:
     def scatter_bias_relu(self, edata, bias, plan: EdgePlan, side: str = "dst",
                           edge_weight=None):
         return collectives.scatter_bias_relu(edata, bias, plan, side, edge_weight)
+
+    def seq_attention(self, q, k, v, *, causal: bool = False, kv_mask=None,
+                      impl: str = "ring"):
+        """Exact attention over the full sequence (``[T, H, D]`` inputs).
+
+        ``impl`` is validated as the reference does (``'ring'`` or
+        ``'ulysses'``); at one rank both are one full-sequence attention,
+        :func:`~dgraph_tpu_torch.ops.attention.flash_attention`: the flash
+        kernels on a card, the dense oracle on the CPU. (The reference's
+        single mode runs its dense oracle unless flash is pinned on.)"""
+        if impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq_attention impl: {impl!r}")
+        return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask)

@@ -6,6 +6,13 @@ raises, and on a CPU tensor it runs its plain version, so there is nothing
 to switch. The one opt-in flag the reference keeps for a kernel that is off
 by default, ``use_pallas_gather`` (the sorted-row-gather kernel), is here
 with its name and semantics.
+
+By the same rule the reference's ``use_flash_attention`` tri-state
+(``DGRAPH_TPU_FLASH_ATTN``) and its ``flash_attention_selfcheck`` latch
+(``parallel/sequence.py:313-350``, run by ``long_context_lm.py:79-82``)
+have no counterpart: every full-sequence attention on a card runs the flash
+kernels, and ``chip_smoke.py`` is their check on the card against the plain
+version.
 """
 
 from __future__ import annotations

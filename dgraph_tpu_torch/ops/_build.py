@@ -26,7 +26,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # one shared library per source, all built by one nvcc each
-SOURCES = {"sorted_segment": "sorted_segment.cu", "sorted_gather": "sorted_gather.cu"}
+SOURCES = {"sorted_segment": "sorted_segment.cu", "sorted_gather": "sorted_gather.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,6 +64,28 @@ SIGNATURES = {
             _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
             _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_longlong,
             _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
+        ),
+    },
+    "flash_attention": {
+        # q, k, v (pointer, row stride, head stride), mask, out, lse, T, H, D,
+        # scale, causal, dtype, stream
+        "dg_flash_attention_fwd": (
+            *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 3, _c.c_void_p, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_int,
+            _c.c_void_p,
+        ),
+        # q, k, v, do (pointer, row stride, head stride), lse, di, mask, dk,
+        # dv, T, H, D, scale, causal, dtype, stream
+        "dg_flash_attention_bwd_dkv": (
+            *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 4, _c.c_void_p, _c.c_void_p,
+            _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float,
+            _c.c_int, _c.c_int, _c.c_void_p,
+        ),
+        # as dkv with one output, dq
+        "dg_flash_attention_bwd_dq": (
+            *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 4, _c.c_void_p, _c.c_void_p,
+            _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int,
+            _c.c_int, _c.c_void_p,
         ),
     },
 }

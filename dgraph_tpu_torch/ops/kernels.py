@@ -1,0 +1,19 @@
+"""Every CUDA kernel of the port in one registry: the sorted-id kernels
+(:mod:`~dgraph_tpu_torch.ops.segment`) and the flash-attention kernels
+(:mod:`~dgraph_tpu_torch.ops.attention`), each a ``Kernel(wrapper, plain,
+replaces, source)``, with their launch counts."""
+
+from __future__ import annotations
+
+from dgraph_tpu_torch.ops import attention, segment
+
+KERNELS = {**segment.KERNELS, **attention.KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.wrapper.launches for name, k in KERNELS.items()}

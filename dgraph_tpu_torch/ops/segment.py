@@ -185,7 +185,7 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
-        raise RuntimeError(f"no sorted-id kernel for device {t.device}")
+        raise RuntimeError(f"no CUDA kernel for device {t.device}")
     return True
 
 

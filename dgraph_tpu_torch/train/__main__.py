@@ -111,8 +111,8 @@ def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
     dev = default_device(device if device is not None else (cfg.device or None))
     if cfg.world_size not in (0, 1):
         raise NotImplementedError(
-            f"world_size={cfg.world_size}: training above one rank is slice 3 "
-            "of the port (multi-rank training)")
+            f"world_size={cfg.world_size}: training above one rank is the "
+            "multi-rank slice of the port")
     if cfg.model in ("gat", "gt", "graph_transformer"):
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     if cfg.model not in ("gcn", "sage"):
@@ -205,18 +205,21 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
     return {"records": records, "avg_epoch_ms_excl_first": avg, "training": t}
 
 
-def parse_config(argv=None) -> Config:
-    """``Config()`` with ``--field value`` / ``--data.field value`` (or
+def parse_config(argv=None, config_cls=Config):
+    """``config_cls()`` with ``--field value`` / ``--data.field value`` (or
     ``key=value``) overrides, coerced to the annotated field type."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = config_cls()
     if "--help" in argv or "-h" in argv:
-        print(Config.__doc__)
-        for f in dataclasses.fields(Config):
-            print(f"  --{f.name} (default {f.default!r})")
-        for f in dataclasses.fields(DataConfig):
-            print(f"  --data.{f.name} (default {f.default!r})")
+        print(config_cls.__doc__)
+        for f in dataclasses.fields(cfg):
+            val = getattr(cfg, f.name)
+            if dataclasses.is_dataclass(val):
+                for g in dataclasses.fields(val):
+                    print(f"  --{f.name}.{g.name} (default {getattr(val, g.name)!r})")
+            else:
+                print(f"  --{f.name} (default {val!r})")
         raise SystemExit(0)
-    cfg = Config()
     pairs, it = [], iter(argv)
     for tok in it:
         if tok.startswith("--"):

@@ -12,7 +12,7 @@ normalised by the global mask count, as in the reference
 Batches are dicts whose leaves lead with the ``[W]`` rank axis, as
 ``DistributedGraph.batch`` returns them (plus ``"y"``); the parameters live
 in the module. ``per_replica_batch`` and world sizes above 1 belong to
-slice 3 of the port (multi-rank training) and raise here.
+the multi-rank slice of the port and raise here.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ __all__ = [
     "masked_bce_multilabel", "masked_cross_entropy", "model_apply",
 ]
 
-_MULTI_RANK = "slice 3 of the port (multi-rank training)"
+_MULTI_RANK = "the multi-rank slice of the port"
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

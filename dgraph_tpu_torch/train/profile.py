@@ -1,11 +1,11 @@
 """Where a training step spends its device time, by op.
 
-    python -m dgraph_tpu_torch.train.profile [--config bench_gcn|ogb_gcn] [--steps 5]
-        [--gather] [--out DIR]
+    python -m dgraph_tpu_torch.train.profile [--config bench_gcn|ogb_gcn|lm_flash]
+        [--steps 5] [--gather] [--out DIR]
 
-Builds one of the two arxiv-width training configurations on the card,
-runs two warm-up steps, then records ``--steps`` train steps under
-``torch.profiler`` (CPU and CUDA activities):
+Builds one of three training configurations on the card, runs two warm-up
+steps, then records ``--steps`` train steps under ``torch.profiler`` (CPU
+and CUDA activities):
 
 - ``bench_gcn``: ``bench.py``'s ``bench_gcn`` (bench.py:428-534) on the port
   — ``random_edges(169343, 1166243, seed=0)``, one rank, dst-owned edges,
@@ -13,7 +13,12 @@ runs two warm-up steps, then records ``--steps`` train steps under
   random features and labels from seed 0, Adam 1e-3;
 - ``ogb_gcn``: ``python -m dgraph_tpu_torch.train``'s model and graph at
   arxiv width (SBM, V=169,343, F=128, C=40, average degree 13.77,
-  symmetric-norm edge weights, H=256, Adam 5e-3).
+  symmetric-norm edge weights, H=256, Adam 5e-3);
+- ``lm_flash``: ``python -m dgraph_tpu_torch.train.lm``'s sequence-transformer
+  LM at head width 128 — ``experiments/long_context_lm.py --seq_len 8192
+  --latent 512 --num_heads 4 --num_layers 2 --vocab 64 --attn_impl ulysses
+  --world_size 1``, Adam 3e-3, causal; every attention runs the three
+  flash-attention kernels.
 
 ``--gather`` switches the sorted-row-gather kernel on
 (``config.use_pallas_gather``). Prints the card (``nvidia-smi``), the wall
@@ -74,13 +79,25 @@ def ogb_gcn_config():
                                   avg_degree=ARXIV_AVG_DEGREE))
 
 
+def lm_flash_config():
+    """train.lm's Config for lm_flash (T = 8192, H = 4, D = 128)."""
+    from dgraph_tpu_torch.train.lm import Config
+
+    return Config(seq_len=8192, latent=512, num_heads=4, num_layers=2, vocab=64,
+                  attn_impl="ulysses", world_size=1, lr=3e-3, device="cuda")
+
+
 def device_ops(prof, steps: int) -> list:
-    """Device kernels and copies by self time per step, largest first."""
+    """Device kernels and copies by self time per step, largest first. The
+    device-side spans of user annotations (``Optimizer.step#Adam.step``)
+    cover kernels listed on their own and are left out."""
     from torch.autograd import DeviceType
 
+    spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
     ops = []
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+        if (evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+                and evt.key not in spans):
             ops.append({"name": evt.key, "count": evt.count,
                         "device_ms_per_step": evt.self_device_time_total / 1e3 / steps})
     return sorted(ops, key=lambda o: -o["device_ms_per_step"])
@@ -129,6 +146,11 @@ def profile(config: str = "bench_gcn", steps: int = 5, gather: bool = False,
 
             t = build_training(ogb_gcn_config())
             step, batch = t.train_step, t.batches["train"]
+        elif config == "lm_flash":
+            from dgraph_tpu_torch.train.lm import build_lm
+
+            t = build_lm(lm_flash_config())
+            step, batch = t.train_step, t.next_batch()
         else:
             raise SystemExit(f"unknown config {config}")
         for _ in range(2):
@@ -145,7 +167,7 @@ def profile(config: str = "bench_gcn", steps: int = 5, gather: bool = False,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="bench_gcn", choices=("bench_gcn", "ogb_gcn"))
+    p.add_argument("--config", default="bench_gcn", choices=("bench_gcn", "ogb_gcn", "lm_flash"))
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--gather", action="store_true")
     p.add_argument("--out", default="chiprun_out")

@@ -1,19 +1,27 @@
 """Parameters: flax trees to ``state_dict``s, and seeded initialisation.
 
-Module names follow flax's auto-names (``GraphConvLayer_0/src_proj``,
-``SAGEConv_1/Dense_0``, ``Dense_0``), so a flax path maps to a state_dict key
-by joining with dots. A flax ``Dense.kernel`` is ``[in, out]``; a torch
-``Linear.weight`` is ``[out, in]``.
+Module names follow flax's (auto-names like ``GraphConvLayer_0/src_proj``,
+``SAGEConv_1/Dense_0``, ``Dense_0``, or explicit ones like ``block_0/qkv``),
+so a flax path maps to a state_dict key by joining with dots. The leaves:
+
+- ``Dense.kernel`` ``[in, out]`` <-> ``Linear.weight`` ``[out, in]`` (transposed);
+- ``LayerNorm.scale`` <-> ``LayerNorm.weight``, ``Embed.embedding``
+  ``[num, features]`` <-> ``Embedding.weight``, both as they are;
+- ``bias`` <-> ``bias``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+# flax leaf name -> (torch leaf name, transposed)
+_FROM_FLAX = {"kernel": ("weight", True), "scale": ("weight", False),
+              "embedding": ("weight", False), "bias": ("bias", False)}
 
 
 def params_from_jax(tree: Mapping) -> dict:
@@ -28,29 +36,50 @@ def params_from_jax(tree: Mapping) -> dict:
             if isinstance(val, Mapping):
                 walk(val, prefix + (name,))
                 continue
-            arr = np.asarray(val, dtype=np.float32)
-            if name == "kernel":
-                key, arr = "weight", arr.T
-            elif name == "bias":
-                key = "bias"
-            else:
+            if name not in _FROM_FLAX:
                 raise KeyError(f"unknown flax leaf {'/'.join(prefix + (name,))}")
-            out[".".join(prefix + (key,))] = torch.tensor(arr)
+            key, transposed = _FROM_FLAX[name]
+            arr = np.asarray(val, dtype=np.float32)
+            out[".".join(prefix + (key,))] = torch.tensor(arr.T if transposed else arr)
 
     walk(tree, ())
     return out
 
 
-def params_to_jax(state_dict: Mapping) -> dict:
+def param_kinds(module: nn.Module) -> dict:
+    """{state_dict key: flax leaf name} of ``module``'s parameters: each
+    ``weight`` named by the kind of module that holds it."""
+    kinds = {}
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            key = f"{mname}.{pname}" if mname else pname
+            if pname == "bias":
+                kinds[key] = "bias"
+            elif isinstance(mod, nn.Embedding):
+                kinds[key] = "embedding"
+            elif isinstance(mod, nn.LayerNorm):
+                kinds[key] = "scale"
+            else:
+                kinds[key] = "kernel" if p.dim() == 2 else "scale"
+    return kinds
+
+
+def params_to_jax(state_dict: Mapping, module: Optional[nn.Module] = None) -> dict:
     """``state_dict`` -> flax variables ``{'params': tree}`` of float32
-    numpy arrays: the inverse of :func:`params_from_jax` (a ``weight`` goes
-    back to a transposed ``kernel``)."""
+    numpy arrays: the inverse of :func:`params_from_jax`. A ``weight`` leaf
+    alone does not say what it was: with ``module`` each key takes the kind
+    of the module holding it (:func:`param_kinds`); without, a 2-D weight is
+    a Dense kernel and a 1-D one a LayerNorm scale (an Embedding needs the
+    module)."""
+    kinds = param_kinds(module) if module is not None else {}
     tree: dict = {}
     for key, val in state_dict.items():
         *path, leaf = key.split(".")
         arr = val.detach().cpu().numpy().astype(np.float32)
         if leaf == "weight":
-            leaf, arr = "kernel", arr.T
+            leaf = kinds.get(key, "kernel" if arr.ndim == 2 else "scale")
+            if leaf == "kernel":
+                arr = arr.T
         elif leaf != "bias":
             raise KeyError(f"unknown state_dict leaf {key}")
         node = tree
@@ -61,21 +90,31 @@ def params_to_jax(state_dict: Mapping) -> dict:
 
 
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded initialisation with flax ``Dense``'s defaults: kernels from a
-    truncated normal of variance 1/fan_in (lecun_normal), biases zero. The
-    generator is explicit, so one seed gives one model on any device
-    (torch and JAX draw different numbers from the same seed; tests carry
-    flax weights across with :func:`params_from_jax` instead)."""
+    """Seeded initialisation with flax's defaults: Dense kernels from a
+    truncated normal of variance 1/fan_in (lecun_normal), Embed tables from a
+    normal of variance 1/features (``variance_scaling(1, 'fan_in', 'normal',
+    out_axis=0)``), LayerNorm scales one, biases zero. The generator is
+    explicit, so one seed gives one model on any device (torch and JAX draw
+    different numbers from the same seed; tests carry flax weights across
+    with :func:`params_from_jax` instead)."""
     g = torch.Generator().manual_seed(seed)
     # stddev of a unit normal truncated to [-2, 2], as flax's initializer corrects for
     trunc_std = 0.87962566103423978
+    kinds = param_kinds(module)
     with torch.no_grad():
         for name, p in sorted(module.named_parameters()):
-            if name.endswith("weight") and p.dim() == 2:
+            kind = kinds[name]
+            if kind == "kernel":
                 std = math.sqrt(1.0 / p.shape[1]) / trunc_std
                 w = torch.empty(p.shape, dtype=torch.float32)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
                 p.copy_(w)
-            elif name.endswith("bias"):
+            elif kind == "embedding":
+                w = torch.empty(p.shape, dtype=torch.float32)
+                nn.init.normal_(w, std=math.sqrt(1.0 / p.shape[1]), generator=g)
+                p.copy_(w)
+            elif kind == "scale":
+                p.fill_(1.0)
+            else:
                 p.zero_()
     return module

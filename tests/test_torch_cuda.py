@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from dgraph_tpu_torch.ops import kernels
 from dgraph_tpu_torch.ops import segment as seg
 
 pytestmark = pytest.mark.cuda
@@ -286,3 +287,186 @@ def test_models_train_on_the_card_like_on_the_cpu(dev, case, gather_flag):
         pair = case == "gcn-unweighted"
         assert counts["fused_bwd_gd"] == counts["sorted_segment_sum_act"] == 4 * pair
     assert (counts["sorted_row_gather"] > 0) == (gather_flag is True and case != "gcn-unweighted")
+
+
+# --- flash attention (ops.attention) -------------------------------------------
+#
+# Inputs are unit normals; f32 compares at rtol=atol=1e-4 (the kernels and
+# the plain version sum up to T products in other orders), bf16 outputs at
+# rtol=atol=2e-2 (both compute in f32 and round once to bf16).
+
+ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _attention_counts() -> dict:
+    from dgraph_tpu_torch.ops import attention as att, kernels
+
+    return {k: v for k, v in kernels.launch_counts().items() if k in att.KERNELS}
+
+
+def _att_close(got, want):
+    tol = ATT_TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _att_inputs(T, H, D, dtype, dev, seed=0):
+    """q, k, v and an output cotangent [T, H, D], made on the CPU from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(T, H, D, generator=gen).to(dev, dtype) for _ in range(4)]
+
+
+def _att_mask(kind, T, dev):
+    """None, a kv_mask with a padded tail of 37, or one with every key masked."""
+    if kind == "none":
+        return None
+    m = torch.ones(T)
+    m[T - 37 if kind == "tail" else 0:] = 0
+    return m.to(dev)
+
+
+@pytest.mark.parametrize("mask", ["none", "tail", "all"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [200, 256])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(dev, dtype, D, T, causal, mask):
+    """Each of the three kernels against its plain version on the same
+    inputs (the backward kernels read the plain forward's lse and di), one
+    launch each, and the same bits on a second launch."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    q, k, v, do = _att_inputs(T, 2, D, dtype, dev)
+    kw = dict(causal=causal, kv_mask=_att_mask(mask, T, dev))
+    kernels.reset_launch_counts()
+    out, lse = att.flash_attention_fwd(q, k, v, **kw)
+    out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+    _att_close(out, out_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    di = att.row_dot(out_p, do)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw)
+    for got, want in zip((dk, dv), att.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, **kw)):
+        _att_close(got, want)
+    dq = att.flash_attention_bwd_dq(q, k, v, do, lse_p, di, **kw)
+    _att_close(dq, att.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, di, **kw))
+    torch.cuda.synchronize()
+    assert _attention_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
+                                   "flash_attention_bwd_dq": 1}
+    again = att.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert all(torch.equal(a, b) for a, b in
+               zip(att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw), (dk, dv)))
+    assert torch.equal(att.flash_attention_bwd_dq(q, k, v, do, lse_p, di, **kw), dq)
+    if mask == "all":
+        assert not out.any() and not dk.any() and not dv.any() and not dq.any()
+
+
+@pytest.mark.parametrize("mask", ["none", "tail", "all"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_attention_gradients_match_autograd_of_the_plain_version(dev, D, causal, mask):
+    """The autograd Function (forward kernel, di, dK/dV and dQ kernels)
+    against autograd through ``dense_attention`` on the card, f32, T = 200."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    T = 200
+    q, k, v, cot = _att_inputs(T, 2, D, torch.float32, dev, seed=1)
+    m = _att_mask(mask, T, dev)
+    results = []
+    for fn in (att.flash_attention, att.dense_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=causal, kv_mask=m)
+        out.backward(cot)
+        results.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*results):
+        _att_close(got, want)
+
+
+def test_flash_attention_reads_strided_operands(dev):
+    """q, k, v as column slices of one [T, 3L] tensor (the LM's layout) go
+    to the kernels in place; a slice off by one column is copied first. The
+    results are the contiguous inputs' bit for bit."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    T, H, D = 300, 4, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = torch.randn(T, 3 * H * D + 4, device=dev).to(dtype)
+        for off in (0, 1):
+            q, k, v = (t.reshape(T, H, D) for t in
+                       wide[:, off:off + 3 * H * D].split(H * D, dim=-1))
+            assert att._operand(q) is q if off == 0 else att._operand(q) is not q
+            got = att.flash_attention_fwd(q, k, v, causal=True)
+            want = att.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           causal=True)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):
+    from dgraph_tpu_torch.ops import attention as att
+
+    q = torch.randn(64, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        att.flash_attention_fwd(q, q, q)
+    q = torch.randn(64, 2, 32, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        att.flash_attention_fwd(q, q, q)
+
+
+def _lm_step(cfg, device):
+    """Loss, gradients and attention launches of one train.lm step."""
+    from dgraph_tpu_torch.ops import attention as att
+    from dgraph_tpu_torch.train import lm
+
+    t = lm.build_lm(cfg, device=device)
+    toks = t.next_batch()
+    kernels.reset_launch_counts()
+    loss = float(t.train_step(toks)["loss"])
+    counts = _attention_counts()
+    return loss, {k: p.grad.cpu() for k, p in t.model.named_parameters()}, counts, t
+
+
+def test_lm_flash_step_on_the_card_matches_the_cpu(dev):
+    """One lm_flash step (T = 8192, L = 512, H = 4, D = 128) at one layer:
+    the loss and every gradient match the CPU plain path (rtol=atol=1e-4),
+    the step launches each attention kernel once, an eval forward only the
+    forward kernel."""
+    from dgraph_tpu_torch.ops import attention as att
+    from dgraph_tpu_torch.train import lm
+
+    cfg = lm.Config(seq_len=8192, latent=512, num_heads=4, num_layers=1, vocab=64,
+                    attn_impl="ulysses", world_size=1)
+    loss_gpu, grads_gpu, counts, t = _lm_step(cfg, dev)
+    assert counts == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
+                      "flash_attention_bwd_dq": 1}
+    kernels.reset_launch_counts()
+    t.eval_step(t.next_batch())
+    assert _attention_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 0,
+                                   "flash_attention_bwd_dq": 0}
+    loss_cpu, grads_cpu, _, _ = _lm_step(cfg, torch.device("cpu"))
+    assert abs(loss_cpu - loss_gpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+    for k, want in grads_cpu.items():
+        torch.testing.assert_close(grads_gpu[k], want, rtol=1e-4, atol=1e-4, msg=k)
+
+
+def test_no_attention_on_the_card_goes_through_a_plain_version(dev, monkeypatch):
+    """Every plain attention function raises on a CUDA tensor; a train step
+    and an eval forward of the LM on the card still run."""
+    from dgraph_tpu_torch.ops import attention as att
+    from dgraph_tpu_torch.train import lm
+
+    for name in ("dense_attention", "flash_attention_fwd_plain",
+                 "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain"):
+        plain = getattr(att, name)
+
+        def refuse(q, *a, _plain=plain, _name=name, **kw):
+            if q.is_cuda:
+                raise AssertionError(f"{_name} ran on a CUDA tensor")
+            return _plain(q, *a, **kw)
+
+        monkeypatch.setattr(att, name, refuse)
+    cfg = lm.Config(seq_len=1024, latent=256, num_heads=2, num_layers=2, world_size=1)
+    loss, _, counts, t = _lm_step(cfg, dev)
+    assert np.isfinite(loss)
+    assert counts == {"flash_attention_fwd": 2, "flash_attention_bwd_dkv": 2,
+                      "flash_attention_bwd_dq": 2}
+    assert np.isfinite(float(t.eval_step(t.next_batch())))

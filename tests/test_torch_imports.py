@@ -40,7 +40,9 @@ def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("dgraph_tpu_torch/ops/segment.py", "dgraph_tpu_torch/serve/engine.py",
                  "dgraph_tpu_torch/plan.py", "dgraph_tpu_torch/train/loop.py",
-                 "dgraph_tpu_torch/train/__main__.py", "chip_smoke.py"):
+                 "dgraph_tpu_torch/train/__main__.py", "dgraph_tpu_torch/train/lm.py",
+                 "dgraph_tpu_torch/ops/attention.py", "dgraph_tpu_torch/models/transformer.py",
+                 "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
 
@@ -51,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.serve.__main__, dgraph_tpu_torch.ops.local\n"
         "import dgraph_tpu_torch.models, dgraph_tpu_torch.weights\n"
         "import dgraph_tpu_torch.train.loop, dgraph_tpu_torch.train.__main__\n"
+        "import dgraph_tpu_torch.train.lm, dgraph_tpu_torch.ops.kernels\n"
+        "import dgraph_tpu_torch.parallel.sequence, dgraph_tpu_torch.train.profile\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -79,7 +83,8 @@ def test_nvcc_command_targets_hopper():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags and "-O3" in flags
-    assert set(_build.SOURCES) == set(_build.SIGNATURES) == {"sorted_segment", "sorted_gather"}
+    assert set(_build.SOURCES) == set(_build.SIGNATURES) == {"sorted_segment", "sorted_gather",
+                                                             "flash_attention"}
     for name, source in _build.SOURCES.items():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
