@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """End-to-end check of the PyTorch port (``dgraph_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, one card
+    python3 chip_smoke.py --phase 9    # phases 1, 2 and 9 (e.g. a card a rank)
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
 2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
-3. kernel parity — each of the eight kernels against its plain PyTorch
+3. kernel parity — each of the eight one-rank kernels against its plain PyTorch
    version on the card, f32 and bf16, two launches with equal bits; timed
    with CUDA events (mean over back-to-back calls after warmup) beside the
    plain version, the one-call PyTorch equivalent where there is one, and
@@ -48,6 +49,23 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    once a layer and no other kernel; step 0's loss and every gradient match
    the CPU plain path within 1e-4; the loss falls; an eval forward launches
    only the forward kernel; step ms p50/p99 and the device-busy share;
+9. kernel 5 and train ogb_gcn over 4 ranks — the one-sided halo transport
+   (``ops.p2p``) spawned on 4 and on 2 ranks (sharing the card through CUDA
+   IPC, or a card each): bit-equal to its plain version (the masked send
+   stack through ``all_to_all``), bit patterns compared, at the real W = 4
+   plan's send lists (F = 256, f32 and bf16, the masked exchange and the
+   unmasked reverse leg) and at edge cases whose tiles hold NaN, -inf and
+   negative values (deltas {1} and {1, 3}, F in {1, 33, 256}, both
+   directions, with and without a mask, unaligned rows), two launches
+   equal; timed beside the exchange's barrier-to-barrier wall time, the
+   plain version, the yardstick and the bound. Then ``python -m
+   dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4`` with
+   DGRAPH_TPU_HALO_IMPL=pallas_p2p (random partition, the interior/boundary
+   split): 2 warm-up and 10 timed steps; every rank's every step launches
+   kernel 5 four times and kernel 1 eight times (plus 2 and 8 with an
+   eval); step 0's loss and gradients match a 4-rank gloo run on the CPU
+   within 1e-4; the loss falls; the ranks' parameters are bit-equal at the
+   end; step ms p50/p99 and the device-busy share per rank;
 then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
@@ -162,6 +180,14 @@ def bound(nbytes: float, ops: float, dtype_name: str = "float32") -> tuple:
 
 def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def bits(t):
+    """The bit patterns of an f32 or bf16 tensor: ``-0.0`` and ``0.0``
+    differ, a NaN equals only the same NaN."""
+    import torch
+
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
 
 def check_close(name, got, want, dtype_name, tols=TOL) -> float:
@@ -948,24 +974,381 @@ def phase_train_lm_flash() -> dict:
     return rec
 
 
+# --- phase 9 -----------------------------------------------------------------
+
+P2P_W = 4
+P2P_F = 256
+P2P_EDGE_S = 300
+P2P_REPS = 10
+
+
+def p2p_edge_cases(W: int) -> list:
+    """(deltas, F, dtype, sign, masked, element offset of the blocks) of
+    the kernel-5 edge cases at world size W. W = 4, deltas {1, 3} (fewer
+    tiles than peers): every F in {1, 33, 256} and both types, with and
+    without a mask, in the forward direction; the reverse direction, and
+    blocks one element off (rows start unaligned: the scalar path), at
+    F = 256. W = 2, delta {1}: F = 256, both types, both directions,
+    masked. 18 and 4 cases."""
+    if W == 2:
+        return [((1,), 256, dt, sign, True, 0)
+                for dt in ("float32", "bfloat16") for sign in (1, -1)]
+    dts = ("float32", "bfloat16")
+    return ([((1, 3), F, dt, 1, masked, 0)
+             for F in (1, 33, 256) for dt in dts for masked in (True, False)]
+            + [((1, 3), 256, dt, -1, masked, 0) for dt in dts for masked in (True, False)]
+            + [((1, 3), 256, dt, 1, True, 1) for dt in dts])
+
+
+def p2p_work(n, S, F, b, masked) -> tuple:
+    """(bytes, ops) of one launch: each tile element read once and written
+    once (into a peer's rows), 4 bytes of mask a row; one multiply an
+    element when masked."""
+    return 2 * n * S * F * b + (4 * n * S if masked else 0), (n * S * F if masked else 0)
+
+
+def p2p_parity_rank(group, edge_cases, real):
+    """One rank of the kernel-5 checks (run under ``comm.dist.launch``):
+    every case bit-equal to the plain version, two launches equal; at the
+    real shape (``real``: the W = 4 plan's send lists, F = 256) the kernel's
+    own time (CUDA events, the ranks in turn, the others idle), the
+    exchange's wall time from barrier to barrier (all ranks together), the
+    plain version's, and the yardstick's: the per-tile ``torch.mul``/``copy_``
+    into the mapped peer rows on one card, NCCL ``all_to_all_single`` where
+    each rank has its card."""
+    import torch
+    import torch.distributed as dist
+
+    from dgraph_tpu_torch.ops import p2p
+
+    dev, W, me = group.device, group.world_size, group.rank
+    gen = torch.Generator(device=dev).manual_seed(100 + me)
+    failures, records = [], []
+    t0 = time.perf_counter()
+
+    def check(name, run, plain) -> float:
+        """Bit-equal to the plain version, and two launches equal; the max
+        abs error (NaN where the data holds NaN)."""
+        got, want, again = run(), plain(), run()
+        torch.cuda.synchronize(dev)
+        if not torch.equal(bits(got), bits(want)):
+            failures.append(f"{name}: kernel != plain in "
+                            f"{int((bits(got) != bits(want)).sum())} elements")
+        if not torch.equal(bits(got), bits(again)):
+            failures.append(f"{name}: two launches differ")
+        return max_err(got, want)
+
+    def in_turn(fn):
+        """ms of ``fn`` on each rank while the others wait (this rank's)."""
+        out = None
+        for r in range(W):
+            group.barrier()
+            if r == me:
+                out = time_ms(fn, reps=P2P_REPS)
+        group.barrier()
+        return out
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize(dev)
+        group.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    for deltas, F, dtype_name, sign, masked, off in edge_cases:
+        n, S = len(deltas), P2P_EDGE_S
+        # negative values, NaN and -inf: a masked row must come out as x * 0
+        # (-0.0, NaN), as in the plain version, where a select gives +0.0
+        raw = torch.randn(n * S * F + off, generator=gen, device=dev)
+        raw[::7], raw[3::11] = float("nan"), float("-inf")
+        raw = raw.to(getattr(torch, dtype_name))
+        blocks = raw[off:].view(n, S, F)
+        mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
+        kw = dict(sign=sign, mask=mask, group=group)
+        check(f"p2p edge W={W} deltas={deltas} F={F} {dtype_name} sign={sign} "
+              f"mask={masked} offset={off}",
+              lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw),
+              lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw))
+    edge_s = time.perf_counter() - t0
+    if real is not None:
+        import numpy as np
+
+        deltas, S, n = real["deltas"], real["S"], len(real["deltas"])
+        idx = torch.from_numpy(real["send_idx"][me]).to(dev).long()
+        smask = torch.from_numpy(real["send_mask"][me]).to(dev)
+        x = torch.randn(real["n_pad"], P2P_F, generator=gen, device=dev)
+        h = torch.randn(W, S, P2P_F, generator=gen, device=dev)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            for sign in (1, -1):
+                rows = [(me + sign * d) % W for d in deltas]
+                if sign == 1:  # the exchange: send rows, masked in flight
+                    blocks = x.to(dtype)[idx[rows].reshape(-1)].view(n, S, P2P_F)
+                    mask = smask[rows].contiguous()
+                else:  # the reverse leg: halo rows back to their owners
+                    blocks, mask = h.to(dtype)[rows].contiguous(), None
+                kw = dict(sign=sign, mask=mask, group=group)
+                name = (f"p2p_transport {dtype_name} sign={sign:+d} "
+                        f"{'mask' if mask is not None else 'no mask'} W={W} S={S} F={P2P_F}")
+                run = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
+                plain = lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)  # noqa: E731
+                err = check(name, run, plain)
+                land = p2p.landing_buffer(group, W * S, P2P_F, dtype, sign)
+                kernel = lambda: p2p.launch_puts(blocks, deltas, W, S, sign, mask, group, land)  # noqa: E731
+                views = [land.peers[(me + sign * d) % W][me * S:(me + 1) * S] for d in deltas]
+                if group.backend == "nccl":
+                    stack = p2p.send_stack(blocks, deltas, W, sign, me, mask)
+                    recv = torch.empty_like(stack)
+                    library = "NCCL all_to_all_single of the masked [W, S, F] stack"
+                    lib_ms = host_ms(lambda: dist.all_to_all_single(recv, stack, group=group.pg),
+                                     P2P_REPS)
+                else:
+                    library = ("per-tile torch.mul(out=) into the mapped peer rows" if mask is not None
+                               else "per-tile copy_ into the mapped peer rows")
+
+                    def lib_call():
+                        for k, v in enumerate(views):
+                            if mask is None:
+                                v.copy_(blocks[k])
+                            else:
+                                torch.mul(blocks[k], mask[k, :, None].to(dtype), out=v)
+                    lib_ms = in_turn(lib_call)
+                nbytes, ops = p2p_work(n, S, P2P_F, blocks.element_size(), mask is not None)
+                b_ms, b_by = bound(nbytes, ops, dtype_name)
+                records.append({
+                    "kernel": "p2p_transport", "case": name, "dtype": dtype_name, "sign": sign,
+                    "masked": mask is not None, "n": n, "S": S, "F": P2P_F, "W": W,
+                    "max_abs_err": err,
+                    "ms": in_turn(kernel), "wall_ms": host_ms(run, P2P_REPS),
+                    "plain_ms": host_ms(plain, 2), "library_ms": lib_ms, "library": library,
+                    "bound_ms": b_ms, "bound_by": b_by, "backend": group.backend,
+                    "rows_live": int(np.asarray(real["send_mask"][me])[rows].sum()),
+                })
+    return {"failures": failures, "records": records, "cases": len(edge_cases),
+            "edge_s": edge_s, "real_s": time.perf_counter() - t0 - edge_s}
+
+
+class Phase9Probe:
+    """``on_step`` of the W = 4 training run, in each rank's process: each
+    step's kernel launches and the host ms its exchanges took barrier to
+    barrier (then zeroed), step 0's gradients, the last step's parameters,
+    and a profile of steps 2-11 (device busy share)."""
+
+    def __init__(self, epochs: int):
+        self.epochs = epochs
+        self.prof = None
+
+    def __call__(self, epoch, t):
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        from dgraph_tpu_torch.ops import kernels, p2p
+        from dgraph_tpu_torch.train.profile import device_ops
+
+        out = {"counts": kernels.launch_counts(), "exchange_ms": p2p.p2p_transport.wall_s * 1e3}
+        kernels.reset_launch_counts()
+        p2p.p2p_transport.wall_s = 0.0
+        if epoch == 0:
+            out["grads"] = {k: v.numpy() for k, v in grads_of(t.model).items()}
+        if epoch == 1:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+        if epoch == self.epochs - 1:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            out["ops"] = device_ops(self.prof, self.epochs - 2)
+            out["params"] = {k: v.detach().cpu().numpy() for k, v in t.model.state_dict().items()}
+        return out
+
+
+def cpu_step0_rank(group, cfg: dict):
+    """Step 0's global loss and summed gradients of one rank on the CPU
+    plain path (the oracle of the card run's step 0)."""
+    from dgraph_tpu_torch.comm import DistComm
+    from dgraph_tpu_torch.comm.collectives import all_reduce_sum
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.loop import model_apply
+
+    from dgraph_tpu_torch import config
+
+    # the p2p route's plain version (the transport through all_to_all)
+    config.use_pallas_p2p = True
+    c = cli.Config(**dict(cfg, data=cli.DataConfig(**cfg["data"]), device="cpu"))
+    t = cli.build_training(c, comm=DistComm(group))
+    if not t.comm.split_active(t.plan):
+        raise RuntimeError("the CPU reference does not take the p2p split route")
+    b = {k: v[group.rank] for k, v in t.batches["train"].items()}
+    count = all_reduce_sum(b["mask"].sum(), group)
+    loss = t.loss_fn(model_apply(t.model, b, t.plan), b["y"], b["mask"], count=count)
+    loss.backward()
+    t.comm.grad_sync(list(t.model.parameters()))
+    return {"loss": float(all_reduce_sum(loss.detach(), group)),
+            "grads": {k: v.numpy() for k, v in grads_of(t.model).items()}}
+
+
+def phase_p2p_kernel(graph) -> dict:
+    """Kernel 5 against its plain version on the card: the real W = 4 plan's
+    send lists at F = 256 (f32 and bf16, the exchange with its mask and the
+    reverse leg without) and the edge cases, at W = 4 and W = 2 (four and two
+    ranks sharing the card, or a card each)."""
+    import numpy as np
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    plan = graph.plan
+    real = {"deltas": tuple(plan.halo_deltas), "S": plan.halo.s_pad, "n_pad": plan.n_src_pad,
+            "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy()}
+    out = {}
+    for W in (P2P_W, 2):
+        t0 = time.perf_counter()
+        res = launch(p2p_parity_rank, W, p2p_edge_cases(W), real if W == P2P_W else None,
+                     device="cuda", timeout=600)
+        failures = [f for r in res for f in r["failures"]]
+        if failures:
+            fail(f"kernel 5: {len(failures)} failures: {failures[:5]}")
+        log(f"p2p_transport W={W}: {res[0]['cases']} edge cases bit-equal to plain on every "
+            f"rank, two launches equal ({time.perf_counter() - t0:.1f} s with the spawn; rank 0: "
+            f"edge cases {res[0]['edge_s']:.1f} s, the real shape's checks and times "
+            f"{res[0]['real_s']:.1f} s)")
+        out[W] = res
+    recs = []
+    for i, rec in enumerate(out[P2P_W][0]["records"]):
+        per_rank = [r["records"][i] for r in out[P2P_W]]
+        rec = dict(rec, ms_per_rank=[r["ms"] for r in per_rank],
+                   wall_ms_per_rank=[r["wall_ms"] for r in per_rank],
+                   ms=float(np.mean([r["ms"] for r in per_rank])),
+                   wall_ms=float(np.mean([r["wall_ms"] for r in per_rank])),
+                   plain_ms=float(np.mean([r["plain_ms"] for r in per_rank])),
+                   library_ms=float(np.mean([r["library_ms"] for r in per_rank])),
+                   max_abs_err=max(r["max_abs_err"] for r in per_rank))
+        recs.append(rec)
+        log(f"{rec['case']}: err {rec['max_abs_err']} kernel {rec['ms']:.4f} ms (ranks in turn; "
+            f"per rank {[round(v, 4) for v in rec['ms_per_rank']]}) exchange wall "
+            f"{rec['wall_ms']:.3f} ms (barrier to barrier) plain {rec['plain_ms']:.3f} ms "
+            f"{rec['library']} {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}) [{rec['backend']}]")
+    return {"records": recs, "edge_cases": {W: out[W][0]["cases"] for W in out}}
+
+
+def phase_train_ogb_gcn_w4() -> dict:
+    """experiments/ogb_gcn.py's GCN at arxiv width over 4 ranks through
+    ``python -m dgraph_tpu_torch.train``'s main with
+    DGRAPH_TPU_HALO_IMPL=pallas_p2p (random partition, dst-owned, the
+    interior/boundary split): 2 warm-up and 10 timed steps. Every rank's
+    every step launches kernel 5 four times (two exchanges, two reverse
+    legs) and kernel 1 eight times (2 layers x 2 chunks x 2 subsets), plus 2
+    and 8 when the step ran an eval; step 0's loss and gradients against a
+    4-rank gloo run on the CPU; the loss falls; the ranks' parameters are
+    bit-equal after the last step."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm.dist import launch
+    from dgraph_tpu_torch.ops.kernels import KERNELS
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.profile import ogb_gcn_config
+
+    cfg = ogb_gcn_config(world_size=P2P_W)
+    cfg.epochs, cfg.log_path = 12, os.path.join(OUT_DIR, "train_ogb_gcn_w4.jsonl")
+    chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(p2p_transport=2 * cfg.num_layers, sorted_segment_sum_bias_relu=2 * chunks,
+                sorted_segment_sum=2 * chunks)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    saved = os.environ.get("DGRAPH_TPU_HALO_IMPL")
+    os.environ["DGRAPH_TPU_HALO_IMPL"] = "pallas_p2p"  # read by each spawned rank
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = cli.main(cfg, on_step=Phase9Probe(cfg.epochs))
+        run_s = time.perf_counter() - t0
+        tc = time.perf_counter()
+        cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cfg), device="cpu",
+                     timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
+        cpu_s = time.perf_counter() - tc
+    finally:
+        if saved is None:
+            os.environ.pop("DGRAPH_TPU_HALO_IMPL")
+        else:
+            os.environ["DGRAPH_TPU_HALO_IMPL"] = saved
+    ranks = res["ranks"]
+    for r, rank in enumerate(ranks):
+        for i, probe in enumerate(rank["on_step"]):
+            evals = int(i % 10 == 0 or i == cfg.epochs - 1)
+            step_want = dict(want, p2p_transport=want["p2p_transport"] + cfg.num_layers * evals,
+                             sorted_segment_sum_bias_relu=want["sorted_segment_sum_bias_relu"]
+                             + 2 * chunks * evals)
+            check_step_launches(f"train ogb_gcn W=4 rank {r}", i, probe["counts"], step_want)
+    losses = [rec["loss"] for rec in res["records"]]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train ogb_gcn W=4: the loss did not fall over {cfg.epochs} steps: {losses}")
+    if abs(losses[0] - cpu[0]["loss"]) > GRAD_TOL * max(1.0, abs(cpu[0]["loss"])):
+        fail(f"train ogb_gcn W=4: step-0 loss {losses[0]} vs CPU {cpu[0]['loss']}")
+    import torch
+
+    want_grads = {k: torch.from_numpy(v) for k, v in cpu[0]["grads"].items()}
+    grad_err = 0.0
+    for r, rank in enumerate(ranks):
+        got = {k: torch.from_numpy(v) for k, v in rank["on_step"][0]["grads"].items()}
+        grad_err = max(grad_err, check_grads(f"train ogb_gcn W=4 rank {r}", got, want_grads))
+    last = [rank["on_step"][-1]["params"] for rank in ranks]
+    for r in range(1, P2P_W):
+        for k, v in last[0].items():
+            if not np.array_equal(last[r][k], v):
+                fail(f"train ogb_gcn W=4: rank {r}'s {k} differs from rank 0's after the last step")
+    launches = {k: sum(p["counts"][k] for rank in ranks for p in rank["on_step"])
+                for k in want}
+    per_rank = []
+    for r, rank in enumerate(ranks):
+        ms = [rec["wall_ms"] for rec in rank["records"]][2:]
+        ex = [p["exchange_ms"] for p in rank["on_step"]][2:]
+        ops = rank["on_step"][-1]["ops"]
+        busy = sum(o["device_ms_per_step"] for o in ops)
+        per_rank.append({"rank": r, "step_ms": ms, "step_ms_p50": float(np.percentile(ms, 50)),
+                         "step_ms_p99": float(np.percentile(ms, 99)),
+                         "exchange_ms": ex, "exchange_ms_p50": float(np.percentile(ex, 50)),
+                         "device_ms_per_step": busy,
+                         "device_busy_share": busy / float(np.mean(ms)), "ops": ops})
+        log(f"train ogb_gcn W=4 rank {r}: step ms p50 {per_rank[-1]['step_ms_p50']:.3f} p99 "
+            f"{per_rank[-1]['step_ms_p99']:.3f} (steps 2-11, host clock, profiler on), of "
+            f"which the exchanges barrier to barrier p50 {per_rank[-1]['exchange_ms_p50']:.3f} "
+            f"ms; device busy {per_rank[-1]['device_busy_share']:.1%} ({busy:.3f} ms a step)")
+    for o in per_rank[0]["ops"][:12]:
+        log(f"  rank 0: {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
+    rec = {"config": "ogb_gcn W=4 pallas_p2p", "world_size": P2P_W, "losses": losses,
+           "launches_per_step": want, "launches": launches, "step0_loss_cpu": cpu[0]["loss"],
+           "grad_max_abs_err": grad_err, "run_s": run_s, "cpu_reference_s": cpu_s,
+           "avg_epoch_ms_excl_first": res["avg_epoch_ms_excl_first"], "per_rank": per_rank}
+    log(f"train ogb_gcn W=4 (pallas_p2p): loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches a "
+        f"step a rank {dict((k, v) for k, v in want.items() if v)}; step-0 grads vs the 4-rank "
+        f"CPU run max abs err {grad_err:.3g}; parameters bit-equal across ranks; run {run_s:.1f} "
+        f"s, CPU reference {cpu_s:.1f} s")
+    return rec
+
+
 # --- main --------------------------------------------------------------------
 
 
-def main() -> None:
-    t_start = time.perf_counter()
-    log("phase 1: device")
-    smi = phase_device()
+def one_rank_phases(cfg) -> tuple:
+    """Phases 3-8: (kernel records, {kernel: (main case, the launches of
+    the path it serves)}, details)."""
     import torch
 
     from dgraph_tpu_torch import config
     from dgraph_tpu_torch.data import DistributedGraph
     from dgraph_tpu_torch.serve.__main__ import load_data
 
-    log("phase 2: build")
-    build = phase_build()
-
     log("phase 3: kernel parity and times")
-    cfg = arxiv_config("gcn")
     data = load_data(cfg)
     graph = DistributedGraph.from_global(
         data["edge_index"], data["features"], data["labels"], data["masks"],
@@ -976,7 +1359,6 @@ def main() -> None:
     del graph
     torch.cuda.empty_cache()
     attention = phase_attention()
-    kernels["records"] += attention["records"]
 
     log("phase 4: serve GCN")
     gcn_chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
@@ -995,10 +1377,6 @@ def main() -> None:
     log("phase 8: train lm_flash (python -m dgraph_tpu_torch.train.lm)")
     lm_flash = phase_train_lm_flash()
 
-    log("kernels line")
-    from dgraph_tpu_torch.ops.kernels import KERNELS
-
-    # each kernel's main case and the launches of the path it serves
     main_case = {
         "sorted_segment_sum_bias_relu": ("sorted_segment_sum_bias_relu float32 w F=128",
                                          gcn["launches"]),
@@ -1011,10 +1389,66 @@ def main() -> None:
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         main_case[name] = (f"{name} float32 T={LM_T} H={LM_H} D={LM_D} causal",
                            lm_flash["launches"])
+    return (kernels["records"] + attention["records"], main_case,
+            {"kernels": kernels, "attention": attention, "serve": [gcn, sage],
+             "train": [bench, ogb, lm_flash]})
+
+
+def multi_rank_phase(cfg) -> tuple:
+    """Phase 9, in the form of :func:`one_rank_phases`."""
+    from dgraph_tpu_torch.data import DistributedGraph
+    from dgraph_tpu_torch.serve.__main__ import load_data
+
+    log("phase 9: kernel 5 at W = 4 and 2, then train ogb_gcn over 4 ranks "
+        "(DGRAPH_TPU_HALO_IMPL=pallas_p2p)")
+    data = load_data(cfg)
+    t = time.perf_counter()
+    graph4 = DistributedGraph.from_global(
+        data["edge_index"], data["features"], data["labels"], data["masks"],
+        world_size=P2P_W, partition_method="random", add_symmetric_norm=True, overlap=True,
+    )
+    plan = graph4.plan
+    log(f"W=4 plan: {time.perf_counter() - t:.1f} s; S={plan.halo.s_pad} e_pad={plan.e_pad} "
+        f"n_pad={plan.n_src_pad} deltas={plan.halo_deltas} interior/boundary edges per rank "
+        f"{plan.overlap.num_interior.tolist()}/{plan.overlap.num_boundary.tolist()}")
+    del data
+    p2p_k = phase_p2p_kernel(graph4)
+    del graph4, plan
+    ogb4 = phase_train_ogb_gcn_w4()
+    return (p2p_k["records"], {"p2p_transport": (p2p_k["records"][0]["case"], ogb4["launches"])},
+            {"p2p_transport": p2p_k, "train": [ogb4]})
+
+
+def main(argv) -> None:
+    """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
+    multi-rank path, e.g. on a host with a card a rank)."""
+    if argv not in ([], ["--phase", "9"]):
+        raise SystemExit("usage: chip_smoke.py [--phase 9]")
+    t_start = time.perf_counter()
+    log("phase 1: device")
+    smi = phase_device()
+    import torch
+
+    log("phase 2: build")
+    build = phase_build()
+    cfg = arxiv_config("gcn")
+    records, main_case, detail = [], {}, {"train": []}
+    for phases in ([] if argv else [one_rank_phases]) + [multi_rank_phase]:
+        r, m, d = phases(cfg)
+        records += r
+        main_case.update(m)
+        detail["train"] += d.pop("train")
+        detail.update(d)
+
+    log("kernels line")
+    from dgraph_tpu_torch.ops.kernels import KERNELS
+
     line = []
     for name, k in KERNELS.items():
+        if argv and name not in main_case:
+            continue
         case, path_launches = main_case[name]
-        rec = next(r for r in kernels["records"] if r["case"] == case)
+        rec = next(r for r in records if r["case"] == case)
         if path_launches[name] <= 0:
             fail(f"{name} was never launched on its path")
         line.append({
@@ -1024,11 +1458,9 @@ def main() -> None:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "case": case,
         })
     os.makedirs(OUT_DIR, exist_ok=True)
-    detail = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build": build, "kernels": kernels, "attention": attention,
-              "serve": [gcn, sage], "train": [bench, ogb, lm_flash],
-              "total_s": time.perf_counter() - t_start}
+    detail.update(nvidia_smi=smi, device=torch.cuda.get_device_name(0),
+                  torch=torch.__version__, cuda=torch.version.cuda, build=build,
+                  total_s=time.perf_counter() - t_start)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     log(f"done in {detail['total_s']:.1f} s; details in {OUT_DIR}/chip_smoke.json")
@@ -1039,4 +1471,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -10,7 +10,8 @@ reference's numpy-only modules (partitioners, the plan builder, synthetic
 data, serving errors and bucketing) it keeps as its own copy.
 
 Every Pallas kernel on a ported path (the sorted-id kernels of GNN serving
-and training, Pallas' flash attention of the sequence LM) is a hand-written
+and training, Pallas' flash attention of the sequence LM, the one-sided
+halo transport of multi-rank training) is a hand-written
 CUDA kernel for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and
 bound with ``ctypes`` (``ops/_build.py``). On CPU tensors the kernel wrappers
 run their plain PyTorch versions; on CUDA tensors they launch the kernel or
@@ -19,7 +20,9 @@ raise.
 Entry points (``serve.build_serving``, ``serve.ServeEngine``, ``python -m
 dgraph_tpu_torch.serve``, ``python -m dgraph_tpu_torch.train`` and ``python
 -m dgraph_tpu_torch.train.lm``) run on ``cuda`` unless the caller passes
-``device="cpu"``; with no card and no explicit device they raise.
+``device="cpu"``; with no card and no explicit device they raise. Above
+one rank each rank is a process (``comm.dist``), spawned by the entry point
+or joined under ``torchrun``.
 """
 
 __version__ = "0.1.0"

@@ -1,22 +1,46 @@
-"""Graph primitives on one rank — the single-rank subset of
+"""Graph primitives of one rank — counterpart of
 ``dgraph_tpu/comm/collectives.py``.
 
-Every function takes the PER-RANK plan (:meth:`EdgePlan.shard`). With one
-rank there is no collective: the halo exchange only reads the (all-masked)
-send lists, exactly as the reference's ``axis_name=None`` path does, and
-autograd differentiates it as written. The multi-rank exchange
-(``torch.distributed``) is a later slice.
+Every function takes the PER-RANK plan (:meth:`EdgePlan.shard`) and, where
+ranks talk, a ``group`` (:class:`~dgraph_tpu_torch.comm.dist.RankGroup`)
+in the place of the reference's ``axis_name``: ``None`` is world size 1,
+where the halo exchange only reads the (all-masked) send lists, as the
+reference's ``axis_name=None`` path does.
+
+Across ranks the halo exchange has two lowerings, each a pair of
+directions (the exchange and its transpose, the reverse delivery plus the
+masked sum into the owners' rows) wrapped as two ``autograd.Function``\\ s
+whose backwards are each other, as the reference pins its custom VJPs
+(``collectives.py:266-466``):
+
+- ``all_to_all``: one padded ``all_to_all`` of the ``[W, S, F]`` send stack;
+- ``pallas_p2p``: kernel 5 (:func:`~dgraph_tpu_torch.ops.p2p.p2p_transport`),
+  one-sided puts into the peers' halo buffers, behind the interior/boundary
+  split (:func:`split_active`, :func:`halo_exchange_split`).
+
+Both give the same buffer bit for bit, and their reverse legs reduce with
+one masked segment sum over the same ``[W, S, F]`` buffer. On a gloo group
+with CUDA tensors (ranks sharing a card) ``all_to_all`` copies its payload
+to the host and back. 'ppermute', 'overlap' and 'sched' raise: those
+lowerings are later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from dgraph_tpu_torch import config as _cfg
 from dgraph_tpu_torch.ops import local as local_ops
-from dgraph_tpu_torch.plan import EdgePlan, HaloSpec
+from dgraph_tpu_torch.plan import EdgePlan, HaloSpec, resolve_halo_impl
+
+_LATER = {"ppermute": "the ppermute (one send per peer) lowering",
+          "overlap": "the overlap (ppermute-rounds) lowering",
+          "sched": "the compiled-schedule lowering"}
 
 
 def _side_index(plan: EdgePlan, side: str) -> torch.Tensor:
@@ -27,27 +51,184 @@ def _side_npad(plan: EdgePlan, side: str) -> int:
     return plan.n_src_pad if side == "src" else plan.n_dst_pad
 
 
-def split_active(plan: EdgePlan) -> bool:
-    """The interior/boundary split lowerings need more than one rank."""
+def _lowerable(impl: str) -> str:
+    if impl in _LATER:
+        raise NotImplementedError(
+            f"halo_impl={impl!r}: {_LATER[impl]} is a later slice of the port; pin "
+            "DGRAPH_TPU_HALO_IMPL to all_to_all or pallas_p2p")
+    return impl
+
+
+def resolve_plan_impl(plan: EdgePlan, group) -> str:
+    """The halo lowering of this call site, resolved once (env pin >
+    heuristic; :func:`plan.resolve_halo_impl`) and passed to every leg.
+    Raises for a lowering the port does not have, resolved or pinned (a pin
+    the reference would skip for want of a split or a schedule still raises
+    here: no other lowering runs in its place)."""
+    if group is None:
+        return "none"
+    _lowerable(_cfg.halo_impl)
+    impl, _ = resolve_halo_impl(
+        plan.halo_deltas,
+        overlap_available=plan.overlap is not None,
+        p2p_available=_cfg.pallas_p2p_available(group.device),
+    )
+    return _lowerable(impl)
+
+
+def split_active(plan: EdgePlan, group=None) -> bool:
+    """True when this plan routes through the interior/boundary split (the
+    models' routing predicate): the plan carries the split and the
+    resolution says 'pallas_p2p'."""
+    return (group is not None and plan.overlap is not None
+            and resolve_plan_impl(plan, group) == "pallas_p2p")
+
+
+# --- the lowerings ---------------------------------------------------------
+
+
+def _masked_owner_sum(back: torch.Tensor, halo: HaloSpec, n_pad: int) -> torch.Tensor:
+    """``[W, S, F]`` returned halo rows -> their owners' ``[n_pad, F]``
+    sums: the send mask in the payload's dtype, one flat segment sum."""
+    F = back.shape[-1]
+    back = back * halo.send_mask[..., None].to(back.dtype)
+    return local_ops.segment_sum(back.reshape(-1, F), halo.send_idx.reshape(-1), n_pad)
+
+
+def _staged(t: torch.Tensor, group, what: str) -> bool:
+    from dgraph_tpu_torch.comm.dist import log_staged_once
+
+    if group.staged(t):
+        log_staged_once(what)
+        return True
     return False
 
 
-def halo_exchange(x: torch.Tensor, halo: HaloSpec) -> torch.Tensor:
-    """The halo buffer ``[W*S, F]`` of one rank (world size 1: the send
-    lists are all masked, so the buffer is zeros of the plan's shape). The
-    mask is cast to x's dtype so a bf16 stream stays bf16."""
+@dataclasses.dataclass(frozen=True)
+class _Lowering:
+    """One lowering of the exchange on one group: ``fwd`` (local rows ->
+    ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums)."""
+
+    impl: str  # 'all_to_all' | 'pallas_p2p'
+    group: object
+    deltas: tuple
+
+    def fwd(self, x, halo: HaloSpec) -> torch.Tensor:
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me, F = self.group.rank, x.shape[-1]
+        if self.impl == "pallas_p2p":
+            from dgraph_tpu_torch.ops.p2p import p2p_transport
+
+            rows = torch.tensor([(me + d) % W for d in self.deltas], device=x.device)
+            blocks = x.index_select(0, halo.send_idx.index_select(0, rows).reshape(-1).long())
+            return p2p_transport(blocks.reshape(len(self.deltas), S, F), self.deltas, W, S,
+                                 sign=1, mask=halo.send_mask.index_select(0, rows),
+                                 group=self.group)
+        from dgraph_tpu_torch.ops.p2p import all_to_all
+
+        send = x.index_select(0, halo.send_idx.reshape(-1).long()).reshape(W, S, F)
+        send = send * halo.send_mask[..., None].to(x.dtype)
+        return all_to_all(send, self.group).reshape(W * S, F)
+
+    def rev(self, h, halo: HaloSpec, n_pad: int) -> torch.Tensor:
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me, F = self.group.rank, h.shape[-1]
+        h = h.reshape(W, S, F)
+        if self.impl == "pallas_p2p":
+            from dgraph_tpu_torch.ops.p2p import p2p_transport
+
+            rows = torch.tensor([(me - d) % W for d in self.deltas], device=h.device)
+            back = p2p_transport(h.index_select(0, rows), self.deltas, W, S, sign=-1,
+                                 group=self.group)
+            back = back.reshape(W, S, F)
+        else:
+            from dgraph_tpu_torch.ops.p2p import all_to_all
+
+            back = all_to_all(h, self.group)
+        return _masked_owner_sum(back, halo, n_pad)
+
+
+class _Exchange(torch.autograd.Function):
+    """The exchange; its backward is the reverse delivery."""
+
+    @staticmethod
+    def forward(ctx, x, send_idx, send_mask, s_pad, lowering):
+        ctx.save_for_backward(send_idx, send_mask)
+        ctx.s_pad, ctx.lowering, ctx.n_pad = s_pad, lowering, x.shape[0]
+        return lowering.fwd(x, HaloSpec(send_idx, send_mask, s_pad))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        halo = HaloSpec(*ctx.saved_tensors, ctx.s_pad)
+        return ctx.lowering.rev(g.contiguous(), halo, ctx.n_pad), None, None, None, None
+
+
+class _Unexchange(torch.autograd.Function):
+    """The reverse delivery; its backward is the exchange."""
+
+    @staticmethod
+    def forward(ctx, h, send_idx, send_mask, s_pad, n_pad, lowering):
+        ctx.save_for_backward(send_idx, send_mask)
+        ctx.s_pad, ctx.lowering = s_pad, lowering
+        return lowering.rev(h, HaloSpec(send_idx, send_mask, s_pad), n_pad)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        halo = HaloSpec(*ctx.saved_tensors, ctx.s_pad)
+        return ctx.lowering.fwd(g.contiguous(), halo), None, None, None, None, None
+
+
+def _resolve_halo_arg(impl, deltas, W) -> str:
+    """Resolution for call sites that hold only a HaloSpec."""
+    if impl is not None:
+        return _lowerable(impl)
+    if deltas is None:
+        return "all_to_all"
+    return _lowerable(resolve_halo_impl(tuple(deltas))[0])
+
+
+def halo_exchange(x: torch.Tensor, halo: HaloSpec, group=None, deltas=None,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """The halo buffer ``[W*S, F]`` of this rank: rows ``[p*S, (p+1)*S)``
+    hold the rows rank p sends here, masked. ``deltas`` is the plan's live
+    rank offsets; ``impl`` the lowering, resolved once by the caller (None
+    resolves here). At world size 1 (``group=None``) the send lists are all
+    masked and the buffer is zeros of the plan's shape; the mask is cast to
+    x's dtype so a bf16 stream stays bf16."""
     F = x.shape[-1]
-    idx = halo.send_idx.reshape(-1).long()
-    send = x.index_select(0, idx) * halo.send_mask.reshape(-1, 1).to(x.dtype)
-    return send.reshape(-1, F)
+    W, S = halo.send_idx.shape[0], halo.s_pad
+    if group is None:
+        idx = halo.send_idx.reshape(-1).long()
+        send = x.index_select(0, idx) * halo.send_mask.reshape(-1, 1).to(x.dtype)
+        return send.reshape(-1, F)
+    if deltas is not None and len(deltas) == 0:
+        return x.new_zeros((W * S, F))
+    lowering = _Lowering(_resolve_halo_arg(impl, deltas, W), group, tuple(deltas or range(1, W)))
+    return _Exchange.apply(x, halo.send_idx, halo.send_mask, S, lowering)
 
 
-def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int) -> torch.Tensor:
-    """Transpose of :func:`halo_exchange`: halo-slot values summed back into
-    their owners' local rows."""
+def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
+                     deltas=None, impl: Optional[str] = None) -> torch.Tensor:
+    """Transpose of :func:`halo_exchange`: halo-slot values delivered back
+    to their owner ranks and summed into local rows."""
+    W, S = halo.send_idx.shape[0], halo.s_pad
     F = h.shape[-1]
-    back = h.reshape(-1, F) * halo.send_mask.reshape(-1, 1).to(h.dtype)
-    return local_ops.segment_sum(back, halo.send_idx.reshape(-1), n_pad)
+    if group is None:
+        back = h.reshape(-1, F) * halo.send_mask.reshape(-1, 1).to(h.dtype)
+        return local_ops.segment_sum(back, halo.send_idx.reshape(-1), n_pad)
+    if deltas is not None and len(deltas) == 0:
+        return h.new_zeros((n_pad, F))
+    lowering = _Lowering(_resolve_halo_arg(impl, deltas, W), group, tuple(deltas or range(1, W)))
+    return _Unexchange.apply(h, halo.send_idx, halo.send_mask, S, n_pad, lowering)
+
+
+def halo_exchange_split(x: torch.Tensor, plan: EdgePlan, group) -> torch.Tensor:
+    """The split lowering's exchange: one resolution, then the one-sided
+    puts (kernel 5); the ``[W*S, F]`` buffer the boundary takes index."""
+    impl = resolve_plan_impl(plan, group)
+    return halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
 
 
 def map_feature_chunks(fn, width: int, chunk: Optional[int] = None):
@@ -60,13 +241,15 @@ def map_feature_chunks(fn, width: int, chunk: Optional[int] = None):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
-def halo_extend(x: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+def halo_extend(x: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch.Tensor:
     """The extended vertex table ``local_take`` indexes into: ``[n_pad +
     W*S, F]`` on the halo side (the halo rows appended even when nothing
-    crosses ranks), ``x`` unchanged on the other side."""
+    crosses ranks), ``x`` unchanged on the other side. One full-width
+    exchange, so a feature-chunked pipeline never repeats it."""
     if side != plan.halo_side:
         return x
-    return torch.cat([x, halo_exchange(x, plan.halo)], dim=0)
+    impl = resolve_plan_impl(plan, group) if group is not None else None
+    return torch.cat([x, halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)], dim=0)
 
 
 def local_take(full: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
@@ -93,13 +276,15 @@ def local_take(full: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
     return local_ops.take_rows(full, idx)
 
 
-def gather(x: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+def gather(x: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch.Tensor:
     """Per-edge features gathered from one endpoint side: ``[e_pad, F]``."""
-    return local_take(halo_extend(x, plan, side), plan, side)
+    return local_take(halo_extend(x, plan, side, group), plan, side)
 
 
-def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
-    """Sum per-edge values into that side's vertices: ``[n_pad, F]``."""
+def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch.Tensor:
+    """Sum per-edge values into that side's vertices: ``[n_pad, F]``. On
+    the halo side the remote partials go back to their owners through the
+    plan's lowering (the split schedule under 'pallas_p2p')."""
     edata = edata * plan.edge_mask[:, None].to(edata.dtype)
     idx = _side_index(plan, side)
     n_pad = _side_npad(plan, side)
@@ -108,13 +293,17 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
             return local_ops.sorted_segment_sum_any(edata, idx, n_pad,
                                                     gather_mv=plan.gather_mv)
         return local_ops.segment_sum(edata, idx, n_pad)
+    impl = resolve_plan_impl(plan, group) if group is not None else None
+    if impl == "pallas_p2p":
+        return _scatter_sum_split(edata, plan, side, group)
     n_full = n_pad + plan.world_size * plan.halo.s_pad
     if plan.halo_sort_perm is not None:
         full = local_ops.segment_sum_sort_route(
             edata, idx, plan.halo_sort_perm, plan.halo_sorted_ids, n_full)
     else:
         full = local_ops.segment_sum(edata, idx, n_full)
-    return full[:n_pad] + halo_scatter_sum(full[n_pad:], plan.halo, n_pad)
+    return full[:n_pad] + halo_scatter_sum(full[n_pad:], plan.halo, n_pad, group,
+                                           plan.halo_deltas, impl)
 
 
 def scatter_bias_relu(
@@ -123,6 +312,7 @@ def scatter_bias_relu(
     plan: EdgePlan,
     side: str,
     edge_weight: Optional[torch.Tensor] = None,  # [e_pad]
+    group=None,
 ) -> torch.Tensor:
     """Fused owner-side aggregation ``out[v] = Σ_e w_e·relu(edata_e + bias_v)``:
     the fused kernel on the owner side, composed ops elsewhere."""
@@ -132,7 +322,160 @@ def scatter_bias_relu(
     if plan.ids_sorted(side):
         return local_ops.sorted_segment_sum_bias_relu_any(
             edata, idx, bias, n_pad, edge_weight=edge_weight, gather_mv=plan.gather_mv)
-    m = torch.relu(edata + gather(bias, plan, side))
+    m = torch.relu(edata + gather(bias, plan, side, group))
     if edge_weight is not None:
         m = m * edge_weight[:, None].to(m.dtype)
-    return scatter_sum(m, plan, side)
+    return scatter_sum(m, plan, side, group)
+
+
+# --- the interior/boundary split (collectives.py:1075-1337) ---------------
+
+
+def _overlap_spec(plan: EdgePlan):
+    if plan.overlap is None:
+        raise ValueError("plan carries no interior/boundary split; build it with "
+                         "build_edge_plan(overlap=True)")
+    return plan.overlap
+
+
+def interior_take(x: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+    """Per-edge rows of the INTERIOR subset from the local table (no
+    interior edge references a halo slot); padded slots give zero rows."""
+    idx = _overlap_spec(plan).side("interior", side)
+    return local_ops.take_rows(x, idx, indices_are_sorted=side != plan.halo_side
+                               and plan.ids_sorted(side))
+
+
+def boundary_take(x_or_halo: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+    """Per-edge rows of the BOUNDARY subset: on the halo side from the
+    ``[W*S, F]`` halo buffer (the ids are rebased into it), on the owner
+    side from the local table."""
+    idx = _overlap_spec(plan).side("boundary", side)
+    return local_ops.take_rows(x_or_halo, idx, indices_are_sorted=side != plan.halo_side
+                               and plan.ids_sorted(side))
+
+
+def _subset_owner_sum(edata, plan, side, which):
+    """Owner-side sum of one subset's rows (the sorted sum when the plan's
+    ids are sorted). One sum per subset: the reference's edge-axis chunks
+    of the interior sum (``DGRAPH_TPU_OVERLAP_CHUNKS``) exist to overlap
+    with its in-flight DMA, which the port's host-synchronised transport
+    has not."""
+    ids = _overlap_spec(plan).side(which, side)
+    n_pad = _side_npad(plan, side)
+    if not plan.ids_sorted(side):
+        return local_ops.segment_sum(edata, ids, n_pad)
+    return local_ops.sorted_segment_sum_any(edata, ids, n_pad)
+
+
+def interior_scatter_sum(edata_int: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+    """Sum INTERIOR rows into ``side``'s vertices."""
+    ov = _overlap_spec(plan)
+    if side == plan.halo_side:
+        return local_ops.segment_sum(edata_int, ov.side("interior", side), _side_npad(plan, side))
+    return _subset_owner_sum(edata_int, plan, side, "interior")
+
+
+def boundary_scatter_sum(edata_bnd: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
+    """Sum BOUNDARY rows into ``side``'s OWNER vertices; a halo-side
+    boundary scatter needs the reverse exchange (:func:`scatter_sum`)."""
+    _overlap_spec(plan)
+    if side == plan.halo_side:
+        raise ValueError("boundary_scatter_sum targets the owner side; halo-side "
+                         "boundary scatters need the reverse exchange — use scatter_sum")
+    return _subset_owner_sum(edata_bnd, plan, side, "boundary")
+
+
+def overlap_edge_weight(edge_weight: Optional[torch.Tensor], plan: EdgePlan) -> tuple:
+    """A ``[e_pad]`` per-edge weight split into its (interior, boundary)
+    subsets (padded slots 0); (None, None) without a weight."""
+    if edge_weight is None:
+        return None, None
+    ov = _overlap_spec(plan)
+    return local_ops.row_take(edge_weight, ov.int_epos), local_ops.row_take(edge_weight, ov.bnd_epos)
+
+
+def gather_scatter_overlap(x_local: torch.Tensor, halo_buf: torch.Tensor, plan: EdgePlan,
+                           edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[v] = Σ_e w_e·x[halo-side endpoint of e]`` into the owner side
+    over the split: interior edges from ``x_local``, boundary edges from
+    ``halo_buf``, merged at the end."""
+    owner = "dst" if plan.halo_side == "src" else "src"
+    w_int, w_bnd = overlap_edge_weight(edge_weight, plan)
+    m_int = interior_take(x_local, plan, plan.halo_side)
+    if w_int is not None:
+        m_int = m_int * w_int[:, None].to(m_int.dtype)
+    m_bnd = boundary_take(halo_buf, plan, plan.halo_side)
+    if w_bnd is not None:
+        m_bnd = m_bnd * w_bnd[:, None].to(m_bnd.dtype)
+    return interior_scatter_sum(m_int, plan, owner) + boundary_scatter_sum(m_bnd, plan, owner)
+
+
+def _scatter_sum_split(edata, plan: EdgePlan, side: str, group) -> torch.Tensor:
+    """Halo-side scatter over the split (``collectives.py:1228-1260``):
+    boundary rows pre-reduced into halo slots and sent back first, interior
+    rows summed into local rows, the two merged. ``edata`` is already
+    edge-masked."""
+    ov = _overlap_spec(plan)
+    n_pad = _side_npad(plan, side)
+    W, S = plan.world_size, plan.halo.s_pad
+    bnd_rows = local_ops.take_rows(edata, ov.bnd_epos)
+    slot_sums = local_ops.segment_sum(bnd_rows, ov.side("boundary", side), W * S)
+    remote = halo_scatter_sum(slot_sums, plan.halo, n_pad, group, plan.halo_deltas,
+                              resolve_plan_impl(plan, group))
+    int_rows = local_ops.take_rows(edata, ov.int_epos)
+    interior = local_ops.segment_sum(int_rows, ov.side("interior", side), n_pad)
+    return interior + remote
+
+
+def scatter_bias_relu_overlap(
+    stream_local: torch.Tensor,  # [n_halo_pad, F] halo-side stream (local table)
+    halo_buf: torch.Tensor,  # [W*S, F] the exchange's output
+    bias: torch.Tensor,  # [n_owner_pad, F] owner-side vertex operand
+    plan: EdgePlan,
+    side: str,  # owner side to aggregate into
+    edge_weight: Optional[torch.Tensor] = None,  # [e_pad]
+) -> torch.Tensor:
+    """:func:`scatter_bias_relu` over the split: the fused kernel once over
+    the interior subset (local rows only) and once over the boundary subset
+    (the landed halo buffer), summed. The same math as the unsplit op —
+    relu is per edge and the sum runs over a partition of the edges — with
+    the owner-side sums grouped per subset."""
+    ov = _overlap_spec(plan)
+    n_pad = _side_npad(plan, side)
+    bias = bias.to(stream_local.dtype)
+    w_int, w_bnd = overlap_edge_weight(edge_weight, plan)
+    a = local_ops.sorted_segment_sum_bias_relu_any(
+        interior_take(stream_local, plan, plan.halo_side), ov.side("interior", side), bias,
+        n_pad, edge_weight=w_int)
+    b = local_ops.sorted_segment_sum_bias_relu_any(
+        boundary_take(halo_buf, plan, plan.halo_side), ov.side("boundary", side), bias,
+        n_pad, edge_weight=w_bnd)
+    return a + b
+
+
+# --- reductions over the ranks ----------------------------------------------
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks (the reference's ``psum``), as a new
+    tensor; ``x`` itself at world size 1."""
+    if group is None:
+        return x
+    staged = _staged(x, group, "all_reduce")
+    out = x.detach().cpu() if staged else x.detach().clone()
+    dist.all_reduce(out, group=group.pg)
+    return out.to(x.device) if staged else out
+
+
+def grad_sync(params, group=None) -> None:
+    """Sum every parameter's gradient over the ranks in place (the
+    reference's ``grad_sync`` over the graph axis, communicator.py:258-270):
+    each rank's gradient is a partial sum of the one global loss. One
+    collective over the flattened gradients."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if group is None or not grads:
+        return
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, s in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(s.view_as(g))

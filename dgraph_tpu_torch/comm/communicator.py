@@ -1,9 +1,10 @@
-"""Communicator facade — the single-rank subset of
-``dgraph_tpu/comm/communicator.py``.
+"""Communicator facade — counterpart of ``dgraph_tpu/comm/communicator.py``.
 
-:class:`SingleComm` is the world-size-1 communicator the models are written
-against; a multi-rank ``torch.distributed`` communicator with the same
-methods is a later slice, and model code will not change for it.
+:class:`SingleComm` is the world-size-1 communicator; :class:`DistComm`
+(the reference's ``TpuComm``) is one rank of a ``torch.distributed`` group
+(:class:`~dgraph_tpu_torch.comm.dist.RankGroup`). The models are written
+against the methods both share, so model code is the same under either.
+:meth:`Communicator.init_process_group` builds the right one.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ class SingleComm:
 
     def get_world_size(self) -> int:
         return 1
+
+    @property
+    def group(self):
+        return None
 
     def split_active(self, plan: EdgePlan) -> bool:
         return collectives.split_active(plan)
@@ -58,3 +63,109 @@ class SingleComm:
         if impl not in ("ring", "ulysses"):
             raise ValueError(f"unknown seq_attention impl: {impl!r}")
         return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistComm:
+    """One rank of a process group (the reference's ``TpuComm``,
+    communicator.py:47-295): every graph primitive runs on this rank's
+    per-rank plan and talks to the other ranks through ``group``."""
+
+    group: object  # comm.dist.RankGroup
+
+    def get_rank(self) -> int:
+        return self.group.rank
+
+    def get_world_size(self) -> int:
+        return self.group.world_size
+
+    # -- the split lowering (communicator.py:77-135) --
+    def split_active(self, plan: EdgePlan) -> bool:
+        """True when this plan routes through the interior/boundary split
+        (the models' routing predicate)."""
+        return collectives.split_active(plan, self.group)
+
+    def halo_exchange_split(self, x, plan: EdgePlan):
+        """The split lowering's exchange: the ``[W*S, F]`` buffer the
+        boundary takes index directly."""
+        return collectives.halo_exchange_split(x, plan, self.group)
+
+    def interior_take(self, x, plan: EdgePlan, side: str = "src"):
+        return collectives.interior_take(x, plan, side)
+
+    def boundary_take(self, x_or_halo, plan: EdgePlan, side: str = "src"):
+        return collectives.boundary_take(x_or_halo, plan, side)
+
+    def interior_scatter_sum(self, edata_int, plan: EdgePlan, side: str = "dst"):
+        return collectives.interior_scatter_sum(edata_int, plan, side)
+
+    def boundary_scatter_sum(self, edata_bnd, plan: EdgePlan, side: str = "dst"):
+        return collectives.boundary_scatter_sum(edata_bnd, plan, side)
+
+    def gather_scatter_overlap(self, x_local, halo_buf, plan: EdgePlan, edge_weight=None):
+        return collectives.gather_scatter_overlap(x_local, halo_buf, plan, edge_weight)
+
+    def scatter_bias_relu_overlap(self, stream_local, halo_buf, bias, plan: EdgePlan,
+                                  side: str = "dst", edge_weight=None):
+        return collectives.scatter_bias_relu_overlap(stream_local, halo_buf, bias, plan,
+                                                     side, edge_weight)
+
+    # -- the unsplit primitives --
+    def gather(self, x, plan: EdgePlan, side: str = "src"):
+        return collectives.gather(x, plan, side, self.group)
+
+    def halo_extend(self, x, plan: EdgePlan, side: str = "src"):
+        return collectives.halo_extend(x, plan, side, self.group)
+
+    def local_take(self, x_full, plan: EdgePlan, side: str = "src"):
+        return collectives.local_take(x_full, plan, side)
+
+    def scatter(self, edata, plan: EdgePlan, side: str = "dst"):
+        return collectives.scatter_sum(edata, plan, side, self.group)
+
+    scatter_sum = scatter
+
+    def scatter_bias_relu(self, edata, bias, plan: EdgePlan, side: str = "dst",
+                          edge_weight=None):
+        return collectives.scatter_bias_relu(edata, bias, plan, side, edge_weight, self.group)
+
+    def seq_attention(self, q, k, v, *, causal: bool = False, kv_mask=None,
+                      impl: str = "ring"):
+        raise NotImplementedError(
+            "attention over a sequence sharded across ranks (ring, ulysses) is a later "
+            "slice of the port")
+
+    # -- reductions over the ranks --
+    def all_reduce_sum(self, x):
+        return collectives.all_reduce_sum(x, self.group)
+
+    def all_reduce_mean(self, x):
+        return collectives.all_reduce_sum(x, self.group) / self.group.world_size
+
+    def grad_sync(self, params) -> None:
+        """Sum every gradient over the ranks in place (each rank holds a
+        slice of the one graph: its gradients are partial sums)."""
+        collectives.grad_sync(params, self.group)
+
+
+class Communicator:
+    """Constructor facade (communicator.py:305-330): ``single`` for one
+    rank; ``nccl`` (one card a rank) or ``gloo`` (the CPU, or ranks that
+    share a card) for a rank of a ``torch.distributed`` group."""
+
+    SUPPORTED_BACKENDS = ("nccl", "gloo", "single")
+
+    @staticmethod
+    def init_process_group(backend: str = "single", *, rank: int = 0, world_size: int = 1,
+                           init_method: str = "env://", device: str = "cpu",
+                           timeout: float = 600.0):
+        if backend == "single":
+            return SingleComm()
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"Backend {backend!r} not supported; expected one of "
+                             f"{Communicator.SUPPORTED_BACKENDS}")
+        from dgraph_tpu_torch.comm.dist import init_group
+
+        device = "cuda" if backend == "nccl" else device
+        return DistComm(init_group(rank, world_size, init_method, device, timeout,
+                                   backend=backend))

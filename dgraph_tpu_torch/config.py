@@ -5,7 +5,12 @@ counterpart: on a CUDA tensor a kernel wrapper launches its kernel or
 raises, and on a CPU tensor it runs its plain version, so there is nothing
 to switch. The one opt-in flag the reference keeps for a kernel that is off
 by default, ``use_pallas_gather`` (the sorted-row-gather kernel), is here
-with its name and semantics.
+with its name and semantics, and so are the halo-lowering pins
+(``halo_impl``, ``use_pallas_p2p``), so one environment drives both
+packages. The reference's adopted-record tier (``tuned_halo_impl``), wire
+codecs (``DGRAPH_TPU_WIRE_FORMAT``) and interior chunking
+(``DGRAPH_TPU_OVERLAP_CHUNKS``) are not here: the port has no tuner and no
+codec, moves halo payloads as they are, and sums each split subset at once.
 
 By the same rule the reference's ``use_flash_attention`` tri-state
 (``DGRAPH_TPU_FLASH_ATTN``) and its ``flash_attention_selfcheck`` latch
@@ -71,6 +76,33 @@ use_pallas_gather = _env_flag("DGRAPH_TPU_PALLAS_GATHER", None)
 
 def pallas_gather_enabled() -> bool:
     return use_pallas_gather is True
+
+
+# Halo-exchange lowering, the reference's names and env pin: 'auto' (one
+# padded all_to_all; the split lowering 'overlap' when the plan carries its
+# interior/boundary split), 'all_to_all', 'pallas_p2p' (the one-sided put
+# kernel; needs the split and pallas_p2p_available()), 'ppermute',
+# 'overlap' or 'sched'. Resolution order: this pin > the heuristic
+# (plan.resolve_halo_impl). The port lowers 'none', 'all_to_all' and
+# 'pallas_p2p'; 'ppermute', 'overlap' and 'sched' raise.
+halo_impl: str = os.environ.get("DGRAPH_TPU_HALO_IMPL", "auto")
+
+# The one-sided transport kernel (ops.p2p). Tri-state as in the reference:
+# None = available where the rank's device is CUDA; True also on the CPU
+# (the transport's plain version, an all_to_all: how the CPU tests run the
+# route); False vetoes it everywhere.
+use_pallas_p2p = _env_flag("DGRAPH_TPU_PALLAS_P2P", None)
+
+
+def pallas_p2p_available(device=None) -> bool:
+    """Can halo_impl='pallas_p2p' lower for a rank on ``device`` (default:
+    this process's card, if any)? One of resolve_halo_impl's two gates; the
+    other is the plan carrying the interior/boundary split."""
+    if use_pallas_p2p is not None:
+        return use_pallas_p2p
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
 
 
 def default_device(device=None) -> torch.device:

@@ -632,6 +632,7 @@ int dg_flash_attention_fwd(const void* q, long long q_rs, long long q_hs, const 
                            int D, float scale, int causal, int dtype, void* stream) {
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
   DG_DISPATCH(launch_fwd, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, mask, out, lse, T, H, scale, causal, s);
 }
@@ -646,6 +647,7 @@ int dg_flash_attention_bwd_dkv(const void* q, long long q_rs, long long q_hs, co
                                float scale, int causal, int dtype, void* stream) {
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
   DG_DISPATCH(launch_dkv, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dk, dv, T, H,
               scale, causal, s);
@@ -660,6 +662,7 @@ int dg_flash_attention_bwd_dq(const void* q, long long q_rs, long long q_hs, con
                               void* stream) {
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
   DG_DISPATCH(launch_dq, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dq, T, H,
               scale, causal, s);

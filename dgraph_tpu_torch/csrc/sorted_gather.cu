@@ -158,6 +158,7 @@ int dg_sorted_row_gather(const void* x, long long x_stride, const void* ids, voi
                          void* stream) {
   if (n_edges <= 0 || n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(x)) return static_cast<int>(e);
   if (dtype == kF32) {
     if (vec) launch_gather<float, true>(x, x_stride, ids, out, n_edges, n_rows, F, s);
     else launch_gather<float, false>(x, x_stride, ids, out, n_edges, n_rows, F, s);
@@ -179,6 +180,7 @@ int dg_fused_bwd_gd(const void* data, long long data_stride, const void* g, long
                     void* stream) {
   if (n_edges <= 0 || n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(data)) return static_cast<int>(e);
   if (dtype == kF32) {
     if (vec)
       launch_gd<float, true>(data, data_stride, g, g_stride, bias, bias_stride, ids, out,

@@ -225,6 +225,7 @@ int dg_sorted_segment_sum(const void* data, long long data_stride, const void* r
                           int vec, void* stream) {
   if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(data)) return static_cast<int>(e);
   if (dtype == kF32)
     dispatch_sum<float>(data, data_stride, row_ptr, out, n_rows, F, relu_op, vec, s);
   else if (dtype == kBF16)
@@ -244,6 +245,7 @@ int dg_sorted_segment_sum_bias_relu(const void* data, long long data_stride,
                                     void* stream) {
   if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(data)) return static_cast<int>(e);
   if (dtype == kF32)
     dispatch_bias_relu<float, float, false>(data, data_stride, bias, bias_stride, weight,
                                             row_ptr, out, n_rows, F, vec, s);
@@ -264,6 +266,7 @@ int dg_sorted_segment_sum_act(const void* data, long long data_stride, const voi
                               void* stream) {
   if (n_rows <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t e = bind_device_of(data)) return static_cast<int>(e);
   if (dtype == kF32)
     dispatch_bias_relu<float, float, true>(data, data_stride, bias, bias_stride, weight,
                                            row_ptr, out, n_rows, F, vec, s);

@@ -34,6 +34,19 @@ __device__ __forceinline__ uint32_t bf16_bits(float x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
 }
 
+// Each library links its own static CUDA runtime, whose current device (per
+// host thread) starts at 0. Every entry point first makes it the card that
+// holds p, so a launch on the stream of a rank on cuda:r is legal.
+inline cudaError_t bind_device_of(const void* p) {
+  cudaPointerAttributes a;
+  cudaError_t e = cudaPointerGetAttributes(&a, p);
+  if (e != cudaSuccess) return e;
+  int cur = -1;
+  e = cudaGetDevice(&cur);
+  if (e != cudaSuccess || cur == a.device) return e;
+  return cudaSetDevice(a.device);
+}
+
 // NaN-propagating relu (matches jnp.maximum(x, 0) and torch.relu)
 __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 

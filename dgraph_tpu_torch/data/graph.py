@@ -55,8 +55,11 @@ class DistributedGraph:
         add_symmetric_norm: bool = False,
         pad_multiple: int = 8,
         seed: int = 0,
+        overlap: Optional[bool] = None,
     ) -> "DistributedGraph":
-        """Partition + plan + shard one global graph (numpy in, torch out)."""
+        """Partition + plan + shard one global graph (numpy in, torch out).
+        ``overlap`` attaches the interior/boundary split (None = when the
+        halo-lowering pin asks for it, as ``build_edge_plan`` decides)."""
         features = np.asarray(features)
         num_nodes = features.shape[0]
         edge_index = np.asarray(edge_index)
@@ -65,7 +68,7 @@ class DistributedGraph:
         )
         plan, layout = build_edge_plan(
             new_edges, ren.partition, world_size=world_size,
-            edge_owner=edge_owner, pad_multiple=pad_multiple,
+            edge_owner=edge_owner, pad_multiple=pad_multiple, overlap=overlap,
         )
         n_pad = plan.n_src_pad
         feats = shard_vertex_data(features[ren.inv], ren.counts, n_pad).astype(np.float32)
@@ -116,6 +119,15 @@ class DistributedGraph:
         if self.edge_weight is not None:
             out["edge_weight"] = self.edge_weight
         return out
+
+    def rank_batch(self, split: str, rank: int) -> dict:
+        """One rank's slice of :meth:`batch` plus the labels (``"y"``): the
+        leaves without the leading rank axis, what rank ``rank``'s model
+        takes with ``plan.shard(rank)``."""
+        b = dict(self.batch(split))
+        if self.labels is not None:
+            b["y"] = self.labels
+        return {k: v[rank] for k, v in b.items()}
 
     def id_map(self) -> tuple[np.ndarray, np.ndarray]:
         """(rank, slot) of every vertex in the caller's original numbering:

@@ -14,6 +14,12 @@ reference's three routes (gcn.py:97-175):
   taken per chunk, relu, edge weight, ``scatter_sum``;
 - **full-width fallback** (any other activation, or halo-side aggregation).
 
+Across ranks, when the plan routes through the interior/boundary split
+(``comm.split_active``: the 'pallas_p2p' lowering), the first two routes
+take the reference's split form (gcn.py:95-152): one full-width
+``halo_exchange_split`` a layer, then per chunk the interior subset from the
+local table and the boundary subset from the landed halo buffer, summed.
+
 Parameter names follow flax's (``GraphConvLayer_0.src_proj``, ``dst_proj``,
 ``Dense_0``), so :func:`dgraph_tpu_torch.weights.params_from_jax` maps a
 flax tree onto ``state_dict`` keys one to one.
@@ -28,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dgraph_tpu_torch import config as _cfg
-from dgraph_tpu_torch.comm.collectives import map_feature_chunks
+from dgraph_tpu_torch.comm.collectives import map_feature_chunks, overlap_edge_weight
 from dgraph_tpu_torch.plan import EdgePlan
 
 RELUS = (torch.relu, F.relu)
@@ -76,11 +82,20 @@ class GraphConvLayer(nn.Module):
         comm = self.comm
         D = self.out_features
         relu = self.activation in RELUS
+        split = comm.split_active(plan)
         if relu and plan.homogeneous and self.aggregate_to != plan.halo_side:
             owner = self.aggregate_to
             stream = "src" if owner == "dst" else "dst"
             h_bias = h_d if owner == "dst" else h_s
             h_stream = h_s if owner == "dst" else h_d
+            if split:
+                halo_buf = comm.halo_exchange_split(h_stream, plan)
+                return map_feature_chunks(
+                    lambda sl: comm.scatter_bias_relu_overlap(
+                        h_stream[:, sl], halo_buf[:, sl], h_bias[:, sl], plan,
+                        side=owner, edge_weight=edge_weight),
+                    D,
+                )
             h_ext = comm.halo_extend(h_stream, plan, side=stream)
             return map_feature_chunks(
                 lambda sl: comm.scatter_bias_relu(
@@ -89,6 +104,29 @@ class GraphConvLayer(nn.Module):
                 ),
                 D,
             )
+
+        if relu and self.aggregate_to != plan.halo_side and split:
+            owner = self.aggregate_to
+            h_halo = h_s if plan.halo_side == "src" else h_d
+            h_own = h_d if plan.halo_side == "src" else h_s
+            halo_buf = comm.halo_exchange_split(h_halo, plan)
+            w_int, w_bnd = overlap_edge_weight(edge_weight, plan)
+
+            def chunked_split(sl):
+                m_i = self.activation(
+                    comm.interior_take(h_halo[:, sl], plan, side=plan.halo_side)
+                    + comm.interior_take(h_own[:, sl], plan, side=owner))
+                if w_int is not None:
+                    m_i = m_i * w_int[:, None]
+                m_b = self.activation(
+                    comm.boundary_take(halo_buf[:, sl], plan, side=plan.halo_side)
+                    + comm.boundary_take(h_own[:, sl], plan, side=owner))
+                if w_bnd is not None:
+                    m_b = m_b * w_bnd[:, None]
+                return (comm.interior_scatter_sum(m_i, plan, side=owner)
+                        + comm.boundary_scatter_sum(m_b, plan, side=owner))
+
+            return map_feature_chunks(chunked_split, D)
 
         if relu and self.aggregate_to != plan.halo_side:
             hs_ext = comm.halo_extend(h_s, plan, side="src")

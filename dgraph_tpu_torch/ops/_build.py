@@ -27,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 # one shared library per source, all built by one nvcc each
 SOURCES = {"sorted_segment": "sorted_segment.cu", "sorted_gather": "sorted_gather.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu", "p2p_transport": "p2p_transport.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -86,6 +86,19 @@ SIGNATURES = {
             *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 4, _c.c_void_p, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int,
             _c.c_int, _c.c_void_p,
+        ),
+    },
+    "p2p_transport": {
+        # device, bytes, out pointer
+        "dg_p2p_malloc": (_c.c_int, _c.c_longlong, _c.POINTER(_c.c_void_p)),
+        # device, pointer, 64-byte handle out
+        "dg_p2p_ipc_handle": (_c.c_int, _c.c_void_p, _c.c_char_p),
+        # device, 64-byte handle, mapped pointer out
+        "dg_p2p_ipc_open": (_c.c_int, _c.c_char_p, _c.POINTER(_c.c_void_p)),
+        # device, blocks, mask, destination pointers, n, S, F, dtype, vec, stream
+        "dg_p2p_transport": (
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.POINTER(_c.c_void_p), _c.c_int,
+            _c.c_longlong, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
         ),
     },
 }

@@ -1,13 +1,14 @@
 """Every CUDA kernel of the port in one registry: the sorted-id kernels
-(:mod:`~dgraph_tpu_torch.ops.segment`) and the flash-attention kernels
-(:mod:`~dgraph_tpu_torch.ops.attention`), each a ``Kernel(wrapper, plain,
+(:mod:`~dgraph_tpu_torch.ops.segment`), the flash-attention kernels
+(:mod:`~dgraph_tpu_torch.ops.attention`) and the one-sided halo transport
+(:mod:`~dgraph_tpu_torch.ops.p2p`), each a ``Kernel(wrapper, plain,
 replaces, source)``, with their launch counts."""
 
 from __future__ import annotations
 
-from dgraph_tpu_torch.ops import attention, segment
+from dgraph_tpu_torch.ops import attention, p2p, segment
 
-KERNELS = {**segment.KERNELS, **attention.KERNELS}
+KERNELS = {**segment.KERNELS, **attention.KERNELS, **p2p.KERNELS}
 
 
 def reset_launch_counts() -> None:

@@ -7,9 +7,11 @@ builds them, so every plan leaf is array-equal to the reference's for the
 same inputs; they are then held as torch tensors in an :class:`EdgePlan`
 dataclass with ``.to(device)``.
 
-Not ported yet: the interior/boundary overlap split, the native streaming
-core (the reference only takes it from ``NATIVE_PLAN_MIN_EDGES`` edges on),
-the sharded build, and the sched/wire attachments.
+The interior/boundary split (:class:`OverlapSpec`, ``build_edge_plan(
+overlap=...)``) and the halo-lowering resolution (:func:`resolve_halo_impl`)
+are ported with the reference's semantics. Not ported yet: the native
+streaming core (the reference only takes it from ``NATIVE_PLAN_MIN_EDGES``
+edges on), the sharded build, and the sched/wire attachments.
 
 Conventions (as in the reference): edge lists are ``[2, E]``; vertices are
 renumbered into contiguous per-rank blocks first; the default edge owner is
@@ -22,6 +24,7 @@ copy of a vertex owned by rank p at position i of p's send list lives at row
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
 import types
@@ -42,6 +45,8 @@ SCATTER_BLOCK_N = int(os.environ.get("DGRAPH_TPU_SCATTER_BLOCK_N", "256"))
 # (and takes its native core); the port follows the same default.
 NATIVE_PLAN_MIN_EDGES = 1 << 24
 
+_logger = logging.getLogger(__name__)
+
 
 def _tensor_fields(obj):
     return [
@@ -53,9 +58,10 @@ def _tensor_fields(obj):
 def _map_tensors(obj, fn):
     """Copy of a plan dataclass with ``fn`` applied to every tensor leaf."""
     kw = {name: fn(getattr(obj, name)) for name in _tensor_fields(obj)}
-    halo = getattr(obj, "halo", None)
-    if isinstance(halo, HaloSpec):
-        kw["halo"] = _map_tensors(halo, fn)
+    for name in ("halo", "overlap"):
+        sub = getattr(obj, name, None)
+        if isinstance(sub, (HaloSpec, OverlapSpec)):
+            kw[name] = _map_tensors(sub, fn)
     return dataclasses.replace(obj, **kw)
 
 
@@ -72,6 +78,45 @@ class HaloSpec:
     send_idx: torch.Tensor  # i32[W, W, S]
     send_mask: torch.Tensor  # f32[W, W, S]
     s_pad: int
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapSpec:
+    """Interior/boundary edge split of the split halo lowerings (the
+    reference's ``OverlapSpec``, ``dgraph_tpu/plan.py:287-342``).
+
+    Per rank, the live edges split into **interior** edges (halo-side
+    endpoint local) and **boundary** edges (halo-side endpoint remote); each
+    subset keeps the plan's owner-sorted order, so owner-side sums over it
+    stay sorted. Padded slots carry the owner-side fill ``n_owner_pad`` and,
+    on the halo side, ``n_halo_pad`` (interior) or ``W*s_pad`` (boundary);
+    a boundary edge's halo-side id is rebased into the ``[W*S, F]`` exchange
+    buffer (``slot - n_halo_pad``). ``int_epos``/``bnd_epos`` place each
+    subset edge on the plan's ``[0, e_pad)`` edge axis (fill ``e_pad``).
+    """
+
+    int_src: torch.Tensor  # i32[W, Ei]
+    int_dst: torch.Tensor  # i32[W, Ei]
+    int_mask: torch.Tensor  # f32[W, Ei]
+    int_epos: torch.Tensor  # i32[W, Ei]
+    bnd_src: torch.Tensor  # i32[W, Eb]
+    bnd_dst: torch.Tensor  # i32[W, Eb]
+    bnd_mask: torch.Tensor  # f32[W, Eb]
+    bnd_epos: torch.Tensor  # i32[W, Eb]
+    num_interior: torch.Tensor  # i32[W]
+    num_boundary: torch.Tensor  # i32[W]
+    e_int_pad: int
+    e_bnd_pad: int
+    # the reference's Pallas chunk hints per subset (plan parity only)
+    interior_mc: int = 1
+    boundary_mc: int = 1
+
+    def side(self, which: str, side: str) -> torch.Tensor:
+        """The ``side`` ('src'/'dst') ids of subset ``which``
+        ('interior'/'boundary')."""
+        if which == "interior":
+            return self.int_src if side == "src" else self.int_dst
+        return self.bnd_src if side == "src" else self.bnd_dst
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +167,8 @@ class EdgePlan:
     halo_pair_rows: tuple = ()
     # True on a per-rank view (leading rank axis dropped)
     per_rank: bool = False
+    # the interior/boundary split (build_edge_plan(overlap=True)), or None
+    overlap: Optional[OverlapSpec] = None
 
     def ids_sorted(self, side: str) -> bool:
         """True iff this side's per-edge index is monotone: the OWNER side
@@ -165,9 +212,41 @@ def _pad_to(x: int, multiple: int) -> int:
 
 
 def _reject_incompatible_knobs(
-    pad_multiple: int, e_pad: Optional[int], s_pad: Optional[int]
+    pad_multiple: int, e_pad: Optional[int], s_pad: Optional[int],
+    overlap: Optional[bool] = None, sort_edges: bool = True,
 ) -> None:
-    """Fail fast, naming the knobs, on plan geometry that cannot be built."""
+    """Fail fast, naming the knobs, on plan geometry that cannot be built
+    (the reference's rules, ``dgraph_tpu/plan.py:999-1040``, with the
+    pallas_p2p pin's preconditions)."""
+    from dgraph_tpu_torch import config as _cfg
+
+    if overlap and not sort_edges:
+        raise ValueError(
+            "overlap=True conflicts with sort_edges=False: the "
+            "interior/boundary split's subset sums rely on owner-sorted edge "
+            "order; drop one of the two knobs"
+        )
+    if _cfg.halo_impl == "pallas_p2p":
+        if not sort_edges:
+            raise ValueError(
+                "halo_impl='pallas_p2p' conflicts with sort_edges=False: the "
+                "one-sided lowering routes through the interior/boundary "
+                "split, which relies on owner-sorted edge order; drop the pin "
+                "or re-enable sort_edges"
+            )
+        if s_pad is not None and s_pad % 8:
+            raise ValueError(
+                f"halo_impl='pallas_p2p' conflicts with s_pad={s_pad}: the "
+                f"per-delta [s_pad, F] tiles need 8-row alignment; pick "
+                f"s_pad={_pad_to(s_pad, 8)} or drop the pin"
+            )
+        if pad_multiple % 8 and s_pad is None:
+            raise ValueError(
+                f"halo_impl='pallas_p2p' conflicts with pad_multiple="
+                f"{pad_multiple}: s_pad inherits this multiple and the "
+                f"per-delta tiles need 8-row alignment; use a multiple of 8 "
+                f"or pass an aligned explicit s_pad"
+            )
     if pad_multiple < 1:
         raise ValueError(f"pad_multiple={pad_multiple} must be >= 1")
     if e_pad is not None:
@@ -249,6 +328,7 @@ def build_edge_plan(
     pad_multiple: int = 8,
     sort_edges: bool = True,
     sort_route: Optional[bool] = None,
+    overlap: Optional[bool] = None,
 ) -> tuple[EdgePlan, EdgePlanLayout]:
     """Build the padded plan for one edge set.
 
@@ -261,13 +341,17 @@ def build_edge_plan(
       pad_multiple: round padded sizes up to this multiple.
       sort_route: attach the halo-side sorting permutation (None = when
         E < NATIVE_PLAN_MIN_EDGES, as the reference decides).
+      overlap: attach the interior/boundary split (:class:`OverlapSpec`);
+        None = when the halo-lowering pin asks for a split lowering
+        (:func:`resolve_overlap_intent`).
 
     Returns (plan, layout); the plan's tensors live on the CPU.
     """
     pro = _plan_build_prologue(
         edge_index, src_partition, dst_partition, edge_owner=edge_owner,
-        sort_route=sort_route, pad_multiple=pad_multiple, e_pad=e_pad,
-        s_pad=s_pad, world_size=world_size,
+        sort_edges=sort_edges, sort_route=sort_route, overlap=overlap,
+        pad_multiple=pad_multiple, e_pad=e_pad, s_pad=s_pad,
+        world_size=world_size,
     )
     W = world_size
     prep = _numpy_plan_prep(
@@ -299,20 +383,23 @@ def build_edge_plan(
         prep, src_idx_arr=src_idx_arr, dst_idx_arr=dst_idx_arr,
         edge_mask=edge_mask, homogeneous=pro.homogeneous,
         edge_owner=edge_owner, owner_sorted=sort_edges,
-        sort_route=pro.sort_route,
+        sort_route=pro.sort_route, overlap=pro.overlap,
     )
 
 
 def _plan_build_prologue(
-    edge_index, src_partition, dst_partition, *, edge_owner, sort_route,
-    pad_multiple, e_pad, s_pad, world_size,
+    edge_index, src_partition, dst_partition, *, edge_owner, sort_edges,
+    sort_route, overlap, pad_multiple, e_pad, s_pad, world_size,
 ):
-    """Validation and derived inputs: shapes, owner, knobs, per-rank
-    counts/offsets, the contiguity check and the sort_route default."""
+    """Validation and derived inputs: shapes, owner, knobs, the resolved
+    overlap intent, per-rank counts/offsets, the contiguity check and the
+    sort_route default."""
     edge_index = np.asarray(edge_index)
     if edge_index.ndim != 2 or edge_index.shape[0] != 2:
         raise ValueError(f"edge_index must be [2, E], got {edge_index.shape}")
-    _reject_incompatible_knobs(pad_multiple, e_pad, s_pad)
+    if overlap is None:
+        overlap = resolve_overlap_intent()
+    _reject_incompatible_knobs(pad_multiple, e_pad, s_pad, overlap, sort_edges)
     if edge_owner not in ("src", "dst"):
         raise ValueError("edge_owner must be 'src' or 'dst'")
     src_partition = np.asarray(src_partition)
@@ -339,7 +426,7 @@ def _plan_build_prologue(
         homogeneous=homogeneous,
         src_counts=src_counts, dst_counts=dst_counts,
         src_offsets=src_offsets, dst_offsets=dst_offsets,
-        sort_route=sort_route,
+        sort_route=sort_route, overlap=overlap,
     )
 
 
@@ -445,9 +532,10 @@ def _numpy_plan_prep(
 
 def _finalize_plan(
     prep, *, src_idx_arr, dst_idx_arr, edge_mask, homogeneous, edge_owner,
-    owner_sorted, sort_route,
+    owner_sorted, sort_route, overlap=False,
 ) -> tuple[EdgePlan, EdgePlanLayout]:
-    """Chunk hints, the halo sort route, and the EdgePlan/EdgePlanLayout."""
+    """Chunk hints, the halo sort route, the interior/boundary split, and
+    the EdgePlan/EdgePlanLayout."""
     W = prep.W
     owner_idx_arr = dst_idx_arr if edge_owner == "dst" else src_idx_arr
     block_e, block_n = SCATTER_BLOCK_E, SCATTER_BLOCK_N
@@ -482,6 +570,14 @@ def _finalize_plan(
         halo_sort_perm = torch.from_numpy(perm)
         halo_sorted_ids = torch.from_numpy(sorted_ids)
 
+    overlap_spec = None
+    if overlap:
+        overlap_spec = _build_overlap_spec(
+            src_idx_arr, dst_idx_arr, edge_mask, prep.halo_side,
+            prep.n_src_pad, prep.n_dst_pad, prep.s_pad, W, prep.e_pad,
+            owner_sorted,
+        )
+
     t = torch.from_numpy
     plan = EdgePlan(
         src_index=t(src_idx_arr),
@@ -510,6 +606,7 @@ def _finalize_plan(
         halo_pair_rows=tuple(
             tuple(int(v) for v in row) for row in prep.halo_counts
         ),
+        overlap=overlap_spec,
     )
     layout = EdgePlanLayout(
         edge_rank=prep.edge_rank,
@@ -519,6 +616,185 @@ def _finalize_plan(
         dst_counts=prep.dst_counts,
     )
     return plan, layout
+
+
+def _overlap_rows_for_rank(
+    src_row, dst_row, mask_row, *, halo_side, n_halo_pad, n_owner_pad,
+    s_pad, W, e_pad, e_int_pad, e_bnd_pad, owner_sorted,
+):
+    """One rank's interior/boundary rows and chunk hints
+    (``dgraph_tpu/plan.py:1499-1568``): interior halo-side fill
+    ``n_halo_pad``, owner-side fill ``n_owner_pad``, ``epos`` fill
+    ``e_pad``, boundary halo-side ids rebased into ``[0, W*s_pad)`` (padded
+    slots ``W*s_pad``)."""
+    halo_row = src_row if halo_side == "src" else dst_row
+    live = mask_row > 0
+    is_bnd = live & (halo_row >= n_halo_pad)
+    is_int = live & ~is_bnd
+
+    def subset(sel_mask, e_sub_pad):
+        pos = np.nonzero(sel_mask)[0]
+        k = len(pos)
+        epos = np.full(e_sub_pad, e_pad, np.int32)
+        s_arr = np.full(e_sub_pad, n_owner_pad if halo_side == "dst"
+                        else n_halo_pad, np.int32)
+        d_arr = np.full(e_sub_pad, n_owner_pad if halo_side == "src"
+                        else n_halo_pad, np.int32)
+        mask = np.zeros(e_sub_pad, np.float32)
+        epos[:k] = pos
+        s_arr[:k] = src_row[pos]
+        d_arr[:k] = dst_row[pos]
+        mask[:k] = 1.0
+        return epos, s_arr, d_arr, mask
+
+    int_epos, int_src, int_dst, int_mask = subset(is_int, e_int_pad)
+    bnd_epos, bnd_src, bnd_dst, bnd_mask = subset(is_bnd, e_bnd_pad)
+    bnd_halo = bnd_src if halo_side == "src" else bnd_dst
+    rebased = np.where(bnd_mask > 0, bnd_halo - n_halo_pad, W * s_pad).astype(np.int32)
+    if halo_side == "src":
+        bnd_src = rebased
+    else:
+        bnd_dst = rebased
+    interior_mc = boundary_mc = 1
+    if owner_sorted:
+        int_owner = int_dst if halo_side == "src" else int_src
+        bnd_owner = bnd_dst if halo_side == "src" else bnd_src
+        interior_mc = max_chunks_hint(int_owner, n_owner_pad, block_e=SCATTER_BLOCK_E,
+                                      block_n=SCATTER_BLOCK_N)
+        boundary_mc = max_chunks_hint(bnd_owner, n_owner_pad, block_e=SCATTER_BLOCK_E,
+                                      block_n=SCATTER_BLOCK_N)
+    rows = {
+        "int_src": int_src, "int_dst": int_dst, "int_mask": int_mask,
+        "int_epos": int_epos,
+        "bnd_src": bnd_src, "bnd_dst": bnd_dst, "bnd_mask": bnd_mask,
+        "bnd_epos": bnd_epos,
+    }
+    return rows, interior_mc, boundary_mc
+
+
+def _build_overlap_spec(
+    src_idx_arr, dst_idx_arr, edge_mask, halo_side, n_src_pad, n_dst_pad,
+    s_pad, W, e_pad, owner_sorted,
+) -> OverlapSpec:
+    """The interior/boundary split of the assembled padded index arrays
+    (``dgraph_tpu/plan.py:1571-1621``); each subset pads by the plan's
+    edge-pad rule."""
+    halo_idx = src_idx_arr if halo_side == "src" else dst_idx_arr
+    n_halo_pad = n_src_pad if halo_side == "src" else n_dst_pad
+    n_owner_pad = n_dst_pad if halo_side == "src" else n_src_pad
+    live = edge_mask > 0
+    is_bnd = live & (halo_idx >= n_halo_pad)
+    n_bnd = is_bnd.sum(axis=1).astype(np.int64)
+    n_int = live.sum(axis=1).astype(np.int64) - n_bnd
+    int_max = int(n_int.max(initial=1))
+    bnd_max = int(n_bnd.max(initial=1))
+    e_int_pad = _pad_to(int_max, _edge_pad_align(int_max, 8))
+    e_bnd_pad = _pad_to(bnd_max, _edge_pad_align(bnd_max, 8))
+    per_rank = [
+        _overlap_rows_for_rank(
+            src_idx_arr[r], dst_idx_arr[r], edge_mask[r], halo_side=halo_side,
+            n_halo_pad=n_halo_pad, n_owner_pad=n_owner_pad, s_pad=s_pad, W=W,
+            e_pad=e_pad, e_int_pad=e_int_pad, e_bnd_pad=e_bnd_pad,
+            owner_sorted=owner_sorted,
+        )
+        for r in range(W)
+    ]
+
+    def stack(key):
+        return torch.from_numpy(np.stack([p[0][key] for p in per_rank]))
+
+    return OverlapSpec(
+        **{k: stack(k) for k in per_rank[0][0]},
+        num_interior=torch.from_numpy(n_int.astype(np.int32)),
+        num_boundary=torch.from_numpy(n_bnd.astype(np.int32)),
+        e_int_pad=e_int_pad, e_bnd_pad=e_bnd_pad,
+        interior_mc=max(p[1] for p in per_rank),
+        boundary_mc=max(p[2] for p in per_rank),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Halo-lowering resolution (dgraph_tpu/plan.py:552-799)
+# ---------------------------------------------------------------------------
+
+
+def pick_halo_impl(halo_deltas: tuple) -> str:
+    """The heuristic lowering from the plan's live peer set: one padded
+    ``all_to_all``, ``none`` with no traffic. The reference picks
+    ``ppermute`` rounds for a sparse peer set (``plan.py:586``), a TPU cost
+    model; the port has no ``ppermute`` lowering until a measurement on
+    the card says where it wins."""
+    return "all_to_all" if halo_deltas else "none"
+
+
+def resolve_halo_impl(
+    halo_deltas: tuple, *, overlap_available: bool = False,
+    p2p_available: "bool | None" = None, sched_available: bool = False,
+) -> tuple[str, str]:
+    """``(impl, source)``: the lowering a run executes and who decided it —
+    ``env`` (``config.halo_impl``), ``heuristic`` (the split lowering
+    'overlap' when the plan carries the split, else :func:`pick_halo_impl`)
+    or ``plan`` (no traffic). A pin that cannot lower ('overlap' without the
+    split, 'sched' without a schedule, 'pallas_p2p' without the split or
+    :func:`config.pallas_p2p_available`) warns once and the heuristic
+    decides; the heuristic never picks 'pallas_p2p' or 'sched'.
+    ``p2p_available`` overrides the availability probe. The reference's
+    adopted-record tier between the two has no counterpart (no tuner)."""
+    from dgraph_tpu_torch import config as _cfg
+
+    if not halo_deltas:
+        return "none", "plan"
+
+    def _p2p_ok() -> bool:
+        if not overlap_available:
+            return False
+        if p2p_available is not None:
+            return p2p_available
+        return _cfg.pallas_p2p_available()
+
+    legal = ("all_to_all", "ppermute") + (
+        ("overlap",) if overlap_available else ()
+    ) + (("sched",) if sched_available else ())
+    impl = _cfg.halo_impl
+    if impl in legal:
+        return impl, "env"
+    if impl == "overlap":
+        _warn_unavailable("'overlap'", "the plan carries no interior/boundary split "
+                          "(built without overlap=True)")
+    if impl == "sched":
+        _warn_unavailable("'sched'", "the plan carries no compiled halo schedule")
+    if impl == "pallas_p2p":
+        if _p2p_ok():
+            return impl, "env"
+        _warn_unavailable(
+            "'pallas_p2p'",
+            "the plan carries no interior/boundary split (built without "
+            "overlap=True)" if not overlap_available else
+            "the rank's device is not CUDA (set DGRAPH_TPU_PALLAS_P2P=1 to "
+            "run the transport's plain version on the CPU)")
+    if overlap_available:
+        return "overlap", "heuristic"
+    return pick_halo_impl(halo_deltas), "heuristic"
+
+
+def resolve_overlap_intent() -> bool:
+    """Whether a plan built now with ``overlap=None`` attaches the split:
+    the env pin asks for 'overlap' or 'pallas_p2p'."""
+    from dgraph_tpu_torch import config as _cfg
+
+    return _cfg.halo_impl in ("overlap", "pallas_p2p")
+
+
+_warned: set = set()
+
+
+def _warn_unavailable(impl: str, why: str) -> None:
+    """The one-time warning of a pin that cannot lower."""
+    key = (impl, why)
+    if key not in _warned:
+        _warned.add(key)
+        _logger.warning("halo_impl=%s pinned by DGRAPH_TPU_HALO_IMPL but %s; the "
+                        "heuristic decides the lowering instead", impl, why)
 
 
 def _masked_owner_ids_in_range(plan: EdgePlan) -> bool:
@@ -577,6 +853,8 @@ def validate_plan(plan: EdgePlan) -> None:
             errors.append("owner-side ids not monotone")
         if _masked_owner_ids_in_range(plan):
             errors.append("masked edges carry in-range owner-side ids")
+    if plan.overlap is not None:
+        errors += _overlap_errors(plan, counts)
     if plan.halo_sort_perm is not None:
         perm = plan.halo_sort_perm.cpu().numpy()
         sids = plan.halo_sorted_ids.cpu().numpy()
@@ -598,6 +876,30 @@ def validate_plan(plan: EdgePlan) -> None:
                 break
     if errors:
         raise ValueError("invalid EdgePlan: " + "; ".join(errors))
+
+
+def _overlap_errors(plan: EdgePlan, num_edges: np.ndarray) -> list:
+    """The split's invariants (``dgraph_tpu/plan.py:898-943``): the subsets
+    tile the live edges, interior halo-side ids are local, boundary slots
+    lie in the halo buffer, owner ids stay monotone per subset."""
+    ov, W, S = plan.overlap, plan.world_size, plan.halo.s_pad
+    n_halo_pad = plan.n_src_pad if plan.halo_side == "src" else plan.n_dst_pad
+    owner = "dst" if plan.halo_side == "src" else "src"
+    im = ov.int_mask.cpu().numpy() > 0
+    bm = ov.bnd_mask.cpu().numpy() > 0
+    errors = []
+    if not np.array_equal(im.sum(1) + bm.sum(1), num_edges):
+        errors.append("overlap split does not tile the live edge set")
+    int_halo = ov.side("interior", plan.halo_side).cpu().numpy()[im]
+    if int_halo.size and int_halo.max() >= n_halo_pad:
+        errors.append("overlap interior halo-side id not local")
+    bnd_halo = ov.side("boundary", plan.halo_side).cpu().numpy()[bm]
+    if bnd_halo.size and (bnd_halo.min() < 0 or bnd_halo.max() >= W * S):
+        errors.append(f"overlap boundary slot out of [0,{W * S})")
+    for which in ("interior", "boundary"):
+        if plan.owner_sorted and (np.diff(ov.side(which, owner).cpu().numpy(), axis=1) < 0).any():
+            errors.append(f"overlap {which} owner ids not monotone")
+    return errors
 
 
 # ---------------------------------------------------------------------------

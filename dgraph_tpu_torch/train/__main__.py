@@ -1,22 +1,27 @@
 """``python -m dgraph_tpu_torch.train`` — full-graph node classification.
 
-Counterpart of ``experiments/ogb_gcn.py`` (``main``, :117-227) at world size
-1: trains GCN (symmetric-norm edge weights) or GraphSAGE on a synthetic SBM
-graph, or on an ``.npz`` with edge_index/features/labels/<split>_mask
-(``--data.path``), with Adam at ``--lr``. Writes one ``step_record`` JSON
-line per step (an eval every 10 steps and at the last), the test accuracy,
-and a final ``avg_epoch_ms_excl_first`` line, to stdout and appended to
-``--log_path``. Runs on ``cuda`` unless ``--device cpu``; with no card it
-raises.
+Counterpart of ``experiments/ogb_gcn.py`` (``main``, :117-227): trains GCN
+(symmetric-norm edge weights) or GraphSAGE on a synthetic SBM graph, or on
+an ``.npz`` with edge_index/features/labels/<split>_mask (``--data.path``),
+with Adam at ``--lr``, over ``--world_size`` ranks. Writes one
+``step_record`` JSON line per step (an eval every 10 steps and at the
+last), the test accuracy, and a final ``avg_epoch_ms_excl_first`` line, to
+stdout and appended to ``--log_path`` (rank 0 only). Runs on ``cuda``
+unless ``--device cpu``; with no card it raises.
 
     python -m dgraph_tpu_torch.train --model gcn --epochs 100
     python -m dgraph_tpu_torch.train --device cpu --epochs 3 --data.num_nodes 500
+    DGRAPH_TPU_HALO_IMPL=pallas_p2p python -m dgraph_tpu_torch.train --world_size 4
+    python -m dgraph_tpu_torch.train --device cpu --world_size 2 --epochs 2
 
-The multilevel partitioner is not ported; at one rank the partition does
-not change the result, so the default is ``random``. Not ported yet: the
-OGB loaders (``--data.ogb_name``), GAT and the GraphTransformer, world
-sizes above 1, and the reference's start-up, plan-footprint and timing
-records.
+Above one rank the run spawns one process a rank (``comm.dist.launch``;
+under ``torchrun`` it joins that group instead): ranks on cards of their
+own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
+Every rank builds the same graph from the same seed and trains its shard;
+gradients are summed over the ranks. The multilevel partitioner is not
+ported; the default partition is ``random``. Not ported yet: the OGB loaders
+(``--data.ogb_name``), GAT and the GraphTransformer, and the reference's
+start-up, plan-footprint and timing records.
 """
 
 from __future__ import annotations
@@ -47,14 +52,14 @@ class DataConfig:
 
 @dataclasses.dataclass
 class Config:
-    """Full-graph GCN / GraphSAGE training on one card."""
+    """Full-graph GCN / GraphSAGE training, one card (or CPU process) a rank."""
 
     model: str = "gcn"  # gcn | sage (gat | gt are not ported yet)
     hidden: int = 128
     num_layers: int = 2
     lr: float = 5e-3
     epochs: int = 100
-    world_size: int = 0  # 0 = all devices; only 1 rank in this slice
+    world_size: int = 1  # ranks (0 = 1); > 1 spawns one process a rank
     log_path: str = "logs/ogb_gcn_torch.jsonl"
     step_metrics: bool = False  # grad norm and mask count in each record
     device: str = ""  # "" = cuda (raises with no card); "cpu" for the plain path
@@ -92,11 +97,12 @@ def load_data(cfg: DataConfig) -> dict:
     )
 
 
-def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
-    """Graph, seeded model, Adam and the train/eval steps, on ``device``
-    (default ``cfg.device``, else ``cuda``; raises with no card before any
-    work). ``graph`` stays on the CPU; ``batches`` and ``plan`` are on the
-    device."""
+def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace:
+    """Graph, seeded model, Adam and the train/eval steps of one rank (``comm``,
+    None for one rank), on ``device`` (default the rank's device, else
+    ``cfg.device``, else ``cuda``; raises with no card before any work).
+    ``graph`` (every rank's shard) stays on the CPU; ``batches`` and
+    ``plan`` (this rank's view) are on the device."""
     import torch
 
     from dgraph_tpu_torch.comm import SingleComm
@@ -108,11 +114,14 @@ def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
         masked_cross_entropy,
     )
 
+    comm = comm or SingleComm()
+    if device is None and comm.group is not None:
+        device = comm.group.device
     dev = default_device(device if device is not None else (cfg.device or None))
-    if cfg.world_size not in (0, 1):
-        raise NotImplementedError(
-            f"world_size={cfg.world_size}: training above one rank is the "
-            "multi-rank slice of the port")
+    W, rank = comm.get_world_size(), comm.get_rank()
+    if (cfg.world_size or 1) != W:
+        raise ValueError(f"world_size={cfg.world_size} but the communicator has {W} ranks; "
+                         "main() launches the ranks")
     if cfg.model in ("gat", "gt", "graph_transformer"):
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     if cfg.model not in ("gcn", "sage"):
@@ -120,10 +129,10 @@ def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
     data = load_data(cfg.data)
     graph = DistributedGraph.from_global(
         data["edge_index"], data["features"], data["labels"], data["masks"],
-        world_size=1, partition_method=cfg.data.partition,
+        world_size=W, partition_method=cfg.data.partition,
         add_symmetric_norm=cfg.model == "gcn",
     )
-    F, C, comm = graph.features.shape[-1], data["num_classes"], SingleComm()
+    F, C = graph.features.shape[-1], data["num_classes"]
     if cfg.model == "gcn":
         model = GCN(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
     else:
@@ -131,7 +140,7 @@ def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
     init_params(model, seed=0).to(dev)
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
     loss_fn = (masked_bce_multilabel if graph.labels.dim() > 2 else masked_cross_entropy)
-    plan = graph.plan.to(dev)
+    plan = graph.plan.shard(rank).to(dev)
 
     def batch(split):
         b = dict(graph.batch(split), y=graph.labels)
@@ -139,11 +148,11 @@ def build_training(cfg: Config, device=None) -> types.SimpleNamespace:
 
     splits = ["train", "val"] + (["test"] if "test" in graph.masks else [])
     return types.SimpleNamespace(
-        device=dev, graph=graph, model=model, optimizer=optimizer, plan=plan,
-        loss_fn=loss_fn, batches={s: batch(s) for s in splits},
-        train_step=make_train_step(model, optimizer, plan, loss_fn=loss_fn,
+        device=dev, graph=graph, model=model, optimizer=optimizer, plan=plan, comm=comm,
+        rank=rank, loss_fn=loss_fn, batches={s: batch(s) for s in splits},
+        train_step=make_train_step(model, optimizer, plan, comm=comm, loss_fn=loss_fn,
                                    step_metrics=cfg.step_metrics),
-        eval_step=make_eval_step(model, plan, loss_fn=loss_fn),
+        eval_step=make_eval_step(model, plan, comm=comm, loss_fn=loss_fn),
     )
 
 
@@ -163,21 +172,26 @@ class _Log:
                 f.write(line + "\n")
 
 
-def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
-    """Train ``cfg.epochs`` steps. ``on_step(epoch, training)`` runs after
-    each step (the step's gradients are still on the parameters). Returns
-    {"records", "avg_epoch_ms_excl_first", "training"}."""
+def _train(cfg: Config, on_step: Optional[Callable], comm=None) -> dict:
+    """One rank's run: ``cfg.epochs`` train steps, the evals and the log
+    (rank 0 writes it). ``on_step(epoch, training)`` runs after each step
+    (the step's gradients are still on the parameters); its return values
+    come back in ``"on_step"``."""
     import torch
 
     from dgraph_tpu_torch.obs.metrics import step_record
 
-    t = build_training(cfg)
-    log = _Log(cfg.log_path)
-    records, epoch_times = [], []
+    t = build_training(cfg, comm=comm)
+    log = _Log(cfg.log_path) if t.rank == 0 else None
+    records, epoch_times, probes = [], [], []
 
     def sync():
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
+
+    def write(rec):
+        if log is not None:
+            log.write(rec)
 
     for epoch in range(cfg.epochs):
         sync()
@@ -192,17 +206,56 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
             ev = t.eval_step(t.batches["val"])
             rec["val_acc"] = float(ev["accuracy"])
             rec["val_loss"] = float(ev["loss"])
-        log.write(rec)
+        write(rec)
         records.append(rec)
         if on_step is not None:
-            on_step(epoch, t)
+            probes.append(on_step(epoch, t))
     if "test" in t.batches:
         te = t.eval_step(t.batches["test"])
-        log.write({"test_acc": float(te["accuracy"]), "test_loss": float(te["loss"])})
+        write({"test_acc": float(te["accuracy"]), "test_loss": float(te["loss"])})
     # the mean excludes the first step, the reference's convention
     avg = round(float(np.mean(epoch_times[1:])), 2) if len(epoch_times) > 1 else None
-    log.write({"avg_epoch_ms_excl_first": avg})
-    return {"records": records, "avg_epoch_ms_excl_first": avg, "training": t}
+    write({"avg_epoch_ms_excl_first": avg})
+    return {"records": records, "avg_epoch_ms_excl_first": avg, "on_step": probes,
+            "training": t}
+
+
+def _train_rank(group, cfg: dict, on_step: Optional[Callable]) -> dict:
+    """A spawned rank: train on its shard (``cfg`` as a dict: the parent's
+    Config class may live in its ``__main__``) and hand back what pickles."""
+    from dgraph_tpu_torch.comm import DistComm
+
+    cfg = Config(**dict(cfg, data=DataConfig(**cfg["data"])))
+    out = _train(cfg, on_step, comm=DistComm(group))
+    out.pop("training")
+    return out
+
+
+def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
+    """Train ``cfg.epochs`` steps on ``cfg.world_size`` ranks. Returns
+    {"records", "avg_epoch_ms_excl_first", "on_step", "training"} (rank 0's;
+    ``training`` is None above one rank) and ``"ranks"``, every rank's
+    result. Above one rank ``on_step`` runs in each rank's process, so it
+    must pickle (a module-level function or an instance of a module-level
+    class)."""
+    import importlib
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    W = cfg.world_size or 1
+    if W == 1 and "WORLD_SIZE" not in os.environ:
+        out = _train(cfg, on_step)
+        return dict(out, ranks=[out])
+    device = cfg.device or "cuda"
+    if device == "cuda":
+        from dgraph_tpu_torch.config import default_device
+
+        default_device()  # raises with no card, before any rank starts
+    # by its module's name, not __main__'s: a spawned rank imports it
+    rank_fn = importlib.import_module("dgraph_tpu_torch.train.__main__")._train_rank
+    ranks = launch(rank_fn, W, dataclasses.asdict(cfg), on_step, device=device,
+                   threads=max(1, (os.cpu_count() or 1) // W) if device == "cpu" else 0)
+    return dict(ranks[0], training=None, ranks=ranks)
 
 
 def parse_config(argv=None, config_cls=Config):

@@ -1,18 +1,21 @@
 """Full-graph training loop for node-level tasks — counterpart of
-``dgraph_tpu/train/loop.py`` at world size 1.
+``dgraph_tpu/train/loop.py``.
 
 The reference jits one SPMD step (model, loss, backward and gradient psum
 under ``shard_map``, then an optax update). Here a step is eager PyTorch on
-one rank: the forward, the loss, ``backward()`` through the port's autograd
-Functions (whose backward kernels are the CUDA kernels on a card), then a
-``torch.optim`` update of the module's parameters in place. The loss is
-normalised by the global mask count, as in the reference
-(``train/loop.py:64-72``).
+each rank: the forward on the rank's plan and batch, the loss, ``backward()``
+through the port's autograd Functions (whose backward kernels are the CUDA
+kernels on a card), the gradients summed over the ranks (``grad_sync``),
+then a ``torch.optim`` update of the module's parameters in place. The loss
+is normalised by the global mask count, summed over the ranks, as in the
+reference (``train/loop.py:64-72``), so the summed gradients are those of
+one loss over the whole graph.
 
 Batches are dicts whose leaves lead with the ``[W]`` rank axis, as
-``DistributedGraph.batch`` returns them (plus ``"y"``); the parameters live
-in the module. ``per_replica_batch`` and world sizes above 1 belong to
-the multi-rank slice of the port and raise here.
+``DistributedGraph.batch`` returns them (plus ``"y"``); each rank takes its
+row. Ranks come from the model's communicator (``comm``: a ``DistComm`` at
+W > 1). ``per_replica_batch`` (replica groups of ranks, each with its own
+sample) is a later slice of the port and raises.
 """
 
 from __future__ import annotations
@@ -31,24 +34,26 @@ __all__ = [
     "masked_bce_multilabel", "masked_cross_entropy", "model_apply",
 ]
 
-_MULTI_RANK = "the multi-rank slice of the port"
-
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
-    """Sum of per-vertex CE over the mask / mask count (f32)."""
+                         mask: torch.Tensor, count=None) -> torch.Tensor:
+    """Sum of per-vertex CE over the mask / mask count (f32). ``count`` is
+    the mask count to divide by (the global one across ranks; default this
+    rank's)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(1, labels[:, None].long())[:, 0]
-    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum() if count is None else count
+    return -(ll * mask).sum() / count.clamp_min(1.0)
 
 
 def masked_bce_multilabel(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
-    """Mean sigmoid BCE for ``[n, C]`` multi-label float targets."""
+                          mask: torch.Tensor, count=None) -> torch.Tensor:
+    """Mean sigmoid BCE for ``[n, C]`` multi-label float targets; ``count``
+    as in :func:`masked_cross_entropy` (vertices, not labels)."""
     logits = logits.float()
     labels = labels.float()
     per = logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
-    count = mask.sum() * logits.shape[-1]
+    count = (mask.sum() if count is None else count) * logits.shape[-1]
     return (per.sum(dim=-1) * mask).sum() / count.clamp_min(1.0)
 
 
@@ -75,22 +80,54 @@ def _correct(logits, y, mask):
     return ((logits.argmax(dim=-1) == y.long()).float() * mask).sum()
 
 
-def _rank_plan(plan: EdgePlan) -> EdgePlan:
-    """The one rank's plan view; raises above world size 1."""
-    if plan.world_size != 1:
-        raise NotImplementedError(
-            f"world size {plan.world_size}: training above one rank is {_MULTI_RANK}")
-    return plan if plan.per_rank else plan.shard(0)
+def _rank_of(plan: EdgePlan, comm) -> tuple:
+    """(rank, group) of this process for a plan of ``plan.world_size``
+    ranks; raises when the communicator does not match it."""
+    group = getattr(comm, "group", None)
+    W = plan.world_size
+    if W == 1 and group is None:
+        return 0, None
+    if group is None or group.world_size != W:
+        raise ValueError(
+            f"a plan of {W} ranks needs a DistComm of {W} ranks (launch the ranks with "
+            "dgraph_tpu_torch.comm.dist.launch); got "
+            f"{'one rank' if group is None else f'{group.world_size} ranks'}")
+    return group.rank, group
 
 
-def _rank_batch(batch: dict) -> dict:
+def _rank_plan(plan: EdgePlan, rank: int) -> EdgePlan:
+    return plan if plan.per_rank else plan.shard(rank)
+
+
+def _rank_batch(batch: dict, rank: int, world_size: int) -> dict:
     out = {}
     for k, v in batch.items():
-        if v.shape[0] != 1:
-            raise NotImplementedError(
-                f"batch[{k!r}] has {v.shape[0]} ranks: training above one rank is {_MULTI_RANK}")
-        out[k] = v[0]
+        if v.shape[0] != world_size:
+            raise ValueError(f"batch[{k!r}] leads with {v.shape[0]} ranks, the plan has "
+                             f"{world_size}")
+        out[k] = v[rank]
     return out
+
+
+def _loss(loss_fn, logits, b: dict, group):
+    """This rank's share of the global loss: ``loss_fn`` normalised by the
+    mask count summed over the ranks (the reference's psum'd count)."""
+    if group is None:
+        return loss_fn(logits, b["y"], b["mask"])
+    from dgraph_tpu_torch.comm.collectives import all_reduce_sum
+
+    return loss_fn(logits, b["y"], b["mask"], count=all_reduce_sum(b["mask"].sum(), group))
+
+
+def _global_metrics(loss, correct, count, group) -> tuple:
+    """(loss, correct, count) summed over the ranks in one collective."""
+    if group is None:
+        return loss, correct, count
+    from dgraph_tpu_torch.comm.collectives import all_reduce_sum
+
+    tot = all_reduce_sum(torch.stack([loss.detach().float(), correct.float(), count.float()]),
+                         group)
+    return tot[0], tot[1], tot[2]
 
 
 def _global_norm(params) -> torch.Tensor:
@@ -104,6 +141,7 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     plan: EdgePlan,
     *,
+    comm=None,
     loss_fn: Callable = masked_cross_entropy,
     per_replica_batch: bool = False,
     batch_args: Optional[Callable] = None,
@@ -111,8 +149,11 @@ def make_train_step(
     nonfinite_guard: bool = False,
 ):
     """A train step ``(batch) -> metrics`` that updates ``model`` and
-    ``optimizer`` in place. ``plan`` is the stacked plan (world size 1) or
-    its per-rank view, on the model's device.
+    ``optimizer`` in place. ``plan`` is the stacked plan or this rank's
+    view, on the model's device; ``comm`` is the model's communicator
+    (None: one rank). Above one rank ``loss_fn`` is called with
+    ``count=`` the global mask count, the gradients are summed over the
+    ranks before the update, and the metrics are the global ones.
 
     ``step_metrics=True`` returns a :class:`StepMetrics` (loss, accuracy,
     grad_norm, mask_count) instead of the ``{"loss", "accuracy"}`` dict.
@@ -122,20 +163,27 @@ def make_train_step(
     selects inside its traced step instead). Metrics stay device tensors.
     """
     if per_replica_batch:
-        raise NotImplementedError(f"per_replica_batch is {_MULTI_RANK}")
-    plan = _rank_plan(plan)
+        raise NotImplementedError(
+            "per_replica_batch (replica groups of ranks, a sample each) is a later slice "
+            "of the port")
+    rank, group = _rank_of(plan, comm)
+    W = plan.world_size
+    plan = _rank_plan(plan, rank)
     check_owner_padding(plan)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: dict):
-        b = _rank_batch(batch)
+        b = _rank_batch(batch, rank, W)
         optimizer.zero_grad(set_to_none=True)
         logits = model_apply(model, b, plan, batch_args)
-        loss = loss_fn(logits, b["y"], b["mask"])
+        loss = _loss(loss_fn, logits, b, group)
         loss.backward()
         with torch.no_grad():
-            mask_count = b["mask"].sum()
-            acc = _correct(logits, b["y"], b["mask"]) / mask_count.clamp_min(1.0)
+            if group is not None:
+                comm.grad_sync(params)
+            loss, correct, mask_count = _global_metrics(
+                loss, _correct(logits, b["y"], b["mask"]), b["mask"].sum(), group)
+            acc = correct / mask_count.clamp_min(1.0)
             gnorm = _global_norm(params) if (step_metrics or nonfinite_guard) else None
             skipped = None
             if nonfinite_guard:
@@ -157,18 +205,23 @@ def make_train_step(
     return step
 
 
-def make_eval_step(model: torch.nn.Module, plan: EdgePlan, *,
+def make_eval_step(model: torch.nn.Module, plan: EdgePlan, *, comm=None,
                    loss_fn: Callable = masked_cross_entropy,
                    batch_args: Optional[Callable] = None):
-    """Eval ``(batch) -> {"loss", "accuracy"}`` without gradients."""
-    plan = _rank_plan(plan)
+    """Eval ``(batch) -> {"loss", "accuracy"}`` without gradients (global
+    metrics above one rank)."""
+    rank, group = _rank_of(plan, comm)
+    W = plan.world_size
+    plan = _rank_plan(plan, rank)
 
     def step(batch: dict) -> dict:
-        b = _rank_batch(batch)
+        b = _rank_batch(batch, rank, W)
         with torch.no_grad():
             logits = model_apply(model, b, plan, batch_args)
-            loss = loss_fn(logits, b["y"], b["mask"])
-            acc = _correct(logits, b["y"], b["mask"]) / b["mask"].sum().clamp_min(1.0)
+            loss, correct, count = _global_metrics(
+                _loss(loss_fn, logits, b, group), _correct(logits, b["y"], b["mask"]),
+                b["mask"].sum(), group)
+            acc = correct / count.clamp_min(1.0)
         return {"loss": loss, "accuracy": acc}
 
     return step
@@ -190,10 +243,12 @@ def fit(
     batch_args: Optional[Callable] = None,
     nonfinite_guard: bool = False,
     device=None,
+    comm=None,
 ):
     """Full-graph training loop (the reference's ``fit``, the
-    ``_run_experiment`` loop as a function) at world size 1: seeded
-    initialisation, ``num_epochs`` train steps, an eval every ``log_every``.
+    ``_run_experiment`` loop as a function) on this rank (``comm``, None
+    for one rank): seeded initialisation, ``num_epochs`` train steps, an
+    eval every ``log_every``.
     ``optimizer`` builds the optimizer from the parameters (default Adam at
     1e-2, optax.adam(1e-2)'s settings); the model runs on ``device``
     (default ``cuda``; raises with no card). Returns (model, history).
@@ -208,9 +263,9 @@ def fit(
 
     batch_tr, batch_va = batch("train"), batch("val")
     plan = graph.plan.to(dev)
-    train_step = make_train_step(model, opt, plan, loss_fn=loss_fn,
+    train_step = make_train_step(model, opt, plan, comm=comm, loss_fn=loss_fn,
                                  batch_args=batch_args, nonfinite_guard=nonfinite_guard)
-    eval_step = make_eval_step(model, plan, loss_fn=loss_fn, batch_args=batch_args)
+    eval_step = make_eval_step(model, plan, comm=comm, loss_fn=loss_fn, batch_args=batch_args)
     history = []
     for epoch in range(num_epochs):
         m = train_step(batch_tr)

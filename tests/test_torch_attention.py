@@ -188,12 +188,12 @@ def test_strided_operands_give_the_contiguous_result():
 
 
 def test_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
-    from dgraph_tpu_torch.ops import kernels, segment
+    from dgraph_tpu_torch.ops import kernels, p2p, segment
 
     kernels.reset_launch_counts()
     q, k, v, cot, _ = _inputs(64, 32, masked=False, seed=6)
     _torch_out_and_grads(lambda a, b, c: att._FlashAttention.apply(a, b, c, None, True, None),
                          q, k, v, cot)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
-    assert set(kernels.KERNELS) == set(segment.KERNELS) | set(att.KERNELS)
-    assert len(kernels.KERNELS) == 8
+    assert set(kernels.KERNELS) == set(segment.KERNELS) | set(att.KERNELS) | set(p2p.KERNELS)
+    assert len(kernels.KERNELS) == 9

@@ -470,3 +470,13 @@ def test_no_attention_on_the_card_goes_through_a_plain_version(dev, monkeypatch)
     assert counts == {"flash_attention_fwd": 2, "flash_attention_bwd_dkv": 2,
                       "flash_attention_bwd_dq": 2}
     assert np.isfinite(float(t.eval_step(t.next_batch())))
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_p2p_transport_bitwise_equal_plain_across_ranks(dev, W):
+    """Kernel 5 on W ranks sharing the card (CUDA IPC) against its plain
+    version, the masked send stack through gloo's all_to_all."""
+    import torch_dist_ranks
+    from dgraph_tpu_torch.comm.dist import launch
+
+    assert launch(torch_dist_ranks.p2p_parity, W, device="cuda", timeout=300) == [[]] * W

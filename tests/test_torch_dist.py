@@ -1,0 +1,385 @@
+"""The port across ranks against the JAX package on the virtual CPU mesh.
+
+The port's side runs in spawned gloo processes (``tests/torch_dist_ranks.py``,
+which imports no JAX): one spawn per world size with every case inside it.
+The JAX side runs here on the 8-device virtual mesh. Inputs are numpy arrays
+made from seeds and handed over in a pickle.
+
+- The halo exchange, its two lowerings (all_to_all, and the p2p
+  transport's plain version, ``sign=+1`` forward and ``sign=-1`` in the
+  reverse leg) and ``halo_scatter_sum``, forward and VJP, against the
+  reference's all_to_all lowering: bit for bit, bit patterns compared (pure
+  data movement and the same masked segment sums). The rows that masked
+  send slots read, and the masked slots of the halo-side inputs, hold NaN
+  and negative values: a mask applied as a multiply gives NaN and -0.0
+  there, as the reference's does, where a select would give +0.0. The
+  blocks of a rank's halo buffer that no put reaches (its own, and those of
+  dead deltas) are +0.0 on the p2p route, as the reference's transport
+  defines them (``pallas_p2p.py:228-231``), where the all_to_all lowering
+  delivers ``x * 0``; there the p2p buffer is held to zeros. Graphs:
+  W = 2 and W = 4 random partitions, and a W = 4 block partition of a ring
+  whose live deltas are {1, 3} (n < W-1).
+- The GCN at W = 4 on the p2p split route: logits, loss and every parameter
+  gradient against the reference's W = 4 step under the all_to_all
+  lowering and under its overlap split, within 1e-5 (f32: the split groups
+  the owner-side sums per subset); 5 Adam steps against optax (losses
+  within 1e-4, parameters within 1e-3, as in ``test_torch_train.py``).
+- The split ops against the unsplit ones (port against port, 1e-5):
+  ``gather_scatter_overlap`` and the GCN layer's separable split branch.
+- The CLI at two CPU ranks, and a rank that raises ends the launch.
+"""
+
+import json
+import pickle
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import optax
+import torch
+from jax.sharding import PartitionSpec as P
+
+import torch_dist_ranks
+from dgraph_tpu import config as jcfg
+from dgraph_tpu.comm import Communicator, collectives
+from dgraph_tpu.comm.mesh import GRAPH_AXIS, make_graph_mesh, plan_in_specs, squeeze_plan
+from dgraph_tpu.data import DistributedGraph as JaxGraph
+from dgraph_tpu.models import GCN as JaxGCN
+from dgraph_tpu.plan import build_edge_plan as jax_build_edge_plan
+from dgraph_tpu.plan import shard_vertex_data
+from dgraph_tpu.train.loop import make_train_step as jax_make_train_step
+from dgraph_tpu.train.loop import masked_cross_entropy as jax_masked_ce
+from dgraph_tpu_torch import partition as pt
+from dgraph_tpu_torch.comm.dist import launch
+from dgraph_tpu_torch.data import synthetic
+from dgraph_tpu_torch.weights import params_from_jax, params_to_jax
+
+F_HALO = 33
+F_IN, HIDDEN, C, LR = 24, 160, 5, 5e-3
+TIMEOUT = 120
+
+
+def _halo_graphs(W: int) -> list:
+    """(label, edges, partition) of the halo cases for world size W."""
+    sbm = synthetic.sbm_classification_graph(num_nodes=240, num_classes=4, feat_dim=4, seed=3)
+    new, ren = pt.partition_graph(sbm["edge_index"], 240, W, method="random", seed=1)
+    cases = [(f"W{W}-random", new, np.asarray(ren.partition))]
+    if W == 4:
+        V = 160
+        ring = np.arange(V)
+        rng = np.random.default_rng(4)
+        local = rng.integers(0, V // W, (2, 200)) + (rng.integers(0, W, 200) * (V // W))
+        edges = np.concatenate([np.stack([ring, (ring + 1) % V]),
+                                np.stack([(ring + 1) % V, ring]), local], axis=1)
+        cases.append(("W4-block-ring", edges, np.repeat(np.arange(W), V // W)))
+    return cases
+
+
+def _assert_bits_equal(a, b, msg=""):
+    """Equal bit patterns: -0.0 differs from 0.0, and NaN equals only the
+    same NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype == np.float32, msg
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=msg)
+
+
+def _unreached(W: int, r: int, deltas) -> list:
+    """The blocks of rank r's ``[W, S, F]`` halo buffer no put reaches."""
+    return sorted(set(range(W)) - {(r - d) % W for d in deltas})
+
+
+def _with_specials(x, send_idx, send_mask, W, S, deltas):
+    """The halo inputs with NaN and negative values where the send mask is
+    0: ``x [W, n, F]`` in the rows masked slots read (every fifth column
+    NaN), and the halo-shaped ``h``/``ct_halo [W, W*S, F]`` in the masked
+    slots of the blocks a put reaches (negative, every fifth column NaN;
+    the other blocks 0, the halo buffer's own values there)."""
+    xs = x.copy()
+    for r in range(W):
+        xs[r, send_idx[r][send_mask[r] == 0], ::5] = np.nan
+
+    def halo_side(a):
+        a = a.copy().reshape(W, W, S, -1)
+        for r in range(W):
+            slots = a[r][send_mask[r] == 0]
+            slots = -np.abs(slots)
+            slots[:, ::5] = np.nan
+            a[r][send_mask[r] == 0] = slots
+            a[r][_unreached(W, r, deltas)] = 0.0
+        return a.reshape(W, W * S, -1)
+
+    return xs, halo_side
+
+
+def _halo_inputs(label, edges, part, W, seed):
+    plan, layout = jax_build_edge_plan(edges, part, world_size=W, overlap=True,
+                                       use_native=False)
+    rng = np.random.default_rng(seed)
+    V, S, n = len(part), plan.halo.s_pad, plan.n_src_pad
+    x = shard_vertex_data(rng.normal(size=(V, F_HALO)).astype(np.float32),
+                          layout.src_counts, n)
+    send_idx, send_mask = np.asarray(plan.halo.send_idx), np.asarray(plan.halo.send_mask)
+    assert (send_mask == 0).any(), "no masked send slot to hold the special values"
+    xs, halo_side = _with_specials(x, send_idx, send_mask, W, S, plan.halo_deltas)
+    return plan, {
+        "label": label, "edges": edges, "part": part, "x": x, "xs": xs,
+        "h": halo_side(rng.normal(size=(W, W * S, F_HALO)).astype(np.float32)),
+        "ct_halo": halo_side(rng.normal(size=(W, W * S, F_HALO)).astype(np.float32)),
+        "ct_owner": rng.normal(size=(W, n, F_HALO)).astype(np.float32),
+    }
+
+
+def _jax_halo(plan, case, W):
+    """The reference's all_to_all lowering: buffer, x's VJP, halo_scatter_sum
+    and h's VJP, per rank."""
+    mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
+    n_pad = plan.n_src_pad
+
+    def body(p, x, h, cth, cto):
+        p, x, h, cth, cto = squeeze_plan(p), x[0], h[0], cth[0], cto[0]
+
+        def ex(x_):
+            return collectives.halo_exchange(x_, p.halo, GRAPH_AXIS, deltas=p.halo_deltas,
+                                             impl="all_to_all")
+
+        def unex(h_):
+            return collectives.halo_scatter_sum(h_, p.halo, n_pad, GRAPH_AXIS,
+                                                deltas=p.halo_deltas, impl="all_to_all")
+
+        buf, vjp = jax.vjp(ex, x)
+        back, vjp2 = jax.vjp(unex, h)
+        return [a[None] for a in (buf, vjp(cth)[0], back, vjp2(cto)[0])]
+
+    f = jax.shard_map(body, mesh=mesh, in_specs=(plan_in_specs(plan),) + (P(GRAPH_AXIS),) * 4,
+                      out_specs=P(GRAPH_AXIS))
+    with jax.set_mesh(mesh):
+        out = jax.jit(f)(jax.tree.map(jnp.asarray, plan),
+                         *(jnp.asarray(case[k]) for k in ("xs", "h", "ct_halo", "ct_owner")))
+    return [np.asarray(a) for a in out]
+
+
+@pytest.fixture
+def pinned():
+    saved = (jcfg.halo_impl, jcfg.use_pallas_p2p)
+    yield
+    jcfg.set_flags(halo_impl=saved[0], use_pallas_p2p=saved[1])
+
+
+def _gcn_inputs():
+    sbm = synthetic.sbm_classification_graph(num_nodes=300, num_classes=C, feat_dim=F_IN,
+                                             seed=2)
+    saved = jcfg.halo_impl
+    jcfg.set_flags(halo_impl="overlap")  # the reference's auto rule attaches the split
+    try:
+        ref = JaxGraph.from_global(sbm["edge_index"], sbm["features"], sbm["labels"],
+                                   sbm["masks"], 4, partition_method="random",
+                                   add_symmetric_norm=True, tune="off")
+    finally:
+        jcfg.set_flags(halo_impl=saved)
+    assert ref.plan.overlap is not None
+    model = JaxGCN(HIDDEN, C, comm=Communicator.init_process_group("single"))
+    plan0 = jax.tree.map(lambda a: jnp.asarray(a[0]), ref.plan)
+    params = model.init(jax.random.key(0), jnp.asarray(ref.features[0]), plan0,
+                        jnp.asarray(ref.edge_weight[0]))
+    sd = {k: v.numpy() for k, v in params_from_jax(params).items()}
+    g = {"edges": sbm["edge_index"], "features": sbm["features"], "labels": sbm["labels"],
+         "masks": sbm["masks"], "hidden": HIDDEN, "classes": C, "params": sd, "lr": LR}
+    return ref, params, g
+
+
+def _jax_gcn(ref, params, impl):
+    """(logits [W, n, C], loss, grads) of the reference's W = 4 step under
+    ``impl``."""
+    W = 4
+    mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
+    model = JaxGCN(HIDDEN, C, comm=Communicator.init_process_group("tpu", world_size=W))
+    batch = {"x": jnp.asarray(ref.features), "y": jnp.asarray(ref.labels),
+             "mask": jnp.asarray(ref.masks["train"]),
+             "edge_weight": jnp.asarray(ref.edge_weight)}
+    plan = jax.tree.map(jnp.asarray, ref.plan)
+    jcfg.set_flags(halo_impl=impl)
+
+    def body(p, b, pl):
+        from dgraph_tpu import compat
+
+        pl = squeeze_plan(pl)
+        b = jax.tree.map(lambda a: a[0], b)
+
+        def lf(p_):
+            logits = model.apply(p_, b["x"], pl, b["edge_weight"])
+            return jax_masked_ce(logits, b["y"], b["mask"], GRAPH_AXIS), logits
+
+        (loss, logits), grads = jax.value_and_grad(lf, has_aux=True)(p)
+        grads = compat.sync_inbody_grads(grads, (GRAPH_AXIS,))
+        return jax.lax.psum(loss, GRAPH_AXIS), logits[None], grads
+
+    f = jax.shard_map(body, mesh=mesh,
+                      in_specs=(P(), jax.tree.map(lambda _: P(GRAPH_AXIS), batch),
+                                plan_in_specs(plan)),
+                      out_specs=(P(), P(GRAPH_AXIS), P()),
+                      **collectives.shard_map_checks(relax="grads replicated by psum"))
+    with jax.set_mesh(mesh):
+        loss, logits, grads = jax.jit(f)(params, batch, plan)
+    return np.asarray(logits), float(loss), grads
+
+
+def _jax_adam(ref, params):
+    W = 4
+    mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
+    model = JaxGCN(HIDDEN, C, comm=Communicator.init_process_group("tpu", world_size=W))
+    batch = {"x": jnp.asarray(ref.features), "y": jnp.asarray(ref.labels),
+             "mask": jnp.asarray(ref.masks["train"]),
+             "edge_weight": jnp.asarray(ref.edge_weight)}
+    plan = jax.tree.map(jnp.asarray, ref.plan)
+    jcfg.set_flags(halo_impl="all_to_all")
+    opt = optax.adam(LR)
+    step = jax_make_train_step(model, opt, mesh, plan, donate=False)
+    opt_state, losses = opt.init(params), []
+    with jax.set_mesh(mesh):
+        for _ in range(5):
+            params, opt_state, m = step(params, opt_state, batch, plan)
+            losses.append(float(m["loss"]))
+    return losses, params
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """{W: (inputs, per-rank results)} — one spawn per world size."""
+    out = {}
+    for W in (2, 4):
+        halo = []
+        for i, (label, edges, part) in enumerate(_halo_graphs(W)):
+            plan, case = _halo_inputs(label, edges, part, W, seed=10 + i)
+            halo.append((plan, case))
+        inputs = {"halo": [c for _, c in halo]}
+        gcn = None
+        if W == 4:
+            gcn = _gcn_inputs()
+            inputs["gcn"] = gcn[2]
+        path = tmp_path_factory.mktemp(f"w{W}") / "inputs.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(inputs, f)
+        res = launch(torch_dist_ranks.run_cases, W, str(path), device="cpu",
+                     timeout=TIMEOUT, threads=1)
+        out[W] = (halo, gcn, res)
+    return out
+
+
+HALO_CASES = [(2, 0), (4, 0), (4, 1)]
+
+
+@pytest.mark.parametrize("impl", torch_dist_ranks.IMPLS)
+@pytest.mark.parametrize("W, i", HALO_CASES, ids=["W2-random", "W4-random", "W4-block-ring"])
+def test_halo_lowerings_bitwise_equal_reference_all_to_all(ranks, W, i, impl):
+    halo, _, res = ranks[W]
+    plan, case = halo[i]
+    want = _jax_halo(plan, case, W)
+    S = plan.halo.s_pad
+    for r in range(W):
+        got = res[r]["halo"][i]
+        assert tuple(got["deltas"]) == tuple(plan.halo_deltas)
+        for name, a, b in zip(("buffer", "x VJP", "halo_scatter_sum", "h VJP"),
+                              got[impl], want):
+            b = b[r]
+            if impl == "pallas_p2p" and name in ("buffer", "h VJP"):
+                b = b.reshape(W, S, -1).copy()
+                b[_unreached(W, r, plan.halo_deltas)] = 0.0
+                b = b.reshape(W * S, -1)
+            _assert_bits_equal(a, b, f"rank {r} {name}")
+
+
+def test_halo_cases_mask_nan_and_negative_rows(ranks):
+    """The bit comparisons above tell a multiply from a select: in the p2p
+    buffers, slots their sender masked hold NaN and -0.0 (``x * 0``)."""
+    masked = []
+    for W, i in HALO_CASES:
+        plan, _ = ranks[W][0][i]
+        S, mask = plan.halo.s_pad, np.asarray(plan.halo.send_mask)
+        for p in range(W):
+            buf = ranks[W][2][p]["halo"][i]["pallas_p2p"][0].reshape(W, S, -1)
+            for r in range(W):  # block r of rank p's buffer: rank r's sends to p
+                if (p - r) % W in plan.halo_deltas:
+                    masked.append(buf[r][mask[r, p] == 0].ravel())
+    masked = np.concatenate(masked)
+    assert np.isnan(masked).any() and np.signbit(masked[masked == 0]).any()
+    assert not (masked[~np.isnan(masked)] != 0).any()
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_split_ops_match_unsplit(ranks, W):
+    """gather_scatter_overlap and the GCN's separable split branch against
+    their unsplit forms on the same ranks, within 1e-5 (the split groups
+    the owner-side sums per subset)."""
+    for r, res in enumerate(ranks[W][2]):
+        got = res["split_ops"]
+        assert got["split"], f"rank {r} did not take the split route"
+        np.testing.assert_allclose(got["gso"], got["gs"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got["layer_split"], got["layer_unsplit"], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_block_ring_has_sparse_deltas(ranks):
+    plan, _ = ranks[4][0][1]
+    assert plan.halo_deltas == (1, 3)
+
+
+def _assert_grads(got: dict, want, tol):
+    want_sd = {k: v.numpy() for k, v in params_from_jax(want).items()}
+    assert got.keys() == want_sd.keys()
+    for k in want_sd:
+        np.testing.assert_allclose(got[k], want_sd[k], rtol=tol, atol=tol, err_msg=k)
+
+
+@pytest.mark.parametrize("impl", ["all_to_all", "overlap"])
+def test_gcn_p2p_split_matches_reference(ranks, pinned, impl):
+    _, (ref, params, _), res = ranks[4]
+    logits, loss, grads = _jax_gcn(ref, params, impl)
+    for r in range(4):
+        got = res[r]["gcn"]
+        assert got["split"]
+        np.testing.assert_allclose(got["logits"], logits[r], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got["loss"], loss, rtol=1e-5, atol=1e-5)
+        _assert_grads(got["grads"], grads, 1e-5)
+
+
+def test_gcn_ranks_hold_equal_parameters(ranks):
+    res = ranks[4][2]
+    for r in range(1, 4):
+        for k, v in res[0]["gcn"]["params"].items():
+            _assert_bits_equal(res[r]["gcn"]["params"][k], v, k)
+
+
+def test_five_adam_steps_at_w4_match_optax(ranks, pinned):
+    _, (ref, params, _), res = ranks[4]
+    want_losses, want_params = _jax_adam(ref, params)
+    got = res[0]["gcn"]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-4, atol=1e-4)
+    assert got["losses"][-1] < got["losses"][0]
+    flat = params_to_jax({k: torch.from_numpy(v) for k, v in got["params"].items()})
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                                         rtol=1e-3, atol=1e-3),
+                 flat, want_params)
+
+
+def test_train_cli_two_cpu_ranks(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "dgraph_tpu_torch.train", "--device", "cpu", "--world_size", "2",
+         "--epochs", "2", "--data.num_nodes", "400", "--log_path", str(tmp_path / "log.jsonl")],
+        capture_output=True, text=True, timeout=TIMEOUT, check=True,
+    ).stdout
+    steps = [json.loads(line) for line in out.splitlines() if '"kind": "step"' in line]
+    assert [s["step"] for s in steps] == [0, 1]
+    assert steps[1]["loss"] < steps[0]["loss"]
+    assert (tmp_path / "log.jsonl").read_text().count("\n") == len(out.splitlines())
+
+
+def test_a_failing_rank_ends_the_launch():
+    t = time.perf_counter()
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed(.|\n)*rank 1 gives up"):
+        launch(torch_dist_ranks.fail_on_rank1, 2, device="cpu", timeout=TIMEOUT, threads=1)
+    assert time.perf_counter() - t < TIMEOUT

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "dgraph_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, chip_smoke.py, and the rank functions the CPU tests spawn
+PORT_FILES = sorted((ROOT / "dgraph_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -42,7 +44,8 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/plan.py", "dgraph_tpu_torch/train/loop.py",
                  "dgraph_tpu_torch/train/__main__.py", "dgraph_tpu_torch/train/lm.py",
                  "dgraph_tpu_torch/ops/attention.py", "dgraph_tpu_torch/models/transformer.py",
-                 "chip_smoke.py"):
+                 "dgraph_tpu_torch/comm/dist.py", "dgraph_tpu_torch/ops/p2p.py",
+                 "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
 
@@ -55,6 +58,9 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.train.loop, dgraph_tpu_torch.train.__main__\n"
         "import dgraph_tpu_torch.train.lm, dgraph_tpu_torch.ops.kernels\n"
         "import dgraph_tpu_torch.parallel.sequence, dgraph_tpu_torch.train.profile\n"
+        "import dgraph_tpu_torch.comm.dist, dgraph_tpu_torch.ops.p2p\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -84,7 +90,7 @@ def test_nvcc_command_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags and "-O3" in flags
     assert set(_build.SOURCES) == set(_build.SIGNATURES) == {"sorted_segment", "sorted_gather",
-                                                             "flash_attention"}
+                                                             "flash_attention", "p2p_transport"}
     for name, source in _build.SOURCES.items():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"

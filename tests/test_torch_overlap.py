@@ -1,0 +1,171 @@
+"""The port's interior/boundary split and halo-lowering resolution against
+the JAX package's (host-only: no collective runs here).
+
+- ``build_edge_plan(..., overlap=True)``: every ``OverlapSpec`` array and
+  static and ``halo_deltas`` equal to the reference's, for W in {2, 4},
+  random and block partitions;
+- ``resolve_halo_impl``'s env > heuristic ladder and the pallas_p2p gates:
+  the cases of ``tests/test_pallas_p2p.py``'s ``TestResolveP2PLadder`` that
+  need no adopted record (the port has no record tier), on the port's
+  resolver, and the pin's build-time rejections;
+- the lowerings the port does not have yet raise instead of running another.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from dgraph_tpu import config as jcfg
+from dgraph_tpu import plan as jpl
+from dgraph_tpu_torch import config as cfg
+from dgraph_tpu_torch import partition as pt
+from dgraph_tpu_torch import plan as pl
+from dgraph_tpu_torch.comm import collectives
+from dgraph_tpu_torch.data import synthetic
+
+OVERLAP_LEAVES = ("int_src", "int_dst", "int_mask", "int_epos", "bnd_src", "bnd_dst",
+                  "bnd_mask", "bnd_epos", "num_interior", "num_boundary")
+OVERLAP_STATICS = ("e_int_pad", "e_bnd_pad", "interior_mc", "boundary_mc")
+FLAGS = ("halo_impl", "use_pallas_p2p")
+
+
+@pytest.fixture
+def flags():
+    saved = {k: getattr(cfg, k) for k in FLAGS}
+    jsaved = (jcfg.halo_impl, jcfg.tuned_halo_impl, jcfg.use_pallas_p2p)
+    yield
+    for k, v in saved.items():
+        setattr(cfg, k, v)
+    jcfg.set_flags(halo_impl=jsaved[0], tuned_halo_impl=jsaved[1], use_pallas_p2p=jsaved[2])
+
+
+def set_flags(**kw):
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+
+
+@pytest.mark.parametrize("method", ["random", "block"])
+@pytest.mark.parametrize("W", [2, 4])
+def test_overlap_spec_matches_reference(W, method):
+    sbm = synthetic.sbm_classification_graph(num_nodes=400, seed=1)
+    new, ren = pt.partition_graph(sbm["edge_index"], 400, W, method=method, seed=3)
+    ours, _ = pl.build_edge_plan(new, ren.partition, world_size=W, overlap=True)
+    ref, _ = jpl.build_edge_plan(new, ren.partition, world_size=W, overlap=True,
+                                 use_native=False)
+    assert ours.halo_deltas == ref.halo_deltas and ours.halo_pair_rows == ref.halo_pair_rows
+    for name in OVERLAP_STATICS:
+        assert getattr(ours.overlap, name) == getattr(ref.overlap, name), name
+    for name in OVERLAP_LEAVES:
+        a, b = getattr(ours.overlap, name).numpy(), np.asarray(getattr(ref.overlap, name))
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    pl.validate_plan(ours)
+    view = ours.shard(W - 1)
+    assert view.overlap.int_src.shape == (ours.overlap.e_int_pad,)
+    assert int(view.overlap.num_interior) + int(view.overlap.num_boundary) == int(
+        view.num_edges)
+
+
+def test_validate_plan_catches_a_broken_split():
+    sbm = synthetic.sbm_classification_graph(num_nodes=200, seed=1)
+    new, ren = pt.partition_graph(sbm["edge_index"], 200, 2, method="random")
+    plan, _ = pl.build_edge_plan(new, ren.partition, world_size=2, overlap=True)
+    mask = plan.overlap.bnd_mask.clone()
+    mask[0, 0] = 0
+    bad = dataclasses.replace(plan, overlap=dataclasses.replace(plan.overlap, bnd_mask=mask))
+    with pytest.raises(ValueError, match="does not tile"):
+        pl.validate_plan(bad)
+
+
+@pytest.mark.parametrize("pins, overlap, want", [
+    (dict(halo_impl="pallas_p2p", use_pallas_p2p=True), True, ("pallas_p2p", "env")),
+    (dict(halo_impl="all_to_all", use_pallas_p2p=True), True, ("all_to_all", "env")),
+    (dict(halo_impl="overlap", use_pallas_p2p=True), True, ("overlap", "env")),
+    (dict(halo_impl="pallas_p2p", use_pallas_p2p=False), True, ("overlap", "heuristic")),
+    (dict(halo_impl="auto", use_pallas_p2p=True), True, ("overlap", "heuristic")),
+], ids=["env_pin", "env_all_to_all", "env_overlap", "degrades_without_backend",
+        "heuristic_never_picks_p2p"])
+def test_resolve_ladder_matches_reference(flags, pins, overlap, want):
+    set_flags(**pins)
+    jcfg.set_flags(**pins, tuned_halo_impl=None)
+    got = pl.resolve_halo_impl((1,), overlap_available=overlap)
+    assert got == want == jpl.resolve_halo_impl(2, (1,), overlap_available=overlap)
+
+
+def test_p2p_pin_degrades_without_split(flags):
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
+    assert pl.resolve_halo_impl((1,), overlap_available=False) == ("all_to_all", "heuristic")
+
+
+def test_p2p_availability_follows_the_device(flags):
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=None)
+    assert cfg.pallas_p2p_available("cuda") and not cfg.pallas_p2p_available("cpu")
+    assert pl.resolve_halo_impl((1,), overlap_available=True, p2p_available=False) == (
+        "overlap", "heuristic")
+
+
+@pytest.mark.parametrize("W, deltas, rows", [
+    (4, (1, 2, 3), ()), (4, (1, 3), ()), (8, (1,), ()), (2, (), ()),
+    (4, (1, 2, 3), ((0, 50, 1, 1), (1, 0, 50, 1), (1, 1, 0, 50), (50, 1, 1, 0))),
+])
+def test_pick_halo_impl_matches_reference(W, deltas, rows):
+    """The reference's heuristic with its sparse-peer-set choice,
+    ``ppermute``, resolved to ``all_to_all`` (the port has no ppermute
+    lowering); the same answer wherever the reference picks all_to_all or
+    none."""
+    ref = jpl.pick_halo_impl(W, deltas, rows)
+    assert pl.pick_halo_impl(deltas) == ("all_to_all" if ref == "ppermute" else ref)
+
+
+def test_p2p_intent_builds_split(flags):
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
+    part = np.repeat(np.arange(2), 16)
+    edges = np.stack([np.arange(32), (np.arange(32) + 1) % 32])
+    plan, _ = pl.build_edge_plan(edges, part, world_size=2)  # overlap=None: auto
+    assert plan.overlap is not None
+    set_flags(halo_impl="auto")
+    assert pl.build_edge_plan(edges, part, world_size=2)[0].overlap is None
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(sort_edges=False, overlap=False), "pallas_p2p.*sort_edges"),
+    (dict(s_pad=12, pad_multiple=1), "pallas_p2p.*s_pad"),
+    (dict(pad_multiple=4), "pallas_p2p.*pad_multiple"),
+])
+def test_p2p_pin_rejects_knobs(flags, kw, match):
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
+    jcfg.set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
+    part = np.repeat(np.arange(2), 16)
+    edges = np.stack([np.arange(32), (np.arange(32) + 1) % 32])
+    with pytest.raises(ValueError, match=match):
+        pl.build_edge_plan(edges, part, world_size=2, **kw)
+    with pytest.raises(ValueError, match=match):
+        jpl.build_edge_plan(edges, part, world_size=2, **kw)
+
+
+def test_unported_lowerings_raise(flags):
+    @dataclasses.dataclass(frozen=True)
+    class Group:
+        device: torch.device = torch.device("cpu")
+
+    part = np.repeat(np.arange(2), 16)
+    edges = np.stack([np.arange(32), (np.arange(32) + 1) % 32])
+    plan, _ = pl.build_edge_plan(edges, part, world_size=2, overlap=True)
+    view = plan.shard(0)
+    set_flags(halo_impl="overlap")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        collectives.split_active(view, Group())
+    set_flags(halo_impl="sched")  # a pin the resolver would skip still raises
+    with pytest.raises(NotImplementedError, match="compiled-schedule"):
+        collectives.resolve_plan_impl(view, Group())
+    set_flags(halo_impl="auto")  # the split alone resolves to 'overlap' too
+    with pytest.raises(NotImplementedError, match="overlap"):
+        collectives.resolve_plan_impl(view, Group())
+    set_flags(halo_impl="ppermute")
+    with pytest.raises(NotImplementedError, match="ppermute"):
+        collectives.resolve_plan_impl(view, Group())
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
+    assert collectives.split_active(view, Group())
+    assert not collectives.split_active(view)  # one rank: nothing to split

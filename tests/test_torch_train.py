@@ -173,15 +173,19 @@ def test_eval_step_and_fit(graphs):
 
 
 def test_multi_rank_training_is_a_later_slice(graphs):
+    """Replica groups are a later slice; a plan of 2 ranks needs a
+    communicator of 2 ranks (tests/test_torch_dist.py trains on one)."""
     ours, _ = graphs
     model = GCN(F_IN, HIDDEN, C, SingleComm())
     opt = torch.optim.Adam(model.parameters())
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         loop.make_train_step(model, opt, ours.plan, per_replica_batch=True)
     plan2, _ = build_edge_plan(ours.edge_index, np.arange(ours.num_nodes) * 2 // ours.num_nodes,
                                world_size=2)
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
+    with pytest.raises(ValueError, match="DistComm of 2 ranks"):
         loop.make_train_step(model, opt, plan2)
+    with pytest.raises(ValueError, match="DistComm of 2 ranks"):
+        loop.make_eval_step(model, plan2, comm=SingleComm())
 
 
 def test_masked_bce_matches_reference():
@@ -245,5 +249,5 @@ def test_train_cli_refuses_unported_models():
     assert cfg.data.num_nodes == 50 and cfg.device == "cpu"
     with pytest.raises(NotImplementedError, match="not ported"):
         build_training(cfg)
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
+    with pytest.raises(ValueError, match="main\\(\\) launches the ranks"):
         build_training(Config(world_size=2, device="cpu"))

@@ -1,0 +1,159 @@
+"""Rank functions of the multi-rank CPU tests (``test_torch_dist.py``).
+
+Each runs in a process that ``dgraph_tpu_torch.comm.dist.launch`` spawns, so
+this module imports torch and the port only, never JAX: the test process
+computes the JAX side and hands the inputs over as numpy arrays in a pickle.
+Every function returns numpy arrays.
+"""
+
+from __future__ import annotations
+
+import itertools
+import pickle
+
+import numpy as np
+import torch
+
+from dgraph_tpu_torch import config
+from dgraph_tpu_torch.comm import DistComm
+from dgraph_tpu_torch.comm import collectives as coll
+from dgraph_tpu_torch.data import DistributedGraph
+from dgraph_tpu_torch.models import GCN
+from dgraph_tpu_torch.models.gcn import GraphConvLayer
+from dgraph_tpu_torch.plan import build_edge_plan
+from dgraph_tpu_torch.train import loop
+
+IMPLS = ("all_to_all", "pallas_p2p")
+
+
+def _halo_case(group, case: dict) -> dict:
+    """Every lowering's halo buffer, halo_scatter_sum and both VJPs on this
+    rank, for one graph."""
+    r = group.rank
+    plan, _ = build_edge_plan(case["edges"], case["part"], world_size=group.world_size,
+                              overlap=True)
+    plan = plan.shard(r)
+    n_pad = plan.n_src_pad
+    out = {"deltas": np.asarray(plan.halo_deltas)}
+    for impl in IMPLS:
+        x = torch.from_numpy(case["xs"][r]).requires_grad_()
+        buf = coll.halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
+        (buf * torch.from_numpy(case["ct_halo"][r])).sum().backward()
+        h = torch.from_numpy(case["h"][r]).requires_grad_()
+        back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl)
+        (back * torch.from_numpy(case["ct_owner"][r])).sum().backward()
+        out[impl] = [a.detach().numpy() for a in (buf, x.grad, back, h.grad)]
+    return out
+
+
+def _split_ops(group, case: dict) -> dict:
+    """The split ops against the unsplit ones on this rank (port against
+    port): the split neighbour sum (``gather_scatter_overlap``) against
+    ``scatter_sum(gather(x) * w)``, and a GraphConvLayer on a plan built as
+    bipartite (the separable split branch) against the same layer under the
+    all_to_all lowering."""
+    r, W, part = group.rank, group.world_size, case["part"]
+    comm = DistComm(group)
+    view = build_edge_plan(case["edges"], part, world_size=W, overlap=True)[0].shard(r)
+    bip = build_edge_plan(case["edges"], part, part, world_size=W, overlap=True)[0].shard(r)
+    x = torch.from_numpy(case["x"][r])
+    w = torch.linspace(0.5, 1.5, view.e_pad)
+    torch.manual_seed(0)
+    layer = GraphConvLayer(x.shape[1], 8, comm)
+    config.halo_impl = "all_to_all"
+    buf = coll.halo_exchange(x, view.halo, group, view.halo_deltas, "all_to_all")
+    out = {"gso": coll.gather_scatter_overlap(x, buf, view, w),
+           "gs": coll.scatter_sum(coll.gather(x, view, "src", group) * w[:, None], view,
+                                  "dst", group),
+           "layer_unsplit": layer(x, bip, w[:bip.e_pad])}
+    config.halo_impl, config.use_pallas_p2p = "pallas_p2p", True
+    out["split"] = comm.split_active(bip) and not bip.homogeneous
+    out["layer_split"] = layer(x, bip, w[:bip.e_pad])
+    config.halo_impl, config.use_pallas_p2p = "auto", None
+    return {k: v.detach().numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def _gcn_rank(group, g: dict) -> dict:
+    """The GCN on the p2p split route: logits, global loss and summed
+    gradients at step 0, then 5 Adam steps."""
+    config.halo_impl, config.use_pallas_p2p = "pallas_p2p", True
+    comm = DistComm(group)
+    graph = DistributedGraph.from_global(
+        g["edges"], g["features"], g["labels"], g["masks"], group.world_size,
+        partition_method="random", add_symmetric_norm=True, overlap=True)
+    model = GCN(g["features"].shape[1], g["hidden"], g["classes"], comm)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in g["params"].items()})
+    r = group.rank
+    plan = graph.plan.shard(r)
+    b = graph.rank_batch("train", r)
+    split = comm.split_active(plan)
+    logits = loop.model_apply(model, b, plan)
+    count = coll.all_reduce_sum(b["mask"].sum(), group)
+    loss = loop.masked_cross_entropy(logits, b["y"], b["mask"], count=count)
+    loss.backward()
+    comm.grad_sync(list(model.parameters()))
+    grads = {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
+    global_loss = float(coll.all_reduce_sum(loss.detach(), group))
+
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in g["params"].items()})
+    step = loop.make_train_step(model, torch.optim.Adam(model.parameters(), lr=g["lr"]),
+                                graph.plan, comm=comm)
+    batch = dict(graph.batch("train"), y=graph.labels)
+    losses = [float(step(batch)["loss"]) for _ in range(5)]
+    return {"split": split, "logits": logits.detach().numpy(), "loss": global_loss,
+            "grads": grads, "losses": losses,
+            "params": {k: v.detach().numpy() for k, v in model.state_dict().items()}}
+
+
+def run_cases(group, path: str) -> dict:
+    """All of one world size's cases (one spawn per world size)."""
+    with open(path, "rb") as f:
+        inputs = pickle.load(f)
+    out = {"halo": [_halo_case(group, c) for c in inputs["halo"]],
+           "split_ops": _split_ops(group, inputs["halo"][0])}
+    if "gcn" in inputs:
+        out["gcn"] = _gcn_rank(group, inputs["gcn"])
+    return out
+
+
+def fail_on_rank1(group):
+    """Rank 1 raises; rank 0 waits in a collective that never completes."""
+    if group.rank == 1:
+        raise ValueError("rank 1 gives up")
+    group.barrier()
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of an f32 or bf16 tensor (``torch.equal`` holds
+    ``-0.0 == 0.0`` and ``NaN != NaN``; these compare as stored)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def p2p_parity(group) -> list:
+    """Kernel 5 on this rank's card against its plain version (bit for bit,
+    two launches equal): both types, both directions, with and without a
+    mask, F in {1, 33, 256}, aligned and one element off. The tiles hold
+    negative values, NaN and -inf, so a masked row comes out as ``x * 0``
+    (-0.0, NaN) as in the ``all_to_all`` lowering, where a select would
+    give +0.0. Returns the cases that failed."""
+    from dgraph_tpu_torch.ops import p2p
+
+    W, dev = group.world_size, group.device
+    deltas = (1,) if W == 2 else (1, 3)
+    gen = torch.Generator(device=dev).manual_seed(group.rank)
+    bad = []
+    for F, dtype, sign, masked, off in itertools.product(
+            (1, 33, 256), (torch.float32, torch.bfloat16), (1, -1), (True, False), (0, 1)):
+        n, S = len(deltas), 200
+        raw = torch.randn(n * S * F + off, generator=gen, device=dev)
+        raw[::7], raw[3::11] = float("nan"), float("-inf")
+        raw = raw.to(dtype)
+        blocks = raw[off:].view(n, S, F)
+        mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
+        kw = dict(sign=sign, mask=mask, group=group)
+        got = p2p.p2p_transport(blocks, deltas, W, S, **kw)
+        want = p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)
+        again = p2p.p2p_transport(blocks, deltas, W, S, **kw)
+        if not (torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))):
+            bad.append((F, str(dtype), sign, masked, off))
+    return bad
