@@ -49,16 +49,27 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    once a layer and no other kernel; step 0's loss and every gradient match
    the CPU plain path within 1e-4; the loss falls; an eval forward launches
    only the forward kernel; step ms p50/p99 and the device-busy share;
-9. kernel 5 and train ogb_gcn over 4 ranks — the one-sided halo transport
-   (``ops.p2p``) spawned on 4 and on 2 ranks (sharing the card through CUDA
-   IPC, or a card each): bit-equal to its plain version (the masked send
-   stack through ``all_to_all``), bit patterns compared, at the real W = 4
-   plan's send lists (F = 256, f32 and bf16, the masked exchange and the
-   unmasked reverse leg) and at edge cases whose tiles hold NaN, -inf and
-   negative values (deltas {1} and {1, 3}, F in {1, 33, 256}, both
-   directions, with and without a mask, unaligned rows), two launches
-   equal; timed beside the exchange's barrier-to-barrier wall time, the
-   plain version, the yardstick and the bound. Then ``python -m
+9. kernels 5 and 6, the landing check, and train ogb_gcn over 4 ranks —
+   the put-discipline verifier's static selftest (the clean protocol GREEN,
+   each of the five seeded faults RED on its own rule); then the one-sided
+   halo transport (``ops.p2p``) spawned on 4 and on 2 ranks (sharing the
+   card through CUDA IPC, or a card each): bit-equal to its plain version
+   (the masked send stack through ``all_to_all``), bit patterns compared,
+   at the real W = 4 plan's send lists (F = 256, f32 and bf16, the masked
+   exchange and the unmasked reverse leg) and at edge cases whose tiles
+   hold NaN, -inf and negative values (deltas {1} and {1, 3}, F in {1, 33,
+   256}, both directions, with and without a mask, unaligned rows), two
+   launches equal; kernel 6 (its fault-seeded copy) ``None`` bit-equal to
+   kernel 5 and to its plain version at the same cases and at the real
+   send lists, each seeded fault (``bad_dst_row``, ``oversize``) bit-equal
+   to its plain version at deltas whose landings no two senders share;
+   then kernel 6's path, the verifier's landing check
+   (``analysis.kernel.audit_landing``, kernel 5 and kernel 6's three forms,
+   both directions, f32 and bf16): GREEN on kernel 5 and kernel 6 ``None``,
+   RED naming ``dst-rows`` on ``bad_dst_row`` and ``extent`` on
+   ``oversize``; kernels 5 and 6 timed beside the exchange's
+   barrier-to-barrier wall time, the plain version, the yardstick and the
+   bound. Then ``python -m
    dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4`` with
    DGRAPH_TPU_HALO_IMPL=pallas_p2p (random partition, the interior/boundary
    split): 2 warm-up and 10 timed steps; every rank's every step launches
@@ -1000,6 +1011,35 @@ def p2p_edge_cases(W: int) -> list:
             + [((1, 3), 256, dt, 1, True, 1) for dt in dts])
 
 
+def p2p_mutant_cases(W: int) -> list:
+    """(mutation, F, dtype, sign, element offset) of kernel 6's seeded-fault
+    checks at world size W, each at the deltas whose landings no two
+    senders share (``analysis.kernel.disjoint_deltas``: where two senders
+    write one row the card's outcome is a race). W = 4: F in {33, 256},
+    both types, both directions, masked, and blocks one element off at
+    F = 256; W = 2: F = 256, both types, both directions. 20 and 8 cases."""
+    dts = ("float32", "bfloat16")
+    Fs = (33, 256) if W == 4 else (256,)
+    return [(m, F, dt, sign, 0) for m in ("bad_dst_row", "oversize") for F in Fs
+            for dt in dts for sign in (1, -1)] + (
+        [(m, 256, dt, 1, 1) for m in ("bad_dst_row", "oversize") for dt in dts] if W == 4 else [])
+
+
+def p2p_landing_cases(W: int) -> tuple:
+    """The landing check's cases on the card: each transport variant (kernel
+    5, kernel 6 clean and its two faults), both directions, every peer a
+    live source, f32 at S = P2P_EDGE_S and F = P2P_F, bf16 at S = 8 and
+    F = 16 (its tiles' row codes stay exact and distinct)."""
+    import torch
+
+    from dgraph_tpu_torch.analysis.kernel import LANDING_VARIANTS
+
+    return tuple(dict(kernel=k, mutation=m, S=S, F=F, dtype=dt, sign=sign)
+                 for k, m in LANDING_VARIANTS
+                 for dt, S, F in ((torch.float32, P2P_EDGE_S, P2P_F), (torch.bfloat16, 8, 16))
+                 for sign in (1, -1))
+
+
 def p2p_work(n, S, F, b, masked) -> tuple:
     """(bytes, ops) of one launch: each tile element read once and written
     once (into a peer's rows), 4 bytes of mask a row; one multiply an
@@ -1007,36 +1047,53 @@ def p2p_work(n, S, F, b, masked) -> tuple:
     return 2 * n * S * F * b + (4 * n * S if masked else 0), (n * S * F if masked else 0)
 
 
-def p2p_parity_rank(group, edge_cases, real):
-    """One rank of the kernel-5 checks (run under ``comm.dist.launch``):
-    every case bit-equal to the plain version, two launches equal; at the
-    real shape (``real``: the W = 4 plan's send lists, F = 256) the kernel's
-    own time (CUDA events, the ranks in turn, the others idle), the
-    exchange's wall time from barrier to barrier (all ranks together), the
-    plain version's, and the yardstick's: the per-tile ``torch.mul``/``copy_``
-    into the mapped peer rows on one card, NCCL ``all_to_all_single`` where
-    each rank has its card."""
+def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
+    """One rank of the kernel-5 and kernel-6 checks (run under
+    ``comm.dist.launch``): every case bit-equal to the plain version, two
+    launches equal, kernel 6 ``None`` also bit-equal to kernel 5, each of
+    kernel 6's faults bit-equal to its plain version; then kernel 6's path,
+    the verifier's landing check (``analysis.kernel.audit_landing``) with
+    the launch counts zeroed before and read after; at the real shape
+    (``real``: the W = 4 plan's send lists, F = 256) each kernel's own time
+    (CUDA events, the ranks in turn, the others idle), the exchange's wall
+    time from barrier to barrier (all ranks together), the plain version's,
+    and the yardstick's: the per-tile ``torch.mul``/``copy_`` into the
+    mapped peer rows on one card, NCCL ``all_to_all_single`` where each
+    rank has its card."""
     import torch
     import torch.distributed as dist
 
-    from dgraph_tpu_torch.ops import p2p
+    from dgraph_tpu_torch.analysis.kernel import audit_landing, disjoint_deltas
+    from dgraph_tpu_torch.ops import kernels, p2p
 
     dev, W, me = group.device, group.world_size, group.rank
     gen = torch.Generator(device=dev).manual_seed(100 + me)
     failures, records = [], []
     t0 = time.perf_counter()
 
-    def check(name, run, plain) -> float:
-        """Bit-equal to the plain version, and two launches equal; the max
-        abs error (NaN where the data holds NaN)."""
+    def check(name, run, plain, k5=None) -> float:
+        """Bit-equal to the plain version (and to kernel 5's output ``k5()``
+        when given), and two launches equal; the max abs error against the
+        plain version (NaN where the data holds NaN)."""
         got, want, again = run(), plain(), run()
         torch.cuda.synchronize(dev)
-        if not torch.equal(bits(got), bits(want)):
-            failures.append(f"{name}: kernel != plain in "
-                            f"{int((bits(got) != bits(want)).sum())} elements")
+        for what, ref in [("plain", want)] + ([("kernel 5", k5())] if k5 else []):
+            if not torch.equal(bits(got), bits(ref)):
+                failures.append(f"{name}: kernel != {what} in "
+                                f"{int((bits(got) != bits(ref)).sum())} elements")
         if not torch.equal(bits(got), bits(again)):
             failures.append(f"{name}: two launches differ")
         return max_err(got, want)
+
+    def tiles(n, S, F, dtype_name, off, masked):
+        """Blocks with negative values, NaN and -inf (a masked row must
+        come out as x * 0: -0.0, NaN, as in the plain version, where a
+        select gives +0.0) and a mask or None."""
+        raw = torch.randn(n * S * F + off, generator=gen, device=dev)
+        raw[::7], raw[3::11] = float("nan"), float("-inf")
+        raw = raw.to(getattr(torch, dtype_name))
+        mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
+        return raw[off:].view(n, S, F), mask
 
     def in_turn(fn):
         """ms of ``fn`` on each rank while the others wait (this rank's)."""
@@ -1060,19 +1117,31 @@ def p2p_parity_rank(group, edge_cases, real):
 
     for deltas, F, dtype_name, sign, masked, off in edge_cases:
         n, S = len(deltas), P2P_EDGE_S
-        # negative values, NaN and -inf: a masked row must come out as x * 0
-        # (-0.0, NaN), as in the plain version, where a select gives +0.0
-        raw = torch.randn(n * S * F + off, generator=gen, device=dev)
-        raw[::7], raw[3::11] = float("nan"), float("-inf")
-        raw = raw.to(getattr(torch, dtype_name))
-        blocks = raw[off:].view(n, S, F)
-        mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
+        blocks, mask = tiles(n, S, F, dtype_name, off, masked)
         kw = dict(sign=sign, mask=mask, group=group)
-        check(f"p2p edge W={W} deltas={deltas} F={F} {dtype_name} sign={sign} "
-              f"mask={masked} offset={off}",
-              lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw),
-              lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw))
+        case = (f"W={W} deltas={deltas} F={F} {dtype_name} sign={sign} mask={masked} "
+                f"offset={off}")
+        k5 = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
+        check(f"p2p edge {case}", k5, lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw))
+        check(f"p2p mutant None edge {case}",
+              lambda: p2p.p2p_transport_mutant(blocks, deltas, W, S, **kw),
+              lambda: p2p.p2p_transport_mutant_plain(blocks, deltas, W, S, **kw), k5)
+    for mutation, F, dtype_name, sign, off in mutant_cases:
+        deltas, S = disjoint_deltas(W, mutation), P2P_EDGE_S
+        blocks, mask = tiles(len(deltas), S, F, dtype_name, off, True)
+        kw = dict(sign=sign, mask=mask, group=group, mutation=mutation)
+        check(f"p2p mutant {mutation} W={W} deltas={deltas} F={F} {dtype_name} sign={sign} "
+              f"offset={off}", lambda: p2p.p2p_transport_mutant(blocks, deltas, W, S, **kw),
+              lambda: p2p.p2p_transport_mutant_plain(blocks, deltas, W, S, **kw))
     edge_s = time.perf_counter() - t0
+    # kernel 6's path: the verifier's landing check, counted
+    t1 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    landing = [audit_landing(group, **case) for case in landing_cases]
+    torch.cuda.synchronize(dev)
+    landing_counts = kernels.launch_counts()
+    landing_s = time.perf_counter() - t1
     if real is not None:
         import numpy as np
 
@@ -1118,7 +1187,7 @@ def p2p_parity_rank(group, edge_cases, real):
                     lib_ms = in_turn(lib_call)
                 nbytes, ops = p2p_work(n, S, P2P_F, blocks.element_size(), mask is not None)
                 b_ms, b_by = bound(nbytes, ops, dtype_name)
-                records.append({
+                rec = {
                     "kernel": "p2p_transport", "case": name, "dtype": dtype_name, "sign": sign,
                     "masked": mask is not None, "n": n, "S": S, "F": P2P_F, "W": W,
                     "max_abs_err": err,
@@ -1126,9 +1195,29 @@ def p2p_parity_rank(group, edge_cases, real):
                     "plain_ms": host_ms(plain, 2), "library_ms": lib_ms, "library": library,
                     "bound_ms": b_ms, "bound_by": b_by, "backend": group.backend,
                     "rows_live": int(np.asarray(real["send_mask"][me])[rows].sum()),
-                })
-    return {"failures": failures, "records": records, "cases": len(edge_cases),
-            "edge_s": edge_s, "real_s": time.perf_counter() - t0 - edge_s}
+                }
+                records.append(rec)
+                if sign != 1:
+                    continue
+                # kernel 6 None at the same shape: bit-equal to kernel 5 and to
+                # its plain version; the same bytes, so the same bound and the
+                # same yardstick (measured above on these inputs)
+                run6 = lambda: p2p.p2p_transport_mutant(blocks, deltas, W, S, **kw)  # noqa: E731
+                plain6 = lambda: p2p.p2p_transport_mutant_plain(  # noqa: E731
+                    blocks, deltas, W, S, **kw)
+                err6 = check(name.replace("p2p_transport", "p2p_transport_mutant None"), run6,
+                             plain6, run)
+                kernel6 = lambda: p2p.launch_mutant_puts(  # noqa: E731
+                    blocks, deltas, W, S, sign, mask, group, land, None)
+                records.append(dict(
+                    rec, kernel="p2p_transport_mutant",
+                    case=name.replace("p2p_transport", "p2p_transport_mutant"),
+                    max_abs_err=err6, ms=in_turn(kernel6), wall_ms=host_ms(run6, P2P_REPS),
+                    plain_ms=host_ms(plain6, 1)))
+    return {"failures": failures, "records": records,
+            "cases": len(edge_cases) + len(mutant_cases), "landing": landing,
+            "landing_counts": landing_counts, "landing_s": landing_s, "edge_s": edge_s,
+            "real_s": time.perf_counter() - t0 - edge_s - landing_s}
 
 
 class Phase9Probe:
@@ -1192,29 +1281,48 @@ def cpu_step0_rank(group, cfg: dict):
 
 
 def phase_p2p_kernel(graph) -> dict:
-    """Kernel 5 against its plain version on the card: the real W = 4 plan's
-    send lists at F = 256 (f32 and bf16, the exchange with its mask and the
-    reverse leg without) and the edge cases, at W = 4 and W = 2 (four and two
-    ranks sharing the card, or a card each)."""
+    """Kernels 5 and 6 against their plain versions on the card: the real
+    W = 4 plan's send lists at F = 256 (f32 and bf16, the exchange with its
+    mask and the reverse leg without; kernel 6 ``None`` on the exchange),
+    the edge cases and kernel 6's seeded faults, then the landing check
+    (kernel 6's path, its launches counted), at W = 4 and W = 2 (four and
+    two ranks sharing the card, or a card each); the verifier's static
+    selftest first."""
     import numpy as np
 
     from dgraph_tpu_torch.comm.dist import launch
 
+    from dgraph_tpu_torch.analysis.kernel import check_landing, kernel_selftest_failures
+
+    failures = kernel_selftest_failures()
+    if failures:
+        fail(f"the put-discipline verifier's static selftest: {failures[:5]}")
+    log("kernel 6 verifier, static tier: the clean protocol GREEN, drop_send_wait, "
+        "drop_recv_wait, no_slot_wait, bad_dst_row and oversize each RED on its own rule")
     plan = graph.plan
     real = {"deltas": tuple(plan.halo_deltas), "S": plan.halo.s_pad, "n_pad": plan.n_src_pad,
             "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy()}
-    out = {}
+    out, landing = {}, {}
     for W in (P2P_W, 2):
         t0 = time.perf_counter()
-        res = launch(p2p_parity_rank, W, p2p_edge_cases(W), real if W == P2P_W else None,
+        res = launch(p2p_parity_rank, W, p2p_edge_cases(W), p2p_mutant_cases(W),
+                     p2p_landing_cases(W), real if W == P2P_W else None,
                      device="cuda", timeout=600)
         failures = [f for r in res for f in r["failures"]]
         if failures:
-            fail(f"kernel 5: {len(failures)} failures: {failures[:5]}")
-        log(f"p2p_transport W={W}: {res[0]['cases']} edge cases bit-equal to plain on every "
-            f"rank, two launches equal ({time.perf_counter() - t0:.1f} s with the spawn; rank 0: "
-            f"edge cases {res[0]['edge_s']:.1f} s, the real shape's checks and times "
-            f"{res[0]['real_s']:.1f} s)")
+            fail(f"kernels 5 and 6: {len(failures)} failures: {failures[:5]}")
+        rules = check_landing([r["landing"] for r in res], failures)
+        if failures:
+            fail(f"the landing check on the card: {failures[:5]}")
+        launches = {k: sum(r["landing_counts"][k] for r in res)
+                    for k in ("p2p_transport", "p2p_transport_mutant")}
+        landing[W] = {"rules": rules, "launches": launches, "cases": len(res[0]["landing"])}
+        log(f"p2p_transport and p2p_transport_mutant W={W}: {res[0]['cases']} edge and "
+            f"seeded-fault cases bit-equal to plain on every rank, two launches equal; landing "
+            f"check ({landing[W]['cases']} cases a rank): {rules}, launches {launches} "
+            f"({time.perf_counter() - t0:.1f} s with the spawn; rank 0: edge cases "
+            f"{res[0]['edge_s']:.1f} s, landing check {res[0]['landing_s']:.1f} s, the real "
+            f"shape's checks and times {res[0]['real_s']:.1f} s)")
         out[W] = res
     recs = []
     for i, rec in enumerate(out[P2P_W][0]["records"]):
@@ -1232,7 +1340,10 @@ def phase_p2p_kernel(graph) -> dict:
             f"{rec['wall_ms']:.3f} ms (barrier to barrier) plain {rec['plain_ms']:.3f} ms "
             f"{rec['library']} {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}) [{rec['backend']}]")
-    return {"records": recs, "edge_cases": {W: out[W][0]["cases"] for W in out}}
+    return {"records": recs, "edge_cases": {W: out[W][0]["cases"] for W in out},
+            "landing": landing,
+            "landing_launches": {"p2p_transport_mutant": sum(
+                landing[W]["launches"]["p2p_transport_mutant"] for W in landing)}}
 
 
 def phase_train_ogb_gcn_w4() -> dict:
@@ -1399,8 +1510,8 @@ def multi_rank_phase(cfg) -> tuple:
     from dgraph_tpu_torch.data import DistributedGraph
     from dgraph_tpu_torch.serve.__main__ import load_data
 
-    log("phase 9: kernel 5 at W = 4 and 2, then train ogb_gcn over 4 ranks "
-        "(DGRAPH_TPU_HALO_IMPL=pallas_p2p)")
+    log("phase 9: kernels 5 and 6 and the landing check at W = 4 and 2, then train ogb_gcn "
+        "over 4 ranks (DGRAPH_TPU_HALO_IMPL=pallas_p2p)")
     data = load_data(cfg)
     t = time.perf_counter()
     graph4 = DistributedGraph.from_global(
@@ -1415,7 +1526,10 @@ def multi_rank_phase(cfg) -> tuple:
     p2p_k = phase_p2p_kernel(graph4)
     del graph4, plan
     ogb4 = phase_train_ogb_gcn_w4()
-    return (p2p_k["records"], {"p2p_transport": (p2p_k["records"][0]["case"], ogb4["launches"])},
+    k6 = next(r for r in p2p_k["records"] if r["kernel"] == "p2p_transport_mutant")
+    return (p2p_k["records"],
+            {"p2p_transport": (p2p_k["records"][0]["case"], ogb4["launches"]),
+             "p2p_transport_mutant": (k6["case"], p2p_k["landing_launches"])},
             {"p2p_transport": p2p_k, "train": [ogb4]})
 
 

@@ -100,6 +100,13 @@ SIGNATURES = {
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.POINTER(_c.c_void_p), _c.c_int,
             _c.c_longlong, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
         ),
+        # blocks, mask, W base pointers, n deltas, n, me, W, S, F, sign,
+        # dtype, vec, mutation, stream
+        "dg_p2p_transport_mutant": (
+            _c.c_void_p, _c.c_void_p, _c.POINTER(_c.c_void_p), _c.POINTER(_c.c_int), _c.c_int,
+            _c.c_int, _c.c_int, _c.c_longlong, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_int, _c.c_void_p,
+        ),
     },
 }
 

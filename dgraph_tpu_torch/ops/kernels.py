@@ -1,8 +1,8 @@
 """Every CUDA kernel of the port in one registry: the sorted-id kernels
 (:mod:`~dgraph_tpu_torch.ops.segment`), the flash-attention kernels
-(:mod:`~dgraph_tpu_torch.ops.attention`) and the one-sided halo transport
-(:mod:`~dgraph_tpu_torch.ops.p2p`), each a ``Kernel(wrapper, plain,
-replaces, source)``, with their launch counts."""
+(:mod:`~dgraph_tpu_torch.ops.attention`), and the one-sided halo transport
+and its fault-seeded copy (:mod:`~dgraph_tpu_torch.ops.p2p`), each a
+``Kernel(wrapper, plain, replaces, source)``, with their launch counts."""
 
 from __future__ import annotations
 

@@ -29,10 +29,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import sys
 import time
 import types
-import typing
 from typing import Callable, Optional
 
 import numpy as np
@@ -259,50 +257,11 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
 
 
 def parse_config(argv=None, config_cls=Config):
-    """``config_cls()`` with ``--field value`` / ``--data.field value`` (or
-    ``key=value``) overrides, coerced to the annotated field type."""
-    argv = list(sys.argv[1:] if argv is None else argv)
-    cfg = config_cls()
-    if "--help" in argv or "-h" in argv:
-        print(config_cls.__doc__)
-        for f in dataclasses.fields(cfg):
-            val = getattr(cfg, f.name)
-            if dataclasses.is_dataclass(val):
-                for g in dataclasses.fields(val):
-                    print(f"  --{f.name}.{g.name} (default {getattr(val, g.name)!r})")
-            else:
-                print(f"  --{f.name} (default {val!r})")
-        raise SystemExit(0)
-    pairs, it = [], iter(argv)
-    for tok in it:
-        if tok.startswith("--"):
-            key = tok[2:]
-            pairs.append(key.split("=", 1) if "=" in key else (key, next(it, "true")))
-        elif "=" in tok:
-            pairs.append(tok.split("=", 1))
-        else:
-            raise SystemExit(f"override must be key=value or --key value, got {tok!r}")
-    for key, raw in pairs:
-        obj, parts = cfg, key.split(".")
-        for p in parts[:-1]:
-            obj = getattr(obj, p)
-        hints = typing.get_type_hints(type(obj))
-        if parts[-1] not in hints:
-            raise SystemExit(f"unknown config field: {key}")
-        setattr(obj, parts[-1], _coerce(raw, hints[parts[-1]]))
-    return cfg
+    """``config_cls()`` (this CLI's :class:`Config` by default) with the
+    command line's overrides (:func:`dgraph_tpu_torch.utils.cli.parse_config`)."""
+    from dgraph_tpu_torch.utils import cli
 
-
-def _coerce(raw: str, ann):
-    if typing.get_origin(ann) in (typing.Union, types.UnionType):  # Optional[X]
-        if raw.lower() in ("none", "null"):
-            return None
-        ann = next(a for a in typing.get_args(ann) if a is not type(None))
-    if ann is bool:
-        return raw.strip().lower() in ("1", "true", "yes", "on")
-    if ann in (int, float, str):
-        return ann(raw)
-    return raw
+    return cli.parse_config(config_cls, argv)
 
 
 if __name__ == "__main__":

@@ -172,6 +172,6 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
 
 
 if __name__ == "__main__":
-    from dgraph_tpu_torch.train.__main__ import parse_config
+    from dgraph_tpu_torch.utils.cli import parse_config
 
-    main(parse_config(config_cls=Config))
+    main(parse_config(Config))

@@ -1,0 +1,127 @@
+"""The port's contract linter and host-side auditor
+(``dgraph_tpu_torch.analysis.lint``, ``dgraph_tpu_torch.analysis.host``) and
+the analysis CLI, on the CPU.
+
+Every lint rule fires on its bad fixtures and stays quiet on its good one;
+the port and ``chip_smoke.py`` lint clean; the host tier's fixture pairs and
+vacuity mutants hold (``host_selftest_failures``) and the port's threaded
+host code audits clean, with its real lock edge and guarded fields found.
+The ``no-jax-import`` rule agrees with ``tests/test_torch_imports.py``'s
+scan on every file of the port. ``python -m dgraph_tpu_torch.analysis
+--selftest`` exits 0 with one JSON line, and nonzero on a seeded finding.
+"""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from dgraph_tpu_torch import analysis
+from dgraph_tpu_torch.analysis import __main__ as cli
+from dgraph_tpu_torch.analysis import host, lint
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_RULES = ("no-jax-import", "no-nondeterminism-in-plan", "autograd-function-paired",
+              "no-rank-branch-around-collective")
+
+
+@pytest.mark.parametrize("name", PORT_RULES)
+def test_rule_fires_on_its_fixtures_and_not_on_clean_code(name):
+    fx, r = lint.FIXTURES[name], lint.RULES[name]
+    for src in (fx["bad"], *fx["more_bad"]):
+        got = r.check(fx["path"], ast.parse(src), src.splitlines())
+        assert got and all(f.rule == name for f in got), src
+    assert r.check(fx["path"], ast.parse(fx["good"]), fx["good"].splitlines()) == []
+
+
+def test_lint_selftest_and_pragma():
+    assert lint.lint_selftest_failures() == []
+
+
+def test_the_port_lints_clean():
+    rep = lint.run_lint()
+    assert rep["ok"], rep["findings"]
+    files = {pathlib.Path(p).relative_to(ROOT).as_posix()
+             for p in lint.iter_source_files(str(ROOT))}
+    assert "chip_smoke.py" in files and "dgraph_tpu_torch/analysis/kernel.py" in files
+    assert not any(f.startswith("dgraph_tpu/") for f in files)
+    assert rep["files_checked"] == len(files)
+    assert set(PORT_RULES) | set(host.HOST_RULES) == set(rep["rules"])
+
+
+def test_no_jax_import_agrees_with_the_import_scan():
+    """The rule flags exactly what test_torch_imports' AST scan forbids:
+    nothing in the port, and a seeded import in a copy."""
+    import test_torch_imports as imports
+
+    rule = lint.RULES["no-jax-import"]
+    for path in imports.PORT_FILES[:-1]:  # the port and chip_smoke.py
+        src = path.read_text()
+        assert rule.check("dgraph_tpu_torch/x.py", ast.parse(src), src.splitlines()) == []
+    for mod in ("jax.numpy", "jaxlib", "flax.linen", "optax", "dgraph_tpu.plan"):
+        src = f"import {mod}\n"
+        assert rule.check("chip_smoke.py", ast.parse(src), [src]), mod
+        assert imports._forbidden(mod)
+    assert lint.RULES["no-jax-import"].applies("chip_smoke.py")
+    assert not lint.RULES["no-jax-import"].applies("tests/test_torch_dist.py")
+
+
+def test_rank_branch_rule_sees_through_names_but_not_rank_indexed_values():
+    r = lint.RULES["no-rank-branch-around-collective"]
+    ok = ("def f(group, peers, cache):\n    land = cache.get(1)\n    if land is not None:\n"
+          "        return land\n    land = peers[group.rank]\n    group.barrier()\n")
+    assert r.check("dgraph_tpu_torch/ops/p2p.py", ast.parse(ok), ok.splitlines()) == []
+    bad = ("import torch.distributed as dist\ndef f(group, x):\n    rank, w = group.rank, 2\n"
+           "    while rank > 0:\n        dist.barrier()\n")
+    assert r.check("dgraph_tpu_torch/comm/x.py", ast.parse(bad), bad.splitlines())
+
+
+def test_host_selftest_and_clean_audit():
+    assert host.host_selftest_failures() == []
+    rep = host.run_host_audit()
+    assert rep["ok"], rep["failures"]
+    assert rep["files_checked"] == len(host.HOST_SCOPE) and rep["chaos_points"] == 0
+    assert set(rep["classes"]) == {
+        "dgraph_tpu_torch/obs/metrics.py::Metrics",
+        "dgraph_tpu_torch/serve/batcher.py::MicroBatcher",
+        "dgraph_tpu_torch/serve/engine.py::ServeEngine"}
+
+
+def test_host_rules_registered_once_in_one_registry():
+    assert analysis.host is host
+    assert set(host.HOST_RULES) <= set(lint.RULES)
+    catalog = cli._rule_catalog()
+    assert [r["name"] for r in catalog["rules"]] == sorted(lint.RULES)
+
+
+def test_analysis_cli_selftest():
+    """``python -m dgraph_tpu_torch.analysis --selftest``: every tier and
+    vacuity guard, exit 0, one JSON line."""
+    p = subprocess.run([sys.executable, "-m", "dgraph_tpu_torch.analysis", "--selftest"],
+                       capture_output=True, text=True, timeout=240, cwd=ROOT)
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = p.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["ok"] and out["failures"] == []
+    assert out["kernel_audit"] == {
+        "2": {"ok": True, "transports": 12, "num_halo_deltas": 1},
+        "4": {"ok": True, "transports": 24, "num_halo_deltas": 3}}
+    assert out["lint"]["findings"] == [] and out["host_audit"]["ok"]
+    assert out["run_health"]["component"] == "analysis.cli"
+
+
+def test_analysis_cli_fails_on_a_seeded_finding(tmp_path, capsys):
+    """A jax import in a port file makes the lint tier RED and the CLI exit
+    nonzero, with the finding in its JSON line."""
+    pkg = tmp_path / "dgraph_tpu_torch"
+    pkg.mkdir()
+    (pkg / "bad.py").write_text("import jax\n")
+    with pytest.raises(SystemExit, match="no-jax-import"):
+        cli.main(cli.Config(root=str(tmp_path), host=False, kernel=False))
+    out = json.loads(capsys.readouterr().out)
+    assert out["lint"]["findings"][0]["path"] == "dgraph_tpu_torch/bad.py"
+    assert out["run_health"]["wedge"] == "stage_failure"

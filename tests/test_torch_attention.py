@@ -196,4 +196,4 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
                          q, k, v, cot)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
     assert set(kernels.KERNELS) == set(segment.KERNELS) | set(att.KERNELS) | set(p2p.KERNELS)
-    assert len(kernels.KERNELS) == 9
+    assert len(kernels.KERNELS) == 10

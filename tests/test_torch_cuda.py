@@ -480,3 +480,14 @@ def test_p2p_transport_bitwise_equal_plain_across_ranks(dev, W):
     from dgraph_tpu_torch.comm.dist import launch
 
     assert launch(torch_dist_ranks.p2p_parity, W, device="cuda", timeout=300) == [[]] * W
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_p2p_transport_mutant_bitwise_equal_plain_across_ranks(dev, W):
+    """Kernel 6 on W ranks sharing the card: ``None`` bit-equal to kernel 5
+    and to its plain version, each seeded fault bit-equal to its plain
+    version."""
+    import torch_dist_ranks
+    from dgraph_tpu_torch.comm.dist import launch
+
+    assert launch(torch_dist_ranks.p2p_mutant_parity, W, device="cuda", timeout=300) == [[]] * W

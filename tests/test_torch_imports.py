@@ -45,6 +45,10 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/train/__main__.py", "dgraph_tpu_torch/train/lm.py",
                  "dgraph_tpu_torch/ops/attention.py", "dgraph_tpu_torch/models/transformer.py",
                  "dgraph_tpu_torch/comm/dist.py", "dgraph_tpu_torch/ops/p2p.py",
+                 "dgraph_tpu_torch/analysis/kernel.py", "dgraph_tpu_torch/analysis/lint.py",
+                 "dgraph_tpu_torch/analysis/trace.py", "dgraph_tpu_torch/analysis/__main__.py",
+                 "dgraph_tpu_torch/analysis/host/__init__.py",
+                 "dgraph_tpu_torch/obs/health.py", "dgraph_tpu_torch/utils/cli.py",
                  "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -59,6 +63,10 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.train.lm, dgraph_tpu_torch.ops.kernels\n"
         "import dgraph_tpu_torch.parallel.sequence, dgraph_tpu_torch.train.profile\n"
         "import dgraph_tpu_torch.comm.dist, dgraph_tpu_torch.ops.p2p\n"
+        "import dgraph_tpu_torch.analysis.kernel, dgraph_tpu_torch.analysis.lint\n"
+        "import dgraph_tpu_torch.analysis.trace, dgraph_tpu_torch.analysis.__main__\n"
+        "import dgraph_tpu_torch.analysis.host.__main__, dgraph_tpu_torch.obs.health\n"
+        "import dgraph_tpu_torch.utils.cli\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
@@ -97,3 +105,17 @@ def test_nvcc_command_targets_hopper():
         src = (_build.CSRC_DIR / source).read_text()
         for fn in _build.SIGNATURES[name]:
             assert f"int {fn}(" in src
+
+
+def test_analysis_host_tier_and_health_are_stdlib_only():
+    """The host auditor, the linter, RunHealth and the CLI bridge import
+    nothing outside the standard library and the port's own stdlib modules
+    (they must run where no torch or card is usable)."""
+    code = (
+        "import sys\n"
+        "import dgraph_tpu_torch.analysis.lint, dgraph_tpu_torch.obs.health\n"
+        "import dgraph_tpu_torch.utils.cli\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -157,3 +157,70 @@ def p2p_parity(group) -> list:
         if not (torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))):
             bad.append((F, str(dtype), sign, masked, off))
     return bad
+
+
+def p2p_mutant_parity(group) -> list:
+    """Kernel 6 on this rank's card: ``None`` bit-equal to kernel 5 and to
+    kernel 5's plain version, each mutation bit-equal to its plain version
+    (two launches equal), both types, both directions, with and without a
+    mask, F in {1, 33, 256}, aligned and one element off, tiles holding
+    NaN, -inf and negative values. Returns the cases that failed."""
+    from dgraph_tpu_torch.analysis.kernel import disjoint_deltas
+    from dgraph_tpu_torch.ops import p2p
+
+    W, dev = group.world_size, group.device
+    gen = torch.Generator(device=dev).manual_seed(50 + group.rank)
+    bad = []
+    for mutation, F, dtype, sign, masked, off in itertools.product(
+            p2p.MUTATIONS, (1, 33, 256), (torch.float32, torch.bfloat16), (1, -1),
+            (True, False), (0, 1)):
+        # where two senders write one row the card's outcome is a race
+        deltas = disjoint_deltas(W, mutation)
+        n, S = len(deltas), 200
+        raw = torch.randn(n * S * F + off, generator=gen, device=dev)
+        raw[::7], raw[3::11] = float("nan"), float("-inf")
+        raw = raw.to(dtype)
+        blocks = raw[off:].view(n, S, F)
+        mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
+        kw = dict(sign=sign, mask=mask, group=group)
+        got = p2p.p2p_transport_mutant(blocks, deltas, W, S, mutation=mutation, **kw)
+        want = p2p.p2p_transport_mutant_plain(blocks, deltas, W, S, mutation=mutation, **kw)
+        again = p2p.p2p_transport_mutant(blocks, deltas, W, S, mutation=mutation, **kw)
+        same = torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+        if mutation is None:
+            k5 = p2p.p2p_transport(blocks, deltas, W, S, **kw)
+            same = same and torch.equal(bits(got), bits(k5))
+        if not same:
+            bad.append((mutation, F, str(dtype), sign, masked, off))
+    return bad
+
+
+def analysis_case(group, w, labels: tuple, cases: tuple) -> dict:
+    """One rank of ``test_torch_analysis_kernel.py``: the verifier's rank
+    (the audit programs under the recorder, the landing check on the plain
+    versions), then kernel 6's plain versions: ``None`` against kernel 5's
+    plain version bit for bit (tiles with NaN, -inf and negative values,
+    masked and not), and the record of each seeded fault's call."""
+    from dgraph_tpu_torch.analysis import kernel
+    from dgraph_tpu_torch.ops import p2p
+
+    out = kernel._verifier_rank(group, w, labels, cases)
+    W, S, F = group.world_size, 6, 5
+    gen = torch.Generator().manual_seed(70 + group.rank)
+    same, records = [], []
+    for mutation in p2p.MUTATIONS:
+        deltas = kernel.disjoint_deltas(W, mutation)
+        raw = torch.randn(len(deltas) * S * F, generator=gen)
+        raw[::7], raw[3::11] = float("nan"), float("-inf")
+        blocks = raw.view(len(deltas), S, F)
+        for sign, masked in itertools.product((1, -1), (True, False)):
+            mask = (torch.rand(len(deltas), S, generator=gen) > 0.3).float() if masked else None
+            kw = dict(sign=sign, mask=mask, group=group)
+            with p2p.record_transports() as log:
+                got = p2p.p2p_transport_mutant(blocks, deltas, W, S, mutation=mutation, **kw)
+            if mutation is None:
+                want = p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)
+                same.append(torch.equal(bits(got), bits(want)))
+            records.extend(log)
+    out.update(plain_none_equal=same, mutant_records=records)
+    return out
