@@ -20,8 +20,12 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    column slices); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
    ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
-   T = 200, a padded tail or every key masked, causal or not), then the
-   autograd Function's gradients against autograd of the plain version;
+   T = 200, a padded tail or every key masked, causal or not); the bf16
+   forward and dK/dV (the tensor-core kernels) also at T in {1, 63, 64, 65,
+   127, 128, 129, 200} for every D, causal or not, and at lm_flash with q,
+   k and v as column slices of one [T, 3L] tensor (read in place) and as
+   slices at an odd element offset (copied first); then the autograd
+   Function's gradients against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
@@ -48,7 +52,11 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    steps; every step launches the forward, dK/dV and dQ attention kernels
    once a layer and no other kernel; step 0's loss and every gradient match
    the CPU plain path within 1e-4; the loss falls; an eval forward launches
-   only the forward kernel; step ms p50/p99 and the device-busy share;
+   only the forward kernel; step ms p50/p99 and the device-busy share; then
+   the same run in bf16 (``config.default_compute_dtype``, as
+   DGRAPH_TPU_COMPUTE_DTYPE=bfloat16 sets it): the same launches, a falling
+   loss, step 0's loss within 2e-2 (relative) of the f32 run's on the same
+   weights and batch;
 9. kernels 5 and 6, the landing check, and train ogb_gcn over 4 ranks —
    the put-discipline verifier's static selftest (the clean protocol GREEN,
    each of the five seeded faults RED on its own rule); then the one-sided
@@ -104,9 +112,29 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the attention kernels sum up to T = 8192 products in another order than
 # the plain version; bf16 outputs are rounded once from f32 on both sides
 ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# ATT_TOL in bf16 is about as large as a typical |O| or |dV| at the
+# lm_flash shape (row i's output has a spread of sqrt(e / (i + 1))), so a
+# kernel that misses or doubles a tile of keys or queries could pass it
+# there. Those outputs are also held to a scale-aware limit: the largest
+# error in each block of 128 rows over that block's largest |plain| value
+# (block_rel_err). The limit lies between the sound kernels' readings and
+# those of a control, the plain version with one key or query tile dropped,
+# which phase 3 reads in every run and which must exceed it (PERF.md)
+BLOCK_ROWS = 128
+BLOCK_REL_TOL = 3e-2
 LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
+# lm_flash's bf16 step-0 loss against the f32 run's on the same weights and
+# batch: bf16 matmuls and attention round every product's inputs (2^-8
+# relative) through two layers
+BF16_LOSS_TOL = 2e-2
+# ... and its step-0 gradients of the attention projections (qkv, attn_out)
+# against the f32 run's: the largest relative Frobenius error of a leaf.
+# The limit lies between the sound run's reading and that of a control,
+# the same step with the dK/dV kernel leaving one key block unwritten,
+# which phase 8 reads in every run and which must exceed it (PERF.md)
+BF16_GRAD_TOL = 2e-2
 OUT_DIR = "chiprun_out"
 
 
@@ -143,18 +171,73 @@ def phase_device():
 # --- phase 2 ---------------------------------------------------------------
 
 
+def ptxas_kernels(text: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "serialized"}}
+    from nvcc's ``-Xptxas -v`` output; a kernel is named by its function and
+    template arguments (``flash_fwd_tc_kernel<bf16, 128>``); ``serialized``
+    is ptxas' C7512 note that it serialized the kernel's wgmma
+    instructions."""
+    import re
+
+    def short(mangled: str) -> str:
+        pos = mangled.find("N") + 1  # the nested name: length-prefixed parts
+        while pos and (m := re.match(r"\d+", mangled[pos:])):
+            pos += m.end()
+            name = mangled[pos:pos + int(m.group())]
+            pos += len(name)
+            if name.endswith("kernel"):
+                rest = mangled[pos:]
+                dtype = ("float" if rest.startswith("If") else
+                         "bf16" if "bfloat16" in rest else None)
+                args = [a for a in (dtype, *re.findall(r"Li(\d+)E", rest)) if a]
+                return f"{name}<{', '.join(args)}>"
+        return mangled
+
+    out, cur, serialized = {}, None, set()
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = short(m.group(1))
+            out[cur] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"C7512.*for the function '([^']+)'", line)
+        if m:
+            serialized.add(short(m.group(1)))
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_stores"] = max(out[cur]["spill_stores"], int(m.group(1)))
+            out[cur]["spill_loads"] = max(out[cur]["spill_loads"], int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    for k, r in out.items():
+        r["serialized"] = k in serialized
+    return out
+
+
 def phase_build() -> dict:
+    """Every source built; each kernel's registers and spills from the
+    ptxas log. The tensor-core kernels (``*_tc_kernel``) must neither spill
+    nor have their wgmma serialized."""
     from dgraph_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     times = _build.build()
     total = time.perf_counter() - t0
+    kernels = {}
     for name in times:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for k, r in ptxas_kernels(_build.build_log(name)).items():
+            kernels[f"{name}/{k}"] = r
+            log(f"ptxas {name}/{k}: {r['registers']} registers, spill {r['spill_stores']} / "
+                f"{r['spill_loads']} bytes{', wgmma serialized' if r['serialized'] else ''}")
+    bad = [k for k, r in kernels.items() if "_tc_kernel" in k
+           and (r["spill_stores"] or r["spill_loads"] or r["serialized"])]
+    if bad:
+        fail(f"tensor-core kernels spill or serialize their wgmma: {bad}")
     log(f"build: {total:.2f} s ({times})")
-    return {"build_s": total, "per_source_s": times}
+    return {"build_s": total, "per_source_s": times, "ptxas": kernels}
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -213,6 +296,20 @@ def check_close(name, got, want, dtype_name, tols=TOL) -> float:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"{name}: kernel disagrees with plain (max abs err {max_err(got, want)}, tol {tol})")
     return max_err(got, want)
+
+
+def block_rel_err(got, want) -> float:
+    """The largest, over blocks of BLOCK_ROWS rows (the first dimension),
+    of the block's largest absolute error over its largest |want|."""
+    import torch
+
+    d = (got.float() - want.float()).abs().reshape(want.shape[0], -1)
+    w = want.float().abs().reshape(want.shape[0], -1)
+    pad = -want.shape[0] % BLOCK_ROWS
+    d, w = (torch.nn.functional.pad(t, (0, 0, 0, pad)).view(-1, BLOCK_ROWS * t.shape[1])
+            .amax(dim=1) for t in (d, w))
+    ratio = torch.where(w > 0, d / w.clamp_min(1e-30), torch.where(d > 0, torch.inf, 0.0))
+    return float(ratio.max())
 
 
 def edge_case_ids(n: int, seed: int = 0):
@@ -434,6 +531,28 @@ def check_attention(name, got, want, dtype_name) -> float:
     return err
 
 
+def block_controls(att, q, k, v, do) -> dict:
+    """{kernel: block_rel_err reading of a fault} at the lm_flash shape
+    (causal), from the plain versions: the forward reading a stale V tile,
+    keys [T - 384, T - 256) in place of [T - 256, T - 128) (a ring stage
+    slip that lse does not see, and that only the last two query blocks
+    read); dK/dV with the query tile [T/2, T/2 + 64) dropped (its dO and di
+    rows zeroed), the smaller reading of dK's and dV's."""
+    T = q.shape[0]
+    out, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
+    stale = v.clone()
+    stale[T - 256:T - 128] = v[T - 384:T - 256]
+    fwd = block_rel_err(att.flash_attention_fwd_plain(q, k, stale, causal=True)[0], out)
+    di = att.row_dot(out, do)
+    want = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
+    do, di = do.clone(), di.clone()
+    do[T // 2:T // 2 + 64] = 0
+    di[:, T // 2:T // 2 + 64] = 0  # di is [H, T]
+    got = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
+    return {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dkv": min(block_rel_err(g, w) for g, w in zip(got, want))}
+
+
 def sdpa_calls(q, k, v, do, causal):
     """``scaled_dot_product_attention`` on the ``[1, H, T, D]`` layout (the
     yardstick, timed here and used nowhere in the port): its forward, and
@@ -455,24 +574,35 @@ def phase_attention() -> dict:
     and bf16, timed beside the plain version, SDPA and the bound) and at edge
     cases (D in {32, 64, 128}, T = 200, no mask / a padded tail / every key
     masked, causal or not), two launches with equal bits each; then the
-    autograd Function's gradients against autograd of ``dense_attention``."""
+    autograd Function's gradients against autograd of ``dense_attention``.
+    The bf16 forward's and dK/dV's outputs at the lm_flash shape (in place
+    and as the LM's column slices) are also held to BLOCK_REL_TOL, whose
+    force block_controls shows in the same run."""
     import torch
 
     from dgraph_tpu_torch.ops import attention as att
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    records, worst = [], {}
+    records, worst, block_rel, controls = [], {}, {}, {}
+    tc_kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 
-    def run_case(name, kernel, run, plain, dtype_name):
+    def run_case(name, kernel, run, plain, dtype_name, scaled=False):
         got = run()
         want = plain()
         torch.cuda.synchronize()
         err = check_attention(name, got, want, dtype_name)
         worst[(kernel, dtype_name)] = max(worst.get((kernel, dtype_name), 0.0), err)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (g, w) in enumerate(zip(got, want) if scaled else ()):
+            if w.dtype != torch.float32:  # lse is held to 1e-4 already
+                block_rel[f"{name} output {i}"] = r = block_rel_err(g, w)
+                if r > BLOCK_REL_TOL:
+                    fail(f"{name} output {i}: kernel disagrees with plain by {r:.3g} of a "
+                         f"block's largest value (limit {BLOCK_REL_TOL})")
         again = run()
-        for a, b in zip(got if isinstance(got, tuple) else (got,),
-                        again if isinstance(again, tuple) else (again,)):
+        for a, b in zip(got, again if isinstance(again, tuple) else (again,)):
             if not torch.equal(a, b):
                 fail(f"{name}: two launches differ (kernel must be deterministic)")
         return err
@@ -483,10 +613,18 @@ def phase_attention() -> dict:
         q, k, v, do = (torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
                        for _ in range(4))
         kw = dict(causal=True)
+        if dtype_name == "bfloat16":
+            controls = block_controls(att, q, k, v, do)
+            log(f"block_rel_err of a dropped tile (plain, lm_flash shape): {controls}")
+            for kernel, r in controls.items():
+                if not r > BLOCK_REL_TOL:
+                    fail(f"{kernel}: a dropped tile reads {r:.3g}, inside the scale-aware "
+                         f"limit {BLOCK_REL_TOL}: the check has no force")
         sdpa_fwd, sdpa_bwd, sdpa_out = sdpa_calls(q, k, v, do, True)
         for kernel, (run, plain) in attention_cases(att, q, k, v, do, kw).items():
             name = f"{kernel} {dtype_name} T={T} H={H} D={D} causal"
-            err = run_case(name, kernel, run, plain, dtype_name)
+            err = run_case(name, kernel, run, plain, dtype_name,
+                           scaled=dtype_name == "bfloat16" and kernel in tc_kernels)
             nbytes, ops = attention_work(kernel, T, H, D, q.element_size(), pairs)
             b_ms, b_by = bound(nbytes, ops, dtype_name)
             lib = sdpa_fwd if kernel == "flash_attention_fwd" else sdpa_bwd
@@ -523,6 +661,37 @@ def phase_attention() -> dict:
                         run_case(f"{kernel} edge {dtype_name} T={T} D={D} mask={mask} "
                                  f"causal={causal}", kernel, run, plain, dtype_name)
 
+    # the bf16 forward and dK/dV (the tensor-core route) at the edges of its
+    # 64- and 128-row tiles, every head width; then in the LM's layout, q,
+    # k and v as column slices of one [T, 3L] tensor read in place, and as
+    # slices at an odd element offset, which _operand copies first
+    for T in (1, 63, 64, 65, 127, 128, 129, 200):
+        for D in (32, 64, 128):
+            q, k, v, do = (torch.randn(T, 2, D, generator=gen, device=dev).to(torch.bfloat16)
+                           for _ in range(4))
+            for causal in (False, True):
+                cases = attention_cases(att, q, k, v, do, dict(causal=causal))
+                for kernel in tc_kernels:
+                    run_case(f"{kernel} tile edge bfloat16 T={T} D={D} causal={causal}", kernel,
+                             *cases[kernel], "bfloat16")
+    T, H, D = LM_T, LM_H, LM_D
+    L = H * D
+    do = torch.randn(T, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    for off, width in ((0, 3 * L), (3, 3 * L + 8)):
+        qkv = torch.randn(T, width, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (qkv[:, off + i * L:off + (i + 1) * L].view(T, H, D) for i in range(3))
+        if (att._operand(q) is q) != (off == 0):
+            fail(f"_operand: a [T, {width}] column slice at offset {off} should "
+                 f"{'pass in place' if off == 0 else 'be copied'}")
+        cases = attention_cases(att, q, k, v, do, dict(causal=True))
+        for kernel in tc_kernels:
+            run_case(f"{kernel} qkv slices bfloat16 offset={off} T={T} H={H} D={D} causal", kernel,
+                     *cases[kernel], "bfloat16", scaled=True)
+        del qkv, q, k, v, cases
+    del do
+    torch.cuda.empty_cache()
+
+    T = 200
     grad_err = 0.0
     q, k, v, cot = (torch.randn(T, 2, 128, generator=gen, device=dev) for _ in range(4))
     for mask in ("none", "tail"):
@@ -541,8 +710,11 @@ def phase_attention() -> dict:
     torch.cuda.synchronize()
     log(f"attention edge cases and autograd passed; worst abs err {worst}; autograd vs "
         f"dense_attention {grad_err:.3g}")
+    log(f"block_rel_err at the lm_flash shape, bf16 (limit {BLOCK_REL_TOL}): "
+        f"{ {k: round(v, 6) for k, v in block_rel.items()} }")
     return {"records": records, "autograd_max_abs_err": grad_err,
-            "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()}}
+            "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()},
+            "block_rel_err": block_rel, "block_rel_err_controls": controls}
 
 
 # --- phases 4 and 5 --------------------------------------------------------
@@ -877,16 +1049,66 @@ def phase_train_ogb_gcn() -> dict:
 # --- phase 8 -----------------------------------------------------------------
 
 
-def phase_train_lm_flash() -> dict:
+ATTN_LEAVES = (".qkv.weight", ".attn_out.weight")
+
+
+def attn_grad_rel(got: dict, want: dict) -> float:
+    """The largest relative Frobenius error of an attention projection's
+    weight gradient (every name ending in ATTN_LEAVES)."""
+    return max(float((got[k].float() - w.float()).norm() / w.float().norm())
+               for k, w in want.items() if k.endswith(ATTN_LEAVES))
+
+
+def skipped_block_grads(cfg, tokens) -> dict:
+    """Step-0 gradients of a fresh lm_flash model (the same seed) on
+    ``tokens``, with the dK/dV kernel's first block (keys [0, 128), the
+    heaviest of the causal grid, which a misnumbered grid would skip) left
+    unwritten, its dK and dV rows zeroed: the control of phase 8's bf16
+    gradient check."""
+    import torch
+
+    from dgraph_tpu_torch.ops import attention as att
+    from dgraph_tpu_torch.train import lm
+
+    t = lm.build_lm(cfg)
+    tok = t.next_batch()
+    if not torch.equal(tok.cpu(), tokens):
+        fail("train lm_flash: the control drew another first batch")
+    real = att.flash_attention_bwd_dkv
+
+    def skip_block(*args, **kw):
+        dk, dv = (t.clone() for t in real(*args, **kw))
+        dk[:128] = 0
+        dv[:128] = 0
+        return dk, dv
+
+    skip_block.launches = 0  # the wrapper counts its launches on its module name
+    att.flash_attention_bwd_dkv = skip_block
+    try:
+        lm.lm_loss(t.model(tok, t.positions), tok).backward()
+    finally:
+        att.flash_attention_bwd_dkv = real
+    return grads_of(t.model)
+
+
+def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
     """experiments/long_context_lm.py's LM at head width 128 (lm_flash:
     ``--seq_len 8192 --latent 512 --num_heads 4 --num_layers 2 --vocab 64
     --attn_impl ulysses --world_size 1``, Adam 3e-3, causal) through ``python
     -m dgraph_tpu_torch.train.lm``'s ``main``: 2 warm-up and 10 timed steps
     (host clock around each, the last 10 under torch.profiler); every step
-    launches each attention kernel once a layer and no other kernel; step
-    0's loss and every gradient against the same model and batch on the CPU
-    plain path; the loss falls; an eval forward launches only the forward
-    kernel, once a layer."""
+    launches each attention kernel once a layer and no other kernel; the
+    loss falls; an eval forward launches only the forward kernel, once a
+    layer. In f32, step 0's loss and every gradient against the same model
+    and batch on the CPU plain path. In bf16 (``config.default_compute_dtype``
+    set as ``DGRAPH_TPU_COMPUTE_DTYPE=bfloat16`` sets it, and restored after)
+    the matmuls and the attention kernels (the tensor-core forward and
+    dK/dV) run in bf16; on the same weights and batch as the f32 run's,
+    ``f32_step0`` = (loss, gradients), step 0's loss must be within
+    BF16_LOSS_TOL and its attention projections' gradients within
+    BF16_GRAD_TOL, which a key block left unwritten by dK/dV must exceed
+    (``skipped_block_grads``, read in the same run). Returns (record, step
+    0's gradients)."""
     import contextlib
     import dataclasses
 
@@ -894,12 +1116,13 @@ def phase_train_lm_flash() -> dict:
     import torch
     from torch.profiler import ProfilerActivity
 
+    from dgraph_tpu_torch import config
     from dgraph_tpu_torch.ops import kernels
     from dgraph_tpu_torch.train import lm
     from dgraph_tpu_torch.train.profile import device_ops, lm_flash_config
 
     cfg = dataclasses.replace(lm_flash_config(), steps=12, log_every=1,
-                              log_path=os.path.join(OUT_DIR, "train_lm_flash.jsonl"))
+                              log_path=os.path.join(OUT_DIR, f"train_lm_flash_{dtype_name}.jsonl"))
     L = cfg.num_layers
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update(flash_attention_fwd=L, flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L)
@@ -921,68 +1144,100 @@ def phase_train_lm_flash() -> dict:
     if os.path.exists(cfg.log_path):
         os.remove(cfg.log_path)
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    # the CLI's JSON lines go to stderr: stdout keeps this script's two
-    with contextlib.redirect_stdout(sys.stderr):
-        res = lm.main(cfg, on_step=on_step)
-    torch.cuda.synchronize()
-    prof.stop()
-    run_s = time.perf_counter() - t0
-    t = res["training"]
-    launches = {k: sum(c[k] for c in per_step) for k in want}
+    saved_dtype = config.default_compute_dtype
+    config.default_compute_dtype = dtype_name
+    try:
+        t0 = time.perf_counter()
+        # the CLI's JSON lines go to stderr: stdout keeps this script's two
+        with contextlib.redirect_stdout(sys.stderr):
+            res = lm.main(cfg, on_step=on_step)
+        torch.cuda.synchronize()
+        prof.stop()
+        run_s = time.perf_counter() - t0
+        t = res["training"]
+        launches = {k: sum(c[k] for c in per_step) for k in want}
 
-    kernels.reset_launch_counts()
-    te = time.perf_counter()
-    eval_loss = float(t.eval_step(t.next_batch()))
-    eval_ms = (time.perf_counter() - te) * 1e3
-    eval_counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        te = time.perf_counter()
+        eval_loss = float(t.eval_step(t.next_batch()))
+        eval_ms = (time.perf_counter() - te) * 1e3
+        eval_counts = kernels.launch_counts()
+        del t, res["training"]
+        torch.cuda.empty_cache()
+        control = None if f32_step0 is None else skipped_block_grads(cfg, tokens0[0])
+    finally:
+        config.default_compute_dtype = saved_dtype
     want_eval = dict.fromkeys(want, 0)
     want_eval["flash_attention_fwd"] = L
     if eval_counts != want_eval or not math.isfinite(eval_loss):
-        fail(f"train lm_flash: an eval forward launched {eval_counts} (want {want_eval}), "
-             f"loss {eval_loss}")
+        fail(f"train lm_flash {dtype_name}: an eval forward launched {eval_counts} (want "
+             f"{want_eval}), loss {eval_loss}")
 
     losses = [r["loss"] for r in res["records"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"train lm_flash: the loss did not fall over 12 steps: {losses}")
-    del t, res["training"]
-    torch.cuda.empty_cache()
+        fail(f"train lm_flash {dtype_name}: the loss did not fall over 12 steps: {losses}")
 
-    tc = time.perf_counter()
-    cpu = lm.build_lm(cfg, device="cpu")
-    tok = cpu.next_batch()
-    if not torch.equal(tok, tokens0[0]):
-        fail("train lm_flash: the CPU reference drew another first batch")
-    loss_cpu = lm.lm_loss(cpu.model(tok, cpu.positions), tok)
-    loss_cpu.backward()
-    loss_cpu = float(loss_cpu.detach())
-    cpu_s = time.perf_counter() - tc
-    if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
-        fail(f"train lm_flash: step-0 loss {losses[0]} vs CPU {loss_cpu}")
-    grad_err = check_grads("train lm_flash", grads0, grads_of(cpu.model))
-    del cpu
+    loss_cpu = grad_err = cpu_s = grad_rel = grad_rel_control = None
+    if dtype_name == "float32":
+        tc = time.perf_counter()
+        cpu = lm.build_lm(cfg, device="cpu")
+        tok = cpu.next_batch()
+        if not torch.equal(tok, tokens0[0]):
+            fail("train lm_flash: the CPU reference drew another first batch")
+        loss_cpu = lm.lm_loss(cpu.model(tok, cpu.positions), tok)
+        loss_cpu.backward()
+        loss_cpu = float(loss_cpu.detach())
+        cpu_s = time.perf_counter() - tc
+        if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+            fail(f"train lm_flash: step-0 loss {losses[0]} vs CPU {loss_cpu}")
+        grad_err = check_grads("train lm_flash", grads0, grads_of(cpu.model))
+        del cpu
+    else:
+        f32_step0_loss, f32_grads = f32_step0
+        grad_rel = attn_grad_rel(grads0, f32_grads)
+        grad_rel_control = attn_grad_rel(control, f32_grads)
+        log(f"train lm_flash {dtype_name}: step-0 attention weight gradients vs the f32 "
+            f"run's: {grad_rel:.3g} relative; with dK/dV's first key block unwritten "
+            f"{grad_rel_control:.3g} (limit {BF16_GRAD_TOL})")
+        if abs(losses[0] - f32_step0_loss) > BF16_LOSS_TOL * abs(f32_step0_loss):
+            fail(f"train lm_flash {dtype_name}: step-0 loss {losses[0]} vs the f32 run's "
+                 f"{f32_step0_loss} (relative tolerance {BF16_LOSS_TOL})")
+        if not grad_rel <= BF16_GRAD_TOL:
+            fail(f"train lm_flash {dtype_name}: step-0 attention gradients {grad_rel:.3g} "
+                 f"relative from the f32 run's (limit {BF16_GRAD_TOL})")
+        if not grad_rel_control > BF16_GRAD_TOL:
+            fail(f"train lm_flash {dtype_name}: an unwritten key block reads "
+                 f"{grad_rel_control:.3g}, inside the gradient limit {BF16_GRAD_TOL}: the "
+                 "check has no force")
 
     ms = res["step_ms"][2:]
     ops = device_ops(prof, len(ms))
     busy = sum(o["device_ms_per_step"] for o in ops)
     wall = sum(ms) / len(ms)
-    rec = {"config": "lm_flash", "T": cfg.seq_len, "latent": cfg.latent, "heads": cfg.num_heads,
-           "layers": L, "losses": losses, "step_ms_all": res["step_ms"], "step_ms": ms,
+    rec = {"config": "lm_flash", "dtype": dtype_name, "T": cfg.seq_len, "latent": cfg.latent,
+           "heads": cfg.num_heads, "layers": L, "losses": losses, "step_ms_all": res["step_ms"],
+           "step_ms": ms,
            "step_ms_p50": float(np.percentile(ms, 50)), "step_ms_p99": float(np.percentile(ms, 99)),
            "launches_per_step": want, "launches": launches, "eval_launches": eval_counts,
            "eval_ms": eval_ms, "step0_loss_cpu": loss_cpu, "grad_max_abs_err": grad_err,
+           "step0_loss_f32": f32_step0 and f32_step0[0], "attn_grad_rel_err": grad_rel,
+           "attn_grad_rel_err_control": grad_rel_control,
            "run_s": run_s, "cpu_reference_s": cpu_s,
            "profile": {"device_ms_per_step": busy, "wall_ms_per_step": wall,
                        "device_busy_share": busy / wall, "ops": ops}}
-    log(f"train lm_flash: T={cfg.seq_len} L={cfg.latent} H={cfg.num_heads} layers={L}; step ms "
-        f"p50 {rec['step_ms_p50']:.3f} p99 {rec['step_ms_p99']:.3f} (steps 2-11, host clock, "
-        f"profiler on); device busy {busy / wall:.1%} ({busy:.3f} of {wall:.3f} ms a step); "
-        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; eval forward {eval_ms:.2f} ms; step-0 "
-        f"grads vs CPU max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)")
+    check = (f"step-0 grads vs CPU max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)"
+             if dtype_name == "float32" else
+             f"step-0 loss vs the f32 run's {f32_step0[0]:.5f}: "
+             f"{abs(losses[0] / f32_step0[0] - 1):.3g} relative")
+    log(f"train lm_flash {dtype_name}: T={cfg.seq_len} L={cfg.latent} H={cfg.num_heads} "
+        f"layers={L}; step ms p50 {rec['step_ms_p50']:.3f} p99 {rec['step_ms_p99']:.3f} (steps "
+        f"2-11, host clock, profiler on); device busy {busy / wall:.1%} ({busy:.3f} of "
+        f"{wall:.3f} ms a step); loss {losses[0]:.5f} -> {losses[-1]:.5f}; eval forward "
+        f"{eval_ms:.2f} ms; {check}")
     for o in ops[:10]:
         log(f"  {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
     torch.cuda.empty_cache()
-    return rec
+    return rec, grads0
 
 
 # --- phase 9 -----------------------------------------------------------------
@@ -1485,8 +1740,13 @@ def one_rank_phases(cfg) -> tuple:
     log("phase 7: train ogb_gcn (python -m dgraph_tpu_torch.train, gather kernel on)")
     ogb = phase_train_ogb_gcn()
 
-    log("phase 8: train lm_flash (python -m dgraph_tpu_torch.train.lm)")
-    lm_flash = phase_train_lm_flash()
+    log("phase 8: train lm_flash (python -m dgraph_tpu_torch.train.lm), f32 then bf16")
+    lm_flash, grads0 = phase_train_lm_flash()
+    lm_flash_bf16 = phase_train_lm_flash("bfloat16", (lm_flash["losses"][0], grads0))[0]
+    del grads0
+    if lm_flash_bf16["launches"] != lm_flash["launches"]:
+        fail(f"train lm_flash bfloat16 launched {lm_flash_bf16['launches']}, the f32 run "
+             f"{lm_flash['launches']}")
 
     main_case = {
         "sorted_segment_sum_bias_relu": ("sorted_segment_sum_bias_relu float32 w F=128",
@@ -1497,12 +1757,16 @@ def one_rank_phases(cfg) -> tuple:
         "fused_bwd_gd": ("fused_bwd_gd float32 F=128", bench["launches"]),
         "sorted_row_gather": ("sorted_row_gather float32 F=128", ogb["launches"]),
     }
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        main_case[name] = (f"{name} float32 T={LM_T} H={LM_H} D={LM_D} causal",
-                           lm_flash["launches"])
+    # the tensor-core kernels (bf16 forward and dK/dV) with the bf16 run's
+    # launches; dQ, the same CUDA-core kernel in both types, as in f32
+    for name, run, dtype_name in (("flash_attention_fwd", lm_flash_bf16, "bfloat16"),
+                                  ("flash_attention_bwd_dkv", lm_flash_bf16, "bfloat16"),
+                                  ("flash_attention_bwd_dq", lm_flash, "float32")):
+        main_case[name] = (f"{name} {dtype_name} T={LM_T} H={LM_H} D={LM_D} causal",
+                           run["launches"])
     return (kernels["records"] + attention["records"], main_case,
             {"kernels": kernels, "attention": attention, "serve": [gcn, sage],
-             "train": [bench, ogb, lm_flash]})
+             "train": [bench, ogb, lm_flash, lm_flash_bf16]})
 
 
 def multi_rank_phase(cfg) -> tuple:

@@ -15,26 +15,30 @@
 // reference, flash_attention.py:273-275).
 //
 // Layout: q, k, v and dO are [T, H, D] with unit stride over D and any row
-// and head strides (multiples of 4 elements, rows 16-byte aligned in f32 and
-// 8-byte in bf16): the LM's q, k and v are column slices of one [T, 3L] qkv
-// tensor and reach the kernels without a copy. O, dQ, dK and dV are
-// contiguous [T, H, D] in the input dtype; lse and di are [H, T] f32. The
-// optional mask is [T] int32 (nonzero = a real position); it masks keys and
-// queries alike, so a padded query row is an empty row: O = 0 there, and it
-// contributes nothing to any gradient (the dense oracle zeroes those rows,
-// parallel/sequence.py:161-166). The mask as a whole is
+// and head strides (f32: multiples of 4 elements, rows 16-byte aligned;
+// bf16: multiples of 8 elements, base 16-byte aligned, as TMA needs): the
+// LM's q, k and v are column slices of one [T, 3L] qkv tensor and reach the
+// kernels without a copy. O, dQ, dK and dV are contiguous [T, H, D] in the
+// input dtype; lse and di are [H, T] f32. The optional mask is [T] int32
+// (nonzero = a real position); it masks keys and queries alike, so a padded
+// query row is an empty row: O = 0 there, and it contributes nothing to any
+// gradient (the dense oracle zeroes those rows, parallel/sequence.py:161-166).
+// The mask as a whole is
 //   allowed(i, j) = i < T && j < T && mask[i] && mask[j] && (!causal || j <= i).
 // A row with no allowed key gets O = 0 and lse = 0 (its P is zero by the
 // mask, never by the value of lse).
 //
-// Design. One block of 256 threads (16 x 16) per (64-row tile, head). A
-// block stages f32 tiles of 64 rows in shared memory (bf16 is widened on
-// the way in), each with a row pitch of D + 4 floats so that the 16-byte
-// reads of 16 different rows fall in different banks. Thread (tx, ty) owns
-// the 4 x 4 scores of rows ty + 16r and columns tx + 16c: a score tile is
-// 4 x 4 outer products of 16-byte row slices, and a row's max and sum are
-// shuffles across the 16 lanes that share ty. The output accumulators (O,
-// dK, dV or dQ rows) stay in registers, D / 16 columns a row a thread.
+// Two routes, chosen by dtype (DG_DISPATCH):
+//
+// f32, every kernel, and bf16 dQ: the CUDA cores. One block of 256 threads
+// (16 x 16) per (64-row tile, head). A block stages f32 tiles of 64 rows in
+// shared memory (bf16 is widened on the way in), each with a row pitch of
+// D + 4 floats so that the 16-byte reads of 16 different rows fall in
+// different banks. Thread (tx, ty) owns the 4 x 4 scores of rows ty + 16r
+// and columns tx + 16c: a score tile is 4 x 4 outer products of 16-byte row
+// slices, and a row's max and sum are shuffles across the 16 lanes that
+// share ty. The output accumulators (O, dK, dV or dQ rows) stay in
+// registers, D / 16 columns a row a thread.
 //   fwd: loops over key tiles with the online softmax (running m, l in f32
 //        registers); the probabilities overwrite the key tile in shared
 //        memory for the P V product. Under a causal mask it stops at the
@@ -48,24 +52,68 @@
 // Every sum is taken by one thread in a fixed order: no atomics, the same
 // bits on every launch. The blocks with the most tiles under a causal mask
 // are numbered first so that they start first.
-//
 // Bound: operations. At T = 8192, H = 4, D = 128 (causal) a forward is
 // 4 * D * H * T(T+1)/2 = 6.9e10 FLOP (two products), dK/dV 1.4e11 (four),
 // dQ 1.0e11 (three): 1.0, 2.1 and 1.5 ms at the card's 67 TFLOP/s of f32
-// outside the tensor cores, against about 0.03 ms for the bytes (each input
-// read once). The math is f32 FMAs on the CUDA cores, as the f32 inputs and
-// the 1e-4 parity with the f32 plain version demand. The design feeds them
-// from shared memory at 8 16-byte reads per 64 FMAs; tensor cores (wgmma on
-// bf16, with TMA staging) are the next step and a later change. Measured by
-// chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power limit: 3.31,
-// 4.47 and 3.60 ms in f32 (31, 46 and 43 % of that peak).
+// outside the tensor cores, against about 0.03 ms for the bytes. f32 stays
+// here because the 1e-4 parity with the f32 plain version rules out TF32.
+//
+// bf16 forward and dK/dV: the tensor cores (sm90.cuh). At the same shape
+// the two kernels' 6.9e10 and 1.4e11 FLOP are 0.07 and 0.14 ms at the bf16
+// rate of 989 TFLOP/s, still far above the bytes (0.01-0.02 ms): the bound
+// is the tensor cores, and f32 FMAs on the CUDA cores (a sixteenth of that
+// rate, fed from shared memory) were 50x short of it. So every product is a
+// wgmma (m64nNk16, bf16 in, f32 accumulators in registers), its operands
+// staged by TMA, and nothing but the products' fragments touches registers:
+//   - A block is two warpgroups (256 threads), each with its own 64-row
+//     share of the tile. Warp 0 also feeds a TMA ring (2 stages in the
+//     forward, 3 in dK/dV) guarded by full / empty mbarriers: its lanes
+//     wait for a stage to be empty and write the stage's per-row terms (the
+//     key bias, or lse and di), and lane 0 issues the cp.async.bulk.tensor
+//     loads ahead of the warpgroups. There is no producer warpgroup: with
+//     one (384 threads, setmaxnreg 40 / 232) the block launches at 168
+//     registers a thread, and ptxas bounded the wgmma pipeline by that
+//     count, serialized every wgmma of the D = 128 kernels and spilled (80
+//     and 304 bytes); at 256 threads a thread may hold 255, and neither
+//     kernel spills.
+//   - Tensor maps are 3-D over [T, H, D] with the caller's strides, boxes of
+//     64 columns with the 128-byte swizzle (D = 128 is two boxes) or of 32
+//     with the 64-byte one (D = 32), so the LM's column slices load in place
+//     and rows past T arrive as zeros.
+//   - fwd: a block per (128 query rows, head), heaviest causal tiles first;
+//     each warpgroup owns 64 rows (wgmma's M). Q stays; K and V stream in
+//     128-key tiles. S = Q K^T reads both from shared memory (K-major); the
+//     online softmax runs on the accumulator fragments (a row is the 4
+//     lanes of a quad: two shuffles); P is rounded to bf16 in registers, as
+//     the Pallas kernel rounds it before P V (flash_attention.py:471), and
+//     is the A operand of O += P V, whose B is the V tile read MN-major
+//     (the transpose bit; no copy). Masks apply only where they can bite:
+//     the key bias on a masked or tail tile, the causal test on the
+//     diagonal tile, where the loop ends. 160 KB of shared memory at D = 128.
+//   - dkv: a block per (128 keys, head); each warpgroup owns 64 keys and
+//     keeps its dK and dV accumulators in registers to the end, over Q and
+//     dO tiles of 64 queries streamed from the diagonal. Per tile: S^T = K
+//     Q^T and dP^T = V dO^T from shared memory; P^T and dS^T in registers;
+//     dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as A
+//     from registers (flash_attention.py:900, :918) and dO, Q read
+//     MN-major. The tile's elementwise work leaves the tensor cores idle
+//     unless the other warpgroup uses them, so the two take their
+//     tensor-core sections in turns (named barriers 1 and 2): one section
+//     issues tile t - 1's dV, dK and tile t's S^T, dP^T products. 160 KB at
+//     D = 128.
+// Both write each output element once: no atomics, the same bits on every
+// launch. dQ stays on the CUDA-core kernel in both dtypes.
 //
 // Plain C interface, loaded with ctypes (dgraph_tpu_torch/ops/_build.py).
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns the first CUDA error (cudaFuncSetAttribute's or the launch's).
 
+#include <limits.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "sm90.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -531,6 +579,482 @@ flash_bwd_dq_kernel(const T* __restrict__ q, int64_t q_rs, int64_t q_hs,
   store_rows<T, D>(dq, acc, one, tx, ty, h, H, q0, T_len);
 }
 
+// --- bf16 on the tensor cores (sm_90a) --------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreadsTC = 256;  // two warpgroups of 128 threads
+constexpr int kStages = 2;       // depth of the forward's TMA ring
+constexpr int kDkvStages = 3;    // and of dK/dV's, which holds two tiles at a time
+constexpr int kBlockRows = 128;  // fwd: queries; dkv: keys of a block (64 a warpgroup)
+constexpr int kFwdKeys = 128;    // fwd: keys of a streamed tile
+constexpr int kDkvRows = 64;     // dkv: queries of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = sm90::smem_addr(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The ring's protocol. Tile t sits in stage t % STAGES; its full barrier
+// completes when the loads land (one arrival with the byte count), its
+// empty barrier when the lane 0 of each of the 8 warps has arrived after
+// the warp's last wgmma on it. Warp 0 refills a stage: its lanes wait for
+// the stage to be empty, write the stage's per-row terms, and lane 0 issues
+// the loads.
+template <int STAGES>
+__device__ __forceinline__ void wait_empty(uint64_t* empty, int t) {
+  if (t >= STAGES) sm90::mbar_wait(&empty[t % STAGES], ((t / STAGES) - 1) & 1);
+}
+template <int STAGES>
+__device__ __forceinline__ void wait_full(uint64_t* full, int t) {
+  sm90::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+}
+
+// Named barriers 1 and 2 take the two warpgroups' tensor-core sections in
+// turns: a warpgroup waits on its own barrier before it issues, and arrives
+// on the other's once it has issued.
+__device__ __forceinline__ void turn_wait(int wgi) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wgi), "n"(kThreadsTC) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wgi) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(2 - wgi), "n"(kThreadsTC) : "memory");
+}
+
+// rows row_a and row_a + 8 of a [64][D] accumulator fragment to the
+// contiguous [T, H, D] bf16 output at head h, times mul_a / mul_b
+template <int D>
+__device__ __forceinline__ void store_frag(bf16* __restrict__ out, const float (&acc)[D / 2],
+                                           int row_a, float mul_a, float mul_b, int c, int h,
+                                           int H, int T_len) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = row_a + 8 * half;
+    if (t >= T_len) continue;
+    const float mul = half ? mul_b : mul_a;
+    uint32_t* o = reinterpret_cast<uint32_t*>(out + (static_cast<int64_t>(t) * H + h) * D);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      o[4 * i + c] = sm90::pack_bf16(acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
+  }
+}
+
+// Forward. Shared memory (offsets from a 1024-aligned base): the Q tile,
+// the K and V rings, each stage's key bias (0, or -inf for a masked or
+// absent key) and the barriers.
+template <int D>
+struct FwdSmem {
+  static constexpr int TILE = kBlockRows * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = K + kStages * TILE;
+  static constexpr int KBIAS = V + kStages * TILE;
+  static constexpr int BAR = KBIAS + kStages * kFwdKeys * 4;  // q_full, full[S], empty[S]
+  static constexpr int BYTES = BAR + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// warp 0 of the forward: key tile t (its keys' bias, K and V) into its stage
+template <int D>
+__device__ __forceinline__ void fwd_load(uint8_t* smem, const CUtensorMap* k_map,
+                                         const CUtensorMap* v_map, const int32_t* mask,
+                                         uint64_t* full, uint64_t* empty, int t, int h,
+                                         int T_len, int lane) {
+  using S = FwdSmem<D>;
+  using Tl = sm90::Tile<D>;
+  const int s = t % kStages, k0 = t * kFwdKeys;
+  wait_empty<kStages>(empty, t);
+  float* kbias = reinterpret_cast<float*>(smem + S::KBIAS) + s * kFwdKeys;
+  for (int r = lane; r < kFwdKeys; r += 32) {
+    const int j = k0 + r;
+    kbias[r] = j < T_len && (mask == nullptr || mask[j] != 0) ? 0.f : -INFINITY;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * Tl::template bytes<kFwdKeys>());
+    for (int b = 0; b < Tl::NBOX; ++b) {
+      sm90::tma_load_3d(smem + S::K + s * S::TILE + b * kFwdKeys * Tl::RB, k_map, &full[s],
+                        b * Tl::COLS, h, k0);
+      sm90::tma_load_3d(smem + S::V + s * S::TILE + b * kFwdKeys * Tl::RB, v_map, &full[s],
+                        b * Tl::COLS, h, k0);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const int32_t* __restrict__ mask,
+                    bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H,
+                    float scale, int causal) {
+  using S = FwdSmem<D>;
+  using Tl = sm90::Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sbase = sm90::smem_addr(smem);
+  const float* kbias = reinterpret_cast<const float*>(smem + S::KBIAS);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_tiles = (T_len + kBlockRows - 1) / kBlockRows;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int q0 = qt * kBlockRows;
+  const int n_kv = causal ? qt + 1 : n_tiles;  // key tiles are as tall as query tiles
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kThreadsTC / 32);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, Tl::template bytes<kBlockRows>());
+      for (int b = 0; b < Tl::NBOX; ++b)
+        sm90::tma_load_3d(smem + S::Q + b * kBlockRows * Tl::RB, &q_map, q_full, b * Tl::COLS, h,
+                          q0);
+    }
+    for (int t = 0; t < kStages && t < n_kv; ++t)
+      fwd_load<D>(smem, &k_map, &v_map, mask, full, empty, t, h, T_len, lane);
+  }
+
+  // warpgroup wgi owns query rows q0 + 64 wgi .. + 63
+  const int wgi = warp / 4, g = lane / 4, c = lane % 4;
+  const int row_a = q0 + 64 * wgi + 16 * (warp % 4) + g, row_b = row_a + 8;
+  const float sl2 = scale * kLog2e;  // logits in log2 units
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  sm90::mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    // refill the stage that tile kt - 1 held with tile kt - 1 + kStages
+    if (warp == 0 && kt > 0 && kt - 1 + kStages < n_kv)
+      fwd_load<D>(smem, &k_map, &v_map, mask, full, empty, kt - 1 + kStages, h, T_len, lane);
+    const int s = kt % kStages;
+    const int k0 = kt * kFwdKeys;
+    wait_full<kStages>(full, kt);
+
+    // S = Q K^T: [64 rows][128 keys]
+    float sc[kFwdKeys / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      sm90::wgmma_ss(sc, sm90::kmajor_desc<D, kBlockRows>(sbase + S::Q, 64 * wgi, k),
+                     sm90::kmajor_desc<D, kFwdKeys>(sbase + S::K + s * S::TILE, 0, k), k > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 2; ++i) sc[i] *= sl2;
+    if (mask != nullptr || k0 + kFwdKeys > T_len) {
+      const float* kb = kbias + s * kFwdKeys;
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 8; ++i) {
+        const float2 b = *reinterpret_cast<const float2*>(kb + 8 * i + 2 * c);
+        sc[4 * i] += b.x;
+        sc[4 * i + 1] += b.y;
+        sc[4 * i + 2] += b.x;
+        sc[4 * i + 3] += b.y;
+      }
+    }
+    if (causal && kt == n_kv - 1) {  // the diagonal tile
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = k0 + 8 * i + 2 * c + e;
+          if (j > row_a) sc[4 * i + e] = -INFINITY;
+          if (j > row_b) sc[4 * i + 2 + e] = -INFINITY;
+        }
+    }
+
+    // online softmax: a row lives in the 4 lanes of a quad
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 8; ++i) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    // a row with no allowed key so far keeps p = 0 and l = 0
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a, mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float al_a = exp2_approx(m_a - mu_a), al_b = exp2_approx(m_b - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 8; ++i) {
+      sc[4 * i] = exp2_approx(sc[4 * i] - mu_a);
+      sc[4 * i + 1] = exp2_approx(sc[4 * i + 1] - mu_a);
+      sc[4 * i + 2] = exp2_approx(sc[4 * i + 2] - mu_b);
+      sc[4 * i + 3] = exp2_approx(sc[4 * i + 3] - mu_b);
+      ls_a += sc[4 * i] + sc[4 * i + 1];
+      ls_b += sc[4 * i + 2] + sc[4 * i + 3];
+    }
+    l_a = l_a * al_a + ls_a;  // this thread's share of the row sum
+    l_b = l_b * al_b + ls_b;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= al_a;
+      o[4 * i + 1] *= al_a;
+      o[4 * i + 2] *= al_b;
+      o[4 * i + 3] *= al_b;
+    }
+
+    // O += P V: P rounded to bf16 in registers (flash_attention.py:471)
+    uint32_t pf[kFwdKeys / 16][4];
+#pragma unroll
+    for (int k = 0; k < kFwdKeys / 16; ++k) sm90::pack_a(sc, k, pf[k]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kFwdKeys / 16; ++k)
+      sm90::wgmma_rs(o, pf[k], sm90::mnmajor_desc<D, kFwdKeys>(sbase + S::V + s * S::TILE, k));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(pf);
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  // a padded query row is an empty row: O = 0, lse = 0
+  const bool va = row_a < T_len && (mask == nullptr || mask[row_a] != 0) && l_a > 0.f;
+  const bool vb = row_b < T_len && (mask == nullptr || mask[row_b] != 0) && l_b > 0.f;
+  if (c == 0) {
+    if (row_a < T_len)
+      lse[static_cast<int64_t>(h) * T_len + row_a] = va ? m_a * kLn2 + logf(l_a) : 0.f;
+    if (row_b < T_len)
+      lse[static_cast<int64_t>(h) * T_len + row_b] = vb ? m_b * kLn2 + logf(l_b) : 0.f;
+  }
+  store_frag<D>(out, o, row_a, va ? 1.f / l_a : 0.f, vb ? 1.f / l_b : 0.f, c, h, H, T_len);
+}
+
+// dK/dV. Shared memory: the block's K and V tiles (resident), the Q and dO
+// rings, each stage's lse (times log2 e; +inf for an empty or absent query
+// row, so its P is 0) and di, and the barriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int KV = kBlockRows * D * 2;
+  static constexpr int QT = kDkvRows * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = KV;
+  static constexpr int Q = 2 * KV;
+  static constexpr int DO = Q + kDkvStages * QT;
+  static constexpr int LSE = DO + kDkvStages * QT;
+  static constexpr int DI = LSE + kDkvStages * kDkvRows * 4;
+  static constexpr int BAR = DI + kDkvStages * kDkvRows * 4;  // kv_full, full[S], empty[S]
+  static constexpr int BYTES = BAR + (1 + 2 * kDkvStages) * 8 + 1024;
+};
+
+// warp 0 of dK/dV: query tile t (its rows' lse and di, Q and dO) into its stage
+template <int D>
+__device__ __forceinline__ void dkv_load(uint8_t* smem, const CUtensorMap* q_map,
+                                         const CUtensorMap* do_map, const float* lse,
+                                         const float* di, const int32_t* mask, uint64_t* full,
+                                         uint64_t* empty, int t, int qt0, int h, int T_len,
+                                         int lane) {
+  using S = DkvSmem<D>;
+  using Tl = sm90::Tile<D>;
+  const int s = t % kDkvStages, q0 = (qt0 + t) * kDkvRows;
+  wait_empty<kDkvStages>(empty, t);
+  float* lse_s = reinterpret_cast<float*>(smem + S::LSE) + s * kDkvRows;
+  float* di_s = reinterpret_cast<float*>(smem + S::DI) + s * kDkvRows;
+  for (int r = lane; r < kDkvRows; r += 32) {
+    const int q = q0 + r;
+    const bool real = q < T_len;
+    const int64_t at = static_cast<int64_t>(h) * T_len + q;
+    lse_s[r] = real && (mask == nullptr || mask[q] != 0) ? lse[at] * kLog2e : INFINITY;
+    di_s[r] = real ? di[at] : 0.f;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * Tl::template bytes<kDkvRows>());
+    for (int b = 0; b < Tl::NBOX; ++b) {
+      sm90::tma_load_3d(smem + S::Q + s * S::QT + b * kDkvRows * Tl::RB, q_map, &full[s],
+                        b * Tl::COLS, h, q0);
+      sm90::tma_load_3d(smem + S::DO + s * S::QT + b * kDkvRows * Tl::RB, do_map, &full[s],
+                        b * Tl::COLS, h, q0);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        const int32_t* __restrict__ mask, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int T_len, int H, float scale, int causal) {
+  using S = DkvSmem<D>;
+  using Tl = sm90::Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sbase = sm90::smem_addr(smem);
+  const float* lse_s = reinterpret_cast<const float*>(smem + S::LSE);
+  const float* di_s = reinterpret_cast<const float*>(smem + S::DI);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
+
+  const int h = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.x) * kBlockRows;  // key tile 0 has the most work
+  const int qt0 = causal ? k0 / kDkvRows : 0;  // first query tile at or below the diagonal
+  const int n_it = (T_len + kDkvRows - 1) / kDkvRows - qt0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kThreadsTC / 32);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * Tl::template bytes<kBlockRows>());
+      for (int b = 0; b < Tl::NBOX; ++b) {
+        sm90::tma_load_3d(smem + S::K + b * kBlockRows * Tl::RB, &k_map, kv_full, b * Tl::COLS,
+                          h, k0);
+        sm90::tma_load_3d(smem + S::V + b * kBlockRows * Tl::RB, &v_map, kv_full, b * Tl::COLS,
+                          h, k0);
+      }
+    }
+    for (int t = 0; t < kDkvStages && t < n_it; ++t)
+      dkv_load<D>(smem, &q_map, &do_map, lse, di, mask, full, empty, t, qt0, h, T_len, lane);
+  }
+
+  // warpgroup wgi owns keys k0 + 64 wgi .. + 63, and their dK and dV
+  const int wgi = warp / 4, g = lane / 4, c = lane % 4;
+  const int j_a = k0 + 64 * wgi + 16 * (warp % 4) + g, j_b = j_a + 8;
+  const bool ok_a = j_a < T_len && (mask == nullptr || mask[j_a] != 0);
+  const bool ok_b = j_b < T_len && (mask == nullptr || mask[j_b] != 0);
+  const float sl2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // Tile it's products run in two tensor-core sections of the warpgroup,
+  // taken in turns with the other warpgroup's: S^T = K Q^T and dP^T = V
+  // dO^T in section it, dV += P^T dO and dK += dS^T Q in section it + 1,
+  // and P^T and dS^T in registers between them, while the other warpgroup
+  // has the tensor cores. Tile it's stage is released after section it + 1.
+  uint32_t pf[kDkvRows / 16][4], df[kDkvRows / 16][4];
+  float st[kDkvRows / 2], dpt[kDkvRows / 2];
+  if (wgi == 1) turn_pass(wgi);  // warpgroup 0 goes first
+  sm90::mbar_wait(kv_full, 0);
+  for (int it = 0; it <= n_it; ++it) {
+    // refill the stage that tile it - 2 held (released after section it - 1)
+    if (warp == 0 && it >= 2 && it + kDkvStages - 2 < n_it)
+      dkv_load<D>(smem, &q_map, &do_map, lse, di, mask, full, empty, it + kDkvStages - 2, qt0,
+                  h, T_len, lane);
+    const int s = it % kDkvStages, sp = (it + kDkvStages - 1) % kDkvStages;
+    if (it < n_it) wait_full<kDkvStages>(full, it);
+    const uint32_t q_s = sbase + S::Q + s * S::QT, do_s = sbase + S::DO + s * S::QT;
+    const uint32_t q_p = sbase + S::Q + sp * S::QT, do_p = sbase + S::DO + sp * S::QT;
+
+    turn_wait(wgi);
+    sm90::wgmma_fence();
+    if (it > 0) {
+      // tile it - 1: dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to
+      // bf16 in registers (flash_attention.py:900, :918)
+#pragma unroll
+      for (int k = 0; k < kDkvRows / 16; ++k)
+        sm90::wgmma_rs(dv_acc, pf[k], sm90::mnmajor_desc<D, kDkvRows>(do_p, k));
+#pragma unroll
+      for (int k = 0; k < kDkvRows / 16; ++k)
+        sm90::wgmma_rs(dk_acc, df[k], sm90::mnmajor_desc<D, kDkvRows>(q_p, k));
+    }
+    if (it < n_it) {
+      // tile it: S^T = K Q^T and dP^T = V dO^T, [64 keys][64 queries]
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)
+        sm90::wgmma_ss(st, sm90::kmajor_desc<D, kBlockRows>(sbase + S::K, 64 * wgi, k),
+                       sm90::kmajor_desc<D, kDkvRows>(q_s, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)
+        sm90::wgmma_ss(dpt, sm90::kmajor_desc<D, kBlockRows>(sbase + S::V, 64 * wgi, k),
+                       sm90::kmajor_desc<D, kDkvRows>(do_s, 0, k), k > 0);
+    }
+    sm90::wgmma_commit();
+    turn_pass(wgi);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(pf);
+    sm90::fence_regs(df);
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    if (it > 0 && lane == 0) sm90::mbar_arrive(&empty[sp]);
+    if (it == n_it) break;
+
+    // P^T = exp(scale S^T - lse) on the allowed pairs, dS^T = P^T (dP^T - di) scale:
+    // key row j keeps the queries q >= lim (every one off the diagonal, none
+    // for a masked or absent key)
+    const int q0 = (qt0 + it) * kDkvRows;
+    const bool diag = causal && q0 < k0 + kBlockRows;
+    const int lim_a = !ok_a ? INT_MAX : diag ? j_a : INT_MIN;
+    const int lim_b = !ok_b ? INT_MAX : diag ? j_b : INT_MIN;
+    const float* ls = lse_s + s * kDkvRows;
+    const float* ds = di_s + s * kDkvRows;
+#pragma unroll
+    for (int i = 0; i < kDkvRows / 8; ++i) {
+      const float2 L = *reinterpret_cast<const float2*>(ls + 8 * i + 2 * c);
+      const float2 Di = *reinterpret_cast<const float2*>(ds + 8 * i + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + 8 * i + 2 * c + e;
+        const float le = e ? L.y : L.x, de = e ? Di.y : Di.x;
+        float pa = exp2_approx(fmaf(st[4 * i + e], sl2, -le));
+        float pb = exp2_approx(fmaf(st[4 * i + 2 + e], sl2, -le));
+        if (q < lim_a) pa = 0.f;
+        if (q < lim_b) pb = 0.f;
+        st[4 * i + e] = pa;
+        st[4 * i + 2 + e] = pb;
+        dpt[4 * i + e] = (dpt[4 * i + e] - de) * pa * scale;
+        dpt[4 * i + 2 + e] = (dpt[4 * i + 2 + e] - de) * pb * scale;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kDkvRows / 16; ++k) {
+      sm90::pack_a(st, k, pf[k]);
+      sm90::pack_a(dpt, k, df[k]);
+    }
+  }
+  store_frag<D>(dk, dk_acc, j_a, 1.f, 1.f, c, h, H, T_len);
+  store_frag<D>(dv, dv_acc, j_a, 1.f, 1.f, c, h, H, T_len);
+}
+
 // --- launchers -------------------------------------------------------------------
 
 template <int D>
@@ -602,20 +1126,65 @@ cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dO, const void* l
   return cudaGetLastError();
 }
 
-// Calls LAUNCH<T, D>(args...) for the runtime dtype and head width; an
-// unsupported pair is cudaErrorInvalidValue.
-#define DG_DISPATCH(LAUNCH, dtype, D, ...)                                        \
-  do {                                                                           \
-    if (dtype == kF32) {                                                         \
-      if (D == 32) return static_cast<int>(LAUNCH<float, 32>(__VA_ARGS__));      \
-      if (D == 64) return static_cast<int>(LAUNCH<float, 64>(__VA_ARGS__));      \
-      if (D == 128) return static_cast<int>(LAUNCH<float, 128>(__VA_ARGS__));    \
-    } else if (dtype == kBF16) {                                                 \
-      if (D == 32) return static_cast<int>(LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__));   \
-      if (D == 64) return static_cast<int>(LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__));   \
-      if (D == 128) return static_cast<int>(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)); \
-    }                                                                            \
-    return static_cast<int>(cudaErrorInvalidValue);                              \
+template <typename T, int D>
+cudaError_t launch_fwd_tc(Operand q, Operand k, Operand v, const void* mask, void* out, void* lse,
+                          int T_len, int H, float scale, int causal, cudaStream_t s) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core route is bf16");
+  constexpr int cols = sm90::Tile<D>::COLS;
+  CUtensorMap qm, km, vm;
+  if (!sm90::encode_rows_map(&qm, q.p, T_len, H, D, q.rs, q.hs, kBlockRows, cols) ||
+      !sm90::encode_rows_map(&km, k.p, T_len, H, D, k.rs, k.hs, kFwdKeys, cols) ||
+      !sm90::encode_rows_map(&vm, v.p, T_len, H, D, v.rs, v.hs, kFwdKeys, cols))
+    return cudaErrorInvalidValue;
+  constexpr int smem = FwdSmem<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T_len + kBlockRows - 1) / kBlockRows, H);
+  flash_fwd_tc_kernel<D><<<grid, kThreadsTC, smem, s>>>(
+      qm, km, vm, static_cast<const int32_t*>(mask), static_cast<bf16*>(out),
+      static_cast<float*>(lse), T_len, H, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_tc(Operand q, Operand k, Operand v, Operand dO, const void* lse,
+                          const void* di, const void* mask, void* dk, void* dv, int T_len, int H,
+                          float scale, int causal, cudaStream_t s) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core route is bf16");
+  constexpr int cols = sm90::Tile<D>::COLS;
+  CUtensorMap qm, km, vm, dom;
+  if (!sm90::encode_rows_map(&qm, q.p, T_len, H, D, q.rs, q.hs, kDkvRows, cols) ||
+      !sm90::encode_rows_map(&km, k.p, T_len, H, D, k.rs, k.hs, kBlockRows, cols) ||
+      !sm90::encode_rows_map(&vm, v.p, T_len, H, D, v.rs, v.hs, kBlockRows, cols) ||
+      !sm90::encode_rows_map(&dom, dO.p, T_len, H, D, dO.rs, dO.hs, kDkvRows, cols))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DkvSmem<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T_len + kBlockRows - 1) / kBlockRows, H);
+  flash_bwd_dkv_tc_kernel<D><<<grid, kThreadsTC, smem, s>>>(
+      qm, km, vm, dom, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<const int32_t*>(mask), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T_len, H,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+// Calls F32<float, D>(args...) or BF16<__nv_bfloat16, D>(args...) for the
+// runtime dtype and head width; an unsupported pair is cudaErrorInvalidValue.
+#define DG_DISPATCH(F32, BF16, dtype, D, ...)                                   \
+  do {                                                                         \
+    if (dtype == kF32) {                                                       \
+      if (D == 32) return static_cast<int>(F32<float, 32>(__VA_ARGS__));       \
+      if (D == 64) return static_cast<int>(F32<float, 64>(__VA_ARGS__));       \
+      if (D == 128) return static_cast<int>(F32<float, 128>(__VA_ARGS__));     \
+    } else if (dtype == kBF16) {                                               \
+      if (D == 32) return static_cast<int>(BF16<bf16, 32>(__VA_ARGS__));       \
+      if (D == 64) return static_cast<int>(BF16<bf16, 64>(__VA_ARGS__));       \
+      if (D == 128) return static_cast<int>(BF16<bf16, 128>(__VA_ARGS__));     \
+    }                                                                          \
+    return static_cast<int>(cudaErrorInvalidValue);                            \
   } while (0)
 
 }  // namespace
@@ -633,7 +1202,7 @@ int dg_flash_attention_fwd(const void* q, long long q_rs, long long q_hs, const 
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
-  DG_DISPATCH(launch_fwd, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
+  DG_DISPATCH(launch_fwd, launch_fwd_tc, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, mask, out, lse, T, H, scale, causal, s);
 }
 
@@ -648,7 +1217,7 @@ int dg_flash_attention_bwd_dkv(const void* q, long long q_rs, long long q_hs, co
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
-  DG_DISPATCH(launch_dkv, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
+  DG_DISPATCH(launch_dkv, launch_dkv_tc, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dk, dv, T, H,
               scale, causal, s);
 }
@@ -663,7 +1232,7 @@ int dg_flash_attention_bwd_dq(const void* q, long long q_rs, long long q_hs, con
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
-  DG_DISPATCH(launch_dq, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
+  DG_DISPATCH(launch_dq, launch_dq, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
               Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dq, T, H,
               scale, causal, s);
 }

@@ -113,11 +113,20 @@ def _probs(q, k, lse, scale, causal, kv_mask) -> torch.Tensor:
     return torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
 
 
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` (f32) rounded to ``dtype`` and back: where the Pallas kernels
+    feed a product in the input dtype (``P`` before ``P·V``,
+    flash_attention.py:471; ``Pᵀ`` and ``dSᵀ`` before dV and dK, :900,
+    :918). In f32 it is ``x`` itself."""
+    return x.to(dtype).float()
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
                               scale: Optional[float] = None, kv_mask=None):
     """Plain version of :func:`flash_attention_fwd`: ``(O [T, H, D] in
     q.dtype, lse [H, T] f32)``; a row with no allowed key has O = 0 and
-    lse = 0."""
+    lse = 0. P is rounded to v's dtype before ``P·V``, as the kernels (and
+    the Pallas kernel) round it."""
     T, H, D = q.shape
     s = torch.einsum("thd,shd->hts", q.float(), k.float()) * _scale(scale, D)
     allowed = _allowed(T, causal, kv_mask, q.device)
@@ -126,7 +135,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     empty = torch.isneginf(lse)
     lse = torch.where(empty, 0.0, lse)
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
-    out = torch.einsum("hts,shd->thd", p, v.float())
+    out = torch.einsum("hts,shd->thd", _rounded(p, v.dtype), v.float())
     return out.to(q.dtype), lse
 
 
@@ -134,14 +143,15 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, *, causal: bool = False,
                                   scale: Optional[float] = None, kv_mask=None):
     """Plain version of :func:`flash_attention_bwd_dkv`: ``P`` from ``lse``,
     ``dS = (dO Vᵀ - di)·P·scale``, ``dK = dSᵀ Q``, ``dV = Pᵀ dO`` in f32,
-    returned in the input dtype."""
+    returned in the input dtype; ``Pᵀ`` and ``dSᵀ`` are rounded to dO's
+    dtype before their products, as the kernels round them."""
     scale = _scale(scale, q.shape[-1])
     p = _probs(q, k, lse, scale, causal, kv_mask)
     dof = do.float()
-    dv = torch.einsum("hts,thd->shd", p, dof)
+    dv = torch.einsum("hts,thd->shd", _rounded(p, do.dtype), dof)
     dp = torch.einsum("thd,shd->hts", dof, v.float())
     ds = (dp - di[..., None]) * p * scale
-    dk = torch.einsum("hts,thd->shd", ds, q.float())
+    dk = torch.einsum("hts,thd->shd", _rounded(ds, do.dtype), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -164,12 +174,16 @@ def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it in place (unit stride over
-    D, row and head strides in whole 4-element groups, rows aligned to 4
-    elements), else a contiguous copy. The LM's q, k and v (column slices of
-    one ``[T, 3L]`` tensor) and its cotangents pass as they are."""
-    if (t.stride(2) != 1 or t.stride(0) % 4 or t.stride(1) % 4
-            or t.data_ptr() % (4 * t.element_size())):
+    """``t`` itself when the kernels can read it in place, else a contiguous
+    copy. In place: unit stride over D, row and head strides in whole
+    16-byte groups (4 f32 or 8 bf16 elements) and a 16-byte aligned base.
+    In bf16 that is what TMA asks of a tensor map (the tensor-core kernels);
+    in f32 it is the CUDA-core kernels' 16-byte loads. The LM's q, k and v
+    (column slices of one ``[T, 3L]`` tensor) and its cotangents pass as
+    they are."""
+    group = 16 // t.element_size()
+    if (t.stride(2) != 1 or t.stride(0) % group or t.stride(1) % group
+            or t.data_ptr() % 16):
         return t.contiguous()
     return t
 

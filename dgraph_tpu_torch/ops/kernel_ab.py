@@ -5,13 +5,21 @@
 Builds every source of ``ops/_build.SOURCES`` found in each directory (NEW
 defaults to this checkout's ``csrc/``) with the same nvcc flags, under
 ``dgraph_tpu_torch/_build/ab/`` (git-ignored), then times each exported
-entry point at the training shape — E = 2,332,672 sorted ids drawn
-uniformly over N = 169,344 rows, F = 128, f32 and bf16 — in the order old,
-new, new, old, with CUDA events around back-to-back launches into
-preallocated outputs (kernel time only). It checks that the two trees give
-equal bits. An entry point the old tree lacks is timed for the new tree
-only. Prints one line per entry and dtype; writes the same as JSON to
-``DIR/kernel_ab.json`` (default ``chiprun_out``). Needs a CUDA device.
+entry point in the order old, new, new, old, with CUDA events around
+back-to-back launches into preallocated outputs (kernel time only):
+
+- the sorted-id kernels at the training shape — E = 2,332,672 sorted ids
+  drawn uniformly over N = 169,344 rows, F = 128;
+- the three flash-attention entry points at the lm_flash shape — T = 8192,
+  H = 4, D = 128, causal, q, k and v as column slices of one [T, 3L] tensor
+  as the LM passes them, lse and di from the plain forward;
+
+each in f32 and bf16. It reports whether the two trees give equal bits and,
+for attention (whose bf16 forward and dK/dV may be redesigned), the largest
+absolute difference between them. An entry point the old tree lacks is
+timed for the new tree only. Prints one line per entry and dtype; writes the
+same as JSON to ``DIR/kernel_ab.json`` (default ``chiprun_out``). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -24,21 +32,29 @@ import subprocess
 from pathlib import Path
 
 N_ROWS, N_EDGES, F = 169_344, 2_332_672, 128
+LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 
 
 def build_tree(csrc: Path, tag: str) -> dict:
-    """{source name: bound CDLL} for every source of SOURCES in ``csrc``."""
+    """{source name: bound CDLL} for every source of SOURCES in ``csrc``,
+    one nvcc a source, all started together."""
     from dgraph_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
+    procs = {}
     for name, src in _build.SOURCES.items():
         if not (csrc / src).exists():
             continue
         out = out_dir / f"lib{name}-{tag}.so"
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(csrc / src)],
-                       check=True, capture_output=True)
+        procs[name] = (out, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(csrc / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {csrc / _build.SOURCES[name]}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in _build.SIGNATURES[name].items():
             if hasattr(lib, fn):
@@ -102,6 +118,45 @@ def entry_calls(dtype):
     }
 
 
+def attention_calls(dtype):
+    """As :func:`entry_calls` for the three flash-attention entry points at
+    the lm_flash shape (causal); an output may be a tuple of tensors."""
+    import math
+
+    import torch
+
+    from dgraph_tpu_torch.ops import attention as att
+    from dgraph_tpu_torch.ops import segment as seg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T, H, D = LM_T, LM_H, LM_D
+    L = H * D
+    qkv = torch.randn(T, 3 * L, generator=gen, device=dev).to(dtype)
+    q, k, v = (qkv[:, i * L:(i + 1) * L].view(T, H, D) for i in range(3))
+    do = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+    out_p, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
+    di = att.row_dot(out_p, do)
+    del out_p
+    out, dq, dk, dv = (torch.empty(T, H, D, device=dev, dtype=dtype) for _ in range(4))
+    lse_o = torch.empty(H, T, device=dev)
+    code, scale = seg._KERNEL_DTYPES[dtype], 1.0 / math.sqrt(D)
+    s = lambda t: (t.data_ptr(), t.stride(0), t.stride(1))  # noqa: E731
+    qkv_args = (*s(q), *s(k), *s(v))
+    rest = (*s(do), lse.data_ptr(), di.data_ptr(), None)
+    keep = (qkv, do, lse, di)
+    return keep, {
+        "flash_attention_fwd": ("flash_attention", "dg_flash_attention_fwd", (out, lse_o),
+                                (*qkv_args, None, out.data_ptr(), lse_o.data_ptr(), T, H, D,
+                                 scale, 1, code)),
+        "flash_attention_bwd_dkv": ("flash_attention", "dg_flash_attention_bwd_dkv", (dk, dv),
+                                    (*qkv_args, *rest, dk.data_ptr(), dv.data_ptr(), T, H, D,
+                                     scale, 1, code)),
+        "flash_attention_bwd_dq": ("flash_attention", "dg_flash_attention_bwd_dq", (dq,),
+                                   (*qkv_args, *rest, dq.data_ptr(), T, H, D, scale, 1, code)),
+    }
+
+
 def compare(old: Path, new: Path) -> list:
     import torch
 
@@ -109,28 +164,39 @@ def compare(old: Path, new: Path) -> list:
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        keep, calls = entry_calls(dtype)
-        for label, (src, entry, out, args) in calls.items():
-            fns = {}
-            for tag, tree in libs.items():
-                lib = tree.get(src)
-                if lib is not None and hasattr(lib, entry):
-                    fns[tag] = lambda f=getattr(lib, entry), a=args: f(*a, stream)
-            times, outs = {}, {}
-            for tag in ("old", "new", "new", "old"):
-                if tag in fns:
-                    times.setdefault(tag, []).append(time_ms(fns[tag]))
-            for tag, fn in fns.items():
-                out.zero_()
-                if fn() != 0:
-                    raise RuntimeError(f"{tag} {entry}: launch failed")
-                torch.cuda.synchronize()
-                outs[tag] = out.clone()
-            rows.append({"entry": label, "dtype": str(dtype).removeprefix("torch."),
-                         "old_ms": times.get("old"), "new_ms": times["new"],
-                         "equal_bits": torch.equal(outs["old"], outs["new"]) if "old" in outs
-                         else None})
-        del keep
+        for make in (entry_calls, attention_calls):
+            keep, calls = make(dtype)
+            for label, (src, entry, out, args) in calls.items():
+                outs = out if isinstance(out, tuple) else (out,)
+                fns = {}
+                for tag, tree in libs.items():
+                    lib = tree.get(src)
+                    if lib is not None and hasattr(lib, entry):
+                        fns[tag] = lambda f=getattr(lib, entry), a=args: f(*a, stream)
+                if "new" not in fns:
+                    continue
+                times, got = {}, {}
+                for tag in ("old", "new", "new", "old"):
+                    if tag in fns:
+                        times.setdefault(tag, []).append(time_ms(fns[tag]))
+                for tag, fn in fns.items():
+                    for o in outs:
+                        o.zero_()
+                    if fn() != 0:
+                        raise RuntimeError(f"{tag} {entry}: launch failed")
+                    torch.cuda.synchronize()
+                    got[tag] = [o.clone() for o in outs]
+                row = {"entry": label, "dtype": str(dtype).removeprefix("torch."),
+                       "old_ms": times.get("old"), "new_ms": times["new"], "equal_bits": None}
+                if "old" in got:
+                    row["equal_bits"] = all(torch.equal(a, b)
+                                            for a, b in zip(got["old"], got["new"]))
+                    if make is attention_calls:
+                        row["max_abs_diff"] = max(float((a.float() - b.float()).abs().max())
+                                                  for a, b in zip(got["old"], got["new"]))
+                rows.append(row)
+            del keep, calls
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -148,8 +214,9 @@ def main(argv=None) -> None:
     rows = compare(a.old, a.new)
     for r in rows:
         fmt = lambda v: "-" if v is None else "/".join(f"{t:.4f}" for t in v)  # noqa: E731
-        print(f"{r['dtype']:9s} {r['entry']:20s} old {fmt(r['old_ms'])} ms  new "
-              f"{fmt(r['new_ms'])} ms  equal bits {r['equal_bits']}")
+        diff = f"  max abs diff {r['max_abs_diff']:.3g}" if "max_abs_diff" in r else ""
+        print(f"{r['dtype']:9s} {r['entry']:24s} old {fmt(r['old_ms'])} ms  new "
+              f"{fmt(r['new_ms'])} ms  equal bits {r['equal_bits']}{diff}")
     os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "old": str(a.old), "new": str(a.new), "rows": rows}, f,

@@ -758,11 +758,12 @@ def resolve_halo_impl(
     impl = _cfg.halo_impl
     if impl in legal:
         return impl, "env"
+    heuristic = "overlap" if overlap_available else pick_halo_impl(halo_deltas)
     if impl == "overlap":
         _warn_unavailable("'overlap'", "the plan carries no interior/boundary split "
-                          "(built without overlap=True)")
+                          "(built without overlap=True)", heuristic)
     if impl == "sched":
-        _warn_unavailable("'sched'", "the plan carries no compiled halo schedule")
+        _warn_unavailable("'sched'", "the plan carries no compiled halo schedule", heuristic)
     if impl == "pallas_p2p":
         if _p2p_ok():
             return impl, "env"
@@ -771,10 +772,8 @@ def resolve_halo_impl(
             "the plan carries no interior/boundary split (built without "
             "overlap=True)" if not overlap_available else
             "the rank's device is not CUDA (set DGRAPH_TPU_PALLAS_P2P=1 to "
-            "run the transport's plain version on the CPU)")
-    if overlap_available:
-        return "overlap", "heuristic"
-    return pick_halo_impl(halo_deltas), "heuristic"
+            "run the transport's plain version on the CPU)", heuristic)
+    return heuristic, "heuristic"
 
 
 def resolve_overlap_intent() -> bool:
@@ -788,13 +787,23 @@ def resolve_overlap_intent() -> bool:
 _warned: set = set()
 
 
-def _warn_unavailable(impl: str, why: str) -> None:
-    """The one-time warning of a pin that cannot lower."""
-    key = (impl, why)
-    if key not in _warned:
-        _warned.add(key)
-        _logger.warning("halo_impl=%s pinned by DGRAPH_TPU_HALO_IMPL but %s; the "
-                        "heuristic decides the lowering instead", impl, why)
+def _warn_unavailable(impl: str, why: str, fallback: str) -> None:
+    """The one-time warning of a pin that cannot lower. It names the
+    lowering the heuristic resolves to instead and, where that lowering is a
+    later slice of the port (``comm.collectives``), says that the run will
+    raise and which pin runs."""
+    from dgraph_tpu_torch.comm.collectives import _LATER
+
+    key = (impl, why, fallback)
+    if key in _warned:
+        return
+    _warned.add(key)
+    if fallback not in _LATER:
+        then = f"the heuristic decides the lowering instead: {fallback!r}"
+    else:
+        then = (f"the heuristic resolves it to {fallback!r}, a later slice of the port, so "
+                "the run will raise; DGRAPH_TPU_HALO_IMPL=all_to_all is the pin that runs")
+    _logger.warning("halo_impl=%s pinned by DGRAPH_TPU_HALO_IMPL but %s; %s", impl, why, then)
 
 
 def _masked_owner_ids_in_range(plan: EdgePlan) -> bool:

@@ -55,8 +55,8 @@ class ServeEngine:
         self.device = default_device(device)
         if plan.world_size != 1:
             raise NotImplementedError(
-                f"serving a {plan.world_size}-rank plan needs the multi-rank "
-                "communicator, which is not ported yet; build the graph with "
+                f"serving a {plan.world_size}-rank plan is slice 9 of the port (the "
+                "multi-rank communicator runs, for training); build the graph with "
                 "world_size=1"
             )
         self.ladder = ladder or BucketLadder.geometric()

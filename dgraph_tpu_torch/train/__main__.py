@@ -14,7 +14,9 @@ unless ``--device cpu``; with no card it raises.
     DGRAPH_TPU_HALO_IMPL=pallas_p2p python -m dgraph_tpu_torch.train --world_size 4
     python -m dgraph_tpu_torch.train --device cpu --world_size 2 --epochs 2
 
-Above one rank the run spawns one process a rank (``comm.dist.launch``;
+``--world_size 0`` means every visible card (one rank with ``--device
+cpu``), as the reference's 0 means every device. Above one rank the run
+spawns one process a rank (``comm.dist.launch``;
 under ``torchrun`` it joins that group instead): ranks on cards of their
 own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
 Every rank builds the same graph from the same seed and trains its shard;
@@ -57,7 +59,7 @@ class Config:
     num_layers: int = 2
     lr: float = 5e-3
     epochs: int = 100
-    world_size: int = 1  # ranks (0 = 1); > 1 spawns one process a rank
+    world_size: int = 1  # ranks; 0 = every visible card (1 with --device cpu); > 1 spawns
     log_path: str = "logs/ogb_gcn_torch.jsonl"
     step_metrics: bool = False  # grad norm and mask count in each record
     device: str = ""  # "" = cuda (raises with no card); "cpu" for the plain path
@@ -117,7 +119,7 @@ def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace
         device = comm.group.device
     dev = default_device(device if device is not None else (cfg.device or None))
     W, rank = comm.get_world_size(), comm.get_rank()
-    if (cfg.world_size or 1) != W:
+    if resolve_world_size(cfg.world_size, cfg.device) != W:
         raise ValueError(f"world_size={cfg.world_size} but the communicator has {W} ranks; "
                          "main() launches the ranks")
     if cfg.model in ("gat", "gt", "graph_transformer"):
@@ -229,6 +231,20 @@ def _train_rank(group, cfg: dict, on_step: Optional[Callable]) -> dict:
     return out
 
 
+def resolve_world_size(world_size: int, device: str = "") -> int:
+    """The ranks a run has: ``world_size`` when positive; 0 means every
+    visible card (``torch.cuda.device_count()``), as the reference's 0 means
+    every device (``experiments/ogb_gcn.py:137``), and one rank with
+    ``--device cpu``."""
+    import torch
+
+    if world_size > 0:
+        return world_size
+    if (device or "cuda") == "cpu":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
 def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
     """Train ``cfg.epochs`` steps on ``cfg.world_size`` ranks. Returns
     {"records", "avg_epoch_ms_excl_first", "on_step", "training"} (rank 0's;
@@ -240,7 +256,7 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
 
     from dgraph_tpu_torch.comm.dist import launch
 
-    W = cfg.world_size or 1
+    W = resolve_world_size(cfg.world_size, cfg.device)
     if W == 1 and "WORLD_SIZE" not in os.environ:
         out = _train(cfg, on_step)
         return dict(out, ranks=[out])

@@ -11,6 +11,13 @@ plain versions) are held against the same JAX gradients.
 Inputs are numpy normals from a seed, f32. Tolerance rtol=atol=1e-5 for
 every comparison: both sides compute in f32 and differ only in summation
 order (sums of at most 200 terms of size about 1).
+
+In bf16 the forward and dK/dV plain versions round P, Pᵀ and dSᵀ to bf16
+before their products, where the Pallas kernels round them
+(flash_attention.py:471, :900, :918); they are held against the Pallas
+kernels themselves, run in interpret mode, at rtol=atol=2e-2: both sides
+round each output once from f32 and round P at the same points, so they
+differ by about one bf16 step of the output (2⁻⁷ relative) plus f32 order.
 """
 
 import numpy as np
@@ -19,6 +26,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as fa
 
 from dgraph_tpu.parallel import sequence as jseq
@@ -197,3 +205,100 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
     assert set(kernels.KERNELS) == set(segment.KERNELS) | set(att.KERNELS) | set(p2p.KERNELS)
     assert len(kernels.KERNELS) == 10
+
+
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_plain_versions_match_the_pallas_kernels(causal, D):
+    """The bf16 forward and dK/dV plain versions against Pallas' TPU flash
+    attention in interpret mode (its forward, and its dK/dV from ``jax.vjp``)
+    on the same bf16 inputs. dV is the product whose rounding point the two
+    share exactly (normalised Pᵀ in bf16): rounding there brings the plain
+    version closer to the kernel than the f32 Pᵀ of before."""
+    T = 256
+    q, k, v, cot, _ = _inputs(T, D, masked=False, seed=7)
+    to_k = lambda a: jnp.asarray(a).astype(jnp.bfloat16).transpose(1, 0, 2)[None]
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(lambda a, b, c: fa.flash_attention(
+            a, b, c, causal=causal, sm_scale=float(1 / np.sqrt(D))), to_k(q), to_k(k), to_k(v))
+        _, dk, dv = vjp(to_k(cot))
+    back = lambda x: np.asarray(x[0].astype(jnp.float32)).transpose(1, 0, 2)
+    tq, tk, tv, tc = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, cot))
+    out_p, lse = att.flash_attention_fwd_plain(tq, tk, tv, causal=causal)
+    di = att.row_dot(out_p, tc)
+    dk_p, dv_p = att.flash_attention_bwd_dkv_plain(tq, tk, tv, tc, lse, di, causal=causal)
+    for name, got, want in (("out", out_p, out), ("dk", dk_p, dk), ("dv", dv_p, dv)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), back(want), rtol=BF16_TOL,
+                                   atol=BF16_TOL, err_msg=name)
+    p = att._probs(tq, tk, lse, 1 / np.sqrt(D), causal, None)
+    dv_f32p = torch.einsum("hts,thd->shd", p, tc.float()).to(torch.bfloat16)
+    err = lambda a: np.abs(a.float().numpy() - back(dv)).max()
+    assert err(dv_p) < err(dv_f32p)
+
+
+def _fwd_plain_f32_formula(q, k, v, causal, scale, kv_mask):
+    """The f32 forward plain version as it was before P was rounded."""
+    T = q.shape[0]
+    s = torch.einsum("thd,shd->hts", q.float(), k.float()) * scale
+    allowed = att._allowed(T, causal, kv_mask, q.device)
+    s = s.masked_fill(~allowed, -np.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(torch.isneginf(lse), 0.0, lse)
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
+    return torch.einsum("hts,shd->thd", p, v.float()).to(q.dtype), lse
+
+
+def _dkv_plain_f32_formula(q, k, v, do, lse, di, causal, scale, kv_mask):
+    """The f32 dK/dV plain version as it was before Pᵀ and dSᵀ were rounded."""
+    p = att._probs(q, k, lse, scale, causal, kv_mask)
+    dof = do.float()
+    dv = torch.einsum("hts,thd->shd", p, dof)
+    dp = torch.einsum("thd,shd->hts", dof, v.float())
+    ds = (dp - di[..., None]) * p * scale
+    dk = torch.einsum("hts,thd->shd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_plain_versions_are_unchanged(causal, masked):
+    """In f32 the rounding is the identity: the forward and dK/dV plain
+    versions give the bits of their formulas before it, and dQ's plain
+    version (its kernel keeps dS in f32) is untouched."""
+    T, D = 200, 64
+    q, k, v, cot, mask = (None if a is None else torch.from_numpy(a)
+                          for a in _inputs(T, D, masked, seed=8))
+    scale = 1 / np.sqrt(D)
+    out, lse = att.flash_attention_fwd_plain(q, k, v, causal=causal, kv_mask=mask)
+    want = _fwd_plain_f32_formula(q, k, v, causal, scale, mask)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    di = att.row_dot(out, cot)
+    got = att.flash_attention_bwd_dkv_plain(q, k, v, cot, lse, di, causal=causal, kv_mask=mask)
+    for a, b in zip(got, _dkv_plain_f32_formula(q, k, v, cot, lse, di, causal, scale, mask)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operand_rule_passes_lm_slices_and_copies_the_rest(dtype):
+    """``_operand``'s in-place rule. In bf16 it is TMA's (strides in whole
+    8-element groups, a 16-byte aligned base): the LM's q, k and v (column
+    slices of one [T, 3L] tensor, row stride 1536, head stride 128, base
+    offsets 0, 1 KB and 2 KB) pass as they are; a slice at an odd element
+    offset, or a row stride that is a multiple of 4 but not of 8, is
+    copied. f32 keeps its rule of 4-element groups."""
+    T, H, D = 16, 4, 128
+    L = H * D
+    qkv = torch.zeros(T, 3 * L, dtype=dtype)
+    for i in range(3):
+        t = qkv[:, i * L:(i + 1) * L].reshape(T, H, D)
+        assert t.stride() == (3 * L, D, 1)
+        assert att._operand(t) is t
+    odd = qkv[:, 3:3 + L].reshape(T, H, D)
+    copied = att._operand(odd)
+    assert copied is not odd and copied.is_contiguous() and torch.equal(copied, odd)
+    wide = torch.zeros(T, L + 4, dtype=dtype)[:, :L].reshape(T, H, D)  # row stride L + 4
+    assert (att._operand(wide) is wide) == (dtype == torch.float32)

@@ -382,23 +382,55 @@ def test_flash_attention_gradients_match_autograd_of_the_plain_version(dev, D, c
         _att_close(got, want)
 
 
-def test_flash_attention_reads_strided_operands(dev):
-    """q, k, v as column slices of one [T, 3L] tensor (the LM's layout) go
-    to the kernels in place; a slice off by one column is copied first. The
-    results are the contiguous inputs' bit for bit."""
+@pytest.mark.parametrize("dtype,pad,in_place", [
+    (torch.float32, 4, True), (torch.bfloat16, 8, True), (torch.bfloat16, 4, False)])
+def test_flash_attention_reads_strided_operands(dev, dtype, pad, in_place):
+    """q, k, v as column slices of one [T, 3L + pad] tensor (the LM's
+    layout) go to the kernels in place where the row stride meets the
+    dtype's rule (f32: whole groups of 4 elements, so 3L + 4 reads in place;
+    bf16, TMA's: whole 16-byte groups, so 3L + 8 does and 3L + 4 is
+    copied); a slice off by one column is copied first. The results are the
+    contiguous inputs' bit for bit."""
     from dgraph_tpu_torch.ops import attention as att
 
     T, H, D = 300, 4, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        wide = torch.randn(T, 3 * H * D + 4, device=dev).to(dtype)
-        for off in (0, 1):
-            q, k, v = (t.reshape(T, H, D) for t in
-                       wide[:, off:off + 3 * H * D].split(H * D, dim=-1))
-            assert att._operand(q) is q if off == 0 else att._operand(q) is not q
-            got = att.flash_attention_fwd(q, k, v, causal=True)
-            want = att.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                           causal=True)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wide = torch.randn(T, 3 * H * D + pad, device=dev).to(dtype)
+    for off in (0, 1):
+        q, k, v = (t.reshape(T, H, D) for t in
+                   wide[:, off:off + 3 * H * D].split(H * D, dim=-1))
+        assert (att._operand(q) is q) == (in_place and off == 0)
+        got = att.flash_attention_fwd(q, k, v, causal=True)
+        want = att.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_bf16_tensor_core_route_at_tile_edges(dev, D, T, causal):
+    """The bf16 forward and dK/dV (wgmma on TMA-staged tiles: 128 query or
+    key rows a block, 64 a warpgroup, 64-query tiles in dK/dV) against their
+    plain versions at T around those tiles and, from T = 40 on, with a
+    padded tail of 37; two launches give the same bits."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    q, k, v, do = _att_inputs(T, 2, D, torch.bfloat16, dev, seed=T)
+    for mask in ("none",) if T < 40 else ("none", "tail"):
+        kw = dict(causal=causal, kv_mask=_att_mask(mask, T, dev))
+        out, lse = att.flash_attention_fwd(q, k, v, **kw)
+        out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+        _att_close(out, out_p)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+        di = att.row_dot(out_p, do)
+        dk, dv = att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw)
+        for got, want in zip((dk, dv),
+                             att.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, **kw)):
+            _att_close(got, want)
+        again = att.flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw), (dk, dv)))
 
 
 def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):

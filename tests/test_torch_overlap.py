@@ -169,3 +169,27 @@ def test_unported_lowerings_raise(flags):
     set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
     assert collectives.split_active(view, Group())
     assert not collectives.split_active(view)  # one rank: nothing to split
+
+
+@pytest.mark.parametrize("overlap, fallback, raises", [
+    (True, "overlap", True), (False, "all_to_all", False)], ids=["split", "no_split"])
+def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fallback, raises):
+    """A pallas_p2p pin the rank cannot run resolves as the reference does;
+    the warning names the lowering it falls to. Where that is 'overlap' (a
+    later slice, whose lowering raises) it says the run will raise and names
+    the pin that runs."""
+    import logging
+
+    set_flags(halo_impl="pallas_p2p", use_pallas_p2p=None)
+    pl._warned.clear()
+    with caplog.at_level(logging.WARNING):
+        got = pl.resolve_halo_impl((1, 2, 3), overlap_available=overlap, p2p_available=False)
+    assert got == (fallback, "heuristic")
+    text = " ".join(r.getMessage() for r in caplog.records)
+    assert repr(fallback) in text
+    assert ("will raise" in text and "DGRAPH_TPU_HALO_IMPL=all_to_all" in text) == raises
+    if raises:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            collectives._lowerable(fallback)
+    else:
+        assert collectives._lowerable(fallback) == fallback

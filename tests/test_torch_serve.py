@@ -218,3 +218,20 @@ def test_engine_refuses_multi_rank_plans():
                                      partition_method="block")
     with pytest.raises(NotImplementedError, match="world_size=1"):
         ServeEngine.from_distributed_graph(GCN(16, 8, 4, SingleComm()), g, device="cpu")
+
+
+def test_engine_multi_rank_message_names_the_port_slice():
+    """The multi-rank communicator is ported (training runs over ranks);
+    serving a multi-rank plan is slice 9 of the port, and the message says
+    so instead of calling the communicator missing."""
+    from dgraph_tpu_torch.data import DistributedGraph, synthetic
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.serve.engine import ServeEngine
+
+    d = synthetic.sbm_classification_graph(num_nodes=100, seed=0)
+    g = DistributedGraph.from_global(d["edge_index"], d["features"], None, None, 2,
+                                     partition_method="block")
+    with pytest.raises(NotImplementedError, match="slice 9 of the port") as info:
+        ServeEngine.from_distributed_graph(GCN(16, 8, 4, SingleComm()), g, device="cpu")
+    assert "not ported yet" not in str(info.value)

@@ -251,3 +251,30 @@ def test_train_cli_refuses_unported_models():
         build_training(cfg)
     with pytest.raises(ValueError, match="main\\(\\) launches the ranks"):
         build_training(Config(world_size=2, device="cpu"))
+
+
+def test_world_size_zero_means_every_visible_card(monkeypatch):
+    """``--world_size 0`` is every visible card, as the reference's 0 is
+    every device (experiments/ogb_gcn.py:137), and one rank with
+    ``--device cpu``: with four cards reported, main launches four ranks
+    (the launch is recorded, nothing is spawned)."""
+    from dgraph_tpu_torch import config as tcfg
+    from dgraph_tpu_torch.comm import dist
+    from dgraph_tpu_torch.train import __main__ as tmain
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tmain.resolve_world_size(0) == 4
+    assert tmain.resolve_world_size(0, "cpu") == 1
+    assert tmain.resolve_world_size(2) == 2
+    assert tmain.Config().world_size == 1  # the default is unchanged
+
+    launched = []
+
+    def fake_launch(fn, world, *args, **kwargs):
+        launched.append(world)
+        return [{"records": []} for _ in range(world)]
+
+    monkeypatch.setattr(dist, "launch", fake_launch)
+    monkeypatch.setattr(tcfg, "default_device", lambda *a, **k: torch.device("cpu"))
+    out = tmain.main(tmain.Config(world_size=0, epochs=1))
+    assert launched == [4] and len(out["ranks"]) == 4
