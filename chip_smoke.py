@@ -8,6 +8,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
 2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
+   every tensor-core kernel (bf16 forward, dK/dV, dQ; the split-TF32 f32
+   forward) must be there at D = 32, 64, 128, neither spilling nor having
+   its wgmma serialized (ptxas -v);
 3. kernel parity — each of the eight one-rank kernels against its plain PyTorch
    version on the card, f32 and bf16, two launches with equal bits; timed
    with CUDA events (mean over back-to-back calls after warmup) beside the
@@ -20,12 +23,15 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    column slices); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
    ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
-   T = 200, a padded tail or every key masked, causal or not); the bf16
-   forward and dK/dV (the tensor-core kernels) also at T in {1, 63, 64, 65,
-   127, 128, 129, 200} for every D, causal or not, and at lm_flash with q,
-   k and v as column slices of one [T, 3L] tensor (read in place) and as
-   slices at an odd element offset (copied first); then the autograd
-   Function's gradients against autograd of the plain version;
+   T = 200, a padded tail or every key masked, causal or not); the
+   tensor-core kernels (bf16 forward, dK/dV and dQ; the f32 forward) also
+   at T in {1, 31, 33, 63, 64, 65, 127, 128, 129, 200} for every D, causal
+   or not, and the bf16 ones at lm_flash with q, k and v as column slices of
+   one [T, 3L] tensor (read in place) and as slices at an odd element offset
+   (copied first); at lm_flash the bf16 outputs block by block
+   (BLOCK_REL_TOL) and the f32 forward to F32_FWD_TOL, each against a
+   control that must exceed it; then the autograd Function's gradients
+   against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
@@ -56,7 +62,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the same run in bf16 (``config.default_compute_dtype``, as
    DGRAPH_TPU_COMPUTE_DTYPE=bfloat16 sets it): the same launches, a falling
    loss, step 0's loss within 2e-2 (relative) of the f32 run's on the same
-   weights and batch;
+   weights and batch, and its attention projections' gradients within
+   BF16_GRAD_TOL, which two controls (dK/dV's first key block, dQ's first
+   query block unwritten) must exceed;
 9. kernels 5 and 6, the landing check, and train ogb_gcn over 4 ranks —
    the put-discipline verifier's static selftest (the clean protocol GREEN,
    each of the five seeded faults RED on its own rule); then the one-sided
@@ -104,9 +112,12 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
-# non-tensor-core float32 rate and the dense bf16 tensor-core rate
+# non-tensor-core float32 rate, the dense bf16 tensor-core rate, and the
+# dense TF32 rate of the split-TF32 f32 forward (three TF32 products for
+# each f32 one)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+TF32_OPS_PER_S = 494.7e12
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the attention kernels sum up to T = 8192 products in another order than
@@ -122,6 +133,12 @@ ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # which phase 3 reads in every run and which must exceed it (PERF.md)
 BLOCK_ROWS = 128
 BLOCK_REL_TOL = 3e-2
+# the f32 forward (split TF32 on the tensor cores) against its plain version
+# at the lm_flash shape, O and lse: ten times below ATT_TOL. A control, the
+# plain forward on q, k and v truncated to TF32 (the low 13 mantissa bits
+# cleared), is read in every run and must exceed it: the limit tells TF32
+# from f32 accuracy
+F32_FWD_TOL = 1e-5
 LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
@@ -130,10 +147,12 @@ GRAD_TOL = 1e-4
 # relative) through two layers
 BF16_LOSS_TOL = 2e-2
 # ... and its step-0 gradients of the attention projections (qkv, attn_out)
-# against the f32 run's: the largest relative Frobenius error of a leaf.
-# The limit lies between the sound run's reading and that of a control,
-# the same step with the dK/dV kernel leaving one key block unwritten,
-# which phase 8 reads in every run and which must exceed it (PERF.md)
+# against the f32 run's: the largest relative Frobenius error of a leaf, or
+# of one of qkv's q, k and v row blocks.
+# The limit lies between the sound run's reading and those of two controls,
+# the same step with the dK/dV kernel leaving its first key block unwritten
+# and with the dQ kernel leaving its first query block unwritten, which
+# phase 8 reads in every run and which must each exceed it (PERF.md)
 BF16_GRAD_TOL = 2e-2
 OUT_DIR = "chiprun_out"
 
@@ -175,8 +194,8 @@ def ptxas_kernels(text: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads", "serialized"}}
     from nvcc's ``-Xptxas -v`` output; a kernel is named by its function and
     template arguments (``flash_fwd_tc_kernel<bf16, 128>``); ``serialized``
-    is ptxas' C7512 note that it serialized the kernel's wgmma
-    instructions."""
+    is a ptxas note (C7512 for register resources, C7520 for a divergent
+    path, ...) that it serialized the kernel's wgmma instructions."""
     import re
 
     def short(mangled: str) -> str:
@@ -200,7 +219,7 @@ def ptxas_kernels(text: str) -> dict:
             cur = short(m.group(1))
             out[cur] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
             continue
-        m = re.search(r"C7512.*for the function '([^']+)'", line)
+        m = re.search(r"\(C75\d\d\)[^']*serializ[^']*function '([^']+)'", line)
         if m:
             serialized.add(short(m.group(1)))
         if cur is None:
@@ -217,9 +236,16 @@ def ptxas_kernels(text: str) -> dict:
     return out
 
 
+# the tensor-core kernels, by name: bf16 (``*_tc_kernel``) and the f32
+# forward in split TF32
+TC_KERNEL_MARKS = ("_tc_kernel", "_tf32x3_kernel")
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_fwd_tf32x3_kernel")
+
+
 def phase_build() -> dict:
     """Every source built; each kernel's registers and spills from the
-    ptxas log. The tensor-core kernels (``*_tc_kernel``) must neither spill
+    ptxas log. The tensor-core kernels (TC_KERNEL_MARKS) must neither spill
     nor have their wgmma serialized."""
     from dgraph_tpu_torch.ops import _build
 
@@ -232,8 +258,13 @@ def phase_build() -> dict:
             kernels[f"{name}/{k}"] = r
             log(f"ptxas {name}/{k}: {r['registers']} registers, spill {r['spill_stores']} / "
                 f"{r['spill_loads']} bytes{', wgmma serialized' if r['serialized'] else ''}")
-    bad = [k for k, r in kernels.items() if "_tc_kernel" in k
-           and (r["spill_stores"] or r["spill_loads"] or r["serialized"])]
+    tc = [k for k in kernels if any(m in k for m in TC_KERNEL_MARKS)]
+    for name in TC_KERNELS:
+        for D in (32, 64, 128):
+            if not any(name in k and k.endswith(f"{D}>") for k in tc):
+                fail(f"phase 2: ptxas reports no {name} at D = {D}")
+    bad = [k for k in tc
+           if kernels[k]["spill_stores"] or kernels[k]["spill_loads"] or kernels[k]["serialized"]]
     if bad:
         fail(f"tensor-core kernels spill or serialize their wgmma: {bad}")
     log(f"build: {total:.2f} s ({times})")
@@ -491,7 +522,8 @@ def attention_work(kernel, T, H, D, b, pairs) -> tuple:
     """(bytes, ops) of one call: q, k, v (and dO) read once, the outputs
     (and lse, di) once; 2·D operations a pair per product — QKᵀ and PV in
     the forward, QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q for dK/dV, QKᵀ, dO Vᵀ and dS K
-    for dQ."""
+    for dQ. (The split-TF32 f32 forward does three TF32 products for each:
+    see attention_bound.)"""
     x = T * H * D * b
     rows = 4 * H * T
     if kernel == "flash_attention_fwd":
@@ -499,6 +531,33 @@ def attention_work(kernel, T, H, D, b, pairs) -> tuple:
     if kernel == "flash_attention_bwd_dkv":
         return 4 * x + 2 * rows + 2 * x, 4 * 2 * D * H * pairs
     return 4 * x + 2 * rows + x, 3 * 2 * D * H * pairs
+
+
+def attention_bound(kernel, dtype_name, nbytes, ops) -> dict:
+    """The bound of an attention call, as ``bound`` gives it for its type;
+    the f32 forward runs on the tensor cores in split TF32, three TF32
+    products for each f32 one, so its bound is the smaller of that route's
+    and the CUDA cores' (both kept)."""
+    b_ms, b_by = bound(nbytes, ops, dtype_name)
+    rec = {"bound_ms": b_ms, "bound_by": b_by}
+    if kernel == "flash_attention_fwd" and dtype_name == "float32":
+        tf_ms, tf_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                           (3 * ops / TF32_OPS_PER_S * 1e3, "operations"))
+        rec.update(bound_cuda_cores_ms=b_ms, bound_tf32x3_ms=tf_ms, bound_ms=min(b_ms, tf_ms),
+                   bound_by=tf_by if tf_ms <= b_ms else b_by)
+    return rec
+
+
+def tf32_control(att, q, k, v, out, lse) -> float:
+    """The plain forward on q, k and v truncated to TF32 (the low 13
+    mantissa bits cleared) against the plain forward (``out``, ``lse``):
+    the largest absolute difference over O and lse, the reading TF32
+    products would give."""
+    import torch
+
+    trunc = lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32)  # noqa: E731
+    o_t, lse_t = att.flash_attention_fwd_plain(trunc(q), trunc(k), trunc(v), causal=True)
+    return max(max_err(o_t, out), max_err(lse_t, lse))
 
 
 def attention_cases(att, q, k, v, do, kw):
@@ -537,8 +596,10 @@ def block_controls(att, q, k, v, do) -> dict:
     keys [T - 384, T - 256) in place of [T - 256, T - 128) (a ring stage
     slip that lse does not see, and that only the last two query blocks
     read); dK/dV with the query tile [T/2, T/2 + 64) dropped (its dO and di
-    rows zeroed), the smaller reading of dK's and dV's."""
+    rows zeroed), the smaller reading of dK's and dV's; dQ with the key tile
+    [T/2, T/2 + 64) left out of dS K (those K rows zeroed)."""
     T = q.shape[0]
+    do_full = do
     out, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
     stale = v.clone()
     stale[T - 256:T - 128] = v[T - 384:T - 256]
@@ -549,8 +610,14 @@ def block_controls(att, q, k, v, do) -> dict:
     do[T // 2:T // 2 + 64] = 0
     di[:, T // 2:T // 2 + 64] = 0  # di is [H, T]
     got = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
-    return {"flash_attention_fwd": fwd,
-            "flash_attention_bwd_dkv": min(block_rel_err(g, w) for g, w in zip(got, want))}
+    dkv = min(block_rel_err(g, w) for g, w in zip(got, want))
+    di = att.row_dot(out, do_full)
+    want = att.flash_attention_bwd_dq_plain(q, k, v, do_full, lse, di, causal=True)
+    k_out = k.clone()
+    k_out[T // 2:T // 2 + 64] = 0  # those keys' dS is changed too, but meets zero rows
+    got = att.flash_attention_bwd_dq_plain(q, k_out, v, do_full, lse, di, causal=True)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": dkv,
+            "flash_attention_bwd_dq": block_rel_err(got, want)}
 
 
 def sdpa_calls(q, k, v, do, causal):
@@ -575,9 +642,11 @@ def phase_attention() -> dict:
     cases (D in {32, 64, 128}, T = 200, no mask / a padded tail / every key
     masked, causal or not), two launches with equal bits each; then the
     autograd Function's gradients against autograd of ``dense_attention``.
-    The bf16 forward's and dK/dV's outputs at the lm_flash shape (in place
-    and as the LM's column slices) are also held to BLOCK_REL_TOL, whose
-    force block_controls shows in the same run."""
+    The bf16 outputs at the lm_flash shape (in place and as the LM's column
+    slices) are also held to BLOCK_REL_TOL, whose force block_controls shows
+    in the same run; the f32 forward's there to F32_FWD_TOL, whose force
+    tf32_control shows. The tensor-core kernels (every bf16 one, the f32
+    forward) also run at the edges of their tiles."""
     import torch
 
     from dgraph_tpu_torch.ops import attention as att
@@ -585,7 +654,8 @@ def phase_attention() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     records, worst, block_rel, controls = [], {}, {}, {}
-    tc_kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+    tc_kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    f32_fwd = {}
 
     def run_case(name, kernel, run, plain, dtype_name, scaled=False):
         got = run()
@@ -613,6 +683,13 @@ def phase_attention() -> dict:
         q, k, v, do = (torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
                        for _ in range(4))
         kw = dict(causal=True)
+        if dtype_name == "float32":
+            f32_fwd["tf32_control"] = r = tf32_control(
+                att, q, k, v, *att.flash_attention_fwd_plain(q, k, v, **kw))
+            log(f"f32 forward's TF32 control (plain, lm_flash shape): {r:.3g}")
+            if not r > F32_FWD_TOL:
+                fail(f"the TF32 control reads {r:.3g}, inside the f32 forward's limit "
+                     f"{F32_FWD_TOL}: the check has no force")
         if dtype_name == "bfloat16":
             controls = block_controls(att, q, k, v, do)
             log(f"block_rel_err of a dropped tile (plain, lm_flash shape): {controls}")
@@ -625,17 +702,29 @@ def phase_attention() -> dict:
             name = f"{kernel} {dtype_name} T={T} H={H} D={D} causal"
             err = run_case(name, kernel, run, plain, dtype_name,
                            scaled=dtype_name == "bfloat16" and kernel in tc_kernels)
+            if dtype_name == "float32" and kernel == "flash_attention_fwd":
+                f32_fwd["max_abs_err"] = err
+                if not err <= F32_FWD_TOL:
+                    fail(f"{name}: kernel disagrees with plain by {err:.3g} (limit "
+                         f"{F32_FWD_TOL}, the TF32 control {f32_fwd['tf32_control']:.3g})")
             nbytes, ops = attention_work(kernel, T, H, D, q.element_size(), pairs)
-            b_ms, b_by = bound(nbytes, ops, dtype_name)
             lib = sdpa_fwd if kernel == "flash_attention_fwd" else sdpa_bwd
             rec = {"kernel": kernel, "case": name, "dtype": dtype_name, "T": T, "H": H, "D": D,
                    "causal": True, "pairs": pairs, "max_abs_err": err, "ms": time_ms(run),
                    "plain_ms": time_ms(plain, reps=3, warmup=1), "library_ms": time_ms(lib),
                    "library": "sdpa forward" if lib is sdpa_fwd else "sdpa backward (dQ, dK, dV)",
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   **attention_bound(kernel, dtype_name, nbytes, ops)}
             records.append(rec)
             log(f"{name}: err {err:.3g} kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} "
-                f"ms {rec['library']} {rec['library_ms']:.3f} ms bound {b_ms:.3f} ms ({b_by})")
+                f"ms {rec['library']} {rec['library_ms']:.3f} ms bound {rec['bound_ms']:.3f} ms "
+                f"({rec['bound_by']})")
+            if dtype_name == "float32" and kernel == "flash_attention_fwd":
+                f32_fwd.update(ms=rec["ms"], sdpa_ms=rec["library_ms"],
+                               faster_than_sdpa=rec["ms"] < rec["library_ms"])
+                log(f"f32 forward (split TF32): {rec['ms']:.3f} ms against SDPA's f32 forward "
+                    f"{rec['library_ms']:.3f} ms; err {err:.3g} (limit {F32_FWD_TOL}, TF32 "
+                    f"control {f32_fwd['tf32_control']:.3g}); bound {rec['bound_tf32x3_ms']:.3f} "
+                    f"ms split TF32, {rec['bound_cuda_cores_ms']:.3f} ms CUDA cores")
         # the yardstick need only compute the same function: held to the
         # bf16 tolerance in both types (its f32 path may round inside)
         want = att.flash_attention_fwd_plain(q, k, v, **kw)[0]
@@ -661,19 +750,22 @@ def phase_attention() -> dict:
                         run_case(f"{kernel} edge {dtype_name} T={T} D={D} mask={mask} "
                                  f"causal={causal}", kernel, run, plain, dtype_name)
 
-    # the bf16 forward and dK/dV (the tensor-core route) at the edges of its
-    # 64- and 128-row tiles, every head width; then in the LM's layout, q,
-    # k and v as column slices of one [T, 3L] tensor read in place, and as
+    # the tensor-core kernels (bf16; the f32 forward) at the edges of their
+    # 32-, 64- and 128-row tiles, every head width; then in the LM's layout,
+    # q, k and v as column slices of one [T, 3L] tensor read in place, and as
     # slices at an odd element offset, which _operand copies first
-    for T in (1, 63, 64, 65, 127, 128, 129, 200):
+    for T in (1, 31, 33, 63, 64, 65, 127, 128, 129, 200):
         for D in (32, 64, 128):
-            q, k, v, do = (torch.randn(T, 2, D, generator=gen, device=dev).to(torch.bfloat16)
-                           for _ in range(4))
-            for causal in (False, True):
-                cases = attention_cases(att, q, k, v, do, dict(causal=causal))
-                for kernel in tc_kernels:
-                    run_case(f"{kernel} tile edge bfloat16 T={T} D={D} causal={causal}", kernel,
-                             *cases[kernel], "bfloat16")
+            for dtype_name, dtype, kernels in (("bfloat16", torch.bfloat16, tc_kernels),
+                                               ("float32", torch.float32,
+                                                ("flash_attention_fwd",))):
+                q, k, v, do = (torch.randn(T, 2, D, generator=gen, device=dev).to(dtype)
+                               for _ in range(4))
+                for causal in (False, True):
+                    cases = attention_cases(att, q, k, v, do, dict(causal=causal))
+                    for kernel in kernels:
+                        run_case(f"{kernel} tile edge {dtype_name} T={T} D={D} causal={causal}",
+                                 kernel, *cases[kernel], dtype_name)
     T, H, D = LM_T, LM_H, LM_D
     L = H * D
     do = torch.randn(T, H, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -714,7 +806,8 @@ def phase_attention() -> dict:
         f"{ {k: round(v, 6) for k, v in block_rel.items()} }")
     return {"records": records, "autograd_max_abs_err": grad_err,
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()},
-            "block_rel_err": block_rel, "block_rel_err_controls": controls}
+            "block_rel_err": block_rel, "block_rel_err_controls": controls,
+            "f32_forward": f32_fwd}
 
 
 # --- phases 4 and 5 --------------------------------------------------------
@@ -1052,19 +1145,39 @@ def phase_train_ogb_gcn() -> dict:
 ATTN_LEAVES = (".qkv.weight", ".attn_out.weight")
 
 
+def attn_grad_rels(got: dict, want: dict) -> dict:
+    """{block: relative Frobenius error} of the attention projections'
+    weight gradients (every name ending in ATTN_LEAVES), the qkv weight's
+    q, k and v row blocks each on its own, so that a fault in one of them
+    (a dQ block unwritten) is not diluted by the other two; a whole
+    matrix's relative error is never above its blocks' largest."""
+    out = {}
+    for name, w in want.items():
+        if not name.endswith(ATTN_LEAVES):
+            continue
+        parts = ("q", "k", "v") if name.endswith(".qkv.weight") else ("",)
+        for tag, g, w_ in zip(parts, got[name].float().chunk(len(parts)),
+                              w.float().chunk(len(parts))):
+            out[f"{name}{'[' + tag + ']' if tag else ''}"] = float((g - w_).norm() / w_.norm())
+    return out
+
+
 def attn_grad_rel(got: dict, want: dict) -> float:
-    """The largest relative Frobenius error of an attention projection's
-    weight gradient (every name ending in ATTN_LEAVES)."""
-    return max(float((got[k].float() - w.float()).norm() / w.float().norm())
-               for k, w in want.items() if k.endswith(ATTN_LEAVES))
+    """The largest of :func:`attn_grad_rels`."""
+    return max(attn_grad_rels(got, want).values())
 
 
-def skipped_block_grads(cfg, tokens) -> dict:
+# the backward kernels whose first block (rows [0, 128) of their outputs)
+# phase 8's controls leave unwritten: dK/dV's first key block, the heaviest
+# of its causal grid (numbered first), and dQ's first query block (numbered
+# last), each of which a misnumbered grid would skip
+SKIPPED_BLOCK_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def skipped_block_grads(cfg, tokens, kernel) -> dict:
     """Step-0 gradients of a fresh lm_flash model (the same seed) on
-    ``tokens``, with the dK/dV kernel's first block (keys [0, 128), the
-    heaviest of the causal grid, which a misnumbered grid would skip) left
-    unwritten, its dK and dV rows zeroed: the control of phase 8's bf16
-    gradient check."""
+    ``tokens``, with ``kernel``'s first block left unwritten, its output
+    rows [0, 128) zeroed: a control of phase 8's bf16 gradient check."""
     import torch
 
     from dgraph_tpu_torch.ops import attention as att
@@ -1074,20 +1187,21 @@ def skipped_block_grads(cfg, tokens) -> dict:
     tok = t.next_batch()
     if not torch.equal(tok.cpu(), tokens):
         fail("train lm_flash: the control drew another first batch")
-    real = att.flash_attention_bwd_dkv
+    real = getattr(att, kernel)
 
     def skip_block(*args, **kw):
-        dk, dv = (t.clone() for t in real(*args, **kw))
-        dk[:128] = 0
-        dv[:128] = 0
-        return dk, dv
+        out = real(*args, **kw)
+        out = tuple(x.clone() for x in out) if isinstance(out, tuple) else (out.clone(),)
+        for x in out:
+            x[:128] = 0
+        return out if len(out) > 1 else out[0]
 
     skip_block.launches = 0  # the wrapper counts its launches on its module name
-    att.flash_attention_bwd_dkv = skip_block
+    setattr(att, kernel, skip_block)
     try:
         lm.lm_loss(t.model(tok, t.positions), tok).backward()
     finally:
-        att.flash_attention_bwd_dkv = real
+        setattr(att, kernel, real)
     return grads_of(t.model)
 
 
@@ -1106,9 +1220,9 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
     dK/dV) run in bf16; on the same weights and batch as the f32 run's,
     ``f32_step0`` = (loss, gradients), step 0's loss must be within
     BF16_LOSS_TOL and its attention projections' gradients within
-    BF16_GRAD_TOL, which a key block left unwritten by dK/dV must exceed
-    (``skipped_block_grads``, read in the same run). Returns (record, step
-    0's gradients)."""
+    BF16_GRAD_TOL, which the first block left unwritten by dK/dV, and by
+    dQ, must each exceed (``skipped_block_grads``, read in the same run).
+    Returns (record, step 0's gradients)."""
     import contextlib
     import dataclasses
 
@@ -1164,7 +1278,8 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
         eval_counts = kernels.launch_counts()
         del t, res["training"]
         torch.cuda.empty_cache()
-        control = None if f32_step0 is None else skipped_block_grads(cfg, tokens0[0])
+        controls = {} if f32_step0 is None else {
+            k: skipped_block_grads(cfg, tokens0[0], k) for k in SKIPPED_BLOCK_KERNELS}
     finally:
         config.default_compute_dtype = saved_dtype
     want_eval = dict.fromkeys(want, 0)
@@ -1177,7 +1292,8 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"train lm_flash {dtype_name}: the loss did not fall over 12 steps: {losses}")
 
-    loss_cpu = grad_err = cpu_s = grad_rel = grad_rel_control = None
+    loss_cpu = grad_err = cpu_s = grad_rel = None
+    grad_rel_controls = {}
     if dtype_name == "float32":
         tc = time.perf_counter()
         cpu = lm.build_lm(cfg, device="cpu")
@@ -1195,20 +1311,22 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
     else:
         f32_step0_loss, f32_grads = f32_step0
         grad_rel = attn_grad_rel(grads0, f32_grads)
-        grad_rel_control = attn_grad_rel(control, f32_grads)
+        grad_rel_controls = {k: attn_grad_rel(g, f32_grads) for k, g in controls.items()}
         log(f"train lm_flash {dtype_name}: step-0 attention weight gradients vs the f32 "
-            f"run's: {grad_rel:.3g} relative; with dK/dV's first key block unwritten "
-            f"{grad_rel_control:.3g} (limit {BF16_GRAD_TOL})")
+            f"run's: {grad_rel:.3g} relative; with a kernel's first block unwritten "
+            f"{ {k: round(r, 4) for k, r in grad_rel_controls.items()} } (limit "
+            f"{BF16_GRAD_TOL})")
         if abs(losses[0] - f32_step0_loss) > BF16_LOSS_TOL * abs(f32_step0_loss):
             fail(f"train lm_flash {dtype_name}: step-0 loss {losses[0]} vs the f32 run's "
                  f"{f32_step0_loss} (relative tolerance {BF16_LOSS_TOL})")
         if not grad_rel <= BF16_GRAD_TOL:
             fail(f"train lm_flash {dtype_name}: step-0 attention gradients {grad_rel:.3g} "
                  f"relative from the f32 run's (limit {BF16_GRAD_TOL})")
-        if not grad_rel_control > BF16_GRAD_TOL:
-            fail(f"train lm_flash {dtype_name}: an unwritten key block reads "
-                 f"{grad_rel_control:.3g}, inside the gradient limit {BF16_GRAD_TOL}: the "
-                 "check has no force")
+        for k, r in grad_rel_controls.items():
+            if not r > BF16_GRAD_TOL:
+                fail(f"train lm_flash {dtype_name}: {k} with its first block unwritten reads "
+                     f"{r:.3g}, inside the gradient limit {BF16_GRAD_TOL}: the check has no "
+                     "force")
 
     ms = res["step_ms"][2:]
     ops = device_ops(prof, len(ms))
@@ -1221,7 +1339,10 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
            "launches_per_step": want, "launches": launches, "eval_launches": eval_counts,
            "eval_ms": eval_ms, "step0_loss_cpu": loss_cpu, "grad_max_abs_err": grad_err,
            "step0_loss_f32": f32_step0 and f32_step0[0], "attn_grad_rel_err": grad_rel,
-           "attn_grad_rel_err_control": grad_rel_control,
+           "attn_grad_rel_err_controls": grad_rel_controls,
+           "attn_grad_rel_err_by_block": None if grad_rel is None else {
+               "sound": attn_grad_rels(grads0, f32_step0[1]),
+               **{k: attn_grad_rels(g, f32_step0[1]) for k, g in controls.items()}},
            "run_s": run_s, "cpu_reference_s": cpu_s,
            "profile": {"device_ms_per_step": busy, "wall_ms_per_step": wall,
                        "device_busy_share": busy / wall, "ops": ops}}
@@ -1757,13 +1878,14 @@ def one_rank_phases(cfg) -> tuple:
         "fused_bwd_gd": ("fused_bwd_gd float32 F=128", bench["launches"]),
         "sorted_row_gather": ("sorted_row_gather float32 F=128", ogb["launches"]),
     }
-    # the tensor-core kernels (bf16 forward and dK/dV) with the bf16 run's
-    # launches; dQ, the same CUDA-core kernel in both types, as in f32
-    for name, run, dtype_name in (("flash_attention_fwd", lm_flash_bf16, "bfloat16"),
-                                  ("flash_attention_bwd_dkv", lm_flash_bf16, "bfloat16"),
-                                  ("flash_attention_bwd_dq", lm_flash, "float32")):
-        main_case[name] = (f"{name} {dtype_name} T={LM_T} H={LM_H} D={LM_D} causal",
-                           run["launches"])
+    # the attention kernels by their bf16 (tensor-core) rows with the bf16
+    # run's launches; their f32 rows (the f32 forward also on the tensor
+    # cores) beside them with the f32 run's
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        main_case[name] = (f"{name} bfloat16 T={LM_T} H={LM_H} D={LM_D} causal",
+                           lm_flash_bf16["launches"],
+                           (f"{name} float32 T={LM_T} H={LM_H} D={LM_D} causal",
+                            lm_flash["launches"]))
     return (kernels["records"] + attention["records"], main_case,
             {"kernels": kernels, "attention": attention, "serve": [gcn, sage],
              "train": [bench, ogb, lm_flash, lm_flash_bf16]})
@@ -1825,16 +1947,21 @@ def main(argv) -> None:
     for name, k in KERNELS.items():
         if argv and name not in main_case:
             continue
-        case, path_launches = main_case[name]
-        rec = next(r for r in records if r["case"] == case)
-        if path_launches[name] <= 0:
-            fail(f"{name} was never launched on its path")
-        line.append({
-            "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": path_launches[name], "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "case": case,
-        })
+        case, path_launches, *other = main_case[name]
+        entry = None
+        for case, path_launches in [(case, path_launches)] + other:
+            rec = next(r for r in records if r["case"] == case)
+            if path_launches[name] <= 0:
+                fail(f"{name} was never launched on its path ({case})")
+            row = {"launches": path_launches[name], "max_abs_err": rec["max_abs_err"],
+                   "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                   "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "case": case}
+            if entry is None:
+                entry = {"name": name, "route": "cuda", "source": k.source,
+                         "replaces": k.replaces, **row}
+            else:  # the kernel's other dtype, beside the main row
+                entry[rec["dtype"]] = row
+        line.append(entry)
     os.makedirs(OUT_DIR, exist_ok=True)
     detail.update(nvidia_smi=smi, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda, build=build,

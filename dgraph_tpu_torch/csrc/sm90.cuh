@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and their host-side
-// tensor maps, and bf16 wgmma with f32 accumulators in registers (operands
-// from shared memory through matrix descriptors, or A from registers).
+// tensor maps, and bf16 and TF32 wgmma with f32 accumulators in registers
+// (operands from shared memory through matrix descriptors, or A from
+// registers).
 //
 // Fragment layout of a wgmma m64nN f32 accumulator d[N / 2], for thread
 // lane l of warp w (0-3) of the warpgroup, g = l / 4, c = l % 4:
@@ -10,14 +11,17 @@
 // A bf16 A operand from registers (m64k16) is four 32-bit pairs laid out the
 // same way over 16 columns, so the accumulator chunks 2k and 2k + 1 of a
 // product, rounded to bf16 and packed, are the A operand of its k-th
-// 16-column slice (pack_a).
+// 16-column slice (pack_a). A TF32 A operand (m64k8) is four 32-bit values
+// a[0..3] at (row 16w + g, col c), (row + 8, col c), (row, col c + 4),
+// (row + 8, col c + 4): not the accumulator's column order, so a product
+// fed from an accumulator permutes its reduction index (see tf32_frag).
 //
 // Shared-memory tiles are what TMA writes: a box of R rows of RB bytes (RB =
 // 128 with the 128-byte swizzle, 64 with the 64-byte one), 8-row groups of
 // 8 * RB bytes, wider operands as several boxes side by side. A descriptor
 // reads such a tile either K-major (the reduction runs along the row) or
-// MN-major (along the rows; the transpose bit), see kmajor_desc and
-// mnmajor_desc.
+// MN-major (along the rows; the transpose bit, bf16 only: TF32 operands in
+// shared memory are K-major), see kmajor_desc and mnmajor_desc.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
@@ -120,15 +124,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a bf16 [T, H, D] operand (unit stride over D, row and head
-// strides in elements, multiples of 8, base 16-byte aligned) whose box is
-// `rows` rows of one head by `cols` columns (cols * 2 = the swizzle span,
-// 128 or 64 bytes). Rows past T read as zeros. False on failure.
+// The map of a bf16 (elem = 2) or f32 (elem = 4) [T, H, D] operand (unit
+// stride over D, row and head strides in elements, in whole 16-byte groups,
+// base 16-byte aligned) whose box is `rows` rows of one head by `cols`
+// columns (cols * elem = the swizzle span, 128 or 64 bytes). Rows past T
+// read as zeros. False on failure.
 inline bool encode_rows_map(CUtensorMap* map, const void* base, int T, int H, int D,
-                            long long row_stride, long long head_stride, int rows, int cols) {
+                            long long row_stride, long long head_stride, int rows, int cols,
+                            int elem_bytes = 2) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t elem = 2;
+  const cuuint64_t elem = static_cast<cuuint64_t>(elem_bytes);
   // a size-1 dimension's stride is never stepped: any legal value will do
   if (H == 1) head_stride = D;
   if (T == 1) row_stride = static_cast<long long>(H) * head_stride;
@@ -139,9 +145,11 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int T, int H, in
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), 1u, static_cast<cuuint32_t>(rows)};
   const cuuint32_t estr[3] = {1u, 1u, 1u};
   const CUtensorMapSwizzle sw =
-      cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -158,24 +166,26 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(swizzle_code) << 62);
 }
 
-// A tile of R rows of an operand D columns wide, stored as D / (RB / 2)
-// boxes of R rows x RB bytes (RB = 128 for D >= 64, else 64).
-template <int D>
+// A tile of R rows of an operand D columns of EB bytes wide (bf16: 2, f32
+// read as TF32: 4), stored as D / COLS boxes of R rows x RB bytes (RB = 128
+// for rows of 128 bytes or more, else 64). A reduction slice is 32 bytes:
+// 16 bf16 or 8 TF32 columns.
+template <int D, int EB = 2>
 struct Tile {
-  static constexpr int RB = D >= 64 ? 128 : 64;         // bytes of a row within a box
-  static constexpr int COLS = RB / 2;                   // columns of a box
+  static constexpr int RB = D * EB >= 128 ? 128 : 64;   // bytes of a row within a box
+  static constexpr int COLS = RB / EB;                  // columns of a box
   static constexpr int NBOX = D / COLS;
   static constexpr uint32_t SWIZZLE = RB == 128 ? 1 : 2;
-  static constexpr int K_PER_BOX = RB / 32;             // 16-column slices of a box
+  static constexpr int K_PER_BOX = RB / 32;             // reduction slices of a box
   template <int R>
-  __host__ __device__ static constexpr int bytes() { return R * D * 2; }
+  __host__ __device__ static constexpr int bytes() { return R * D * EB; }
 };
 
 // K-major: rows r0.. of an R-row tile at `base` as the M (or N) dimension,
-// columns 16k..16k+15 as the reduction slice k
-template <int D, int R>
+// the k-th 32-byte column slice as the reduction slice k
+template <int D, int R, int EB = 2>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int r0, int k) {
-  using Tl = Tile<D>;
+  using Tl = Tile<D, EB>;
   const uint32_t a = base + (k / Tl::K_PER_BOX) * (R * Tl::RB) + r0 * Tl::RB +
                      (k % Tl::K_PER_BOX) * 32;
   return make_desc(a, 16, 8 * Tl::RB, Tl::SWIZZLE);
@@ -288,6 +298,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[64 x N] (+)= A[64 x 8] B[8 x N] in TF32; A in registers (tf32_frag), B
+// K-major in shared memory; N = 2 * (size of d). accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" DG_ACC16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : DG_F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" DG_ACC32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : DG_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" DG_ACC64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : DG_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 #undef DG_F64
 #undef DG_F32
 #undef DG_F16
@@ -303,6 +343,34 @@ __device__ __forceinline__ void pack_a(const float (&d)[N], int k, uint32_t (&a)
   a[1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
   a[2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
   a[3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+}
+
+// x rounded to TF32 (nearest, ties away; the low 13 mantissa bits zero)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo in TF32, to about 2^-22 of |x|: the split of a 3xTF32 product
+// (lo * hi + hi * lo + hi * hi; lo * lo is below f32's own rounding)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Accumulator chunk k (columns 8k..8k+7) of a product, split into the TF32 A
+// operands hi and lo of its k-th 8-column slice. The A layout holds columns
+// c and c + 4 where the accumulator holds 2c and 2c + 1, so the slice's
+// reduction index runs over the accumulator's columns in the order 0, 2, 4,
+// 6, 1, 3, 5, 7: the B operand's rows must be stored in that order.
+template <int N>
+__device__ __forceinline__ void tf32_frag(const float (&d)[N], int k, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_tf32(d[4 * k], hi[0], lo[0]);
+  split_tf32(d[4 * k + 2], hi[1], lo[1]);
+  split_tf32(d[4 * k + 1], hi[2], lo[2]);
+  split_tf32(d[4 * k + 3], hi[3], lo[3]);
 }
 
 }  // namespace sm90

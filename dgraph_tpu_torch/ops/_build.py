@@ -68,11 +68,11 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v (pointer, row stride, head stride), mask, out, lse, T, H, D,
-        # scale, causal, dtype, stream
+        # scale, causal, dtype, stream, scratch (f32: K and V split into TF32)
         "dg_flash_attention_fwd": (
             *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 3, _c.c_void_p, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_int,
-            _c.c_void_p,
+            _c.c_void_p, _c.c_void_p,
         ),
         # q, k, v, do (pointer, row stride, head stride), lse, di, mask, dk,
         # dv, T, H, D, scale, causal, dtype, stream

@@ -4,7 +4,8 @@ and the autograd Function.
 Counterpart of ``_flash_dense`` (``dgraph_tpu/parallel/sequence.py:284-310``)
 and of the library kernel it calls, ``jax.experimental.pallas.ops.tpu.
 flash_attention``, whose three ``pl.pallas_call``s become three CUDA kernels
-(``csrc/flash_attention.cu``, design notes there):
+(``csrc/flash_attention.cu``, design notes there; in bf16 all three and in
+f32 the forward run on the tensor cores, the f32 forward in split TF32):
 
 - :func:`flash_attention_fwd` replaces ``_flash_attention_kernel``
   (flash_attention.py:331): ``O = softmax(scale·QKᵀ + mask)·V`` and the
@@ -117,7 +118,7 @@ def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` (f32) rounded to ``dtype`` and back: where the Pallas kernels
     feed a product in the input dtype (``P`` before ``P·V``,
     flash_attention.py:471; ``Pᵀ`` and ``dSᵀ`` before dV and dK, :900,
-    :918). In f32 it is ``x`` itself."""
+    :918; ``dS`` before dQ, :1258). In f32 it is ``x`` itself."""
     return x.to(dtype).float()
 
 
@@ -157,12 +158,15 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, *, causal: bool = False,
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, *, causal: bool = False,
                                  scale: Optional[float] = None, kv_mask=None):
-    """Plain version of :func:`flash_attention_bwd_dq`: ``dQ = dS K``."""
+    """Plain version of :func:`flash_attention_bwd_dq`: ``dQ = dS K`` in
+    f32, returned in the input dtype; ``dS`` is rounded to k's dtype before
+    the product, as the kernel (and the Pallas kernel, flash_attention.py:1258)
+    rounds it."""
     scale = _scale(scale, q.shape[-1])
     p = _probs(q, k, lse, scale, causal, kv_mask)
     dp = torch.einsum("thd,shd->hts", do.float(), v.float())
     ds = (dp - di[..., None]) * p * scale
-    return torch.einsum("hts,shd->thd", ds, k.float()).to(q.dtype)
+    return torch.einsum("hts,shd->thd", _rounded(ds, k.dtype), k.float()).to(q.dtype)
 
 
 def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -222,6 +226,17 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _split_scratch(T: int, H: int, D: int, dtype, device) -> Optional[torch.Tensor]:
+    """The f32 forward's scratch, where its first kernel writes K and V
+    split into TF32 (``dg_flash_attention_fwd``): ``4·H·T_pad·D`` floats,
+    ``T_pad`` = T rounded up to 32; None in bf16, whose kernel reads K and V
+    in place."""
+    if dtype != torch.float32:
+        return None
+    t_pad = -(-T // 32) * 32
+    return torch.empty(4 * H * t_pad * D, dtype=torch.float32, device=device)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, scale: Optional[float] = None,
                         kv_mask: Optional[torch.Tensor] = None):
@@ -235,10 +250,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _mask32(kv_mask, T, q.device)
     out = torch.empty((T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((H, T), dtype=torch.float32, device=q.device)
+    scratch = _split_scratch(T, H, D, q.dtype, q.device)
     lib = _build.load("flash_attention")
     rc = lib.dg_flash_attention_fwd(
         *_strided(q), *_strided(k), *_strided(v), _ptr(mask), out.data_ptr(), lse.data_ptr(),
         T, H, D, _scale(scale, D), int(causal), _KERNEL_DTYPES[q.dtype], _stream(),
+        _ptr(scratch),
     )
     _build.check(rc, "dg_flash_attention_fwd")
     flash_attention_fwd.launches += 1

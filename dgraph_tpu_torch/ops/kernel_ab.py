@@ -15,8 +15,8 @@ back-to-back launches into preallocated outputs (kernel time only):
   as the LM passes them, lse and di from the plain forward;
 
 each in f32 and bf16. It reports whether the two trees give equal bits and,
-for attention (whose bf16 forward and dK/dV may be redesigned), the largest
-absolute difference between them. An entry point the old tree lacks is
+for attention (whose kernels may be redesigned), the largest absolute
+difference between them. An entry point the old tree lacks is
 timed for the new tree only. Prints one line per entry and dtype; writes the
 same as JSON to ``DIR/kernel_ab.json`` (default ``chiprun_out``). Needs a
 CUDA device.
@@ -59,6 +59,11 @@ def build_tree(csrc: Path, tag: str) -> dict:
         for fn, argtypes in _build.SIGNATURES[name].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = list(argtypes)
+        if name == "flash_attention":
+            # a tree from before the f32 forward's scratch argument (the last)
+            lib.takes_scratch = "void* scratch" in (csrc / _build.SOURCES[name]).read_text()
+            if not lib.takes_scratch:
+                lib.dg_flash_attention_fwd.argtypes = lib.dg_flash_attention_fwd.argtypes[:-1]
         libs[name] = lib
     return libs
 
@@ -80,7 +85,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def entry_calls(dtype):
     """(tensors to keep alive, {label: (source, entry point, output, arguments
-    before the stream)}) at the training shape."""
+    before the stream[, the forward's scratch after it])}) at the training
+    shape."""
     import numpy as np
     import torch
 
@@ -140,15 +146,16 @@ def attention_calls(dtype):
     del out_p
     out, dq, dk, dv = (torch.empty(T, H, D, device=dev, dtype=dtype) for _ in range(4))
     lse_o = torch.empty(H, T, device=dev)
+    scratch = att._split_scratch(T, H, D, dtype, dev)
     code, scale = seg._KERNEL_DTYPES[dtype], 1.0 / math.sqrt(D)
     s = lambda t: (t.data_ptr(), t.stride(0), t.stride(1))  # noqa: E731
     qkv_args = (*s(q), *s(k), *s(v))
     rest = (*s(do), lse.data_ptr(), di.data_ptr(), None)
-    keep = (qkv, do, lse, di)
+    keep = (qkv, do, lse, di, scratch)
     return keep, {
         "flash_attention_fwd": ("flash_attention", "dg_flash_attention_fwd", (out, lse_o),
                                 (*qkv_args, None, out.data_ptr(), lse_o.data_ptr(), T, H, D,
-                                 scale, 1, code)),
+                                 scale, 1, code), (att._ptr(scratch),)),
         "flash_attention_bwd_dkv": ("flash_attention", "dg_flash_attention_bwd_dkv", (dk, dv),
                                     (*qkv_args, *rest, dk.data_ptr(), dv.data_ptr(), T, H, D,
                                      scale, 1, code)),
@@ -166,13 +173,14 @@ def compare(old: Path, new: Path) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         for make in (entry_calls, attention_calls):
             keep, calls = make(dtype)
-            for label, (src, entry, out, args) in calls.items():
+            for label, (src, entry, out, args, *tail) in calls.items():
                 outs = out if isinstance(out, tuple) else (out,)
                 fns = {}
                 for tag, tree in libs.items():
                     lib = tree.get(src)
                     if lib is not None and hasattr(lib, entry):
-                        fns[tag] = lambda f=getattr(lib, entry), a=args: f(*a, stream)
+                        t = tail[0] if tail and lib.takes_scratch else ()
+                        fns[tag] = lambda f=getattr(lib, entry), a=args, t=t: f(*a, stream, *t)
                 if "new" not in fns:
                     continue
                 times, got = {}, {}
@@ -182,8 +190,9 @@ def compare(old: Path, new: Path) -> list:
                 for tag, fn in fns.items():
                     for o in outs:
                         o.zero_()
-                    if fn() != 0:
-                        raise RuntimeError(f"{tag} {entry}: launch failed")
+                    rc = fn()
+                    if rc != 0:
+                        raise RuntimeError(f"{tag} {entry} {dtype}: CUDA error {rc} at launch")
                     torch.cuda.synchronize()
                     got[tag] = [o.clone() for o in outs]
                 row = {"entry": label, "dtype": str(dtype).removeprefix("torch."),

@@ -213,31 +213,37 @@ BF16_TOL = 2e-2
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [64, 128])
 def test_bf16_plain_versions_match_the_pallas_kernels(causal, D):
-    """The bf16 forward and dK/dV plain versions against Pallas' TPU flash
-    attention in interpret mode (its forward, and its dK/dV from ``jax.vjp``)
-    on the same bf16 inputs. dV is the product whose rounding point the two
-    share exactly (normalised Pᵀ in bf16): rounding there brings the plain
-    version closer to the kernel than the f32 Pᵀ of before."""
+    """The bf16 plain versions against Pallas' TPU flash attention in
+    interpret mode (its forward, and its dQ, dK and dV from ``jax.vjp``) on
+    the same bf16 inputs. dV and dQ are the products whose rounding points
+    the two share exactly (normalised Pᵀ, and dS, in bf16): rounding there
+    brings each plain version closer to the Pallas kernel than the f32 Pᵀ or
+    dS formula. For dQ closer is measured by the mean absolute error: its
+    largest error is one bf16 step of the output in both formulas."""
     T = 256
     q, k, v, cot, _ = _inputs(T, D, masked=False, seed=7)
     to_k = lambda a: jnp.asarray(a).astype(jnp.bfloat16).transpose(1, 0, 2)[None]
     with pltpu.force_tpu_interpret_mode():
         out, vjp = jax.vjp(lambda a, b, c: fa.flash_attention(
             a, b, c, causal=causal, sm_scale=float(1 / np.sqrt(D))), to_k(q), to_k(k), to_k(v))
-        _, dk, dv = vjp(to_k(cot))
+        dq, dk, dv = vjp(to_k(cot))
     back = lambda x: np.asarray(x[0].astype(jnp.float32)).transpose(1, 0, 2)
     tq, tk, tv, tc = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, cot))
     out_p, lse = att.flash_attention_fwd_plain(tq, tk, tv, causal=causal)
     di = att.row_dot(out_p, tc)
     dk_p, dv_p = att.flash_attention_bwd_dkv_plain(tq, tk, tv, tc, lse, di, causal=causal)
-    for name, got, want in (("out", out_p, out), ("dk", dk_p, dk), ("dv", dv_p, dv)):
+    dq_p = att.flash_attention_bwd_dq_plain(tq, tk, tv, tc, lse, di, causal=causal)
+    for name, got, want in (("out", out_p, out), ("dq", dq_p, dq), ("dk", dk_p, dk),
+                            ("dv", dv_p, dv)):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), back(want), rtol=BF16_TOL,
                                    atol=BF16_TOL, err_msg=name)
     p = att._probs(tq, tk, lse, 1 / np.sqrt(D), causal, None)
     dv_f32p = torch.einsum("hts,thd->shd", p, tc.float()).to(torch.bfloat16)
-    err = lambda a: np.abs(a.float().numpy() - back(dv)).max()
-    assert err(dv_p) < err(dv_f32p)
+    dq_f32ds = _dq_plain_f32_formula(tq, tk, tv, tc, lse, di, causal, 1 / np.sqrt(D), None)
+    err = lambda a, want: np.abs(a.float().numpy() - back(want))
+    assert err(dv_p, dv).max() < err(dv_f32p, dv).max()
+    assert err(dq_p, dq).mean() < err(dq_f32ds, dq).mean()
 
 
 def _fwd_plain_f32_formula(q, k, v, causal, scale, kv_mask):
@@ -263,12 +269,19 @@ def _dkv_plain_f32_formula(q, k, v, do, lse, di, causal, scale, kv_mask):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _dq_plain_f32_formula(q, k, v, do, lse, di, causal, scale, kv_mask):
+    """The dQ plain version as it was before dS was rounded."""
+    p = att._probs(q, k, lse, scale, causal, kv_mask)
+    dp = torch.einsum("thd,shd->hts", do.float(), v.float())
+    ds = (dp - di[..., None]) * p * scale
+    return torch.einsum("hts,shd->thd", ds, k.float()).to(q.dtype)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
 def test_f32_plain_versions_are_unchanged(causal, masked):
-    """In f32 the rounding is the identity: the forward and dK/dV plain
-    versions give the bits of their formulas before it, and dQ's plain
-    version (its kernel keeps dS in f32) is untouched."""
+    """In f32 the rounding is the identity: the forward, dK/dV and dQ plain
+    versions give the bits of their formulas before it."""
     T, D = 200, 64
     q, k, v, cot, mask = (None if a is None else torch.from_numpy(a)
                           for a in _inputs(T, D, masked, seed=8))
@@ -280,6 +293,8 @@ def test_f32_plain_versions_are_unchanged(causal, masked):
     got = att.flash_attention_bwd_dkv_plain(q, k, v, cot, lse, di, causal=causal, kv_mask=mask)
     for a, b in zip(got, _dkv_plain_f32_formula(q, k, v, cot, lse, di, causal, scale, mask)):
         assert torch.equal(a, b)
+    dq = att.flash_attention_bwd_dq_plain(q, k, v, cot, lse, di, causal=causal, kv_mask=mask)
+    assert torch.equal(dq, _dq_plain_f32_formula(q, k, v, cot, lse, di, causal, scale, mask))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -389,30 +389,35 @@ def test_flash_attention_reads_strided_operands(dev, dtype, pad, in_place):
     layout) go to the kernels in place where the row stride meets the
     dtype's rule (f32: whole groups of 4 elements, so 3L + 4 reads in place;
     bf16, TMA's: whole 16-byte groups, so 3L + 8 does and 3L + 4 is
-    copied); a slice off by one column is copied first. The results are the
-    contiguous inputs' bit for bit."""
+    copied); a slice off by one column is copied first. The forward's and
+    dQ's results are the contiguous inputs' bit for bit."""
     from dgraph_tpu_torch.ops import attention as att
 
     T, H, D = 300, 4, 64
     wide = torch.randn(T, 3 * H * D + pad, device=dev).to(dtype)
+    do = torch.randn(T, H, D, device=dev).to(dtype)
     for off in (0, 1):
         q, k, v = (t.reshape(T, H, D) for t in
                    wide[:, off:off + 3 * H * D].split(H * D, dim=-1))
         assert (att._operand(q) is q) == (in_place and off == 0)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
         got = att.flash_attention_fwd(q, k, v, causal=True)
-        want = att.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       causal=True)
+        want = att.flash_attention_fwd(qc, kc, vc, causal=True)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        di = att.row_dot(want[0], do)
+        assert torch.equal(att.flash_attention_bwd_dq(q, k, v, do, want[1], di, causal=True),
+                           att.flash_attention_bwd_dq(qc, kc, vc, do, want[1], di, causal=True))
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200])
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_attention_bf16_tensor_core_route_at_tile_edges(dev, D, T, causal):
-    """The bf16 forward and dK/dV (wgmma on TMA-staged tiles: 128 query or
-    key rows a block, 64 a warpgroup, 64-query tiles in dK/dV) against their
-    plain versions at T around those tiles and, from T = 40 on, with a
-    padded tail of 37; two launches give the same bits."""
+    """The bf16 forward, dK/dV and dQ (wgmma on TMA-staged tiles: 128 query
+    or key rows a block, 64 a warpgroup, 64-query tiles in dK/dV, 64-key
+    tiles in dQ) against their plain versions at T around those tiles and,
+    from T = 40 on, with a padded tail of 37; two launches give the same
+    bits."""
     from dgraph_tpu_torch.ops import attention as att
 
     q, k, v, do = _att_inputs(T, 2, D, torch.bfloat16, dev, seed=T)
@@ -427,10 +432,42 @@ def test_flash_attention_bf16_tensor_core_route_at_tile_edges(dev, D, T, causal)
         for got, want in zip((dk, dv),
                              att.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, **kw)):
             _att_close(got, want)
+        dq = att.flash_attention_bwd_dq(q, k, v, do, lse_p, di, **kw)
+        _att_close(dq, att.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, di, **kw))
         again = att.flash_attention_fwd(q, k, v, **kw)
         assert torch.equal(again[0], out) and torch.equal(again[1], lse)
         assert all(torch.equal(a, b) for a, b in
                    zip(att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw), (dk, dv)))
+        assert torch.equal(att.flash_attention_bwd_dq(q, k, v, do, lse_p, di, **kw), dq)
+
+
+# the f32 forward's limit at lm_flash (chip_smoke.py F32_FWD_TOL): split TF32
+# keeps about 2^-21 of each product
+F32_FWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_f32_forward_split_tf32_at_tile_edges(dev, D, T, causal):
+    """The f32 forward (split TF32 on the tensor cores: 128 query rows a
+    block, 64 a warpgroup, 32-key tiles) against its plain version within
+    F32_FWD_TOL at T around those tiles and, from T = 40 on, with a padded
+    tail of 37 and with every key masked; two launches give the same bits.
+    Odd T runs one head (a size-1 head dimension in the tensor maps)."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    q, k, v, _ = _att_inputs(T, 1 if T % 2 else 2, D, torch.float32, dev, seed=T)
+    for mask in ("none",) if T < 40 else ("none", "tail", "all"):
+        kw = dict(causal=causal, kv_mask=_att_mask(mask, T, dev))
+        out, lse = att.flash_attention_fwd(q, k, v, **kw)
+        out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.testing.assert_close(out, out_p, rtol=0, atol=F32_FWD_TOL)
+        torch.testing.assert_close(lse, lse_p, rtol=0, atol=F32_FWD_TOL)
+        again = att.flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+        if mask == "all":
+            assert not out.any() and not lse.any()
 
 
 def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):
