@@ -9,8 +9,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
 2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
    every tensor-core kernel (bf16 forward, dK/dV, dQ; the split-TF32 f32
-   forward) must be there at D = 32, 64, 128, neither spilling nor having
-   its wgmma serialized (ptxas -v);
+   forward, dK/dV and dQ) must be there at D = 32, 64, 128, neither
+   spilling nor having its wgmma serialized (ptxas -v);
 3. kernel parity — each of the eight one-rank kernels against its plain PyTorch
    version on the card, f32 and bf16, two launches with equal bits; timed
    with CUDA events (mean over back-to-back calls after warmup) beside the
@@ -23,15 +23,17 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    column slices); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
    ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
-   T = 200, a padded tail or every key masked, causal or not); the
-   tensor-core kernels (bf16 forward, dK/dV and dQ; the f32 forward) also
-   at T in {1, 31, 33, 63, 64, 65, 127, 128, 129, 200} for every D, causal
-   or not, and the bf16 ones at lm_flash with q, k and v as column slices of
-   one [T, 3L] tensor (read in place) and as slices at an odd element offset
-   (copied first); at lm_flash the bf16 outputs block by block
-   (BLOCK_REL_TOL) and the f32 forward to F32_FWD_TOL, each against a
-   control that must exceed it; then the autograd Function's gradients
-   against autograd of the plain version;
+   T = 200, a padded tail or every key masked, causal or not); every
+   kernel, each being on the tensor cores, also at T in {1, 31, 33, 63, 64,
+   65, 127, 128, 129, 200} for every D, causal or not, and at lm_flash with
+   q, k and v as column slices of one [T, 3L] tensor (read in place) and as
+   slices at an odd element offset (copied first); at lm_flash the bf16
+   outputs block by block (BLOCK_REL_TOL), the f32 forward to F32_FWD_TOL
+   and the f32 backward to F32_BWD_TOL (of the plain backward evaluated in
+   float64; also at the tile edges, against the f32 plain version, and in
+   the slices), each against a control that must exceed it; the f32 dK/dV and
+   dQ kernels' sum against SDPA's f32 backward; then the autograd
+   Function's gradients against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
@@ -113,8 +115,8 @@ import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
 # non-tensor-core float32 rate, the dense bf16 tensor-core rate, and the
-# dense TF32 rate of the split-TF32 f32 forward (three TF32 products for
-# each f32 one)
+# dense TF32 rate of the split-TF32 f32 attention kernels (three TF32
+# products for each f32 one)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TF32_OPS_PER_S = 494.7e12
@@ -139,6 +141,13 @@ BLOCK_REL_TOL = 3e-2
 # cleared), is read in every run and must exceed it: the limit tells TF32
 # from f32 accuracy
 F32_FWD_TOL = 1e-5
+# the f32 backward (dK/dV and dQ in split TF32) against its plain version at
+# the lm_flash shape, dK, dV and dQ: ten times below ATT_TOL. There the
+# plain version is evaluated in float64 (plain_bwd_f64): in f32 its own sums
+# over 8192 queries are off by up to 1.6e-5 (PERF.md). A control, the plain
+# backward on q, k, v and dO truncated to TF32, is read in every run and
+# must exceed it
+F32_BWD_TOL = 1e-5
 LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
@@ -193,7 +202,8 @@ def phase_device():
 def ptxas_kernels(text: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads", "serialized"}}
     from nvcc's ``-Xptxas -v`` output; a kernel is named by its function and
-    template arguments (``flash_fwd_tc_kernel<bf16, 128>``); ``serialized``
+    template arguments (``flash_fwd_tc_kernel<bf16, 128>``,
+    ``flash_bwd_dkv_tf32x3_kernel<128, true>``); ``serialized``
     is a ptxas note (C7512 for register resources, C7520 for a divergent
     path, ...) that it serialized the kernel's wgmma instructions."""
     import re
@@ -208,7 +218,9 @@ def ptxas_kernels(text: str) -> dict:
                 rest = mangled[pos:]
                 dtype = ("float" if rest.startswith("If") else
                          "bf16" if "bfloat16" in rest else None)
-                args = [a for a in (dtype, *re.findall(r"Li(\d+)E", rest)) if a]
+                args = [a for a in (dtype, *(("true", "false")[v == "0"] if t == "b" else v
+                                             for t, v in re.findall(r"L([ib])(\d+)E", rest)))
+                        if a]
                 return f"{name}<{', '.join(args)}>"
         return mangled
 
@@ -236,17 +248,20 @@ def ptxas_kernels(text: str) -> dict:
     return out
 
 
-# the tensor-core kernels, by name: bf16 (``*_tc_kernel``) and the f32
-# forward in split TF32
+# the tensor-core kernels, by name: bf16 (``*_tc_kernel``) and f32 in split
+# TF32 (``*_tf32x3_kernel``)
 TC_KERNEL_MARKS = ("_tc_kernel", "_tf32x3_kernel")
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
-              "flash_fwd_tf32x3_kernel")
+              "flash_fwd_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel",
+              "flash_bwd_dq_tf32x3_kernel")
 
 
 def phase_build() -> dict:
     """Every source built; each kernel's registers and spills from the
     ptxas log. The tensor-core kernels (TC_KERNEL_MARKS) must neither spill
     nor have their wgmma serialized."""
+    import re
+
     from dgraph_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -261,7 +276,7 @@ def phase_build() -> dict:
     tc = [k for k in kernels if any(m in k for m in TC_KERNEL_MARKS)]
     for name in TC_KERNELS:
         for D in (32, 64, 128):
-            if not any(name in k and k.endswith(f"{D}>") for k in tc):
+            if not any(re.search(rf"{name}<(\w+, )?{D}[,>]", k) for k in tc):
                 fail(f"phase 2: ptxas reports no {name} at D = {D}")
     bad = [k for k in tc
            if kernels[k]["spill_stores"] or kernels[k]["spill_loads"] or kernels[k]["serialized"]]
@@ -522,7 +537,7 @@ def attention_work(kernel, T, H, D, b, pairs) -> tuple:
     """(bytes, ops) of one call: q, k, v (and dO) read once, the outputs
     (and lse, di) once; 2·D operations a pair per product — QKᵀ and PV in
     the forward, QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q for dK/dV, QKᵀ, dO Vᵀ and dS K
-    for dQ. (The split-TF32 f32 forward does three TF32 products for each:
+    for dQ. (The split-TF32 f32 kernels do three TF32 products for each:
     see attention_bound.)"""
     x = T * H * D * b
     rows = 4 * H * T
@@ -535,12 +550,12 @@ def attention_work(kernel, T, H, D, b, pairs) -> tuple:
 
 def attention_bound(kernel, dtype_name, nbytes, ops) -> dict:
     """The bound of an attention call, as ``bound`` gives it for its type;
-    the f32 forward runs on the tensor cores in split TF32, three TF32
-    products for each f32 one, so its bound is the smaller of that route's
-    and the CUDA cores' (both kept)."""
+    the f32 kernels run on the tensor cores in split TF32, three TF32
+    products for each f32 one, so their bound is the smaller of that
+    route's and the CUDA cores' (both kept)."""
     b_ms, b_by = bound(nbytes, ops, dtype_name)
     rec = {"bound_ms": b_ms, "bound_by": b_by}
-    if kernel == "flash_attention_fwd" and dtype_name == "float32":
+    if dtype_name == "float32":
         tf_ms, tf_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                            (3 * ops / TF32_OPS_PER_S * 1e3, "operations"))
         rec.update(bound_cuda_cores_ms=b_ms, bound_tf32x3_ms=tf_ms, bound_ms=min(b_ms, tf_ms),
@@ -558,6 +573,38 @@ def tf32_control(att, q, k, v, out, lse) -> float:
     trunc = lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32)  # noqa: E731
     o_t, lse_t = att.flash_attention_fwd_plain(trunc(q), trunc(k), trunc(v), causal=True)
     return max(max_err(o_t, out), max_err(lse_t, lse))
+
+
+def plain_bwd_f64(att, q, k, v, do, lse, di) -> tuple:
+    """The plain backward's formula (causal, no mask) evaluated in float64
+    from the same f32 inputs, lse and di: (dK, dV, dQ) as f64."""
+    import torch
+
+    q, k, v, do, lse, di = (t.double() for t in (q, k, v, do, lse, di))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("thd,shd->hts", q, k) * scale
+    p = torch.where(att._allowed(q.shape[0], True, None, q.device), torch.exp(s - lse[..., None]),
+                    0.0)
+    del s
+    dv = torch.einsum("hts,thd->shd", p, do)
+    ds = (torch.einsum("thd,shd->hts", do, v) - di[..., None]) * p * scale
+    del p
+    return torch.einsum("hts,thd->shd", ds, q), dv, torch.einsum("hts,shd->thd", ds, k)
+
+
+def tf32_bwd_control(att, q, k, v, do, ref) -> float:
+    """The plain backward (dK, dV, dQ; causal) on q, k, v and dO truncated
+    to TF32, with the plain forward's lse and di, against ``ref``
+    (plain_bwd_f64 on the full inputs): the largest absolute difference,
+    the reading TF32 products would give."""
+    import torch
+
+    trunc = lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32)  # noqa: E731
+    out, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
+    ins = (*(trunc(t) for t in (q, k, v, do)), lse, att.row_dot(out, do))
+    got = (*att.flash_attention_bwd_dkv_plain(*ins, causal=True),
+           att.flash_attention_bwd_dq_plain(*ins, causal=True))
+    return max(max_err(g, w) for g, w in zip(got, ref))
 
 
 def attention_cases(att, q, k, v, do, kw):
@@ -644,9 +691,11 @@ def phase_attention() -> dict:
     autograd Function's gradients against autograd of ``dense_attention``.
     The bf16 outputs at the lm_flash shape (in place and as the LM's column
     slices) are also held to BLOCK_REL_TOL, whose force block_controls shows
-    in the same run; the f32 forward's there to F32_FWD_TOL, whose force
-    tf32_control shows. The tensor-core kernels (every bf16 one, the f32
-    forward) also run at the edges of their tiles."""
+    in the same run; the f32 forward's there to F32_FWD_TOL and the f32
+    backward's to F32_BWD_TOL, whose force tf32_control and
+    tf32_bwd_control show. Every kernel (all run on the tensor cores) also
+    runs at the edges of its tiles and in the LM's layout, f32 held to the
+    same two limits."""
     import torch
 
     from dgraph_tpu_torch.ops import attention as att
@@ -655,14 +704,27 @@ def phase_attention() -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     records, worst, block_rel, controls = [], {}, {}, {}
     tc_kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-    f32_fwd = {}
+    f32_tol = {"flash_attention_fwd": F32_FWD_TOL, "flash_attention_bwd_dkv": F32_BWD_TOL,
+               "flash_attention_bwd_dq": F32_BWD_TOL}
+    f32_fwd, f32_bwd, bwd_ref, f64_readings = {}, {}, {}, {}
 
-    def run_case(name, kernel, run, plain, dtype_name, scaled=False):
+    def run_case(name, kernel, run, plain, dtype_name, scaled=False, split_tf32=False, ref=None):
+        """Kernel against plain, two launches with equal bits; bf16 at
+        lm_flash (``scaled``) also to BLOCK_REL_TOL, f32 (``split_tf32``)
+        to the kernel's f32_tol, against ``ref`` (the plain outputs
+        evaluated in float64) where it is given. Returns the error the
+        f32 limit holds."""
         got = run()
         want = plain()
         torch.cuda.synchronize()
         err = check_attention(name, got, want, dtype_name)
         worst[(kernel, dtype_name)] = max(worst.get((kernel, dtype_name), 0.0), err)
+        if ref is not None:  # the f32 plain version's own reading beside the kernel's
+            outs = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
+            err, f64_readings[name] = (max(max_err(o, r) for o, r in zip(x, ref)) for x in outs)
+        if split_tf32 and not err <= f32_tol[kernel]:
+            fail(f"{name}: kernel disagrees with plain{' (float64)' if ref else ''} by "
+                 f"{err:.3g} (limit {f32_tol[kernel]})")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for i, (g, w) in enumerate(zip(got, want) if scaled else ()):
@@ -690,6 +752,15 @@ def phase_attention() -> dict:
             if not r > F32_FWD_TOL:
                 fail(f"the TF32 control reads {r:.3g}, inside the f32 forward's limit "
                      f"{F32_FWD_TOL}: the check has no force")
+            out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+            dk64, dv64, dq64 = plain_bwd_f64(att, q, k, v, do, lse_p, att.row_dot(out_p, do))
+            del out_p, lse_p
+            bwd_ref = {"flash_attention_bwd_dkv": (dk64, dv64), "flash_attention_bwd_dq": (dq64,)}
+            f32_bwd["tf32_control"] = r = tf32_bwd_control(att, q, k, v, do, (dk64, dv64, dq64))
+            log(f"f32 backward's TF32 control (plain, lm_flash shape): {r:.3g}")
+            if not r > F32_BWD_TOL:
+                fail(f"the TF32 backward control reads {r:.3g}, inside the f32 backward's "
+                     f"limit {F32_BWD_TOL}: the check has no force")
         if dtype_name == "bfloat16":
             controls = block_controls(att, q, k, v, do)
             log(f"block_rel_err of a dropped tile (plain, lm_flash shape): {controls}")
@@ -700,13 +771,13 @@ def phase_attention() -> dict:
         sdpa_fwd, sdpa_bwd, sdpa_out = sdpa_calls(q, k, v, do, True)
         for kernel, (run, plain) in attention_cases(att, q, k, v, do, kw).items():
             name = f"{kernel} {dtype_name} T={T} H={H} D={D} causal"
-            err = run_case(name, kernel, run, plain, dtype_name,
-                           scaled=dtype_name == "bfloat16" and kernel in tc_kernels)
+            ref = bwd_ref.get(kernel) if dtype_name == "float32" else None
+            err = run_case(name, kernel, run, plain, dtype_name, scaled=dtype_name == "bfloat16",
+                           split_tf32=dtype_name == "float32", ref=ref)
             if dtype_name == "float32" and kernel == "flash_attention_fwd":
                 f32_fwd["max_abs_err"] = err
-                if not err <= F32_FWD_TOL:
-                    fail(f"{name}: kernel disagrees with plain by {err:.3g} (limit "
-                         f"{F32_FWD_TOL}, the TF32 control {f32_fwd['tf32_control']:.3g})")
+            elif dtype_name == "float32":
+                f32_bwd[kernel] = err
             nbytes, ops = attention_work(kernel, T, H, D, q.element_size(), pairs)
             lib = sdpa_fwd if kernel == "flash_attention_fwd" else sdpa_bwd
             rec = {"kernel": kernel, "case": name, "dtype": dtype_name, "T": T, "H": H, "D": D,
@@ -725,6 +796,22 @@ def phase_attention() -> dict:
                     f"{rec['library_ms']:.3f} ms; err {err:.3g} (limit {F32_FWD_TOL}, TF32 "
                     f"control {f32_fwd['tf32_control']:.3g}); bound {rec['bound_tf32x3_ms']:.3f} "
                     f"ms split TF32, {rec['bound_cuda_cores_ms']:.3f} ms CUDA cores")
+            if dtype_name == "float32" and kernel == "flash_attention_bwd_dq":
+                dkv = next(r for r in records if r["dtype"] == "float32"
+                           and r["kernel"] == "flash_attention_bwd_dkv")
+                f32_bwd.update(dkv_ms=dkv["ms"], dq_ms=rec["ms"], sum_ms=dkv["ms"] + rec["ms"],
+                               sdpa_bwd_ms=[dkv["library_ms"], rec["library_ms"]],
+                               plain_f32_vs_f64={n: f64_readings[n] for n in (dkv["case"], name)})
+                f32_bwd["faster_than_sdpa"] = f32_bwd["sum_ms"] < min(f32_bwd["sdpa_bwd_ms"])
+                log(f"f32 backward (split TF32): dK/dV {dkv['ms']:.3f} + dQ {rec['ms']:.3f} = "
+                    f"{f32_bwd['sum_ms']:.3f} ms against SDPA's f32 backward "
+                    f"{dkv['library_ms']:.3f}, {rec['library_ms']:.3f} ms; err "
+                    f"{f32_bwd['flash_attention_bwd_dkv']:.3g}, {err:.3g} (limit {F32_BWD_TOL}, "
+                    f"TF32 control {f32_bwd['tf32_control']:.3g}; the f32 plain version's own "
+                    f"{f64_readings[dkv['case']]:.3g}, {f64_readings[name]:.3g}); bounds "
+                    f"split TF32 "
+                    f"{dkv['bound_tf32x3_ms']:.3f}, {rec['bound_tf32x3_ms']:.3f} ms, CUDA cores "
+                    f"{dkv['bound_cuda_cores_ms']:.3f}, {rec['bound_cuda_cores_ms']:.3f} ms")
         # the yardstick need only compute the same function: held to the
         # bf16 tolerance in both types (its f32 path may round inside)
         want = att.flash_attention_fwd_plain(q, k, v, **kw)[0]
@@ -733,6 +820,7 @@ def phase_attention() -> dict:
             fail(f"sdpa {dtype_name}: the library yardstick disagrees with plain "
                  f"(max abs err {max_err(sdpa_out, want)})")
         del q, k, v, do, sdpa_fwd, sdpa_bwd, sdpa_out, want
+        bwd_ref = {}
         torch.cuda.empty_cache()
 
     T = 200
@@ -750,38 +838,46 @@ def phase_attention() -> dict:
                         run_case(f"{kernel} edge {dtype_name} T={T} D={D} mask={mask} "
                                  f"causal={causal}", kernel, run, plain, dtype_name)
 
-    # the tensor-core kernels (bf16; the f32 forward) at the edges of their
-    # 32-, 64- and 128-row tiles, every head width; then in the LM's layout,
-    # q, k and v as column slices of one [T, 3L] tensor read in place, and as
-    # slices at an odd element offset, which _operand copies first
+    # every kernel (bf16 and f32, all on the tensor cores) at the edges of
+    # its 16-, 32-, 64- and 128-row tiles, every head width; then in the LM's
+    # layout, q, k and v as column slices of one [T, 3L] tensor read in
+    # place, and as slices at an odd element offset, which _operand copies
+    # first
     for T in (1, 31, 33, 63, 64, 65, 127, 128, 129, 200):
         for D in (32, 64, 128):
-            for dtype_name, dtype, kernels in (("bfloat16", torch.bfloat16, tc_kernels),
-                                               ("float32", torch.float32,
-                                                ("flash_attention_fwd",))):
+            for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
                 q, k, v, do = (torch.randn(T, 2, D, generator=gen, device=dev).to(dtype)
                                for _ in range(4))
                 for causal in (False, True):
                     cases = attention_cases(att, q, k, v, do, dict(causal=causal))
-                    for kernel in kernels:
+                    for kernel in tc_kernels:
                         run_case(f"{kernel} tile edge {dtype_name} T={T} D={D} causal={causal}",
-                                 kernel, *cases[kernel], dtype_name)
+                                 kernel, *cases[kernel], dtype_name,
+                                 split_tf32=dtype_name == "float32")
     T, H, D = LM_T, LM_H, LM_D
     L = H * D
-    do = torch.randn(T, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    for off, width in ((0, 3 * L), (3, 3 * L + 8)):
-        qkv = torch.randn(T, width, generator=gen, device=dev).to(torch.bfloat16)
-        q, k, v = (qkv[:, off + i * L:off + (i + 1) * L].view(T, H, D) for i in range(3))
-        if (att._operand(q) is q) != (off == 0):
-            fail(f"_operand: a [T, {width}] column slice at offset {off} should "
-                 f"{'pass in place' if off == 0 else 'be copied'}")
-        cases = attention_cases(att, q, k, v, do, dict(causal=True))
-        for kernel in tc_kernels:
-            run_case(f"{kernel} qkv slices bfloat16 offset={off} T={T} H={H} D={D} causal", kernel,
-                     *cases[kernel], "bfloat16", scaled=True)
-        del qkv, q, k, v, cases
-    del do
-    torch.cuda.empty_cache()
+    for dtype_name, dtype, pad in (("bfloat16", torch.bfloat16, 8), ("float32", torch.float32, 4)):
+        do = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+        for off, width in ((0, 3 * L), (3, 3 * L + pad)):
+            qkv = torch.randn(T, width, generator=gen, device=dev).to(dtype)
+            q, k, v = (qkv[:, off + i * L:off + (i + 1) * L].view(T, H, D) for i in range(3))
+            if (att._operand(q) is q) != (off == 0):
+                fail(f"_operand: a [T, {width}] {dtype_name} column slice at offset {off} "
+                     f"should {'pass in place' if off == 0 else 'be copied'}")
+            cases = attention_cases(att, q, k, v, do, dict(causal=True))
+            refs = {}
+            if dtype_name == "float32":
+                out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, causal=True)
+                dk64, dv64, dq64 = plain_bwd_f64(att, q, k, v, do, lse_p, att.row_dot(out_p, do))
+                refs = {"flash_attention_bwd_dkv": (dk64, dv64), "flash_attention_bwd_dq": (dq64,)}
+                del out_p, lse_p, dk64, dv64, dq64
+            for kernel in tc_kernels:
+                run_case(f"{kernel} qkv slices {dtype_name} offset={off} T={T} H={H} D={D} causal",
+                         kernel, *cases[kernel], dtype_name, scaled=dtype_name == "bfloat16",
+                         split_tf32=dtype_name == "float32", ref=refs.get(kernel))
+            del qkv, q, k, v, cases, refs
+        del do
+        torch.cuda.empty_cache()
 
     T = 200
     grad_err = 0.0
@@ -807,7 +903,7 @@ def phase_attention() -> dict:
     return {"records": records, "autograd_max_abs_err": grad_err,
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()},
             "block_rel_err": block_rel, "block_rel_err_controls": controls,
-            "f32_forward": f32_fwd}
+            "f32_forward": f32_fwd, "f32_backward": f32_bwd}
 
 
 # --- phases 4 and 5 --------------------------------------------------------

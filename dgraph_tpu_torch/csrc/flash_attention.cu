@@ -15,9 +15,8 @@
 // reference, flash_attention.py:273-275).
 //
 // Layout: q, k, v and dO are [T, H, D] with unit stride over D and any row
-// and head strides (f32: multiples of 4 elements, rows 16-byte aligned, for
-// the CUDA cores' 16-byte loads; bf16: multiples of 8 elements, base 16-byte
-// aligned, as TMA needs): the
+// and head strides (f32: multiples of 4 elements, rows 16-byte aligned;
+// bf16: multiples of 8 elements, base 16-byte aligned, as TMA needs): the
 // LM's q, k and v are column slices of one [T, 3L] qkv tensor and reach the
 // kernels without a copy. O, dQ, dK and dV are contiguous [T, H, D] in the
 // input dtype; lse and di are [H, T] f32. The optional mask is [T] int32
@@ -29,35 +28,16 @@
 // A row with no allowed key gets O = 0 and lse = 0 (its P is zero by the
 // mask, never by the value of lse).
 //
-// Three designs (DG_DISPATCH picks by dtype):
-//
-// f32 dK/dV and dQ: the CUDA cores. One block of 256 threads (16 x 16) per
-// (64-row tile, head). A block stages f32 tiles of 64 rows in shared memory,
-// each with a row pitch of D + 4 floats so that the 16-byte reads of 16
-// different rows fall in different banks. Thread (tx, ty) owns the 4 x 4
-// scores of rows ty + 16r and columns tx + 16c: a score tile is 4 x 4 outer
-// products of 16-byte row slices. The output accumulators (dK, dV or dQ
-// rows) stay in registers, D / 16 columns a row a thread.
-//   dkv: one block per key tile keeps K and V, loops over the query tiles
-//        at or below the diagonal, recomputes P from lse and writes P and dS
-//        to shared memory for the two transposed products. 171 KB: one
-//        block an SM.
-//   dq:  one block per query tile keeps Q and dO, loops over key tiles up to
-//        the diagonal; dS overwrites the value tile for dS K. 136 KB.
-// Every sum is taken by one thread in a fixed order: no atomics, the same
-// bits on every launch. The blocks with the most tiles under a causal mask
+// Every kernel runs on the tensor cores (sm90.cuh); DG_DISPATCH picks the
+// bf16 or the split-TF32 f32 kernel by dtype. At T = 8192, H = 4, D = 128
+// (causal) the forward is 6.9e10 FLOP (two products), dK/dV 1.4e11 (four),
+// dQ 1.0e11 (three): far above the bytes (0.01-0.03 ms) at any rate, so the
+// bound is the tensor cores. Blocks with the most tiles under a causal mask
 // are numbered first so that they start first.
-// Bound: operations. At T = 8192, H = 4, D = 128 (causal) dK/dV is 4 * 2 *
-// D * H * T(T+1)/2 = 1.4e11 FLOP (four products), dQ 1.0e11 (three): 2.1
-// and 1.5 ms at the card's 67 TFLOP/s of f32 outside the tensor cores,
-// against about 0.03 ms for the bytes.
 //
-// bf16, every kernel: the tensor cores (sm90.cuh). At the same shape the
-// forward's 6.9e10 FLOP, dK/dV's 1.4e11 and dQ's 1.0e11 are 0.07, 0.14 and
-// 0.10 ms at the bf16 rate of 989 TFLOP/s, still far above the bytes
-// (0.01-0.02 ms): the bound is the tensor cores, and f32 FMAs on the CUDA
-// cores (a sixteenth of that rate, fed from shared memory) were 37-52x
-// short of it. So every product is a wgmma (m64nNk16, bf16 in, f32
+// bf16: 0.07, 0.14 and 0.10 ms at the bf16 rate of 989 TFLOP/s; f32 FMAs on
+// the CUDA cores (a sixteenth of that rate, fed from shared memory) were
+// 37-52x short of it. So every product is a wgmma (m64nNk16, bf16 in, f32
 // accumulators in registers), its operands staged by TMA, and nothing but
 // the products' fragments touches registers:
 //   - A block is two warpgroups (256 threads), each with its own 64-row
@@ -137,6 +117,37 @@
 //     its small terms and its hi hi terms apart (the latter in two
 //     accumulators, by batch), and a tile's P V gets an accumulator of its
 //     own, added to O in f32 (O = O alpha + P V).
+// f32 dK/dV and dQ: the tensor cores in split TF32 as well, at 3 x 1.4e11
+// and 3 x 1.0e11 TF32 FLOP, 0.83 and 0.63 ms at 495 TFLOP/s (2.1 and 1.5 ms
+// on the CUDA cores). Every product is a wgmma with A from registers; B
+// must be K-major, and P^T, dS^T and dS come from accumulators:
+//   - A pre-pass (split_bwd_tf32_kernel) writes the streamed operands as
+//     TF32 hi and lo parts into the caller's scratch, as rows ([H, T_pad,
+//     D]: the B of S and dP) and transposed ([H, D, T_pad], rows of each 8
+//     in tf32_frag's order: the B of the output product), Q and dO for
+//     dK/dV, K and V (K alone transposed) for dQ. TMA stages them in two
+//     rings: ring A (row parts) is refilled as soon as S and dP are done
+//     with it, ring B (transposed parts) after the output product.
+//   - dq: a block per (128 query rows, head), each warpgroup 64 rows, whose
+//     Q and dO stay in shared memory as each thread's A fragments (as the
+//     forward holds Q), split at each use; 32-key tiles stream up to the
+//     diagonal. S = Q K^T and dP = dO V^T (m64n32k8); P and dS in f32
+//     registers (ex2.approx on log2-scaled terms); dQ += dS K (m64nDk8,
+//     dS split in registers). At D = 128 the fragments take 128 KB, so each
+//     ring has one stage (224 KB).
+//   - dkv: the roles swapped, a block per (128 keys, head), query tiles
+//     streamed from the diagonal, in two passes of one kernel: dV (K
+//     resident, S^T and dV += P^T dO) and dK (K and V resident, S^T, dP^T
+//     and dK += dS^T Q). One pass with both totals (128 registers) spilled
+//     at D = 128 and fit only 16-query tiles, twice as many as 32-query
+//     ones, each a chain of waits; the second S^T (a fifth product for the
+//     backward's four) costs less.
+//   - Accuracy: each tile's output product takes a fresh accumulator, added
+//     to the f32 total in f32; S and dP keep their small and hi hi terms
+//     apart. Against the backward evaluated in float64 at lm_flash, dK, dV
+//     and dQ read 3-5e-6, below the f32 plain version's own 1.6e-5
+//     (PERF.md).
+//
 // Each kernel writes each output element once: no atomics, the same bits on
 // every launch.
 //
@@ -156,349 +167,7 @@ namespace {
 
 using namespace dg;
 
-constexpr int kTile = 64;            // rows of a query or key tile
-constexpr int kThreads = 256;        // 16 x 16
-constexpr int kPPitch = kTile + 4;   // row pitch of a [64][64] P or dS tile
-
-template <int D>
-__host__ __device__ constexpr int pitch() { return D + 4; }
-
-// floats of a region that holds a [64][D] operand tile and later a [64][64]
-// P or dS tile
-template <int D>
-__host__ __device__ constexpr int region() {
-  return kTile * (pitch<D>() > kPPitch ? pitch<D>() : kPPitch);
-}
-
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// rows [r0, r0 + 64) of head h of a strided [T, H, D] operand into
-// s[64][D + 4] as f32; rows at or past T are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ s, const T* __restrict__ g,
-                                          int64_t rs, int64_t hs, int h, int r0, int T_len) {
-  constexpr int G = D / 4;
-  const T* base = g + h * hs;
-  for (int idx = threadIdx.x; idx < kTile * G; idx += kThreads) {
-    const int r = idx / G, c = (idx % G) * 4;
-    const int t = r0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < T_len) v = load4<T>(base + t * rs + c);
-    *reinterpret_cast<float4*>(s + r * pitch<D>() + c) = v;
-  }
-}
-
-// ok[r] = 1 when row r0 + r exists and is a real position
-__device__ __forceinline__ void load_valid(int* ok, const int32_t* __restrict__ mask, int r0,
-                                           int T_len) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int t = r0 + r;
-    ok[r] = t < T_len && (mask == nullptr || mask[t] != 0);
-  }
-}
-
-// x[r] = row r0 + r of the [H, T] f32 array a at head h (0 past T)
-__device__ __forceinline__ void load_rows(float* x, const float* __restrict__ a, int h, int r0,
-                                          int T_len) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int t = r0 + r;
-    x[r] = t < T_len ? a[static_cast<int64_t>(h) * T_len + t] : 0.f;
-  }
-}
-
-// acc[r][c] = sum_d A[ty + 16r][d] * B[tx + 16c][d]: A and B are [64][D + 4]
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ A, const float* __restrict__ B,
-                                         int tx, int ty, float acc[4][4]) {
-  constexpr int P = pitch<D>();
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = *reinterpret_cast<const float4*>(A + (ty + 16 * r) * P + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * P + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = acc[r][c];
-        s = fmaf(a[r].x, b[c].x, s);
-        s = fmaf(a[r].y, b[c].y, s);
-        s = fmaf(a[r].z, b[c].z, s);
-        s = fmaf(a[r].w, b[c].w, s);
-        acc[r][c] = s;
-      }
-  }
-}
-
-// The D / 16 columns of a [64][D] output row that thread tx owns: groups of
-// VW consecutive columns, 16 * VW apart (so a warp's reads of one row are
-// contiguous): column(k) for k = g * VW + e is g * 16 * VW + tx * VW + e.
-template <int D>
-struct Cols {
-  static constexpr int VW = D >= 64 ? 4 : 2;
-  static constexpr int N = D / 16;
-  static constexpr int NG = N / VW;
-  static __device__ __forceinline__ int col(int tx, int k) {
-    return (k / VW) * 16 * VW + tx * VW + (k % VW);
-  }
-};
-
-// the thread's D / 16 columns of row x (a [.][D + 4] tile row)
-template <int D>
-__device__ __forceinline__ void load_cols(const float* __restrict__ x, int tx, float* out) {
-  using C = Cols<D>;
-#pragma unroll
-  for (int g = 0; g < C::NG; ++g) {
-    const float* p = x + g * 16 * C::VW + tx * C::VW;
-    if constexpr (C::VW == 4) {
-      const float4 u = *reinterpret_cast<const float4*>(p);
-      out[g * 4] = u.x;
-      out[g * 4 + 1] = u.y;
-      out[g * 4 + 2] = u.z;
-      out[g * 4 + 3] = u.w;
-    } else {
-      const float2 u = *reinterpret_cast<const float2*>(p);
-      out[g * 2] = u.x;
-      out[g * 2 + 1] = u.y;
-    }
-  }
-}
-
-// out[r][k] += sum_j W[ty + 16r][j] * X[j][col(k)]: W is [64][kPPitch], X [64][D + 4]
-template <int D>
-__device__ __forceinline__ void tile_wx(const float* __restrict__ W, const float* __restrict__ X,
-                                        int tx, int ty, float out[4][D / 16]) {
-  constexpr int N = D / 16;
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float w[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 u = *reinterpret_cast<const float4*>(W + (ty + 16 * r) * kPPitch + j);
-      w[r][0] = u.x;
-      w[r][1] = u.y;
-      w[r][2] = u.z;
-      w[r][3] = u.w;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float x[N];
-      load_cols<D>(X + (j + jj) * pitch<D>(), tx, x);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < N; ++k) out[r][k] = fmaf(w[r][jj], x[k], out[r][k]);
-    }
-  }
-}
-
-// out[r][k] += sum_i W[i][ty + 16r] * X[i][col(k)]: the transposed product,
-// W is [64][kPPitch], X [64][D + 4]
-template <int D>
-__device__ __forceinline__ void tile_wtx(const float* __restrict__ W, const float* __restrict__ X,
-                                         int tx, int ty, float out[4][D / 16]) {
-  constexpr int N = D / 16;
-#pragma unroll 4
-  for (int i = 0; i < kTile; ++i) {
-    float w[4], x[N];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) w[r] = W[i * kPPitch + ty + 16 * r];
-    load_cols<D>(X + i * pitch<D>(), tx, x);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < N; ++k) out[r][k] = fmaf(w[r], x[k], out[r][k]);
-  }
-}
-
-// rows ty + 16r of a [64][D] accumulator to rows r0 + ty + 16r of the
-// contiguous [T, H, D] output at head h, times mul[r]
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, float acc[4][D / 16],
-                                           const float mul[4], int tx, int ty, int h, int H,
-                                           int r0, int T_len) {
-  using C = Cols<D>;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = r0 + ty + 16 * r;
-    if (t >= T_len) continue;
-    T* o = out + (static_cast<int64_t>(t) * H + h) * D;
-#pragma unroll
-    for (int k = 0; k < C::N; ++k) o[C::col(tx, k)] = from_f32<T>(acc[r][k] * mul[r]);
-  }
-}
-
-// --- backward: dK and dV -------------------------------------------------------
-
-// p[r][c] = P and ds[r][c] = dS of the 4 x 4 scores a thread owns, from the
-// raw products s = Q K^T and dp = dO V^T of query tile q0 and key tile k0
-__device__ __forceinline__ void probs_and_ds(float s[4][4], float dp[4][4], const int* q_ok,
-                                             const int* k_ok, const float* lse_s,
-                                             const float* di_s, int q0, int k0, int tx, int ty,
-                                             float scale, int causal) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
-    const bool row_ok = q_ok[ty + 16 * r];
-    const float L = lse_s[ty + 16 * r], Di = di_s[ty + 16 * r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = k0 + tx + 16 * c;
-      const bool ok = row_ok && k_ok[tx + 16 * c] && (!causal || j <= i);
-      const float p = ok ? expf(s[r][c] * scale - L) : 0.f;
-      s[r][c] = p;
-      dp[r][c] = (dp[r][c] - Di) * p * scale;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, int64_t q_rs, int64_t q_hs,
-                     const T* __restrict__ k, int64_t k_rs, int64_t k_hs,
-                     const T* __restrict__ v, int64_t v_rs, int64_t v_hs,
-                     const T* __restrict__ dO, int64_t do_rs, int64_t do_hs,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     const int32_t* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
-                     int T_len, int H, float scale, int causal) {
-  constexpr int P = pitch<D>(), N = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                  // [64][P], resident
-  float* Vs = Ks + kTile * P;        // [64][P], resident
-  float* Qs = Vs + kTile * P;        // [64][P]
-  float* dOs = Qs + kTile * P;       // [64][P]
-  float* Ps = dOs + kTile * P;       // [64][kPPitch]
-  float* dSs = Ps + kTile * kPPitch; // [64][kPPitch]
-  int* k_ok = reinterpret_cast<int*>(dSs + kTile * kPPitch);
-  int* q_ok = k_ok + kTile;
-  float* lse_s = reinterpret_cast<float*>(q_ok + kTile);
-  float* di_s = lse_s + kTile;
-
-  const int n_tiles = (T_len + kTile - 1) / kTile;
-  const int kt = blockIdx.x;  // key tile 0 sees the most query tiles: it starts first
-  const int h = blockIdx.y;
-  const int k0 = kt * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<T, D>(Ks, k, k_rs, k_hs, h, k0, T_len);
-  load_tile<T, D>(Vs, v, v_rs, v_hs, h, k0, T_len);
-  load_valid(k_ok, mask, k0, T_len);
-
-  float acc_dk[4][N], acc_dv[4][N];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < N; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
-
-  for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous query tile is consumed
-    load_tile<T, D>(Qs, q, q_rs, q_hs, h, q0, T_len);
-    load_tile<T, D>(dOs, dO, do_rs, do_hs, h, q0, T_len);
-    load_valid(q_ok, mask, q0, T_len);
-    load_rows(lse_s, lse, h, q0, T_len);
-    load_rows(di_s, di, h, q0, T_len);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, tx, ty, s);
-    tile_dot<D>(dOs, Vs, tx, ty, dp);
-    probs_and_ds(s, dp, q_ok, k_ok, lse_s, di_s, q0, k0, tx, ty, scale, causal);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Ps[(ty + 16 * r) * kPPitch + tx + 16 * c] = s[r][c];
-        dSs[(ty + 16 * r) * kPPitch + tx + 16 * c] = dp[r][c];
-      }
-    __syncthreads();
-    // key rows ty + 16r: dV += P^T dO, dK += dS^T Q
-    tile_wtx<D>(Ps, dOs, tx, ty, acc_dv);
-    tile_wtx<D>(dSs, Qs, tx, ty, acc_dk);
-  }
-
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dk, acc_dk, one, tx, ty, h, H, k0, T_len);
-  store_rows<T, D>(dv, acc_dv, one, tx, ty, h, H, k0, T_len);
-}
-
-// --- backward: dQ --------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, int64_t q_rs, int64_t q_hs,
-                    const T* __restrict__ k, int64_t k_rs, int64_t k_hs,
-                    const T* __restrict__ v, int64_t v_rs, int64_t v_hs,
-                    const T* __restrict__ dO, int64_t do_rs, int64_t do_hs,
-                    const float* __restrict__ lse, const float* __restrict__ di,
-                    const int32_t* __restrict__ mask, T* __restrict__ dq,
-                    int T_len, int H, float scale, int causal) {
-  constexpr int P = pitch<D>(), N = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // [64][P], resident
-  float* dOs = Qs + kTile * P;       // [64][P], resident
-  float* Ks = dOs + kTile * P;       // [64][P]
-  float* Vs = Ks + kTile * P;        // [64][P], then dS [64][kPPitch]
-  int* q_ok = reinterpret_cast<int*>(Vs + region<D>());
-  int* k_ok = q_ok + kTile;
-  float* lse_s = reinterpret_cast<float*>(k_ok + kTile);
-  float* di_s = lse_s + kTile;
-
-  const int n_tiles = (T_len + kTile - 1) / kTile;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y;
-  const int q0 = qt * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<T, D>(Qs, q, q_rs, q_hs, h, q0, T_len);
-  load_tile<T, D>(dOs, dO, do_rs, do_hs, h, q0, T_len);
-  load_valid(q_ok, mask, q0, T_len);
-  load_rows(lse_s, lse, h, q0, T_len);
-  load_rows(di_s, di, h, q0, T_len);
-
-  float acc[4][N];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < N; ++c) acc[r][c] = 0.f;
-
-  const int kt_end = causal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous dS and K are consumed
-    load_tile<T, D>(Ks, k, k_rs, k_hs, h, k0, T_len);
-    load_tile<T, D>(Vs, v, v_rs, v_hs, h, k0, T_len);
-    load_valid(k_ok, mask, k0, T_len);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, tx, ty, s);
-    tile_dot<D>(dOs, Vs, tx, ty, dp);
-    probs_and_ds(s, dp, q_ok, k_ok, lse_s, di_s, q0, k0, tx, ty, scale, causal);
-    __syncthreads();  // every thread is done reading V
-    float* dSs = Vs;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dSs[(ty + 16 * r) * kPPitch + tx + 16 * c] = dp[r][c];
-    __syncthreads();
-    tile_wx<D>(dSs, Ks, tx, ty, acc);
-  }
-
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dq, acc, one, tx, ty, h, H, q0, T_len);
-}
+constexpr int kThreads = 256;  // the split pre-passes
 
 // --- the tensor cores (sm_90a): bf16 -----------------------------------------------
 
@@ -1451,16 +1120,502 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, int64_t q_rs, int64_t q_hs,
   }
 }
 
-// --- launchers -------------------------------------------------------------------
+// --- the tensor cores: f32 backward in split TF32 ---------------------------------
 
+constexpr int kBwdRowParts = 4;  // x hi, x lo, y hi, y lo: [H, T_pad, D] each
+constexpr int kBwdPad = 32;      // T_pad: T rounded up to this
+
+// Tiles and rings of the f32 backward kernels, by head width: R rows a
+// streamed tile (queries for dK and dV, keys for dQ); NF resident operands
+// (each thread's A fragments of its 64 rows); ring A of AP row parts from
+// part 0 on and ring B of BP transposed parts from part B0 on (the
+// scratch's parts, split_bwd_tf32_kernel), with SA and SB stages; CH slices
+// of a resident operand split at a time. At D = 128 two resident operands
+// take 128 KB, and the 32-row tiles of their kernels get one stage a ring;
+// dV's one resident operand leaves room for 64-row tiles.
+template <int D, bool DV>
+struct DkvCfg {  // dV (DV) or dK: K resident (and V for dK)
+  static constexpr int R = DV ? 64 : 32, NF = DV ? 1 : 2, AP = DV ? 2 : 4, BP = 2;
+  static constexpr int B0 = DV ? 6 : 4, SA = D < 128 ? 2 : 1, SB = SA, CH = DV ? 2 : 4;
+};
 template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kTile * pitch<D>() + 2 * kTile * kPPitch) + 4 * kTile * 4;
-}
+struct DqCfg {  // Q and dO resident
+  static constexpr int R = 32, NF = 2, AP = 4, BP = 2, B0 = 4, SA = D < 128 ? 2 : 1, SB = SA;
+  static constexpr int CH = 4;
+};
+
+// Two strided [T, H, D] f32 operands x and y split for the TF32 products
+// into the caller's scratch, each part H T_pad D floats (T_pad = T rounded
+// up to 32; rows past T are zeros): parts 0-3 x hi, x lo, y hi, y lo as [H,
+// T_pad, D]; parts 4-5 x^T hi and lo, and with y_t parts 6-7 y^T hi and lo,
+// as [H, D, T_pad] with the rows of each 8 in tf32_frag's order (0, 2, 4, 6,
+// 1, 3, 5, 7), so that an accumulator's product over them has a K-major B.
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (3 * kTile * pitch<D>() + region<D>()) + 4 * kTile * 4;
+__global__ void __launch_bounds__(kThreads)
+split_bwd_tf32_kernel(const float* __restrict__ x, int64_t x_rs, int64_t x_hs,
+                      const float* __restrict__ y, int64_t y_rs, int64_t y_hs,
+                      float* __restrict__ scratch, int T_len, int T_pad, int y_t) {
+  __shared__ float xs[32][D + 1], ys[32][D + 1];
+  const int h = blockIdx.y, r0 = blockIdx.x * 32;
+  const int64_t part = static_cast<int64_t>(gridDim.y) * T_pad * D;
+  float* rows = scratch + (static_cast<int64_t>(h) * T_pad + r0) * D;
+  float* cols = scratch + 4 * part + static_cast<int64_t>(h) * D * T_pad + r0;
+  for (int idx = threadIdx.x; idx < 32 * D; idx += kThreads) {
+    const int r = idx / D, col = idx % D, t = r0 + r;
+    const bool real = t < T_len;
+    const float xv = real ? x[t * x_rs + h * x_hs + col] : 0.f;
+    const float yv = real ? y[t * y_rs + h * y_hs + col] : 0.f;
+    uint32_t hi, lo;
+    sm90::split_tf32(xv, hi, lo);
+    rows[idx] = __uint_as_float(hi);
+    rows[idx + part] = __uint_as_float(lo);
+    sm90::split_tf32(yv, hi, lo);
+    rows[idx + 2 * part] = __uint_as_float(hi);
+    rows[idx + 3 * part] = __uint_as_float(lo);
+    xs[r][col] = xv;
+    ys[r][col] = yv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 32 * D; idx += kThreads) {
+    const int col = idx / 32, p = idx % 32, kk = p & 7;
+    const int src = (p & ~7) + (kk < 4 ? 2 * kk : 2 * kk - 7);
+    const int64_t at = static_cast<int64_t>(col) * T_pad + p;
+    uint32_t hi, lo;
+    sm90::split_tf32(xs[src][col], hi, lo);
+    cols[at] = __uint_as_float(hi);
+    cols[at + part] = __uint_as_float(lo);
+    if (y_t) {
+      sm90::split_tf32(ys[src][col], hi, lo);
+      cols[at + 2 * part] = __uint_as_float(hi);
+      cols[at + 3 * part] = __uint_as_float(lo);
+    }
+  }
 }
+
+struct BwdMaps {
+  CUtensorMap m[8];  // the scratch's parts (split_bwd_tf32_kernel)
+};
+
+// The f32 backward's shared memory (offsets from a 1024-aligned base): ring
+// A of row parts (R rows x D, TMA's 128-byte swizzle in boxes of 32
+// columns) for S and dP; ring B of transposed parts (D rows x R, likewise
+// in boxes of 32 columns) for the output product; the block's resident operands
+// as each thread's A fragments ([NF operands][2 warpgroups][D / 8
+// slices][128] float4, as the f32 forward holds Q); the barriers.
+template <int D, typename C>
+struct Tf32BwdSmem {
+  static constexpr int PART = C::R * D * 4;
+  static constexpr int A = 0;
+  static constexpr int B = C::SA * C::AP * PART;
+  static constexpr int FRAG = B + C::SB * C::BP * PART;
+  static constexpr int BAR = FRAG + C::NF * kBlockRows * D * 4;  // fullA, emptyA, fullB, emptyB
+  static constexpr int BYTES = BAR + 2 * (C::SA + C::SB) * 8 + 1024;
+};
+
+// this thread's A fragments of rows row_a and row_a + 8 of head h of a
+// strided [T, H, D] f32 operand (rows past T are zeros): slice s, at
+// frag[s * 128], holds (row_a, 8s + c), (row_a + 8, 8s + c), (row_a, 8s + c
+// + 4), (row_a + 8, 8s + c + 4). Only the thread itself reads them back.
+template <int D>
+__device__ __forceinline__ void load_frags(float4* frag, const float* __restrict__ x, int64_t rs,
+                                           int64_t hs, int h, int row_a, int c, int T_len) {
+  const float* pa = x + row_a * rs + h * hs + c;
+  const float* pb = pa + 8 * rs;
+  const bool ra = row_a < T_len, rb = row_a + 8 < T_len;
+#pragma unroll 4
+  for (int s = 0; s < D / 8; ++s)
+    frag[s * 128] = make_float4(ra ? pa[8 * s] : 0.f, rb ? pb[8 * s] : 0.f,
+                                ra ? pa[8 * s + 4] : 0.f, rb ? pb[8 * s + 4] : 0.f);
+}
+
+// The f32 backward's two rings, fed by warp 0 (every lane waits, lane 0
+// issues): the tile of rows r0 .. r0 + R, t-th of the block, into ring A
+// (C::AP row parts) and ring B (C::BP transposed parts from part C::B0). A
+// stage's empty barrier completes when lane 0 of each of the 8 warps has
+// arrived after the warp's last wgmma on it, and warp 0 refills it at once.
+template <int D, typename C>
+struct BwdRings {
+  using S = Tf32BwdSmem<D, C>;
+  uint8_t* smem;
+  const CUtensorMap* maps;
+  uint64_t *full_a, *empty_a, *full_b, *empty_b;
+  int h, lane;
+
+  __device__ __forceinline__ void load_a(int t, int r0) const {
+    wait_empty<C::SA>(empty_a, t);
+    if (lane == 0) {
+      const int s = t % C::SA;
+      uint8_t* st = smem + S::A + s * C::AP * S::PART;
+      sm90::mbar_arrive_expect_tx(&full_a[s], C::AP * S::PART);
+      for (int p = 0; p < C::AP; ++p)
+        for (int b = 0; b < D / 32; ++b)
+          sm90::tma_load_3d(st + p * S::PART + b * C::R * 128, &maps[p], &full_a[s], 32 * b, h,
+                            r0);
+    }
+  }
+  __device__ __forceinline__ void load_b(int t, int r0) const {
+    wait_empty<C::SB>(empty_b, t);
+    if (lane == 0) {
+      const int s = t % C::SB;
+      uint8_t* st = smem + S::B + s * C::BP * S::PART;
+      sm90::mbar_arrive_expect_tx(&full_b[s], C::BP * S::PART);
+      for (int p = 0; p < C::BP; ++p)
+        for (int b = 0; b < C::R / 32; ++b)  // boxes of D rows x 32 columns
+          sm90::tma_load_3d(st + p * S::PART + b * D * 128, &maps[C::B0 + p], &full_b[s],
+                            r0 + 32 * b, h, 0);
+    }
+  }
+  // the barriers, initialised by thread 0
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < C::SA; ++s) {
+      sm90::mbar_init(&full_a[s], 1);
+      sm90::mbar_init(&empty_a[s], kThreadsTC / 32);
+    }
+    for (int s = 0; s < C::SB; ++s) {
+      sm90::mbar_init(&full_b[s], 1);
+      sm90::mbar_init(&empty_b[s], kThreadsTC / 32);
+    }
+    sm90::mbar_fence_init();
+  }
+};
+
+// out[64 x N] = A B^T over D in split TF32 on wgmma, lo hi + hi lo + hi hi a
+// slice: A the warpgroup's resident fragments (frag), split CH slices at a
+// time into a double buffer that the wgmma of two batches back have
+// released, as the f32 forward splits Q; B [N rows][D] hi and lo K-major in
+// shared memory. The small terms and the hi hi terms take accumulators of
+// their own, added in f32. The accumulators start at 0 although the first
+// wgmma could overwrite them: left undefined, their registers were assigned
+// over a live value (a product issued after this one wrote into this one's
+// result); a fence pins the zeros before the first wgmma, or the compiler
+// writes them between wgmma in flight and ptxas waits for those (C7517).
+template <int D, int N, int CH>
+__device__ __forceinline__ void tf32x3_abt(float (&out)[N / 2], const float4* frag, uint32_t b_hi,
+                                           uint32_t b_lo) {
+  constexpr int NS = D / 8;
+  float sm[N / 2], sb[N / 2];
+  uint32_t ah[2][CH][4], al[2][CH][4];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sm[i] = sb[i] = 0.f;
+  sm90::fence_regs(sm);
+  sm90::fence_regs(sb);
+#pragma unroll
+  for (int b = 0; b < NS / CH; ++b) {
+    const int u = b & 1;
+    if (b >= 2) {
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(ah[u]);
+      sm90::fence_regs(al[u]);
+    }
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const float4 f = frag[(CH * b + j) * 128];
+      sm90::split_tf32(f.x, ah[u][j][0], al[u][j][0]);
+      sm90::split_tf32(f.y, ah[u][j][1], al[u][j][1]);
+      sm90::split_tf32(f.z, ah[u][j][2], al[u][j][2]);
+      sm90::split_tf32(f.w, ah[u][j][3], al[u][j][3]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int ks = CH * b + j;
+      const uint64_t hi = sm90::kmajor_desc<D, N, 4>(b_hi, 0, ks);
+      const uint64_t lo = sm90::kmajor_desc<D, N, 4>(b_lo, 0, ks);
+      sm90::wgmma_tf32_rs(sm, al[u][j], hi, 1);
+      sm90::wgmma_tf32_rs(sb, ah[u][j], hi, 1);
+      sm90::wgmma_tf32_rs(sm, ah[u][j], lo, 1);
+    }
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sm);
+  sm90::fence_regs(sb);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    sm90::fence_regs(ah[u]);
+    sm90::fence_regs(al[u]);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) out[i] = sb[i] + sm[i];
+}
+
+// tot[64 x D] += A B over R in split TF32 on wgmma (m64nDk8): A the
+// warpgroup's [64][R] operand as TF32 hi and lo fragments
+// (tf32_frag of an accumulator), B a transposed part pair [D rows][R] hi
+// and lo, K-major. The tile's product takes a fresh accumulator, small
+// terms first, added to tot in f32.
+template <int D, int R>
+__device__ __forceinline__ void tf32x3_ab_add(float (&tot)[D / 2], uint32_t (&ah)[R / 8][4],
+                                              uint32_t (&al)[R / 8][4], uint32_t b_hi,
+                                              uint32_t b_lo) {
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  sm90::fence_regs(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < R / 8; ++i) {
+    sm90::wgmma_tf32_rs(acc, al[i], sm90::kmajor_desc<R, D, 4>(b_hi, 0, i), 1);
+    sm90::wgmma_tf32_rs(acc, ah[i], sm90::kmajor_desc<R, D, 4>(b_lo, 0, i), 1);
+  }
+#pragma unroll
+  for (int i = 0; i < R / 8; ++i)
+    sm90::wgmma_tf32_rs(acc, ah[i], sm90::kmajor_desc<R, D, 4>(b_hi, 0, i), 1);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::fence_regs(ah);
+  sm90::fence_regs(al);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) tot[i] += acc[i];
+}
+
+// rows row_a and row_a + 8 of a [64][D] f32 accumulator fragment to the
+// contiguous [T, H, D] f32 output at head h
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&acc)[D / 2],
+                                               int row_a, int c, int h, int H, int T_len) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = row_a + 8 * half;
+    if (t >= T_len) continue;
+    float* orow = out + (static_cast<int64_t>(t) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i + 2 * c) =
+          make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+  }
+}
+
+
+// f32 dK and dV, in two passes of one kernel (a pass holds one 64-column
+// total a thread, so neither spills): a block per (128 keys, head), each
+// warpgroup 64 keys, whose K (and for dK V) stay as fragments; query tiles
+// of R rows stream from the diagonal. dV: Q (ring A) for S^T, dO^T (ring B)
+// for dV += P^T dO. dK: Q and dO (ring A) for S^T and dP^T, Q^T (ring B)
+// for dK += dS^T Q. The dV pass computes S^T once more, a fifth product for
+// the four of the backward.
+template <int D, bool DV>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ k, int64_t k_rs, int64_t k_hs,
+                            const float* __restrict__ v, int64_t v_rs, int64_t v_hs,
+                            const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+                            const float* __restrict__ di, const int32_t* __restrict__ mask,
+                            float* __restrict__ out, int T_len, int H, float scale, int causal) {
+  using C = DkvCfg<D, DV>;
+  using S = Tf32BwdSmem<D, C>;
+  constexpr int R = C::R, NS = D / 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sbase = sm90::smem_addr(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  const BwdRings<D, C> ring{smem, maps.m, bar, bar + C::SA, bar + 2 * C::SA,
+                            bar + 2 * C::SA + C::SB, static_cast<int>(blockIdx.y),
+                            static_cast<int>(threadIdx.x % 32)};
+
+  const int h = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.x) * kBlockRows;  // key tile 0 has the most work
+  const int qt0 = causal ? k0 / R : 0;  // first query tile at or below the diagonal
+  const int n_it = (T_len + R - 1) / R - qt0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wgi = warp / 4, g = lane / 4, c = lane % 4;
+  const int j_a = k0 + 64 * wgi + 16 * (warp % 4) + g, j_b = j_a + 8;
+
+  if (threadIdx.x == 0) ring.init();
+  float4* kf = reinterpret_cast<float4*>(smem + S::FRAG) + wgi * NS * 128 + threadIdx.x % 128;
+  float4* vf = kf + 2 * NS * 128;
+  load_frags<D>(kf, k, k_rs, k_hs, h, j_a, c, T_len);
+  if (!DV) load_frags<D>(vf, v, v_rs, v_hs, h, j_a, c, T_len);
+  __syncthreads();
+  if (warp == 0) {
+    for (int t = 0; t < C::SA && t < n_it; ++t) ring.load_a(t, (qt0 + t) * R);
+    for (int t = 0; t < C::SB && t < n_it; ++t) ring.load_b(t, (qt0 + t) * R);
+  }
+
+  const bool ok_a = j_a < T_len && (mask == nullptr || mask[j_a] != 0);
+  const bool ok_b = j_b < T_len && (mask == nullptr || mask[j_b] != 0);
+  const float sl2 = scale * kLog2e;  // logits in log2 units
+  float tot[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) tot[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (qt0 + it) * R;
+
+    // S^T = K Q^T (and dP^T = V dO^T): [64 keys][R queries]; then ring A's
+    // stage is refilled
+    const int sa = it % C::SA;
+    wait_full<C::SA>(ring.full_a, it);
+    const uint32_t st = sbase + S::A + sa * C::AP * S::PART;
+    float sc[R / 2], dp[R / 2];
+    tf32x3_abt<D, R, C::CH>(sc, kf, st, st + S::PART);
+    if (!DV) tf32x3_abt<D, R, C::CH>(dp, vf, st + 2 * S::PART, st + 3 * S::PART);
+    if (lane == 0) sm90::mbar_arrive(&ring.empty_a[sa]);
+    if (warp == 0 && it + C::SA < n_it) ring.load_a(it + C::SA, q0 + C::SA * R);
+
+    // P^T = 2^(S^T scale log2 e - lse log2 e) on the allowed pairs (dV),
+    // dS^T = P^T (dP^T - di) scale (dK): key row j keeps the queries q >=
+    // lim (every one off the diagonal, none for a masked or absent key)
+    const bool diag = causal && q0 < k0 + kBlockRows;
+    const int lim_a = !ok_a ? INT_MAX : diag ? j_a : INT_MIN;
+    const int lim_b = !ok_b ? INT_MAX : diag ? j_b : INT_MIN;
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // the query's lse (times log2 e; +inf for an empty or absent row,
+        // so its P is 0) and di, read from a row that exists, then chosen:
+        // no branch on the lane
+        const int qq = q0 + 8 * i + 2 * c + e, qc = min(qq, T_len - 1);
+        const int64_t at = static_cast<int64_t>(h) * T_len + qc;
+        const bool real = qq < T_len && (mask == nullptr || mask[qc] != 0);
+        const float le = real ? lse[at] * kLog2e : INFINITY;
+        float pa = exp2_approx(fmaf(sc[4 * i + e], sl2, -le));
+        float pb = exp2_approx(fmaf(sc[4 * i + 2 + e], sl2, -le));
+        if (qq < lim_a) pa = 0.f;
+        if (qq < lim_b) pb = 0.f;
+        if (DV) {
+          sc[4 * i + e] = pa;
+          sc[4 * i + 2 + e] = pb;
+        } else {
+          const float de = qq < T_len ? di[at] : 0.f;
+          sc[4 * i + e] = (dp[4 * i + e] - de) * pa * scale;
+          sc[4 * i + 2 + e] = (dp[4 * i + 2 + e] - de) * pb * scale;
+        }
+      }
+
+    // dV += P^T dO or dK += dS^T Q: P^T or dS^T split in registers, dO^T or
+    // Q^T hi and lo from ring B, whose stage is then refilled
+    const int sb = it % C::SB;
+    wait_full<C::SB>(ring.full_b, it);
+    const uint32_t bt = sbase + S::B + sb * C::BP * S::PART;
+    uint32_t fh[R / 8][4], fl[R / 8][4];
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i) sm90::tf32_frag(sc, i, fh[i], fl[i]);
+    tf32x3_ab_add<D, R>(tot, fh, fl, bt, bt + S::PART);
+    if (lane == 0) sm90::mbar_arrive(&ring.empty_b[sb]);
+    if (warp == 0 && it + C::SB < n_it) ring.load_b(it + C::SB, q0 + C::SB * R);
+  }
+  store_rows_f32<D>(out, tot, j_a, c, h, H, T_len);
+}
+
+// f32 dQ: 7a with the roles swapped. A block per (128 query rows, head),
+// heaviest causal tiles first, each warpgroup 64 rows, whose Q and dO stay
+// as fragments and whose lse and di stay in registers; key tiles of R rows
+// stream up to the diagonal: K and V (ring A) for S and dP, K^T (ring B)
+// for dQ.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q, int64_t q_rs, int64_t q_hs,
+                           const float* __restrict__ dO, int64_t do_rs, int64_t do_hs,
+                           const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+                           const float* __restrict__ di, const int32_t* __restrict__ mask,
+                           float* __restrict__ dq, int T_len, int H, float scale, int causal) {
+  using C = DqCfg<D>;
+  using S = Tf32BwdSmem<D, C>;
+  constexpr int R = C::R, NS = D / 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sbase = sm90::smem_addr(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  const BwdRings<D, C> ring{smem, maps.m, bar, bar + C::SA, bar + 2 * C::SA,
+                            bar + 2 * C::SA + C::SB, static_cast<int>(blockIdx.y),
+                            static_cast<int>(threadIdx.x % 32)};
+
+  const int n_tiles = (T_len + kBlockRows - 1) / kBlockRows;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int q0 = qt * kBlockRows;
+  const int n_keys = (T_len + R - 1) / R;
+  const int n_kv = causal ? min(n_keys, (q0 + kBlockRows) / R) : n_keys;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wgi = warp / 4, g = lane / 4, c = lane % 4;
+  const int row_a = q0 + 64 * wgi + 16 * (warp % 4) + g, row_b = row_a + 8;
+
+  if (threadIdx.x == 0) ring.init();
+  float4* qf = reinterpret_cast<float4*>(smem + S::FRAG) + wgi * NS * 128 + threadIdx.x % 128;
+  float4* dof = qf + 2 * NS * 128;
+  load_frags<D>(qf, q, q_rs, q_hs, h, row_a, c, T_len);
+  load_frags<D>(dof, dO, do_rs, do_hs, h, row_a, c, T_len);
+  __syncthreads();
+  if (warp == 0) {
+    for (int t = 0; t < C::SA && t < n_kv; ++t) ring.load_a(t, t * R);
+    for (int t = 0; t < C::SB && t < n_kv; ++t) ring.load_b(t, t * R);
+  }
+
+  // this thread's rows' lse (times log2 e; +inf for an empty or absent
+  // row, so its P is 0) and di
+  float L_a = INFINITY, L_b = INFINITY, di_a = 0.f, di_b = 0.f;
+  const int64_t at = static_cast<int64_t>(h) * T_len;
+  if (row_a < T_len) {
+    if (mask == nullptr || mask[row_a] != 0) L_a = lse[at + row_a] * kLog2e;
+    di_a = di[at + row_a];
+  }
+  if (row_b < T_len) {
+    if (mask == nullptr || mask[row_b] != 0) L_b = lse[at + row_b] * kLog2e;
+    di_b = di[at + row_b];
+  }
+  const float sl2 = scale * kLog2e;  // logits in log2 units
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * R;
+    // the tile's keys' bias: 0, or -inf for a masked or absent key
+    float bias[R / 4];
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      const int j = k0 + 8 * (i / 2) + 2 * c + i % 2;
+      bias[i] = j < T_len && (mask == nullptr || mask[min(j, T_len - 1)] != 0) ? 0.f : -INFINITY;
+    }
+
+    // S = Q K^T and dP = dO V^T: [64 rows][R keys]; then ring A's stage is
+    // refilled
+    const int sa = kt % C::SA;
+    wait_full<C::SA>(ring.full_a, kt);
+    const uint32_t st = sbase + S::A + sa * C::AP * S::PART;
+    float sc[R / 2], dp[R / 2];
+    tf32x3_abt<D, R, C::CH>(sc, qf, st, st + S::PART);
+    tf32x3_abt<D, R, C::CH>(dp, dof, st + 2 * S::PART, st + 3 * S::PART);
+    if (lane == 0) sm90::mbar_arrive(&ring.empty_a[sa]);
+    if (warp == 0 && kt + C::SA < n_kv) ring.load_a(kt + C::SA, k0 + C::SA * R);
+
+    // P = 2^(S scale log2 e + bias - lse log2 e) on the allowed pairs, dS =
+    // P (dP - di) scale; under a causal mask warpgroup 0 also runs the diagonal's key
+    // tiles above all its rows (P = 0 there: a branch on the warpgroup
+    // would serialize the wgmma)
+    const bool diag = causal && k0 + R - 1 > q0;  // the block's, not the warpgroup's
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + 8 * i + 2 * c + e;
+        const float be = bias[2 * i + e];
+        float pa = exp2_approx(fmaf(sc[4 * i + e], sl2, be - L_a));
+        float pb = exp2_approx(fmaf(sc[4 * i + 2 + e], sl2, be - L_b));
+        if (diag && j > row_a) pa = 0.f;
+        if (diag && j > row_b) pb = 0.f;
+        dp[4 * i + e] = (dp[4 * i + e] - di_a) * pa * scale;
+        dp[4 * i + 2 + e] = (dp[4 * i + 2 + e] - di_b) * pb * scale;
+      }
+
+    // dQ += dS K: dS split in registers, K^T hi and lo from ring B, whose
+    // stage is then refilled
+    const int sb = kt % C::SB;
+    wait_full<C::SB>(ring.full_b, kt);
+    const uint32_t bt = sbase + S::B + sb * C::BP * S::PART;
+    uint32_t fh[R / 8][4], fl[R / 8][4];
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i) sm90::tf32_frag(dp, i, fh[i], fl[i]);
+    tf32x3_ab_add<D, R>(dq_acc, fh, fl, bt, bt + S::PART);
+    if (lane == 0) sm90::mbar_arrive(&ring.empty_b[sb]);
+    if (warp == 0 && kt + C::SB < n_kv) ring.load_b(kt + C::SB, k0 + C::SB * R);
+  }
+  store_rows_f32<D>(dq, dq_acc, row_a, c, h, H, T_len);
+}
+
+// --- launchers -------------------------------------------------------------------
 
 struct Operand {
   const void* p;
@@ -1469,39 +1624,6 @@ struct Operand {
 
 template <typename T>
 const T* ptr(const Operand& o) { return static_cast<const T*>(o.p); }
-
-template <typename T, int D>
-cudaError_t launch_dkv(Operand q, Operand k, Operand v, Operand dO, const void* lse,
-                       const void* di, const void* mask, void* dk, void* dv, int T_len, int H,
-                       float scale, int causal, cudaStream_t s) {
-  constexpr size_t smem = dkv_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + kTile - 1) / kTile, H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      ptr<T>(q), q.rs, q.hs, ptr<T>(k), k.rs, k.hs, ptr<T>(v), v.rs, v.hs, ptr<T>(dO), dO.rs,
-      dO.hs, static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int32_t*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), T_len, H,
-      scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dO, const void* lse,
-                      const void* di, const void* mask, void* dq, int T_len, int H, float scale,
-                      int causal, cudaStream_t s) {
-  constexpr size_t smem = dq_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + kTile - 1) / kTile, H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      ptr<T>(q), q.rs, q.hs, ptr<T>(k), k.rs, k.hs, ptr<T>(v), v.rs, v.hs, ptr<T>(dO), dO.rs,
-      dO.hs, static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int32_t*>(mask), static_cast<T*>(dq), T_len, H, scale, causal);
-  return cudaGetLastError();
-}
 
 template <typename T, int D>
 cudaError_t launch_fwd_tc(Operand q, Operand k, Operand v, const void* mask, void* out, void* lse,
@@ -1528,7 +1650,8 @@ cudaError_t launch_fwd_tc(Operand q, Operand k, Operand v, const void* mask, voi
 template <typename T, int D>
 cudaError_t launch_dkv_tc(Operand q, Operand k, Operand v, Operand dO, const void* lse,
                           const void* di, const void* mask, void* dk, void* dv, int T_len, int H,
-                          float scale, int causal, cudaStream_t s) {
+                          float scale, int causal, cudaStream_t s,
+                          void* /*scratch: the f32 route's*/) {
   static_assert(std::is_same<T, bf16>::value, "the tensor-core route is bf16");
   constexpr int cols = sm90::Tile<D>::COLS;
   CUtensorMap qm, km, vm, dom;
@@ -1552,7 +1675,8 @@ cudaError_t launch_dkv_tc(Operand q, Operand k, Operand v, Operand dO, const voi
 template <typename T, int D>
 cudaError_t launch_dq_tc(Operand q, Operand k, Operand v, Operand dO, const void* lse,
                          const void* di, const void* mask, void* dq, int T_len, int H,
-                         float scale, int causal, cudaStream_t s) {
+                         float scale, int causal, cudaStream_t s,
+                         void* /*scratch: the f32 route's*/) {
   static_assert(std::is_same<T, bf16>::value, "the tensor-core route is bf16");
   constexpr int cols = sm90::Tile<D>::COLS;
   CUtensorMap qm, km, vm, dom;
@@ -1607,6 +1731,88 @@ cudaError_t launch_fwd_tf32x3(Operand q, Operand k, Operand v, const void* mask,
   return cudaGetLastError();
 }
 
+// The f32 backward's split operands in the caller's scratch (parts of H
+// T_pad D floats, split_bwd_tf32_kernel): tensor maps of the four row parts
+// (boxes of R rows x 32 columns) and of the n_t transposed ones (boxes of
+// D rows x 32 columns); rows past T read as zeros.
+template <int D, int R>
+bool encode_bwd_maps(BwdMaps& maps, float* split, int T_pad, int H, int n_t) {
+  const long long head = static_cast<long long>(T_pad) * D, part = H * head;
+  for (int i = 0; i < kBwdRowParts; ++i)
+    if (!sm90::encode_rows_map(&maps.m[i], split + i * part, T_pad, H, D, D, head, R, 32, 4))
+      return false;
+  for (int i = kBwdRowParts; i < kBwdRowParts + n_t; ++i)
+    if (!sm90::encode_rows_map(&maps.m[i], split + i * part, D, H, T_pad, T_pad, head, D, 32, 4))
+      return false;
+  return true;
+}
+
+// f32 dK/dV: Q and dO split into the scratch (8 parts), then the dV and
+// the dK pass of the split-TF32 kernel.
+template <typename T, int D>
+cudaError_t launch_dkv_tf32x3(Operand q, Operand k, Operand v, Operand dO, const void* lse,
+                              const void* di, const void* mask, void* dk, void* dv, int T_len,
+                              int H, float scale, int causal, cudaStream_t s, void* scratch) {
+  static_assert(std::is_same<T, float>::value, "the split-TF32 route is f32");
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int T_pad = (T_len + kBwdPad - 1) / kBwdPad * kBwdPad;
+  float* split = static_cast<float*>(scratch);
+  BwdMaps maps[2];  // the dV pass's 64-row tiles, the dK pass's 32-row ones
+  if (!encode_bwd_maps<D, DkvCfg<D, true>::R>(maps[0], split, T_pad, H, 4) ||
+      !encode_bwd_maps<D, DkvCfg<D, false>::R>(maps[1], split, T_pad, H, 4))
+    return cudaErrorInvalidValue;
+  split_bwd_tf32_kernel<D><<<dim3(T_pad / 32, H), kThreads, 0, s>>>(
+      ptr<float>(q), q.rs, q.hs, ptr<float>(dO), dO.rs, dO.hs, split, T_len, T_pad, 1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T_len + kBlockRows - 1) / kBlockRows, H);
+  void* outs[2] = {dv, dk};
+  for (int pass = 0; pass < 2; ++pass) {
+    auto kernel = pass == 0 ? flash_bwd_dkv_tf32x3_kernel<D, true>
+                            : flash_bwd_dkv_tf32x3_kernel<D, false>;
+    const int smem = pass == 0 ? Tf32BwdSmem<D, DkvCfg<D, true>>::BYTES
+                               : Tf32BwdSmem<D, DkvCfg<D, false>>::BYTES;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreadsTC, smem, s>>>(
+        ptr<float>(k), k.rs, k.hs, ptr<float>(v), v.rs, v.hs, maps[pass],
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<const int32_t*>(mask), static_cast<float*>(outs[pass]), T_len, H, scale,
+        causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// f32 dQ: K and V split into the scratch (6 parts), then the split-TF32
+// kernel.
+template <typename T, int D>
+cudaError_t launch_dq_tf32x3(Operand q, Operand k, Operand v, Operand dO, const void* lse,
+                             const void* di, const void* mask, void* dq, int T_len, int H,
+                             float scale, int causal, cudaStream_t s, void* scratch) {
+  static_assert(std::is_same<T, float>::value, "the split-TF32 route is f32");
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int T_pad = (T_len + kBwdPad - 1) / kBwdPad * kBwdPad;
+  float* split = static_cast<float*>(scratch);
+  BwdMaps maps;
+  if (!encode_bwd_maps<D, DqCfg<D>::R>(maps, split, T_pad, H, 2)) return cudaErrorInvalidValue;
+  split_bwd_tf32_kernel<D><<<dim3(T_pad / 32, H), kThreads, 0, s>>>(
+      ptr<float>(k), k.rs, k.hs, ptr<float>(v), v.rs, v.hs, split, T_len, T_pad, 0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  constexpr int smem = Tf32BwdSmem<D, DqCfg<D>>::BYTES;
+  e = cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T_len + kBlockRows - 1) / kBlockRows, H);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, kThreadsTC, smem, s>>>(
+      ptr<float>(q), q.rs, q.hs, ptr<float>(dO), dO.rs, dO.hs, maps,
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<const int32_t*>(mask), static_cast<float*>(dq), T_len, H, scale, causal);
+  return cudaGetLastError();
+}
+
 // Calls F32<float, D>(args...) or BF16<__nv_bfloat16, D>(args...) for the
 // runtime dtype and head width; an unsupported pair is cudaErrorInvalidValue.
 #define DG_DISPATCH(F32, BF16, dtype, D, ...)                                   \
@@ -1647,34 +1853,40 @@ int dg_flash_attention_fwd(const void* q, long long q_rs, long long q_hs, const 
 }
 
 // dk, dv [T, H, D] (contiguous, input dtype) from q, k, v, do [T, H, D]
-// (strided as above), lse and di [H, T] f32 and the mask of the forward.
+// (strided as above), lse and di [H, T] f32 and the mask of the forward. In
+// float32 `scratch` holds 8 H T_pad D floats (T_pad = T rounded up to 32),
+// 16-byte aligned, for Q and dO split into TF32, as rows and transposed (it
+// is not read in bfloat16 and may be null there).
 int dg_flash_attention_bwd_dkv(const void* q, long long q_rs, long long q_hs, const void* k,
                                long long k_rs, long long k_hs, const void* v, long long v_rs,
                                long long v_hs, const void* dO, long long do_rs,
                                long long do_hs, const void* lse, const void* di,
                                const void* mask, void* dk, void* dv, int T, int H, int D,
-                               float scale, int causal, int dtype, void* stream) {
+                               float scale, int causal, int dtype, void* stream,
+                               void* scratch) {
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
-  DG_DISPATCH(launch_dkv, launch_dkv_tc, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
-              Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dk, dv, T, H,
-              scale, causal, s);
+  DG_DISPATCH(launch_dkv_tf32x3, launch_dkv_tc, dtype, D, Operand{q, q_rs, q_hs},
+              Operand{k, k_rs, k_hs}, Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di,
+              mask, dk, dv, T, H, scale, causal, s, scratch);
 }
 
-// dq [T, H, D] (contiguous, input dtype) from the same operands.
+// dq [T, H, D] (contiguous, input dtype) from the same operands; in float32
+// `scratch` holds 6 H T_pad D floats for K and V split into TF32 as rows,
+// and K transposed.
 int dg_flash_attention_bwd_dq(const void* q, long long q_rs, long long q_hs, const void* k,
                               long long k_rs, long long k_hs, const void* v, long long v_rs,
                               long long v_hs, const void* dO, long long do_rs, long long do_hs,
                               const void* lse, const void* di, const void* mask, void* dq,
                               int T, int H, int D, float scale, int causal, int dtype,
-                              void* stream) {
+                              void* stream, void* scratch) {
   if (T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cudaError_t e = bind_device_of(q)) return static_cast<int>(e);
-  DG_DISPATCH(launch_dq, launch_dq_tc, dtype, D, Operand{q, q_rs, q_hs}, Operand{k, k_rs, k_hs},
-              Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di, mask, dq, T, H,
-              scale, causal, s);
+  DG_DISPATCH(launch_dq_tf32x3, launch_dq_tc, dtype, D, Operand{q, q_rs, q_hs},
+              Operand{k, k_rs, k_hs}, Operand{v, v_rs, v_hs}, Operand{dO, do_rs, do_hs}, lse, di,
+              mask, dq, T, H, scale, causal, s, scratch);
 }
 
 }  // extern "C"

@@ -75,17 +75,18 @@ SIGNATURES = {
             _c.c_void_p, _c.c_void_p,
         ),
         # q, k, v, do (pointer, row stride, head stride), lse, di, mask, dk,
-        # dv, T, H, D, scale, causal, dtype, stream
+        # dv, T, H, D, scale, causal, dtype, stream, scratch (f32: Q and dO
+        # split into TF32)
         "dg_flash_attention_bwd_dkv": (
             *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 4, _c.c_void_p, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float,
-            _c.c_int, _c.c_int, _c.c_void_p,
+            _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p,
         ),
-        # as dkv with one output, dq
+        # as dkv with one output, dq (f32 scratch: K and V split into TF32)
         "dg_flash_attention_bwd_dq": (
             *(_c.c_void_p, _c.c_longlong, _c.c_longlong) * 4, _c.c_void_p, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int,
-            _c.c_int, _c.c_void_p,
+            _c.c_int, _c.c_void_p, _c.c_void_p,
         ),
     },
     "p2p_transport": {

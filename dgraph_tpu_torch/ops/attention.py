@@ -4,8 +4,8 @@ and the autograd Function.
 Counterpart of ``_flash_dense`` (``dgraph_tpu/parallel/sequence.py:284-310``)
 and of the library kernel it calls, ``jax.experimental.pallas.ops.tpu.
 flash_attention``, whose three ``pl.pallas_call``s become three CUDA kernels
-(``csrc/flash_attention.cu``, design notes there; in bf16 all three and in
-f32 the forward run on the tensor cores, the f32 forward in split TF32):
+(``csrc/flash_attention.cu``, design notes there; all three run on the
+tensor cores, bf16 in bf16 and f32 in split TF32 at f32 accuracy):
 
 - :func:`flash_attention_fwd` replaces ``_flash_attention_kernel``
   (flash_attention.py:331): ``O = softmax(scale·QKᵀ + mask)·V`` and the
@@ -182,7 +182,8 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     copy. In place: unit stride over D, row and head strides in whole
     16-byte groups (4 f32 or 8 bf16 elements) and a 16-byte aligned base.
     In bf16 that is what TMA asks of a tensor map (the tensor-core kernels);
-    in f32 it is the CUDA-core kernels' 16-byte loads. The LM's q, k and v
+    in f32 the kernels' split pre-passes and fragment loads read the
+    operands element by element, and the rule is kept. The LM's q, k and v
     (column slices of one ``[T, 3L]`` tensor) and its cotangents pass as
     they are."""
     group = 16 // t.element_size()
@@ -237,6 +238,24 @@ def _split_scratch(T: int, H: int, D: int, dtype, device) -> Optional[torch.Tens
     return torch.empty(4 * H * t_pad * D, dtype=torch.float32, device=device)
 
 
+# parts of the f32 backward's scratch: Q and dO (dK/dV) or K and V (dQ)
+# split into TF32 hi and lo as rows, and transposed (Q and dO; K)
+BWD_SCRATCH_PARTS = {"dkv": 8, "dq": 6}
+
+
+def _bwd_scratch(kernel: str, T: int, H: int, D: int, dtype, device) -> Optional[torch.Tensor]:
+    """The f32 backward kernel's scratch, where its pre-pass writes the
+    operands it streams split into TF32 (``dg_flash_attention_bwd_dkv``,
+    ``_dq``): ``BWD_SCRATCH_PARTS[kernel]·H·T_pad·D`` floats, ``T_pad`` = T
+    rounded up to 32; None in bf16, whose kernels read the operands in
+    place."""
+    if dtype != torch.float32:
+        return None
+    t_pad = -(-T // 32) * 32
+    return torch.empty(BWD_SCRATCH_PARTS[kernel] * H * t_pad * D, dtype=torch.float32,
+                       device=device)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, scale: Optional[float] = None,
                         kv_mask: Optional[torch.Tensor] = None):
@@ -284,11 +303,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = False,
     mask = _mask32(kv_mask, T, q.device)
     dk = torch.empty((T, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    scratch = _bwd_scratch("dkv", T, H, D, q.dtype, q.device)
     lib = _build.load("flash_attention")
     rc = lib.dg_flash_attention_bwd_dkv(
         *_strided(q), *_strided(k), *_strided(v), *_strided(do), lse.data_ptr(),
         di.data_ptr(), _ptr(mask), dk.data_ptr(), dv.data_ptr(), T, H, D, _scale(scale, D),
-        int(causal), _KERNEL_DTYPES[q.dtype], _stream(),
+        int(causal), _KERNEL_DTYPES[q.dtype], _stream(), _ptr(scratch),
     )
     _build.check(rc, "dg_flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
@@ -308,11 +328,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = False,
     lse, di = lse.contiguous(), di.contiguous()
     mask = _mask32(kv_mask, T, q.device)
     dq = torch.empty((T, H, D), dtype=q.dtype, device=q.device)
+    scratch = _bwd_scratch("dq", T, H, D, q.dtype, q.device)
     lib = _build.load("flash_attention")
     rc = lib.dg_flash_attention_bwd_dq(
         *_strided(q), *_strided(k), *_strided(v), *_strided(do), lse.data_ptr(),
         di.data_ptr(), _ptr(mask), dq.data_ptr(), T, H, D, _scale(scale, D), int(causal),
-        _KERNEL_DTYPES[q.dtype], _stream(),
+        _KERNEL_DTYPES[q.dtype], _stream(), _ptr(scratch),
     )
     _build.check(rc, "dg_flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1

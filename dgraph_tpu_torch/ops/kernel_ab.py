@@ -60,12 +60,21 @@ def build_tree(csrc: Path, tag: str) -> dict:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = list(argtypes)
         if name == "flash_attention":
-            # a tree from before the f32 forward's scratch argument (the last)
-            lib.takes_scratch = "void* scratch" in (csrc / _build.SOURCES[name]).read_text()
-            if not lib.takes_scratch:
-                lib.dg_flash_attention_fwd.argtypes = lib.dg_flash_attention_fwd.argtypes[:-1]
+            # a tree from before an entry point's scratch argument (the last)
+            text = (csrc / _build.SOURCES[name]).read_text()
+            lib.scratch_entries = {fn for fn in _build.SIGNATURES[name]
+                                   if takes_scratch(text, fn)}
+            for fn in set(_build.SIGNATURES[name]) - lib.scratch_entries:
+                getattr(lib, fn).argtypes = getattr(lib, fn).argtypes[:-1]
         libs[name] = lib
     return libs
+
+
+def takes_scratch(text: str, entry: str) -> bool:
+    """Whether C entry point ``entry`` of source ``text`` takes a scratch
+    pointer (the f32 split-TF32 kernels' last argument)."""
+    sig = text[text.index(f"int {entry}("):]
+    return "void* scratch" in sig[:sig.index(")")]
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -126,7 +135,9 @@ def entry_calls(dtype):
 
 def attention_calls(dtype):
     """As :func:`entry_calls` for the three flash-attention entry points at
-    the lm_flash shape (causal); an output may be a tuple of tensors."""
+    the lm_flash shape (causal); an output may be a tuple of tensors, and
+    each entry's scratch (None in bf16) follows the stream where the tree's
+    entry point takes one."""
     import math
 
     import torch
@@ -147,20 +158,23 @@ def attention_calls(dtype):
     out, dq, dk, dv = (torch.empty(T, H, D, device=dev, dtype=dtype) for _ in range(4))
     lse_o = torch.empty(H, T, device=dev)
     scratch = att._split_scratch(T, H, D, dtype, dev)
+    dkv_scratch, dq_scratch = (att._bwd_scratch(kind, T, H, D, dtype, dev)
+                               for kind in ("dkv", "dq"))
     code, scale = seg._KERNEL_DTYPES[dtype], 1.0 / math.sqrt(D)
     s = lambda t: (t.data_ptr(), t.stride(0), t.stride(1))  # noqa: E731
     qkv_args = (*s(q), *s(k), *s(v))
     rest = (*s(do), lse.data_ptr(), di.data_ptr(), None)
-    keep = (qkv, do, lse, di, scratch)
+    keep = (qkv, do, lse, di, scratch, dkv_scratch, dq_scratch)
     return keep, {
         "flash_attention_fwd": ("flash_attention", "dg_flash_attention_fwd", (out, lse_o),
                                 (*qkv_args, None, out.data_ptr(), lse_o.data_ptr(), T, H, D,
                                  scale, 1, code), (att._ptr(scratch),)),
         "flash_attention_bwd_dkv": ("flash_attention", "dg_flash_attention_bwd_dkv", (dk, dv),
                                     (*qkv_args, *rest, dk.data_ptr(), dv.data_ptr(), T, H, D,
-                                     scale, 1, code)),
+                                     scale, 1, code), (att._ptr(dkv_scratch),)),
         "flash_attention_bwd_dq": ("flash_attention", "dg_flash_attention_bwd_dq", (dq,),
-                                   (*qkv_args, *rest, dq.data_ptr(), T, H, D, scale, 1, code)),
+                                   (*qkv_args, *rest, dq.data_ptr(), T, H, D, scale, 1, code),
+                                   (att._ptr(dq_scratch),)),
     }
 
 
@@ -179,7 +193,7 @@ def compare(old: Path, new: Path) -> list:
                 for tag, tree in libs.items():
                     lib = tree.get(src)
                     if lib is not None and hasattr(lib, entry):
-                        t = tail[0] if tail and lib.takes_scratch else ()
+                        t = tail[0] if entry in getattr(lib, "scratch_entries", ()) else ()
                         fns[tag] = lambda f=getattr(lib, entry), a=args, t=t: f(*a, stream, *t)
                 if "new" not in fns:
                     continue

@@ -317,3 +317,22 @@ def test_operand_rule_passes_lm_slices_and_copies_the_rest(dtype):
     assert copied is not odd and copied.is_contiguous() and torch.equal(copied, odd)
     wide = torch.zeros(T, L + 4, dtype=dtype)[:, :L].reshape(T, H, D)  # row stride L + 4
     assert (att._operand(wide) is wide) == (dtype == torch.float32)
+
+
+@pytest.mark.parametrize("T", [1, 33, 200])
+def test_split_tf32_scratches_are_sized_for_f32_only(T):
+    """The f32 kernels' scratch, where their pre-passes write operands split
+    into TF32, T_pad = T rounded up to 32: the forward's 4·H·T_pad·D floats
+    (K hi, K lo, V^T hi, V^T lo), dK/dV's 8·H·T_pad·D (Q and dO hi and lo,
+    as rows and transposed), dQ's 6·H·T_pad·D (K and V as rows, K
+    transposed); None in bf16, whose kernels read the operands in place."""
+    H, D = 2, 64
+    t_pad = -(-T // 32) * 32
+    fwd = att._split_scratch(T, H, D, torch.float32, "cpu")
+    dkv = att._bwd_scratch("dkv", T, H, D, torch.float32, "cpu")
+    dq = att._bwd_scratch("dq", T, H, D, torch.float32, "cpu")
+    assert fwd.dtype == dkv.dtype == dq.dtype == torch.float32
+    assert (fwd.numel(), dkv.numel(), dq.numel()) == tuple(n * H * t_pad * D for n in (4, 8, 6))
+    assert att._split_scratch(T, H, D, torch.bfloat16, "cpu") is None
+    assert all(att._bwd_scratch(kind, T, H, D, torch.bfloat16, "cpu") is None
+               for kind in ("dkv", "dq"))

@@ -389,8 +389,9 @@ def test_flash_attention_reads_strided_operands(dev, dtype, pad, in_place):
     layout) go to the kernels in place where the row stride meets the
     dtype's rule (f32: whole groups of 4 elements, so 3L + 4 reads in place;
     bf16, TMA's: whole 16-byte groups, so 3L + 8 does and 3L + 4 is
-    copied); a slice off by one column is copied first. The forward's and
-    dQ's results are the contiguous inputs' bit for bit."""
+    copied); a slice off by one column is copied first. The three kernels'
+    results are the contiguous inputs' bit for bit (in f32 the backward
+    kernels' pre-passes read the slices in place)."""
     from dgraph_tpu_torch.ops import attention as att
 
     T, H, D = 300, 4, 64
@@ -407,6 +408,9 @@ def test_flash_attention_reads_strided_operands(dev, dtype, pad, in_place):
         di = att.row_dot(want[0], do)
         assert torch.equal(att.flash_attention_bwd_dq(q, k, v, do, want[1], di, causal=True),
                            att.flash_attention_bwd_dq(qc, kc, vc, do, want[1], di, causal=True))
+        assert all(torch.equal(a, b) for a, b in zip(
+            att.flash_attention_bwd_dkv(q, k, v, do, want[1], di, causal=True),
+            att.flash_attention_bwd_dkv(qc, kc, vc, do, want[1], di, causal=True)))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -468,6 +472,39 @@ def test_flash_attention_f32_forward_split_tf32_at_tile_edges(dev, D, T, causal)
         assert torch.equal(again[0], out) and torch.equal(again[1], lse)
         if mask == "all":
             assert not out.any() and not lse.any()
+
+
+# the f32 backward's limit (chip_smoke.py F32_BWD_TOL); at these lengths the
+# f32 plain version is accurate enough to be the reference
+F32_BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_f32_backward_split_tf32_at_tile_edges(dev, D, T, causal):
+    """The f32 dK/dV and dQ (split TF32 on the tensor cores: 128 key or
+    query rows a block, 64 a warpgroup, 32-row streamed tiles) against their
+    plain versions within F32_BWD_TOL at T around those tiles and, from T =
+    40 on, with a padded tail of 37 and with every key masked (zero
+    gradients); two launches give the same bits. Odd T runs one head (a
+    size-1 head dimension in the tensor maps)."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    q, k, v, do = _att_inputs(T, 1 if T % 2 else 2, D, torch.float32, dev, seed=T)
+    for mask in ("none",) if T < 40 else ("none", "tail", "all"):
+        kw = dict(causal=causal, kv_mask=_att_mask(mask, T, dev))
+        out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+        args = (q, k, v, do, lse_p, att.row_dot(out_p, do))
+        got = (*att.flash_attention_bwd_dkv(*args, **kw), att.flash_attention_bwd_dq(*args, **kw))
+        want = (*att.flash_attention_bwd_dkv_plain(*args, **kw),
+                att.flash_attention_bwd_dq_plain(*args, **kw))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=F32_BWD_TOL)
+        again = (*att.flash_attention_bwd_dkv(*args, **kw), att.flash_attention_bwd_dq(*args, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if mask == "all":
+            assert not any(g.any() for g in got)
 
 
 def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):
