@@ -18,7 +18,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the bound (bytes over HBM bandwidth or operations over the peak for the
    type, the larger). The five sorted-id kernels at the training shape (the
    arxiv-width GCN plan: E ~ 2.33 M edges, F = 128 per feature chunk,
-   N = 169,344 rows) and at edge cases (padded out-of-range ids, empty
+   N = 169,344 rows; the segment sum also at F = 1, GAT's softmax
+   denominator) and at edge cases (padded out-of-range ids, empty
    segments, a 3000-edge hub, F in {1, 33, 128, 256}, strided and unaligned
    column slices); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
@@ -32,8 +33,17 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    and the f32 backward to F32_BWD_TOL (of the plain backward evaluated in
    float64; also at the tile edges, against the f32 plain version, and in
    the slices), each against a control that must exceed it; the f32 dK/dV and
-   dQ kernels' sum against SDPA's f32 backward; then the autograd
-   Function's gradients against autograd of the plain version;
+   dQ kernels' sum against SDPA's f32 backward; at the graph transformer's
+   shape (H = 4, D = 32, non-causal, a key mask with padded slots) at
+   T = 16,384, in place and as column slices of one [T, 3L] tensor, f32
+   and bf16, with the same limits and controls, then at T = 169,344
+   (gt_arxiv's slots, the last one padded), where the plain version cannot
+   run (its [H, T, T] scores would take 459 GB): dK/dV and dQ at 512
+   sampled rows against the plain backward evaluated there in float64 (f32
+   to F32_BWD_TOL, bf16 to GT_BLOCK_REL_TOL, each against its control),
+   every real row's against SDPA's gradients, the padded slot's zero, and
+   each kernel timed beside SDPA on the 169,343 real rows; then the
+   autograd Function's gradients against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
    H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
    mixed-size requests through the MicroBatcher; served rows must equal
@@ -95,6 +105,27 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    eval); step 0's loss and gradients match a 4-rank gloo run on the CPU
    within 1e-4; the loss falls; the ranks' parameters are bit-equal at the
    end; step ms p50/p99 and the device-busy share per rank;
+10. train ogb_gcn --model gt and --model gat — ``python -m
+   dgraph_tpu_torch.train``'s ``main`` on phase 7's arxiv-width graph at
+   the CLI's defaults (hidden 128, 2 layers, 4 heads, Adam 5e-3; gt_arxiv
+   and gat_arxiv of ``train.profile``). The graph transformer, f32: 1
+   warm-up and 4 timed steps; every step launches the forward, dK/dV and dQ
+   attention kernels once a layer (T = 169,344, D = 32, non-causal, the
+   padded slot masked) and kernel 2 three times a layer, an eval forward
+   the forward kernel and kernel 2 once a layer; the loss falls; layer 0's
+   attention output for 512 query rows (the first 128, the last 128 with
+   the padded slot, 256 drawn from a seed) within F32_FWD_TOL of the plain
+   attention of those rows over every key in float64, which a TF32 control
+   must exceed; step 0's loss and every gradient against the CPU plain path
+   within 1e-4 at V = 4096 (the CPU's [H, T, T] scores at full size would
+   take 459 GB); then the same run in bf16: the same launches, a falling
+   loss, step 0's loss within 2e-2 of the f32 run's. GAT, f32: 2 warm-up
+   and 10 timed steps; every step launches kernel 2 six times a head group
+   and layer (four groups of one head), an eval forward twice; the loss
+   falls; the CLI's model before its first step (``build_training``)
+   matches a CPU copy's plain forward at full size within 1e-4, and step 0's loss and gradients match the CPU
+   plain path within 1e-4 at V = 16,384. Each run reports step ms p50/p99,
+   the device-busy share and the peak device memory;
 then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
@@ -106,6 +137,7 @@ seeds. Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import os
@@ -149,6 +181,20 @@ F32_FWD_TOL = 1e-5
 # must exceed it
 F32_BWD_TOL = 1e-5
 LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
+# the graph transformer's attention (gt_arxiv: hidden 128, 4 heads) over
+# ogbn-arxiv's 169,343 vertices in 169,344 slots, non-causal, the padded
+# slot masked; its kernels are held to their plain versions at GT_CHECK_T
+# (the plain [H, T, T] scores at GT_T would take 459 GB) and timed at GT_T
+GT_T, GT_H, GT_D = 169344, 4, 32
+GT_CHECK_T = 16384
+GT_REPS = 3  # timed calls at GT_T: an f32 call takes a good part of a second
+# at GT_T the bf16 dK/dV and dQ at the sampled rows (gt_rows) against the
+# plain backward evaluated in float64 (sampled_bwd_f64), by block_rel_err:
+# there a dropped 64-row tile is one of 2,646 and moves a sampled block by
+# only about 3 % (PERF.md), as much as BLOCK_REL_TOL, while the bf16
+# rounding of the outputs alone reads about 0.3 %. The limit lies between;
+# the dropped-tile controls are read in every run and must exceed it
+GT_BLOCK_REL_TOL = 1e-2
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
 # lm_flash's bf16 step-0 loss against the f32 run's on the same weights and
@@ -452,7 +498,6 @@ def phase_kernels(graph) -> dict:
     w = graph.edge_weight[0].to(dev)
     e_pad = ids.shape[0]
     e_valid = int((ids < n).sum())
-    F = 128
     records = []
     worst = {}
 
@@ -460,13 +505,19 @@ def phase_kernels(graph) -> dict:
         key = (kernel, dtype_name)
         worst[key] = max(worst.get(key, 0.0), err)
 
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    # every kernel at F = 128 (a feature chunk), and kernel 2 also at F = 1
+    # (GAT's softmax denominator, a sum over each vertex's edges)
+    for (dtype_name, dtype), (F, only) in itertools.product(
+            (("float32", torch.float32), ("bfloat16", torch.bfloat16)),
+            ((128, None), (1, ("sorted_segment_sum", "none")))):
         data = torch.randn(e_pad, F, generator=gen, device=dev).to(dtype)
         bias = torch.randn(n, F, generator=gen, device=dev).to(dtype)
         g = torch.randn(n, F, generator=gen, device=dev).to(dtype)
         b = data.element_size()
         for kernel, cases in kernel_cases(seg, data, ids, bias, n, w, g=g).items():
             for tag, run, plain in cases:
+                if only is not None and (kernel, tag) != only:
+                    continue
                 name = " ".join(x for x in (kernel, dtype_name, tag, f"F={F}") if x)
                 got = run()
                 want = plain()
@@ -563,28 +614,32 @@ def attention_bound(kernel, dtype_name, nbytes, ops) -> dict:
     return rec
 
 
-def tf32_control(att, q, k, v, out, lse) -> float:
-    """The plain forward on q, k and v truncated to TF32 (the low 13
-    mantissa bits cleared) against the plain forward (``out``, ``lse``):
-    the largest absolute difference over O and lse, the reading TF32
-    products would give."""
+def tf32_trunc(x):
+    """``x`` (f32) truncated to TF32: the low 13 mantissa bits cleared."""
     import torch
 
-    trunc = lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32)  # noqa: E731
-    o_t, lse_t = att.flash_attention_fwd_plain(trunc(q), trunc(k), trunc(v), causal=True)
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_control(att, q, k, v, out, lse, causal=True, kv_mask=None) -> float:
+    """The plain forward on q, k and v truncated to TF32 against the plain
+    forward (``out``, ``lse``): the largest absolute difference over O and
+    lse, the reading TF32 products would give."""
+    o_t, lse_t = att.flash_attention_fwd_plain(tf32_trunc(q), tf32_trunc(k), tf32_trunc(v),
+                                               causal=causal, kv_mask=kv_mask)
     return max(max_err(o_t, out), max_err(lse_t, lse))
 
 
-def plain_bwd_f64(att, q, k, v, do, lse, di) -> tuple:
-    """The plain backward's formula (causal, no mask) evaluated in float64
-    from the same f32 inputs, lse and di: (dK, dV, dQ) as f64."""
+def plain_bwd_f64(att, q, k, v, do, lse, di, causal=True, kv_mask=None) -> tuple:
+    """The plain backward's formula evaluated in float64 from the same f32
+    inputs, lse and di: (dK, dV, dQ) as f64."""
     import torch
 
     q, k, v, do, lse, di = (t.double() for t in (q, k, v, do, lse, di))
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("thd,shd->hts", q, k) * scale
-    p = torch.where(att._allowed(q.shape[0], True, None, q.device), torch.exp(s - lse[..., None]),
-                    0.0)
+    p = torch.where(att._allowed(q.shape[0], causal, kv_mask, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
     del s
     dv = torch.einsum("hts,thd->shd", p, do)
     ds = (torch.einsum("thd,shd->hts", do, v) - di[..., None]) * p * scale
@@ -592,18 +647,16 @@ def plain_bwd_f64(att, q, k, v, do, lse, di) -> tuple:
     return torch.einsum("hts,thd->shd", ds, q), dv, torch.einsum("hts,shd->thd", ds, k)
 
 
-def tf32_bwd_control(att, q, k, v, do, ref) -> float:
-    """The plain backward (dK, dV, dQ; causal) on q, k, v and dO truncated
-    to TF32, with the plain forward's lse and di, against ``ref``
-    (plain_bwd_f64 on the full inputs): the largest absolute difference,
-    the reading TF32 products would give."""
-    import torch
-
-    trunc = lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32)  # noqa: E731
-    out, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
-    ins = (*(trunc(t) for t in (q, k, v, do)), lse, att.row_dot(out, do))
-    got = (*att.flash_attention_bwd_dkv_plain(*ins, causal=True),
-           att.flash_attention_bwd_dq_plain(*ins, causal=True))
+def tf32_bwd_control(att, q, k, v, do, ref, causal=True, kv_mask=None) -> float:
+    """The plain backward (dK, dV, dQ) on q, k, v and dO truncated to TF32,
+    with the plain forward's lse and di, against ``ref`` (plain_bwd_f64 on
+    the full inputs): the largest absolute difference, the reading TF32
+    products would give."""
+    kw = dict(causal=causal, kv_mask=kv_mask)
+    out, lse = att.flash_attention_fwd_plain(q, k, v, **kw)
+    ins = (*(tf32_trunc(t) for t in (q, k, v, do)), lse, att.row_dot(out, do))
+    got = (*att.flash_attention_bwd_dkv_plain(*ins, **kw),
+           att.flash_attention_bwd_dq_plain(*ins, **kw))
     return max(max_err(g, w) for g, w in zip(got, ref))
 
 
@@ -637,32 +690,34 @@ def check_attention(name, got, want, dtype_name) -> float:
     return err
 
 
-def block_controls(att, q, k, v, do) -> dict:
-    """{kernel: block_rel_err reading of a fault} at the lm_flash shape
-    (causal), from the plain versions: the forward reading a stale V tile,
+def block_controls(att, q, k, v, do, causal=True, kv_mask=None) -> dict:
+    """{kernel: block_rel_err reading of a fault} from the plain versions
+    (at the lm_flash shape, causal; at the graph transformer's, with its
+    key mask): the forward reading a stale V tile,
     keys [T - 384, T - 256) in place of [T - 256, T - 128) (a ring stage
     slip that lse does not see, and that only the last two query blocks
     read); dK/dV with the query tile [T/2, T/2 + 64) dropped (its dO and di
     rows zeroed), the smaller reading of dK's and dV's; dQ with the key tile
     [T/2, T/2 + 64) left out of dS K (those K rows zeroed)."""
     T = q.shape[0]
+    kw = dict(causal=causal, kv_mask=kv_mask)
     do_full = do
-    out, lse = att.flash_attention_fwd_plain(q, k, v, causal=True)
+    out, lse = att.flash_attention_fwd_plain(q, k, v, **kw)
     stale = v.clone()
     stale[T - 256:T - 128] = v[T - 384:T - 256]
-    fwd = block_rel_err(att.flash_attention_fwd_plain(q, k, stale, causal=True)[0], out)
+    fwd = block_rel_err(att.flash_attention_fwd_plain(q, k, stale, **kw)[0], out)
     di = att.row_dot(out, do)
-    want = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
+    want = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
     do, di = do.clone(), di.clone()
     do[T // 2:T // 2 + 64] = 0
     di[:, T // 2:T // 2 + 64] = 0  # di is [H, T]
-    got = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
+    got = att.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
     dkv = min(block_rel_err(g, w) for g, w in zip(got, want))
     di = att.row_dot(out, do_full)
-    want = att.flash_attention_bwd_dq_plain(q, k, v, do_full, lse, di, causal=True)
+    want = att.flash_attention_bwd_dq_plain(q, k, v, do_full, lse, di, **kw)
     k_out = k.clone()
     k_out[T // 2:T // 2 + 64] = 0  # those keys' dS is changed too, but meets zero rows
-    got = att.flash_attention_bwd_dq_plain(q, k_out, v, do_full, lse, di, causal=True)
+    got = att.flash_attention_bwd_dq_plain(q, k_out, v, do_full, lse, di, **kw)
     return {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": dkv,
             "flash_attention_bwd_dq": block_rel_err(got, want)}
 
@@ -879,6 +934,8 @@ def phase_attention() -> dict:
         del do
         torch.cuda.empty_cache()
 
+    gt = phase_attention_gt(att, gen, run_case)
+
     T = 200
     grad_err = 0.0
     q, k, v, cot = (torch.randn(T, 2, 128, generator=gen, device=dev) for _ in range(4))
@@ -900,10 +957,253 @@ def phase_attention() -> dict:
         f"dense_attention {grad_err:.3g}")
     log(f"block_rel_err at the lm_flash shape, bf16 (limit {BLOCK_REL_TOL}): "
         f"{ {k: round(v, 6) for k, v in block_rel.items()} }")
+    records += gt.pop("records")
     return {"records": records, "autograd_max_abs_err": grad_err,
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()},
             "block_rel_err": block_rel, "block_rel_err_controls": controls,
-            "f32_forward": f32_fwd, "f32_backward": f32_bwd}
+            "f32_forward": f32_fwd, "f32_backward": f32_bwd, "gt": gt}
+
+
+def gt_key_mask(T: int, dev, inner: bool = True):
+    """The graph transformer's ``[T]`` key mask: the last slot padded (as
+    arxiv's 169,344 slots hold 169,343 vertices) and, with ``inner``, three
+    more padded slots inside the tiles."""
+    import torch
+
+    m = torch.ones(T, device=dev)
+    m[-1] = 0
+    if inner:
+        m[[1000, 5001, 9999]] = 0
+    return m
+
+
+GT_SAMPLED_ROWS = (128, 256, 128)  # the first rows, rows drawn from the seed, the last rows
+
+
+def gt_rows(T: int, seed: int = 0):
+    """GT_SAMPLED_ROWS of T rows, sorted: the first rows, rows drawn from
+    ``seed`` and the last rows (the padded slot among them)."""
+    import numpy as np
+
+    head, mid, tail = GT_SAMPLED_ROWS
+    drawn = np.random.default_rng(seed).choice(np.arange(head, T - tail), mid, replace=False)
+    return np.concatenate([np.arange(head), np.sort(drawn), np.arange(T - tail, T)])
+
+
+def sampled_bwd_f64(q, k, v, do, lse, di, kv_mask, rows) -> tuple:
+    """The plain backward's formula, non-causal with ``kv_mask`` (which
+    masks the query rows too, as the kernels read it), evaluated in float64
+    at the sampled ``rows`` only: (dK[rows], dV[rows]) over every query and
+    dQ[rows] over every key, from the same inputs, lse and di; P and dS are
+    rounded to the inputs' dtype before their products, as the kernels
+    round them (not at all in f32). One head at a time: [T, rows] f64."""
+    import torch
+
+    T, H, D = q.shape
+    scale = D ** -0.5
+    real = kv_mask > 0
+    r = torch.as_tensor(rows, device=q.device)
+    to_q = real[r, None] & real[None, :]  # [rows, T]: sampled queries, every key
+    to_k = real[:, None] & real[None, r]  # [T, rows]: every query, sampled keys
+    rnd = lambda x: x.to(q.dtype).double()  # noqa: E731
+    dk, dv, dq = (torch.empty(len(rows), H, D, dtype=torch.float64, device=q.device)
+                  for _ in range(3))
+    for h in range(H):
+        qh, kh, vh, doh = (t[:, h].double() for t in (q, k, v, do))
+        lh, dh = lse[h].double(), di[h].double()
+        p = torch.where(to_q, torch.exp(qh[r] @ kh.T * scale - lh[r, None]), 0.0)
+        dq[:, h] = rnd((doh[r] @ vh.T - dh[r, None]) * p * scale) @ kh
+        p = torch.where(to_k, torch.exp(qh @ kh[r].T * scale - lh[:, None]), 0.0)
+        dv[:, h] = rnd(p).T @ doh
+        dk[:, h] = rnd((doh @ vh[r].T - dh[:, None]) * p * scale).T @ qh
+        del p
+    return dk, dv, dq
+
+
+def gt_full_t_grads(q, k, v, do, lse, di, kv_mask, got, sdpa_grads, dtype_name) -> dict:
+    """dK/dV (7a) and dQ (7b), ``got`` = (dK, dV, dQ), at T = GT_T, where
+    the plain version cannot run: at the sampled rows (gt_rows; dK and dV
+    at key rows, dQ at query rows) against the plain backward evaluated in
+    float64 from the same inputs, lse and di (sampled_bwd_f64) -- f32 to
+    F32_BWD_TOL against a TF32 control, bf16 by block_rel_err to
+    GT_BLOCK_REL_TOL against dropped-tile controls (block_controls' faults:
+    dK/dV without the query tile [T/2, T/2 + 64), dQ without the key tile
+    there); every real row against SDPA's gradients on the real rows
+    (``sdpa_grads``, (dQ, dK, dV) as [T - 1, H, D]), f32 to ATT_TOL and bf16
+    to BLOCK_REL_TOL; the padded slot's gradients zero. Returns the
+    readings; fails after logging them."""
+    import torch
+
+    T = q.shape[0]
+    rows = gt_rows(T)
+    r = torch.as_tensor(rows, device=q.device)
+    ref = sampled_bwd_f64(q, k, v, do, lse, di, kv_mask, rows)
+    got_rows = [g[r] for g in got]
+    names = ("dK", "dV", "dQ")
+    if dtype_name == "float32":
+        limit = F32_BWD_TOL
+        reading = {n: float((g.double() - w).abs().max()) for n, g, w in zip(names, got_rows, ref)}
+        ctl = sampled_bwd_f64(*(tf32_trunc(t) for t in (q, k, v, do)), lse, di, kv_mask, rows)
+        controls = {"tf32": max(float((c - w).abs().max()) for c, w in zip(ctl, ref))}
+    else:
+        limit = GT_BLOCK_REL_TOL
+        reading = {n: block_rel_err(g, w) for n, g, w in zip(names, got_rows, ref)}
+        h = T // 2
+        do_out, di_out = do.clone(), di.clone()
+        do_out[h:h + 64] = 0
+        di_out[:, h:h + 64] = 0  # di is [H, T]
+        ctl = sampled_bwd_f64(q, k, v, do_out, lse, di_out, kv_mask, rows)
+        k_out = k.clone()
+        k_out[h:h + 64] = 0
+        controls = {"dkv_query_tile_dropped": min(block_rel_err(c, w)
+                                                  for c, w in zip(ctl[:2], ref[:2])),
+                    "dq_key_tile_dropped": block_rel_err(
+                        sampled_bwd_f64(q, k_out, v, do, lse, di, kv_mask, rows)[2], ref[2])}
+        del do_out, di_out, k_out
+    del ctl
+    by_name = dict(zip(names, got))
+    sdpa = {n: (max_err(by_name[n][:-1], w) if dtype_name == "float32"
+                else block_rel_err(by_name[n][:-1], w))
+            for n, w in zip(("dQ", "dK", "dV"), sdpa_grads)}
+    sdpa_limit = ATT_TOL["float32"] if dtype_name == "float32" else BLOCK_REL_TOL
+    real = kv_mask > 0
+    padded_zero = all(bool((g[~real] == 0).all()) for g in got)
+    rec = {"rows": len(rows), "T": T, "reading": reading, "limit": limit, "controls": controls,
+           "vs_sdpa": sdpa, "vs_sdpa_limit": sdpa_limit, "padded_rows_zero": padded_zero,
+           "max_abs_ref": max(float(w.abs().max()) for w in ref)}
+    what = f"gt {dtype_name} T={T} backward"
+    log(f"{what}: {len(rows)} sampled rows against float64 {reading} (limit {limit}), controls "
+        f"{controls}; every real row against SDPA's gradients {sdpa} (limit {sdpa_limit}); "
+        f"padded rows zero: {padded_zero}")
+    bad = [f"{n} reads {x:.3g} > {limit}" for n, x in reading.items() if not x <= limit]
+    bad += [f"control {n} reads {x:.3g}, inside the limit {limit}: the check has no force"
+            for n, x in controls.items() if not x > limit]
+    bad += [f"{n} is {x:.3g} from SDPA's (limit {sdpa_limit})" for n, x in sdpa.items()
+            if not x <= sdpa_limit]
+    bad += [] if padded_zero else ["the padded slot's gradients are not zero"]
+    if bad:
+        fail(f"{what}: {bad}")
+    return rec
+
+
+def phase_attention_gt(att, gen, run_case) -> dict:
+    """Phase 3 at the graph transformer's shape (H = 4, D = 32,
+    non-causal, a key mask): the three kernels at T = GT_CHECK_T against
+    their plain versions, f32 and bf16, in place and as column slices of
+    one [T, 3L] tensor (the model's layout, read in place), through
+    ``run_case`` with phase 3's limits: f32 to F32_FWD_TOL and F32_BWD_TOL
+    (the backward against the plain backward evaluated in float64), each
+    against its TF32 control, bf16 to BLOCK_REL_TOL against the dropped-tile
+    controls. Then at T = GT_T (the model's layout, the padded slot
+    masked) dK/dV and dQ held at sampled rows to float64 and at every real
+    row to SDPA (gt_full_t_grads), and each kernel timed beside SDPA on the
+    169,343 real rows, unmasked: the same function on every real row.
+    Returns the records and readings."""
+    import torch
+
+    dev = torch.device("cuda")
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    H, D = GT_H, GT_D
+    L = H * D
+    T = GT_CHECK_T
+    kw = dict(causal=False, kv_mask=gt_key_mask(T, dev))
+    out = {"controls": {}, "max_abs_err": {}, "records": []}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qkv = torch.randn(T, 3 * L, generator=gen, device=dev).to(dtype)
+        do = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+        slices = [t.view(T, H, D) for t in qkv.split(L, dim=-1)]
+        refs = {}
+        if dtype_name == "float32":
+            q, k, v = slices
+            out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+            c_fwd = tf32_control(att, q, k, v, out_p, lse_p, **kw)
+            dk64, dv64, dq64 = plain_bwd_f64(att, q, k, v, do, lse_p, att.row_dot(out_p, do),
+                                             **kw)
+            del out_p, lse_p
+            c_bwd = tf32_bwd_control(att, q, k, v, do, (dk64, dv64, dq64), **kw)
+            refs = {"flash_attention_bwd_dkv": (dk64, dv64), "flash_attention_bwd_dq": (dq64,)}
+            out["controls"]["float32"] = {"forward_tf32": c_fwd, "backward_tf32": c_bwd}
+            log(f"gt shape T={T} D={D}: TF32 controls (plain) forward {c_fwd:.3g} (limit "
+                f"{F32_FWD_TOL}), backward {c_bwd:.3g} (limit {F32_BWD_TOL})")
+            weak = [f"TF32 {what} control {r:.3g} <= {tol}" for what, r, tol in
+                    (("forward", c_fwd, F32_FWD_TOL), ("backward", c_bwd, F32_BWD_TOL))
+                    if not r > tol]
+        else:
+            ctl = block_controls(att, *slices, do, **kw)
+            out["controls"]["bfloat16"] = ctl
+            log(f"gt shape T={T} D={D}: block_rel_err of a dropped tile (plain) {ctl}")
+            weak = [f"{kernel} dropped-tile control {r:.3g} <= {BLOCK_REL_TOL}"
+                    for kernel, r in ctl.items() if not r > BLOCK_REL_TOL]
+        for layout, (q, k, v) in (("in place", [t.contiguous() for t in slices]),
+                                  ("qkv slices", slices)):
+            if layout == "qkv slices" and att._operand(q) is not q:
+                fail(f"_operand: the graph transformer's {dtype_name} qkv column slice "
+                     "should pass in place")
+            cases = attention_cases(att, q, k, v, do, kw)
+            for kernel in kernels:
+                err = run_case(f"{kernel} gt {layout} {dtype_name} T={T} H={H} D={D} masked",
+                               kernel, *cases[kernel], dtype_name,
+                               scaled=dtype_name == "bfloat16",
+                               split_tf32=dtype_name == "float32", ref=refs.get(kernel))
+                key = f"{kernel}/{dtype_name}"
+                out["max_abs_err"][key] = max(out["max_abs_err"].get(key, 0.0), err)
+            del cases
+        if weak:  # after the kernels' readings are logged
+            fail(f"gt shape {dtype_name}: a control reads inside its limit, the check has no "
+                 f"force: {weak}")
+        del qkv, do, slices, refs
+        torch.cuda.empty_cache()
+
+    T = GT_T
+    kw = dict(causal=False, kv_mask=gt_key_mask(T, dev, inner=False))
+    pairs = (T - 1) ** 2  # the work of the real rows; a padded query row is empty
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qkv = torch.randn(T, 3 * L, generator=gen, device=dev).to(dtype)
+        do = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+        q, k, v = (t.view(T, H, D) for t in qkv.split(L, dim=-1))
+        o, lse = att.flash_attention_fwd(q, k, v, **kw)
+        di = att.row_dot(o, do)
+        runs = {"flash_attention_fwd": lambda: att.flash_attention_fwd(q, k, v, **kw),
+                "flash_attention_bwd_dkv": lambda: att.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, di, **kw),
+                "flash_attention_bwd_dq": lambda: att.flash_attention_bwd_dq(
+                    q, k, v, do, lse, di, **kw)}
+        sdpa_fwd, sdpa_bwd, sdpa_out = sdpa_calls(q[:-1], k[:-1], v[:-1], do[:-1], False)
+        if not torch.allclose(sdpa_out.float(), o[:-1].float(), rtol=ATT_TOL["bfloat16"],
+                              atol=ATT_TOL["bfloat16"]):
+            fail(f"sdpa {dtype_name} at T={T}: the yardstick disagrees with the forward kernel "
+                 f"on the real rows (max abs err {max_err(sdpa_out, o[:-1])})")
+        grads = (*runs["flash_attention_bwd_dkv"](), runs["flash_attention_bwd_dq"]())
+        sdpa_grads = [g[0].permute(1, 0, 2) for g in sdpa_bwd()]
+        full_t = gt_full_t_grads(q, k, v, do, lse, di, kw["kv_mask"], grads, sdpa_grads,
+                                 dtype_name)
+        out.setdefault("full_t", {})[dtype_name] = full_t
+        del grads, sdpa_grads
+        lib_ms = {"flash_attention_fwd": time_ms(sdpa_fwd, reps=GT_REPS, warmup=1)}
+        lib_ms["flash_attention_bwd_dkv"] = lib_ms["flash_attention_bwd_dq"] = time_ms(
+            sdpa_bwd, reps=GT_REPS, warmup=1)
+        for kernel in kernels:
+            nbytes, ops = attention_work(kernel, T, H, D, qkv.element_size(), pairs)
+            rec = {"kernel": kernel, "case": f"{kernel} {dtype_name} T={T} H={H} D={D} gt",
+                   "dtype": dtype_name, "T": T, "H": H, "D": D, "causal": False,
+                   "pairs": pairs,
+                   "max_abs_err": out["max_abs_err"][f"{kernel}/{dtype_name}"],
+                   "max_abs_err_case": f"T={GT_CHECK_T}, the same mask form",
+                   "ms": time_ms(runs[kernel], reps=GT_REPS, warmup=1), "plain_ms": None,
+                   "plain_note": "the plain version's [H, T, T] scores would take 459 GB; " + (
+                       "phase 10 holds 512 sampled rows to float64 instead"
+                       if kernel == "flash_attention_fwd" else "512 sampled rows are held to "
+                       "float64 here instead (gt_full_t_grads), every real row to SDPA's"),
+                   "library_ms": lib_ms[kernel],
+                   "library": ("sdpa forward" if kernel == "flash_attention_fwd" else
+                               "sdpa backward (dQ, dK, dV)") + " on the 169,343 real rows",
+                   **attention_bound(kernel, dtype_name, nbytes, ops)}
+            out["records"].append(rec)
+            log(f"{rec['case']}: kernel {rec['ms']:.3f} ms, {rec['library']} "
+                f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+        del qkv, do, q, k, v, o, lse, di, runs, sdpa_fwd, sdpa_bwd, sdpa_out
+        torch.cuda.empty_cache()
+    return out
 
 
 # --- phases 4 and 5 --------------------------------------------------------
@@ -1922,9 +2222,308 @@ def phase_train_ogb_gcn_w4() -> dict:
 # --- main --------------------------------------------------------------------
 
 
+# --- phase 10 ----------------------------------------------------------------
+
+
+def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
+    """``python -m dgraph_tpu_torch.train``'s ``main`` at ``cfg``: every
+    step launches exactly ``want`` (plus ``want_eval`` on the epochs that
+    ran an eval: 0, every tenth and the last); steps ``prof_steps`` (first,
+    last) under torch.profiler; the peak device memory of the run; then one
+    more eval forward, which must launch exactly ``want_eval``; the loss
+    must fall. Returns (the CLI's result, record, step 0's gradients)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.profile import device_ops
+
+    first, last = prof_steps
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    per_step, grads0 = [], {}
+
+    def on_step(epoch, t):
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        evals = int(epoch % 10 == 0 or epoch == cfg.epochs - 1)
+        check_step_launches(what, epoch, counts,
+                            {k: want[k] + evals * want_eval[k] for k in want})
+        per_step.append(counts)
+        if epoch == 0:
+            grads0.update(grads_of(t.model))
+        if epoch in (first - 1, last):
+            torch.cuda.synchronize()
+            (prof.start if epoch == first - 1 else prof.stop)()
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the CLI's JSON lines go to stderr: stdout keeps this script's two
+    with contextlib.redirect_stdout(sys.stderr):
+        res = cli.main(cfg, on_step=on_step)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t = res["training"]
+    kernels.reset_launch_counts()
+    te = time.perf_counter()
+    eval_loss = float(t.eval_step(t.batches["val"])["loss"])
+    eval_ms = (time.perf_counter() - te) * 1e3
+    eval_counts = kernels.launch_counts()
+    if eval_counts != want_eval or not math.isfinite(eval_loss):
+        fail(f"{what}: an eval forward launched {eval_counts} (want {want_eval}), loss "
+             f"{eval_loss}")
+    losses = [r["loss"] for r in res["records"]]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: the loss did not fall over {len(losses)} steps: {losses}")
+    ms = [r["wall_ms"] for r in res["records"]]
+    n_prof = last - first + 1
+    ops = device_ops(prof, n_prof)
+    busy = sum(o["device_ms_per_step"] for o in ops)
+    wall = sum(ms[first:last + 1]) / n_prof
+    rec = {"config": what, "epochs": cfg.epochs, "E": t.graph.num_edges,
+           "e_pad": t.graph.plan.e_pad, "n_pad": t.graph.plan.n_src_pad, "losses": losses,
+           "step_wall_ms": ms, "timed_steps": f"{first}-{cfg.epochs - 1}",
+           "step_ms_p50": float(np.percentile(ms[first:], 50)),
+           "step_ms_p99": float(np.percentile(ms[first:], 99)),
+           "launches_per_step": want, "launches_per_eval": want_eval,
+           "launches": {k: sum(c[k] for c in per_step) for k in want},
+           "eval_ms": eval_ms, "peak_memory_bytes": peak, "run_s": run_s,
+           "profile": {"steps": f"{first}-{last}", "device_ms_per_step": busy,
+                       "wall_ms_per_step": wall, "device_busy_share": busy / wall,
+                       "ops": ops}}
+    log(f"{what}: E={rec['E']} n_pad={rec['n_pad']}; step ms p50 {rec['step_ms_p50']:.3f} "
+        f"p99 {rec['step_ms_p99']:.3f} (steps {rec['timed_steps']}, host clock); device busy "
+        f"{busy / wall:.1%} ({busy:.3f} of {wall:.3f} ms a step, steps {first}-{last}, "
+        f"profiler on); peak memory {peak / 2**30:.2f} GiB; loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; eval forward {eval_ms:.1f} ms; launches per step {want}")
+    for o in ops[:10]:
+        log(f"  {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
+    return res, rec, grads0
+
+
+def cli_step0_vs_cpu(what, cfg, num_nodes: int) -> dict:
+    """Step 0 of the CLI's training at ``cfg`` on an SBM graph of
+    ``num_nodes`` vertices (the same widths), on the card and on the CPU
+    plain path: the loss and every gradient within GRAD_TOL."""
+    import dataclasses
+
+    from dgraph_tpu_torch.train import __main__ as cli
+
+    small = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_nodes=num_nodes))
+    out = {}
+    for device in ("cuda", "cpu"):
+        t = cli.build_training(small, device=device)
+        t0 = time.perf_counter()
+        loss = float(t.train_step(t.batches["train"])["loss"])
+        out[device] = (loss, grads_of(t.model), time.perf_counter() - t0)
+        del t
+    (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = out["cuda"], out["cpu"]
+    if abs(loss_gpu - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"{what} at V={num_nodes}: step-0 loss {loss_gpu} vs CPU {loss_cpu}")
+    err = check_grads(f"{what} at V={num_nodes}", grads_gpu, grads_cpu)
+    log(f"{what} at V={num_nodes}: step-0 loss {loss_gpu:.6f} (CPU {loss_cpu:.6f}), grads vs "
+        f"CPU max abs err {err:.3g} (CPU step {cpu_s:.1f} s)")
+    return {"V": num_nodes, "loss": loss_gpu, "loss_cpu": loss_cpu, "grad_max_abs_err": err,
+            "cpu_step_s": cpu_s}
+
+
+def gt_sampled_rows(t, seed: int = 0) -> dict:
+    """The forward kernel at the graph transformer's full shape, against
+    float64: layer 0's q, k and v (the trained model, the train batch), the
+    kernel's output over all GT_T slots, and the plain attention of
+    GT_SAMPLED_ROWS rows (the last rows hold the padded slot) over every
+    key, evaluated in float64 on the card; the error must be within
+    F32_FWD_TOL, and the same plain attention on q, k and v truncated to
+    TF32 (the control) must read above it. The padded row must be zero."""
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.models.gcn import dense
+    from dgraph_tpu_torch.ops import attention as att
+
+    model, b = t.model, {k: v[0] for k, v in t.batches["train"].items()}
+    vmask = b["vmask"]
+    with torch.no_grad():
+        h = dense(model.embed, b["x"], config.resolve_compute_dtype(model.dtype))
+        h = h * vmask[:, None]
+        gps = model.gps_0
+        h = h + gps.local_branch(h, t.plan)
+        q, k, v = gps.attention_inputs(h)
+        out = att.flash_attention_fwd(q, k, v, kv_mask=vmask)[0]
+    T, _, D = q.shape
+    rows = torch.from_numpy(gt_rows(T, seed)).to(q.device)
+    real = vmask > 0
+
+    def plain64(qq, kk, vv):
+        s = torch.einsum("rhd,shd->hrs", qq[rows].double(), kk.double()) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~real, -torch.inf), dim=-1)
+        del s
+        return torch.einsum("hrs,shd->rhd", p, vv.double()) * real[rows, None, None]
+
+    ref = plain64(q, k, v)
+    err = float((out[rows].double() - ref).abs().max())
+    control = float((plain64(tf32_trunc(q), tf32_trunc(k), tf32_trunc(v)) - ref).abs().max())
+    padded_zero = bool((out[~real] == 0).all())
+    rec = {"rows": len(rows), "T": T, "max_abs_err": err, "limit": F32_FWD_TOL,
+           "tf32_control": control, "padded_rows_zero": padded_zero,
+           "max_abs_out": float(ref.abs().max())}
+    log(f"gt sampled rows: {len(rows)} query rows over {T} keys against float64: err {err:.3g} "
+        f"(limit {F32_FWD_TOL}), TF32 control {control:.3g}, largest |O| "
+        f"{rec['max_abs_out']:.3g}; padded rows zero: {padded_zero}")
+    if not err <= F32_FWD_TOL:
+        fail(f"gt sampled rows: the forward kernel is {err:.3g} from float64 (limit "
+             f"{F32_FWD_TOL})")
+    if not control > F32_FWD_TOL:
+        fail(f"gt sampled rows: the TF32 control reads {control:.3g}, inside the limit "
+             f"{F32_FWD_TOL}: the check has no force")
+    if not padded_zero:
+        fail("gt sampled rows: the padded slot's output is not zero")
+    return rec
+
+
+def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
+    """``python -m dgraph_tpu_torch.train --model gt`` at arxiv width
+    (gt_arxiv: hidden 128, 4 heads of 32, 2 layers, attention over all
+    169,344 slots): 1 warm-up and 4 timed steps (steps 1-3 profiled); every
+    step launches the forward, dK/dV and dQ attention kernels once a layer
+    and kernel 2 three times a layer and feature chunk (the local branch's
+    sum and the backward of its two takes); an eval forward the forward
+    kernel and the sum only. In f32 the sampled rows (gt_sampled_rows) and
+    step 0 against the CPU plain path at V = 4096; in bf16
+    (``config.default_compute_dtype``) step 0's loss within BF16_LOSS_TOL of
+    the f32 run's, on the same weights and batch."""
+    import dataclasses
+
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train.profile import gt_arxiv_config
+
+    cfg = dataclasses.replace(gt_arxiv_config(), epochs=5,
+                              log_path=os.path.join(OUT_DIR, f"train_gt_{dtype_name}.jsonl"))
+    L = cfg.num_layers
+    chunks = math.ceil(cfg.hidden / config.gather_col_block)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(flash_attention_fwd=L, flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L,
+                sorted_segment_sum=3 * L * chunks)
+    want_eval = dict.fromkeys(kernels.KERNELS, 0)
+    want_eval.update(flash_attention_fwd=L, sorted_segment_sum=L * chunks)
+    what = f"train gt_arxiv {dtype_name}"
+    saved = config.default_compute_dtype
+    config.default_compute_dtype = dtype_name
+    try:
+        res, rec, _ = train_cli_run(what, cfg, want, want_eval, (1, 3))
+        rec["dtype"] = dtype_name
+        if dtype_name == "float32":
+            rec["sampled_rows"] = gt_sampled_rows(res["training"])
+    finally:
+        config.default_compute_dtype = saved
+    del res
+    torch.cuda.empty_cache()
+    if dtype_name == "float32":
+        rec["step0_vs_cpu"] = cli_step0_vs_cpu("train gt_arxiv", cfg, 4096)
+    else:
+        rel = abs(rec["losses"][0] / f32_step0_loss - 1)
+        rec.update(step0_loss_f32=f32_step0_loss, step0_loss_rel_to_f32=rel)
+        log(f"{what}: step-0 loss {rec['losses'][0]:.5f} vs the f32 run's "
+            f"{f32_step0_loss:.5f}: {rel:.3g} relative (limit {BF16_LOSS_TOL})")
+        if not rel <= BF16_LOSS_TOL:
+            fail(f"{what}: step-0 loss {rec['losses'][0]} vs the f32 run's {f32_step0_loss}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_gat() -> dict:
+    """``python -m dgraph_tpu_torch.train --model gat`` at arxiv width
+    (gat_arxiv: 4 heads of 128, 2 layers): 2 warm-up and 10 timed steps
+    (steps 2-9 profiled); every step launches kernel 2 six times a head
+    group and layer (the softmax denominator at width 1 and the message sum
+    at width 128 forward; the backward of the src, dst, seg_max and denom
+    takes), an eval forward two times. The logits of the CLI's model
+    (``build_training(cfg)``) before its first step match a CPU copy of the
+    same weights' plain forward (no autograd) at full size within 1e-4, and
+    step 0's loss and every gradient match the CPU plain path at V = 16,384
+    (the CPU's autograd at full size would keep about 40 GB of [E, 128]
+    activations)."""
+    import dataclasses
+
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.loop import model_apply
+    from dgraph_tpu_torch.train.profile import gat_arxiv_config
+
+    cfg = dataclasses.replace(gat_arxiv_config(), epochs=12,
+                              log_path=os.path.join(OUT_DIR, "train_gat.jsonl"))
+    L, H, D = cfg.num_layers, 4, cfg.hidden
+    groups = math.ceil(H / max(1, config.gather_col_block // D))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want["sorted_segment_sum"] = 6 * L * groups
+    want_eval = dict.fromkeys(kernels.KERNELS, 0)
+    want_eval["sorted_segment_sum"] = 2 * L * groups
+    res, rec, _ = train_cli_run("train gat_arxiv", cfg, want, want_eval, (2, 9))
+    del res
+    torch.cuda.empty_cache()
+    t = cli.build_training(cfg)  # the CLI's own build: its model before the first step
+    b = {k: v[0] for k, v in t.batches["train"].items()}
+    model_cpu = copy.deepcopy(t.model).cpu()
+    with torch.no_grad():
+        logits = model_apply(t.model, b, t.plan).cpu()
+        b = {k: v.cpu() for k, v in b.items()}
+        tc = time.perf_counter()
+        logits_cpu = model_apply(model_cpu, b, t.graph.plan.shard(0))
+        cpu_s = time.perf_counter() - tc
+    del t, b, model_cpu
+    torch.cuda.empty_cache()
+    err = float((logits - logits_cpu).abs().max())
+    rec["full_size_logits_vs_cpu"] = {"max_abs_err": err, "cpu_forward_s": cpu_s}
+    log(f"train gat_arxiv: the CLI's model before its first step against a CPU copy's plain "
+        f"forward at full size: max abs err {err:.3g} (CPU forward {cpu_s:.1f} s)")
+    if not torch.allclose(logits, logits_cpu, rtol=SERVE_TOL, atol=SERVE_TOL):
+        fail(f"train gat_arxiv: full-size logits differ from the CPU plain forward by {err} "
+             f"(tol {SERVE_TOL})")
+    rec["step0_vs_cpu"] = cli_step0_vs_cpu("train gat_arxiv", cfg, 16384)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def graph_model_phases(cfg) -> tuple:
+    """Phase 10, in the form of :func:`one_rank_phases`."""
+    log("phase 10: train ogb_gcn --model gt (f32, then bf16) and --model gat "
+        "(python -m dgraph_tpu_torch.train)")
+    gt_f32 = phase_train_gt()
+    gt_bf16 = phase_train_gt("bfloat16", gt_f32["losses"][0])
+    gat = phase_train_gat()
+    if gt_bf16["launches"] != gt_f32["launches"]:
+        fail(f"train gt_arxiv bfloat16 launched {gt_bf16['launches']}, the f32 run "
+             f"{gt_f32['launches']}")
+    main_case = {name: [(f"{name} {run['dtype']} T={GT_T} H={GT_H} D={GT_D} gt",
+                         run["launches"], f"gt_{run['dtype']}")
+                        for run in (gt_bf16, gt_f32)]
+                 for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                              "flash_attention_bwd_dq")}
+    # kernel 2 in both models; GAT's launches run it at F = 128 and F = 1
+    main_case["sorted_segment_sum"] = [
+        ("sorted_segment_sum float32 none F=128", gt_f32["launches"], "gt"),
+        ("sorted_segment_sum float32 none F=128", gat["launches"], "gat"),
+        ("sorted_segment_sum float32 none F=1", gat["launches"], "gat_width1")]
+    return [], main_case, {"train": [gt_f32, gt_bf16, gat]}
+
+
 def one_rank_phases(cfg) -> tuple:
-    """Phases 3-8: (kernel records, {kernel: (main case, the launches of
-    the path it serves)}, details)."""
+    """Phases 3-8: (kernel records, {kernel: [(phase 3's case, the launches
+    of the path it serves, the row's key in the kernels line)]}, details);
+    the first row of a kernel is its main row (key None)."""
     import torch
 
     from dgraph_tpu_torch import config
@@ -1966,22 +2565,23 @@ def one_rank_phases(cfg) -> tuple:
              f"{lm_flash['launches']}")
 
     main_case = {
-        "sorted_segment_sum_bias_relu": ("sorted_segment_sum_bias_relu float32 w F=128",
-                                         gcn["launches"]),
-        "sorted_segment_sum": ("sorted_segment_sum float32 none F=128", sage["launches"]),
-        "sorted_segment_sum_act": ("sorted_segment_sum_act float32 unw F=128",
-                                   bench["launches"]),
-        "fused_bwd_gd": ("fused_bwd_gd float32 F=128", bench["launches"]),
-        "sorted_row_gather": ("sorted_row_gather float32 F=128", ogb["launches"]),
+        "sorted_segment_sum_bias_relu": [("sorted_segment_sum_bias_relu float32 w F=128",
+                                          gcn["launches"], None)],
+        "sorted_segment_sum": [("sorted_segment_sum float32 none F=128", sage["launches"],
+                                None)],
+        "sorted_segment_sum_act": [("sorted_segment_sum_act float32 unw F=128",
+                                    bench["launches"], None)],
+        "fused_bwd_gd": [("fused_bwd_gd float32 F=128", bench["launches"], None)],
+        "sorted_row_gather": [("sorted_row_gather float32 F=128", ogb["launches"], None)],
     }
     # the attention kernels by their bf16 (tensor-core) rows with the bf16
-    # run's launches; their f32 rows (the f32 forward also on the tensor
-    # cores) beside them with the f32 run's
+    # run's launches; their f32 rows (also on the tensor cores) beside them
+    # with the f32 run's
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        main_case[name] = (f"{name} bfloat16 T={LM_T} H={LM_H} D={LM_D} causal",
-                           lm_flash_bf16["launches"],
+        main_case[name] = [(f"{name} bfloat16 T={LM_T} H={LM_H} D={LM_D} causal",
+                            lm_flash_bf16["launches"], None),
                            (f"{name} float32 T={LM_T} H={LM_H} D={LM_D} causal",
-                            lm_flash["launches"]))
+                            lm_flash["launches"], "float32")]
     return (kernels["records"] + attention["records"], main_case,
             {"kernels": kernels, "attention": attention, "serve": [gcn, sage],
              "train": [bench, ogb, lm_flash, lm_flash_bf16]})
@@ -2010,9 +2610,12 @@ def multi_rank_phase(cfg) -> tuple:
     ogb4 = phase_train_ogb_gcn_w4()
     k6 = next(r for r in p2p_k["records"] if r["kernel"] == "p2p_transport_mutant")
     return (p2p_k["records"],
-            {"p2p_transport": (p2p_k["records"][0]["case"], ogb4["launches"]),
-             "p2p_transport_mutant": (k6["case"], p2p_k["landing_launches"])},
+            {"p2p_transport": [(p2p_k["records"][0]["case"], ogb4["launches"], None)],
+             "p2p_transport_mutant": [(k6["case"], p2p_k["landing_launches"], None)]},
             {"p2p_transport": p2p_k, "train": [ogb4]})
+
+
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
 def main(argv) -> None:
@@ -2029,10 +2632,12 @@ def main(argv) -> None:
     build = phase_build()
     cfg = arxiv_config("gcn")
     records, main_case, detail = [], {}, {"train": []}
-    for phases in ([] if argv else [one_rank_phases]) + [multi_rank_phase]:
+    for phases in ([multi_rank_phase] if argv else
+                   [one_rank_phases, multi_rank_phase, graph_model_phases]):
         r, m, d = phases(cfg)
         records += r
-        main_case.update(m)
+        for name, rows in m.items():
+            main_case.setdefault(name, []).extend(rows)
         detail["train"] += d.pop("train")
         detail.update(d)
 
@@ -2043,20 +2648,19 @@ def main(argv) -> None:
     for name, k in KERNELS.items():
         if argv and name not in main_case:
             continue
-        case, path_launches, *other = main_case[name]
         entry = None
-        for case, path_launches in [(case, path_launches)] + other:
+        for case, path_launches, key in main_case[name]:
             rec = next(r for r in records if r["case"] == case)
             if path_launches[name] <= 0:
                 fail(f"{name} was never launched on its path ({case})")
-            row = {"launches": path_launches[name], "max_abs_err": rec["max_abs_err"],
-                   "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                   "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "case": case}
+            row = {"launches": path_launches[name], **{f: rec[f] for f in ROW_KEYS}}
+            if rec.get("plain_note"):
+                row["plain_note"] = rec["plain_note"]
             if entry is None:
                 entry = {"name": name, "route": "cuda", "source": k.source,
                          "replaces": k.replaces, **row}
-            else:  # the kernel's other dtype, beside the main row
-                entry[rec["dtype"]] = row
+            else:  # beside the main row: the kernel's other dtype or path
+                entry[key] = row
         line.append(entry)
     os.makedirs(OUT_DIR, exist_ok=True)
     detail.update(nvidia_smi=smi, device=torch.cuda.get_device_name(0),

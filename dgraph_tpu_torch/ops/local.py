@@ -1,5 +1,6 @@
 """Rank-local gather/scatter primitives and their backward routing — the
-subset of ``dgraph_tpu/ops/local.py`` the GCN and GraphSAGE paths use.
+subset of ``dgraph_tpu/ops/local.py`` the GCN, GraphSAGE, GAT and graph
+transformer paths use.
 
 This module is the single dispatch point of the sorted reductions:
 :func:`sorted_segment_sum_any` and :func:`sorted_segment_sum_bias_relu_any`
@@ -188,3 +189,52 @@ def sorted_segment_sum_bias_relu_any(
     return _seg.sorted_segment_sum_bias_relu(
         edata, sorted_ids, bias, n_rows, edge_weight=edge_weight, gather_mv=gather_mv,
     )
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment max (local.py:426-433): ``scatter_reduce`` ``amax`` into
+    a ``-inf`` buffer, so empty segments give ``-inf`` (callers mask them);
+    ids outside ``[0, num_segments)`` are dropped. The reference's
+    ``indices_are_sorted`` hint has nothing to select here."""
+    n = num_segments
+    ids = torch.where((segment_ids >= 0) & (segment_ids < n), segment_ids, n).long()
+    idx = ids.view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = data.new_full((n + 1,) + tuple(data.shape[1:]), -torch.inf)
+    return out.scatter_reduce(0, idx, data, "amax", include_self=False)[:n]
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Per-segment mean, empty segments 0 (local.py:436-442): the any-order
+    sums of the rows and of their counts, the count clamped at ``eps``."""
+    sums = segment_sum(data, segment_ids, num_segments)
+    ones = torch.ones((data.shape[0], 1), dtype=data.dtype, device=data.device)
+    return sums / segment_sum(ones, segment_ids, num_segments).clamp_min(eps)
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    mask: torch.Tensor, indices_are_sorted: bool = False) -> torch.Tensor:
+    """Numerically stable softmax of ``[E, H]`` logits over the edges of
+    each segment (local.py:445-467); masked edges (``mask`` ``[E]`` <= 0)
+    get weight 0 and the denominator is clamped at 1e-12. With sorted ids
+    the sum is the sorted segment-sum kernel and the row lookups
+    ``seg_max[ids]``, ``denom[ids]`` are sorted takes, whose backward is
+    that kernel too. The gradient runs through ``seg_max`` as in the
+    reference (zero up to rounding: the softmax does not depend on the
+    shift)."""
+    live = (mask > 0)[..., None]
+
+    def rows(t):
+        return take_rows(t, segment_ids, indices_are_sorted=indices_are_sorted)
+
+    logits = torch.where(live, logits, -torch.inf)
+    seg_max = segment_max(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    shifted = torch.where(live, logits - rows(seg_max), -torch.inf)
+    expd = torch.where(live, torch.exp(shifted), 0.0)
+    if indices_are_sorted:
+        denom = sorted_segment_sum_any(expd, segment_ids, num_segments)
+    else:
+        denom = segment_sum(expd, segment_ids, num_segments)
+    return expd / rows(denom).clamp_min(1e-12)

@@ -1,16 +1,19 @@
 """``python -m dgraph_tpu_torch.train`` — full-graph node classification.
 
 Counterpart of ``experiments/ogb_gcn.py`` (``main``, :117-227): trains GCN
-(symmetric-norm edge weights) or GraphSAGE on a synthetic SBM graph, or on
-an ``.npz`` with edge_index/features/labels/<split>_mask (``--data.path``),
-with Adam at ``--lr``, over ``--world_size`` ranks. Writes one
-``step_record`` JSON line per step (an eval every 10 steps and at the
-last), the test accuracy, and a final ``avg_epoch_ms_excl_first`` line, to
-stdout and appended to ``--log_path`` (rank 0 only). Runs on ``cuda``
-unless ``--device cpu``; with no card it raises.
+(symmetric-norm edge weights), GraphSAGE, GAT (4 heads) or the graph
+transformer (``--model gt``: local message passing plus attention over the
+whole vertex set, 4 heads) on a synthetic SBM graph, or on an ``.npz`` with
+edge_index/features/labels/<split>_mask (``--data.path``), with Adam at
+``--lr``, over ``--world_size`` ranks. Writes one ``step_record`` JSON
+line per step (an eval every 10 steps and at the last), the test accuracy,
+and a final ``avg_epoch_ms_excl_first`` line, to stdout and appended to
+``--log_path`` (rank 0 only). Runs on ``cuda`` unless ``--device cpu``;
+with no card it raises.
 
     python -m dgraph_tpu_torch.train --model gcn --epochs 100
     python -m dgraph_tpu_torch.train --device cpu --epochs 3 --data.num_nodes 500
+    python -m dgraph_tpu_torch.train --device cpu --model gt --epochs 2 --data.num_nodes 500
     DGRAPH_TPU_HALO_IMPL=pallas_p2p python -m dgraph_tpu_torch.train --world_size 4
     python -m dgraph_tpu_torch.train --device cpu --world_size 2 --epochs 2
 
@@ -20,10 +23,11 @@ spawns one process a rank (``comm.dist.launch``;
 under ``torchrun`` it joins that group instead): ranks on cards of their
 own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
 Every rank builds the same graph from the same seed and trains its shard;
-gradients are summed over the ranks. The multilevel partitioner is not
-ported; the default partition is ``random``. Not ported yet: the OGB loaders
-(``--data.ogb_name``), GAT and the GraphTransformer, and the reference's
-start-up, plan-footprint and timing records.
+gradients are summed over the ranks. GAT and the graph transformer train on
+one rank only (more raise before any work). The multilevel partitioner is
+not ported; the default partition is ``random``. Not ported yet: the OGB
+loaders (``--data.ogb_name``), and the reference's start-up, plan-footprint
+and timing records.
 """
 
 from __future__ import annotations
@@ -52,9 +56,10 @@ class DataConfig:
 
 @dataclasses.dataclass
 class Config:
-    """Full-graph GCN / GraphSAGE training, one card (or CPU process) a rank."""
+    """Full-graph GCN / GraphSAGE / GAT / graph transformer training, one card
+    (or CPU process) a rank."""
 
-    model: str = "gcn"  # gcn | sage (gat | gt are not ported yet)
+    model: str = "gcn"  # gcn | sage | gat | gt (alias graph_transformer)
     hidden: int = 128
     num_layers: int = 2
     lr: float = 5e-3
@@ -97,6 +102,26 @@ def load_data(cfg: DataConfig) -> dict:
     )
 
 
+# models that train on one rank only, with the port's slice that brings
+# them over ranks (ROADMAP Queue A)
+ONE_RANK_MODELS = {
+    "gat": "the halo lowerings and multi-host (slice 8)",
+    "gt": "sequence attention over ranks (slice 10)",
+    "graph_transformer": "sequence attention over ranks (slice 10)",
+}
+
+
+def check_model(model: str, world_size: int) -> None:
+    """Raise before any work for a model this CLI cannot train at
+    ``world_size`` ranks."""
+    if model not in ("gcn", "sage", *ONE_RANK_MODELS):
+        raise SystemExit(f"unknown model {model}")
+    if world_size > 1 and model in ONE_RANK_MODELS:
+        raise NotImplementedError(
+            f"--model {model} trains on one rank; above one rank it comes with "
+            f"{ONE_RANK_MODELS[model]} of the port")
+
+
 def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace:
     """Graph, seeded model, Adam and the train/eval steps of one rank (``comm``,
     None for one rank), on ``device`` (default the rank's device, else
@@ -108,10 +133,10 @@ def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace
     from dgraph_tpu_torch.comm import SingleComm
     from dgraph_tpu_torch.config import default_device
     from dgraph_tpu_torch.data import DistributedGraph
-    from dgraph_tpu_torch.models import GCN, GraphSAGE
+    from dgraph_tpu_torch.models import GAT, GCN, GraphSAGE, GraphTransformer
     from dgraph_tpu_torch.train.loop import (
         init_params, make_eval_step, make_train_step, masked_bce_multilabel,
-        masked_cross_entropy,
+        masked_cross_entropy, vmask_batch_args,
     )
 
     comm = comm or SingleComm()
@@ -122,10 +147,7 @@ def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace
     if resolve_world_size(cfg.world_size, cfg.device) != W:
         raise ValueError(f"world_size={cfg.world_size} but the communicator has {W} ranks; "
                          "main() launches the ranks")
-    if cfg.model in ("gat", "gt", "graph_transformer"):
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
-    if cfg.model not in ("gcn", "sage"):
-        raise SystemExit(f"unknown model {cfg.model}")
+    check_model(cfg.model, W)
     data = load_data(cfg.data)
     graph = DistributedGraph.from_global(
         data["edge_index"], data["features"], data["labels"], data["masks"],
@@ -135,15 +157,21 @@ def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace
     F, C = graph.features.shape[-1], data["num_classes"]
     if cfg.model == "gcn":
         model = GCN(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
-    else:
+    elif cfg.model == "sage":
         model = GraphSAGE(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
+    elif cfg.model == "gat":
+        model = GAT(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
+    else:
+        model = GraphTransformer(F, cfg.hidden, C, comm, num_layers=cfg.num_layers,
+                                 num_heads=4)
+    bargs = vmask_batch_args if cfg.model in ("gt", "graph_transformer") else None
     init_params(model, seed=0).to(dev)
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
     loss_fn = (masked_bce_multilabel if graph.labels.dim() > 2 else masked_cross_entropy)
     plan = graph.plan.shard(rank).to(dev)
 
     def batch(split):
-        b = dict(graph.batch(split), y=graph.labels)
+        b = dict(graph.batch(split), y=graph.labels, vmask=graph.vertex_mask)
         return {k: v.to(dev) for k, v in b.items()}
 
     splits = ["train", "val"] + (["test"] if "test" in graph.masks else [])
@@ -151,8 +179,8 @@ def build_training(cfg: Config, device=None, comm=None) -> types.SimpleNamespace
         device=dev, graph=graph, model=model, optimizer=optimizer, plan=plan, comm=comm,
         rank=rank, loss_fn=loss_fn, batches={s: batch(s) for s in splits},
         train_step=make_train_step(model, optimizer, plan, comm=comm, loss_fn=loss_fn,
-                                   step_metrics=cfg.step_metrics),
-        eval_step=make_eval_step(model, plan, comm=comm, loss_fn=loss_fn),
+                                   batch_args=bargs, step_metrics=cfg.step_metrics),
+        eval_step=make_eval_step(model, plan, comm=comm, loss_fn=loss_fn, batch_args=bargs),
     )
 
 
@@ -257,6 +285,7 @@ def main(cfg: Config, *, on_step: Optional[Callable] = None) -> dict:
     from dgraph_tpu_torch.comm.dist import launch
 
     W = resolve_world_size(cfg.world_size, cfg.device)
+    check_model(cfg.model, W)
     if W == 1 and "WORLD_SIZE" not in os.environ:
         out = _train(cfg, on_step)
         return dict(out, ranks=[out])

@@ -31,7 +31,7 @@ from dgraph_tpu_torch.weights import init_params
 
 __all__ = [
     "fit", "init_params", "make_eval_step", "make_train_step",
-    "masked_bce_multilabel", "masked_cross_entropy", "model_apply",
+    "masked_bce_multilabel", "masked_cross_entropy", "model_apply", "vmask_batch_args",
 ]
 
 
@@ -64,6 +64,12 @@ def _batch_args(b: dict, plan) -> list:
     if "edge_weight" in b:
         args.append(b["edge_weight"])
     return args
+
+
+def vmask_batch_args(b: dict, plan) -> list:
+    """(x, plan, vmask) — the GraphTransformer signature: global attention
+    needs the vertex padding mask, not edge weights."""
+    return [b["x"], plan, b["vmask"]]
 
 
 def model_apply(model, b: dict, plan, batch_args: Optional[Callable] = None):

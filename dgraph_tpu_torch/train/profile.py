@@ -1,9 +1,10 @@
 """Where a training step spends its device time, by op.
 
-    python -m dgraph_tpu_torch.train.profile [--config bench_gcn|ogb_gcn|lm_flash]
-        [--steps 5] [--gather] [--out DIR]
+    python -m dgraph_tpu_torch.train.profile
+        [--config bench_gcn|ogb_gcn|lm_flash|gt_arxiv|gat_arxiv] [--steps 5] [--gather]
+        [--out DIR]
 
-Builds one of three training configurations on the card, runs two warm-up
+Builds one of five training configurations on the card, runs two warm-up
 steps, then records ``--steps`` train steps under ``torch.profiler`` (CPU
 and CUDA activities):
 
@@ -18,7 +19,13 @@ and CUDA activities):
   LM at head width 128 — ``experiments/long_context_lm.py --seq_len 8192
   --latent 512 --num_heads 4 --num_layers 2 --vocab 64 --attn_impl ulysses
   --world_size 1``, Adam 3e-3, causal; every attention runs the three
-  flash-attention kernels.
+  flash-attention kernels;
+- ``gt_arxiv``, ``gat_arxiv``: ``python -m dgraph_tpu_torch.train --model
+  gt`` and ``--model gat`` on ``ogb_gcn``'s graph at the CLI's defaults
+  (``experiments/ogb_gcn.py``: hidden 128, 2 layers, 4 heads, Adam 5e-3, no
+  edge weights). The graph transformer attends over all 169,344 vertex
+  slots at head width 32 (the flash kernels, non-causal, the padded slot
+  masked); GAT runs kernel 2 in every head group's softmax and sum.
 
 ``--gather`` switches the sorted-row-gather kernel on
 (``config.use_pallas_gather``). Prints the card (``nvidia-smi``), the wall
@@ -80,6 +87,26 @@ def ogb_gcn_config(world_size: int = 1):
                   world_size=world_size,
                   data=DataConfig(num_nodes=ARXIV_NODES, num_classes=40, feat_dim=128,
                                   avg_degree=ARXIV_AVG_DEGREE, partition="random"))
+
+
+def gt_arxiv_config():
+    """The CLI's Config for ``--model gt`` on ogb_gcn's arxiv-width graph
+    (hidden 128, 4 heads: head width 32)."""
+    import dataclasses
+
+    return dataclasses.replace(ogb_gcn_config(), model="gt", hidden=128)
+
+
+def gat_arxiv_config():
+    """The CLI's Config for ``--model gat`` on ogb_gcn's arxiv-width graph
+    (hidden 128 a head, 4 heads: four head groups of one)."""
+    import dataclasses
+
+    return dataclasses.replace(ogb_gcn_config(), model="gat", hidden=128)
+
+
+CLI_CONFIGS = {"ogb_gcn": ogb_gcn_config, "gt_arxiv": gt_arxiv_config,
+               "gat_arxiv": gat_arxiv_config}
 
 
 def lm_flash_config():
@@ -144,10 +171,10 @@ def profile(config: str = "bench_gcn", steps: int = 5, gather: bool = False,
     try:
         if config == "bench_gcn":
             _, step, batch, *_ = bench_gcn_setup(dev)
-        elif config == "ogb_gcn":
+        elif config in CLI_CONFIGS:
             from dgraph_tpu_torch.train.__main__ import build_training
 
-            t = build_training(ogb_gcn_config())
+            t = build_training(CLI_CONFIGS[config]())
             step, batch = t.train_step, t.batches["train"]
         elif config == "lm_flash":
             from dgraph_tpu_torch.train.lm import build_lm
@@ -170,7 +197,8 @@ def profile(config: str = "bench_gcn", steps: int = 5, gather: bool = False,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="bench_gcn", choices=("bench_gcn", "ogb_gcn", "lm_flash"))
+    p.add_argument("--config", default="bench_gcn",
+                   choices=("bench_gcn", "lm_flash", *CLI_CONFIGS))
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--gather", action="store_true")
     p.add_argument("--out", default="chiprun_out")

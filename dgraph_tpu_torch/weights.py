@@ -7,7 +7,11 @@ so a flax path maps to a state_dict key by joining with dots. The leaves:
 - ``Dense.kernel`` ``[in, out]`` <-> ``Linear.weight`` ``[out, in]`` (transposed);
 - ``LayerNorm.scale`` <-> ``LayerNorm.weight``, ``Embed.embedding``
   ``[num, features]`` <-> ``Embedding.weight``, both as they are;
-- ``bias`` <-> ``bias``.
+- ``bias`` <-> ``bias``;
+- the raw ``self.param`` leaves of ``RAW_LEAVES`` (GAT's ``att_src``,
+  ``att_dst``) <-> the ``nn.Parameter`` of that name, as it is.
+
+Any other leaf raises ``KeyError``, both ways.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from torch import nn
 # flax leaf name -> (torch leaf name, transposed)
 _FROM_FLAX = {"kernel": ("weight", True), "scale": ("weight", False),
               "embedding": ("weight", False), "bias": ("bias", False)}
+# raw ``self.param`` leaves: carried under their own names, untransposed
+RAW_LEAVES = frozenset({"att_src", "att_dst"})
 
 
 def params_from_jax(tree: Mapping) -> dict:
@@ -36,9 +42,12 @@ def params_from_jax(tree: Mapping) -> dict:
             if isinstance(val, Mapping):
                 walk(val, prefix + (name,))
                 continue
-            if name not in _FROM_FLAX:
+            if name in RAW_LEAVES:
+                key, transposed = name, False
+            elif name in _FROM_FLAX:
+                key, transposed = _FROM_FLAX[name]
+            else:
                 raise KeyError(f"unknown flax leaf {'/'.join(prefix + (name,))}")
-            key, transposed = _FROM_FLAX[name]
             arr = np.asarray(val, dtype=np.float32)
             out[".".join(prefix + (key,))] = torch.tensor(arr.T if transposed else arr)
 
@@ -48,13 +57,14 @@ def params_from_jax(tree: Mapping) -> dict:
 
 def param_kinds(module: nn.Module) -> dict:
     """{state_dict key: flax leaf name} of ``module``'s parameters: each
-    ``weight`` named by the kind of module that holds it."""
+    ``weight`` named by the kind of module that holds it; a raw leaf
+    (``RAW_LEAVES``) by its own name."""
     kinds = {}
     for mname, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             key = f"{mname}.{pname}" if mname else pname
-            if pname == "bias":
-                kinds[key] = "bias"
+            if pname in ("bias", *RAW_LEAVES):
+                kinds[key] = pname
             elif isinstance(mod, nn.Embedding):
                 kinds[key] = "embedding"
             elif isinstance(mod, nn.LayerNorm):
@@ -70,7 +80,8 @@ def params_to_jax(state_dict: Mapping, module: Optional[nn.Module] = None) -> di
     alone does not say what it was: with ``module`` each key takes the kind
     of the module holding it (:func:`param_kinds`); without, a 2-D weight is
     a Dense kernel and a 1-D one a LayerNorm scale (an Embedding needs the
-    module)."""
+    module). A raw leaf (``RAW_LEAVES``) keeps its name and layout; any
+    other leaf raises ``KeyError``."""
     kinds = param_kinds(module) if module is not None else {}
     tree: dict = {}
     for key, val in state_dict.items():
@@ -80,7 +91,7 @@ def params_to_jax(state_dict: Mapping, module: Optional[nn.Module] = None) -> di
             leaf = kinds.get(key, "kernel" if arr.ndim == 2 else "scale")
             if leaf == "kernel":
                 arr = arr.T
-        elif leaf != "bias":
+        elif leaf != "bias" and leaf not in RAW_LEAVES:
             raise KeyError(f"unknown state_dict leaf {key}")
         node = tree
         for name in path:
@@ -93,7 +104,9 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation with flax's defaults: Dense kernels from a
     truncated normal of variance 1/fan_in (lecun_normal), Embed tables from a
     normal of variance 1/features (``variance_scaling(1, 'fan_in', 'normal',
-    out_axis=0)``), LayerNorm scales one, biases zero. The generator is
+    out_axis=0)``), LayerNorm scales one, biases zero, and the raw
+    leaves (GAT's ``[H, D]`` ``att_src`` and ``att_dst``) from flax's
+    ``glorot_uniform``, uniform in ``±sqrt(6 / (H + D))``. The generator is
     explicit, so one seed gives one model on any device (torch and JAX draw
     different numbers from the same seed; tests carry flax weights across
     with :func:`params_from_jax` instead)."""
@@ -115,6 +128,11 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
                 p.copy_(w)
             elif kind == "scale":
                 p.fill_(1.0)
-            else:
+            elif kind == "bias":
                 p.zero_()
+            elif kind in RAW_LEAVES:
+                limit = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                w = torch.empty(p.shape, dtype=torch.float32)
+                nn.init.uniform_(w, -limit, limit, generator=g)
+                p.copy_(w)
     return module

@@ -578,6 +578,101 @@ def test_no_attention_on_the_card_goes_through_a_plain_version(dev, monkeypatch)
     assert np.isfinite(float(t.eval_step(t.next_batch())))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_transformer_attention_at_head_width_32(dev, dtype):
+    """The graph transformer's attention: D = 32, 4 heads, non-causal, a
+    key mask with padded slots inside the tiles and the last one (arxiv's
+    padded slot), q, k and v column slices of one [T, 3L] qkv tensor read
+    in place. The three kernels match their plain versions, and the
+    autograd Function's output and qkv gradient match autograd of
+    dense_attention; padded query rows come out zero."""
+    from dgraph_tpu_torch.ops import attention as att
+
+    T, H, D = 1000, 4, 32
+    L = H * D
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn(T, 3 * L, generator=gen).to(dev, dtype)
+    do = torch.randn(T, H, D, generator=gen).to(dev, dtype)
+    mask = torch.ones(T, device=dev)
+    mask[[100, 517, T - 1]] = 0
+    q, k, v = (t.view(T, H, D) for t in qkv.split(L, dim=-1))
+    assert att._operand(q) is q
+    kw = dict(causal=False, kv_mask=mask)
+    kernels.reset_launch_counts()
+    out, lse = att.flash_attention_fwd(q, k, v, **kw)
+    out_p, lse_p = att.flash_attention_fwd_plain(q, k, v, **kw)
+    _att_close(out, out_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    di = att.row_dot(out_p, do)
+    for got, want in zip(att.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, **kw),
+                         att.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, **kw)):
+        _att_close(got, want)
+    _att_close(att.flash_attention_bwd_dq(q, k, v, do, lse_p, di, **kw),
+               att.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, di, **kw))
+    assert _attention_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
+                                   "flash_attention_bwd_dq": 1}
+    results = []
+    for fn in (att.flash_attention, att.dense_attention):
+        leaf = qkv.clone().requires_grad_()
+        qs, ks, vs = (t.view(T, H, D) for t in leaf.split(L, dim=-1))
+        o = fn(qs, ks, vs, **kw)
+        o.backward(do)
+        results.append((o.detach(), leaf.grad))
+    (o_k, g_k), (o_p, g_p) = results
+    assert torch.equal(o_k[mask == 0], torch.zeros_like(o_k[mask == 0]))
+    _att_close(o_k, o_p)
+    _att_close(g_k, g_p)
+
+
+@pytest.mark.parametrize("model", ["gat", "gt"])
+def test_gat_and_gt_train_on_the_card_like_on_the_cpu(dev, model):
+    """One step of ``python -m dgraph_tpu_torch.train --model gat|gt`` at
+    the CLI's widths (F = 128, hidden 128, 4 heads, C = 40) on a 997-vertex
+    SBM graph (one padded slot): the loss and every gradient match the same
+    step on the CPU (rtol=atol=1e-4), and the step launches the path's
+    kernels: GT the three attention kernels once a layer and kernel 2 three
+    times a layer; GAT kernel 2 six times a head group and layer."""
+    from dgraph_tpu_torch.train.__main__ import Config, DataConfig, build_training
+
+    cfg = Config(model=model, hidden=128, num_layers=2,
+                 data=DataConfig(num_nodes=997, num_classes=40, feat_dim=128, avg_degree=13.77))
+    results = {}
+    for device in ("cpu", "cuda"):
+        t = build_training(cfg, device=device)
+        kernels.reset_launch_counts()
+        loss = float(t.train_step(t.batches["train"])["loss"])
+        results[device] = (loss, {k: p.grad.cpu() for k, p in t.model.named_parameters()},
+                           kernels.launch_counts())
+    (loss_cpu, grads_cpu, _), (loss_gpu, grads_gpu, counts) = results["cpu"], results["cuda"]
+    assert abs(loss_cpu - loss_gpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+    for k, want in grads_cpu.items():
+        torch.testing.assert_close(grads_gpu[k], want, rtol=1e-4, atol=1e-4, msg=k)
+    want = dict.fromkeys(counts, 0)
+    if model == "gt":
+        want.update(flash_attention_fwd=2, flash_attention_bwd_dkv=2, flash_attention_bwd_dq=2,
+                    sorted_segment_sum=6)
+    else:
+        want.update(sorted_segment_sum=48)
+    assert counts == want
+
+
+def test_graph_transformer_refuses_head_widths_the_kernels_lack(dev):
+    """On the card a head width outside HEAD_DIMS raises the kernels' own
+    ValueError; no dense fallback runs."""
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.data import DistributedGraph, synthetic
+    from dgraph_tpu_torch.models import GraphTransformer
+    from dgraph_tpu_torch.weights import init_params
+
+    sbm = synthetic.sbm_classification_graph(num_nodes=200, seed=1)
+    g = DistributedGraph.from_global(sbm["edge_index"], sbm["features"], sbm["labels"],
+                                     sbm["masks"], 1, partition_method="random")
+    model = init_params(GraphTransformer(sbm["features"].shape[1], 160, 4, SingleComm(),
+                                         num_layers=1, num_heads=4)).to(dev)  # D = 40
+    with pytest.raises(ValueError, match="head width D in"):
+        model(g.features[0].to(dev), g.plan.shard(0).to(dev), g.vertex_mask[0].to(dev))
+
+
 @pytest.mark.parametrize("W", [2, 4])
 def test_p2p_transport_bitwise_equal_plain_across_ranks(dev, W):
     """Kernel 5 on W ranks sharing the card (CUDA IPC) against its plain
