@@ -18,10 +18,15 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the bound (bytes over HBM bandwidth or operations over the peak for the
    type, the larger). The five sorted-id kernels at the training shape (the
    arxiv-width GCN plan: E ~ 2.33 M edges, F = 128 per feature chunk,
-   N = 169,344 rows; the segment sum also at F = 1, GAT's softmax
-   denominator) and at edge cases (padded out-of-range ids, empty
-   segments, a 3000-edge hub, F in {1, 33, 128, 256}, strided and unaligned
-   column slices); the three flash-attention kernels at the lm_flash shape
+   N = 169,344 rows; the segment sum also at F in {1, 2, 4, 8, 16, 32} on
+   contiguous [E, F] rows, GAT's softmax denominator and SAGE's degree
+   count, where it takes its narrow path; there also the bare launch with
+   the offsets computed before, beside the wrapper, index_add_ and the
+   searchsorted the wrapper pays once per ids tensor), on power-law ids at
+   the same E and N (max degree at least 10,000; F = 1 and 128, timed
+   beside index_add_) and at edge cases (padded out-of-range ids, empty
+   segments, a 3000-edge hub, F in {1, 2, 4, 8, 16, 33, 128, 256}, strided
+   and unaligned column slices); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
    ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
    T = 200, a padded tail or every key masked, causal or not); every
@@ -124,7 +129,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    and layer (four groups of one head), an eval forward twice; the loss
    falls; the CLI's model before its first step (``build_training``)
    matches a CPU copy's plain forward at full size within 1e-4, and step 0's loss and gradients match the CPU
-   plain path within 1e-4 at V = 16,384. Each run reports step ms p50/p99,
+   plain path within 1e-4 at V = 16,384. In every run no step after the
+   first computes CSR offsets (the sorted kernels' searchsorted runs once
+   per ids tensor). Each run reports step ms p50/p99,
    the device-busy share and the peak device memory;
 then the kernels line (one JSON object) and the device line (last line).
 
@@ -195,6 +202,13 @@ GT_REPS = 3  # timed calls at GT_T: an f32 call takes a good part of a second
 # rounding of the outputs alone reads about 0.3 %. The limit lies between;
 # the dropped-tile controls are read in every run and must exceed it
 GT_BLOCK_REL_TOL = 1e-2
+# kernel 2's narrow widths, timed at the training shape, and the widths of
+# every sorted-id kernel's edge cases
+NARROW_SWEEP = (1, 2, 4, 8, 16, 32)
+EDGE_F = (1, 2, 4, 8, 16, 33, 128, 256)
+# kernel 2's skewed case (ops.kernel_ab.power_law_ids): its largest row
+# must hold at least MIN_HUB_DEGREE edges
+MIN_HUB_DEGREE = 10_000
 SERVE_TOL = 1e-4
 GRAD_TOL = 1e-4
 # lm_flash's bf16 step-0 loss against the f32 run's on the same weights and
@@ -446,16 +460,20 @@ def kernel_cases(seg, data, ids, bias, n, w, *, g=None, x=None):
 def main_shape_bytes(kernel, tag, e, e_valid, n, f, b) -> tuple:
     """(bytes, ops) one call must move and compute at the training shape:
     each input read once and each output written once; rows with an
-    out-of-range id are read by no kernel, but every output row is written."""
+    out-of-range id are read by no kernel, but every output row is written.
+    The segment sums (kernels 1, 1a, 2) read the CSR offsets, 8 (n + 1)
+    bytes, which their wrappers compute once per ids tensor, and not the
+    ids; the gathers (3, 4) read the ids."""
     weighted = tag == "w"
+    row_ptr = 8 * (n + 1)
     if kernel == "sorted_segment_sum_bias_relu":
-        return (e_valid * f * b + 4 * e_valid + 2 * n * f * b + 4 * e_valid * weighted,
+        return (e_valid * f * b + row_ptr + 2 * n * f * b + 4 * e_valid * weighted,
                 e_valid * f * (4 if weighted else 3))
     if kernel == "sorted_segment_sum_act":
-        return (e_valid * f * b + 4 * e_valid + n * f * b + 4 * n * f + 4 * e_valid * weighted,
+        return (e_valid * f * b + row_ptr + n * f * b + 4 * n * f + 4 * e_valid * weighted,
                 e_valid * f * (4 if weighted else 3))
     if kernel == "sorted_segment_sum":
-        return e_valid * f * b + 4 * e_valid + n * f * b, e_valid * f * (2 if tag == "relu" else 1)
+        return e_valid * f * b + row_ptr + n * f * b, e_valid * f * (2 if tag == "relu" else 1)
     if kernel == "fused_bwd_gd":
         return 2 * e * f * b + 4 * e + 2 * n * f * b, e_valid * f * 3
     if kernel == "sorted_row_gather":
@@ -479,6 +497,28 @@ def library_call(kernel, tag, data, ids, n, e_valid, x):
         folded = torch.where((ids >= 0) & (ids < x.shape[0]), ids, x.shape[0]).long()
         return lambda: x_ext.index_select(0, folded)
     return None
+
+
+def bare_segment_sum(seg, data, ids, n, input_op):
+    """Kernel 2's launch alone: its C entry point into a preallocated
+    output, the offsets computed before (no wrapper, no count). The
+    function's ``out`` is the output it writes."""
+    import torch
+
+    from dgraph_tpu_torch.ops import _build
+
+    row_ptr = seg._row_ptr(ids, n)
+    out = torch.empty(n, data.shape[1], dtype=data.dtype, device=data.device)
+    lib = _build.load("sorted_segment")
+    args = (data.data_ptr(), seg._row_stride(data), row_ptr.data_ptr(), out.data_ptr(), n,
+            data.shape[1], seg._KERNEL_DTYPES[data.dtype], int(input_op == "relu"),
+            int(seg._vec_ok(data, out)), seg._stream())
+
+    def run():
+        _build.check(lib.dg_sorted_segment_sum(*args), "dg_sorted_segment_sum")
+
+    run.out, run.row_ptr = out, row_ptr
+    return run
 
 
 def phase_kernels(graph) -> dict:
@@ -505,11 +545,12 @@ def phase_kernels(graph) -> dict:
         key = (kernel, dtype_name)
         worst[key] = max(worst.get(key, 0.0), err)
 
-    # every kernel at F = 128 (a feature chunk), and kernel 2 also at F = 1
-    # (GAT's softmax denominator, a sum over each vertex's edges)
+    # every kernel at F = 128 (a feature chunk), and kernel 2 also at the
+    # narrow widths: F = 1 is GAT's softmax denominator at one head a group
+    # and SAGE's degree count, 2-8 the denominator at more heads a group
     for (dtype_name, dtype), (F, only) in itertools.product(
             (("float32", torch.float32), ("bfloat16", torch.bfloat16)),
-            ((128, None), (1, ("sorted_segment_sum", "none")))):
+            ((128, None), *((f, ("sorted_segment_sum", "none")) for f in NARROW_SWEEP))):
         data = torch.randn(e_pad, F, generator=gen, device=dev).to(dtype)
         bias = torch.randn(n, F, generator=gen, device=dev).to(dtype)
         g = torch.randn(n, F, generator=gen, device=dev).to(dtype)
@@ -542,14 +583,26 @@ def phase_kernels(graph) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
                 if kernel.startswith("sorted_segment_sum"):
+                    # the searchsorted the wrappers now pay once per ids tensor
                     rec["row_ptr_ms"] = time_ms(lambda: seg._row_ptr(ids, n))
+                if kernel == "sorted_segment_sum":
+                    bare = bare_segment_sum(seg, data, ids, n, tag)
+                    bare()
+                    if not torch.equal(bare.out, run()):
+                        fail(f"{name}: the bare launch and the wrapper differ")
+                    rec["kernel_ms"] = time_ms(bare)
+                    del bare
                 records.append(rec)
-                log(f"{name}: err {err:.3g} kernel {rec['ms']:.4f} ms plain "
-                    f"{rec['plain_ms']:.4f} ms library {rec['library_ms']} ms bound "
-                    f"{b_ms:.4f} ms ({b_by})")
+                log(f"{name}: err {err:.3g} wrapper {rec['ms']:.4f} ms kernel "
+                    f"{rec.get('kernel_ms', rec['ms']):.4f} ms plain {rec['plain_ms']:.4f} ms "
+                    f"library {rec['library_ms']} ms bound {b_ms:.4f} ms ({b_by}) searchsorted "
+                    f"{rec.get('row_ptr_ms')} ms")
         del data, bias, g
 
-    # edge cases: empty segments, hub, padded ids, F in {1, 33, 128, 256},
+    records += skewed_cases(seg, gen, ids, n, e_valid, note)
+
+    # edge cases: empty segments, hub, padded ids, F in EDGE_F, contiguous
+    # rows at an odd element offset (16-byte loads unaligned: scalar paths),
     # strided column slices (the GCN's bias chunk), an unaligned slice
     # (scalar path). Values are multiples of 1/4 (weights too): exact in
     # bf16, and their sums exact in f32 in any order, so the hub's
@@ -562,11 +615,14 @@ def phase_kernels(graph) -> dict:
     e_small = ids_small.shape[0]
     w_small = quarters(e_small, lo=0, hi=5)
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for F_ in (1, 33, 128, 256):
+        for F_ in EDGE_F:
             wide = quarters(e_small, F_ + 5).to(dtype)
             table = quarters(n_small, 2 * F_ + 1).to(dtype)
+            e_rows = wide.flatten()[1:1 + e_small * F_].view(e_small, F_)
+            n_rows = table.flatten()[1:1 + 2 * n_small * F_].view(2, n_small, F_)
             views = {"contiguous": (wide[:, :F_].contiguous(), table[:, :F_].contiguous(),
                                     table[:, F_:2 * F_].contiguous()),
+                     "shifted": (e_rows, n_rows[0], n_rows[1]),
                      "strided": (wide[:, :F_], table[:, F_:2 * F_], table[:, :F_]),
                      "unaligned": (wide[:, 1:F_ + 1], table[:, 1:F_ + 1], table[:, F_ + 1:])}
             for layout, (d, bvec, gvec) in views.items():
@@ -582,6 +638,62 @@ def phase_kernels(graph) -> dict:
     log(f"edge cases passed; worst abs err {worst}")
     return {"records": records,
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()}}
+
+
+def skewed_cases(seg, gen, plan_ids, n, e_valid, note) -> list:
+    """Kernel 2 at the training shape (the plan's E slots, N rows) on
+    power-law ids (``ops.kernel_ab.power_law_ids``: max degree at least
+    MIN_HUB_DEGREE), at
+    F = 1 and F = 128, f32 and bf16: against its plain version, two
+    launches with equal bits, timed beside index_add_ (f32) and the bound.
+    Values are multiples of 1/4, whose sums f32 holds exactly in any order,
+    so the hub's sums compare free of summation-order noise."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.ops.kernel_ab import power_law_ids
+
+    ids_np = power_law_ids(n, e_valid, plan_ids.shape[0])
+    max_deg = int(np.bincount(ids_np[:e_valid], minlength=n).max())
+    if max_deg < MIN_HUB_DEGREE:
+        fail(f"skewed ids: max degree {max_deg} < {MIN_HUB_DEGREE}")
+    ids = torch.from_numpy(ids_np).to(plan_ids.device)
+    records = []
+    for (dtype_name, dtype), F in itertools.product(
+            (("float32", torch.float32), ("bfloat16", torch.bfloat16)), (1, 128)):
+        data = (torch.randint(-8, 9, (ids.shape[0], F), generator=gen, device=ids.device)
+                .float() / 4).to(dtype)
+        name = f"sorted_segment_sum {dtype_name} none F={F} skewed"
+
+        def run():
+            return seg.sorted_segment_sum(data, ids, n)
+
+        def plain():
+            return seg.sorted_segment_sum_plain(data, ids, n)
+
+        got = run()
+        err = check_close(name, got, plain(), dtype_name)
+        note("sorted_segment_sum", dtype_name, err)
+        if not torch.equal(got, run()):
+            fail(f"{name}: two launches differ")
+        del got
+        bare = bare_segment_sum(seg, data, ids, n, "none")
+        nbytes, ops = main_shape_bytes("sorted_segment_sum", "none", ids.shape[0], e_valid, n,
+                                       F, data.element_size())
+        b_ms, b_by = bound(nbytes, ops)
+        lib = library_call("sorted_segment_sum", "none", data, ids, n, e_valid, None)
+        rec = {"kernel": "sorted_segment_sum", "case": name, "dtype": dtype_name, "tag": "none",
+               "E": ids.shape[0], "E_valid": e_valid, "N": n, "F": F, "max_degree": max_deg,
+               "max_abs_err": err, "ms": time_ms(run), "kernel_ms": time_ms(bare),
+               "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "library_ms": None if lib is None else time_ms(lib),
+               "bound_ms": b_ms, "bound_by": b_by}
+        records.append(rec)
+        log(f"{name} (max degree {max_deg}): err {err:.3g} wrapper {rec['ms']:.4f} ms kernel "
+            f"{rec['kernel_ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
+            f"{rec['library_ms']} ms bound {b_ms:.4f} ms ({b_by})")
+        del data, bare
+    return records
 
 
 def attention_work(kernel, T, H, D, b, pairs) -> tuple:
@@ -2231,7 +2343,9 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
     ran an eval: 0, every tenth and the last); steps ``prof_steps`` (first,
     last) under torch.profiler; the peak device memory of the run; then one
     more eval forward, which must launch exactly ``want_eval``; the loss
-    must fall. Returns (the CLI's result, record, step 0's gradients)."""
+    must fall; no step after the first may compute CSR offsets again (the
+    sorted kernels' searchsorted, once per ids tensor of the plan). Returns
+    (the CLI's result, record, step 0's gradients)."""
     import contextlib
 
     import numpy as np
@@ -2239,16 +2353,19 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
     from torch.profiler import ProfilerActivity
 
     from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.ops import segment as seg
     from dgraph_tpu_torch.train import __main__ as cli
     from dgraph_tpu_torch.train.profile import device_ops
 
     first, last = prof_steps
     prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    per_step, grads0 = [], {}
+    per_step, grads0, offsets = [], {}, []
 
     def on_step(epoch, t):
         counts = kernels.launch_counts()
         kernels.reset_launch_counts()
+        offsets.append(seg.csr_offsets.computed)
+        seg.csr_offsets.computed = 0
         evals = int(epoch % 10 == 0 or epoch == cfg.epochs - 1)
         check_step_launches(what, epoch, counts,
                             {k: want[k] + evals * want_eval[k] for k in want})
@@ -2263,12 +2380,15 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
     if os.path.exists(cfg.log_path):
         os.remove(cfg.log_path)
     kernels.reset_launch_counts()
+    seg.csr_offsets.computed = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # the CLI's JSON lines go to stderr: stdout keeps this script's two
     with contextlib.redirect_stdout(sys.stderr):
         res = cli.main(cfg, on_step=on_step)
     run_s = time.perf_counter() - t0
+    if any(offsets[1:]):
+        fail(f"{what}: steps after the first computed CSR offsets again: {offsets}")
     peak = torch.cuda.max_memory_allocated()
     t = res["training"]
     kernels.reset_launch_counts()
@@ -2294,7 +2414,7 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
            "step_ms_p99": float(np.percentile(ms[first:], 99)),
            "launches_per_step": want, "launches_per_eval": want_eval,
            "launches": {k: sum(c[k] for c in per_step) for k in want},
-           "eval_ms": eval_ms, "peak_memory_bytes": peak, "run_s": run_s,
+           "csr_offsets_per_step": offsets, "eval_ms": eval_ms, "peak_memory_bytes": peak, "run_s": run_s,
            "profile": {"steps": f"{first}-{last}", "device_ms_per_step": busy,
                        "wall_ms_per_step": wall, "device_busy_share": busy / wall,
                        "ops": ops}}
@@ -2302,7 +2422,8 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
         f"p99 {rec['step_ms_p99']:.3f} (steps {rec['timed_steps']}, host clock); device busy "
         f"{busy / wall:.1%} ({busy:.3f} of {wall:.3f} ms a step, steps {first}-{last}, "
         f"profiler on); peak memory {peak / 2**30:.2f} GiB; loss {losses[0]:.5f} -> "
-        f"{losses[-1]:.5f}; eval forward {eval_ms:.1f} ms; launches per step {want}")
+        f"{losses[-1]:.5f}; eval forward {eval_ms:.1f} ms; launches per step {want}; CSR "
+        f"offsets computed per step {offsets}")
     for o in ops[:10]:
         log(f"  {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
     return res, rec, grads0
@@ -2654,8 +2775,9 @@ def main(argv) -> None:
             if path_launches[name] <= 0:
                 fail(f"{name} was never launched on its path ({case})")
             row = {"launches": path_launches[name], **{f: rec[f] for f in ROW_KEYS}}
-            if rec.get("plain_note"):
-                row["plain_note"] = rec["plain_note"]
+            for extra in ("plain_note", "kernel_ms"):
+                if rec.get(extra) is not None:
+                    row[extra] = rec[extra]
             if entry is None:
                 entry = {"name": name, "route": "cuda", "source": k.source,
                          "replaces": k.replaces, **row}

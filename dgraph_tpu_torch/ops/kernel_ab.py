@@ -9,17 +9,22 @@ entry point in the order old, new, new, old, with CUDA events around
 back-to-back launches into preallocated outputs (kernel time only):
 
 - the sorted-id kernels at the training shape — E = 2,332,672 sorted ids
-  drawn uniformly over N = 169,344 rows, F = 128;
+  drawn uniformly over N = 169,344 rows, F = 128; kernel 2 also at F = 1 as
+  one column of that tensor (row stride 128, "strided");
+- the width sweep of kernel 2 on contiguous ``[E, F]`` rows (GAT's and
+  SAGE's layout) at F in SWEEP_F, and on power-law ids
+  (:func:`power_law_ids`, a row of about 46,000 edges) at F = 1 and 128;
 - the three flash-attention entry points at the lm_flash shape — T = 8192,
   H = 4, D = 128, causal, q, k and v as column slices of one [T, 3L] tensor
   as the LM passes them, lse and di from the plain forward;
 
-each in f32 and bf16. It reports whether the two trees give equal bits and,
-for attention (whose kernels may be redesigned), the largest absolute
-difference between them. An entry point the old tree lacks is
-timed for the new tree only. Prints one line per entry and dtype; writes the
-same as JSON to ``DIR/kernel_ab.json`` (default ``chiprun_out``). Needs a
-CUDA device.
+each in f32 and bf16. It reports whether the two trees give equal bits and
+the largest absolute difference between them. An entry point the old tree
+lacks is timed for the new tree only. Then it times, on the host, one call
+of this checkout's kernel-2 wrapper at F = 1 and each of its parts
+(:func:`wrapper_host_parts`). Prints one line per entry and dtype; writes
+the same as JSON to ``DIR/kernel_ab.json`` (default ``chiprun_out``).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import subprocess
 from pathlib import Path
 
 N_ROWS, N_EDGES, F = 169_344, 2_332_672, 128
+SWEEP_F = (1, 2, 4, 8, 16, 32, 64)
 LM_T, LM_H, LM_D = 8192, 4, 128  # lm_flash: seq_len 8192, latent 512, 4 heads
 
 
@@ -118,8 +124,8 @@ def entry_calls(dtype):
     return keep, {
         "segment_sum": ("sorted_segment", "dg_sorted_segment_sum", out_n,
                         (p(data), F, p(row_ptr), p(out_n), N_ROWS, F, code, 0, 1)),
-        "segment_sum F=1": ("sorted_segment", "dg_sorted_segment_sum", out_n,
-                            (p(data), F, p(row_ptr), p(out_n), N_ROWS, 1, code, 0, 0)),
+        "segment_sum F=1 strided": ("sorted_segment", "dg_sorted_segment_sum", out_n,
+                                    (p(data), F, p(row_ptr), p(out_n), N_ROWS, 1, code, 0, 0)),
         "bias_relu weighted": ("sorted_segment", "dg_sorted_segment_sum_bias_relu", out_n,
                                (p(data), F, p(x), F, p(w), p(row_ptr), p(out_n), N_ROWS, F,
                                 code, 1)),
@@ -131,6 +137,58 @@ def entry_calls(dtype):
         "sorted_row_gather": ("sorted_gather", "dg_sorted_row_gather", out_e,
                               (p(x), F, p(ids), p(out_e), N_EDGES, N_ROWS, F, code, 1)),
     }
+
+
+def power_law_ids(n: int, e_valid: int, e_pad: int, exponent: float = 0.8, seed: int = 7):
+    """Sorted int32 ids of ``e_valid`` edges over ``n`` rows, each row's
+    share of the edges proportional to rank^-exponent (the ranks shuffled
+    over the rows), padded with ``n`` to ``e_pad`` slots: at the arxiv shape
+    the largest row holds about 46,000 edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, n + 1, dtype=np.float64) ** -exponent
+    rows = rng.permutation(n)[rng.choice(n, e_valid, p=p / p.sum())]
+    return np.concatenate([np.sort(rows), np.full(e_pad - e_valid, n)]).astype(np.int32)
+
+
+def sweep_calls(dtype):
+    """As :func:`entry_calls` for kernel 2's width sweep: contiguous
+    ``[E, F]`` data at each F of SWEEP_F."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(np.sort(rng.integers(0, N_ROWS, N_EDGES)).astype(np.int32)).to(dev)
+    row_ptr = seg._row_ptr(ids, N_ROWS)
+    code = seg._KERNEL_DTYPES[dtype]
+    keep, calls = [ids, row_ptr], {}
+    for f in SWEEP_F:
+        data = torch.randn(N_EDGES, f, generator=gen, device=dev).to(dtype)
+        out = torch.empty(N_ROWS, f, device=dev, dtype=dtype)
+        keep += [data, out]
+        calls[f"segment_sum F={f}"] = (
+            "sorted_segment", "dg_sorted_segment_sum", out,
+            (data.data_ptr(), f, row_ptr.data_ptr(), out.data_ptr(), N_ROWS, f, code, 0,
+             int(seg._vec_ok(data, out))))
+    # power-law ids (a row of about 46,000 edges) at one column and at a
+    # feature chunk
+    skewed = torch.from_numpy(power_law_ids(N_ROWS, N_EDGES, N_EDGES)).to(dev)
+    skewed_ptr = seg._row_ptr(skewed, N_ROWS)
+    keep += [skewed, skewed_ptr]
+    for f in (1, F):
+        data = torch.randn(N_EDGES, f, generator=gen, device=dev).to(dtype)
+        out = torch.empty(N_ROWS, f, device=dev, dtype=dtype)
+        keep += [data, out]
+        calls[f"segment_sum F={f} skewed"] = (
+            "sorted_segment", "dg_sorted_segment_sum", out,
+            (data.data_ptr(), f, skewed_ptr.data_ptr(), out.data_ptr(), N_ROWS, f, code, 0,
+             int(seg._vec_ok(data, out))))
+    return keep, calls
 
 
 def attention_calls(dtype):
@@ -178,6 +236,61 @@ def attention_calls(dtype):
     }
 
 
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time of one call: the host clock around ``reps`` back-to-back
+    calls that are not waited for, divided by ``reps``."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def wrapper_host_parts() -> dict:
+    """Host time a call (:func:`host_ms`) of kernel 2's wrapper
+    (``ops.segment.sorted_segment_sum``, this checkout's) at F = 1, f32, at
+    the training shape, and of its parts, beside ``index_add_``: where the
+    wrapper's back-to-back time exceeds its kernel's, these say what the
+    host spends. The wrapper skips its autograd Function when no gradient
+    can flow; with data that requires one it goes through it."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.ops import _build
+    from dgraph_tpu_torch.ops import segment as seg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(np.sort(rng.integers(0, N_ROWS, N_EDGES)).astype(np.int32)).to(dev)
+    data = torch.randn(N_EDGES, 1, device=dev)
+    data_rg = data.detach().requires_grad_()
+    row_ptr = seg.csr_offsets(ids, N_ROWS)
+    out = torch.empty(N_ROWS, 1, device=dev)
+    lib = _build.load("sorted_segment")
+    args = (data.data_ptr(), 1, row_ptr.data_ptr(), out.data_ptr(), N_ROWS, 1,
+            seg._KERNEL_DTYPES[torch.float32], 0, 0, seg._stream())
+    ids_long = ids.long()
+    parts = {
+        "wrapper": lambda: seg.sorted_segment_sum(data, ids, N_ROWS),
+        "wrapper, data requiring a gradient": lambda: seg.sorted_segment_sum(data_rg, ids,
+                                                                             N_ROWS),
+        "input checks": lambda: seg._check_cuda_inputs(data, ids),
+        "offsets (cached)": lambda: seg.csr_offsets(ids, N_ROWS),
+        "output allocation": lambda: torch.empty((N_ROWS, 1), device=dev),
+        "stream handle": seg._stream,
+        "C entry point": lambda: lib.dg_sorted_segment_sum(*args),
+        "index_add_": lambda: torch.zeros(N_ROWS, 1, device=dev).index_add_(0, ids_long, data),
+    }
+    return {k: host_ms(f) for k, f in parts.items()}
+
+
 def compare(old: Path, new: Path) -> list:
     import torch
 
@@ -185,7 +298,7 @@ def compare(old: Path, new: Path) -> list:
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for make in (entry_calls, attention_calls):
+        for make in (entry_calls, sweep_calls, attention_calls):
             keep, calls = make(dtype)
             for label, (src, entry, out, args, *tail) in calls.items():
                 outs = out if isinstance(out, tuple) else (out,)
@@ -214,9 +327,8 @@ def compare(old: Path, new: Path) -> list:
                 if "old" in got:
                     row["equal_bits"] = all(torch.equal(a, b)
                                             for a, b in zip(got["old"], got["new"]))
-                    if make is attention_calls:
-                        row["max_abs_diff"] = max(float((a.float() - b.float()).abs().max())
-                                                  for a, b in zip(got["old"], got["new"]))
+                    row["max_abs_diff"] = max(float((a.float() - b.float()).abs().max())
+                                              for a, b in zip(got["old"], got["new"]))
                 rows.append(row)
             del keep, calls
             torch.cuda.empty_cache()
@@ -238,12 +350,15 @@ def main(argv=None) -> None:
     for r in rows:
         fmt = lambda v: "-" if v is None else "/".join(f"{t:.4f}" for t in v)  # noqa: E731
         diff = f"  max abs diff {r['max_abs_diff']:.3g}" if "max_abs_diff" in r else ""
-        print(f"{r['dtype']:9s} {r['entry']:24s} old {fmt(r['old_ms'])} ms  new "
+        print(f"{r['dtype']:9s} {r['entry']:26s} old {fmt(r['old_ms'])} ms  new "
               f"{fmt(r['new_ms'])} ms  equal bits {r['equal_bits']}{diff}")
+    host = wrapper_host_parts()
+    print("kernel 2's wrapper at F = 1, f32, host ms a call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
     os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
-        json.dump({"nvidia_smi": smi, "old": str(a.old), "new": str(a.new), "rows": rows}, f,
-                  indent=1)
+        json.dump({"nvidia_smi": smi, "old": str(a.old), "new": str(a.new), "rows": rows,
+                   "wrapper_host_ms": host}, f, indent=1)
 
 
 if __name__ == "__main__":

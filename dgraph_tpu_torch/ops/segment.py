@@ -26,7 +26,8 @@ All take MONOTONE (sorted) ids; ids outside ``[0, N)`` are dropped by the
 reductions and give zero rows in the gathers (the plan pads owner ids with
 ``n_pad``). The CUDA sources are ``csrc/sorted_segment.cu`` (the CSR
 reductions: ``row_ptr = searchsorted(ids, arange(N+1))`` plays the part of
-the TPU kernel's chunk schedule and drops out-of-range ids by construction)
+the TPU kernel's chunk schedule and drops out-of-range ids by construction;
+:func:`csr_offsets` computes it once per ids tensor)
 and ``csrc/sorted_gather.cu`` (the row gathers); the design notes are there.
 
 Device rule: on a CPU tensor a wrapper runs its plain PyTorch version
@@ -39,6 +40,7 @@ a launch inside a backward counts for the kernel it launches.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -224,6 +226,46 @@ def _row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(ids, rows)
 
 
+# id(ids) -> (weak reference to ids, {num_segments: (ids._version, row_ptr)})
+_offsets: dict = {}
+
+
+def _forget(ref, key) -> None:
+    if _offsets.get(key, (None,))[0] is ref:
+        del _offsets[key]
+
+
+def csr_offsets(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """:func:`_row_ptr`, computed once per ids tensor and reused by every
+    later call of kernels 1, 1a and 2 on it: the plan's ids do not change
+    within a run. The cache is keyed by the ids tensor OBJECT, through a
+    weak reference (its entry dies with the tensor, and a new tensor never
+    sees it, even with the same values or at a reused address), by its
+    version counter (an in-place edit, of it or of a view sharing its
+    storage, computes the offsets again) and by N. Inference tensors have
+    no version counter and are never cached. Writes that bypass PyTorch
+    (a raw pointer, ``.numpy()``) are not seen: the ids must not change
+    that way. ``csr_offsets.computed`` counts the searchsorted calls."""
+    if segment_ids.is_inference():
+        csr_offsets.computed += 1
+        return _row_ptr(segment_ids, num_segments)
+    key = id(segment_ids)
+    entry = _offsets.get(key)
+    if entry is None or entry[0]() is not segment_ids:
+        entry = (weakref.ref(segment_ids, lambda r, k=key: _forget(r, k)), {})
+        _offsets[key] = entry
+    hit = entry[1].get(num_segments)
+    if hit is not None and hit[0] == segment_ids._version:
+        return hit[1]
+    row_ptr = _row_ptr(segment_ids, num_segments)
+    entry[1][num_segments] = (segment_ids._version, row_ptr)
+    csr_offsets.computed += 1
+    return row_ptr
+
+
+csr_offsets.computed = 0
+
+
 def _ids32(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
     """The gathers' int32 ids; int64 ids are clamped to [-1, N] first, which
     keeps every out-of-range id out of range."""
@@ -251,7 +293,7 @@ def _segment_sum(data, segment_ids, num_segments, input_op):
         return out
     if E == 0:
         return out.zero_()
-    row_ptr = _row_ptr(segment_ids, num_segments)
+    row_ptr = csr_offsets(segment_ids, num_segments)
     lib = _build.load("sorted_segment")
     rc = lib.dg_sorted_segment_sum(
         data.data_ptr(), _row_stride(data), row_ptr.data_ptr(), out.data_ptr(),
@@ -283,7 +325,7 @@ def _bias_epilogue(data, segment_ids, bias, num_segments, edge_weight, act):
         return out
     if E == 0:
         return out.zero_()
-    row_ptr = _row_ptr(segment_ids, num_segments)
+    row_ptr = csr_offsets(segment_ids, num_segments)
     lib = _build.load("sorted_segment")
     fn = lib.dg_sorted_segment_sum_act if act else lib.dg_sorted_segment_sum_bias_relu
     rc = fn(
@@ -480,8 +522,13 @@ def sorted_segment_sum(
 ) -> torch.Tensor:
     """Segment sum for sorted ids; rows with ids outside [0, num_segments)
     are dropped. Returns ``[num_segments, F]`` in the data dtype (f32 sum).
-    Differentiable: the backward is ``g[ids]`` (zero for dropped rows)."""
+    Differentiable: the backward is ``g[ids]`` (zero for dropped rows).
+    Where no gradient can flow (grad mode off, or data not requiring one:
+    serving, SAGE's degree count) the autograd Function is skipped, which
+    saves its host time (a third of the wrapper's at F = 1, PERF.md §6)."""
     _check_input_op(input_op)
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return _segment_sum(data, segment_ids, num_segments, input_op)
     return _SortedSegmentSum.apply(data, segment_ids, num_segments, input_op, gather_mv)
 
 

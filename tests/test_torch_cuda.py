@@ -54,7 +54,9 @@ def _close(got, want):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("F", [1, 33, 128, 256])
+# kernel 2 sums contiguous rows of F <= 64 (f32) / 16 (bf16) on its narrow
+# path, wider or strided rows on the warp-per-row path
+@pytest.mark.parametrize("F", [1, 2, 4, 8, 16, 33, 128, 256])
 @pytest.mark.parametrize("input_op", ["none", "relu"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sorted_segment_sum_kernel(dev, dtype, input_op, F):
@@ -94,6 +96,46 @@ def test_strided_column_slices(dev, offset):
     _close(seg.sorted_segment_sum_bias_relu(d, ids, b, N),
            seg.sorted_segment_sum_bias_relu_plain(d, ids, b, N))
     _close(seg.sorted_segment_sum(d, ids, N), seg.sorted_segment_sum_plain(d, ids, N))
+
+
+@pytest.mark.parametrize("F", [1, 4, 16, 128])
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned", "column_slice"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_segment_sum_hub(dev, dtype, layout, F):
+    """One row of 12,000 edges between short rows: the narrow path sums it
+    across several shared-memory chunks with the whole warp, staged with
+    vector loads (contiguous) or scalar ones (contiguous rows that start
+    off a 16-byte boundary); a column slice takes the warp-per-row path.
+    Exact values (multiples of 1/4), so plain and kernel agree in any
+    order."""
+    rng = np.random.default_rng(5)
+    short = np.sort(rng.integers(0, N, 6000))
+    ids = np.sort(np.concatenate([short, np.full(12000, 1234), np.full(40, N)]))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    E = ids.shape[0]
+    wide = _quarters(E, F + 3, dev=dev).to(dtype)
+    data = {"contiguous": wide[:, :F].contiguous(),
+            "unaligned": wide.flatten()[1:1 + E * F].view(E, F),
+            "column_slice": wide[:, 1:F + 1]}[layout]
+    got = seg.sorted_segment_sum(data, ids, N)
+    _close(got, seg.sorted_segment_sum_plain(data, ids, N))
+    assert torch.equal(got, seg.sorted_segment_sum(data, ids, N))
+    assert float(got[1234].float().abs().sum()) > 0
+
+
+@pytest.mark.parametrize("input_op", ["none", "relu"])
+@pytest.mark.parametrize("dtype,F", [(torch.float32, f) for f in (1, 2, 4, 8, 16, 32, 64)]
+                         + [(torch.bfloat16, f) for f in (1, 2, 4, 8, 16)])
+def test_narrow_sum_launches_give_equal_bits(dev, dtype, F, input_op):
+    """Random values, whose sums round (so the values are held to plain by
+    the tests above, on exact inputs): the narrow path's order of summation
+    is fixed by the offsets alone, so two launches give the same bits."""
+    ids = _ids(dev, seed=6)
+    data = torch.randn(ids.shape[0], F, device=dev).to(dtype)
+    a = seg.sorted_segment_sum(data, ids, N, input_op=input_op)
+    b = seg.sorted_segment_sum(data, ids, N, input_op=input_op)
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 def test_kernels_are_deterministic(dev):

@@ -7,7 +7,9 @@ versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
 
 Inputs are made with numpy from a seed and cover the plan's padded owner ids
 (``n_owner_pad``, out of range), empty segments, a hub vertex whose degree
-exceeds the TPU kernel's edge block, and F in {1, 33, 128}.
+exceeds the TPU kernel's edge block, and F in {1, 33, 128} (kernel 2 also at
+F in {2, 4, 8, 16}). The CSR offsets cache of the kernels' wrappers is held
+to a fresh searchsorted on the CPU.
 Tolerances: f32 rtol=atol=1e-5 (the two sum in different orders); bf16,
 compared in f32, rtol=atol=2e-2 (one bf16 ulp of the output is 2^-8).
 """
@@ -60,7 +62,9 @@ def _close(got: torch.Tensor, want, dtype: str):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("F", [1, 33, 128])
+# F in {1, 2, 4, 8, 16, 33}: the CUDA kernel sums contiguous rows of these
+# widths on its narrow path (33 in f32 only)
+@pytest.mark.parametrize("F", [1, 2, 4, 8, 16, 33, 128])
 @pytest.mark.parametrize("input_op", ["none", "relu"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sorted_segment_sum_matches_pallas(dtype, input_op, F):
@@ -166,3 +170,84 @@ def test_cpu_calls_are_not_kernel_launches():
                                    "sorted_segment_sum_bias_relu": 0,
                                    "sorted_segment_sum_act": 0, "fused_bwd_gd": 0,
                                    "sorted_row_gather": 0}
+
+
+# --- the CSR offsets, computed once per ids tensor -------------------------
+
+
+def _want_offsets(ids: np.ndarray, n: int) -> np.ndarray:
+    return np.searchsorted(ids, np.arange(n + 1), side="left")
+
+
+def test_csr_offsets_are_reused_for_the_same_ids_tensor():
+    ids = torch.from_numpy(IDS.copy())
+    before = seg.csr_offsets.computed
+    a = seg.csr_offsets(ids, N)
+    b = seg.csr_offsets(ids, N)
+    assert b is a and seg.csr_offsets.computed == before + 1
+    np.testing.assert_array_equal(a.numpy(), _want_offsets(IDS, N))
+    assert a.dtype == torch.int64
+    # another N is another set of offsets, each reused
+    c = seg.csr_offsets(ids, N - 10)
+    assert c is not a and seg.csr_offsets(ids, N - 10) is c
+    assert seg.csr_offsets.computed == before + 2
+    np.testing.assert_array_equal(c.numpy(), _want_offsets(IDS, N - 10))
+
+
+@pytest.mark.parametrize("edit", ["in_place", "through_a_view", "base_of_a_view"])
+def test_csr_offsets_are_computed_again_after_an_in_place_edit(edit):
+    base = torch.from_numpy(np.concatenate([IDS, IDS[-5:]]).copy())
+    ids = base[:E] if edit == "base_of_a_view" else base
+    stale = seg.csr_offsets(ids, N).clone()
+    before = seg.csr_offsets.computed
+    if edit == "in_place":
+        ids.clamp_(max=N // 2)
+    elif edit == "through_a_view":
+        ids[: E // 2].zero_()
+    else:
+        base.clamp_(max=N // 2)  # ids is a view of base: they share a version counter
+    got = seg.csr_offsets(ids, N)
+    assert seg.csr_offsets.computed == before + 1
+    want = _want_offsets(ids.numpy(), N)
+    assert not np.array_equal(stale.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert seg.csr_offsets(ids, N) is got  # and reused again after that
+
+
+def test_csr_offsets_are_not_shared_across_tensors():
+    a_ids = torch.from_numpy(IDS.copy())
+    a = seg.csr_offsets(a_ids, N)
+    before = seg.csr_offsets.computed
+    # the same values, a new tensor: its own offsets
+    b_ids = a_ids.clone()
+    assert seg.csr_offsets(b_ids, N) is not a
+    # the same shape, other values: its own, right, offsets
+    other = np.sort(np.random.default_rng(9).integers(0, N, E)).astype(np.int32)
+    c = seg.csr_offsets(torch.from_numpy(other), N)
+    np.testing.assert_array_equal(c.numpy(), _want_offsets(other, N))
+    assert seg.csr_offsets.computed == before + 2
+
+
+def test_csr_offsets_die_with_their_tensor():
+    """A freed tensor's entry goes with it, so a new tensor at a reused
+    address (or with a reused id) never reads its offsets."""
+    rng = np.random.default_rng(11)
+    entries = len(seg._offsets)
+    for i in range(20):
+        vals = np.sort(rng.integers(0, N, E)).astype(np.int32)
+        ids = torch.from_numpy(vals)
+        np.testing.assert_array_equal(seg.csr_offsets(ids, N).numpy(), _want_offsets(vals, N))
+        del ids
+    assert len(seg._offsets) == entries
+
+
+def test_csr_offsets_of_inference_tensors_are_never_cached():
+    before = seg.csr_offsets.computed
+    with torch.inference_mode():
+        ids = torch.from_numpy(IDS.copy()) + 0
+        a = seg.csr_offsets(ids, N)
+        ids.clamp_(max=N // 2)
+        b = seg.csr_offsets(ids, N)
+    assert seg.csr_offsets.computed == before + 2
+    np.testing.assert_array_equal(a.numpy(), _want_offsets(IDS, N))
+    np.testing.assert_array_equal(b.numpy(), _want_offsets(np.minimum(IDS, N // 2), N))
