@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --phase 9    # phases 1, 2 and 9 (e.g. a card a rank)
+    python3 chip_smoke.py --phase 11   # phases 1, 2 and 11
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
 1. device — require CUDA; print the card's name and power limit (nvidia-smi);
-2. build — compile every CUDA source of the port with nvcc (sm_90a), timed;
+2. build — compile every CUDA source of the port with nvcc (sm_90a), timed,
+   and beside them the native host library with g++ (it must load);
    every tensor-core kernel (bf16 forward, dK/dV, dQ; the split-TF32 f32
    forward, dK/dV and dQ) must be there at D = 32, 64, 128, neither
    spilling nor having its wgmma serialized (ptxas -v);
@@ -102,14 +104,22 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    RED naming ``dst-rows`` on ``bad_dst_row`` and ``extent`` on
    ``oversize``; kernels 5 and 6 timed beside the exchange's
    barrier-to-barrier wall time, the plain version, the yardstick and the
-   bound. Then ``python -m
-   dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4`` with
-   DGRAPH_TPU_HALO_IMPL=pallas_p2p (random partition, the interior/boundary
-   split): 2 warm-up and 10 timed steps; every rank's every step launches
+   bound; the real shape is the W = 4 plan under the training CLI's
+   default partition (multilevel, the native host library: it must load).
+   Then ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size
+   4`` with DGRAPH_TPU_HALO_IMPL=pallas_p2p (the interior/boundary split)
+   twice, under ``multilevel`` (the CLI's default) and under ``random``
+   (``--phase 9``: four times, random, multilevel, multilevel, random):
+   2 warm-up and 10 timed steps each; every rank's every step launches
    kernel 5 four times and kernel 1 eight times (plus 2 and 8 with an
-   eval); step 0's loss and gradients match a 4-rank gloo run on the CPU
-   within 1e-4; the loss falls; the ranks' parameters are bit-equal at the
-   end; step ms p50/p99 and the device-busy share per rank;
+   eval); every rank built the same partition (a digest of it) with the
+   native host library loaded; step 0's loss and gradients of every run
+   match one 4-rank gloo run on the CPU (random partition) within 1e-4;
+   the loss falls; the ranks' parameters are bit-equal at the end; per run
+   the partition's host seconds, the edge cut, the vertices each rank owns,
+   S, the live deltas, the bytes an exchange puts, the interior and
+   boundary edges per rank, and per rank step ms p50/p99, the exchange ms
+   and the device-busy share;
 10. train ogb_gcn --model gt and --model gat — ``python -m
    dgraph_tpu_torch.train``'s ``main`` on phase 7's arxiv-width graph at
    the CLI's defaults (hidden 128, 2 layers, 4 heads, Adam 5e-3; gt_arxiv
@@ -133,6 +143,15 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    first computes CSR offsets (the sorted kernels' searchsorted runs once
    per ids tensor). Each run reports step ms p50/p99,
    the device-busy share and the peak device memory;
+11. train from the OGB raw layout — ``ogbn.export_arxiv_shaped_npz`` (V =
+   169,343, F = 128) written in ogbn-arxiv's raw download layout by
+   ``ogb_raw.write_node_pred_raw`` and parsed back by
+   ``ogbn.load_ogb_arrays`` (every array equal to ``from_npz`` of the
+   export; write and parse seconds logged), then ``python -m
+   dgraph_tpu_torch.train``'s ``main`` with ``--data.ogb_name ogbn-arxiv
+   --data.root <that layout>`` at the CLI's default partition, one rank,
+   3 steps, the sorted-row-gather kernel on (kernels 1, 2 and 3, launches
+   checked every step), finite losses;
 then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
@@ -143,6 +162,7 @@ seeds. Needs one card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -319,14 +339,31 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc
 def phase_build() -> dict:
     """Every source built; each kernel's registers and spills from the
     ptxas log. The tensor-core kernels (TC_KERNEL_MARKS) must neither spill
-    nor have their wgmma serialized."""
+    nor have their wgmma serialized. The native host library (g++, the
+    multilevel partitioners) builds beside the nvcc builds and must load."""
     import re
+    import threading
 
+    from dgraph_tpu_torch import native
     from dgraph_tpu_torch.ops import _build
 
+    host = {}
+
+    def build_host():
+        t = time.perf_counter()
+        host["ok"] = native.available()
+        host["s"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    thread = threading.Thread(target=build_host)
+    thread.start()
     times = _build.build()
+    thread.join()
     total = time.perf_counter() - t0
+    if not host["ok"]:
+        fail(f"the native host library did not build or load: {native.build_error}")
+    log(f"native host library ({native.library_path().name}): built and loaded in "
+        f"{host['s']:.2f} s")
     kernels = {}
     for name in times:
         for k, r in ptxas_kernels(_build.build_log(name)).items():
@@ -343,7 +380,8 @@ def phase_build() -> dict:
     if bad:
         fail(f"tensor-core kernels spill or serialize their wgmma: {bad}")
     log(f"build: {total:.2f} s ({times})")
-    return {"build_s": total, "per_source_s": times, "ptxas": kernels}
+    return {"build_s": total, "per_source_s": times, "native_host_s": host["s"],
+            "ptxas": kernels}
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -2104,6 +2142,35 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
             "real_s": time.perf_counter() - t0 - edge_s - landing_s}
 
 
+def partition_record(graph) -> dict:
+    """What a W = 4 graph's partition gives the exchange, as one rank built
+    it: the partition's host seconds and a digest of it (every rank builds
+    its own and they must agree), whether the native host library loaded
+    in this process (a multilevel partition without it is greedy BFS), the
+    edge cut, the vertices each rank owns, S, the live deltas, the bytes an
+    exchange puts at F = P2P_F in f32 (every live delta's [S, F] tile), and
+    the interior and boundary edges of each rank's split."""
+    import hashlib
+
+    import numpy as np
+
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch import partition as pt
+
+    plan, ren = graph.plan, graph.ren
+    return {
+        "partition_s": graph.partition_s,
+        "digest": hashlib.sha256(np.ascontiguousarray(ren.partition).tobytes()
+                                 + np.ascontiguousarray(ren.perm).tobytes()).hexdigest()[:16],
+        "native": native.available(), "native_error": native.build_error,
+        "edge_cut": pt.edge_cut(graph.edge_index, ren.partition),
+        "owned": ren.counts.tolist(), "S": plan.halo.s_pad, "deltas": list(plan.halo_deltas),
+        "exchange_bytes": len(plan.halo_deltas) * plan.halo.s_pad * P2P_F * 4,
+        "interior": plan.overlap.num_interior.tolist(),
+        "boundary": plan.overlap.num_boundary.tolist(),
+    }
+
+
 class Phase9Probe:
     """``on_step`` of the W = 4 training run, in each rank's process: each
     step's kernel launches and the host ms its exchanges took barrier to
@@ -2126,6 +2193,7 @@ class Phase9Probe:
         p2p.p2p_transport.wall_s = 0.0
         if epoch == 0:
             out["grads"] = {k: v.numpy() for k, v in grads_of(t.model).items()}
+            out["partition"] = partition_record(t.graph)
         if epoch == 1:
             torch.cuda.synchronize()
             self.prof = torch.profiler.profile(
@@ -2230,29 +2298,44 @@ def phase_p2p_kernel(graph) -> dict:
                 landing[W]["launches"]["p2p_transport_mutant"] for W in landing)}}
 
 
-def phase_train_ogb_gcn_w4() -> dict:
+@contextlib.contextmanager
+def pallas_p2p_env():
+    """DGRAPH_TPU_HALO_IMPL=pallas_p2p for the ranks spawned inside (each
+    reads it at start-up)."""
+    saved = os.environ.get("DGRAPH_TPU_HALO_IMPL")
+    os.environ["DGRAPH_TPU_HALO_IMPL"] = "pallas_p2p"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("DGRAPH_TPU_HALO_IMPL")
+        else:
+            os.environ["DGRAPH_TPU_HALO_IMPL"] = saved
+
+
+def train_w4_run(partition: str) -> tuple:
     """experiments/ogb_gcn.py's GCN at arxiv width over 4 ranks through
     ``python -m dgraph_tpu_torch.train``'s main with
-    DGRAPH_TPU_HALO_IMPL=pallas_p2p (random partition, dst-owned, the
-    interior/boundary split): 2 warm-up and 10 timed steps. Every rank's
-    every step launches kernel 5 four times (two exchanges, two reverse
-    legs) and kernel 1 eight times (2 layers x 2 chunks x 2 subsets), plus 2
-    and 8 when the step ran an eval; step 0's loss and gradients against a
-    4-rank gloo run on the CPU; the loss falls; the ranks' parameters are
-    bit-equal after the last step."""
-    import contextlib
-    import dataclasses
+    DGRAPH_TPU_HALO_IMPL=pallas_p2p (dst-owned, the interior/boundary split)
+    under ``partition``: 2 warm-up and 10 timed steps. Every rank's every
+    step launches kernel 5 four times (two exchanges, two reverse legs) and
+    kernel 1 eight times (2 layers x 2 chunks x 2 subsets), plus 2 and 8
+    when the step ran an eval; the loss falls; the ranks' parameters are
+    bit-equal after the last step; every rank built the same partition
+    (digest) with the native host library loaded. Returns (the Config, the
+    record, each rank's step-0 gradients)."""
 
     import numpy as np
 
     from dgraph_tpu_torch import config
-    from dgraph_tpu_torch.comm.dist import launch
     from dgraph_tpu_torch.ops.kernels import KERNELS
     from dgraph_tpu_torch.train import __main__ as cli
     from dgraph_tpu_torch.train.profile import ogb_gcn_config
 
-    cfg = ogb_gcn_config(world_size=P2P_W)
-    cfg.epochs, cfg.log_path = 12, os.path.join(OUT_DIR, "train_ogb_gcn_w4.jsonl")
+    what = f"train ogb_gcn W=4 {partition}"
+    cfg = ogb_gcn_config(world_size=P2P_W, partition=partition)
+    cfg.epochs = 12
+    cfg.log_path = os.path.join(OUT_DIR, f"train_ogb_gcn_w4_{partition}.jsonl")
     chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
     want = dict.fromkeys(KERNELS, 0)
     want.update(p2p_transport=2 * cfg.num_layers, sorted_segment_sum_bias_relu=2 * chunks,
@@ -2260,49 +2343,40 @@ def phase_train_ogb_gcn_w4() -> dict:
     os.makedirs(OUT_DIR, exist_ok=True)
     if os.path.exists(cfg.log_path):
         os.remove(cfg.log_path)
-    saved = os.environ.get("DGRAPH_TPU_HALO_IMPL")
-    os.environ["DGRAPH_TPU_HALO_IMPL"] = "pallas_p2p"  # read by each spawned rank
-    try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            res = cli.main(cfg, on_step=Phase9Probe(cfg.epochs))
-        run_s = time.perf_counter() - t0
-        tc = time.perf_counter()
-        cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cfg), device="cpu",
-                     timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
-        cpu_s = time.perf_counter() - tc
-    finally:
-        if saved is None:
-            os.environ.pop("DGRAPH_TPU_HALO_IMPL")
-        else:
-            os.environ["DGRAPH_TPU_HALO_IMPL"] = saved
+    t0 = time.perf_counter()
+    with pallas_p2p_env(), contextlib.redirect_stdout(sys.stderr):
+        res = cli.main(cfg, on_step=Phase9Probe(cfg.epochs))
+    run_s = time.perf_counter() - t0
     ranks = res["ranks"]
+    parts = [rank["on_step"][0]["partition"] for rank in ranks]
+    if any(not p["native"] for p in parts):
+        fail(f"{what}: the native host library did not load in every rank: "
+             f"{[p['native_error'] for p in parts]}")
+    if len({p["digest"] for p in parts}) != 1:
+        fail(f"{what}: the ranks built different partitions: {[p['digest'] for p in parts]}")
     for r, rank in enumerate(ranks):
         for i, probe in enumerate(rank["on_step"]):
             evals = int(i % 10 == 0 or i == cfg.epochs - 1)
             step_want = dict(want, p2p_transport=want["p2p_transport"] + cfg.num_layers * evals,
                              sorted_segment_sum_bias_relu=want["sorted_segment_sum_bias_relu"]
                              + 2 * chunks * evals)
-            check_step_launches(f"train ogb_gcn W=4 rank {r}", i, probe["counts"], step_want)
+            check_step_launches(f"{what} rank {r}", i, probe["counts"], step_want)
     losses = [rec["loss"] for rec in res["records"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"train ogb_gcn W=4: the loss did not fall over {cfg.epochs} steps: {losses}")
-    if abs(losses[0] - cpu[0]["loss"]) > GRAD_TOL * max(1.0, abs(cpu[0]["loss"])):
-        fail(f"train ogb_gcn W=4: step-0 loss {losses[0]} vs CPU {cpu[0]['loss']}")
-    import torch
-
-    want_grads = {k: torch.from_numpy(v) for k, v in cpu[0]["grads"].items()}
-    grad_err = 0.0
-    for r, rank in enumerate(ranks):
-        got = {k: torch.from_numpy(v) for k, v in rank["on_step"][0]["grads"].items()}
-        grad_err = max(grad_err, check_grads(f"train ogb_gcn W=4 rank {r}", got, want_grads))
+        fail(f"{what}: the loss did not fall over {cfg.epochs} steps: {losses}")
     last = [rank["on_step"][-1]["params"] for rank in ranks]
     for r in range(1, P2P_W):
         for k, v in last[0].items():
             if not np.array_equal(last[r][k], v):
-                fail(f"train ogb_gcn W=4: rank {r}'s {k} differs from rank 0's after the last step")
+                fail(f"{what}: rank {r}'s {k} differs from rank 0's after the last step")
     launches = {k: sum(p["counts"][k] for rank in ranks for p in rank["on_step"])
                 for k in want}
+    part = dict(parts[0], partition_s=[p["partition_s"] for p in parts])
+    log(f"{what}: partition {max(part['partition_s']):.2f} s a rank (host, every rank its "
+        f"own, digests equal, native library loaded in every rank); edge cut "
+        f"{part['edge_cut']:.4f}; owned per rank {part['owned']}; S={part['S']} live deltas "
+        f"{part['deltas']}: {part['exchange_bytes'] / 1e6:.1f} MB an exchange a rank at "
+        f"F={P2P_F} f32; interior/boundary edges per rank {part['interior']}/{part['boundary']}")
     per_rank = []
     for r, rank in enumerate(ranks):
         ms = [rec["wall_ms"] for rec in rank["records"]][2:]
@@ -2314,21 +2388,65 @@ def phase_train_ogb_gcn_w4() -> dict:
                          "exchange_ms": ex, "exchange_ms_p50": float(np.percentile(ex, 50)),
                          "device_ms_per_step": busy,
                          "device_busy_share": busy / float(np.mean(ms)), "ops": ops})
-        log(f"train ogb_gcn W=4 rank {r}: step ms p50 {per_rank[-1]['step_ms_p50']:.3f} p99 "
+        log(f"{what} rank {r}: step ms p50 {per_rank[-1]['step_ms_p50']:.3f} p99 "
             f"{per_rank[-1]['step_ms_p99']:.3f} (steps 2-11, host clock, profiler on), of "
             f"which the exchanges barrier to barrier p50 {per_rank[-1]['exchange_ms_p50']:.3f} "
             f"ms; device busy {per_rank[-1]['device_busy_share']:.1%} ({busy:.3f} ms a step)")
+    summed = sum(p["device_ms_per_step"] for p in per_rank)
+    log(f"{what}: device ms a step summed over the ranks {summed:.3f}, against a step p50 of "
+        f"{max(p['step_ms_p50'] for p in per_rank):.3f} ms (on one card the ranks' kernels "
+        f"share it)")
     for o in per_rank[0]["ops"][:12]:
         log(f"  rank 0: {o['device_ms_per_step']:9.4f} ms/step  x{o['count']:<4d} {o['name'][:80]}")
-    rec = {"config": "ogb_gcn W=4 pallas_p2p", "world_size": P2P_W, "losses": losses,
-           "launches_per_step": want, "launches": launches, "step0_loss_cpu": cpu[0]["loss"],
-           "grad_max_abs_err": grad_err, "run_s": run_s, "cpu_reference_s": cpu_s,
+    rec = {"config": f"ogb_gcn W=4 pallas_p2p {partition}", "world_size": P2P_W,
+           "partition_method": partition, "partition": part, "losses": losses, "launches_per_step": want,
+           "launches": launches, "run_s": run_s,
            "avg_epoch_ms_excl_first": res["avg_epoch_ms_excl_first"], "per_rank": per_rank}
-    log(f"train ogb_gcn W=4 (pallas_p2p): loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches a "
-        f"step a rank {dict((k, v) for k, v in want.items() if v)}; step-0 grads vs the 4-rank "
-        f"CPU run max abs err {grad_err:.3g}; parameters bit-equal across ranks; run {run_s:.1f} "
-        f"s, CPU reference {cpu_s:.1f} s")
-    return rec
+    return cfg, rec, [rank["on_step"][0]["grads"] for rank in ranks]
+
+
+def phase_train_ogb_gcn_w4(turns) -> list:
+    """Phase 9's training: :func:`train_w4_run` under each partition of
+    ``turns`` in that order (both ``multilevel``, the CLI's default and the
+    main row of kernel 5, and ``random``, the earlier row); every run's
+    step-0 loss and every rank's gradients against one 4-rank gloo run on
+    the CPU (under ``random``: renumbering the vertices changes neither the
+    seeded parameters nor the masked mean loss, so one reference holds
+    them all)."""
+    import dataclasses
+
+    import torch
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    runs = [train_w4_run(p) for p in turns]
+    cpu_cfg = next(cfg for cfg, _, _ in runs if cfg.data.partition == "random")
+    tc = time.perf_counter()
+    with pallas_p2p_env():
+        cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cpu_cfg), device="cpu",
+                     timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
+    cpu_s = time.perf_counter() - tc
+    want_grads = {k: torch.from_numpy(v) for k, v in cpu[0]["grads"].items()}
+    recs = []
+    for cfg, rec, grads in runs:
+        what = f"train ogb_gcn W=4 {cfg.data.partition}"
+        loss0 = rec["losses"][0]
+        if abs(loss0 - cpu[0]["loss"]) > GRAD_TOL * max(1.0, abs(cpu[0]["loss"])):
+            fail(f"{what}: step-0 loss {loss0} vs CPU {cpu[0]['loss']}")
+        grad_err = 0.0
+        for r, g in enumerate(grads):
+            got = {k: torch.from_numpy(v) for k, v in g.items()}
+            grad_err = max(grad_err, check_grads(f"{what} rank {r}", got, want_grads))
+        rec.update(step0_loss_cpu=cpu[0]["loss"], grad_max_abs_err=grad_err,
+                   cpu_reference_s=cpu_s)
+        p50 = [p["step_ms_p50"] for p in rec["per_rank"]]
+        log(f"{what} (pallas_p2p): loss {rec['losses'][0]:.5f} -> {rec['losses'][-1]:.5f}; "
+            f"launches a step a rank {dict((k, v) for k, v in rec['launches_per_step'].items() if v)}"
+            f"; step-0 loss and grads vs the 4-rank CPU run (random partition) max abs err "
+            f"{grad_err:.3g}; parameters bit-equal across ranks; step ms p50 per rank "
+            f"{[round(x, 3) for x in p50]}; run {rec['run_s']:.1f} s, CPU reference {cpu_s:.1f} s")
+        recs.append(rec)
+    return recs
 
 
 # --- main --------------------------------------------------------------------
@@ -2708,32 +2826,167 @@ def one_rank_phases(cfg) -> tuple:
              "train": [bench, ogb, lm_flash, lm_flash_bf16]})
 
 
-def multi_rank_phase(cfg) -> tuple:
-    """Phase 9, in the form of :func:`one_rank_phases`."""
+W4_TURNS = ("multilevel", "random")
+# ``--phase 9``: the two partitions in both orders, so an order effect
+# (the card's state, the allocator) shows apart from the partition's
+W4_TURNS_ABBA = ("random", "multilevel", "multilevel", "random")
+
+
+def multi_rank_phase(cfg, turns=W4_TURNS) -> tuple:
+    """Phase 9, in the form of :func:`one_rank_phases`; the W = 4 training
+    under each partition of ``turns``, in that order."""
     from dgraph_tpu_torch.data import DistributedGraph
     from dgraph_tpu_torch.serve.__main__ import load_data
+    from dgraph_tpu_torch.train.__main__ import DataConfig
 
     log("phase 9: kernels 5 and 6 and the landing check at W = 4 and 2, then train ogb_gcn "
-        "over 4 ranks (DGRAPH_TPU_HALO_IMPL=pallas_p2p)")
+        f"over 4 ranks (DGRAPH_TPU_HALO_IMPL=pallas_p2p) under the partitions {turns}")
+    # the training CLI's default partition (multilevel), which phase 9's
+    # first run trains under: kernel 5's main shape
+    partition = DataConfig().partition
     data = load_data(cfg)
     t = time.perf_counter()
     graph4 = DistributedGraph.from_global(
         data["edge_index"], data["features"], data["labels"], data["masks"],
-        world_size=P2P_W, partition_method="random", add_symmetric_norm=True, overlap=True,
+        world_size=P2P_W, partition_method=partition, add_symmetric_norm=True, overlap=True,
     )
-    plan = graph4.plan
-    log(f"W=4 plan: {time.perf_counter() - t:.1f} s; S={plan.halo.s_pad} e_pad={plan.e_pad} "
-        f"n_pad={plan.n_src_pad} deltas={plan.halo_deltas} interior/boundary edges per rank "
-        f"{plan.overlap.num_interior.tolist()}/{plan.overlap.num_boundary.tolist()}")
+    plan, part = graph4.plan, partition_record(graph4)
+    if not part["native"]:
+        fail(f"the native host library did not load: {part['native_error']}")
+    log(f"W=4 plan ({partition}): {time.perf_counter() - t:.1f} s, of which the partition "
+        f"{part['partition_s']:.2f} s; edge cut {part['edge_cut']:.4f}; owned per rank "
+        f"{part['owned']}; S={plan.halo.s_pad} e_pad={plan.e_pad} n_pad={plan.n_src_pad} "
+        f"deltas={plan.halo_deltas} interior/boundary edges per rank "
+        f"{part['interior']}/{part['boundary']}")
     del data
     p2p_k = phase_p2p_kernel(graph4)
     del graph4, plan
-    ogb4 = phase_train_ogb_gcn_w4()
+    ogb4 = phase_train_ogb_gcn_w4(turns)
+    main_run = next(r for r in ogb4 if r["partition_method"] == partition)
     k6 = next(r for r in p2p_k["records"] if r["kernel"] == "p2p_transport_mutant")
     return (p2p_k["records"],
-            {"p2p_transport": [(p2p_k["records"][0]["case"], ogb4["launches"], None)],
+            {"p2p_transport": [(p2p_k["records"][0]["case"], main_run["launches"], None)],
              "p2p_transport_mutant": [(k6["case"], p2p_k["landing_launches"], None)]},
-            {"p2p_transport": p2p_k, "train": [ogb4]})
+            {"p2p_transport": p2p_k, "train": ogb4, "w4_partition": part})
+
+
+# --- phase 11 ----------------------------------------------------------------
+
+
+def phase_ogb_raw() -> dict:
+    """The OGB loaders on ogbn-arxiv's raw download layout at full size:
+    ``ogbn.export_arxiv_shaped_npz`` (V = 169,343, F = 128) written through
+    ``ogb_raw.write_node_pred_raw`` (numpy and gzip), parsed back by
+    ``ogbn.load_ogb_arrays`` (every array equal to ``from_npz`` of the same
+    export), then ``python -m dgraph_tpu_torch.train``'s main on it with
+    ``--data.ogb_name ogbn-arxiv --data.root <that layout>`` at the CLI's
+    default partition, one rank, 3 steps, the sorted-row-gather kernel on:
+    every step launches kernels 3 and 2 2x a chunk and layer, kernel 1 once
+    (twice with an eval), the backward pair never. The layout (about 128 MB)
+    is deleted at the end: OUT_DIR keeps only logs and records."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.data import ogb_raw, ogbn
+    from dgraph_tpu_torch.ops import segment as seg
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.profile import ogb_gcn_config
+
+    root = os.path.join(OUT_DIR, "ogb_raw")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        npz = os.path.join(root, "arxiv_shaped.npz")
+        t0 = time.perf_counter()
+        ogbn.export_arxiv_shaped_npz(npz, scale=1.0, seed=0)
+        export_s = time.perf_counter() - t0
+        z = ogbn.from_npz(npz)
+        split = {k: np.flatnonzero(z[f"{k}_mask"]) for k in ("train", "valid", "test")}
+        t0 = time.perf_counter()
+        base = ogb_raw.write_node_pred_raw(root, "ogbn-arxiv", edge_index=z["edge_index"],
+                                           labels=z["labels"], node_feat=z["features"],
+                                           split_idx=split)
+        write_s = time.perf_counter() - t0
+        raw_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(base) for f in fs)
+        t0 = time.perf_counter()
+        arrs = ogbn.load_ogb_arrays("ogbn-arxiv", root=root)
+        parse_s = time.perf_counter() - t0
+        for k in ("edge_index", "features", "labels", "train_mask", "valid_mask", "test_mask"):
+            # the export's masks are bool, the loader's float32 (as the reference's)
+            want_k = z[k].astype(np.float32) if k.endswith("_mask") else z[k]
+            if arrs[k].dtype != want_k.dtype or not np.array_equal(arrs[k], want_k):
+                fail(f"ogb raw: {k} read back from the raw layout differs from from_npz "
+                     f"({arrs[k].dtype} {arrs[k].shape} vs {z[k].dtype} {z[k].shape})")
+        V, F = arrs["features"].shape
+        log(f"ogb raw: ogbn-arxiv-shaped export V={V} F={F} E={arrs['edge_index'].shape[1]}: "
+            f"export npz {export_s:.1f} s; write raw layout {write_s:.1f} s "
+            f"({raw_bytes / 1e6:.1f} MB gzipped); parse {parse_s:.1f} s; every array equal "
+            f"to from_npz's")
+        del arrs, z
+
+        cfg = ogb_gcn_config()
+        cfg.data = dataclasses.replace(cfg.data, ogb_name="ogbn-arxiv", root=root)
+        cfg.epochs, cfg.log_path = 3, os.path.join(OUT_DIR, "train_ogb_raw.jsonl")
+        chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+        want = {"sorted_row_gather": 2 * chunks, "sorted_segment_sum": 2 * chunks,
+                "sorted_segment_sum_act": 0, "fused_bwd_gd": 0}
+        per_step = []
+
+        def on_step(epoch, t):
+            counts = seg.launch_counts()
+            seg.reset_launch_counts()
+            check_step_launches("train ogb raw", epoch, counts, want)
+            evals = int(epoch % 10 == 0 or epoch == cfg.epochs - 1)
+            if counts["sorted_segment_sum_bias_relu"] != chunks * (1 + evals):
+                fail(f"train ogb raw: step {epoch} fused forward launches {counts}")
+            per_step.append(counts)
+
+        if os.path.exists(cfg.log_path):
+            os.remove(cfg.log_path)
+        config.use_pallas_gather = True
+        try:
+            seg.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = cli.main(cfg, on_step=on_step)
+            run_s = time.perf_counter() - t0
+        finally:
+            config.use_pallas_gather = None
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [r["loss"] for r in res["records"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train ogb raw: non-finite loss {losses}")
+    t = res["training"]
+    if t.graph.num_nodes != V or set(t.batches) != {"train", "val", "test"}:
+        fail(f"train ogb raw: the CLI trained on V={t.graph.num_nodes} with splits "
+             f"{sorted(t.batches)}")
+    ms = [r["wall_ms"] for r in res["records"]]
+    rec = {"config": "ogb_gcn --data.ogb_name ogbn-arxiv (raw layout)", "V": V, "F": F,
+           "partition": cfg.data.partition, "export_npz_s": export_s,
+           "write_raw_s": write_s, "raw_bytes": raw_bytes, "parse_s": parse_s,
+           "losses": losses, "step_wall_ms": ms, "run_s": run_s,
+           "launches_per_step": want,
+           "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]}}
+    log(f"train ogb raw (--data.ogb_name ogbn-arxiv, gather kernel on): step wall ms {ms}; "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {want}; run "
+        f"{run_s:.1f} s (the parse and the partition included)")
+    del res, t
+    return rec
+
+
+def ogb_raw_phase(cfg) -> tuple:
+    """Phase 11, in the form of :func:`one_rank_phases`."""
+    import torch
+
+    log("phase 11: the OGB raw layout through the training CLI (--data.ogb_name)")
+    rec = phase_ogb_raw()
+    torch.cuda.empty_cache()
+    return [], {}, {"train": [rec]}
 
 
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
@@ -2741,9 +2994,11 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms
 
 def main(argv) -> None:
     """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
-    multi-rank path, e.g. on a host with a card a rank)."""
-    if argv not in ([], ["--phase", "9"]):
-        raise SystemExit("usage: chip_smoke.py [--phase 9]")
+    multi-rank path, e.g. on a host with a card a rank; its W = 4 training
+    in the turns W4_TURNS_ABBA); with ``--phase 11``, phases 1, 2 and 11."""
+    only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase}
+    if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -2753,8 +3008,8 @@ def main(argv) -> None:
     build = phase_build()
     cfg = arxiv_config("gcn")
     records, main_case, detail = [], {}, {"train": []}
-    for phases in ([multi_rank_phase] if argv else
-                   [one_rank_phases, multi_rank_phase, graph_model_phases]):
+    for phases in ([only[argv[1]]] if argv else
+                   [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():

@@ -10,6 +10,7 @@ tensors on the CPU; :meth:`DistributedGraph.to` moves them.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +41,7 @@ class DistributedGraph:
     masks: dict  # split name -> [W, n_pad] f32
     vertex_mask: torch.Tensor  # [W, n_pad] f32: 1.0 for real vertices
     edge_weight: Optional[torch.Tensor] = None  # [W, e_pad] f32
+    partition_s: float = 0.0  # host seconds partition_graph took (partition + renumbering)
 
     @classmethod
     def from_global(
@@ -63,9 +65,11 @@ class DistributedGraph:
         features = np.asarray(features)
         num_nodes = features.shape[0]
         edge_index = np.asarray(edge_index)
+        t0 = time.perf_counter()
         new_edges, ren = pt.partition_graph(
             edge_index, num_nodes, world_size, method=partition_method, seed=seed,
         )
+        partition_s = time.perf_counter() - t0
         plan, layout = build_edge_plan(
             new_edges, ren.partition, world_size=world_size,
             edge_owner=edge_owner, pad_multiple=pad_multiple, overlap=overlap,
@@ -106,6 +110,7 @@ class DistributedGraph:
             masks=m,
             vertex_mask=torch.from_numpy(vmask),
             edge_weight=ew,
+            partition_s=partition_s,
         )
 
     def batch(self, split: str) -> dict:

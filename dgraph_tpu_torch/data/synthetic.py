@@ -93,3 +93,15 @@ def sbm_classification_graph(
         "masks": masks,
         "num_classes": num_classes,
     }
+
+
+def power_law_graph(num_nodes: int, avg_degree: float, seed: int = 0) -> np.ndarray:
+    """Degree-skewed random digraph (papers100M-like degree profile) —
+    endpoint sampling proportional to a Zipf-ish weight."""
+    rng = np.random.default_rng(seed)
+    E = int(num_nodes * avg_degree)
+    w = 1.0 / np.arange(1, num_nodes + 1) ** 0.75
+    w /= w.sum()
+    src = rng.choice(num_nodes, E, p=w)
+    dst = rng.integers(0, num_nodes, E)
+    return np.stack([src, dst]).astype(np.int64)

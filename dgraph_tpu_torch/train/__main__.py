@@ -3,9 +3,11 @@
 Counterpart of ``experiments/ogb_gcn.py`` (``main``, :117-227): trains GCN
 (symmetric-norm edge weights), GraphSAGE, GAT (4 heads) or the graph
 transformer (``--model gt``: local message passing plus attention over the
-whole vertex set, 4 heads) on a synthetic SBM graph, or on an ``.npz`` with
-edge_index/features/labels/<split>_mask (``--data.path``), with Adam at
-``--lr``, over ``--world_size`` ranks. Writes one ``step_record`` JSON
+whole vertex set, 4 heads) on a synthetic SBM graph, on an ``.npz`` with
+edge_index/features/labels/<split>_mask (``--data.path``), or on an OGB
+node-prediction dataset (``--data.ogb_name``: its raw download layout under
+``--data.root``, or with ``--data.path`` an ``ogbn.export_npz`` file or
+memmap directory), with Adam at ``--lr``, over ``--world_size`` ranks. Writes one ``step_record`` JSON
 line per step (an eval every 10 steps and at the last), the test accuracy,
 and a final ``avg_epoch_ms_excl_first`` line, to stdout and appended to
 ``--log_path`` (rank 0 only). Runs on ``cuda`` unless ``--device cpu``;
@@ -16,6 +18,7 @@ with no card it raises.
     python -m dgraph_tpu_torch.train --device cpu --model gt --epochs 2 --data.num_nodes 500
     DGRAPH_TPU_HALO_IMPL=pallas_p2p python -m dgraph_tpu_torch.train --world_size 4
     python -m dgraph_tpu_torch.train --device cpu --world_size 2 --epochs 2
+    python -m dgraph_tpu_torch.train --data.ogb_name ogbn-arxiv --data.root dataset
 
 ``--world_size 0`` means every visible card (one rank with ``--device
 cpu``), as the reference's 0 means every device. Above one rank the run
@@ -24,10 +27,13 @@ under ``torchrun`` it joins that group instead): ranks on cards of their
 own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
 Every rank builds the same graph from the same seed and trains its shard;
 gradients are summed over the ranks. GAT and the graph transformer train on
-one rank only (more raise before any work). The multilevel partitioner is
-not ported; the default partition is ``random``. Not ported yet: the OGB
-loaders (``--data.ogb_name``), and the reference's start-up, plan-footprint
-and timing records.
+one rank only (more raise before any work). The default partition is
+``multilevel``, as the reference's: the native host library
+(``dgraph_tpu_torch.native``, built with ``g++`` at first use) partitions,
+and where it cannot build the run falls back to greedy BFS with a warning.
+``--data.ogb_name`` never downloads: with no raw layout under
+``--data.root`` it raises. Not ported yet: the reference's start-up,
+plan-footprint and timing records.
 """
 
 from __future__ import annotations
@@ -45,13 +51,14 @@ import numpy as np
 @dataclasses.dataclass
 class DataConfig:
     path: Optional[str] = None  # npz with edge_index [2,E], features, labels, masks
-    ogb_name: Optional[str] = None  # OGB loaders: not ported yet
-    root: str = "dataset"
+    ogb_name: Optional[str] = None  # e.g. 'ogbn-arxiv': the raw layout under root,
+    # or with path an ogbn.export_npz() file / memmap directory
+    root: str = "dataset"  # where raw downloads live
     num_nodes: int = 5000  # synthetic SBM size when path is None
     num_classes: int = 8
     feat_dim: int = 64
     avg_degree: float = 10.0
-    partition: str = "random"  # random | block | round_robin | rcm
+    partition: str = "multilevel"  # any of partition.METHODS
 
 
 @dataclasses.dataclass
@@ -78,17 +85,36 @@ def _num_classes(labels: np.ndarray) -> int:
     return int(labels.max()) + 1
 
 
+def _normalize_split_names(masks: dict) -> dict:
+    """OGB says "valid"; the training loop's split name is "val"
+    (``DistributedGraph.batch`` falls back to every vertex on an unknown
+    split)."""
+    if "valid" in masks and "val" not in masks:
+        masks["val"] = masks.pop("valid")
+    return masks
+
+
 def load_data(cfg: DataConfig) -> dict:
-    """The graph to train on: the npz at ``cfg.path`` or a synthetic SBM."""
+    """The graph to train on: an OGB dataset (``cfg.ogb_name``: the export at
+    ``cfg.path``, else the raw layout under ``cfg.root``), the npz at
+    ``cfg.path``, or a synthetic SBM."""
     if cfg.ogb_name:
-        raise NotImplementedError(
-            "the OGB loaders are not ported yet; export the dataset to an npz "
-            "and pass --data.path")
+        from dgraph_tpu_torch.data import ogbn
+
+        arrs = (ogbn.from_npz(cfg.path) if cfg.path
+                else ogbn.load_ogb_arrays(cfg.ogb_name, root=cfg.root))
+        labels = np.asarray(arrs["labels"])
+        masks = {k.removesuffix("_mask"): np.asarray(v) for k, v in arrs.items()
+                 if k.endswith("_mask")}
+        return {
+            "edge_index": np.asarray(arrs["edge_index"]), "features": np.asarray(arrs["features"]),
+            "labels": labels, "masks": _normalize_split_names(masks),
+            "num_classes": _num_classes(labels),
+        }
     if cfg.path:
         z = np.load(cfg.path)
-        masks = {k.removesuffix("_mask"): z[k] for k in z.files if k.endswith("_mask")}
-        if "valid" in masks and "val" not in masks:
-            masks["val"] = masks.pop("valid")
+        masks = _normalize_split_names(
+            {k.removesuffix("_mask"): z[k] for k in z.files if k.endswith("_mask")})
         return {
             "edge_index": z["edge_index"], "features": z["features"],
             "labels": z["labels"], "masks": masks,

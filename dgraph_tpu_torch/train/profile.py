@@ -76,17 +76,20 @@ def bench_gcn_setup(device):
     return model, step, batch_d, plan, batch, model_cpu
 
 
-def ogb_gcn_config(world_size: int = 1):
+def ogb_gcn_config(world_size: int = 1, partition: str | None = None):
     """The CLI's Config for ogb_gcn at arxiv width; ``world_size=4`` is the
-    multi-rank configuration (random partition, dst-owned; with
-    ``DGRAPH_TPU_HALO_IMPL=pallas_p2p`` it runs the one-sided transport)."""
+    multi-rank configuration (dst-owned; with
+    ``DGRAPH_TPU_HALO_IMPL=pallas_p2p`` it runs the one-sided transport)
+    under ``partition``, by default the CLI's (at one rank every partition
+    gives the same plan)."""
     from dgraph_tpu_torch.data.synthetic import ARXIV_AVG_DEGREE, ARXIV_NODES
     from dgraph_tpu_torch.train.__main__ import Config, DataConfig
 
     return Config(model="gcn", hidden=256, num_layers=2, lr=5e-3, device="cuda",
                   world_size=world_size,
                   data=DataConfig(num_nodes=ARXIV_NODES, num_classes=40, feat_dim=128,
-                                  avg_degree=ARXIV_AVG_DEGREE, partition="random"))
+                                  avg_degree=ARXIV_AVG_DEGREE,
+                                  partition=partition or DataConfig().partition))
 
 
 def gt_arxiv_config():

@@ -49,6 +49,9 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/analysis/trace.py", "dgraph_tpu_torch/analysis/__main__.py",
                  "dgraph_tpu_torch/analysis/host/__init__.py",
                  "dgraph_tpu_torch/obs/health.py", "dgraph_tpu_torch/utils/cli.py",
+                 "dgraph_tpu_torch/native.py", "dgraph_tpu_torch/partition.py",
+                 "dgraph_tpu_torch/data/ogbn.py", "dgraph_tpu_torch/data/ogb_raw.py",
+                 "dgraph_tpu_torch/data/memmap.py",
                  "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -66,7 +69,9 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.analysis.kernel, dgraph_tpu_torch.analysis.lint\n"
         "import dgraph_tpu_torch.analysis.trace, dgraph_tpu_torch.analysis.__main__\n"
         "import dgraph_tpu_torch.analysis.host.__main__, dgraph_tpu_torch.obs.health\n"
-        "import dgraph_tpu_torch.utils.cli\n"
+        "import dgraph_tpu_torch.utils.cli, dgraph_tpu_torch.native\n"
+        "import dgraph_tpu_torch.data.ogbn, dgraph_tpu_torch.data.ogb_raw\n"
+        "import dgraph_tpu_torch.data.memmap\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"

@@ -1,4 +1,5 @@
-"""Rank functions of the multi-rank CPU tests (``test_torch_dist.py``).
+"""Rank functions of the multi-rank CPU tests (``test_torch_dist.py``,
+``test_torch_partition.py``).
 
 Each runs in a process that ``dgraph_tpu_torch.comm.dist.launch`` spawns, so
 this module imports torch and the port only, never JAX: the test process
@@ -114,6 +115,20 @@ def run_cases(group, path: str) -> dict:
     if "gcn" in inputs:
         out["gcn"] = _gcn_rank(group, inputs["gcn"])
     return out
+
+
+def cli_step0(group, cfg: dict) -> dict:
+    """Step 0 of the training CLI's model and graph at ``cfg`` (a Config as
+    a dict) on this rank: the global loss, the summed gradients and the
+    rank's partition, which every rank builds on its own."""
+    from dgraph_tpu_torch.train import __main__ as cli
+
+    c = cli.Config(**dict(cfg, data=cli.DataConfig(**cfg["data"])))
+    t = cli.build_training(c, comm=DistComm(group))
+    loss = float(t.train_step(t.batches["train"])["loss"])
+    return {"loss": loss, "partition": np.asarray(t.graph.ren.partition),
+            "perm": np.asarray(t.graph.ren.perm),
+            "grads": {k: p.grad.numpy().copy() for k, p in t.model.named_parameters()}}
 
 
 def fail_on_rank1(group):
