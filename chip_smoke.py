@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --phase 9    # phases 1, 2 and 9 (e.g. a card a rank)
     python3 chip_smoke.py --phase 11   # phases 1, 2 and 11
+    python3 chip_smoke.py --phase 12   # phases 1, 2 and 12
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
@@ -24,11 +25,20 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    contiguous [E, F] rows, GAT's softmax denominator and SAGE's degree
    count, where it takes its narrow path; there also the bare launch with
    the offsets computed before, beside the wrapper, index_add_ and the
-   searchsorted the wrapper pays once per ids tensor), on power-law ids at
-   the same E and N (max degree at least 10,000; F = 1 and 128, timed
-   beside index_add_) and at edge cases (padded out-of-range ids, empty
-   segments, a 3000-edge hub, F in {1, 2, 4, 8, 16, 33, 128, 256}, strided
-   and unaligned column slices); the three flash-attention kernels at the lm_flash shape
+   searchsorted the wrapper pays once per ids tensor), at edge cases
+   (padded out-of-range ids, empty segments, a 3000-edge hub, F in {1, 2,
+   4, 8, 16, 33, 128, 256}, strided and unaligned column slices); kernels
+   1 (weighted), 1a (unweighted) and 2 on their hub route (rows of more
+   than HUB_DEGREE edges summed in chunks of HUB_CHUNK, then combined): on
+   power-law ids at the same E and N (max degree at least 10,000; F = 1,
+   16 and 128) and on the skewed arxiv graph's plan ids (F = 128), timed
+   beside index_add_ (kernel 2), the plain version and the bound, every
+   call on the hub route, and at the hub edge cases (a row of exactly
+   HUB_DEGREE edges and hubs of HUB_DEGREE + 1, of a multiple of HUB_CHUNK
+   and one more than that, as the first row and the last real row before
+   the padded ids, three in one narrow block; every form of the three
+   kernels at F in {1, 2, 4, 8, 16, 33, 128, 256}, contiguous, strided and
+   unaligned); the three flash-attention kernels at the lm_flash shape
    (T = 8192, H = 4, D = 128, causal; yardstick
    ``scaled_dot_product_attention``) and at edge cases (D in {32, 64, 128},
    T = 200, a padded tail or every key masked, causal or not); every
@@ -152,6 +162,24 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    --data.root <that layout>`` at the CLI's default partition, one rank,
    3 steps, the sorted-row-gather kernel on (kernels 1, 2 and 3, launches
    checked every step), finite losses;
+12. GCN on a degree-skewed arxiv-sized graph — ``synthetic.skewed_arxiv_edges``
+   (V = 169,343, 2,332,486 directed edges, largest in-degree 15,001) with
+   seeded features [V, 128], 40 classes and arxiv-sized splits, written to
+   an npz (deleted after) and trained by ``python -m
+   dgraph_tpu_torch.train``'s ``main`` with ``--data.path`` at ogb_gcn's
+   settings, the sorted-row-gather kernel on (phase 7's launches; 2 warm-up
+   and 10 timed steps), then phase 6's bench_gcn step on the same graph;
+   in each, every step runs the hub route on some call of each sorted sum
+   (``<kernel>.hub_calls``), no step after the first computes CSR offsets
+   or a hub plan, step 0's loss and every gradient match the CPU plain path
+   within 1e-4 (bench_gcn's gradients within 1e-4 of each leaf's largest
+   magnitude, a limit that must fail a control step with one hub chunk left
+   out) and the loss falls; each reports step ms p50/p99, the device-busy
+   share and the device ms of the sorted sums and of the hub combine pass.
+   On the SBM graph of phases 4-11 no call takes the hub route, except
+   where a plan pads more than HUB_DEGREE edges: its src-side ids put every
+   padded edge in src row 0 (836 edges in the CLI's one-rank plan), which
+   every training phase checks is the only hub of its plans, and records;
 then the kernels line (one JSON object) and the device line (last line).
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
@@ -501,7 +529,9 @@ def main_shape_bytes(kernel, tag, e, e_valid, n, f, b) -> tuple:
     out-of-range id are read by no kernel, but every output row is written.
     The segment sums (kernels 1, 1a, 2) read the CSR offsets, 8 (n + 1)
     bytes, which their wrappers compute once per ids tensor, and not the
-    ids; the gathers (3, 4) read the ids."""
+    ids; the hub route's partial rows are that implementation's traffic, not
+    the function's, and stay out (:func:`hub_route_cases` logs them). The
+    gathers (3, 4) read the ids."""
     weighted = tag == "w"
     row_ptr = 8 * (n + 1)
     if kernel == "sorted_segment_sum_bias_relu":
@@ -539,23 +569,25 @@ def library_call(kernel, tag, data, ids, n, e_valid, x):
 
 def bare_segment_sum(seg, data, ids, n, input_op):
     """Kernel 2's launch alone: its C entry point into a preallocated
-    output, the offsets computed before (no wrapper, no count). The
-    function's ``out`` is the output it writes."""
+    output, the offsets and the hub plan computed before, the workspace
+    allocated before (no wrapper, no count). The function's ``out`` is the
+    output it writes."""
     import torch
 
     from dgraph_tpu_torch.ops import _build
 
-    row_ptr = seg._row_ptr(ids, n)
+    plan = seg._segment_plan(ids, n)
+    hub, ws = seg.hub_args(plan.hub, data.shape[1], data.device)
     out = torch.empty(n, data.shape[1], dtype=data.dtype, device=data.device)
     lib = _build.load("sorted_segment")
-    args = (data.data_ptr(), seg._row_stride(data), row_ptr.data_ptr(), out.data_ptr(), n,
+    args = (data.data_ptr(), seg._row_stride(data), plan.row_ptr.data_ptr(), out.data_ptr(), n,
             data.shape[1], seg._KERNEL_DTYPES[data.dtype], int(input_op == "relu"),
-            int(seg._vec_ok(data, out)), seg._stream())
+            int(seg._vec_ok(data, out)), seg._stream(), *hub)
 
     def run():
         _build.check(lib.dg_sorted_segment_sum(*args), "dg_sorted_segment_sum")
 
-    run.out, run.row_ptr = out, row_ptr
+    run.out, run.plan, run.ws = out, plan, ws
     return run
 
 
@@ -638,6 +670,8 @@ def phase_kernels(graph) -> dict:
         del data, bias, g
 
     records += skewed_cases(seg, gen, ids, n, e_valid, note)
+    records += skewed_graph_cases(seg, gen, note)
+    hub_edge_cases(seg, gen, note)
 
     # edge cases: empty segments, hub, padded ids, F in EDGE_F, contiguous
     # rows at an odd element offset (16-byte loads unaligned: scalar paths),
@@ -645,17 +679,14 @@ def phase_kernels(graph) -> dict:
     # (scalar path). Values are multiples of 1/4 (weights too): exact in
     # bf16, and their sums exact in f32 in any order, so the hub's
     # 3000-term sums compare free of summation-order noise
-    def quarters(*shape, lo=-8, hi=9):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev).float() / 4
-
     n_small = 5000
     ids_small = torch.from_numpy(edge_case_ids(n_small)).to(dev)
     e_small = ids_small.shape[0]
-    w_small = quarters(e_small, lo=0, hi=5)
+    w_small = quarter_values(gen, e_small, lo=0, hi=5)
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for F_ in EDGE_F:
-            wide = quarters(e_small, F_ + 5).to(dtype)
-            table = quarters(n_small, 2 * F_ + 1).to(dtype)
+            wide = quarter_values(gen, e_small, F_ + 5).to(dtype)
+            table = quarter_values(gen, n_small, 2 * F_ + 1).to(dtype)
             e_rows = wide.flatten()[1:1 + e_small * F_].view(e_small, F_)
             n_rows = table.flatten()[1:1 + 2 * n_small * F_].view(2, n_small, F_)
             views = {"contiguous": (wide[:, :F_].contiguous(), table[:, :F_].contiguous(),
@@ -678,14 +709,89 @@ def phase_kernels(graph) -> dict:
             "worst_abs_err": {f"{k}/{d}": v for (k, d), v in worst.items()}}
 
 
+# the sorted segment sums that take the hub route, with the case tag of each
+# one that phase 3 times on skewed ids (kernel 1 weighted, 1a unweighted)
+HUB_KERNELS = (("sorted_segment_sum", "none"), ("sorted_segment_sum_bias_relu", "w"),
+               ("sorted_segment_sum_act", "unw"))
+SKEW_F = (1, 16, 128)
+
+
+def quarter_values(gen, *shape, lo=-8, hi=9):
+    """Multiples of 1/4 in [lo/4, hi/4): exact in bf16, and their sums exact
+    in f32 in any order."""
+    import torch
+
+    return torch.randint(lo, hi, shape, generator=gen, device=gen.device).float() / 4
+
+
+def hub_route_cases(seg, gen, ids, n, e_valid, widths, where, note) -> list:
+    """Kernels 1 (weighted), 1a (unweighted) and 2 on the sorted ``ids`` at
+    each F of ``widths``, f32 and bf16: against their plain versions, two
+    launches with equal bits, the hub route taken (``hub_calls``); timed
+    beside the plain version, index_add_ (kernel 2, f32) and the bound (the
+    function's bytes; the route's own partial rows, written and read back,
+    are logged beside it as ``partial_bytes``)."""
+    import numpy as np
+    import torch
+
+    plan = seg._segment_plan(ids, n)
+    deg = (plan.row_ptr[1:] - plan.row_ptr[:-1]).cpu().numpy()
+    n_chunks = plan.hub.n_chunks if plan.hub is not None else 0
+    profile = {"max_degree": int(deg.max()), "n_hubs": int((deg > seg.HUB_DEGREE).sum()),
+               "n_chunks": n_chunks, "hub_edges": int(deg[deg > seg.HUB_DEGREE].sum())}
+    records = []
+    for (dtype_name, dtype), F in itertools.product(
+            (("float32", torch.float32), ("bfloat16", torch.bfloat16)), widths):
+        data = quarter_values(gen, ids.shape[0], F).to(dtype)
+        bias = quarter_values(gen, n, F).to(dtype)
+        w = quarter_values(gen, ids.shape[0], lo=0, hi=5)
+        cases = kernel_cases(seg, data, ids, bias, n, w)
+        for kernel, tag in HUB_KERNELS:
+            run, plain = next((r, p) for t, r, p in cases[kernel] if t == tag)
+            name = f"{kernel} {dtype_name} {tag} F={F} {where}"
+            wrapper = seg.KERNELS[kernel].wrapper
+            before = wrapper.hub_calls
+            got = run()
+            err = check_close(name, got, plain(), dtype_name)
+            note(kernel, dtype_name, err)
+            if not torch.equal(got, run()):
+                fail(f"{name}: two launches differ")
+            if wrapper.hub_calls != before + 2 * (plan.hub is not None):
+                fail(f"{name}: the hub route ran on {wrapper.hub_calls - before} of 2 calls "
+                     f"({profile['n_hubs']} hubs)")
+            del got
+            nbytes, ops = main_shape_bytes(kernel, tag, ids.shape[0], e_valid, n, F,
+                                           data.element_size())
+            b_ms, b_by = bound(nbytes, ops)
+            lib = library_call(kernel, tag, data, ids, n, e_valid, None)
+            rec = {"kernel": kernel, "case": name, "dtype": dtype_name, "tag": tag,
+                   "E": ids.shape[0], "E_valid": e_valid, "N": n, "F": F, **profile,
+                   "max_abs_err": err, "ms": time_ms(run),
+                   "plain_ms": time_ms(plain, reps=5, warmup=1),
+                   "library_ms": None if lib is None else time_ms(lib),
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+                   "partial_bytes": 2 * n_chunks * F * 4}
+            if kernel == "sorted_segment_sum":
+                bare = bare_segment_sum(seg, data, ids, n, tag)
+                bare()
+                if not torch.equal(bare.out, run()):
+                    fail(f"{name}: the bare launch and the wrapper differ")
+                rec["kernel_ms"] = time_ms(bare)
+                del bare
+            records.append(rec)
+            log(f"{name} (max degree {profile['max_degree']}, {profile['n_hubs']} hubs in "
+                f"{n_chunks} chunks): err {err:.3g} wrapper {rec['ms']:.4f} ms kernel "
+                f"{rec.get('kernel_ms', rec['ms']):.4f} ms plain {rec['plain_ms']:.4f} ms "
+                f"library {rec['library_ms']} ms bound {b_ms:.4f} ms ({b_by}; the route's "
+                f"partial rows add {rec['partial_bytes']} bytes to its {nbytes})")
+        del data, bias, w, cases
+    return records
+
+
 def skewed_cases(seg, gen, plan_ids, n, e_valid, note) -> list:
-    """Kernel 2 at the training shape (the plan's E slots, N rows) on
+    """The hub route at the training shape (the plan's E slots, N rows) on
     power-law ids (``ops.kernel_ab.power_law_ids``: max degree at least
-    MIN_HUB_DEGREE), at
-    F = 1 and F = 128, f32 and bf16: against its plain version, two
-    launches with equal bits, timed beside index_add_ (f32) and the bound.
-    Values are multiples of 1/4, whose sums f32 holds exactly in any order,
-    so the hub's sums compare free of summation-order noise."""
+    MIN_HUB_DEGREE) at F in SKEW_F (:func:`hub_route_cases`)."""
     import numpy as np
     import torch
 
@@ -696,42 +802,60 @@ def skewed_cases(seg, gen, plan_ids, n, e_valid, note) -> list:
     if max_deg < MIN_HUB_DEGREE:
         fail(f"skewed ids: max degree {max_deg} < {MIN_HUB_DEGREE}")
     ids = torch.from_numpy(ids_np).to(plan_ids.device)
-    records = []
-    for (dtype_name, dtype), F in itertools.product(
-            (("float32", torch.float32), ("bfloat16", torch.bfloat16)), (1, 128)):
-        data = (torch.randint(-8, 9, (ids.shape[0], F), generator=gen, device=ids.device)
-                .float() / 4).to(dtype)
-        name = f"sorted_segment_sum {dtype_name} none F={F} skewed"
+    return hub_route_cases(seg, gen, ids, n, e_valid, SKEW_F, "skewed", note)
 
-        def run():
-            return seg.sorted_segment_sum(data, ids, n)
 
-        def plain():
-            return seg.sorted_segment_sum_plain(data, ids, n)
+def skewed_graph_cases(seg, gen, note) -> list:
+    """The hub route on the owner ids of bench_gcn's plan of the skewed
+    arxiv graph (``ops.kernel_ab.skewed_plan_ids``: largest in-degree
+    15,001), at F = 128 (:func:`hub_route_cases`)."""
+    import torch
 
-        got = run()
-        err = check_close(name, got, plain(), dtype_name)
-        note("sorted_segment_sum", dtype_name, err)
-        if not torch.equal(got, run()):
-            fail(f"{name}: two launches differ")
-        del got
-        bare = bare_segment_sum(seg, data, ids, n, "none")
-        nbytes, ops = main_shape_bytes("sorted_segment_sum", "none", ids.shape[0], e_valid, n,
-                                       F, data.element_size())
-        b_ms, b_by = bound(nbytes, ops)
-        lib = library_call("sorted_segment_sum", "none", data, ids, n, e_valid, None)
-        rec = {"kernel": "sorted_segment_sum", "case": name, "dtype": dtype_name, "tag": "none",
-               "E": ids.shape[0], "E_valid": e_valid, "N": n, "F": F, "max_degree": max_deg,
-               "max_abs_err": err, "ms": time_ms(run), "kernel_ms": time_ms(bare),
-               "plain_ms": time_ms(plain, reps=5, warmup=1),
-               "library_ms": None if lib is None else time_ms(lib),
-               "bound_ms": b_ms, "bound_by": b_by}
-        records.append(rec)
-        log(f"{name} (max degree {max_deg}): err {err:.3g} wrapper {rec['ms']:.4f} ms kernel "
-            f"{rec['kernel_ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
-            f"{rec['library_ms']} ms bound {b_ms:.4f} ms ({b_by})")
-        del data, bare
-    return records
+    from dgraph_tpu_torch.ops.kernel_ab import skewed_plan_ids
+
+    ids_np, n = skewed_plan_ids()
+    ids = torch.from_numpy(ids_np).to(gen.device)
+    return hub_route_cases(seg, gen, ids, n, int((ids < n).sum()), (128,), "skewed graph", note)
+
+
+def hub_edge_cases(seg, gen, note) -> None:
+    """The hub route's edge cases (``ops.kernel_ab.hub_edge_case_ids``: hubs
+    of HUB_DEGREE + 1 edges and a row of exactly HUB_DEGREE, hubs of a
+    multiple of HUB_CHUNK edges and of one more than that, a hub as the
+    first row and as the last real row before the padded ids, three hubs in
+    one narrow block) for kernels 1, 1a and 2 in every form, at F in EDGE_F,
+    as contiguous rows, strided column slices and unaligned rows, f32 and
+    bf16: against the plain versions, two launches equal, every call on the
+    hub route."""
+    import torch
+
+    from dgraph_tpu_torch.ops.kernel_ab import hub_edge_case_ids
+
+    n = 3000
+    ids = torch.from_numpy(hub_edge_case_ids(n, seg.HUB_DEGREE, seg.HUB_CHUNK)).to(gen.device)
+    e = ids.shape[0]
+    w = quarter_values(gen, e, lo=0, hi=5)
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for F in EDGE_F:
+            wide = quarter_values(gen, e, F + 5).to(dtype)
+            table = quarter_values(gen, n, 2 * F + 1).to(dtype)
+            views = {"contiguous": (wide[:, :F].contiguous(), table[:, :F].contiguous()),
+                     "strided": (wide[:, :F], table[:, F:2 * F]),
+                     "unaligned": (wide[:, 1:F + 1], table[:, 1:F + 1])}
+            for layout, (d, bvec) in views.items():
+                cases = kernel_cases(seg, d, ids, bvec, n, w)
+                for kernel, _ in HUB_KERNELS:
+                    wrapper = seg.KERNELS[kernel].wrapper
+                    for tag, run, plain in cases[kernel]:
+                        name = f"{kernel} hub edge {dtype_name} F={F} {layout} {tag}"
+                        before = wrapper.hub_calls
+                        got = run()
+                        note(kernel, dtype_name, check_close(name, got, plain(), dtype_name))
+                        if not torch.equal(got, run()):
+                            fail(f"{name}: two launches differ")
+                        if wrapper.hub_calls != before + 2:
+                            fail(f"{name}: a call left the hub route")
+    torch.cuda.synchronize()
 
 
 def attention_work(kernel, T, H, D, b, pairs) -> tuple:
@@ -1435,6 +1559,9 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int) -> dict:
     if any(launches[k] for k in backward_only):
         fail(f"{model}: serving (inference_mode, gather flag off) launched a "
              f"training kernel: {launches}")
+    if any(v for k, v in launches.items() if k.endswith(".hub_calls")):
+        fail(f"{model}: the hub route ran on the SBM graph's owner ids: "
+             f"{launches}")
     full = engine.full_logits()
     if not np.isfinite(full).all() or full.shape != (1, graph.plan.n_src_pad, cfg.num_classes):
         fail(f"{model}: full logits non-finite or shape {full.shape}")
@@ -1494,34 +1621,145 @@ def cpu_step0(model_cpu, batch, plan, loss_fn) -> tuple:
     return float(loss.detach()), grads_of(model_cpu)
 
 
-def check_grads(what, got: dict, want: dict) -> float:
+def grad_margins(got: dict, want: dict, scaled: bool = False) -> dict:
+    """Per leaf: its largest absolute error against ``want``, the atol it is
+    held to (GRAD_TOL; with ``scaled``, GRAD_TOL times the leaf's largest
+    magnitude, at least 1, as the loss's limit is its magnitude's), and its
+    margin, the largest ``|got - want| / (atol + GRAD_TOL |want|)`` (above 1
+    fails :func:`check_grads`)."""
+    out = {}
+    for k, w in want.items():
+        atol = GRAD_TOL * max(1.0, float(w.abs().max())) if scaled else GRAD_TOL
+        d = (got[k] - w).abs()
+        out[k] = {"max_abs_err": float(d.max()), "atol": atol,
+                  "margin": float((d / (atol + GRAD_TOL * w.abs())).max())}
+    return out
+
+
+def check_grads(what, got: dict, want: dict, scaled: bool = False,
+                leaves: dict | None = None) -> float:
+    """Every gradient within rtol = GRAD_TOL and the atol of
+    :func:`grad_margins` of the CPU's; ``leaves`` receives each leaf's
+    error, atol and margin. Returns the largest absolute error."""
     import torch
 
-    worst = 0.0
+    margins = grad_margins(got, want, scaled)
     for k, w in want.items():
         if not torch.isfinite(got[k]).all():
             fail(f"{what}: non-finite gradient {k}")
-        err = float((got[k] - w).abs().max())
-        worst = max(worst, err)
-        if not torch.allclose(got[k], w, rtol=GRAD_TOL, atol=GRAD_TOL):
-            fail(f"{what}: gradient {k} differs from the CPU plain path "
-                 f"(max abs err {err}, tol {GRAD_TOL})")
-    return worst
+        if not torch.allclose(got[k], w, rtol=GRAD_TOL, atol=margins[k]["atol"]):
+            fail(f"{what}: gradient {k} differs from the CPU plain path ({margins[k]}, "
+                 f"rtol {GRAD_TOL})")
+    if leaves is not None:
+        leaves.update(margins)
+    return max(m["max_abs_err"] for m in margins.values())
 
 
-def check_step_launches(what, step, counts, want) -> None:
+def cached_hub_rows() -> list:
+    """The hub rows of each segment plan cached in this process (the plans
+    of the ids tensors alive now, ``ops.segment.segment_plan``), one list a
+    plan that has hubs."""
+    import gc
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    gc.collect()
+    rows = []
+    for _, plans in list(seg._offsets.values()):
+        for _, plan in plans.values():
+            if plan.hub is not None:
+                rows.append(plan.hub.chunks[0, plan.hub.first[:-1]].tolist())
+    return rows
+
+
+# what -> the hub rows of the plans cached at that run's first launch check
+_HUB_ROWS: dict = {}
+
+
+def check_step_launches(what, step, counts, want, hubs=False, hub_rows=None) -> None:
+    """Every kernel of ``want`` launched exactly as often. With ``hubs`` (a
+    graph with hubs) the hub route (``<kernel>.hub_calls``) ran on some call
+    of each sorted sum that launched. On the SBM graph (largest degree 37 in
+    the CLI's one-rank plan) a plan holds one hub at most: src row 0, where
+    the src-side ids put every padded edge (186 in bench_gcn's plan, no hub;
+    820 in the CLI's one-rank plan, a hub of zero rows). So every hub of the
+    plans cached when ``what`` is first checked (``hub_rows``, else
+    :func:`cached_hub_rows` then) must be row 0, and without one the route
+    runs on no call."""
     for k, n in want.items():
         if counts[k] != n:
             fail(f"{what}: step {step} launched {k} {counts[k]} times (want {n}); "
                  f"counts {counts}")
+    if not hubs:
+        if hub_rows is None:
+            if what not in _HUB_ROWS:
+                _HUB_ROWS[what] = cached_hub_rows()
+            hub_rows = _HUB_ROWS[what]
+        if any(rows != [0] for rows in hub_rows):
+            fail(f"{what}: step {step}: a plan of the SBM graph holds hubs other than its "
+                 f"padded src row 0: {hub_rows}")
+    for k, n in counts.items():
+        if not k.endswith(".hub_calls"):
+            continue
+        launched = counts[k.removesuffix(".hub_calls")]
+        most = launched if hubs or hub_rows else 0
+        if n > most or (hubs and launched and n < 1):
+            fail(f"{what}: step {step}: {k} = {n} with {launched} launches "
+                 f"({'a graph with hubs' if hubs else f'the SBM graph, hubs {hub_rows}'}); "
+                 f"counts {counts}")
 
 
-def phase_train_bench_gcn() -> dict:
+@contextlib.contextmanager
+def dropped_hub_chunk():
+    """The CPU plain path with a fault: kernel 1's forward
+    (``sorted_segment_sum_bias_relu_plain``) leaves out the first chunk of
+    the hub with the most chunks of each call's ids, as a hub route that lost
+    a chunk would. Yields a dict that records the chunk left out."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    plain = seg.sorted_segment_sum_bias_relu_plain
+    dropped = {}
+
+    def faulty(data, ids, bias, n, *, edge_weight=None):
+        out = plain(data, ids, bias, n, edge_weight=edge_weight)
+        row_ptr = seg._row_ptr(ids, n)
+        hub = seg.hub_plan(row_ptr)
+        if hub is None:
+            return out
+        c = int(hub.first[int(torch.argmax(hub.first.diff()))])
+        row, a, b = hub.chunks[:, c].tolist()
+        lo, _, m = seg._bias_messages(data, ids, bias, n, edge_weight, False)
+        out = out.clone()
+        out[row] = (out[row].float() - m[a - lo:b - lo].sum(0)).to(out.dtype)
+        dropped.update(row=row, chunk_edges=b - a,
+                       row_edges=int(row_ptr[row + 1] - row_ptr[row]))
+        return out
+
+    seg.sorted_segment_sum_bias_relu_plain = faulty
+    try:
+        yield dropped
+    finally:
+        seg.sorted_segment_sum_bias_relu_plain = plain
+
+
+def phase_train_bench_gcn(edges=None, what="train bench_gcn") -> dict:
     """bench.py's bench_gcn (bench.py:428-534) on the port: the arxiv-shaped
-    random graph, GCN F=128 H=256 C=40, unweighted, Adam 1e-3, f32. Two
-    warm-up steps, ten timed (CUDA events around each, under
-    torch.profiler for the busy share); launches checked every step;
-    step 0's loss and every gradient against the CPU plain path."""
+    random graph (or ``edges``, a graph with hubs), GCN F=128 H=256 C=40,
+    unweighted, Adam 1e-3, f32. Two warm-up steps, ten timed (CUDA events
+    around each, under torch.profiler for the busy share); launches checked
+    every step (with ``edges``, the hub route on some call of each sorted
+    sum); no step after the first computes CSR offsets or a hub plan; step
+    0's loss and every gradient against the CPU plain path. With ``edges``
+    the gradients are held to GRAD_TOL of each leaf's largest magnitude
+    (:func:`check_grads`, ``scaled``), as the loss always is: two layers of
+    unweighted sums over rows of up to 15,001 edges make a loss of about
+    8,000, where an absolute 1e-4 reads the f32 summation order of the card
+    and of the CPU plain path, not a fault. That limit is then read on a
+    control, the CPU step with kernel 1's forward leaving out one chunk of
+    its largest hub (:func:`dropped_hub_chunk`), which it must fail; each
+    leaf's error, atol and margin are kept for the run and the control."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity
@@ -1531,24 +1769,26 @@ def phase_train_bench_gcn() -> dict:
     from dgraph_tpu_torch.train.profile import bench_gcn_setup, device_ops
 
     t0 = time.perf_counter()
-    model, step, batch_d, plan, batch, model_cpu = bench_gcn_setup(torch.device("cuda"))
+    model, step, batch_d, plan, batch, model_cpu = bench_gcn_setup(torch.device("cuda"), edges)
     setup_s = time.perf_counter() - t0
+    hubs = edges is not None
     chunks = 2 * math.ceil(256 / 128)  # 2 layers of H = 256
     # kernel 2 runs once per chunk as the VJP of the src-side take (the
     # halo sort route's backward); no other sorted sum is on this path
     want = {"sorted_segment_sum_bias_relu": chunks, "sorted_segment_sum_act": chunks,
             "fused_bwd_gd": chunks, "sorted_segment_sum": chunks, "sorted_row_gather": 0}
-    losses, total, ms = [], dict.fromkeys(want, 0), []
+    losses, total, ms, offsets = [], None, [], []
     grads0 = None
 
     def one(i):
-        nonlocal grads0
+        nonlocal grads0, total
         seg.reset_launch_counts()
+        seg.csr_offsets.computed = 0
         m = step(batch_d)
         counts = seg.launch_counts()
-        check_step_launches("train bench_gcn", i, counts, want)
-        for k in total:
-            total[k] += counts[k]
+        offsets.append(seg.csr_offsets.computed)
+        check_step_launches(what, i, counts, want, hubs)
+        total = {k: (total or {}).get(k, 0) + v for k, v in counts.items()}
         losses.append(m["loss"])
         if i == 0:
             grads0 = grads_of(model)
@@ -1571,24 +1811,46 @@ def phase_train_bench_gcn() -> dict:
     ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"train bench_gcn: the loss did not fall over 12 steps: {losses}")
+        fail(f"{what}: the loss did not fall over 12 steps: {losses}")
+    if any(offsets[1:]):
+        fail(f"{what}: steps after the first computed CSR offsets again: {offsets}")
     t = time.perf_counter()
     loss_cpu, grads_cpu = cpu_step0(model_cpu, batch, plan, masked_cross_entropy)
     cpu_s = time.perf_counter() - t
     if abs(losses[0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
-        fail(f"train bench_gcn: step-0 loss {losses[0]} vs CPU {loss_cpu}")
-    grad_err = check_grads("train bench_gcn", grads0, grads_cpu)
+        fail(f"{what}: step-0 loss {losses[0]} vs CPU {loss_cpu}")
+    leaves, control = {}, None
+    grad_err = check_grads(what, grads0, grads_cpu, scaled=hubs, leaves=leaves)
+    if hubs:
+        with dropped_hub_chunk() as dropped:
+            loss_bad, grads_bad = cpu_step0(model_cpu, batch, plan, masked_cross_entropy)
+        control = {"dropped": dropped, "loss": loss_bad,
+                   "loss_caught": abs(loss_bad - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)),
+                   "leaves": grad_margins(grads_bad, grads_cpu, scaled=True)}
+        caught = [k for k, m in control["leaves"].items() if m["margin"] > 1.0]
+        if not caught and not control["loss_caught"]:
+            fail(f"{what}: the gradient limit passes a step that dropped a hub chunk "
+                 f"({control})")
+        log(f"{what}: step-0 gradients against the CPU, each leaf's max abs err / atol "
+            f"(margin): " + "; ".join(f"{k} {m['max_abs_err']:.3g} / {m['atol']:.3g} "
+                                      f"({m['margin']:.3g})" for k, m in leaves.items()))
+        log(f"{what}: control, {dropped}: loss {loss_bad} against {loss_cpu} (caught "
+            f"{control['loss_caught']}); leaves past the limit {caught}: "
+            + "; ".join(f"{k} {m['max_abs_err']:.3g} / {m['atol']:.3g} ({m['margin']:.3g})"
+                        for k, m in control["leaves"].items()))
     ops = device_ops(prof, len(ms))
     busy = sum(o["device_ms_per_step"] for o in ops)
     prof_rec = {"device_ms_per_step": busy, "wall_ms_per_step": wall_ms / len(ms),
                 "device_busy_share": busy * len(ms) / wall_ms, "ops": ops}
-    rec = {"config": "bench_gcn", "E": int(plan.num_edges[0]), "e_pad": plan.e_pad,
-           "n_pad": plan.n_src_pad, "losses": losses, "step_ms": ms,
+    rec = {"config": what.removeprefix("train "), "E": int(plan.num_edges[0]),
+           "e_pad": plan.e_pad, "n_pad": plan.n_src_pad, "losses": losses, "step_ms": ms,
            "step_ms_p50": float(np.percentile(ms, 50)), "step_ms_p99": float(np.percentile(ms, 99)),
-           "launches_per_step": want, "launches": total, "step0_loss_cpu": loss_cpu,
-           "grad_max_abs_err": grad_err, "setup_s": setup_s, "cpu_reference_s": cpu_s,
-           "profile": prof_rec}
-    log(f"train bench_gcn: E={rec['E']} e_pad={plan.e_pad}; step ms p50 "
+           "launches_per_step": want, "launches": total, "csr_offsets_per_step": offsets,
+           "step0_loss_cpu": loss_cpu, "grad_max_abs_err": grad_err,
+           "grad_tol_scaled_by_leaf": hubs, "grad_leaves": leaves,
+           "grad_control": control, "hub_rows": _HUB_ROWS.get(what), "setup_s": setup_s,
+           "cpu_reference_s": cpu_s, "profile": prof_rec}
+    log(f"{what}: E={rec['E']} e_pad={plan.e_pad}; step ms p50 "
         f"{rec['step_ms_p50']:.3f} p99 {rec['step_ms_p99']:.3f}; device busy "
         f"{prof_rec['device_busy_share']:.1%} ({prof_rec['device_ms_per_step']:.3f} ms of "
         f"{prof_rec['wall_ms_per_step']:.3f} ms a step, profiler on); loss "
@@ -1676,7 +1938,8 @@ def phase_train_ogb_gcn() -> dict:
            "step_ms_p50_excl_first": float(np.percentile(ms[1:], 50)),
            "avg_epoch_ms_excl_first": res["avg_epoch_ms_excl_first"],
            "launches_per_step": want, "launches": launches, "step0_loss_cpu": loss_cpu,
-           "grad_max_abs_err": grad_err, "run_s": run_s, "cpu_reference_s": cpu_s}
+           "grad_max_abs_err": grad_err, "run_s": run_s, "cpu_reference_s": cpu_s,
+           "hub_rows": _HUB_ROWS.get("train ogb_gcn")}
     log(f"train ogb_gcn (gather kernel on): E={rec['E']}; step wall ms {ms}; loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {want}; step-0 grads vs "
         f"CPU max abs err {grad_err:.3g} (CPU step {cpu_s:.1f} s)")
@@ -1830,9 +2093,9 @@ def phase_train_lm_flash(dtype_name: str = "float32", f32_step0=None) -> tuple:
         config.default_compute_dtype = saved_dtype
     want_eval = dict.fromkeys(want, 0)
     want_eval["flash_attention_fwd"] = L
-    if eval_counts != want_eval or not math.isfinite(eval_loss):
-        fail(f"train lm_flash {dtype_name}: an eval forward launched {eval_counts} (want "
-             f"{want_eval}), loss {eval_loss}")
+    check_step_launches(f"train lm_flash {dtype_name}", "eval", eval_counts, want_eval)
+    if not math.isfinite(eval_loss):
+        fail(f"train lm_flash {dtype_name}: an eval forward's loss is {eval_loss}")
 
     losses = [r["loss"] for r in res["records"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2174,8 +2437,9 @@ def partition_record(graph) -> dict:
 class Phase9Probe:
     """``on_step`` of the W = 4 training run, in each rank's process: each
     step's kernel launches and the host ms its exchanges took barrier to
-    barrier (then zeroed), step 0's gradients, the last step's parameters,
-    and a profile of steps 2-11 (device busy share)."""
+    barrier (then zeroed), step 0's gradients and the hub rows of the
+    rank's cached segment plans (:func:`cached_hub_rows`), the last step's
+    parameters, and a profile of steps 2-11 (device busy share)."""
 
     def __init__(self, epochs: int):
         self.epochs = epochs
@@ -2194,6 +2458,7 @@ class Phase9Probe:
         if epoch == 0:
             out["grads"] = {k: v.numpy() for k, v in grads_of(t.model).items()}
             out["partition"] = partition_record(t.graph)
+            out["hub_rows"] = cached_hub_rows()
         if epoch == 1:
             torch.cuda.synchronize()
             self.prof = torch.profiler.profile(
@@ -2360,7 +2625,8 @@ def train_w4_run(partition: str) -> tuple:
             step_want = dict(want, p2p_transport=want["p2p_transport"] + cfg.num_layers * evals,
                              sorted_segment_sum_bias_relu=want["sorted_segment_sum_bias_relu"]
                              + 2 * chunks * evals)
-            check_step_launches(f"{what} rank {r}", i, probe["counts"], step_want)
+            check_step_launches(f"{what} rank {r}", i, probe["counts"], step_want,
+                                hub_rows=rank["on_step"][0]["hub_rows"])
     losses = [rec["loss"] for rec in res["records"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{what}: the loss did not fall over {cfg.epochs} steps: {losses}")
@@ -2370,7 +2636,7 @@ def train_w4_run(partition: str) -> tuple:
             if not np.array_equal(last[r][k], v):
                 fail(f"{what}: rank {r}'s {k} differs from rank 0's after the last step")
     launches = {k: sum(p["counts"][k] for rank in ranks for p in rank["on_step"])
-                for k in want}
+                for k in ranks[0]["on_step"][0]["counts"]}
     part = dict(parts[0], partition_s=[p["partition_s"] for p in parts])
     log(f"{what}: partition {max(part['partition_s']):.2f} s a rank (host, every rank its "
         f"own, digests equal, native library loaded in every rank); edge cut "
@@ -2401,6 +2667,7 @@ def train_w4_run(partition: str) -> tuple:
     rec = {"config": f"ogb_gcn W=4 pallas_p2p {partition}", "world_size": P2P_W,
            "partition_method": partition, "partition": part, "losses": losses, "launches_per_step": want,
            "launches": launches, "run_s": run_s,
+           "hub_rows": [rank["on_step"][0]["hub_rows"] for rank in ranks],
            "avg_epoch_ms_excl_first": res["avg_epoch_ms_excl_first"], "per_rank": per_rank}
     return cfg, rec, [rank["on_step"][0]["grads"] for rank in ranks]
 
@@ -2455,14 +2722,16 @@ def phase_train_ogb_gcn_w4(turns) -> list:
 # --- phase 10 ----------------------------------------------------------------
 
 
-def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
+def train_cli_run(what, cfg, want, want_eval, prof_steps, hubs=False) -> tuple:
     """``python -m dgraph_tpu_torch.train``'s ``main`` at ``cfg``: every
     step launches exactly ``want`` (plus ``want_eval`` on the epochs that
     ran an eval: 0, every tenth and the last); steps ``prof_steps`` (first,
     last) under torch.profiler; the peak device memory of the run; then one
     more eval forward, which must launch exactly ``want_eval``; the loss
     must fall; no step after the first may compute CSR offsets again (the
-    sorted kernels' searchsorted, once per ids tensor of the plan). Returns
+    sorted kernels' searchsorted and hub plan, once per ids tensor of the
+    plan); the hub route runs on no call, or with ``hubs`` on some call of
+    each sorted sum that launched (:func:`check_step_launches`). Returns
     (the CLI's result, record, step 0's gradients)."""
     import contextlib
 
@@ -2486,7 +2755,7 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
         seg.csr_offsets.computed = 0
         evals = int(epoch % 10 == 0 or epoch == cfg.epochs - 1)
         check_step_launches(what, epoch, counts,
-                            {k: want[k] + evals * want_eval[k] for k in want})
+                            {k: want[k] + evals * want_eval[k] for k in want}, hubs)
         per_step.append(counts)
         if epoch == 0:
             grads0.update(grads_of(t.model))
@@ -2514,9 +2783,9 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
     eval_loss = float(t.eval_step(t.batches["val"])["loss"])
     eval_ms = (time.perf_counter() - te) * 1e3
     eval_counts = kernels.launch_counts()
-    if eval_counts != want_eval or not math.isfinite(eval_loss):
-        fail(f"{what}: an eval forward launched {eval_counts} (want {want_eval}), loss "
-             f"{eval_loss}")
+    check_step_launches(what, "eval", eval_counts, want_eval, hubs)
+    if not math.isfinite(eval_loss):
+        fail(f"{what}: an eval forward's loss is {eval_loss}")
     losses = [r["loss"] for r in res["records"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{what}: the loss did not fall over {len(losses)} steps: {losses}")
@@ -2531,8 +2800,9 @@ def train_cli_run(what, cfg, want, want_eval, prof_steps) -> tuple:
            "step_ms_p50": float(np.percentile(ms[first:], 50)),
            "step_ms_p99": float(np.percentile(ms[first:], 99)),
            "launches_per_step": want, "launches_per_eval": want_eval,
-           "launches": {k: sum(c[k] for c in per_step) for k in want},
+           "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
            "csr_offsets_per_step": offsets, "eval_ms": eval_ms, "peak_memory_bytes": peak, "run_s": run_s,
+           "hub_rows": _HUB_ROWS.get(what),
            "profile": {"steps": f"{first}-{last}", "device_ms_per_step": busy,
                        "wall_ms_per_step": wall, "device_busy_share": busy / wall,
                        "ops": ops}}
@@ -2989,16 +3259,161 @@ def ogb_raw_phase(cfg) -> tuple:
     return [], {}, {"train": [rec]}
 
 
+# --- phase 12 ----------------------------------------------------------------
+
+
+def write_skewed_npz(path: str, seed: int = 0) -> dict:
+    """The degree-skewed arxiv-sized graph (``synthetic.skewed_arxiv_edges``:
+    V = 169,343, 2,332,486 directed edges) as a ``--data.path`` npz: its
+    edge_index, features [V, 128] f32 and labels of 40 classes drawn from
+    the seed, and train/valid/test masks of ogbn-arxiv's sizes (90,941 /
+    29,799 / the rest) over a seeded permutation. Returns its degree
+    profile against the hub route's constants."""
+    import numpy as np
+
+    from dgraph_tpu_torch.data.synthetic import ARXIV_NODES, skewed_arxiv_edges
+    from dgraph_tpu_torch.ops import segment as seg
+
+    edges = skewed_arxiv_edges(seed)
+    V = ARXIV_NODES
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(V)
+    bounds = (0, 90_941, 90_941 + 29_799, V)
+    masks = {}
+    for split, a, b in zip(("train", "valid", "test"), bounds, bounds[1:]):
+        masks[f"{split}_mask"] = np.zeros(V, bool)
+        masks[f"{split}_mask"][order[a:b]] = True
+    np.savez(path, edge_index=edges, features=rng.standard_normal((V, 128), dtype=np.float32),
+             labels=rng.integers(0, 40, V).astype(np.int32), **masks)
+    deg = np.bincount(edges[1], minlength=V)
+    hubs = deg[deg > seg.HUB_DEGREE]
+    return {"V": V, "E": int(edges.shape[1]), "max_degree": int(deg.max()),
+            "hub_rows": int(hubs.size), "hub_edges": int(hubs.sum()),
+            "hub_chunks": int(np.ceil(hubs / seg.HUB_CHUNK).sum())}
+
+
+def hub_device_ms(rec) -> dict:
+    """Device ms a step of the sorted segment sums (their kernels hold the
+    hub route's partial pass) and of the combine pass, from a run's
+    profile."""
+    ops = rec["profile"]["ops"]
+    return {"segment_sum_kernels": sum(o["device_ms_per_step"] for o in ops
+                                       if "segment_sum" in o["name"]),
+            "hub_combine": sum(o["device_ms_per_step"] for o in ops
+                               if "hub_combine" in o["name"])}
+
+
+def phase_gcn_skewed() -> tuple:
+    """GCN on the degree-skewed arxiv-sized graph (:func:`write_skewed_npz`,
+    deleted after): ``python -m dgraph_tpu_torch.train``'s main with
+    ``--data.path`` at ogb_gcn's settings (H = 256, 2 layers, symmetric-norm
+    weights, Adam 5e-3, one rank, the CLI's default partition) with the
+    sorted-row-gather kernel on, 2 warm-up and 10 timed steps (kernels 1, 2
+    and 3, launches as phase 7's; the hub route on some call of each sorted
+    sum every step; steps 2-11 profiled); step 0's loss and gradients
+    against the CPU plain path; then phase 6's bench_gcn step on the same
+    graph (kernels 1, 1a, 4 and 2, unweighted). Each run: step ms p50 / p99,
+    the device-busy share, the device ms of the sorted sums and of the
+    combine pass."""
+    import dataclasses
+
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.data.synthetic import skewed_arxiv_edges
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train.profile import ogb_gcn_config
+    from dgraph_tpu_torch.weights import init_params
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    npz = os.path.join(OUT_DIR, "gcn_skewed.npz")
+    try:
+        t0 = time.perf_counter()
+        graph = write_skewed_npz(npz)
+        write_s = time.perf_counter() - t0
+        log(f"gcn_skewed: the skewed arxiv graph written in {write_s:.1f} s: {graph}")
+        cfg = ogb_gcn_config()
+        cfg.data = dataclasses.replace(cfg.data, path=npz)
+        cfg.epochs, cfg.log_path = 12, os.path.join(OUT_DIR, "train_gcn_skewed.jsonl")
+        chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update(sorted_row_gather=2 * chunks, sorted_segment_sum=2 * chunks,
+                    sorted_segment_sum_bias_relu=chunks)
+        want_eval = dict.fromkeys(kernels.KERNELS, 0)
+        want_eval["sorted_segment_sum_bias_relu"] = chunks
+        config.use_pallas_gather = True
+        try:
+            res, rec, grads0 = train_cli_run("train gcn_skewed", cfg, want, want_eval, (2, 11),
+                                             hubs=True)
+        finally:
+            config.use_pallas_gather = None
+    finally:
+        if os.path.exists(npz):
+            os.remove(npz)
+    t = res["training"]
+    model_cpu = init_params(GCN(t.graph.features.shape[-1], cfg.hidden, 40, SingleComm(),
+                                num_layers=cfg.num_layers), seed=0)
+    batch = dict(t.graph.batch("train"), y=t.graph.labels)
+    tc = time.perf_counter()
+    loss_cpu, grads_cpu = cpu_step0(model_cpu, batch, t.graph.plan, t.loss_fn)
+    cpu_s = time.perf_counter() - tc
+    if abs(rec["losses"][0] - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"train gcn_skewed: step-0 loss {rec['losses'][0]} vs CPU {loss_cpu}")
+    rec.update(graph=graph, write_npz_s=write_s, step0_loss_cpu=loss_cpu,
+               grad_max_abs_err=check_grads("train gcn_skewed", grads0, grads_cpu),
+               cpu_reference_s=cpu_s, hub_device_ms_per_step=hub_device_ms(rec))
+    del res, t, model_cpu, batch
+    torch.cuda.empty_cache()
+    log(f"train gcn_skewed: step-0 grads vs CPU max abs err {rec['grad_max_abs_err']:.3g} "
+        f"(CPU step {cpu_s:.1f} s); device ms a step {rec['hub_device_ms_per_step']}")
+    bench = phase_train_bench_gcn(skewed_arxiv_edges(), "train bench_gcn_skewed")
+    bench["hub_device_ms_per_step"] = hub_device_ms(bench)
+    log(f"train bench_gcn_skewed: device ms a step {bench['hub_device_ms_per_step']}")
+    return rec, bench
+
+
+def skewed_phase(cfg, kernel_cases_too: bool = False) -> tuple:
+    """Phase 12, in the form of :func:`one_rank_phases`; alone
+    (``--phase 12``) it first holds kernels 1, 1a and 2 to their plain
+    versions on the skewed graph's plan ids, which phase 3 does otherwise."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    records, detail = [], {}
+    if kernel_cases_too:
+        log("phase 12: kernels 1, 1a and 2 on the skewed graph's plan ids")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        records = skewed_graph_cases(seg, gen, lambda *a: None)
+        detail["skewed_graph_kernels"] = records
+    log("phase 12: train GCN on the degree-skewed arxiv-sized graph (--data.path), then "
+        "bench_gcn on it")
+    cli_run, bench = phase_gcn_skewed()
+    main_case = {
+        "sorted_segment_sum_bias_relu": [("sorted_segment_sum_bias_relu float32 w F=128 "
+                                          "skewed graph", cli_run["launches"], "gcn_skewed")],
+        "sorted_segment_sum": [("sorted_segment_sum float32 none F=128 skewed graph",
+                                cli_run["launches"], "gcn_skewed")],
+        "sorted_segment_sum_act": [("sorted_segment_sum_act float32 unw F=128 skewed graph",
+                                    bench["launches"], "bench_gcn_skewed")],
+    }
+    return records, main_case, {"train": [cli_run, bench], **detail}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
 def main(argv) -> None:
     """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
     multi-rank path, e.g. on a host with a card a rank; its W = 4 training
-    in the turns W4_TURNS_ABBA); with ``--phase 11``, phases 1, 2 and 11."""
-    only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase}
+    in the turns W4_TURNS_ABBA); with ``--phase 11``, phases 1, 2 and 11;
+    with ``--phase 12``, phases 1, 2 and 12."""
+    only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase,
+            "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True)}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
-        raise SystemExit("usage: chip_smoke.py [--phase 9|11]")
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -3009,7 +3424,8 @@ def main(argv) -> None:
     cfg = arxiv_config("gcn")
     records, main_case, detail = [], {}, {"train": []}
     for phases in ([only[argv[1]]] if argv else
-                   [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase]):
+                   [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase,
+                    skewed_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():
@@ -3030,7 +3446,8 @@ def main(argv) -> None:
             if path_launches[name] <= 0:
                 fail(f"{name} was never launched on its path ({case})")
             row = {"launches": path_launches[name], **{f: rec[f] for f in ROW_KEYS}}
-            for extra in ("plain_note", "kernel_ms"):
+            for extra in ("plain_note", "kernel_ms", "max_degree", "n_hubs", "n_chunks",
+                          "partial_bytes"):
                 if rec.get(extra) is not None:
                     row[extra] = rec[extra]
             if entry is None:

@@ -10,6 +10,9 @@ against the methods both share, so model code is the same under either.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 from dgraph_tpu_torch.comm import collectives
 from dgraph_tpu_torch.ops.attention import flash_attention
@@ -150,22 +153,31 @@ class DistComm:
 
 class Communicator:
     """Constructor facade (communicator.py:305-330): ``single`` for one
-    rank; ``nccl`` (one card a rank) or ``gloo`` (the CPU, or ranks that
-    share a card) for a rank of a ``torch.distributed`` group."""
+    rank; ``nccl`` (one card a rank) or ``gloo`` (ranks that share a card,
+    or the CPU when the caller asks for it) for a rank of a
+    ``torch.distributed`` group."""
 
     SUPPORTED_BACKENDS = ("nccl", "gloo", "single")
 
     @staticmethod
     def init_process_group(backend: str = "single", *, rank: int = 0, world_size: int = 1,
-                           init_method: str = "env://", device: str = "cpu",
+                           init_method: str = "env://", device: Optional[str] = None,
                            timeout: float = 600.0):
+        """``device`` is the rank's device type: the card by default (the
+        port's device rule; no card raises before any group is joined), or
+        ``"cpu"`` for a gloo rank on the plain path. NCCL ranks are always
+        on the card."""
         if backend == "single":
             return SingleComm()
         if backend not in ("nccl", "gloo"):
             raise ValueError(f"Backend {backend!r} not supported; expected one of "
                              f"{Communicator.SUPPORTED_BACKENDS}")
         from dgraph_tpu_torch.comm.dist import init_group
+        from dgraph_tpu_torch.config import default_device
 
-        device = "cuda" if backend == "nccl" else device
-        return DistComm(init_group(rank, world_size, init_method, device, timeout,
+        dev = default_device("cuda" if backend == "nccl" else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"backend {backend!r} on the card, but no CUDA device is "
+                               "available")
+        return DistComm(init_group(rank, world_size, init_method, dev.type, timeout,
                                    backend=backend))

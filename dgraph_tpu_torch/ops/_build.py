@@ -36,23 +36,28 @@ NVCC_FLAGS = (
 )
 
 _c = ctypes
+_HUB_ARGS = (_c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_longlong, _c.c_longlong,
+             _c.c_void_p)
 # argtypes of every exported function: c_void_p for each pointer and the
 # stream (a bare int argument would be cut to 32 bits)
 SIGNATURES = {
+    # each sorted-segment entry point ends, after the stream, in the hub
+    # plan: chunks [3, n] and hub_first pointers, n_chunks, n_hubs, the hub
+    # degree and the [n_chunks, F] f32 workspace
     "sorted_segment": {
         "dg_sorted_segment_sum": (
             _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_longlong,
-            _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p, *_HUB_ARGS,
         ),
         "dg_sorted_segment_sum_bias_relu": (
             _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int,
-            _c.c_int, _c.c_void_p,
+            _c.c_int, _c.c_void_p, *_HUB_ARGS,
         ),
         "dg_sorted_segment_sum_act": (
             _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_longlong, _c.c_void_p,
             _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int,
-            _c.c_int, _c.c_void_p,
+            _c.c_int, _c.c_void_p, *_HUB_ARGS,
         ),
     },
     "sorted_gather": {

@@ -2,7 +2,8 @@
 (:mod:`~dgraph_tpu_torch.ops.segment`), the flash-attention kernels
 (:mod:`~dgraph_tpu_torch.ops.attention`), and the one-sided halo transport
 and its fault-seeded copy (:mod:`~dgraph_tpu_torch.ops.p2p`), each a
-``Kernel(wrapper, plain, replaces, source)``, with their launch counts."""
+``Kernel(wrapper, plain, replaces, source)``, with their launch counts and
+the sorted segment sums' hub-route calls."""
 
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ KERNELS = {**segment.KERNELS, **attention.KERNELS, **p2p.KERNELS}
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.wrapper.launches = 0
+    segment.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {name: k.wrapper.launches for name, k in KERNELS.items()}
+    """Each wrapper's launches, then the sorted-segment wrappers' hub-route
+    calls (``segment.hub_calls``)."""
+    return {**{name: k.wrapper.launches for name, k in KERNELS.items()}, **segment.hub_calls()}

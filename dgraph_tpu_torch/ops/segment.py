@@ -51,6 +51,15 @@ from dgraph_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The hub route of kernels 1, 1a and 2 (csrc/sorted_segment.cu): a row of
+# more than HUB_DEGREE edges is cut into chunks of at most HUB_CHUNK edges,
+# each summed by a warp of its own into an f32 partial row, and the partials
+# are then added in a fixed order. Both chosen by the sweep in the .cu's
+# note: level with the best pair at F = 128 (GCN's feature chunks) on the
+# skewed arxiv graph, faster at F = 16 and F = 1.
+HUB_DEGREE = 256
+HUB_CHUNK = 256
+
 
 # --- plain versions (the CPU path and the kernels' oracle) -----------------
 
@@ -89,17 +98,23 @@ def sorted_segment_sum_plain(
     return out.to(data.dtype)
 
 
-def _bias_epilogue_plain(data, segment_ids, bias, num_segments, edge_weight, act):
-    """The fused kernel's rounding order: bias rounded to the data dtype;
-    ``pre = f32(data) + f32(bias)``; relu (or the 0/1 mask for ``act``) in
-    f32; times ``f32(w)``; the message rounded to the data dtype; f32 sum."""
+def _bias_messages(data, segment_ids, bias, num_segments, edge_weight, act):
+    """(first valid edge, the valid edges' ids, their f32 messages) in the
+    fused kernel's rounding order: bias rounded to the data dtype; ``pre =
+    f32(data) + f32(bias)``; relu (or the 0/1 mask for ``act``) in f32;
+    times ``f32(w)``; the message rounded to the data dtype."""
     lo, hi = _valid_range(segment_ids, num_segments)
     ids = segment_ids[lo:hi].long()
     pre = data[lo:hi].float() + bias.to(data.dtype).index_select(0, ids).float()
     m = (pre > 0).float() if act else torch.relu(pre)
     if edge_weight is not None:
         m = m * edge_weight[lo:hi, None].float()
-    m = m.to(data.dtype).float()
+    return lo, ids, m.to(data.dtype).float()
+
+
+def _bias_epilogue_plain(data, segment_ids, bias, num_segments, edge_weight, act):
+    """:func:`_bias_messages` summed in f32."""
+    _, ids, m = _bias_messages(data, segment_ids, bias, num_segments, edge_weight, act)
     out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
                       device=data.device)
     return out.index_add(0, ids, m)
@@ -140,6 +155,41 @@ def sorted_row_gather_plain(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`sorted_row_gather`: ``x[ids]``, zero rows for
     ids outside ``[0, N)``."""
     return _take_zero(x, ids)
+
+
+def hub_split_sum_plain(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *,
+    input_op: str = "none", bias: Optional[torch.Tensor] = None,
+    edge_weight: Optional[torch.Tensor] = None, act: bool = False,
+    degree: int = HUB_DEGREE, chunk: int = HUB_CHUNK,
+) -> torch.Tensor:
+    """The hub route's arithmetic in plain PyTorch, for the tests (no entry
+    point calls it): kernel 2 (``bias`` None), kernel 1 or its act form
+    (``act``), with every row of more than ``degree`` edges taken from its
+    :func:`hub_plan` chunks, each summed in f32 into a partial row, the
+    partials then added in chunk order; the other rows from the plain
+    version. Equal to the plain version exactly when every chunk covers its
+    own edges and each hub edge lies in one chunk."""
+    if bias is None:
+        _check_input_op(input_op)
+        out = sorted_segment_sum_plain(data, segment_ids, num_segments, input_op=input_op)
+        lo, _ = _valid_range(segment_ids, num_segments)
+        m = (torch.relu(data) if input_op == "relu" else data).float()[lo:]
+    else:
+        plain = sorted_segment_sum_act_plain if act else sorted_segment_sum_bias_relu_plain
+        out = plain(data, segment_ids, bias, num_segments, edge_weight=edge_weight)
+        lo, _, m = _bias_messages(data, segment_ids, bias, num_segments, edge_weight, act)
+    hub = hub_plan(_row_ptr(segment_ids, num_segments), degree, chunk)
+    if hub is None:
+        return out
+    _, start, end = hub.chunks.tolist()
+    partial = torch.stack([m[s - lo:e - lo].sum(0) for s, e in zip(start, end)])
+    hub_of = torch.repeat_interleave(torch.arange(hub.n_hubs), hub.first.diff())
+    rows = hub.chunks[0, hub.first[:-1]]
+    combined = torch.zeros((hub.n_hubs, data.shape[1])).index_add_(0, hub_of, partial)
+    out = out.clone()
+    out[rows] = combined.to(out.dtype)
+    return out
 
 
 # --- argument checks -------------------------------------------------------
@@ -226,7 +276,52 @@ def _row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(ids, rows)
 
 
-# id(ids) -> (weak reference to ids, {num_segments: (ids._version, row_ptr)})
+class HubPlan(NamedTuple):
+    """The hub rows of one ids tensor, as the kernels take them."""
+
+    chunks: torch.Tensor  # [3, n_chunks] int64: each chunk's row, first edge, end edge
+    first: torch.Tensor  # [n_hubs + 1] int64: each hub's first chunk, then n_chunks
+    n_chunks: int
+    n_hubs: int
+    degree: int  # a row of more edges is a hub
+
+
+class SegmentPlan(NamedTuple):
+    row_ptr: torch.Tensor  # [N + 1] int64 CSR offsets
+    hub: Optional[HubPlan]  # None: no row has more than HUB_DEGREE edges
+
+
+def hub_plan(row_ptr: torch.Tensor, degree: int = HUB_DEGREE,
+             chunk: int = HUB_CHUNK) -> Optional[HubPlan]:
+    """The rows of more than ``degree`` edges of the CSR offsets
+    ``row_ptr``, in row order, each cut into chunks of ``chunk`` edges (its
+    last one shorter), on ``row_ptr``'s device; None without such rows.
+    The counts are read to the host here, once per ids tensor, so a kernel
+    call never waits on the card. The chunk bounds follow from the offsets
+    and the two constants alone."""
+    deg = row_ptr[1:] - row_ptr[:-1]
+    rows = torch.nonzero(deg > degree).flatten()
+    n_hubs = rows.numel()
+    if n_hubs == 0:
+        return None
+    per = (deg[rows] + chunk - 1) // chunk
+    first = torch.cat([per.new_zeros(1), per.cumsum(0)])
+    n_chunks = int(first[-1])
+    hub_of = torch.repeat_interleave(torch.arange(n_hubs, device=rows.device), per,
+                                     output_size=n_chunks)
+    row = rows[hub_of]
+    k = torch.arange(n_chunks, device=rows.device) - first[hub_of]
+    start = row_ptr[row] + k * chunk
+    end = torch.minimum(start + chunk, row_ptr[row + 1])
+    return HubPlan(torch.stack([row, start, end]), first, n_chunks, n_hubs, degree)
+
+
+def _segment_plan(segment_ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    row_ptr = _row_ptr(segment_ids, num_segments)
+    return SegmentPlan(row_ptr, hub_plan(row_ptr))
+
+
+# id(ids) -> (weak reference to ids, {num_segments: (ids._version, SegmentPlan)})
 _offsets: dict = {}
 
 
@@ -235,20 +330,21 @@ def _forget(ref, key) -> None:
         del _offsets[key]
 
 
-def csr_offsets(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """:func:`_row_ptr`, computed once per ids tensor and reused by every
-    later call of kernels 1, 1a and 2 on it: the plan's ids do not change
-    within a run. The cache is keyed by the ids tensor OBJECT, through a
-    weak reference (its entry dies with the tensor, and a new tensor never
-    sees it, even with the same values or at a reused address), by its
-    version counter (an in-place edit, of it or of a view sharing its
-    storage, computes the offsets again) and by N. Inference tensors have
-    no version counter and are never cached. Writes that bypass PyTorch
-    (a raw pointer, ``.numpy()``) are not seen: the ids must not change
-    that way. ``csr_offsets.computed`` counts the searchsorted calls."""
+def segment_plan(segment_ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The CSR offsets (:func:`_row_ptr`) and the hub plan
+    (:func:`hub_plan`) of sorted ids, computed once per ids tensor and
+    reused by every later call of kernels 1, 1a and 2 on it: the plan's ids
+    do not change within a run. The cache is keyed by the ids tensor
+    OBJECT, through a weak reference (its entry dies with the tensor, and a
+    new tensor never sees it, even with the same values or at a reused
+    address), by its version counter (an in-place edit, of it or of a view
+    sharing its storage, computes both again) and by N. Inference tensors
+    have no version counter and are never cached. Writes that bypass
+    PyTorch (a raw pointer, ``.numpy()``) are not seen: the ids must not
+    change that way. ``csr_offsets.computed`` counts the computations."""
     if segment_ids.is_inference():
         csr_offsets.computed += 1
-        return _row_ptr(segment_ids, num_segments)
+        return _segment_plan(segment_ids, num_segments)
     key = id(segment_ids)
     entry = _offsets.get(key)
     if entry is None or entry[0]() is not segment_ids:
@@ -257,13 +353,29 @@ def csr_offsets(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     hit = entry[1].get(num_segments)
     if hit is not None and hit[0] == segment_ids._version:
         return hit[1]
-    row_ptr = _row_ptr(segment_ids, num_segments)
-    entry[1][num_segments] = (segment_ids._version, row_ptr)
+    plan = _segment_plan(segment_ids, num_segments)
+    entry[1][num_segments] = (segment_ids._version, plan)
     csr_offsets.computed += 1
-    return row_ptr
+    return plan
+
+
+def csr_offsets(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The cached CSR offsets of :func:`segment_plan`."""
+    return segment_plan(segment_ids, num_segments).row_ptr
 
 
 csr_offsets.computed = 0
+
+
+def hub_args(hub: Optional[HubPlan], F: int, device) -> tuple:
+    """(the trailing hub arguments of a sorted-segment C entry point, the
+    f32 workspace they point into, which must live until the launch is
+    queued); no hubs: null pointers and zeros."""
+    if hub is None:
+        return (None, None, 0, 0, 0, None), None
+    ws = torch.empty((hub.n_chunks, F), dtype=torch.float32, device=device)
+    return (hub.chunks.data_ptr(), hub.first.data_ptr(), hub.n_chunks, hub.n_hubs,
+            hub.degree, ws.data_ptr()), ws
 
 
 def _ids32(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -293,15 +405,18 @@ def _segment_sum(data, segment_ids, num_segments, input_op):
         return out
     if E == 0:
         return out.zero_()
-    row_ptr = csr_offsets(segment_ids, num_segments)
+    plan = segment_plan(segment_ids, num_segments)
+    hub, ws = hub_args(plan.hub, F, data.device)
     lib = _build.load("sorted_segment")
     rc = lib.dg_sorted_segment_sum(
-        data.data_ptr(), _row_stride(data), row_ptr.data_ptr(), out.data_ptr(),
+        data.data_ptr(), _row_stride(data), plan.row_ptr.data_ptr(), out.data_ptr(),
         num_segments, F, _KERNEL_DTYPES[data.dtype], int(input_op == "relu"),
-        int(_vec_ok(data, out)), _stream(),
+        int(_vec_ok(data, out)), _stream(), *hub,
     )
+    del ws
     _build.check(rc, "dg_sorted_segment_sum")
     sorted_segment_sum.launches += 1
+    sorted_segment_sum.hub_calls += plan.hub is not None
     return out
 
 
@@ -325,21 +440,21 @@ def _bias_epilogue(data, segment_ids, bias, num_segments, edge_weight, act):
         return out
     if E == 0:
         return out.zero_()
-    row_ptr = csr_offsets(segment_ids, num_segments)
+    plan = segment_plan(segment_ids, num_segments)
+    hub, ws = hub_args(plan.hub, F, data.device)
     lib = _build.load("sorted_segment")
     fn = lib.dg_sorted_segment_sum_act if act else lib.dg_sorted_segment_sum_bias_relu
     rc = fn(
         data.data_ptr(), _row_stride(data), bias.data_ptr(), _row_stride(bias),
-        None if w is None else w.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+        None if w is None else w.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(),
         num_segments, F, _KERNEL_DTYPES[data.dtype],
-        int(_vec_ok(data, bias, out)), _stream(),
+        int(_vec_ok(data, bias, out)), _stream(), *hub,
     )
-    if act:
-        _build.check(rc, "dg_sorted_segment_sum_act")
-        sorted_segment_sum_act.launches += 1
-    else:
-        _build.check(rc, "dg_sorted_segment_sum_bias_relu")
-        sorted_segment_sum_bias_relu.launches += 1
+    del ws
+    wrapper = sorted_segment_sum_act if act else sorted_segment_sum_bias_relu
+    _build.check(rc, f"dg_{wrapper.__name__}")
+    wrapper.launches += 1
+    wrapper.hub_calls += plan.hub is not None
     return out
 
 
@@ -558,9 +673,9 @@ def sorted_row_gather(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _SortedRowGather.apply(x, ids)
 
 
-sorted_segment_sum.launches = 0
-sorted_segment_sum_bias_relu.launches = 0
-sorted_segment_sum_act.launches = 0
+sorted_segment_sum.launches = sorted_segment_sum.hub_calls = 0
+sorted_segment_sum_bias_relu.launches = sorted_segment_sum_bias_relu.hub_calls = 0
+sorted_segment_sum_act.launches = sorted_segment_sum_act.hub_calls = 0
 fused_bwd_gd.launches = 0
 sorted_row_gather.launches = 0
 
@@ -591,10 +706,23 @@ KERNELS = {
 }
 
 
+# the wrappers that can take the hub route; each counts the calls that did
+# in ``<wrapper>.hub_calls``
+HUB_ROUTE = ("sorted_segment_sum", "sorted_segment_sum_bias_relu", "sorted_segment_sum_act")
+
+
+def hub_calls() -> dict:
+    """{"<wrapper>.hub_calls": calls that ran the hub route}."""
+    return {f"{name}.hub_calls": KERNELS[name].wrapper.hub_calls for name in HUB_ROUTE}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.wrapper.launches = 0
+    for name in HUB_ROUTE:
+        KERNELS[name].wrapper.hub_calls = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.wrapper.launches for name, k in KERNELS.items()}
+    """Each wrapper's launches, then the hub-route calls (:func:`hub_calls`)."""
+    return {**{name: k.wrapper.launches for name, k in KERNELS.items()}, **hub_calls()}

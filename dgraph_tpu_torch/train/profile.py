@@ -43,9 +43,11 @@ import subprocess
 import time
 
 
-def bench_gcn_setup(device):
+def bench_gcn_setup(device, edges=None):
     """(model, optimizer step, batch on ``device``, stacked plan on the
-    CPU, CPU batch, CPU copy of the initial model) for bench_gcn."""
+    CPU, CPU batch, CPU copy of the initial model) for bench_gcn; ``edges``
+    (``[2, E]`` over ``ARXIV_NODES`` vertices) replaces its graph, as
+    ``chip_smoke.py`` phase 12 gives it the skewed arxiv graph."""
     import copy
 
     import numpy as np
@@ -59,8 +61,10 @@ def bench_gcn_setup(device):
     from dgraph_tpu_torch.weights import init_params
 
     V, F, C, H = ARXIV_NODES, 128, 40, 256
-    plan, _ = build_edge_plan(random_edges(V, ARXIV_EDGES, seed=0), np.zeros(V, np.int32),
-                              world_size=1, edge_owner="dst", pad_multiple=128)
+    if edges is None:
+        edges = random_edges(V, ARXIV_EDGES, seed=0)
+    plan, _ = build_edge_plan(edges, np.zeros(V, np.int32), world_size=1, edge_owner="dst",
+                              pad_multiple=128)
     validate_plan(plan)
     n = plan.n_src_pad
     gen = torch.Generator().manual_seed(0)

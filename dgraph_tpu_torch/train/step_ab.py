@@ -1,7 +1,7 @@
 """Time training steps (or requests) of two checkouts in turns on one card.
 
     python -m dgraph_tpu_torch.train.step_ab OLD_ROOT [--new NEW_ROOT]
-        [--config lm_flash|gat_arxiv|sage_arxiv] [--rounds 1]
+        [--config lm_flash|gat_arxiv|sage_arxiv|bench_gcn|bench_gcn_skewed] [--rounds 1]
         [--dtypes float32 bfloat16] [--out DIR]
 
 Runs one configuration from each checkout's root (NEW defaults to this
@@ -20,7 +20,12 @@ each dtype of ``--dtypes`` (``DGRAPH_TPU_COMPUTE_DTYPE``):
   phase 5 (``serve.build_serving``: V = 169,343, F = 128, H = 256, C = 40, 2
   layers), warmed, then 42 requests of sizes drawn from a seed over
   8..1024 ids through ``ServeEngine.infer`` (one full-graph forward and the
-  row gather, ending in a host copy).
+  row gather, ending in a host copy);
+- ``bench_gcn``, ``bench_gcn_skewed`` (f32): ``chip_smoke.py`` phase 6's
+  bench_gcn step (GCN F=128 H=256 C=40, unweighted, Adam 1e-3) on its
+  random arxiv-shaped graph, or on the skewed arxiv graph of phase 12
+  (``power_law_graph(169,343, 1,166,243 / 169,343, 0)`` symmetrized,
+  largest in-degree 15,001), 12 steps, each ended by a synchronize.
 
 Each run is a process of its own that builds its checkout's kernels. The
 times are the host clock, ended by a device synchronize; the report is the
@@ -84,8 +89,53 @@ for size in rng.integers(8, 1025, {steps} * 3 + 6):
 print("STEP_MS " + json.dumps(ms), flush=True)
 """,
 }
+# bench_gcn's step: 12 steps, each ended by a synchronize
+_STEPS = """
+ms = []
+for _ in range({steps}):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(b)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+print("STEP_MS " + json.dumps(ms), flush=True)
+"""
+_RUN["bench_gcn"] = """
+import json, time
+import torch
+from dgraph_tpu_torch.train.profile import bench_gcn_setup
+_, step, b, *_ = bench_gcn_setup(torch.device("cuda"))
+""" + _STEPS
+# on the skewed arxiv graph: bench_gcn_setup's body and
+# synthetic.skewed_arxiv_edges written out, because a checkout whose
+# bench_gcn_setup takes no ``edges`` must run it too; once both trees take
+# it, this becomes bench_gcn_setup(torch.device("cuda"), skewed_arxiv_edges())
+_RUN["bench_gcn_skewed"] = """
+import json, time
+import numpy as np, torch
+from dgraph_tpu_torch.comm import SingleComm
+from dgraph_tpu_torch.data.synthetic import ARXIV_EDGES, ARXIV_NODES, power_law_graph
+from dgraph_tpu_torch.models import GCN
+from dgraph_tpu_torch.plan import build_edge_plan
+from dgraph_tpu_torch.train.loop import make_train_step
+from dgraph_tpu_torch.weights import init_params
+V = ARXIV_NODES
+src, dst = power_law_graph(V, ARXIV_EDGES / V, 0)
+edges = np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])])
+plan, _ = build_edge_plan(edges, np.zeros(V, np.int32), world_size=1, edge_owner="dst",
+                          pad_multiple=128)
+n = plan.n_src_pad
+gen = torch.Generator().manual_seed(0)
+batch = {{"x": torch.randn(1, n, 128, generator=gen),
+         "y": torch.randint(0, 40, (1, n), generator=gen, dtype=torch.int32),
+         "mask": (torch.arange(n) < V).float()[None]}}
+model = init_params(GCN(128, 256, 40, SingleComm(), num_layers=2), seed=2).to("cuda")
+step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), plan.to("cuda"))
+b = {{k: v.to("cuda") for k, v in batch.items()}}
+""" + _STEPS
 DEFAULT_DTYPES = {"lm_flash": ["float32", "bfloat16"], "gat_arxiv": ["float32"],
-                  "sage_arxiv": ["float32"]}
+                  "sage_arxiv": ["float32"], "bench_gcn": ["float32"],
+                  "bench_gcn_skewed": ["float32"]}
 
 
 def run_steps(root: Path, config: str, dtype: str, log: str) -> list:

@@ -156,6 +156,85 @@ def test_all_ids_out_of_range_gives_zeros(dev):
                        torch.zeros(N, 16, device=dev))
 
 
+# --- the hub route: rows of more than HUB_DEGREE edges, summed in chunks ---
+
+HUB_N = 3000
+HUB_FORMS = ("sum", "sum relu", "bias_relu w", "bias_relu unw", "act w", "act unw")
+
+
+def _hub_form(form, data, ids, bias, w, n):
+    """(kernel call, plain call, wrapper) of one form of kernels 1, 1a, 2."""
+    kernel, _, tag = form.partition(" ")
+    if kernel == "sum":
+        op = "relu" if tag == "relu" else "none"
+        return (lambda: seg.sorted_segment_sum(data, ids, n, input_op=op),
+                lambda: seg.sorted_segment_sum_plain(data, ids, n, input_op=op),
+                seg.sorted_segment_sum)
+    ew = w if tag == "w" else None
+    wrapper = seg.sorted_segment_sum_act if kernel == "act" else seg.sorted_segment_sum_bias_relu
+    plain = (seg.sorted_segment_sum_act_plain if kernel == "act"
+             else seg.sorted_segment_sum_bias_relu_plain)
+    return (lambda: wrapper(data, ids, bias, n, edge_weight=ew),
+            lambda: plain(data, ids, bias, n, edge_weight=ew), wrapper)
+
+
+@pytest.mark.parametrize("F", [1, 4, 16, 33, 128])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "unaligned"])
+@pytest.mark.parametrize("form", HUB_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_route_edge_cases_match_plain(dev, dtype, form, layout, F):
+    """Hubs of HUB_DEGREE + 1 edges beside a row of exactly HUB_DEGREE, of a
+    multiple of HUB_CHUNK and one more, as the first row and as the last
+    real row before padded ids, three in one narrow block
+    (``kernel_ab.hub_edge_case_ids``), as contiguous rows, strided column
+    slices and unaligned rows: every call takes the hub route, launches
+    once, matches plain on exact values and repeats its bits."""
+    from dgraph_tpu_torch.ops.kernel_ab import hub_edge_case_ids
+
+    ids = torch.from_numpy(hub_edge_case_ids(HUB_N, seg.HUB_DEGREE, seg.HUB_CHUNK)).to(dev)
+    E = ids.shape[0]
+    wide = _quarters(E, F + 5, dev=dev).to(dtype)
+    table = _quarters(HUB_N, 2 * F + 1, dev=dev).to(dtype)
+    data, bias = {"contiguous": (wide[:, :F].contiguous(), table[:, :F].contiguous()),
+                  "strided": (wide[:, :F], table[:, F:2 * F]),
+                  "unaligned": (wide[:, 1:F + 1], table[:, 1:F + 1])}[layout]
+    run, plain, wrapper = _hub_form(form, data, ids, bias, _quarters(E, dev=dev, lo=0, hi=5),
+                                    HUB_N)
+    launches, hubs = wrapper.launches, wrapper.hub_calls
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.hub_calls) == (launches + 2, hubs + 2)
+    _close(got, plain())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("F", [1, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_route_runs_on_skewed_ids_and_not_on_the_sbm_plan(dev, dtype, F):
+    """Power-law ids (a row of about 46,000 edges at the arxiv shape, here
+    a tenth of it) take the hub route in every form; the SBM graph's plan
+    (largest degree about 30) never does."""
+    from dgraph_tpu_torch.data import DistributedGraph, synthetic
+    from dgraph_tpu_torch.ops.kernel_ab import power_law_ids
+
+    n, e = 16_934, 233_267
+    ids = torch.from_numpy(power_law_ids(n, e, e + 100)).to(dev)
+    sbm = synthetic.sbm_classification_graph(num_nodes=2000, num_classes=5, feat_dim=8, seed=2)
+    g = DistributedGraph.from_global(sbm["edge_index"], sbm["features"], sbm["labels"],
+                                     sbm["masks"], world_size=1, partition_method="random")
+    plan = g.plan.shard(0).to(dev)
+    for case_ids, rows, hub in ((ids, n, True), (plan.dst_index, plan.n_dst_pad, False)):
+        E = case_ids.shape[0]
+        data = _quarters(E, F, dev=dev).to(dtype)
+        bias = _quarters(rows, F, dev=dev).to(dtype)
+        for form in HUB_FORMS:
+            run, plain, wrapper = _hub_form(form, data, case_ids, bias,
+                                            _quarters(E, dev=dev, lo=0, hi=5), rows)
+            before = wrapper.hub_calls
+            _close(run(), plain())
+            assert wrapper.hub_calls == before + hub, (form, hub)
+
+
 @pytest.mark.parametrize("F", [1, 33, 128, 256])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -689,13 +768,13 @@ def test_gat_and_gt_train_on_the_card_like_on_the_cpu(dev, model):
     assert abs(loss_cpu - loss_gpu) <= 1e-4 * max(1.0, abs(loss_cpu))
     for k, want in grads_cpu.items():
         torch.testing.assert_close(grads_gpu[k], want, rtol=1e-4, atol=1e-4, msg=k)
-    want = dict.fromkeys(counts, 0)
+    want = dict.fromkeys(kernels.KERNELS, 0)
     if model == "gt":
         want.update(flash_attention_fwd=2, flash_attention_bwd_dkv=2, flash_attention_bwd_dq=2,
                     sorted_segment_sum=6)
     else:
         want.update(sorted_segment_sum=48)
-    assert counts == want
+    assert {k: counts[k] for k in want} == want
 
 
 def test_graph_transformer_refuses_head_widths_the_kernels_lack(dev):

@@ -169,7 +169,10 @@ def test_cpu_calls_are_not_kernel_launches():
     assert seg.launch_counts() == {"sorted_segment_sum": 0,
                                    "sorted_segment_sum_bias_relu": 0,
                                    "sorted_segment_sum_act": 0, "fused_bwd_gd": 0,
-                                   "sorted_row_gather": 0}
+                                   "sorted_row_gather": 0,
+                                   "sorted_segment_sum.hub_calls": 0,
+                                   "sorted_segment_sum_bias_relu.hub_calls": 0,
+                                   "sorted_segment_sum_act.hub_calls": 0}
 
 
 # --- the CSR offsets, computed once per ids tensor -------------------------
