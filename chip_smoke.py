@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 9    # phases 1, 2 and 9 (e.g. a card a rank)
     python3 chip_smoke.py --phase 11   # phases 1, 2 and 11
     python3 chip_smoke.py --phase 12   # phases 1, 2 and 12
+    python3 chip_smoke.py --phase 13   # phases 1, 2 and 13 (e.g. a card a rank)
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
@@ -180,7 +181,33 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    where a plan pads more than HUB_DEGREE edges: its src-side ids put every
    padded edge in src row 0 (836 edges in the CLI's one-rank plan), which
    every training phase checks is the only hub of its plans, and records;
+13. the halo lowerings over 4 ranks — spawned on the card (or a card a
+   rank, NCCL): at the W = 4 multilevel plan's send lists (phase 9's plan;
+   S = 36,864, deltas (1, 2, 3)) at F = 256, f32 and bf16, the exchange and
+   the reverse sum under all_to_all, ppermute, overlap and pallas_p2p:
+   overlap and pallas_p2p bit-equal to all_to_all in both legs (the
+   exchange on the rows a round lands), ppermute's exchange bit-equal and
+   its reverse (a masked sum a delta) within TOL of all_to_all's, which a
+   control (the reverse without the first delta's rounds) must exceed;
+   each leg timed barrier to barrier (median of LOWERING_REPS). Then
+   ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
+   at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
+   the split) and GraphSAGE (its split route, kernel 2 on both subsets)
+   under DGRAPH_TPU_HALO_IMPL=overlap, GAT (gat_arxiv's width) under
+   overlap and under ppermute; each run: every rank resolved the pin, every
+   step launched the pinned kernels, the loss fell, the ranks' parameters
+   are bit-equal, and step 0's loss and every rank's gradients match a
+   4-rank gloo run of the port on the CPU under the same pin within 1e-4
+   (GAT's at V = 16,384, a second training its ranks build beside their
+   own; GCN's against phase 9's CPU run when phase 9 ran). On one card the
+   CPU runs go on beside the card's, so its host-staged step times compare
+   no lowering. On a host of four cards the CPU runs come first, then GCN
+   trains under every lowering (its step timed under each, no profiler),
+   and its overlap run profiles W13_TRACE_STEPS more steps after its timed
+   ones: how many of kernel 1's launches ran beside an NCCL kernel;
 then the kernels line (one JSON object) and the device line (last line).
+Every progress line carries the seconds since the start, and the end logs
+each phase's seconds.
 
 Everything but the two JSON lines and the nvidia-smi line goes out as
 ``[chip_smoke]`` progress lines; details land in
@@ -190,6 +217,7 @@ seeds. Needs one card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import itertools
@@ -274,8 +302,25 @@ BF16_GRAD_TOL = 2e-2
 OUT_DIR = "chiprun_out"
 
 
+_T0 = time.perf_counter()
+_PHASE_STARTS: list = []  # (phase, seconds since start) as each phase begins
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line, with the seconds since the script started; a line
+    "phase N: ..." marks where phase N begins (:func:`phase_seconds`)."""
+    t = time.perf_counter() - _T0
+    head = msg.split(":", 1)[0]
+    if head.startswith("phase ") and head[6:].isdigit() and head[6:] not in dict(_PHASE_STARTS):
+        _PHASE_STARTS.append((head[6:], t))
+    print(f"[chip_smoke] {t:7.1f} s  {msg}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds, from its first line to the next phase's (the
+    last to now)."""
+    ends = [t for _, t in _PHASE_STARTS[1:]] + [time.perf_counter() - _T0]
+    return {p: round(e - t, 1) for (p, t), e in zip(_PHASE_STARTS, ends)}
 
 
 def fail(msg: str) -> None:
@@ -2178,6 +2223,20 @@ P2P_EDGE_S = 300
 P2P_REPS = 10
 
 
+# the W = 4 plan phase 9 builds, kept for phase 13's parity (one build a
+# run), and phase 9's CPU oracle of the W = 4 GCN step 0, which phase 13's
+# GCN run is held to as well
+_W4_HALO: dict = {}
+_W4_GCN_CPU: dict = {}
+
+
+def w4_halo_arrays(plan) -> dict:
+    """What a rank needs of the W = 4 plan to run the halo lowerings: the
+    send lists (every rank's), S, the live deltas and n_pad."""
+    return {"deltas": tuple(plan.halo_deltas), "S": plan.halo.s_pad, "n_pad": plan.n_src_pad,
+            "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy()}
+
+
 def p2p_edge_cases(W: int) -> list:
     """(deltas, F, dtype, sign, masked, element offset of the blocks) of
     the kernel-5 edge cases at world size W. W = 4, deltas {1, 3} (fewer
@@ -2516,9 +2575,7 @@ def phase_p2p_kernel(graph) -> dict:
         fail(f"the put-discipline verifier's static selftest: {failures[:5]}")
     log("kernel 6 verifier, static tier: the clean protocol GREEN, drop_send_wait, "
         "drop_recv_wait, no_slot_wait, bad_dst_row and oversize each RED on its own rule")
-    plan = graph.plan
-    real = {"deltas": tuple(plan.halo_deltas), "S": plan.halo.s_pad, "n_pad": plan.n_src_pad,
-            "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy()}
+    real = w4_halo_arrays(graph.plan)
     out, landing = {}, {}
     for W in (P2P_W, 2):
         t0 = time.perf_counter()
@@ -2564,11 +2621,11 @@ def phase_p2p_kernel(graph) -> dict:
 
 
 @contextlib.contextmanager
-def pallas_p2p_env():
-    """DGRAPH_TPU_HALO_IMPL=pallas_p2p for the ranks spawned inside (each
+def halo_impl_env(impl: str):
+    """DGRAPH_TPU_HALO_IMPL=``impl`` for the ranks spawned inside (each
     reads it at start-up)."""
     saved = os.environ.get("DGRAPH_TPU_HALO_IMPL")
-    os.environ["DGRAPH_TPU_HALO_IMPL"] = "pallas_p2p"
+    os.environ["DGRAPH_TPU_HALO_IMPL"] = impl
     try:
         yield
     finally:
@@ -2609,7 +2666,7 @@ def train_w4_run(partition: str) -> tuple:
     if os.path.exists(cfg.log_path):
         os.remove(cfg.log_path)
     t0 = time.perf_counter()
-    with pallas_p2p_env(), contextlib.redirect_stdout(sys.stderr):
+    with halo_impl_env("pallas_p2p"), contextlib.redirect_stdout(sys.stderr):
         res = cli.main(cfg, on_step=Phase9Probe(cfg.epochs))
     run_s = time.perf_counter() - t0
     ranks = res["ranks"]
@@ -2689,10 +2746,11 @@ def phase_train_ogb_gcn_w4(turns) -> list:
     runs = [train_w4_run(p) for p in turns]
     cpu_cfg = next(cfg for cfg, _, _ in runs if cfg.data.partition == "random")
     tc = time.perf_counter()
-    with pallas_p2p_env():
+    with halo_impl_env("pallas_p2p"):
         cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cpu_cfg), device="cpu",
                      timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
     cpu_s = time.perf_counter() - tc
+    _W4_GCN_CPU.update(cpu[0], impl="pallas_p2p (plain)")
     want_grads = {k: torch.from_numpy(v) for k, v in cpu[0]["grads"].items()}
     recs = []
     for cfg, rec, grads in runs:
@@ -3129,6 +3187,7 @@ def multi_rank_phase(cfg, turns=W4_TURNS) -> tuple:
         f"deltas={plan.halo_deltas} interior/boundary edges per rank "
         f"{part['interior']}/{part['boundary']}")
     del data
+    _W4_HALO.update(w4_halo_arrays(plan))
     p2p_k = phase_p2p_kernel(graph4)
     del graph4, plan
     ogb4 = phase_train_ogb_gcn_w4(turns)
@@ -3402,6 +3461,486 @@ def skewed_phase(cfg, kernel_cases_too: bool = False) -> tuple:
     return records, main_case, {"train": [cli_run, bench], **detail}
 
 
+# --- phase 13 ----------------------------------------------------------------
+
+LOWERINGS = ("all_to_all", "ppermute", "overlap", "pallas_p2p")
+LOWERING_F = 256
+LOWERING_REPS = 3  # timed calls a leg and lowering (the median is logged)
+W13_EPOCHS = 2  # training steps a phase-13 run on one card (at most 4)
+W13_EPOCHS_NCCL = 12  # on cards of their own, where a step takes a tenth
+W13_TRACE_STEPS = 4  # GCN 'overlap' on four cards: steps profiled after the timed ones
+GAT_STEP0_V = 16384  # GAT's step 0 against the CPU, as phase 10 holds it
+# (model, DGRAPH_TPU_HALO_IMPL) of phase 13's training runs; on four cards
+# GCN also runs under every other lowering (its step timed under each)
+W13_RUNS = (("gcn", "overlap"), ("sage", "overlap"), ("gat", "overlap"), ("gat", "ppermute"))
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms on inside (``index_add_`` on the
+    card then adds in a fixed order)."""
+    import torch
+
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved)
+
+
+def lowering_parity_rank(group, real: dict) -> dict:
+    """One rank of the lowering parity at the W = 4 plan's send lists,
+    F = LOWERING_F, f32 and bf16: the exchange (``halo_exchange``) and the
+    reverse sum (``halo_scatter_sum``) under each of LOWERINGS. 'overlap'
+    and 'pallas_p2p' must give ``all_to_all``'s bits in both legs (the
+    exchange on the rows a round lands: the blocks of live deltas),
+    'ppermute' in the exchange; its reverse, a masked sum a delta, within
+    TOL of ``all_to_all``'s (max abs error over the largest magnitude),
+    which a control, the same reverse without the first delta's rounds,
+    must exceed. The outputs held to each other are computed under torch's
+    deterministic algorithms: the owners' masked sum is an ``index_add_``,
+    whose atomic adds on the card sum in an order that varies from call to
+    call (and so did ``all_to_all``'s against itself). Each leg timed
+    barrier to barrier (the deterministic mode off, as in training), the
+    median of LOWERING_REPS calls."""
+    import statistics
+
+    import torch
+
+    from dgraph_tpu_torch.comm import collectives as coll
+    from dgraph_tpu_torch.plan import HaloSpec
+
+    dev, W, me = group.device, group.world_size, group.rank
+    deltas, S, n_pad = real["deltas"], real["S"], real["n_pad"]
+    halo = HaloSpec(torch.from_numpy(real["send_idx"][me]).to(dev),
+                    torch.from_numpy(real["send_mask"][me]).to(dev), S)
+    gen = torch.Generator(device=dev).manual_seed(300 + me)
+    x32 = torch.randn(n_pad, LOWERING_F, generator=gen, device=dev)
+    h32 = torch.randn(W * S, LOWERING_F, generator=gen, device=dev)
+    landed = torch.cat([torch.arange(((me - d) % W) * S, ((me - d) % W + 1) * S)
+                        for d in deltas]).to(dev)
+    failures, records, spent = [], [], {"check_s": 0.0, "time_s": 0.0}
+
+    def barrier_ms(fn) -> float:
+        ts = []
+        for _ in range(LOWERING_REPS):
+            torch.cuda.synchronize(dev)
+            group.barrier()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            group.barrier()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        x, h = x32.to(dtype), h32.to(dtype)
+        out = {}
+        for impl in LOWERINGS:
+            ex = lambda: coll.halo_exchange(x, halo, group, deltas, impl)  # noqa: E731
+            rv = lambda: coll.halo_scatter_sum(h, halo, n_pad, group, deltas, impl)  # noqa: E731
+            t = time.perf_counter()
+            with deterministic():
+                out[impl] = (ex(), rv())
+            torch.cuda.synchronize(dev)
+            spent["check_s"] += time.perf_counter() - t
+            t = time.perf_counter()
+            records.append({"impl": impl, "dtype": dtype_name, "exchange_ms": barrier_ms(ex),
+                            "reverse_ms": barrier_ms(rv), "backend": group.backend})
+            spent["time_s"] += time.perf_counter() - t
+        buf0, back0 = out["all_to_all"]
+        for impl in LOWERINGS[1:]:
+            buf, back = out[impl]
+            if not torch.equal(bits(buf[landed]), bits(buf0[landed])):
+                failures.append(f"{impl} {dtype_name}: the exchange's landed rows differ from "
+                                "all_to_all's")
+            if impl != "ppermute" and not torch.equal(bits(back), bits(back0)):
+                failures.append(f"{impl} {dtype_name}: the reverse sum differs from "
+                                "all_to_all's")
+        err = rel(out["ppermute"][1], back0)
+        with deterministic():
+            dropped = coll.halo_scatter_sum(h, halo, n_pad, group, deltas[1:], "ppermute")
+        control = rel(dropped, back0)
+        if not err <= TOL[dtype_name]:
+            failures.append(f"ppermute {dtype_name}: the reverse sum is {err:.3g} from "
+                            f"all_to_all's (limit {TOL[dtype_name]})")
+        if not control > TOL[dtype_name]:
+            failures.append(f"ppermute {dtype_name}: the control (delta {deltas[0]} left out) "
+                            f"reads {control:.3g}, inside the limit {TOL[dtype_name]}")
+        records.append({"impl": "ppermute reverse vs all_to_all", "dtype": dtype_name,
+                        "rel_err": err, "control": control, "limit": TOL[dtype_name]})
+    return {"failures": failures, "records": records, **spent}
+
+
+def phase_lowering_parity() -> dict:
+    """The four lowerings at the W = 4 multilevel plan on 4 ranks
+    (:func:`lowering_parity_rank`), the plan phase 9 built or, alone, built
+    here; each leg's time the mean over the ranks of their medians."""
+    import numpy as np
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    if not _W4_HALO:
+        from dgraph_tpu_torch.data import DistributedGraph
+        from dgraph_tpu_torch.serve.__main__ import load_data
+        from dgraph_tpu_torch.train.__main__ import DataConfig
+
+        data = load_data(arxiv_config("gcn"))
+        t = time.perf_counter()
+        graph = DistributedGraph.from_global(
+            data["edge_index"], data["features"], data["labels"], data["masks"],
+            world_size=P2P_W, partition_method=DataConfig().partition, add_symmetric_norm=True)
+        _W4_HALO.update(w4_halo_arrays(graph.plan))
+        log(f"W=4 plan ({DataConfig().partition}): {time.perf_counter() - t:.1f} s")
+    real = _W4_HALO
+    t0 = time.perf_counter()
+    res = launch(lowering_parity_rank, P2P_W, real, device="cuda", timeout=600)
+    failures = [f for r in res for f in r["failures"]]
+    if failures:
+        fail(f"the halo lowerings at W=4: {failures[:5]}")
+    recs = []
+    for i, rec in enumerate(res[0]["records"]):
+        per_rank = [r["records"][i] for r in res]
+        if "exchange_ms" in rec:
+            rec = dict(rec, **{k: float(np.mean([r[k] for r in per_rank]))
+                               for k in ("exchange_ms", "reverse_ms")},
+                       exchange_ms_per_rank=[r["exchange_ms"] for r in per_rank])
+            log(f"lowering {rec['impl']} {rec['dtype']} W={P2P_W} S={real['S']} F={LOWERING_F}: "
+                f"exchange {rec['exchange_ms']:.2f} ms, reverse {rec['reverse_ms']:.2f} ms "
+                f"(barrier to barrier, median of {LOWERING_REPS}, mean over ranks; "
+                f"{rec['backend']})")
+        else:
+            rec = dict(rec, rel_err=max(r["rel_err"] for r in per_rank),
+                       control=min(r["control"] for r in per_rank))
+            log(f"{rec['impl']} {rec['dtype']}: {rec['rel_err']:.3g} relative (limit "
+                f"{rec['limit']}); control, a delta left out, {rec['control']:.3g}")
+        recs.append(rec)
+    log(f"halo lowerings W={P2P_W} S={real['S']} deltas={real['deltas']} F={LOWERING_F}: "
+        "overlap and pallas_p2p bit-equal to all_to_all in both legs (the exchange on its "
+        "landed rows), ppermute's exchange bit-equal and its reverse within TOL "
+        f"({time.perf_counter() - t0:.1f} s with the spawn; rank 0: checks "
+        f"{res[0]['check_s']:.1f} s, timed calls {res[0]['time_s']:.1f} s)")
+    return {"records": recs, "S": real["S"], "deltas": list(real["deltas"])}
+
+
+def w13_config(model: str):
+    """The CLI's Config of a phase-13 run: ogb_gcn's arxiv-width graph over 4
+    ranks (GAT at gat_arxiv's width), W13_EPOCHS steps (W13_EPOCHS_NCCL on
+    four cards)."""
+    import dataclasses
+
+    from dgraph_tpu_torch.train.profile import gat_arxiv_config, ogb_gcn_config
+
+    import torch
+
+    base = gat_arxiv_config() if model == "gat" else ogb_gcn_config()
+    epochs = W13_EPOCHS_NCCL if torch.cuda.device_count() >= P2P_W else W13_EPOCHS
+    return dataclasses.replace(base, model=model, world_size=P2P_W, epochs=epochs)
+
+
+def w13_launches(cfg, impl: str) -> tuple:
+    """(a train step's, an eval's) kernel launches a rank of a phase-13 run.
+    GCN on the split route ('overlap', 'pallas_p2p'): kernel 1 on both
+    subsets of each feature chunk, kernel 2 for each subset's bias gradient
+    (the subsets' takes have unsorted ids: row gathers), under 'pallas_p2p'
+    kernel 5 for each exchange and its reverse; GCN unsplit: kernel 1 once
+    a chunk, kernel 2 for its bias gradient and the src-side take's VJP (the
+    plan's sorting permutation), as phase 7 without the gather kernel.
+    GraphSAGE on the split route: kernel 2 on both subsets of each chunk
+    and once for the degree, forward only (the backward's takes are row
+    gathers). GAT as phase 10 (the attention's sums on the dst-owned side;
+    its one collective is the src-side exchange)."""
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops.kernels import KERNELS
+
+    want, want_eval = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    cb = config.gather_col_block
+    if cfg.model == "gcn":
+        chunks = cfg.num_layers * math.ceil(cfg.hidden / cb)
+        split = impl in ("overlap", "pallas_p2p")
+        want.update(sorted_segment_sum_bias_relu=(1 + split) * chunks,
+                    sorted_segment_sum=2 * chunks)
+        want_eval.update(sorted_segment_sum_bias_relu=(1 + split) * chunks)
+        if impl == "pallas_p2p":
+            want.update(p2p_transport=2 * cfg.num_layers)
+            want_eval.update(p2p_transport=cfg.num_layers)
+    elif cfg.model == "sage":
+        widths = [cfg.data.feat_dim] + [cfg.hidden] * (cfg.num_layers - 1)
+        n = sum(2 * math.ceil(w / cb) + 1 for w in widths)
+        want.update(sorted_segment_sum=n)
+        want_eval.update(sorted_segment_sum=n)
+    else:
+        groups = math.ceil(4 / max(1, cb // cfg.hidden))
+        want.update(sorted_segment_sum=6 * cfg.num_layers * groups)
+        want_eval.update(sorted_segment_sum=2 * cfg.num_layers * groups)
+    return want, want_eval
+
+
+class Phase13Probe:
+    """``on_step`` of a phase-13 run, in each rank's process: each step's
+    kernel launches (then zeroed); at step 0 the lowering the rank resolved,
+    whether it took the split route, its gradients and its cached plans' hub
+    rows, and with ``small`` (a Config as a dict) step 0 of that config
+    built on the same ranks (GAT at V = GAT_STEP0_V: its loss and
+    gradients); at the last step the parameters; with ``trace_from`` a
+    profile of the steps after step ``trace_from`` (none of them timed),
+    and whether kernel 1 ran beside an NCCL kernel there
+    (:func:`overlap_with_nccl`)."""
+
+    def __init__(self, epochs: int, small: dict | None = None, trace_from: int | None = None):
+        self.epochs, self.small, self.trace_from = epochs, small, trace_from
+        self.prof = None
+
+    def __call__(self, epoch, t):
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        from dgraph_tpu_torch.comm import collectives
+        from dgraph_tpu_torch.ops import kernels
+
+        out = {"counts": kernels.launch_counts()}
+        kernels.reset_launch_counts()
+        if epoch == 0:
+            out.update(impl=collectives.resolve_plan_impl(t.plan, t.comm.group),
+                       split=t.comm.split_active(t.plan), grads=grads_of(t.model),
+                       hub_rows=cached_hub_rows())
+            if self.small is not None:
+                from dgraph_tpu_torch.train import __main__ as cli
+
+                c = cli.Config(**dict(self.small, data=cli.DataConfig(**self.small["data"])))
+                s = cli.build_training(c, comm=t.comm)
+                out["small"] = {"loss": float(s.train_step(s.batches["train"])["loss"]),
+                                "grads": grads_of(s.model)}
+                del s
+                kernels.reset_launch_counts()
+        if epoch == self.trace_from:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+        if epoch == self.epochs - 1:
+            out["params"] = {k: v.detach().cpu().numpy() for k, v in t.model.state_dict().items()}
+            if self.prof is not None:
+                torch.cuda.synchronize()
+                self.prof.stop()
+                out["overlap"] = overlap_with_nccl(self.prof)
+        return out
+
+
+def overlap_with_nccl(prof) -> dict:
+    """From a profile's device kernels: kernel 1's launches
+    (``segment_sum_bias_relu``) and the NCCL kernels, how many of kernel 1's
+    ran beside an NCCL kernel and for how many ms together."""
+    from torch.autograd import DeviceType
+
+    kern = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and e.time_range.end > e.time_range.start]
+    nccl = [(a, b) for a, b, n in kern if "nccl" in n.lower()]
+    k1 = [(a, b) for a, b, n in kern if "segment_sum_bias_relu" in n]
+    beside, both_us = 0, 0.0
+    for a, b in k1:
+        over = sum(max(0.0, min(b, d) - max(a, c)) for c, d in nccl)
+        beside += over > 0
+        both_us += over
+    return {"kernel1": len(k1), "nccl": len(nccl), "kernel1_beside_nccl": beside,
+            "beside_ms": both_us / 1e3, "nccl_ms": sum(d - c for c, d in nccl) / 1e3,
+            "nccl_kernels": sorted({n for _, _, n in kern if "nccl" in n.lower()})[:4]}
+
+
+def cpu_step0_w13(group, cfgs: list) -> list:
+    """Step 0's global loss and summed gradients of one rank on the CPU
+    plain path under each ``(cfg as a dict, the lowering pinned)``: the
+    oracles of phase 13's card runs (the same lowering, gloo)."""
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import DistComm
+    from dgraph_tpu_torch.train import __main__ as cli
+
+    from dgraph_tpu_torch.comm.collectives import resolve_plan_impl
+
+    out = []
+    for cfg, impl in cfgs:
+        config.halo_impl = impl
+        c = cli.Config(**dict(cfg, data=cli.DataConfig(**cfg["data"]), device="cpu"))
+        t = cli.build_training(c, comm=DistComm(group))
+        loss = float(t.train_step(t.batches["train"])["loss"])
+        out.append({"loss": loss, "impl": resolve_plan_impl(t.plan, group),
+                    "grads": {k: v.numpy() for k, v in grads_of(t.model).items()}})
+        del t
+    return out
+
+
+def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
+    """``python -m dgraph_tpu_torch.train``'s main over 4 ranks with
+    DGRAPH_TPU_HALO_IMPL=``impl``: every rank resolved ``impl`` (GCN and
+    GraphSAGE under 'overlap' on the split route), every step launched
+    :func:`w13_launches`' kernels, the loss fell and the ranks' parameters
+    are bit-equal after the last step. With ``trace``, W13_TRACE_STEPS more
+    steps run under the profiler after the timed ones. Returns (the Config,
+    the record, every rank's step-0 gradients, every rank's small step or
+    None)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.train import __main__ as cli
+
+    what = f"{model} W={P2P_W} {impl}"
+    cfg = w13_config(model)
+    timed = cfg.epochs  # steps 1 to timed - 1 give the step times
+    if trace:
+        cfg = dataclasses.replace(cfg, epochs=timed + W13_TRACE_STEPS)
+    cfg.log_path = os.path.join(OUT_DIR, f"train_{model}_w4_{impl}.jsonl")
+    small = None
+    if model == "gat":
+        small = dataclasses.asdict(dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, num_nodes=GAT_STEP0_V)))
+    want, want_eval = w13_launches(cfg, impl)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    t0 = time.perf_counter()
+    with halo_impl_env(impl), contextlib.redirect_stdout(sys.stderr):
+        res = cli.main(cfg, on_step=Phase13Probe(cfg.epochs, small,
+                                                 timed - 1 if trace else None))
+    run_s = time.perf_counter() - t0
+    ranks = res["ranks"]
+    for r, rank in enumerate(ranks):
+        p0 = rank["on_step"][0]
+        if p0["impl"] != impl or p0["split"] != (impl in ("overlap", "pallas_p2p")):
+            fail(f"{what}: rank {r} resolved {p0['impl']!r} (split {p0['split']})")
+        for i, probe in enumerate(rank["on_step"]):
+            evals = int(i % 10 == 0 or i == cfg.epochs - 1)
+            check_step_launches(f"{what} rank {r}", i, probe["counts"],
+                                {k: want[k] + evals * want_eval[k] for k in want},
+                                hub_rows=p0["hub_rows"])
+    losses = [rec["loss"] for rec in res["records"]]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: the loss did not fall over {cfg.epochs} steps: {losses}")
+    last = [rank["on_step"][-1]["params"] for rank in ranks]
+    for r in range(1, P2P_W):
+        for k, v in last[0].items():
+            if not np.array_equal(last[r][k], v):
+                fail(f"{what}: rank {r}'s {k} differs from rank 0's after the last step")
+    ms = [[rec["wall_ms"] for rec in rank["records"]] for rank in ranks]
+    rec = {"config": what, "model": model, "impl": impl, "world_size": P2P_W,
+           "backend": "nccl" if torch.cuda.device_count() >= P2P_W else "gloo",
+           "losses": losses, "launches_per_step": want, "launches_per_eval": want_eval,
+           "launches": {k: sum(p["counts"][k] for rank in ranks for p in rank["on_step"])
+                        for k in want},
+           "step_ms": ms, "step_ms_p50": [float(np.percentile(m[1:timed], 50)) for m in ms],
+           "step_ms_p99": [float(np.percentile(m[1:timed], 99)) for m in ms],
+           "run_s": run_s, "overlap": [rank["on_step"][-1].get("overlap") for rank in ranks]}
+    log(f"{what}: resolved {impl!r} on every rank (split route: "
+        f"{ranks[0]['on_step'][0]['split'] and model != 'gat'}); loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches a step a rank "
+        f"{dict((k, v) for k, v in want.items() if v)}; parameters bit-equal across ranks; "
+        f"step ms p50 (steps 1-{timed - 1}) per rank "
+        f"{[round(x, 1) for x in rec['step_ms_p50']]} [{rec['backend']}]; run {run_s:.1f} s")
+    if trace:
+        log(f"{what}: steps {timed}-{cfg.epochs - 1} profiled: {rec['overlap']}")
+    smalls = [rank["on_step"][0].get("small") for rank in ranks]
+    return cfg, rec, [rank["on_step"][0]["grads"] for rank in ranks], smalls
+
+
+def lowering_phase(cfg) -> tuple:
+    """Phase 13, in the form of :func:`one_rank_phases`: the lowerings'
+    parity at W = 4, then GCN and GraphSAGE under 'overlap' and GAT under
+    'overlap' and 'ppermute' through the training CLI over 4 ranks, each
+    run's step 0 against a 4-rank gloo run on the CPU under the same pin
+    (GAT's at V = GAT_STEP0_V: the run's ranks build it beside their own;
+    GCN's against phase 9's CPU run, the p2p route's plain version, when
+    phase 9 ran). On one card the CPU runs go on beside the card's (the
+    whole run's time limit), so those host-staged step times compare no
+    lowering. On four cards the CPU runs come first, on the host's cores,
+    and no timed step shares the host with them; GCN also runs under
+    'all_to_all', 'ppermute' and 'pallas_p2p', and its 'overlap' run
+    profiles W13_TRACE_STEPS steps after its timed ones."""
+    import dataclasses
+
+    import torch
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    log("phase 13: the halo lowerings all_to_all, ppermute, overlap and pallas_p2p at W = 4, "
+        "then GCN and GraphSAGE under overlap and GAT under overlap and ppermute over 4 ranks "
+        "(python -m dgraph_tpu_torch.train)")
+    parity = phase_lowering_parity()
+    four = torch.cuda.device_count() >= P2P_W
+    runs = list(W13_RUNS)
+    if four:
+        runs += [("gcn", i) for i in LOWERINGS if i != "overlap"]
+    # the CPU oracles, one a (model, lowering) of W13_RUNS (GAT's at its small
+    # size; GCN's phase 9's when it ran)
+    oracles = [run for run in W13_RUNS if not (run[0] == "gcn" and _W4_GCN_CPU)]
+    cpu_cfgs = []
+    for model, impl in oracles:
+        c = dataclasses.asdict(dataclasses.replace(w13_config(model), device="cpu"))
+        if model == "gat":
+            c["data"]["num_nodes"] = GAT_STEP0_V
+        cpu_cfgs.append((c, impl))
+    threads = max(1, len(os.sched_getaffinity(0)) // P2P_W - 1) if four else 1
+
+    def oracle_ranks():
+        tc = time.perf_counter()
+        res = launch(cpu_step0_w13, P2P_W, cpu_cfgs, device="cpu", timeout=900,
+                     threads=threads)
+        return res[0], time.perf_counter() - tc
+
+    out = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(oracle_ranks)
+        if four:
+            cpu_future.result()
+        for model, impl in runs:
+            trace = four and (model, impl) == ("gcn", "overlap")
+            out.append((model, impl) + train_w13_run(model, impl, trace))
+        cpu, cpu_s = cpu_future.result()
+        cpu = dict(zip(oracles, cpu))
+    if _W4_GCN_CPU:
+        cpu[("gcn", "overlap")] = _W4_GCN_CPU
+    recs = []
+    for model, impl, cfg, rec, grads, smalls in out:
+        what = f"{model} W={P2P_W} {impl}"
+        if (model, impl) in cpu:
+            want = cpu[(model, impl)]
+            if model == "gat":
+                loss0, grads, where = smalls[0]["loss"], [s["grads"] for s in smalls], (
+                    f"at V={GAT_STEP0_V}")
+            else:
+                loss0, where = rec["losses"][0], "at full size"
+            if abs(loss0 - want["loss"]) > GRAD_TOL * max(1.0, abs(want["loss"])):
+                fail(f"{what}: step-0 loss {loss0} {where} vs CPU {want['loss']}")
+            want_grads = {k2: torch.from_numpy(v) for k2, v in want["grads"].items()}
+            err = max(check_grads(f"{what} rank {r}", g, want_grads)
+                      for r, g in enumerate(grads))
+            rec.update(step0_vs_cpu={"where": where, "loss": loss0, "loss_cpu": want["loss"],
+                                     "cpu_impl": want["impl"], "grad_max_abs_err": err,
+                                     "cpu_s": cpu_s})
+            log(f"{what}: step-0 loss {loss0:.6f} {where} (CPU {want['loss']:.6f}, gloo, "
+                f"{want['impl']}), every rank's grads vs the 4-rank CPU run max abs err "
+                f"{err:.3g}")
+        recs.append(rec)
+    log(f"phase 13's CPU oracles {oracles}: {cpu_s:.1f} s (4 gloo ranks, {threads} threads "
+        f"each, {'before' if four else 'beside'} the card's runs)")
+    gcn = next(r for r in recs if r["model"] == "gcn")
+    sage = next(r for r in recs if r["model"] == "sage")
+    gats = [r for r in recs if r["model"] == "gat"]
+    main_case = {
+        "sorted_segment_sum_bias_relu": [("sorted_segment_sum_bias_relu float32 w F=128",
+                                          gcn["launches"], "gcn_w4_overlap")],
+        "sorted_segment_sum": [("sorted_segment_sum float32 none F=128", sage["launches"],
+                                "sage_w4_overlap")] + [
+            ("sorted_segment_sum float32 none F=128", r["launches"], f"gat_w4_{r['impl']}")
+            for r in gats],
+    }
+    return [], main_case, {"train": recs, "lowerings": parity}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
@@ -3411,9 +3950,9 @@ def main(argv) -> None:
     in the turns W4_TURNS_ABBA); with ``--phase 11``, phases 1, 2 and 11;
     with ``--phase 12``, phases 1, 2 and 12."""
     only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase,
-            "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True)}
+            "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True), "13": lowering_phase}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
-        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12]")
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -3425,7 +3964,7 @@ def main(argv) -> None:
     records, main_case, detail = [], {}, {"train": []}
     for phases in ([only[argv[1]]] if argv else
                    [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase,
-                    skewed_phase]):
+                    skewed_phase, lowering_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():
@@ -3442,7 +3981,10 @@ def main(argv) -> None:
             continue
         entry = None
         for case, path_launches, key in main_case[name]:
-            rec = next(r for r in records if r["case"] == case)
+            rec = next((r for r in records if r["case"] == case), None)
+            if rec is None and argv:  # phase 3 times this row: not run alone
+                continue
+            rec = rec or fail(f"{name}: no record of the case {case}")
             if path_launches[name] <= 0:
                 fail(f"{name} was never launched on its path ({case})")
             row = {"launches": path_launches[name], **{f: rec[f] for f in ROW_KEYS}}
@@ -3455,11 +3997,13 @@ def main(argv) -> None:
                          "replaces": k.replaces, **row}
             else:  # beside the main row: the kernel's other dtype or path
                 entry[key] = row
-        line.append(entry)
+        if entry is not None:
+            line.append(entry)
     os.makedirs(OUT_DIR, exist_ok=True)
     detail.update(nvidia_smi=smi, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda, build=build,
-                  total_s=time.perf_counter() - t_start)
+                  total_s=time.perf_counter() - t_start, phase_s=phase_seconds())
+    log(f"seconds a phase: {detail['phase_s']}")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     log(f"done in {detail['total_s']:.1f} s; details in {OUT_DIR}/chip_smoke.json")

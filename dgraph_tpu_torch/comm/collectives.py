@@ -7,22 +7,38 @@ in the place of the reference's ``axis_name``: ``None`` is world size 1,
 where the halo exchange only reads the (all-masked) send lists, as the
 reference's ``axis_name=None`` path does.
 
-Across ranks the halo exchange has two lowerings, each a pair of
+Across ranks the halo exchange has four lowerings, each a pair of
 directions (the exchange and its transpose, the reverse delivery plus the
-masked sum into the owners' rows) wrapped as two ``autograd.Function``\\ s
-whose backwards are each other, as the reference pins its custom VJPs
-(``collectives.py:266-466``):
+sum into the owners' rows) run by one :class:`_Lowering` and wrapped as two
+``autograd.Function``\\ s whose backwards are each other, as the reference
+pins its custom VJPs (``collectives.py:266-466``):
 
 - ``all_to_all``: one padded ``all_to_all`` of the ``[W, S, F]`` send stack;
+- ``ppermute``: per live delta d the masked ``[S, F]`` block to
+  ``(me + d) % W`` and the block from ``(me - d) % W`` landed at its rows,
+  every delta posted in one ``batch_isend_irecv``; the reverse adds one
+  masked segment sum a delta into the owners' rows, in delta order, as the
+  reference's does (``collectives.py:861-883``);
+- ``overlap``: the same rounds, every block gathered before any is posted;
+  the reverse parks the returned blocks in one ``[W, S, F]`` buffer and
+  reduces it as ``all_to_all`` does. Over the interior/boundary split the
+  rounds stay in flight (:class:`PendingHalo`) while the interior subset's
+  sums are queued, and the boundary take waits for them: on NCCL nothing
+  orders those sums after the receives. On a gloo group nothing overlaps
+  (the waits block the host);
 - ``pallas_p2p``: kernel 5 (:func:`~dgraph_tpu_torch.ops.p2p.p2p_transport`),
-  one-sided puts into the peers' halo buffers, behind the interior/boundary
-  split (:func:`split_active`, :func:`halo_exchange_split`).
+  one-sided puts into the peers' halo buffers.
 
-Both give the same buffer bit for bit, and their reverse legs reduce with
-one masked segment sum over the same ``[W, S, F]`` buffer. On a gloo group
-with CUDA tensors (ranks sharing a card) ``all_to_all`` copies its payload
-to the host and back. 'ppermute', 'overlap' and 'sched' raise: those
-lowerings are later slices of the port.
+``overlap`` and ``pallas_p2p`` are the split lowerings (:data:`SPLIT_IMPLS`,
+:func:`split_active`, :func:`halo_exchange_split`). Every lowering lands
+the rows ``all_to_all`` lands with the same bits; the blocks no round
+reaches (the rank's own, and those of dead deltas) are +0.0 where
+``all_to_all`` delivers ``x * 0``. Every reverse leg but ``ppermute``'s
+reduces with one masked segment sum over the same ``[W, S, F]`` buffer, so
+it is bit-equal to ``all_to_all``'s. On a gloo group with CUDA tensors
+(ranks sharing a card) the two-sided lowerings copy their payloads to the
+host and back. 'sched' raises: that lowering is a later slice of the port.
+A lowering that cannot run raises; none gives way to another.
 """
 
 from __future__ import annotations
@@ -38,9 +54,10 @@ from dgraph_tpu_torch import config as _cfg
 from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import EdgePlan, HaloSpec, resolve_halo_impl
 
-_LATER = {"ppermute": "the ppermute (one send per peer) lowering",
-          "overlap": "the overlap (ppermute-rounds) lowering",
-          "sched": "the compiled-schedule lowering"}
+_LATER = {"sched": "the compiled-schedule lowering"}
+
+# the lowerings that route through the interior/boundary split
+SPLIT_IMPLS = ("overlap", "pallas_p2p")
 
 
 def _side_index(plan: EdgePlan, side: str) -> torch.Tensor:
@@ -55,19 +72,18 @@ def _lowerable(impl: str) -> str:
     if impl in _LATER:
         raise NotImplementedError(
             f"halo_impl={impl!r}: {_LATER[impl]} is a later slice of the port; pin "
-            "DGRAPH_TPU_HALO_IMPL to all_to_all or pallas_p2p")
+            "DGRAPH_TPU_HALO_IMPL to all_to_all, ppermute, overlap or pallas_p2p")
     return impl
 
 
 def resolve_plan_impl(plan: EdgePlan, group) -> str:
     """The halo lowering of this call site, resolved once (env pin >
-    heuristic; :func:`plan.resolve_halo_impl`) and passed to every leg.
-    Raises for a lowering the port does not have, resolved or pinned (a pin
-    the reference would skip for want of a split or a schedule still raises
-    here: no other lowering runs in its place)."""
+    heuristic; :func:`plan.resolve_halo_impl`) and passed to every leg. A
+    pin that cannot lower here ('sched', which needs a compiled schedule no
+    plan carries yet) warns and the heuristic decides, as in the
+    reference."""
     if group is None:
         return "none"
-    _lowerable(_cfg.halo_impl)
     impl, _ = resolve_halo_impl(
         plan.halo_deltas,
         overlap_available=plan.overlap is not None,
@@ -76,12 +92,20 @@ def resolve_plan_impl(plan: EdgePlan, group) -> str:
     return _lowerable(impl)
 
 
+def overlap_active(plan: EdgePlan, group=None) -> bool:
+    """True when this plan lowers its exchange as the overlap rounds over
+    the interior/boundary split."""
+    return (group is not None and plan.overlap is not None
+            and resolve_plan_impl(plan, group) == "overlap")
+
+
 def split_active(plan: EdgePlan, group=None) -> bool:
     """True when this plan routes through the interior/boundary split (the
     models' routing predicate): the plan carries the split and the
-    resolution says 'pallas_p2p'."""
+    resolution names a split lowering ('overlap' or 'pallas_p2p');
+    :func:`halo_exchange_split` picks the transport."""
     return (group is not None and plan.overlap is not None
-            and resolve_plan_impl(plan, group) == "pallas_p2p")
+            and resolve_plan_impl(plan, group) in SPLIT_IMPLS)
 
 
 # --- the lowerings ---------------------------------------------------------
@@ -95,6 +119,20 @@ def _masked_owner_sum(back: torch.Tensor, halo: HaloSpec, n_pad: int) -> torch.T
     return local_ops.segment_sum(back.reshape(-1, F), halo.send_idx.reshape(-1), n_pad)
 
 
+def _per_delta_owner_sum(back: torch.Tensor, halo: HaloSpec, n_pad: int,
+                         peers: list) -> torch.Tensor:
+    """The ``ppermute`` reverse's reduction: one masked segment sum a peer's
+    block of ``back``, added in delta order from zeros, as the reference's
+    ``ppermute`` lowering adds them (``collectives.py:861-883``). Its bits
+    are that lowering's, which differ from the flat sum's where an owner row
+    gets partials from more than one peer."""
+    out = back.new_zeros((n_pad, back.shape[-1]))
+    for p in peers:
+        blk = back[p] * halo.send_mask[p, :, None].to(back.dtype)
+        out = out + local_ops.segment_sum(blk, halo.send_idx[p], n_pad)
+    return out
+
+
 def _staged(t: torch.Tensor, group, what: str) -> bool:
     from dgraph_tpu_torch.comm.dist import log_staged_once
 
@@ -104,18 +142,91 @@ def _staged(t: torch.Tensor, group, what: str) -> bool:
     return False
 
 
+def _masked_block(x: torch.Tensor, halo: HaloSpec, peer: int) -> torch.Tensor:
+    """This rank's masked send block to ``peer``, ``x[send_idx[peer]] *
+    send_mask[peer]``: element for element what ``all_to_all`` sends there."""
+    idx = halo.send_idx[peer].long()
+    return x.index_select(0, idx) * halo.send_mask[peer, :, None].to(x.dtype)
+
+
+class _Rounds:
+    """Rounds posted in one ``batch_isend_irecv``, every rank in the same
+    (delta) order: each send ``(block, peer, tag)``, each receive ``(rows,
+    peer, tag)``, ``rows`` a view of the buffer its block lands in.
+    :meth:`wait` returns once every block has landed: on NCCL it orders the
+    current stream after the rounds (the host does not wait, and work queued
+    before it can run beside them); on gloo it blocks, and a payload staged
+    through the host (CUDA tensors, ranks sharing a card) is copied into its
+    rows there."""
+
+    def __init__(self, group, sends: list, recvs: list, like: torch.Tensor, what: str):
+        self._staged = _staged(like, group, f"the {what} lowering (nothing overlaps: gloo "
+                                            "waits on the host)")
+        keep = [b.cpu() if self._staged else b.contiguous() for b, _, _ in sends]
+        land = [torch.empty(rows.shape, dtype=rows.dtype) if self._staged else rows
+                for rows, _, _ in recvs]
+        ops = [dist.P2POp(dist.isend, b, peer, group.pg, tag)
+               for b, (_, peer, tag) in zip(keep, sends)]
+        ops += [dist.P2POp(dist.irecv, buf, peer, group.pg, tag)
+                for buf, (_, peer, tag) in zip(land, recvs)]
+        self._works = dist.batch_isend_irecv(ops)
+        self._keep = keep
+        self._land = [(rows, buf) for (rows, _, _), buf in zip(recvs, land)]
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        if self._staged:
+            for rows, buf in self._land:
+                rows.copy_(buf)
+        self._works, self._keep, self._land = [], [], []
+
+
 @dataclasses.dataclass(frozen=True)
 class _Lowering:
     """One lowering of the exchange on one group: ``fwd`` (local rows ->
-    ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums)."""
+    ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums).
+    The round-based lowerings post first (``post_fwd`` / ``post_rev``) and
+    finish in ``fwd`` / ``rev``, which take rounds already posted."""
 
-    impl: str  # 'all_to_all' | 'pallas_p2p'
+    impl: str  # 'all_to_all' | 'ppermute' | 'overlap' | 'pallas_p2p'
     group: object
     deltas: tuple
 
-    def fwd(self, x, halo: HaloSpec) -> torch.Tensor:
+    def post_fwd(self, x, halo: HaloSpec) -> tuple:
+        """The exchange's rounds, every block gathered before any is posted:
+        the masked block to ``(me + d) % W`` and the block from ``(me - d) %
+        W`` landed at its rows of the ``[W*S, F]`` buffer. Returns (buffer,
+        rounds)."""
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me = self.group.rank
+        out = x.new_zeros((W * S, x.shape[-1]))
+        sends = [(_masked_block(x, halo, (me + d) % W), (me + d) % W, d) for d in self.deltas]
+        recvs = [(out[src * S:(src + 1) * S], src, d)
+                 for src, d in (((me - d) % W, d) for d in self.deltas)]
+        return out, _Rounds(self.group, sends, recvs, x, self.impl)
+
+    def post_rev(self, h, halo: HaloSpec) -> tuple:
+        """The reverse rounds: each delta's halo block back to its owner
+        ``(me - d) % W``, and the partials of this rank's rows from ``(me +
+        d) % W`` parked at block ``(me + d) % W`` of a ``[W, S, F]`` buffer
+        (where ``all_to_all`` delivers them). Returns (buffer, rounds)."""
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me, F = self.group.rank, h.shape[-1]
+        h = h.reshape(W * S, F)
+        back = h.new_zeros((W, S, F))
+        sends = [(h[src * S:(src + 1) * S], src, d)
+                 for src, d in (((me - d) % W, d) for d in self.deltas)]
+        recvs = [(back[(me + d) % W], (me + d) % W, d) for d in self.deltas]
+        return back, _Rounds(self.group, sends, recvs, h, self.impl)
+
+    def fwd(self, x, halo: HaloSpec, posted: Optional[tuple] = None) -> torch.Tensor:
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, x.shape[-1]
+        if self.impl in ("ppermute", "overlap"):
+            out, rounds = posted or self.post_fwd(x, halo)
+            rounds.wait()
+            return out
         if self.impl == "pallas_p2p":
             from dgraph_tpu_torch.ops.p2p import p2p_transport
 
@@ -130,58 +241,63 @@ class _Lowering:
         send = send * halo.send_mask[..., None].to(x.dtype)
         return all_to_all(send, self.group).reshape(W * S, F)
 
-    def rev(self, h, halo: HaloSpec, n_pad: int) -> torch.Tensor:
+    def rev(self, h, halo: HaloSpec, n_pad: int, posted: Optional[tuple] = None) -> torch.Tensor:
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, h.shape[-1]
-        h = h.reshape(W, S, F)
-        if self.impl == "pallas_p2p":
+        if self.impl in ("ppermute", "overlap"):
+            back, rounds = posted or self.post_rev(h, halo)
+            rounds.wait()
+            if self.impl == "ppermute":
+                return _per_delta_owner_sum(back, halo, n_pad, [(me + d) % W for d in self.deltas])
+        elif self.impl == "pallas_p2p":
             from dgraph_tpu_torch.ops.p2p import p2p_transport
 
             rows = torch.tensor([(me - d) % W for d in self.deltas], device=h.device)
-            back = p2p_transport(h.index_select(0, rows), self.deltas, W, S, sign=-1,
-                                 group=self.group)
-            back = back.reshape(W, S, F)
+            back = p2p_transport(h.reshape(W, S, F).index_select(0, rows), self.deltas, W, S,
+                                 sign=-1, group=self.group).reshape(W, S, F)
         else:
             from dgraph_tpu_torch.ops.p2p import all_to_all
 
-            back = all_to_all(h, self.group)
+            back = all_to_all(h.reshape(W, S, F), self.group)
         return _masked_owner_sum(back, halo, n_pad)
 
 
 class _Exchange(torch.autograd.Function):
-    """The exchange; its backward is the reverse delivery."""
+    """The exchange; its backward is the reverse delivery. ``posted`` holds
+    rounds :meth:`_Lowering.post_fwd` already posted."""
 
     @staticmethod
-    def forward(ctx, x, send_idx, send_mask, s_pad, lowering):
+    def forward(ctx, x, send_idx, send_mask, s_pad, lowering, posted=None):
         ctx.save_for_backward(send_idx, send_mask)
         ctx.s_pad, ctx.lowering, ctx.n_pad = s_pad, lowering, x.shape[0]
-        return lowering.fwd(x, HaloSpec(send_idx, send_mask, s_pad))
+        return lowering.fwd(x, HaloSpec(send_idx, send_mask, s_pad), posted)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         halo = HaloSpec(*ctx.saved_tensors, ctx.s_pad)
-        return ctx.lowering.rev(g.contiguous(), halo, ctx.n_pad), None, None, None, None
+        return ctx.lowering.rev(g.contiguous(), halo, ctx.n_pad), None, None, None, None, None
 
 
 class _Unexchange(torch.autograd.Function):
     """The reverse delivery; its backward is the exchange."""
 
     @staticmethod
-    def forward(ctx, h, send_idx, send_mask, s_pad, n_pad, lowering):
+    def forward(ctx, h, send_idx, send_mask, s_pad, n_pad, lowering, posted=None):
         ctx.save_for_backward(send_idx, send_mask)
         ctx.s_pad, ctx.lowering = s_pad, lowering
-        return lowering.rev(h, HaloSpec(send_idx, send_mask, s_pad), n_pad)
+        return lowering.rev(h, HaloSpec(send_idx, send_mask, s_pad), n_pad, posted)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         halo = HaloSpec(*ctx.saved_tensors, ctx.s_pad)
-        return ctx.lowering.fwd(g.contiguous(), halo), None, None, None, None, None
+        return ctx.lowering.fwd(g.contiguous(), halo), None, None, None, None, None, None
 
 
 def _resolve_halo_arg(impl, deltas, W) -> str:
-    """Resolution for call sites that hold only a HaloSpec."""
+    """Resolution for call sites that hold only a HaloSpec: ``deltas=None``
+    carries no round information, which only ``all_to_all`` can lower."""
     if impl is not None:
         return _lowerable(impl)
     if deltas is None:
@@ -224,11 +340,69 @@ def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
     return _Unexchange.apply(h, halo.send_idx, halo.send_mask, S, n_pad, lowering)
 
 
-def halo_exchange_split(x: torch.Tensor, plan: EdgePlan, group) -> torch.Tensor:
-    """The split lowering's exchange: one resolution, then the one-sided
-    puts (kernel 5); the ``[W*S, F]`` buffer the boundary takes index."""
+class PendingHalo:
+    """A halo result whose rounds may still be in flight (the overlap
+    lowering over the split): :meth:`wait` finishes them, once, and gives
+    the tensor; indexing gives a pending view of it. Work queued before the
+    first :meth:`wait` runs while the rounds fly (on NCCL)."""
+
+    def __init__(self, finish):
+        self._finish, self._value = finish, None
+
+    def wait(self) -> torch.Tensor:
+        if self._finish is not None:
+            self._value, self._finish = self._finish(), None
+        return self._value
+
+    def __getitem__(self, key) -> "PendingHalo":
+        return PendingHalo(lambda: self.wait()[key])
+
+
+def ready(t) -> torch.Tensor:
+    """``t`` as a tensor (a :class:`PendingHalo` waited for)."""
+    return t.wait() if isinstance(t, PendingHalo) else t
+
+
+def halo_exchange_overlap(x: torch.Tensor, halo: HaloSpec, group, deltas) -> PendingHalo:
+    """:func:`halo_exchange` under the overlap lowering with its rounds left
+    in flight: every block gathered and every round posted now, the buffer
+    (bit-equal to ``all_to_all``'s on the rows it lands) when the
+    :class:`PendingHalo` is waited for."""
+    if group is None or not deltas:
+        buf = halo_exchange(x, halo, group, deltas)
+        return PendingHalo(lambda: buf)
+    lowering = _Lowering("overlap", group, tuple(deltas))
+    with torch.no_grad():
+        posted = lowering.post_fwd(x, halo)
+    return PendingHalo(lambda: _Exchange.apply(x, halo.send_idx, halo.send_mask, halo.s_pad,
+                                               lowering, posted))
+
+
+def halo_scatter_sum_overlap(h: torch.Tensor, halo: HaloSpec, n_pad: int, group,
+                             deltas) -> PendingHalo:
+    """:func:`halo_scatter_sum` under the overlap lowering with its reverse
+    rounds left in flight; waited for, the owners' sums, bit-equal to the
+    ``all_to_all`` reverse's (the same masked flat sum over the same
+    ``[W, S, F]`` buffer)."""
+    if group is None or not deltas:
+        out = halo_scatter_sum(h, halo, n_pad, group, deltas)
+        return PendingHalo(lambda: out)
+    lowering = _Lowering("overlap", group, tuple(deltas))
+    with torch.no_grad():
+        posted = lowering.post_rev(h, halo)
+    return PendingHalo(lambda: _Unexchange.apply(h, halo.send_idx, halo.send_mask,
+                                                 halo.s_pad, n_pad, lowering, posted))
+
+
+def halo_exchange_split(x: torch.Tensor, plan: EdgePlan, group):
+    """The split lowerings' exchange: one resolution, then the one-sided
+    puts (kernel 5; a tensor) or the overlap rounds (a
+    :class:`PendingHalo`): the ``[W*S, F]`` buffer the boundary takes
+    index, the same bits either way."""
     impl = resolve_plan_impl(plan, group)
-    return halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
+    if impl == "pallas_p2p":
+        return halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
+    return halo_exchange_overlap(x, plan.halo, group, plan.halo_deltas)
 
 
 def map_feature_chunks(fn, width: int, chunk: Optional[int] = None):
@@ -284,7 +458,7 @@ def gather(x: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch.Tens
 def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch.Tensor:
     """Sum per-edge values into that side's vertices: ``[n_pad, F]``. On
     the halo side the remote partials go back to their owners through the
-    plan's lowering (the split schedule under 'pallas_p2p')."""
+    plan's lowering (the split schedule under a split lowering)."""
     edata = edata * plan.edge_mask[:, None].to(edata.dtype)
     idx = _side_index(plan, side)
     n_pad = _side_npad(plan, side)
@@ -294,8 +468,8 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> t
                                                     gather_mv=plan.gather_mv)
         return local_ops.segment_sum(edata, idx, n_pad)
     impl = resolve_plan_impl(plan, group) if group is not None else None
-    if impl == "pallas_p2p":
-        return _scatter_sum_split(edata, plan, side, group)
+    if impl in SPLIT_IMPLS:
+        return _scatter_sum_split(edata, plan, side, group, impl)
     n_full = n_pad + plan.world_size * plan.halo.s_pad
     if plan.halo_sort_perm is not None:
         full = local_ops.segment_sum_sort_route(
@@ -348,19 +522,19 @@ def interior_take(x: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
 
 def boundary_take(x_or_halo: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
     """Per-edge rows of the BOUNDARY subset: on the halo side from the
-    ``[W*S, F]`` halo buffer (the ids are rebased into it), on the owner
-    side from the local table."""
+    ``[W*S, F]`` halo buffer (the ids are rebased into it; a
+    :class:`PendingHalo` is waited for here), on the owner side from the
+    local table."""
     idx = _overlap_spec(plan).side("boundary", side)
-    return local_ops.take_rows(x_or_halo, idx, indices_are_sorted=side != plan.halo_side
+    return local_ops.take_rows(ready(x_or_halo), idx, indices_are_sorted=side != plan.halo_side
                                and plan.ids_sorted(side))
 
 
 def _subset_owner_sum(edata, plan, side, which):
     """Owner-side sum of one subset's rows (the sorted sum when the plan's
-    ids are sorted). One sum per subset: the reference's edge-axis chunks
-    of the interior sum (``DGRAPH_TPU_OVERLAP_CHUNKS``) exist to overlap
-    with its in-flight DMA, which the port's host-synchronised transport
-    has not."""
+    ids are sorted). One sum per subset, the reference's default: its
+    edge-axis chunks of the interior sum (``DGRAPH_TPU_OVERLAP_CHUNKS``,
+    default 1) are not ported."""
     ids = _overlap_spec(plan).side(which, side)
     n_pad = _side_npad(plan, side)
     if not plan.ids_sorted(side):
@@ -398,34 +572,39 @@ def overlap_edge_weight(edge_weight: Optional[torch.Tensor], plan: EdgePlan) -> 
 def gather_scatter_overlap(x_local: torch.Tensor, halo_buf: torch.Tensor, plan: EdgePlan,
                            edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[v] = Σ_e w_e·x[halo-side endpoint of e]`` into the owner side
-    over the split: interior edges from ``x_local``, boundary edges from
-    ``halo_buf``, merged at the end."""
+    over the split: the interior edges' sum from ``x_local`` first (while
+    the overlap rounds fly), then the boundary edges' from ``halo_buf``,
+    merged at the end."""
     owner = "dst" if plan.halo_side == "src" else "src"
     w_int, w_bnd = overlap_edge_weight(edge_weight, plan)
     m_int = interior_take(x_local, plan, plan.halo_side)
     if w_int is not None:
         m_int = m_int * w_int[:, None].to(m_int.dtype)
+    agg_int = interior_scatter_sum(m_int, plan, owner)
     m_bnd = boundary_take(halo_buf, plan, plan.halo_side)
     if w_bnd is not None:
         m_bnd = m_bnd * w_bnd[:, None].to(m_bnd.dtype)
-    return interior_scatter_sum(m_int, plan, owner) + boundary_scatter_sum(m_bnd, plan, owner)
+    return agg_int + boundary_scatter_sum(m_bnd, plan, owner)
 
 
-def _scatter_sum_split(edata, plan: EdgePlan, side: str, group) -> torch.Tensor:
-    """Halo-side scatter over the split (``collectives.py:1228-1260``):
-    boundary rows pre-reduced into halo slots and sent back first, interior
-    rows summed into local rows, the two merged. ``edata`` is already
-    edge-masked."""
+def _scatter_sum_split(edata, plan: EdgePlan, side: str, group, impl: str) -> torch.Tensor:
+    """Halo-side scatter over the split (``collectives.py:1228-1262``):
+    boundary rows pre-reduced into halo slots and sent back first (the
+    reverse overlap rounds, left in flight, or the reverse puts), interior
+    rows summed into local rows meanwhile, the two merged. ``edata`` is
+    already edge-masked."""
     ov = _overlap_spec(plan)
     n_pad = _side_npad(plan, side)
     W, S = plan.world_size, plan.halo.s_pad
     bnd_rows = local_ops.take_rows(edata, ov.bnd_epos)
     slot_sums = local_ops.segment_sum(bnd_rows, ov.side("boundary", side), W * S)
-    remote = halo_scatter_sum(slot_sums, plan.halo, n_pad, group, plan.halo_deltas,
-                              resolve_plan_impl(plan, group))
+    if impl == "pallas_p2p":
+        remote = halo_scatter_sum(slot_sums, plan.halo, n_pad, group, plan.halo_deltas, impl)
+    else:
+        remote = halo_scatter_sum_overlap(slot_sums, plan.halo, n_pad, group, plan.halo_deltas)
     int_rows = local_ops.take_rows(edata, ov.int_epos)
     interior = local_ops.segment_sum(int_rows, ov.side("interior", side), n_pad)
-    return interior + remote
+    return interior + ready(remote)
 
 
 def scatter_bias_relu_overlap(
@@ -452,6 +631,15 @@ def scatter_bias_relu_overlap(
         boundary_take(halo_buf, plan, plan.halo_side), ov.side("boundary", side), bias,
         n_pad, edge_weight=w_bnd)
     return a + b
+
+
+def gather_concat(x_src: torch.Tensor, x_dst: torch.Tensor, plan: EdgePlan,
+                  group=None) -> torch.Tensor:
+    """``[e_pad, F_src + F_dst]``: the src- and the dst-side per-edge
+    features side by side, the double gather the reference's GCN and GAT
+    layers start with."""
+    return torch.cat([gather(x_src, plan, "src", group), gather(x_dst, plan, "dst", group)],
+                     dim=-1)
 
 
 # --- reductions over the ranks ----------------------------------------------

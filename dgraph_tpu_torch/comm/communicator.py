@@ -16,7 +16,7 @@ import torch
 
 from dgraph_tpu_torch.comm import collectives
 from dgraph_tpu_torch.ops.attention import flash_attention
-from dgraph_tpu_torch.plan import EdgePlan
+from dgraph_tpu_torch.plan import EdgePlan, HaloSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +36,22 @@ class SingleComm:
     def split_active(self, plan: EdgePlan) -> bool:
         return collectives.split_active(plan)
 
+    def overlap_active(self, plan: EdgePlan) -> bool:
+        return collectives.overlap_active(plan)
+
+    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None):
+        """The world-size-1 exchange: the (all-masked) send lists read into
+        a buffer of the plan's shape."""
+        return collectives.halo_exchange(x, halo, None, deltas, impl)
+
+    def halo_exchange_overlap(self, x, plan: EdgePlan):
+        return collectives.halo_exchange_overlap(x, plan.halo, None, plan.halo_deltas)
+
     def gather(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.gather(x, plan, side)
+
+    def gather_concat(self, x_src, x_dst, plan: EdgePlan):
+        return collectives.gather_concat(x_src, x_dst, plan)
 
     def halo_extend(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.halo_extend(x, plan, side)
@@ -53,6 +67,13 @@ class SingleComm:
     def scatter_bias_relu(self, edata, bias, plan: EdgePlan, side: str = "dst",
                           edge_weight=None):
         return collectives.scatter_bias_relu(edata, bias, plan, side, edge_weight)
+
+    def put(self, send: torch.Tensor) -> torch.Tensor:
+        """``[1, S, F]`` -> ``[S, F]``: the one block, this rank's own."""
+        W, S, F = send.shape
+        if W != 1:
+            raise ValueError("put with world_size 1 expects send.shape[0] == 1")
+        return send.reshape(S, F)
 
     def seq_attention(self, q, k, v, *, causal: bool = False, kv_mask=None,
                       impl: str = "ring"):
@@ -88,10 +109,23 @@ class DistComm:
         (the models' routing predicate)."""
         return collectives.split_active(plan, self.group)
 
+    def overlap_active(self, plan: EdgePlan) -> bool:
+        """True when this plan lowers its exchange as the overlap rounds
+        over the interior/boundary split."""
+        return collectives.overlap_active(plan, self.group)
+
     def halo_exchange_split(self, x, plan: EdgePlan):
-        """The split lowering's exchange: the ``[W*S, F]`` buffer the
-        boundary takes index directly."""
+        """The split lowerings' exchange (one resolution picks the overlap
+        rounds or the one-sided puts): the ``[W*S, F]`` buffer the boundary
+        takes index, a :class:`~dgraph_tpu_torch.comm.collectives.PendingHalo`
+        under 'overlap'."""
         return collectives.halo_exchange_split(x, plan, self.group)
+
+    def halo_exchange_overlap(self, x, plan: EdgePlan):
+        """The overlap lowering's exchange, its rounds in flight: a
+        :class:`~dgraph_tpu_torch.comm.collectives.PendingHalo` of the
+        ``[W*S, F]`` buffer."""
+        return collectives.halo_exchange_overlap(x, plan.halo, self.group, plan.halo_deltas)
 
     def interior_take(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.interior_take(x, plan, side)
@@ -114,8 +148,19 @@ class DistComm:
                                                      side, edge_weight)
 
     # -- the unsplit primitives --
+    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None):
+        """Exchange boundary rows: the ``[W*S, F]`` halo buffer. ``deltas``
+        and ``impl`` (the plan's ``halo_deltas`` and
+        :func:`~dgraph_tpu_torch.comm.collectives.resolve_plan_impl`) pick
+        the lowering; resolve once a call site. Without them the padded
+        ``all_to_all`` runs."""
+        return collectives.halo_exchange(x, halo, self.group, deltas, impl)
+
     def gather(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.gather(x, plan, side, self.group)
+
+    def gather_concat(self, x_src, x_dst, plan: EdgePlan):
+        return collectives.gather_concat(x_src, x_dst, plan, self.group)
 
     def halo_extend(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.halo_extend(x, plan, side, self.group)
@@ -131,6 +176,16 @@ class DistComm:
     def scatter_bias_relu(self, edata, bias, plan: EdgePlan, side: str = "dst",
                           edge_weight=None):
         return collectives.scatter_bias_relu(edata, bias, plan, side, edge_weight, self.group)
+
+    def put(self, send: torch.Tensor) -> torch.Tensor:
+        """Deliver per-peer blocks (the reference's ``put``,
+        communicator.py:169-191): block p of ``send`` ``[W, S, F]`` goes to
+        rank p in one ``all_to_all``; rows ``[p*S, (p+1)*S)`` of the
+        ``[W*S, F]`` result hold rank p's block."""
+        from dgraph_tpu_torch.ops.p2p import all_to_all
+
+        W, S, F = send.shape
+        return all_to_all(send, self.group).reshape(W * S, F)
 
     def seq_attention(self, q, k, v, *, causal: bool = False, kv_mask=None,
                       impl: str = "ring"):

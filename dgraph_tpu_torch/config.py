@@ -80,11 +80,13 @@ def pallas_gather_enabled() -> bool:
 
 # Halo-exchange lowering, the reference's names and env pin: 'auto' (one
 # padded all_to_all; the split lowering 'overlap' when the plan carries its
-# interior/boundary split), 'all_to_all', 'pallas_p2p' (the one-sided put
-# kernel; needs the split and pallas_p2p_available()), 'ppermute',
-# 'overlap' or 'sched'. Resolution order: this pin > the heuristic
-# (plan.resolve_halo_impl). The port lowers 'none', 'all_to_all' and
-# 'pallas_p2p'; 'ppermute', 'overlap' and 'sched' raise.
+# interior/boundary split), 'all_to_all', 'ppermute' (one round a live rank
+# offset), 'overlap' (those rounds over the interior/boundary split, the
+# interior sums queued while they fly), 'pallas_p2p' (the one-sided put
+# kernel; needs the split and pallas_p2p_available()) or 'sched'.
+# Resolution order: this pin > the heuristic (plan.resolve_halo_impl). The
+# port lowers all of them but 'sched', a later slice: a 'sched' pin warns
+# and the heuristic decides, as it does for any pin the plan cannot lower.
 halo_impl: str = os.environ.get("DGRAPH_TPU_HALO_IMPL", "auto")
 
 # The one-sided transport kernel (ops.p2p). Tri-state as in the reference:

@@ -15,10 +15,11 @@ reference's three routes (gcn.py:97-175):
 - **full-width fallback** (any other activation, or halo-side aggregation).
 
 Across ranks, when the plan routes through the interior/boundary split
-(``comm.split_active``: the 'pallas_p2p' lowering), the first two routes
-take the reference's split form (gcn.py:95-152): one full-width
-``halo_exchange_split`` a layer, then per chunk the interior subset from the
-local table and the boundary subset from the landed halo buffer, summed.
+(``comm.split_active``: the 'overlap' or the 'pallas_p2p' lowering), the
+first two routes take the reference's split form (gcn.py:95-152): one
+full-width ``halo_exchange_split`` a layer, then per chunk the interior
+subset from the local table (under 'overlap' while the rounds fly) and the
+boundary subset from the landed halo buffer, summed.
 
 Parameter names follow flax's (``GraphConvLayer_0.src_proj``, ``dst_proj``,
 ``Dense_0``), so :func:`dgraph_tpu_torch.weights.params_from_jax` maps a

@@ -1,15 +1,18 @@
-"""The attention edge pipeline of GAT — ``head_chunked_attention`` of
-``dgraph_tpu/models/message_passing.py:21-74``. (That module's
-``MessagePassing`` wrapper, halo exchange then concat, needs the
-communicator's ``halo_exchange`` and comes with the other halo lowerings.)
+"""Message passing over the halo exchange — counterpart of
+``dgraph_tpu/models/message_passing.py``: GAT's attention edge pipeline
+(``head_chunked_attention``, :21-74) and the ``MessagePassing`` wrapper
+(:77-106), halo exchange, then a user layer over ``[local ; halo]``.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch import nn
 
 from dgraph_tpu_torch import config as _cfg
-from dgraph_tpu_torch.comm.collectives import map_feature_chunks
+from dgraph_tpu_torch.comm.collectives import map_feature_chunks, resolve_plan_impl
 from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import EdgePlan
 
@@ -58,3 +61,22 @@ def head_chunked_attention(comm, hs: torch.Tensor, hd: torch.Tensor, a_src: torc
         return comm.scatter_sum(msg, plan, side="dst")
 
     return map_feature_chunks(group, H * D, chunk=gh * D).reshape(-1, H, D)
+
+
+class MessagePassing(nn.Module):
+    """halo exchange -> ``[local ; halo]`` -> ``layer(full, plan)`` (the
+    reference's ``DGraphMessagePassing`` shape): ``layer`` indexes the
+    concatenated buffer with the plan's halo-slot numbering. The lowering is
+    resolved once from the plan (env pin > heuristic, the split's 'overlap'
+    included) and given to the exchange, whose buffer this wrapper reads at
+    once."""
+
+    def __init__(self, layer: Callable, comm):
+        super().__init__()
+        self.layer = layer
+        self.comm = comm
+
+    def forward(self, x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
+        impl = resolve_plan_impl(plan, self.comm.group)
+        halo = self.comm.halo_exchange(x, plan.halo, deltas=plan.halo_deltas, impl=impl)
+        return self.layer(torch.cat([x, halo], dim=0), plan)

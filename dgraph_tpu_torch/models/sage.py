@@ -3,7 +3,12 @@
 SAGEConv: ``h_v = act(W_self x_v + W_nbr mean_{u->v} x_u)``. The neighbour
 sum is a src-side gather plus the owner-side sorted segment sum (the sorted
 segment-sum kernel on a card), feature-chunked like the GCN; the degree is
-one more sorted segment sum of width 1.
+one more sorted segment sum of width 1. Across ranks, when the plan routes
+through the interior/boundary split (``comm.split_active``: 'overlap' or
+'pallas_p2p'), the sum takes the reference's split form (sage.py:38-52):
+one full-width ``halo_exchange_split`` a layer, then per chunk the
+interior edges' sum from the local table and the boundary edges' from the
+landed halo buffer (``gather_scatter_overlap``).
 """
 
 from __future__ import annotations
@@ -39,7 +44,13 @@ class SAGEConv(nn.Module):
         # cast BEFORE the edge pipeline: every [e_pad, F] take and scatter
         # runs in the compute dtype
         xa = x.to(dt) if dt is not None else x
-        if plan.halo_side != "dst":
+        if plan.halo_side != "dst" and comm.split_active(plan):
+            halo_buf = comm.halo_exchange_split(xa, plan)
+            agg = map_feature_chunks(
+                lambda sl: comm.gather_scatter_overlap(xa[:, sl], halo_buf[:, sl], plan),
+                width,
+            )
+        elif plan.halo_side != "dst":
             x_ext = comm.halo_extend(xa, plan, side="src")
             agg = map_feature_chunks(
                 lambda sl: comm.scatter_sum(

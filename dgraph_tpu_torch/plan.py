@@ -722,8 +722,8 @@ def pick_halo_impl(halo_deltas: tuple) -> str:
     """The heuristic lowering from the plan's live peer set: one padded
     ``all_to_all``, ``none`` with no traffic. The reference picks
     ``ppermute`` rounds for a sparse peer set (``plan.py:586``), a TPU cost
-    model; the port has no ``ppermute`` lowering until a measurement on
-    the card says where it wins."""
+    model; the port keeps ``all_to_all`` there, which beat ``ppermute`` on
+    four H100s over NCCL (PERF.md §5). A pin runs ``ppermute``."""
     return "all_to_all" if halo_deltas else "none"
 
 
@@ -788,22 +788,14 @@ _warned: set = set()
 
 
 def _warn_unavailable(impl: str, why: str, fallback: str) -> None:
-    """The one-time warning of a pin that cannot lower. It names the
-    lowering the heuristic resolves to instead and, where that lowering is a
-    later slice of the port (``comm.collectives``), says that the run will
-    raise and which pin runs."""
-    from dgraph_tpu_torch.comm.collectives import _LATER
-
+    """The one-time warning of a pin that cannot lower, naming the lowering
+    the heuristic resolves to instead."""
     key = (impl, why, fallback)
     if key in _warned:
         return
     _warned.add(key)
-    if fallback not in _LATER:
-        then = f"the heuristic decides the lowering instead: {fallback!r}"
-    else:
-        then = (f"the heuristic resolves it to {fallback!r}, a later slice of the port, so "
-                "the run will raise; DGRAPH_TPU_HALO_IMPL=all_to_all is the pin that runs")
-    _logger.warning("halo_impl=%s pinned by DGRAPH_TPU_HALO_IMPL but %s; %s", impl, why, then)
+    _logger.warning("halo_impl=%s pinned by DGRAPH_TPU_HALO_IMPL but %s; the heuristic "
+                    "decides the lowering instead: %r", impl, why, fallback)
 
 
 def _masked_owner_ids_in_range(plan: EdgePlan) -> bool:

@@ -26,8 +26,9 @@ spawns one process a rank (``comm.dist.launch``;
 under ``torchrun`` it joins that group instead): ranks on cards of their
 own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
 Every rank builds the same graph from the same seed and trains its shard;
-gradients are summed over the ranks. GAT and the graph transformer train on
-one rank only (more raise before any work). The default partition is
+gradients are summed over the ranks (``DGRAPH_TPU_HALO_IMPL`` pins the halo
+lowering: all_to_all, ppermute, overlap or pallas_p2p). The graph
+transformer trains on one rank only (more raise before any work). The default partition is
 ``multilevel``, as the reference's: the native host library
 (``dgraph_tpu_torch.native``, built with ``g++`` at first use) partitions,
 and where it cannot build the run falls back to greedy BFS with a warning.
@@ -131,7 +132,6 @@ def load_data(cfg: DataConfig) -> dict:
 # models that train on one rank only, with the port's slice that brings
 # them over ranks (ROADMAP Queue A)
 ONE_RANK_MODELS = {
-    "gat": "the halo lowerings and multi-host (slice 8)",
     "gt": "sequence attention over ranks (slice 10)",
     "graph_transformer": "sequence attention over ranks (slice 10)",
 }
@@ -140,7 +140,7 @@ ONE_RANK_MODELS = {
 def check_model(model: str, world_size: int) -> None:
     """Raise before any work for a model this CLI cannot train at
     ``world_size`` ranks."""
-    if model not in ("gcn", "sage", *ONE_RANK_MODELS):
+    if model not in ("gcn", "sage", "gat", *ONE_RANK_MODELS):
         raise SystemExit(f"unknown model {model}")
     if world_size > 1 and model in ONE_RANK_MODELS:
         raise NotImplementedError(

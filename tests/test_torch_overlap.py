@@ -8,7 +8,9 @@ the JAX package's (host-only: no collective runs here).
   the cases of ``tests/test_pallas_p2p.py``'s ``TestResolveP2PLadder`` that
   need no adopted record (the port has no record tier), on the port's
   resolver, and the pin's build-time rejections;
-- the lowerings the port does not have yet raise instead of running another.
+- the one lowering the port does not have yet ('sched') raises where it is
+  asked for by name, and a 'sched' pin warns and runs the heuristic's
+  lowering, as a pin the plan cannot lower does in the reference.
 """
 
 import dataclasses
@@ -145,7 +147,11 @@ def test_p2p_pin_rejects_knobs(flags, kw, match):
         jpl.build_edge_plan(edges, part, world_size=2, **kw)
 
 
-def test_unported_lowerings_raise(flags):
+def test_unported_lowerings_raise(flags, caplog):
+    """Only 'sched' raises, asked for by name; a 'sched' pin warns and the
+    heuristic decides; 'overlap' and 'ppermute' resolve and run."""
+    import logging
+
     @dataclasses.dataclass(frozen=True)
     class Group:
         device: torch.device = torch.device("cpu")
@@ -154,30 +160,35 @@ def test_unported_lowerings_raise(flags):
     edges = np.stack([np.arange(32), (np.arange(32) + 1) % 32])
     plan, _ = pl.build_edge_plan(edges, part, world_size=2, overlap=True)
     view = plan.shard(0)
-    set_flags(halo_impl="overlap")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        collectives.split_active(view, Group())
-    set_flags(halo_impl="sched")  # a pin the resolver would skip still raises
     with pytest.raises(NotImplementedError, match="compiled-schedule"):
-        collectives.resolve_plan_impl(view, Group())
+        collectives._lowerable("sched")
+    with pytest.raises(NotImplementedError, match="compiled-schedule"):
+        collectives.halo_exchange(torch.zeros(view.n_src_pad, 3), view.halo, Group(),
+                                  view.halo_deltas, "sched")
+    set_flags(halo_impl="sched")  # a pin the plan cannot lower: warned, the heuristic runs
+    pl._warned.clear()
+    with caplog.at_level(logging.WARNING):
+        assert collectives.resolve_plan_impl(view, Group()) == "overlap"
+    assert "'sched'" in caplog.text and "'overlap'" in caplog.text
+    set_flags(halo_impl="overlap")
+    assert collectives.split_active(view, Group()) and collectives.overlap_active(view, Group())
     set_flags(halo_impl="auto")  # the split alone resolves to 'overlap' too
-    with pytest.raises(NotImplementedError, match="overlap"):
-        collectives.resolve_plan_impl(view, Group())
+    assert collectives.resolve_plan_impl(view, Group()) == "overlap"
     set_flags(halo_impl="ppermute")
-    with pytest.raises(NotImplementedError, match="ppermute"):
-        collectives.resolve_plan_impl(view, Group())
+    assert collectives.resolve_plan_impl(view, Group()) == "ppermute"
+    assert not collectives.split_active(view, Group())
     set_flags(halo_impl="pallas_p2p", use_pallas_p2p=True)
     assert collectives.split_active(view, Group())
+    assert not collectives.overlap_active(view, Group())
     assert not collectives.split_active(view)  # one rank: nothing to split
 
 
-@pytest.mark.parametrize("overlap, fallback, raises", [
-    (True, "overlap", True), (False, "all_to_all", False)], ids=["split", "no_split"])
-def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fallback, raises):
+@pytest.mark.parametrize("overlap, fallback", [
+    (True, "overlap"), (False, "all_to_all")], ids=["split", "no_split"])
+def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fallback):
     """A pallas_p2p pin the rank cannot run resolves as the reference does;
-    the warning names the lowering it falls to. Where that is 'overlap' (a
-    later slice, whose lowering raises) it says the run will raise and names
-    the pin that runs."""
+    the warning names the lowering it falls to, and that lowering runs (the
+    'overlap' rounds where the plan carries the split)."""
     import logging
 
     set_flags(halo_impl="pallas_p2p", use_pallas_p2p=None)
@@ -186,10 +197,5 @@ def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fall
         got = pl.resolve_halo_impl((1, 2, 3), overlap_available=overlap, p2p_available=False)
     assert got == (fallback, "heuristic")
     text = " ".join(r.getMessage() for r in caplog.records)
-    assert repr(fallback) in text
-    assert ("will raise" in text and "DGRAPH_TPU_HALO_IMPL=all_to_all" in text) == raises
-    if raises:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            collectives._lowerable(fallback)
-    else:
-        assert collectives._lowerable(fallback) == fallback
+    assert repr(fallback) in text and "will raise" not in text
+    assert collectives._lowerable(fallback) == fallback

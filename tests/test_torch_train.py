@@ -296,13 +296,17 @@ def test_train_cli_trains_gat_and_gt_on_cpu(model):
 
 
 def test_train_cli_refuses_unported_models():
-    """GAT and the graph transformer train on one rank: above one, main and
-    build_training raise before any work, naming the slice that brings them."""
-    from dgraph_tpu_torch.train.__main__ import Config, build_training, main, parse_config
+    """The graph transformer trains on one rank: above one, main and
+    build_training raise before any work, naming the slice that brings it.
+    GAT trains over ranks."""
+    from dgraph_tpu_torch.train.__main__ import (
+        Config, build_training, check_model, main, parse_config,
+    )
 
     cfg = parse_config(["--model", "gat", "--device", "cpu", "--data.num_nodes", "50"])
     assert cfg.data.num_nodes == 50 and cfg.device == "cpu"
-    for model in ("gat", "gt", "graph_transformer"):
+    check_model("gat", 4)
+    for model in ("gt", "graph_transformer"):
         with pytest.raises(NotImplementedError, match="slice"):
             main(Config(model=model, world_size=2, device="cpu"))
     with pytest.raises(ValueError, match="main\\(\\) launches the ranks"):

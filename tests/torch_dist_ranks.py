@@ -19,12 +19,16 @@ from dgraph_tpu_torch import config
 from dgraph_tpu_torch.comm import DistComm
 from dgraph_tpu_torch.comm import collectives as coll
 from dgraph_tpu_torch.data import DistributedGraph
-from dgraph_tpu_torch.models import GCN
+from dgraph_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgraph_tpu_torch.models.gcn import GraphConvLayer
+from dgraph_tpu_torch.models.message_passing import MessagePassing
+from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import build_edge_plan
 from dgraph_tpu_torch.train import loop
 
-IMPLS = ("all_to_all", "pallas_p2p")
+IMPLS = ("all_to_all", "pallas_p2p", "ppermute", "overlap")
+# the lowerings MessagePassing runs under (pinned; the plan carries the split)
+MP_IMPLS = ("all_to_all", "ppermute", "overlap")
 
 
 def _halo_case(group, case: dict) -> dict:
@@ -44,7 +48,79 @@ def _halo_case(group, case: dict) -> dict:
         back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl)
         (back * torch.from_numpy(case["ct_owner"][r])).sum().backward()
         out[impl] = [a.detach().numpy() for a in (buf, x.grad, back, h.grad)]
+    # the overlap pair with its rounds left in flight, a view taken before
+    # the wait
+    x, h = torch.from_numpy(case["xs"][r]), torch.from_numpy(case["h"][r])
+    pend = coll.halo_exchange_overlap(x, plan.halo, group, plan.halo_deltas)[:, :5]
+    buf = pend.wait()
+    back = coll.halo_scatter_sum_overlap(h, plan.halo, n_pad, group, plan.halo_deltas).wait()
+    out["overlap_pending"] = [buf.numpy(), back.numpy()]
     return out
+
+
+def mp_layer(full: torch.Tensor, plan) -> torch.Tensor:
+    """The MessagePassing cases' layer: each edge's halo-side row of
+    ``[local ; halo]`` summed into its dst vertex (masked edges add 0)."""
+    idx = plan.src_index.long().clamp(max=full.shape[0] - 1)
+    m = full.index_select(0, idx) * plan.edge_mask[:, None]
+    return local_ops.segment_sum(m, plan.dst_index, plan.n_dst_pad)
+
+
+def _message_passing(group, case: dict) -> dict:
+    """MessagePassing with :func:`mp_layer` on this rank under each of
+    MP_IMPLS (the lowering it resolved beside its output)."""
+    r, W = group.rank, group.world_size
+    plan = build_edge_plan(case["edges"], case["part"], world_size=W, overlap=True)[0].shard(r)
+    x = torch.from_numpy(case["x"][r])
+    mp = MessagePassing(mp_layer, DistComm(group))
+    out = {}
+    try:
+        for impl in MP_IMPLS:
+            config.halo_impl = impl
+            out[impl] = (coll.resolve_plan_impl(plan, group), mp(x, plan).numpy())
+    finally:
+        config.halo_impl = "auto"
+    return out
+
+
+def _facade(group, case: dict) -> dict:
+    """The communicator's ``put`` of this rank's ``[W, S, F]`` stack and its
+    ``gather_concat`` of (x, x) on this rank."""
+    r, W = group.rank, group.world_size
+    plan = build_edge_plan(case["edges"], case["part"], world_size=W)[0].shard(r)
+    comm, x = DistComm(group), torch.from_numpy(case["x"][r])
+    return {"put": comm.put(torch.from_numpy(case["put"][r])).numpy(),
+            "gather_concat": comm.gather_concat(x, x, plan).numpy()}
+
+
+def _model_rank(group, g: dict) -> dict:
+    """Step 0 of GAT or GraphSAGE (``g["model"]``) on this rank under the
+    lowering ``g["impl"]`` pinned (the graph built under the pin, so
+    'overlap' attaches the split): the lowering resolved, whether the split
+    route ran, the logits, the global loss and the summed gradients."""
+    r, W = group.rank, group.world_size
+    config.halo_impl = g["impl"]
+    try:
+        comm = DistComm(group)
+        graph = DistributedGraph.from_global(
+            g["edges"], g["features"], g["labels"], g["masks"], W, partition_method="random")
+        F = g["features"].shape[1]
+        model = (GAT(F, g["hidden"], g["classes"], comm, num_layers=2, num_heads=g["heads"])
+                 if g["model"] == "gat" else GraphSAGE(F, g["hidden"], g["classes"], comm))
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in g["params"].items()})
+        plan = graph.plan.shard(r)
+        b = graph.rank_batch("train", r)
+        logits = loop.model_apply(model, b, plan)
+        count = coll.all_reduce_sum(b["mask"].sum(), group)
+        loss = loop.masked_cross_entropy(logits, b["y"], b["mask"], count=count)
+        loss.backward()
+        comm.grad_sync(list(model.parameters()))
+        return {"impl": coll.resolve_plan_impl(plan, group), "split": comm.split_active(plan),
+                "logits": logits.detach().numpy(),
+                "loss": float(coll.all_reduce_sum(loss.detach(), group)),
+                "grads": {k: p.grad.numpy().copy() for k, p in model.named_parameters()}}
+    finally:
+        config.halo_impl = "auto"
 
 
 def _split_ops(group, case: dict) -> dict:
@@ -111,7 +187,10 @@ def run_cases(group, path: str) -> dict:
     with open(path, "rb") as f:
         inputs = pickle.load(f)
     out = {"halo": [_halo_case(group, c) for c in inputs["halo"]],
-           "split_ops": _split_ops(group, inputs["halo"][0])}
+           "split_ops": _split_ops(group, inputs["halo"][0]),
+           "message_passing": _message_passing(group, inputs["halo"][0]),
+           "facade": _facade(group, inputs["halo"][0]),
+           "models": [_model_rank(group, g) for g in inputs["models"]]}
     if "gcn" in inputs:
         out["gcn"] = _gcn_rank(group, inputs["gcn"])
     return out
