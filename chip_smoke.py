@@ -125,7 +125,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    kernel 5 four times and kernel 1 eight times (plus 2 and 8 with an
    eval); every rank built the same partition (a digest of it) with the
    native host library loaded; step 0's loss and gradients of every run
-   match one 4-rank gloo run on the CPU (random partition) within 1e-4;
+   match one 4-rank gloo run on the CPU (random partition; spawned with
+   the phase, beside the plan build and kernel 5's checks) within 1e-4;
    the loss falls; the ranks' parameters are bit-equal at the end; per run
    the partition's host seconds, the edge cut, the vertices each rank owns,
    S, the live deltas, the bytes an exchange puts, the interior and
@@ -135,7 +136,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    dgraph_tpu_torch.train``'s ``main`` on phase 7's arxiv-width graph at
    the CLI's defaults (hidden 128, 2 layers, 4 heads, Adam 5e-3; gt_arxiv
    and gat_arxiv of ``train.profile``). The graph transformer, f32: 1
-   warm-up and 4 timed steps; every step launches the forward, dK/dV and dQ
+   warm-up and 2 timed steps; every step launches the forward, dK/dV and dQ
    attention kernels once a layer (T = 169,344, D = 32, non-causal, the
    padded slot masked) and kernel 2 three times a layer, an eval forward
    the forward kernel and kernel 2 once a layer; the loss falls; layer 0's
@@ -158,7 +159,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    169,343, F = 128) written in ogbn-arxiv's raw download layout by
    ``ogb_raw.write_node_pred_raw`` and parsed back by
    ``ogbn.load_ogb_arrays`` (every array equal to ``from_npz`` of the
-   export; write and parse seconds logged), then ``python -m
+   export; write and parse seconds logged; in a process of its own that the
+   whole run starts with phase 10, whose host is idle), then ``python -m
    dgraph_tpu_torch.train``'s ``main`` with ``--data.ogb_name ogbn-arxiv
    --data.root <that layout>`` at the CLI's default partition, one rank,
    3 steps, the sorted-row-gather kernel on (kernels 1, 2 and 3, launches
@@ -184,22 +186,29 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 13. the halo lowerings over 4 ranks — spawned on the card (or a card a
    rank, NCCL): at the W = 4 multilevel plan's send lists (phase 9's plan;
    S = 36,864, deltas (1, 2, 3)) at F = 256, f32 and bf16, the exchange and
-   the reverse sum under all_to_all, ppermute, overlap and pallas_p2p:
-   overlap and pallas_p2p bit-equal to all_to_all in both legs (the
-   exchange on the rows a round lands), ppermute's exchange bit-equal and
-   its reverse (a masked sum a delta) within TOL of all_to_all's, which a
-   control (the reverse without the first delta's rounds) must exceed;
-   each leg timed barrier to barrier (median of LOWERING_REPS). Then
+   the reverse sum under all_to_all, ppermute, overlap, pallas_p2p and
+   sched (the plan's compiled halo schedule, logged: its id, rounds, each
+   round's height and the operand rows it ships): overlap, pallas_p2p and
+   sched bit-equal to all_to_all in both legs (the exchange on the rows a
+   round lands), ppermute's exchange bit-equal, its x VJP (f32) bit-equal
+   to its per-delta sums added in reverse delta order, and its reverse (a
+   masked sum a delta) within TOL of all_to_all's, which a control (the
+   reverse without the first delta's rounds) must exceed; a second
+   control, the schedule with one transfer taken out by hand, must miss
+   all_to_all's bits on that transfer's rows; each leg timed barrier to
+   barrier (median of LOWERING_REPS). Then
    ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
    at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
    the split) and GraphSAGE (its split route, kernel 2 on both subsets)
    under DGRAPH_TPU_HALO_IMPL=overlap, GAT (gat_arxiv's width) under
-   overlap and under ppermute; each run: every rank resolved the pin, every
+   overlap and under ppermute, GCN (unsplit) under sched; each run: every
+   rank resolved the pin, every
    step launched the pinned kernels, the loss fell, the ranks' parameters
    are bit-equal, and step 0's loss and every rank's gradients match a
    4-rank gloo run of the port on the CPU under the same pin within 1e-4
    (GAT's at V = 16,384, a second training its ranks build beside their
-   own; GCN's against phase 9's CPU run when phase 9 ran). On one card the
+   own; GCN's against phase 9's CPU run when phase 9 ran, under sched too).
+   On one card the
    CPU runs go on beside the card's, so its host-staged step times compare
    no lowering. On a host of four cards the CPU runs come first, then GCN
    trains under every lowering (its step timed under each, no profiler),
@@ -2232,9 +2241,11 @@ _W4_GCN_CPU: dict = {}
 
 def w4_halo_arrays(plan) -> dict:
     """What a rank needs of the W = 4 plan to run the halo lowerings: the
-    send lists (every rank's), S, the live deltas and n_pad."""
+    send lists (every rank's), S, the live deltas, n_pad and the compiled
+    halo schedule."""
     return {"deltas": tuple(plan.halo_deltas), "S": plan.halo.s_pad, "n_pad": plan.n_src_pad,
-            "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy()}
+            "send_idx": plan.halo.send_idx.numpy(), "send_mask": plan.halo.send_mask.numpy(),
+            "schedule": plan.halo_schedule}
 
 
 def p2p_edge_cases(W: int) -> list:
@@ -2542,7 +2553,7 @@ def cpu_step0_rank(group, cfg: dict):
     from dgraph_tpu_torch import config
 
     # the p2p route's plain version (the transport through all_to_all)
-    config.use_pallas_p2p = True
+    config.use_pallas_p2p, config.halo_impl = True, "pallas_p2p"
     c = cli.Config(**dict(cfg, data=cli.DataConfig(**cfg["data"]), device="cpu"))
     t = cli.build_training(c, comm=DistComm(group))
     if not t.comm.split_active(t.plan):
@@ -2729,40 +2740,48 @@ def train_w4_run(partition: str) -> tuple:
     return cfg, rec, [rank["on_step"][0]["grads"] for rank in ranks]
 
 
-def phase_train_ogb_gcn_w4(turns) -> list:
+def w4_cpu_oracle() -> tuple:
+    """Step 0 of phase 9's GCN (``train_w4_run``'s config under ``random``)
+    on 4 gloo ranks on the CPU, the p2p route's plain version: (rank 0's
+    global loss and summed gradients, seconds)."""
+    import dataclasses
+
+    from dgraph_tpu_torch.comm.dist import launch
+    from dgraph_tpu_torch.train.profile import ogb_gcn_config
+
+    cfg = ogb_gcn_config(world_size=P2P_W, partition="random")
+    tc = time.perf_counter()
+    cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cfg), device="cpu",
+                 timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
+    return cpu[0], time.perf_counter() - tc
+
+
+def phase_train_ogb_gcn_w4(turns, oracle) -> list:
     """Phase 9's training: :func:`train_w4_run` under each partition of
     ``turns`` in that order (both ``multilevel``, the CLI's default and the
     main row of kernel 5, and ``random``, the earlier row); every run's
     step-0 loss and every rank's gradients against one 4-rank gloo run on
-    the CPU (under ``random``: renumbering the vertices changes neither the
-    seeded parameters nor the masked mean loss, so one reference holds
-    them all)."""
-    import dataclasses
-
+    the CPU (``oracle``, a future of :func:`w4_cpu_oracle`; under
+    ``random``: renumbering the vertices changes neither the seeded
+    parameters nor the masked mean loss, so one reference holds them
+    all)."""
     import torch
 
-    from dgraph_tpu_torch.comm.dist import launch
-
     runs = [train_w4_run(p) for p in turns]
-    cpu_cfg = next(cfg for cfg, _, _ in runs if cfg.data.partition == "random")
-    tc = time.perf_counter()
-    with halo_impl_env("pallas_p2p"):
-        cpu = launch(cpu_step0_rank, P2P_W, dataclasses.asdict(cpu_cfg), device="cpu",
-                     timeout=900, threads=max(1, (os.cpu_count() or 1) // P2P_W))
-    cpu_s = time.perf_counter() - tc
-    _W4_GCN_CPU.update(cpu[0], impl="pallas_p2p (plain)")
-    want_grads = {k: torch.from_numpy(v) for k, v in cpu[0]["grads"].items()}
+    cpu, cpu_s = oracle.result()
+    _W4_GCN_CPU.update(cpu, impl="pallas_p2p (plain)")
+    want_grads = {k: torch.from_numpy(v) for k, v in cpu["grads"].items()}
     recs = []
     for cfg, rec, grads in runs:
         what = f"train ogb_gcn W=4 {cfg.data.partition}"
         loss0 = rec["losses"][0]
-        if abs(loss0 - cpu[0]["loss"]) > GRAD_TOL * max(1.0, abs(cpu[0]["loss"])):
-            fail(f"{what}: step-0 loss {loss0} vs CPU {cpu[0]['loss']}")
+        if abs(loss0 - cpu["loss"]) > GRAD_TOL * max(1.0, abs(cpu["loss"])):
+            fail(f"{what}: step-0 loss {loss0} vs CPU {cpu['loss']}")
         grad_err = 0.0
         for r, g in enumerate(grads):
             got = {k: torch.from_numpy(v) for k, v in g.items()}
             grad_err = max(grad_err, check_grads(f"{what} rank {r}", got, want_grads))
-        rec.update(step0_loss_cpu=cpu[0]["loss"], grad_max_abs_err=grad_err,
+        rec.update(step0_loss_cpu=cpu["loss"], grad_max_abs_err=grad_err,
                    cpu_reference_s=cpu_s)
         p50 = [p["step_ms_p50"] for p in rec["per_rank"]]
         log(f"{what} (pallas_p2p): loss {rec['losses'][0]:.5f} -> {rec['losses'][-1]:.5f}; "
@@ -2955,11 +2974,16 @@ def gt_sampled_rows(t, seed: int = 0) -> dict:
     return rec
 
 
+# the graph transformer's steps in phase 10 (~4.8 s each in f32): a warm-up
+# and two timed steps keep the whole run inside its time limit
+GT_EPOCHS = 3
+
+
 def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
     """``python -m dgraph_tpu_torch.train --model gt`` at arxiv width
     (gt_arxiv: hidden 128, 4 heads of 32, 2 layers, attention over all
-    169,344 slots): 1 warm-up and 4 timed steps (steps 1-3 profiled); every
-    step launches the forward, dK/dV and dQ attention kernels once a layer
+    169,344 slots): GT_EPOCHS steps, 1 warm-up and 2 timed (steps 1-2
+    profiled); every step launches the forward, dK/dV and dQ attention kernels once a layer
     and kernel 2 three times a layer and feature chunk (the local branch's
     sum and the backward of its two takes); an eval forward the forward
     kernel and the sum only. In f32 the sampled rows (gt_sampled_rows) and
@@ -2974,7 +2998,7 @@ def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
     from dgraph_tpu_torch.ops import kernels
     from dgraph_tpu_torch.train.profile import gt_arxiv_config
 
-    cfg = dataclasses.replace(gt_arxiv_config(), epochs=5,
+    cfg = dataclasses.replace(gt_arxiv_config(), epochs=GT_EPOCHS,
                               log_path=os.path.join(OUT_DIR, f"train_gt_{dtype_name}.jsonl"))
     L = cfg.num_layers
     chunks = math.ceil(cfg.hidden / config.gather_col_block)
@@ -2987,7 +3011,7 @@ def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
     saved = config.default_compute_dtype
     config.default_compute_dtype = dtype_name
     try:
-        res, rec, _ = train_cli_run(what, cfg, want, want_eval, (1, 3))
+        res, rec, _ = train_cli_run(what, cfg, want, want_eval, (1, GT_EPOCHS - 1))
         rec["dtype"] = dtype_name
         if dtype_name == "float32":
             rec["sampled_rows"] = gt_sampled_rows(res["training"])
@@ -3067,7 +3091,8 @@ def phase_train_gat() -> dict:
 def graph_model_phases(cfg) -> tuple:
     """Phase 10, in the form of :func:`one_rank_phases`."""
     log("phase 10: train ogb_gcn --model gt (f32, then bf16) and --model gat "
-        "(python -m dgraph_tpu_torch.train)")
+        "(python -m dgraph_tpu_torch.train); phase 11's raw layout written beside")
+    start_ogb_raw_layout()
     gt_f32 = phase_train_gt()
     gt_bf16 = phase_train_gt("bfloat16", gt_f32["losses"][0])
     gat = phase_train_gat()
@@ -3172,25 +3197,30 @@ def multi_rank_phase(cfg, turns=W4_TURNS) -> tuple:
     # the training CLI's default partition (multilevel), which phase 9's
     # first run trains under: kernel 5's main shape
     partition = DataConfig().partition
-    data = load_data(cfg)
-    t = time.perf_counter()
-    graph4 = DistributedGraph.from_global(
-        data["edge_index"], data["features"], data["labels"], data["masks"],
-        world_size=P2P_W, partition_method=partition, add_symmetric_norm=True, overlap=True,
-    )
-    plan, part = graph4.plan, partition_record(graph4)
-    if not part["native"]:
-        fail(f"the native host library did not load: {part['native_error']}")
-    log(f"W=4 plan ({partition}): {time.perf_counter() - t:.1f} s, of which the partition "
-        f"{part['partition_s']:.2f} s; edge cut {part['edge_cut']:.4f}; owned per rank "
-        f"{part['owned']}; S={plan.halo.s_pad} e_pad={plan.e_pad} n_pad={plan.n_src_pad} "
-        f"deltas={plan.halo_deltas} interior/boundary edges per rank "
-        f"{part['interior']}/{part['boundary']}")
-    del data
-    _W4_HALO.update(w4_halo_arrays(plan))
-    p2p_k = phase_p2p_kernel(graph4)
-    del graph4, plan
-    ogb4 = phase_train_ogb_gcn_w4(turns)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the CPU oracle of the trainings, beside the plan build and kernel
+        # 5's checks (their kernel times are CUDA events)
+        oracle = pool.submit(w4_cpu_oracle)
+        data = load_data(cfg)
+        t = time.perf_counter()
+        graph4 = DistributedGraph.from_global(
+            data["edge_index"], data["features"], data["labels"], data["masks"],
+            world_size=P2P_W, partition_method=partition, add_symmetric_norm=True,
+            overlap=True,
+        )
+        plan, part = graph4.plan, partition_record(graph4)
+        if not part["native"]:
+            fail(f"the native host library did not load: {part['native_error']}")
+        log(f"W=4 plan ({partition}): {time.perf_counter() - t:.1f} s, of which the partition "
+            f"{part['partition_s']:.2f} s; edge cut {part['edge_cut']:.4f}; owned per rank "
+            f"{part['owned']}; S={plan.halo.s_pad} e_pad={plan.e_pad} n_pad={plan.n_src_pad} "
+            f"deltas={plan.halo_deltas} interior/boundary edges per rank "
+            f"{part['interior']}/{part['boundary']}")
+        del data
+        _W4_HALO.update(w4_halo_arrays(plan))
+        p2p_k = phase_p2p_kernel(graph4)
+        del graph4, plan
+        ogb4 = phase_train_ogb_gcn_w4(turns, oracle)
     main_run = next(r for r in ogb4 if r["partition_method"] == partition)
     k6 = next(r for r in p2p_k["records"] if r["kernel"] == "p2p_transport_mutant")
     return (p2p_k["records"],
@@ -3202,12 +3232,71 @@ def multi_rank_phase(cfg, turns=W4_TURNS) -> tuple:
 # --- phase 11 ----------------------------------------------------------------
 
 
+def write_ogb_raw_layout(root: str) -> dict:
+    """Phase 11's data, in a process of its own: ``ogbn.export_arxiv_shaped_npz``
+    (V = 169,343, F = 128) written under ``root`` in ogbn-arxiv's raw
+    download layout through ``ogb_raw.write_node_pred_raw`` (numpy and
+    gzip) and parsed back by ``ogbn.load_ogb_arrays``: every array must
+    equal ``from_npz``'s of the same export. Returns the seconds and sizes,
+    or ``{"error": ...}``."""
+    import numpy as np
+
+    from dgraph_tpu_torch.data import ogb_raw, ogbn
+
+    npz = os.path.join(root, "arxiv_shaped.npz")
+    t0 = time.perf_counter()
+    ogbn.export_arxiv_shaped_npz(npz, scale=1.0, seed=0)
+    export_s = time.perf_counter() - t0
+    z = ogbn.from_npz(npz)
+    split = {k: np.flatnonzero(z[f"{k}_mask"]) for k in ("train", "valid", "test")}
+    t0 = time.perf_counter()
+    base = ogb_raw.write_node_pred_raw(root, "ogbn-arxiv", edge_index=z["edge_index"],
+                                       labels=z["labels"], node_feat=z["features"],
+                                       split_idx=split)
+    write_s = time.perf_counter() - t0
+    raw_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(base) for f in fs)
+    t0 = time.perf_counter()
+    arrs = ogbn.load_ogb_arrays("ogbn-arxiv", root=root)
+    parse_s = time.perf_counter() - t0
+    for k in ("edge_index", "features", "labels", "train_mask", "valid_mask", "test_mask"):
+        # the export's masks are bool, the loader's float32 (as the reference's)
+        want_k = z[k].astype(np.float32) if k.endswith("_mask") else z[k]
+        if arrs[k].dtype != want_k.dtype or not np.array_equal(arrs[k], want_k):
+            return {"error": f"ogb raw: {k} read back from the raw layout differs from "
+                             f"from_npz ({arrs[k].dtype} {arrs[k].shape} vs {z[k].dtype} "
+                             f"{z[k].shape})"}
+    V, F = arrs["features"].shape
+    return {"V": V, "F": F, "E": arrs["edge_index"].shape[1], "export_npz_s": export_s,
+            "write_raw_s": write_s, "raw_bytes": raw_bytes, "parse_s": parse_s}
+
+
+# phase 11's layout writer (write_ogb_raw_layout), started ahead of phase 11
+_OGB_RAW: dict = {}
+
+
+def start_ogb_raw_layout() -> None:
+    """Start :func:`write_ogb_raw_layout` in a spawned process. The whole
+    run starts it with phase 10, whose graph transformer keeps the card
+    busy and the host idle, so phase 11 finds its layout written; the
+    layout (about 128 MB) is deleted at the end of phase 11, or at exit."""
+    import atexit
+    import multiprocessing
+    import shutil
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "ogb_raw"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    atexit.register(shutil.rmtree, root, True)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    _OGB_RAW.update(root=root, pool=pool, t0=time.perf_counter(),
+                    future=pool.submit(write_ogb_raw_layout, root))
+
+
 def phase_ogb_raw() -> dict:
-    """The OGB loaders on ogbn-arxiv's raw download layout at full size:
-    ``ogbn.export_arxiv_shaped_npz`` (V = 169,343, F = 128) written through
-    ``ogb_raw.write_node_pred_raw`` (numpy and gzip), parsed back by
-    ``ogbn.load_ogb_arrays`` (every array equal to ``from_npz`` of the same
-    export), then ``python -m dgraph_tpu_torch.train``'s main on it with
+    """The OGB loaders on ogbn-arxiv's raw download layout at full size
+    (:func:`write_ogb_raw_layout`, started here or, in the whole run, with
+    phase 10), then ``python -m dgraph_tpu_torch.train``'s main on it with
     ``--data.ogb_name ogbn-arxiv --data.root <that layout>`` at the CLI's
     default partition, one rank, 3 steps, the sorted-row-gather kernel on:
     every step launches kernels 3 and 2 2x a chunk and layer, kernel 1 once
@@ -3216,46 +3305,27 @@ def phase_ogb_raw() -> dict:
     import dataclasses
     import shutil
 
-    import numpy as np
-
     from dgraph_tpu_torch import config
-    from dgraph_tpu_torch.data import ogb_raw, ogbn
     from dgraph_tpu_torch.ops import segment as seg
     from dgraph_tpu_torch.train import __main__ as cli
     from dgraph_tpu_torch.train.profile import ogb_gcn_config
 
-    root = os.path.join(OUT_DIR, "ogb_raw")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
+    if not _OGB_RAW:
+        start_ogb_raw_layout()
+    root = _OGB_RAW["root"]
     try:
-        npz = os.path.join(root, "arxiv_shaped.npz")
-        t0 = time.perf_counter()
-        ogbn.export_arxiv_shaped_npz(npz, scale=1.0, seed=0)
-        export_s = time.perf_counter() - t0
-        z = ogbn.from_npz(npz)
-        split = {k: np.flatnonzero(z[f"{k}_mask"]) for k in ("train", "valid", "test")}
-        t0 = time.perf_counter()
-        base = ogb_raw.write_node_pred_raw(root, "ogbn-arxiv", edge_index=z["edge_index"],
-                                           labels=z["labels"], node_feat=z["features"],
-                                           split_idx=split)
-        write_s = time.perf_counter() - t0
-        raw_bytes = sum(os.path.getsize(os.path.join(d, f))
-                        for d, _, fs in os.walk(base) for f in fs)
-        t0 = time.perf_counter()
-        arrs = ogbn.load_ogb_arrays("ogbn-arxiv", root=root)
-        parse_s = time.perf_counter() - t0
-        for k in ("edge_index", "features", "labels", "train_mask", "valid_mask", "test_mask"):
-            # the export's masks are bool, the loader's float32 (as the reference's)
-            want_k = z[k].astype(np.float32) if k.endswith("_mask") else z[k]
-            if arrs[k].dtype != want_k.dtype or not np.array_equal(arrs[k], want_k):
-                fail(f"ogb raw: {k} read back from the raw layout differs from from_npz "
-                     f"({arrs[k].dtype} {arrs[k].shape} vs {z[k].dtype} {z[k].shape})")
-        V, F = arrs["features"].shape
-        log(f"ogb raw: ogbn-arxiv-shaped export V={V} F={F} E={arrs['edge_index'].shape[1]}: "
-            f"export npz {export_s:.1f} s; write raw layout {write_s:.1f} s "
-            f"({raw_bytes / 1e6:.1f} MB gzipped); parse {parse_s:.1f} s; every array equal "
-            f"to from_npz's")
-        del arrs, z
+        try:
+            info = _OGB_RAW["future"].result()
+        finally:
+            _OGB_RAW.pop("pool").shutdown()
+        if "error" in info:
+            fail(info["error"])
+        V = info["V"]
+        log(f"ogb raw: ogbn-arxiv-shaped export V={V} F={info['F']} E={info['E']}: export npz "
+            f"{info['export_npz_s']:.1f} s; write raw layout {info['write_raw_s']:.1f} s "
+            f"({info['raw_bytes'] / 1e6:.1f} MB gzipped); parse {info['parse_s']:.1f} s; "
+            f"every array equal to from_npz's (a process of its own, started "
+            f"{time.perf_counter() - _OGB_RAW['t0']:.1f} s ago)")
 
         cfg = ogb_gcn_config()
         cfg.data = dataclasses.replace(cfg.data, ogb_name="ogbn-arxiv", root=root)
@@ -3295,10 +3365,10 @@ def phase_ogb_raw() -> dict:
         fail(f"train ogb raw: the CLI trained on V={t.graph.num_nodes} with splits "
              f"{sorted(t.batches)}")
     ms = [r["wall_ms"] for r in res["records"]]
-    rec = {"config": "ogb_gcn --data.ogb_name ogbn-arxiv (raw layout)", "V": V, "F": F,
-           "partition": cfg.data.partition, "export_npz_s": export_s,
-           "write_raw_s": write_s, "raw_bytes": raw_bytes, "parse_s": parse_s,
-           "losses": losses, "step_wall_ms": ms, "run_s": run_s,
+    rec = {"config": "ogb_gcn --data.ogb_name ogbn-arxiv (raw layout)", "V": V, "F": info["F"],
+           "partition": cfg.data.partition, "export_npz_s": info["export_npz_s"],
+           "write_raw_s": info["write_raw_s"], "raw_bytes": info["raw_bytes"],
+           "parse_s": info["parse_s"], "losses": losses, "step_wall_ms": ms, "run_s": run_s,
            "launches_per_step": want,
            "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]}}
     log(f"train ogb raw (--data.ogb_name ogbn-arxiv, gather kernel on): step wall ms {ms}; "
@@ -3463,7 +3533,7 @@ def skewed_phase(cfg, kernel_cases_too: bool = False) -> tuple:
 
 # --- phase 13 ----------------------------------------------------------------
 
-LOWERINGS = ("all_to_all", "ppermute", "overlap", "pallas_p2p")
+LOWERINGS = ("all_to_all", "ppermute", "overlap", "pallas_p2p", "sched")
 LOWERING_F = 256
 LOWERING_REPS = 3  # timed calls a leg and lowering (the median is logged)
 W13_EPOCHS = 2  # training steps a phase-13 run on one card (at most 4)
@@ -3472,7 +3542,10 @@ W13_TRACE_STEPS = 4  # GCN 'overlap' on four cards: steps profiled after the tim
 GAT_STEP0_V = 16384  # GAT's step 0 against the CPU, as phase 10 holds it
 # (model, DGRAPH_TPU_HALO_IMPL) of phase 13's training runs; on four cards
 # GCN also runs under every other lowering (its step timed under each)
-W13_RUNS = (("gcn", "overlap"), ("sage", "overlap"), ("gat", "overlap"), ("gat", "ppermute"))
+W13_RUNS = (("gcn", "overlap"), ("sage", "overlap"), ("gat", "overlap"), ("gat", "ppermute"),
+            ("gcn", "sched"))
+# runs held to the CPU oracle of another run: the same step 0, another lowering
+W13_SHARED_ORACLE = {("gcn", "sched"): ("gcn", "overlap")}
 @contextlib.contextmanager
 def deterministic():
     """torch's deterministic algorithms on inside (``index_add_`` on the
@@ -3487,19 +3560,44 @@ def deterministic():
         torch.use_deterministic_algorithms(saved)
 
 
+def dropped_transfer(schedule):
+    """(the schedule with one transfer taken out, that transfer): the first
+    whose live rows no other window of its pair covers, built by hand (the
+    compiler's verifier would reject it). The control of the 'sched'
+    parity: its exchange must miss ``all_to_all``'s bits on those rows."""
+    from dgraph_tpu_torch.sched import HaloSchedule, Round
+
+    wins = [(t, k, r.row_count) for k, r in enumerate(schedule.rounds) for t in r.transfers]
+    for t, k, _ in wins:
+        rows = set(range(t.row_start, t.row_start + t.row_count))
+        for u, j, c in wins:
+            if j != k and (u.src, u.dst) == (t.src, t.dst):
+                rows -= set(range(u.row_start, u.row_start + c))
+        if rows:
+            rounds = [Round(tuple(u for u in r.transfers if u != t)) for r in schedule.rounds]
+            return HaloSchedule(schedule.world_size, schedule.s_pad,
+                                tuple(r for r in rounds if r.transfers)), t
+    raise ValueError("every transfer's rows are covered by another window")
+
+
 def lowering_parity_rank(group, real: dict) -> dict:
     """One rank of the lowering parity at the W = 4 plan's send lists,
     F = LOWERING_F, f32 and bf16: the exchange (``halo_exchange``) and the
-    reverse sum (``halo_scatter_sum``) under each of LOWERINGS. 'overlap'
-    and 'pallas_p2p' must give ``all_to_all``'s bits in both legs (the
-    exchange on the rows a round lands: the blocks of live deltas),
-    'ppermute' in the exchange; its reverse, a masked sum a delta, within
-    TOL of ``all_to_all``'s (max abs error over the largest magnitude),
-    which a control, the same reverse without the first delta's rounds,
-    must exceed. The outputs held to each other are computed under torch's
-    deterministic algorithms: the owners' masked sum is an ``index_add_``,
-    whose atomic adds on the card sum in an order that varies from call to
-    call (and so did ``all_to_all``'s against itself). Each leg timed
+    reverse sum (``halo_scatter_sum``) under each of LOWERINGS. 'overlap',
+    'pallas_p2p' and 'sched' must give ``all_to_all``'s bits in both legs
+    (the exchange on the rows a round lands: the blocks of live deltas, the
+    schedule's windows), 'ppermute' in the exchange; its reverse, a masked
+    sum a delta, within TOL of ``all_to_all``'s (max abs error over the
+    largest magnitude), which a control, the same reverse without the first
+    delta's rounds, must exceed. In f32 the exchange's x VJP under
+    'ppermute' must give the bits of its per-delta sums added in reverse
+    delta order (the reference's backward), and under a schedule with one
+    transfer taken out (:func:`dropped_transfer`) the exchange must miss
+    ``all_to_all``'s bits on that transfer's rows. The outputs held to each
+    other are computed under torch's deterministic algorithms: the owners'
+    masked sum is an ``index_add_``, whose atomic adds on the card sum in an
+    order that varies from call to call (and so did ``all_to_all``'s against
+    itself). Each leg timed
     barrier to barrier (the deterministic mode off, as in training), the
     median of LOWERING_REPS calls."""
     import statistics
@@ -3510,7 +3608,7 @@ def lowering_parity_rank(group, real: dict) -> dict:
     from dgraph_tpu_torch.plan import HaloSpec
 
     dev, W, me = group.device, group.world_size, group.rank
-    deltas, S, n_pad = real["deltas"], real["S"], real["n_pad"]
+    deltas, S, n_pad, sched = real["deltas"], real["S"], real["n_pad"], real["schedule"]
     halo = HaloSpec(torch.from_numpy(real["send_idx"][me]).to(dev),
                     torch.from_numpy(real["send_mask"][me]).to(dev), S)
     gen = torch.Generator(device=dev).manual_seed(300 + me)
@@ -3518,7 +3616,19 @@ def lowering_parity_rank(group, real: dict) -> dict:
     h32 = torch.randn(W * S, LOWERING_F, generator=gen, device=dev)
     landed = torch.cat([torch.arange(((me - d) % W) * S, ((me - d) % W + 1) * S)
                         for d in deltas]).to(dev)
-    failures, records, spent = [], [], {"check_s": 0.0, "time_s": 0.0}
+
+    def windows(schedule) -> torch.Tensor:  # the rows this rank's rounds land
+        rows = {t.src * S + r: None for rnd in schedule.rounds for t in rnd.transfers
+                if t.dst == me for r in range(t.row_start, t.row_start + rnd.row_count)}
+        return torch.tensor(sorted(rows), dtype=torch.long, device=dev)
+
+    landed_rows = {impl: landed for impl in LOWERINGS}
+    landed_rows["sched"] = windows(sched)
+    ctrl_sched, cut = dropped_transfer(sched)
+    cut_rows = torch.arange(cut.src * S + cut.row_start,
+                            cut.src * S + cut.row_start + cut.row_count, device=dev)
+    failures, records, controls = [], [], []
+    spent = {"check_s": 0.0, "time_s": 0.0}
 
     def barrier_ms(fn) -> float:
         ts = []
@@ -3540,8 +3650,9 @@ def lowering_parity_rank(group, real: dict) -> dict:
         x, h = x32.to(dtype), h32.to(dtype)
         out = {}
         for impl in LOWERINGS:
-            ex = lambda: coll.halo_exchange(x, halo, group, deltas, impl)  # noqa: E731
-            rv = lambda: coll.halo_scatter_sum(h, halo, n_pad, group, deltas, impl)  # noqa: E731
+            ex = lambda: coll.halo_exchange(x, halo, group, deltas, impl, sched)  # noqa: E731
+            rv = lambda: coll.halo_scatter_sum(h, halo, n_pad, group, deltas, impl,  # noqa: E731
+                                               sched)
             t = time.perf_counter()
             with deterministic():
                 out[impl] = (ex(), rv())
@@ -3554,7 +3665,8 @@ def lowering_parity_rank(group, real: dict) -> dict:
         buf0, back0 = out["all_to_all"]
         for impl in LOWERINGS[1:]:
             buf, back = out[impl]
-            if not torch.equal(bits(buf[landed]), bits(buf0[landed])):
+            rows = landed_rows[impl]
+            if not torch.equal(bits(buf[rows]), bits(buf0[rows])):
                 failures.append(f"{impl} {dtype_name}: the exchange's landed rows differ from "
                                 "all_to_all's")
             if impl != "ppermute" and not torch.equal(bits(back), bits(back0)):
@@ -3572,11 +3684,49 @@ def lowering_parity_rank(group, real: dict) -> dict:
                             f"reads {control:.3g}, inside the limit {TOL[dtype_name]}")
         records.append({"impl": "ppermute reverse vs all_to_all", "dtype": dtype_name,
                         "rel_err": err, "control": control, "limit": TOL[dtype_name]})
-    return {"failures": failures, "records": records, **spent}
+        with deterministic():
+            ctrl = coll.halo_exchange(x, halo, group, deltas, "sched", ctrl_sched)
+        torch.cuda.synchronize(dev)
+        if cut.dst == me:
+            missed = not torch.equal(bits(ctrl[cut_rows]), bits(buf0[cut_rows]))
+            if not missed:
+                failures.append(f"sched {dtype_name}: the control (transfer {cut} taken out) "
+                                "gives all_to_all's bits on its rows")
+            controls.append({"impl": "sched control", "dtype": dtype_name, "missed": missed,
+                             "transfer": [cut.src, cut.dst, cut.row_start, cut.row_count]})
+        if dtype_name == "float32":
+            failures += ppermute_x_vjp(group, x, h, halo, deltas, n_pad, records)
+    return {"failures": failures, "records": records, "controls": controls, **spent}
+
+
+def ppermute_x_vjp(group, x, g, halo, deltas, n_pad, records: list) -> list:
+    """The exchange's x VJP under 'ppermute' on this rank against its
+    expected bits: the peers' blocks of ``g`` delivered by ``all_to_all``,
+    masked, one segment sum a delta, added in reverse delta order (JAX's
+    transpose of the reference's exchange). Records whether the delta-order
+    sum differs (so the check sees the order). Returns the failures."""
+    import torch
+
+    from dgraph_tpu_torch.comm import collectives as coll
+    from dgraph_tpu_torch.ops.p2p import all_to_all
+
+    W, S, me = group.world_size, halo.s_pad, group.rank
+    with deterministic():
+        xv = x.detach().clone().requires_grad_()
+        coll.halo_exchange(xv, halo, group, deltas, "ppermute").backward(g)
+        back = all_to_all(g.reshape(W, S, -1), group)
+        peers = [(me + d) % W for d in deltas]
+        want = coll._per_delta_owner_sum(back, halo, n_pad, peers[::-1])
+        fwd_order = coll._per_delta_owner_sum(back, halo, n_pad, peers)
+    same = torch.equal(bits(xv.grad), bits(want))
+    records.append({"impl": "ppermute x VJP vs its reverse-order sum", "dtype": "float32",
+                    "bit_equal": same,
+                    "delta_order_differs": not torch.equal(bits(fwd_order), bits(want))})
+    return [] if same else ["ppermute float32: the x VJP misses its reverse-order sum's bits"]
 
 
 def phase_lowering_parity() -> dict:
-    """The four lowerings at the W = 4 multilevel plan on 4 ranks
+    """The five lowerings at the W = 4 multilevel plan on 4 ranks
     (:func:`lowering_parity_rank`), the plan phase 9 built or, alone, built
     here; each leg's time the mean over the ranks of their medians."""
     import numpy as np
@@ -3596,6 +3746,15 @@ def phase_lowering_parity() -> dict:
         _W4_HALO.update(w4_halo_arrays(graph.plan))
         log(f"W=4 plan ({DataConfig().partition}): {time.perf_counter() - t:.1f} s")
     real = _W4_HALO
+    sched = real["schedule"]
+    rows = sched.round_rows()
+    sched_rec = {"schedule_id": sched.schedule_id, "rounds": sched.num_rounds,
+                 "round_rows": list(rows), "operand_rows": sched.operand_rows(),
+                 "all_to_all_rows": (P2P_W - 1) * real["S"],
+                 "transfers": sched.num_transfers}
+    log(f"W={P2P_W} halo schedule {sched.schedule_id}: {sched.num_rounds} rounds of "
+        f"{sched.num_transfers} transfers, C_k {list(rows)}, {sched.operand_rows()} operand "
+        f"rows a rank against all_to_all's (W-1)*S = {sched_rec['all_to_all_rows']}")
     t0 = time.perf_counter()
     res = launch(lowering_parity_rank, P2P_W, real, device="cuda", timeout=600)
     failures = [f for r in res for f in r["failures"]]
@@ -3612,18 +3771,34 @@ def phase_lowering_parity() -> dict:
                 f"exchange {rec['exchange_ms']:.2f} ms, reverse {rec['reverse_ms']:.2f} ms "
                 f"(barrier to barrier, median of {LOWERING_REPS}, mean over ranks; "
                 f"{rec['backend']})")
-        else:
+        elif "rel_err" in rec:
             rec = dict(rec, rel_err=max(r["rel_err"] for r in per_rank),
                        control=min(r["control"] for r in per_rank))
             log(f"{rec['impl']} {rec['dtype']}: {rec['rel_err']:.3g} relative (limit "
                 f"{rec['limit']}); control, a delta left out, {rec['control']:.3g}")
+        elif "bit_equal" in rec:
+            rec = dict(rec, bit_equal=all(r["bit_equal"] for r in per_rank),
+                       delta_order_differs=[r["delta_order_differs"] for r in per_rank])
+            log(f"{rec['impl']} {rec['dtype']}: bit-equal on every rank; the delta-order "
+                f"sum differs from it on ranks "
+                f"{[r for r, d in enumerate(rec['delta_order_differs']) if d]}")
         recs.append(rec)
+    # the control's record comes from the rank that receives the cut transfer
+    ctrl = [rec for r in res for rec in r["controls"]]
+    for rec in ctrl:
+        log(f"sched control {rec['dtype']}: transfer (src, dst, start, rows) "
+            f"{tuple(rec['transfer'])} taken out: all_to_all's bits missed on its rows")
+    recs += ctrl
+    if len(ctrl) != 2:
+        fail(f"the sched control ran on {len(ctrl)} of 2 dtypes")
     log(f"halo lowerings W={P2P_W} S={real['S']} deltas={real['deltas']} F={LOWERING_F}: "
-        "overlap and pallas_p2p bit-equal to all_to_all in both legs (the exchange on its "
-        "landed rows), ppermute's exchange bit-equal and its reverse within TOL "
+        "overlap, pallas_p2p and sched bit-equal to all_to_all in both legs (the exchange on "
+        "its landed rows), ppermute's exchange bit-equal, its x VJP its reverse-order sum's "
+        "bits and its reverse within TOL "
         f"({time.perf_counter() - t0:.1f} s with the spawn; rank 0: checks "
         f"{res[0]['check_s']:.1f} s, timed calls {res[0]['time_s']:.1f} s)")
-    return {"records": recs, "S": real["S"], "deltas": list(real["deltas"])}
+    return {"records": recs, "S": real["S"], "deltas": list(real["deltas"]),
+            "schedule": sched_rec}
 
 
 def w13_config(model: str):
@@ -3849,14 +4024,15 @@ def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
 
 def lowering_phase(cfg) -> tuple:
     """Phase 13, in the form of :func:`one_rank_phases`: the lowerings'
-    parity at W = 4, then GCN and GraphSAGE under 'overlap' and GAT under
-    'overlap' and 'ppermute' through the training CLI over 4 ranks, each
-    run's step 0 against a 4-rank gloo run on the CPU under the same pin
-    (GAT's at V = GAT_STEP0_V: the run's ranks build it beside their own;
-    GCN's against phase 9's CPU run, the p2p route's plain version, when
-    phase 9 ran). On one card the CPU runs go on beside the card's (the
-    whole run's time limit), so those host-staged step times compare no
-    lowering. On four cards the CPU runs come first, on the host's cores,
+    parity at W = 4, then GCN and GraphSAGE under 'overlap', GAT under
+    'overlap' and 'ppermute' and GCN under 'sched' through the training CLI
+    over 4 ranks, each run's step 0 against a 4-rank gloo run on the CPU
+    under the same pin (GAT's at V = GAT_STEP0_V: the run's ranks build it
+    beside their own; GCN's against phase 9's CPU run, the p2p route's
+    plain version, when phase 9 ran; GCN's under 'sched' against GCN's
+    'overlap' oracle, W13_SHARED_ORACLE). On one card the CPU runs go on
+    beside the card's (the whole run's time limit), so those host-staged
+    step times compare no lowering. On four cards the CPU runs come first, on the host's cores,
     and no timed step shares the host with them; GCN also runs under
     'all_to_all', 'ppermute' and 'pallas_p2p', and its 'overlap' run
     profiles W13_TRACE_STEPS steps after its timed ones."""
@@ -3866,17 +4042,18 @@ def lowering_phase(cfg) -> tuple:
 
     from dgraph_tpu_torch.comm.dist import launch
 
-    log("phase 13: the halo lowerings all_to_all, ppermute, overlap and pallas_p2p at W = 4, "
-        "then GCN and GraphSAGE under overlap and GAT under overlap and ppermute over 4 ranks "
-        "(python -m dgraph_tpu_torch.train)")
+    log("phase 13: the halo lowerings all_to_all, ppermute, overlap, pallas_p2p and sched at "
+        "W = 4, then GCN and GraphSAGE under overlap, GAT under overlap and ppermute and GCN "
+        "under sched over 4 ranks (python -m dgraph_tpu_torch.train)")
     parity = phase_lowering_parity()
     four = torch.cuda.device_count() >= P2P_W
     runs = list(W13_RUNS)
     if four:
-        runs += [("gcn", i) for i in LOWERINGS if i != "overlap"]
+        runs += [("gcn", i) for i in LOWERINGS if ("gcn", i) not in runs]
     # the CPU oracles, one a (model, lowering) of W13_RUNS (GAT's at its small
     # size; GCN's phase 9's when it ran)
-    oracles = [run for run in W13_RUNS if not (run[0] == "gcn" and _W4_GCN_CPU)]
+    oracles = [run for run in W13_RUNS if run not in W13_SHARED_ORACLE
+               and not (run[0] == "gcn" and _W4_GCN_CPU)]
     cpu_cfgs = []
     for model, impl in oracles:
         c = dataclasses.asdict(dataclasses.replace(w13_config(model), device="cpu"))
@@ -3903,6 +4080,8 @@ def lowering_phase(cfg) -> tuple:
         cpu = dict(zip(oracles, cpu))
     if _W4_GCN_CPU:
         cpu[("gcn", "overlap")] = _W4_GCN_CPU
+    for run, other in W13_SHARED_ORACLE.items():
+        cpu[run] = cpu[other]
     recs = []
     for model, impl, cfg, rec, grads, smalls in out:
         what = f"{model} W={P2P_W} {impl}"
@@ -3928,15 +4107,17 @@ def lowering_phase(cfg) -> tuple:
     log(f"phase 13's CPU oracles {oracles}: {cpu_s:.1f} s (4 gloo ranks, {threads} threads "
         f"each, {'before' if four else 'beside'} the card's runs)")
     gcn = next(r for r in recs if r["model"] == "gcn")
+    gcn_sched = next(r for r in recs if (r["model"], r["impl"]) == ("gcn", "sched"))
     sage = next(r for r in recs if r["model"] == "sage")
     gats = [r for r in recs if r["model"] == "gat"]
     main_case = {
-        "sorted_segment_sum_bias_relu": [("sorted_segment_sum_bias_relu float32 w F=128",
-                                          gcn["launches"], "gcn_w4_overlap")],
+        "sorted_segment_sum_bias_relu": [
+            ("sorted_segment_sum_bias_relu float32 w F=128", r["launches"], f"gcn_w4_{r['impl']}")
+            for r in (gcn, gcn_sched)],
         "sorted_segment_sum": [("sorted_segment_sum float32 none F=128", sage["launches"],
                                 "sage_w4_overlap")] + [
-            ("sorted_segment_sum float32 none F=128", r["launches"], f"gat_w4_{r['impl']}")
-            for r in gats],
+            ("sorted_segment_sum float32 none F=128", r["launches"], f"{r['model']}_w4_{r['impl']}")
+            for r in gats + [gcn_sched]],
     }
     return [], main_case, {"train": recs, "lowerings": parity}
 

@@ -7,7 +7,7 @@ in the place of the reference's ``axis_name``: ``None`` is world size 1,
 where the halo exchange only reads the (all-masked) send lists, as the
 reference's ``axis_name=None`` path does.
 
-Across ranks the halo exchange has four lowerings, each a pair of
+Across ranks the halo exchange has five lowerings, each a pair of
 directions (the exchange and its transpose, the reverse delivery plus the
 sum into the owners' rows) run by one :class:`_Lowering` and wrapped as two
 ``autograd.Function``\\ s whose backwards are each other, as the reference
@@ -17,8 +17,10 @@ pins its custom VJPs (``collectives.py:266-466``):
 - ``ppermute``: per live delta d the masked ``[S, F]`` block to
   ``(me + d) % W`` and the block from ``(me - d) % W`` landed at its rows,
   every delta posted in one ``batch_isend_irecv``; the reverse adds one
-  masked segment sum a delta into the owners' rows, in delta order, as the
-  reference's does (``collectives.py:861-883``);
+  masked segment sum a delta into the owners' rows: in delta order in
+  ``halo_scatter_sum``, as the reference's does (``collectives.py:861-883``),
+  and in reverse delta order in the exchange's backward, as JAX's transpose
+  of the reference's exchange accumulates x's cotangent;
 - ``overlap``: the same rounds, every block gathered before any is posted;
   the reverse parks the returned blocks in one ``[W, S, F]`` buffer and
   reduces it as ``all_to_all`` does. Over the interior/boundary split the
@@ -27,18 +29,26 @@ pins its custom VJPs (``collectives.py:266-466``):
   orders those sums after the receives. On a gloo group nothing overlaps
   (the waits block the host);
 - ``pallas_p2p``: kernel 5 (:func:`~dgraph_tpu_torch.ops.p2p.p2p_transport`),
-  one-sided puts into the peers' halo buffers.
+  one-sided puts into the peers' halo buffers;
+- ``sched``: the plan's compiled halo schedule (``plan.halo_schedule``,
+  :mod:`dgraph_tpu_torch.sched`) replayed round by round
+  (``collectives.py:515-610``): in round k a rank ships rows ``[start,
+  start + C_k)`` of its masked block to its round peer, every round posted
+  in one ``batch_isend_irecv`` in round order, and each received block is
+  copied to its rows in round order; the reverse sends each landed window
+  back and reduces as ``all_to_all`` does. A rank idle in a round posts
+  nothing in it. Not a split lowering.
 
 ``overlap`` and ``pallas_p2p`` are the split lowerings (:data:`SPLIT_IMPLS`,
 :func:`split_active`, :func:`halo_exchange_split`). Every lowering lands
 the rows ``all_to_all`` lands with the same bits; the blocks no round
-reaches (the rank's own, and those of dead deltas) are +0.0 where
-``all_to_all`` delivers ``x * 0``. Every reverse leg but ``ppermute``'s
-reduces with one masked segment sum over the same ``[W, S, F]`` buffer, so
-it is bit-equal to ``all_to_all``'s. On a gloo group with CUDA tensors
-(ranks sharing a card) the two-sided lowerings copy their payloads to the
-host and back. 'sched' raises: that lowering is a later slice of the port.
-A lowering that cannot run raises; none gives way to another.
+reaches (the rank's own, those of dead deltas, and under ``sched`` the
+rows outside every round's window) are +0.0 where ``all_to_all`` delivers
+``x * 0``. Every reverse leg but ``ppermute``'s reduces with one masked
+segment sum over the same ``[W, S, F]`` buffer, so it is bit-equal to
+``all_to_all``'s. On a gloo group with CUDA tensors (ranks sharing a card)
+the two-sided lowerings copy their payloads to the host and back. A
+lowering that cannot run raises; none gives way to another.
 """
 
 from __future__ import annotations
@@ -54,8 +64,6 @@ from dgraph_tpu_torch import config as _cfg
 from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import EdgePlan, HaloSpec, resolve_halo_impl
 
-_LATER = {"sched": "the compiled-schedule lowering"}
-
 # the lowerings that route through the interior/boundary split
 SPLIT_IMPLS = ("overlap", "pallas_p2p")
 
@@ -68,28 +76,21 @@ def _side_npad(plan: EdgePlan, side: str) -> int:
     return plan.n_src_pad if side == "src" else plan.n_dst_pad
 
 
-def _lowerable(impl: str) -> str:
-    if impl in _LATER:
-        raise NotImplementedError(
-            f"halo_impl={impl!r}: {_LATER[impl]} is a later slice of the port; pin "
-            "DGRAPH_TPU_HALO_IMPL to all_to_all, ppermute, overlap or pallas_p2p")
-    return impl
-
-
 def resolve_plan_impl(plan: EdgePlan, group) -> str:
     """The halo lowering of this call site, resolved once (env pin >
     heuristic; :func:`plan.resolve_halo_impl`) and passed to every leg. A
-    pin that cannot lower here ('sched', which needs a compiled schedule no
-    plan carries yet) warns and the heuristic decides, as in the
-    reference."""
+    pin that cannot lower here ('sched' on a plan without a compiled
+    schedule, 'overlap' without the split) warns and the heuristic decides,
+    as in the reference."""
     if group is None:
         return "none"
     impl, _ = resolve_halo_impl(
         plan.halo_deltas,
         overlap_available=plan.overlap is not None,
         p2p_available=_cfg.pallas_p2p_available(group.device),
+        sched_available=plan.halo_schedule is not None,
     )
-    return _lowerable(impl)
+    return impl
 
 
 def overlap_active(plan: EdgePlan, group=None) -> bool:
@@ -122,14 +123,18 @@ def _masked_owner_sum(back: torch.Tensor, halo: HaloSpec, n_pad: int) -> torch.T
 def _per_delta_owner_sum(back: torch.Tensor, halo: HaloSpec, n_pad: int,
                          peers: list) -> torch.Tensor:
     """The ``ppermute`` reverse's reduction: one masked segment sum a peer's
-    block of ``back``, added in delta order from zeros, as the reference's
-    ``ppermute`` lowering adds them (``collectives.py:861-883``). Its bits
-    are that lowering's, which differ from the flat sum's where an owner row
-    gets partials from more than one peer."""
-    out = back.new_zeros((n_pad, back.shape[-1]))
+    block of ``back``, added in the order of ``peers``, the first sum
+    standing alone. In delta order it is the reference's ``ppermute``
+    ``halo_scatter_sum`` (``collectives.py:861-883``); in reverse delta
+    order, JAX's transpose of its ``ppermute`` exchange, which accumulates
+    x's cotangent walking the per-delta gathers from last to first. The
+    bits differ from the flat sum's where an owner row gets partials from
+    more than one peer."""
+    out = None
     for p in peers:
         blk = back[p] * halo.send_mask[p, :, None].to(back.dtype)
-        out = out + local_ops.segment_sum(blk, halo.send_idx[p], n_pad)
+        part = local_ops.segment_sum(blk, halo.send_idx[p], n_pad)
+        out = part if out is None else out + part
     return out
 
 
@@ -151,8 +156,9 @@ def _masked_block(x: torch.Tensor, halo: HaloSpec, peer: int) -> torch.Tensor:
 
 class _Rounds:
     """Rounds posted in one ``batch_isend_irecv``, every rank in the same
-    (delta) order: each send ``(block, peer, tag)``, each receive ``(rows,
-    peer, tag)``, ``rows`` a view of the buffer its block lands in.
+    (delta or round) order: each send ``(block, peer, tag)``, each receive
+    ``(rows, peer, tag)``, ``rows`` a view of the buffer its block lands in.
+    A rank with nothing to post posts no batch.
     :meth:`wait` returns once every block has landed: on NCCL it orders the
     current stream after the rounds (the host does not wait, and work queued
     before it can run beside them); on gloo it blocks, and a payload staged
@@ -169,7 +175,7 @@ class _Rounds:
                for b, (_, peer, tag) in zip(keep, sends)]
         ops += [dist.P2POp(dist.irecv, buf, peer, group.pg, tag)
                 for buf, (_, peer, tag) in zip(land, recvs)]
-        self._works = dist.batch_isend_irecv(ops)
+        self._works = dist.batch_isend_irecv(ops) if ops else []
         self._keep = keep
         self._land = [(rows, buf) for (rows, _, _), buf in zip(recvs, land)]
 
@@ -186,12 +192,13 @@ class _Rounds:
 class _Lowering:
     """One lowering of the exchange on one group: ``fwd`` (local rows ->
     ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums).
-    The round-based lowerings post first (``post_fwd`` / ``post_rev``) and
-    finish in ``fwd`` / ``rev``, which take rounds already posted."""
+    The per-delta round lowerings post first (``post_fwd`` / ``post_rev``)
+    and finish in ``fwd`` / ``rev``, which take rounds already posted."""
 
-    impl: str  # 'all_to_all' | 'ppermute' | 'overlap' | 'pallas_p2p'
+    impl: str  # 'all_to_all' | 'ppermute' | 'overlap' | 'pallas_p2p' | 'sched'
     group: object
     deltas: tuple
+    schedule: object = None  # sched.ir.HaloSchedule under 'sched' (frozen, hashable)
 
     def post_fwd(self, x, halo: HaloSpec) -> tuple:
         """The exchange's rounds, every block gathered before any is posted:
@@ -220,9 +227,65 @@ class _Lowering:
         recvs = [(back[(me + d) % W], (me + d) % W, d) for d in self.deltas]
         return back, _Rounds(self.group, sends, recvs, h, self.impl)
 
+    def _sched_fwd(self, x, halo: HaloSpec) -> torch.Tensor:
+        """The compiled rounds (``collectives.py:515-566``): in round k
+        this rank sends rows ``[start, start + C_k)`` of its masked block to
+        its round peer and receives a ``[C_k, F]`` block into a buffer of its
+        own; after the wait each buffer is copied to rows ``src*S + start``
+        of the ``[W*S, F]`` buffer in round order. Windows of one block can
+        overlap across rounds (a round's C_k can exceed a transfer's rows),
+        with equal values: a copy, never an add."""
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me, F = self.group.rank, x.shape[-1]
+        sends, recvs, lands = [], [], []
+        for k, rnd in enumerate(self.schedule.rounds):
+            C = rnd.row_count
+            for t in rnd.transfers:
+                if t.src == me:
+                    rows = slice(t.row_start, t.row_start + C)
+                    blk = x.index_select(0, halo.send_idx[t.dst, rows].long())
+                    sends.append((blk * halo.send_mask[t.dst, rows, None].to(x.dtype), t.dst, k))
+                if t.dst == me:
+                    buf = x.new_empty((C, F))
+                    recvs.append((buf, t.src, k))
+                    lands.append((t.src * S + t.row_start, buf))
+        _Rounds(self.group, sends, recvs, x, self.impl).wait()
+        out = x.new_zeros((W * S, F))
+        for off, buf in lands:
+            out[off:off + buf.shape[0]] = buf
+        return out
+
+    def _sched_rev(self, h, halo: HaloSpec, n_pad: int) -> torch.Tensor:
+        """The compiled rounds reversed (``collectives.py:569-610``): each
+        forward receiver sends back the window its block landed in; the
+        forward sender copies what returns into plane ``dst``, rows
+        ``[start, start + C_k)``, of a ``[W, S, F]`` buffer in round order,
+        which reduces as ``all_to_all``'s does."""
+        W, S = halo.send_idx.shape[0], halo.s_pad
+        me, F = self.group.rank, h.shape[-1]
+        h = h.reshape(W * S, F)
+        sends, recvs, lands = [], [], []
+        for k, rnd in enumerate(self.schedule.rounds):
+            C = rnd.row_count
+            for t in rnd.transfers:
+                if t.dst == me:
+                    off = t.src * S + t.row_start
+                    sends.append((h[off:off + C], t.src, k))
+                if t.src == me:
+                    buf = h.new_empty((C, F))
+                    recvs.append((buf, t.dst, k))
+                    lands.append((t.dst, t.row_start, buf))
+        _Rounds(self.group, sends, recvs, h, self.impl).wait()
+        back = h.new_zeros((W, S, F))
+        for plane, start, buf in lands:
+            back[plane, start:start + buf.shape[0]] = buf
+        return _masked_owner_sum(back, halo, n_pad)
+
     def fwd(self, x, halo: HaloSpec, posted: Optional[tuple] = None) -> torch.Tensor:
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, x.shape[-1]
+        if self.impl == "sched":
+            return self._sched_fwd(x, halo)
         if self.impl in ("ppermute", "overlap"):
             out, rounds = posted or self.post_fwd(x, halo)
             rounds.wait()
@@ -241,14 +304,21 @@ class _Lowering:
         send = send * halo.send_mask[..., None].to(x.dtype)
         return all_to_all(send, self.group).reshape(W * S, F)
 
-    def rev(self, h, halo: HaloSpec, n_pad: int, posted: Optional[tuple] = None) -> torch.Tensor:
+    def rev(self, h, halo: HaloSpec, n_pad: int, posted: Optional[tuple] = None,
+            reverse_deltas: bool = False) -> torch.Tensor:
+        """``reverse_deltas``: the exchange's backward, where ``ppermute``
+        adds its per-delta sums in reverse delta order."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, h.shape[-1]
+        if self.impl == "sched":
+            return self._sched_rev(h, halo, n_pad)
         if self.impl in ("ppermute", "overlap"):
             back, rounds = posted or self.post_rev(h, halo)
             rounds.wait()
             if self.impl == "ppermute":
-                return _per_delta_owner_sum(back, halo, n_pad, [(me + d) % W for d in self.deltas])
+                peers = [(me + d) % W for d in self.deltas]
+                return _per_delta_owner_sum(back, halo, n_pad,
+                                            peers[::-1] if reverse_deltas else peers)
         elif self.impl == "pallas_p2p":
             from dgraph_tpu_torch.ops.p2p import p2p_transport
 
@@ -276,7 +346,8 @@ class _Exchange(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         halo = HaloSpec(*ctx.saved_tensors, ctx.s_pad)
-        return ctx.lowering.rev(g.contiguous(), halo, ctx.n_pad), None, None, None, None, None
+        dx = ctx.lowering.rev(g.contiguous(), halo, ctx.n_pad, reverse_deltas=True)
+        return dx, None, None, None, None, None
 
 
 class _Unexchange(torch.autograd.Function):
@@ -299,18 +370,33 @@ def _resolve_halo_arg(impl, deltas, W) -> str:
     """Resolution for call sites that hold only a HaloSpec: ``deltas=None``
     carries no round information, which only ``all_to_all`` can lower."""
     if impl is not None:
-        return _lowerable(impl)
+        return impl
     if deltas is None:
         return "all_to_all"
-    return _lowerable(resolve_halo_impl(tuple(deltas))[0])
+    return resolve_halo_impl(tuple(deltas))[0]
+
+
+def _lowering(impl, deltas, W, group, schedule, entry: str) -> _Lowering:
+    """The lowering of one call; under 'sched' with the plan's schedule,
+    whose absence raises the reference's error (``collectives.py:771-777``,
+    ``:853-858``)."""
+    impl = _resolve_halo_arg(impl, deltas, W)
+    if impl == "sched" and schedule is None:
+        raise ValueError(
+            f"{entry}(impl='sched') needs the plan's compiled halo schedule; resolve "
+            "through resolve_plan_impl and pass schedule=plan.halo_schedule")
+    return _Lowering(impl, group, tuple(deltas or range(1, W)),
+                     schedule if impl == "sched" else None)
 
 
 def halo_exchange(x: torch.Tensor, halo: HaloSpec, group=None, deltas=None,
-                  impl: Optional[str] = None) -> torch.Tensor:
+                  impl: Optional[str] = None, schedule=None) -> torch.Tensor:
     """The halo buffer ``[W*S, F]`` of this rank: rows ``[p*S, (p+1)*S)``
     hold the rows rank p sends here, masked. ``deltas`` is the plan's live
     rank offsets; ``impl`` the lowering, resolved once by the caller (None
-    resolves here). At world size 1 (``group=None``) the send lists are all
+    resolves here); ``schedule`` the plan's compiled halo schedule
+    (``plan.halo_schedule``), read under 'sched' only, where it must be
+    given. At world size 1 (``group=None``) the send lists are all
     masked and the buffer is zeros of the plan's shape; the mask is cast to
     x's dtype so a bf16 stream stays bf16."""
     F = x.shape[-1]
@@ -321,12 +407,12 @@ def halo_exchange(x: torch.Tensor, halo: HaloSpec, group=None, deltas=None,
         return send.reshape(-1, F)
     if deltas is not None and len(deltas) == 0:
         return x.new_zeros((W * S, F))
-    lowering = _Lowering(_resolve_halo_arg(impl, deltas, W), group, tuple(deltas or range(1, W)))
+    lowering = _lowering(impl, deltas, W, group, schedule, "halo_exchange")
     return _Exchange.apply(x, halo.send_idx, halo.send_mask, S, lowering)
 
 
 def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
-                     deltas=None, impl: Optional[str] = None) -> torch.Tensor:
+                     deltas=None, impl: Optional[str] = None, schedule=None) -> torch.Tensor:
     """Transpose of :func:`halo_exchange`: halo-slot values delivered back
     to their owner ranks and summed into local rows."""
     W, S = halo.send_idx.shape[0], halo.s_pad
@@ -336,7 +422,7 @@ def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
         return local_ops.segment_sum(back, halo.send_idx.reshape(-1), n_pad)
     if deltas is not None and len(deltas) == 0:
         return h.new_zeros((n_pad, F))
-    lowering = _Lowering(_resolve_halo_arg(impl, deltas, W), group, tuple(deltas or range(1, W)))
+    lowering = _lowering(impl, deltas, W, group, schedule, "halo_scatter_sum")
     return _Unexchange.apply(h, halo.send_idx, halo.send_mask, S, n_pad, lowering)
 
 
@@ -423,7 +509,8 @@ def halo_extend(x: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch
     if side != plan.halo_side:
         return x
     impl = resolve_plan_impl(plan, group) if group is not None else None
-    return torch.cat([x, halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)], dim=0)
+    return torch.cat([x, halo_exchange(x, plan.halo, group, plan.halo_deltas, impl,
+                                       plan.halo_schedule)], dim=0)
 
 
 def local_take(full: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
@@ -477,7 +564,7 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> t
     else:
         full = local_ops.segment_sum(edata, idx, n_full)
     return full[:n_pad] + halo_scatter_sum(full[n_pad:], plan.halo, n_pad, group,
-                                           plan.halo_deltas, impl)
+                                           plan.halo_deltas, impl, plan.halo_schedule)
 
 
 def scatter_bias_relu(

@@ -83,10 +83,12 @@ def pallas_gather_enabled() -> bool:
 # interior/boundary split), 'all_to_all', 'ppermute' (one round a live rank
 # offset), 'overlap' (those rounds over the interior/boundary split, the
 # interior sums queued while they fly), 'pallas_p2p' (the one-sided put
-# kernel; needs the split and pallas_p2p_available()) or 'sched'.
-# Resolution order: this pin > the heuristic (plan.resolve_halo_impl). The
-# port lowers all of them but 'sched', a later slice: a 'sched' pin warns
-# and the heuristic decides, as it does for any pin the plan cannot lower.
+# kernel; needs the split and pallas_p2p_available()) or 'sched' (the
+# plan's compiled halo schedule, replayed round by round; runs when the plan
+# carries a schedule, as every plan with cross-rank traffic does).
+# Resolution order: this pin > the heuristic (plan.resolve_halo_impl); the
+# heuristic never picks 'pallas_p2p' or 'sched'. A pin the plan cannot lower
+# warns and the heuristic decides.
 halo_impl: str = os.environ.get("DGRAPH_TPU_HALO_IMPL", "auto")
 
 # The one-sided transport kernel (ops.p2p). Tri-state as in the reference:

@@ -9,9 +9,11 @@ dataclass with ``.to(device)``.
 
 The interior/boundary split (:class:`OverlapSpec`, ``build_edge_plan(
 overlap=...)``) and the halo-lowering resolution (:func:`resolve_halo_impl`)
-are ported with the reference's semantics. Not ported yet: the native
-streaming core (the reference only takes it from ``NATIVE_PLAN_MIN_EDGES``
-edges on), the sharded build, and the sched/wire attachments.
+are ported with the reference's semantics, and so is the compiled halo
+schedule (:func:`compile_plan_schedule`, ``EdgePlan.halo_schedule``). Not
+ported yet: the native streaming core (the reference only takes it from
+``NATIVE_PLAN_MIN_EDGES`` edges on), the sharded build, and the wire
+attachment.
 
 Conventions (as in the reference): edge lists are ``[2, E]``; vertices are
 renumbered into contiguous per-rank blocks first; the default edge owner is
@@ -28,7 +30,7 @@ import logging
 import math
 import os
 import types
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -165,6 +167,10 @@ class EdgePlan:
     gather_mv: int = 0
     # [W][W] deduped live halo rows per (sender, needer) pair
     halo_pair_rows: tuple = ()
+    # the compiled halo schedule (sched.ir.HaloSchedule, frozen and
+    # hashable) of halo_pair_rows, the full-world matrix: the same on every
+    # rank, so .to() and .shard() carry it whole; None without traffic
+    halo_schedule: Any = None
     # True on a per-rank view (leading rank axis dropped)
     per_rank: bool = False
     # the interior/boundary split (build_edge_plan(overlap=True)), or None
@@ -578,6 +584,10 @@ def _finalize_plan(
             owner_sorted,
         )
 
+    halo_pair_rows = tuple(tuple(int(v) for v in row) for row in prep.halo_counts)
+    halo_schedule = compile_plan_schedule(
+        halo_pair_rows, s_pad=prep.s_pad, world_size=W, halo_deltas=prep.halo_deltas)
+
     t = torch.from_numpy
     plan = EdgePlan(
         src_index=t(src_idx_arr),
@@ -603,9 +613,8 @@ def _finalize_plan(
         halo_sorted_ids=halo_sorted_ids,
         halo_sort_mc=halo_sort_mc,
         gather_mv=gather_mv,
-        halo_pair_rows=tuple(
-            tuple(int(v) for v in row) for row in prep.halo_counts
-        ),
+        halo_pair_rows=halo_pair_rows,
+        halo_schedule=halo_schedule,
         overlap=overlap_spec,
     )
     layout = EdgePlanLayout(
@@ -716,6 +725,22 @@ def _build_overlap_spec(
 # ---------------------------------------------------------------------------
 # Halo-lowering resolution (dgraph_tpu/plan.py:552-799)
 # ---------------------------------------------------------------------------
+
+
+def compile_plan_schedule(pair_rows: tuple, *, s_pad: int, world_size: int,
+                          halo_deltas: tuple):
+    """The plan's compiled halo schedule (``dgraph_tpu/plan.py:589-612``):
+    :func:`~dgraph_tpu_torch.sched.passes.compile_halo_schedule` of the
+    full-world ``[W][W]`` traffic matrix at the reference's default split
+    threshold, so every rank holds the same round order and the reference's
+    ``schedule_id``. None without live deltas or without traffic."""
+    if not halo_deltas or not pair_rows:
+        return None
+    if not any(v for row in pair_rows for v in row):
+        return None
+    from dgraph_tpu_torch.sched.passes import compile_halo_schedule
+
+    return compile_halo_schedule(pair_rows, s_pad=int(s_pad), world_size=int(world_size))
 
 
 def pick_halo_impl(halo_deltas: tuple) -> str:

@@ -17,6 +17,7 @@ with no card it raises.
     python -m dgraph_tpu_torch.train --device cpu --epochs 3 --data.num_nodes 500
     python -m dgraph_tpu_torch.train --device cpu --model gt --epochs 2 --data.num_nodes 500
     DGRAPH_TPU_HALO_IMPL=pallas_p2p python -m dgraph_tpu_torch.train --world_size 4
+    DGRAPH_TPU_HALO_IMPL=sched python -m dgraph_tpu_torch.train --world_size 4
     python -m dgraph_tpu_torch.train --device cpu --world_size 2 --epochs 2
     python -m dgraph_tpu_torch.train --data.ogb_name ogbn-arxiv --data.root dataset
 
@@ -27,7 +28,7 @@ under ``torchrun`` it joins that group instead): ranks on cards of their
 own talk over NCCL, ranks that share a card (or run on the CPU) over gloo.
 Every rank builds the same graph from the same seed and trains its shard;
 gradients are summed over the ranks (``DGRAPH_TPU_HALO_IMPL`` pins the halo
-lowering: all_to_all, ppermute, overlap or pallas_p2p). The graph
+lowering: all_to_all, ppermute, overlap, pallas_p2p or sched). The graph
 transformer trains on one rank only (more raise before any work). The default partition is
 ``multilevel``, as the reference's: the native host library
 (``dgraph_tpu_torch.native``, built with ``g++`` at first use) partitions,

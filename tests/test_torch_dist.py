@@ -5,29 +5,37 @@ which imports no JAX): one spawn per world size with every case inside it.
 The JAX side runs here on the 8-device virtual mesh. Inputs are numpy arrays
 made from seeds and handed over in a pickle.
 
-- The halo exchange, its four lowerings (all_to_all; the p2p transport's
+- The halo exchange, its five lowerings (all_to_all; the p2p transport's
   plain version, ``sign=+1`` forward and ``sign=-1`` in the reverse leg;
-  the ppermute and the overlap rounds over gloo) and ``halo_scatter_sum``,
-  forward and VJP, against the reference's all_to_all lowering: bit for
-  bit, bit patterns compared (pure data movement and the same masked
-  segment sums), except ppermute's reverse leg, which sums a delta at a
-  time as the reference's ppermute lowering does and is held to that
-  lowering on the virtual mesh: ``halo_scatter_sum`` bit for bit (on
-  W4-random it differs from all_to_all's flat sum in the last bit, so the
-  per-delta order is what the check sees), the x VJP within 1e-6 (f32;
-  the reference's is JAX's transpose of its per-delta gathers, which adds
-  the deltas' sums in another order). The rows that masked send slots read, and the masked slots of
-  the halo-side inputs, hold NaN and negative values: a mask applied as a
-  multiply gives NaN and -0.0 there, as the reference's does, where a
-  select would give +0.0. The blocks of a rank's halo buffer that no put or
-  round reaches (its own, and those of dead deltas) are +0.0 on the p2p,
-  ppermute and overlap routes, as the reference's transport and rounds
+  the ppermute, the overlap and the compiled schedule's rounds over gloo)
+  and ``halo_scatter_sum``, forward and VJP, against the reference's
+  all_to_all lowering: bit for bit, bit patterns compared (pure data
+  movement and the same masked segment sums), except ppermute's reverse
+  leg, which sums a delta at a time as the reference's ppermute lowering
+  does and is held to that lowering on the virtual mesh, bit for bit:
+  ``halo_scatter_sum`` adds the deltas' sums in delta order, the x VJP (JAX's
+  transpose of the per-delta gathers) in reverse delta order (on W4-random
+  either differs from all_to_all's flat sum in the last bit, so the order
+  is what the check sees). 'sched' is also held to the reference's 'sched'
+  lowering (its plan's schedule passed), every leg bit for bit, and the
+  port's plan carries the reference's ``schedule_id``. The rows that
+  masked send slots read, and the masked slots of the halo-side inputs,
+  hold NaN and negative values: a mask applied as a multiply gives NaN and
+  -0.0 there, as the reference's does, where a select would give +0.0. The
+  blocks of a rank's halo buffer that no put or round reaches (its own,
+  and those of dead deltas) are +0.0 on the p2p, ppermute and overlap
+  routes, as the reference's transport and rounds
   define them (``pallas_p2p.py:228-231``, ``collectives.py:223``), where the
   all_to_all lowering delivers ``x * 0``; there those buffers are held to
-  zeros. The overlap pair with its rounds left in flight
-  (``halo_exchange_overlap``, ``halo_scatter_sum_overlap``) is bit-equal
-  to the inline one. Graphs: W = 2 and W = 4 random partitions, and a
-  W = 4 block partition of a ring whose live deltas are {1, 3} (n < W-1).
+  zeros. Under 'sched' the same holds row by row: the rows outside every
+  round's window are +0.0, and its halo-side inputs are 0 there. The
+  overlap pair with its rounds left in flight (``halo_exchange_overlap``,
+  ``halo_scatter_sum_overlap``) is bit-equal to the inline one. Graphs:
+  W = 2 and W = 4 random partitions, a W = 4 block partition of a ring
+  whose live deltas are {1, 3} (n < W-1), and a W = 4 block partition
+  whose traffic matrix splits two hub pairs across rounds, with windows of
+  one block overlapping, a rank idle in every round and another idle in
+  some.
 - The GCN at W = 4 on the p2p split route: logits, loss and every parameter
   gradient against the reference's W = 4 step under the all_to_all
   lowering and under its overlap split, within 1e-5 (f32: the split groups
@@ -39,13 +47,17 @@ made from seeds and handed over in a pickle.
   logits, loss and gradients against the reference's GAT step on the
   virtual mesh (all_to_all) within 1e-4 (the attention's sums over edges
   and heads in another order, as ``test_torch_gat.py`` holds GAT).
+- GCN and GAT at W = 4 under the 'sched' pin against the reference's step
+  under its own 'sched' pin, within 1e-5 and 1e-4.
 - GraphSAGE's split route under the overlap pin at W = 2 and 4: logits,
   loss and gradients against the reference's split route (its overlap
   lowering) within 1e-5.
 - ``MessagePassing`` with a segment-sum layer at W = 1, 2 and 4 (the port
   under the all_to_all, ppermute and overlap pins) against the
-  reference's within 1e-6; the communicators' ``put`` (bit for bit; at
-  W = 1 the reference's shape check) and ``gather_concat`` (1e-6).
+  reference's within 1e-6; under the 'sched' pin it raises the
+  reference's error, as the reference's does (the facade's exchange takes
+  no schedule); the communicators' ``put`` (bit for bit; at W = 1 the
+  reference's shape check) and ``gather_concat`` (1e-6).
 - The CLI at two CPU ranks, and a rank that raises ends the launch.
 """
 
@@ -91,8 +103,30 @@ F_IN, HIDDEN, C, LR = 24, 160, 5, 5e-3
 GAT_HIDDEN, GAT_HEADS = 64, 4  # two head groups of two (gather_col_block 128)
 # (model, pinned lowering) of the GAT and GraphSAGE cases at each world size
 MODEL_CASES = (("gat", "ppermute"), ("gat", "overlap"), ("sage", "overlap"))
+SCHED_MODEL_CASES = (("gcn", "sched"), ("gat", "sched"))  # at W = 4
 TIMEOUT = 120
-PPERMUTE_REV_TOL = 1e-6
+
+
+def _model_cases(W: int) -> tuple:
+    return MODEL_CASES + (SCHED_MODEL_CASES if W == 4 else ())
+
+
+def _hub_graph(W=4, V=160, seed=5):
+    """Edges of a W-rank block partition whose traffic matrix has two hub
+    pairs (rank 1 -> 0 33 rows, 2 -> 1 21 rows) among pairs of 1-2 rows, and
+    none to or from rank 3: the schedule splits both hubs across rounds, a
+    round's height exceeds some of its transfers' rows, so windows of one
+    block overlap, and rank 3 is idle in every round."""
+    n = V // W
+    rng = np.random.default_rng(seed)
+
+    def cross(s, d, k):
+        return np.stack([s * n + rng.choice(n, k, replace=False), d * n + rng.integers(0, n, k)])
+
+    local = rng.integers(0, n, (2, 240)) + np.repeat(np.arange(W), 60) * n
+    pairs = ((1, 0, 33), (2, 1, 21), (0, 1, 2), (0, 2, 1), (2, 0, 2))
+    return (np.concatenate([local] + [cross(*p) for p in pairs], axis=1),
+            np.repeat(np.arange(W), n))
 
 
 def _halo_graphs(W: int) -> list:
@@ -108,6 +142,7 @@ def _halo_graphs(W: int) -> list:
         edges = np.concatenate([np.stack([ring, (ring + 1) % V]),
                                 np.stack([(ring + 1) % V, ring]), local], axis=1)
         cases.append(("W4-block-ring", edges, np.repeat(np.arange(W), V // W)))
+        cases.append(("W4-hub-split",) + _hub_graph())
     return cases
 
 
@@ -117,6 +152,18 @@ def _assert_bits_equal(a, b, msg=""):
     a, b = np.asarray(a), np.asarray(b)
     assert a.dtype == b.dtype == np.float32, msg
     np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=msg)
+
+
+def _landed(schedule, r: int) -> np.ndarray:
+    """The rows of rank r's ``[W*S]`` halo buffer some round of ``schedule``
+    lands a window in."""
+    W, S = schedule.world_size, schedule.s_pad
+    rows = np.zeros(W * S, bool)
+    for rnd in schedule.rounds:
+        for t in rnd.transfers:
+            if t.dst == r:
+                rows[t.src * S + t.row_start:t.src * S + t.row_start + rnd.row_count] = True
+    return rows
 
 
 def _unreached(W: int, r: int, deltas) -> list:
@@ -157,18 +204,26 @@ def _halo_inputs(label, edges, part, W, seed):
     send_idx, send_mask = np.asarray(plan.halo.send_idx), np.asarray(plan.halo.send_mask)
     assert (send_mask == 0).any(), "no masked send slot to hold the special values"
     xs, halo_side = _with_specials(x, send_idx, send_mask, W, S, plan.halo_deltas)
-    return plan, {
+    case = {
         "label": label, "edges": edges, "part": part, "x": x, "xs": xs,
         "put": rng.normal(size=(W, W, S, F_HALO)).astype(np.float32),
         "h": halo_side(rng.normal(size=(W, W * S, F_HALO)).astype(np.float32)),
         "ct_halo": halo_side(rng.normal(size=(W, W * S, F_HALO)).astype(np.float32)),
         "ct_owner": rng.normal(size=(W, n, F_HALO)).astype(np.float32),
     }
+    # 'sched''s halo-side inputs: 0 on the rows no round lands, the halo
+    # buffer's own values there (as the other blocks no round reaches)
+    if plan.halo_schedule is not None:
+        landed = np.stack([_landed(plan.halo_schedule, r) for r in range(W)])[..., None]
+        for k in ("h", "ct_halo"):
+            case[k + "_sched"] = np.where(landed, case[k], np.float32(0))
+    return plan, case
 
 
 def _jax_halo(plan, case, W, impl="all_to_all"):
     """The reference's ``impl`` lowering: buffer, x's VJP, halo_scatter_sum
-    and h's VJP, per rank."""
+    and h's VJP, per rank (the plan's schedule passed, which only 'sched'
+    reads)."""
     mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
     n_pad = plan.n_src_pad
 
@@ -177,11 +232,12 @@ def _jax_halo(plan, case, W, impl="all_to_all"):
 
         def ex(x_):
             return collectives.halo_exchange(x_, p.halo, GRAPH_AXIS, deltas=p.halo_deltas,
-                                             impl=impl)
+                                             impl=impl, schedule=p.halo_schedule)
 
         def unex(h_):
             return collectives.halo_scatter_sum(h_, p.halo, n_pad, GRAPH_AXIS,
-                                                deltas=p.halo_deltas, impl=impl)
+                                                deltas=p.halo_deltas, impl=impl,
+                                                schedule=p.halo_schedule)
 
         buf, vjp = jax.vjp(ex, x)
         back, vjp2 = jax.vjp(unex, h)
@@ -233,21 +289,24 @@ def _jax_model(model: str, comm):
 
 
 def _model_inputs(model: str, W: int) -> tuple:
-    """(reference graph, flax params, the ranks' inputs) of GAT or GraphSAGE
-    at W ranks on the GCN case's graph (random partition, the split
-    attached as the reference's overlap pin attaches it)."""
+    """(reference graph, flax params, the ranks' inputs) of GAT, GCN or
+    GraphSAGE at W ranks on the GCN case's graph (random partition, the
+    split attached as the reference's overlap pin attaches it; GCN's
+    symmetric-norm edge weights)."""
     sbm = synthetic.sbm_classification_graph(num_nodes=300, num_classes=C, feat_dim=F_IN,
                                              seed=2)
     saved = jcfg.halo_impl
     jcfg.set_flags(halo_impl="overlap")
     try:
         ref = JaxGraph.from_global(sbm["edge_index"], sbm["features"], sbm["labels"],
-                                   sbm["masks"], W, partition_method="random", tune="off")
+                                   sbm["masks"], W, partition_method="random",
+                                   add_symmetric_norm=model == "gcn", tune="off")
     finally:
         jcfg.set_flags(halo_impl=saved)
     jmodel = _jax_model(model, Communicator.init_process_group("single"))
     plan0 = jax.tree.map(lambda a: jnp.asarray(a[0]), ref.plan)
-    params = jmodel.init(jax.random.key(1), jnp.asarray(ref.features[0]), plan0)
+    ew = [jnp.asarray(ref.edge_weight[0])] if model == "gcn" else []
+    params = jmodel.init(jax.random.key(1), jnp.asarray(ref.features[0]), plan0, *ew)
     sd = {k: v.numpy() for k, v in params_from_jax(params).items()}
     g = {"model": model, "edges": sbm["edge_index"], "features": sbm["features"],
          "labels": sbm["labels"], "masks": sbm["masks"], "classes": C, "params": sd,
@@ -320,10 +379,10 @@ def ranks(tmp_path_factory):
         for i, (label, edges, part) in enumerate(_halo_graphs(W)):
             plan, case = _halo_inputs(label, edges, part, W, seed=10 + i)
             halo.append((plan, case))
-        models = [_model_inputs(m, W) for m, _ in MODEL_CASES]
+        models = [_model_inputs(m, W) for m, _ in _model_cases(W)]
         inputs = {"halo": [c for _, c in halo],
                   "models": [dict(g, impl=impl) for (_, _, g), (_, impl) in
-                             zip(models, MODEL_CASES)]}
+                             zip(models, _model_cases(W))]}
         gcn = None
         if W == 4:
             gcn = _gcn_inputs()
@@ -337,31 +396,35 @@ def ranks(tmp_path_factory):
     return out
 
 
-HALO_CASES = [(2, 0), (4, 0), (4, 1)]
+HALO_CASES = [(2, 0), (4, 0), (4, 1), (4, 2)]
+HALO_IDS = ["W2-random", "W4-random", "W4-block-ring", "W4-hub-split"]
 
 
 @pytest.mark.parametrize("impl", torch_dist_ranks.IMPLS)
-@pytest.mark.parametrize("W, i", HALO_CASES, ids=["W2-random", "W4-random", "W4-block-ring"])
+@pytest.mark.parametrize("W, i", HALO_CASES, ids=HALO_IDS)
 def test_halo_lowerings_bitwise_equal_reference_all_to_all(ranks, W, i, impl):
     halo, _, res, _ = ranks[W]
     plan, case = halo[i]
+    if impl == "sched":
+        case = dict(case, h=case["h_sched"], ct_halo=case["ct_halo_sched"])
     want = _jax_halo(plan, case, W)
-    want_pp = _jax_halo(plan, case, W, "ppermute") if impl == "ppermute" else None
+    want_own = _jax_halo(plan, case, W, impl) if impl in ("ppermute", "sched") else None
     S = plan.halo.s_pad
     for r in range(W):
         got = res[r]["halo"][i]
         assert tuple(got["deltas"]) == tuple(plan.halo_deltas)
+        assert got["schedule_id"] == plan.halo_schedule.schedule_id
         for k, (name, a, b) in enumerate(zip(("buffer", "x VJP", "halo_scatter_sum", "h VJP"),
                                              got[impl], want)):
             b = b[r]
-            if impl == "ppermute" and name == "halo_scatter_sum":
-                _assert_bits_equal(a, want_pp[k][r], f"rank {r} {name} (reference ppermute)")
+            if impl == "ppermute" and name in ("halo_scatter_sum", "x VJP"):
+                _assert_bits_equal(a, want_own[k][r], f"rank {r} {name} (reference ppermute)")
                 continue
-            if impl == "ppermute" and name == "x VJP":
-                np.testing.assert_allclose(a, want_pp[k][r], rtol=PPERMUTE_REV_TOL,
-                                           atol=PPERMUTE_REV_TOL, err_msg=f"rank {r} {name}")
-                continue
-            if impl != "all_to_all" and name in ("buffer", "h VJP"):
+            if impl == "sched":
+                _assert_bits_equal(a, want_own[k][r], f"rank {r} {name} (reference sched)")
+                if name in ("buffer", "h VJP"):
+                    b = np.where(_landed(plan.halo_schedule, r)[:, None], b, np.float32(0))
+            elif impl != "all_to_all" and name in ("buffer", "h VJP"):
                 b = _zero_unreached(b, W, S, r, plan.halo_deltas)
             _assert_bits_equal(a, b, f"rank {r} {name}")
 
@@ -372,7 +435,7 @@ def _zero_unreached(b, W, S, r, deltas):
     return b.reshape(W * S, -1)
 
 
-@pytest.mark.parametrize("W, i", HALO_CASES, ids=["W2-random", "W4-random", "W4-block-ring"])
+@pytest.mark.parametrize("W, i", HALO_CASES, ids=HALO_IDS)
 def test_overlap_rounds_in_flight_equal_inline(ranks, W, i):
     """The overlap exchange and reverse with their rounds left in flight
     (a column view taken before the wait) give the inline lowering's bits."""
@@ -418,6 +481,24 @@ def test_block_ring_has_sparse_deltas(ranks):
     assert plan.halo_deltas == (1, 3)
 
 
+def test_hub_case_splits_hubs_and_idles_ranks(ranks):
+    """The hub case's schedule is what its test claims: both hub pairs
+    split across rounds, windows of one block overlapping across rounds,
+    rank 3 idle in every round and rank 2 idle in some."""
+    plan, _ = ranks[4][0][2]
+    sched = plan.halo_schedule
+    chunks = {}
+    for rnd in sched.rounds:
+        for t in rnd.transfers:
+            chunks.setdefault((t.src, t.dst), []).append((t.row_start, rnd.row_count))
+    assert len(chunks[(1, 0)]) > 1 and len(chunks[(2, 1)]) > 1
+    assert any(a < b + cb and b < a + ca for ws in chunks.values()
+               for i, (a, ca) in enumerate(ws) for b, cb in ws[i + 1:])
+    busy = [{r for t in rnd.transfers for r in (t.src, t.dst)} for rnd in sched.rounds]
+    assert not any(3 in b for b in busy)
+    assert any(2 in b for b in busy) and any(2 not in b for b in busy)
+
+
 def _assert_grads(got: dict, want, tol):
     want_sd = {k: v.numpy() for k, v in params_from_jax(want).items()}
     assert got.keys() == want_sd.keys()
@@ -458,7 +539,7 @@ def test_five_adam_steps_at_w4_match_optax(ranks, pinned):
 
 def _check_model_step(ranks, W, k, want_impl, tol, jax_impl):
     ref, params, _ = ranks[W][3][k]
-    model = MODEL_CASES[k][0]
+    model = _model_cases(W)[k][0]
     logits, loss, grads = _jax_step(ref, params, jax_impl, model, W)
     for r, res in enumerate(ranks[W][2]):
         got = res["models"][k]
@@ -476,6 +557,17 @@ def test_gat_over_ranks_matches_reference(ranks, pinned, W, impl):
     halo_extend, under the pinned lowering) against the reference's GAT
     step under all_to_all, within 1e-4."""
     _check_model_step(ranks, W, MODEL_CASES.index(("gat", impl)), impl, 1e-4, "all_to_all")
+
+
+@pytest.mark.parametrize("model, tol", [("gcn", 1e-5), ("gat", 1e-4)])
+def test_sched_models_at_w4_match_reference_sched(ranks, pinned, model, tol):
+    """GCN and GAT's step 0 at W = 4 under the 'sched' pin (every rank
+    resolves 'sched', the unsplit route) against the reference's step under
+    its own 'sched' pin, within the limits of the overlap cases (GCN's
+    1e-5, GAT's 1e-4)."""
+    got = _check_model_step(ranks, 4, _model_cases(4).index((model, "sched")), "sched", tol,
+                            "sched")
+    assert not any(g["split"] for g in got)
 
 
 @pytest.mark.parametrize("W", [2, 4])
@@ -527,6 +619,22 @@ def test_message_passing_matches_reference(ranks, W):
             assert impl == pin, f"rank {r} resolved {impl} under the pin {pin}"
             np.testing.assert_allclose(out, want[r], rtol=1e-6, atol=1e-6,
                                        err_msg=f"rank {r} {impl}")
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_message_passing_under_sched_raises_as_reference(ranks, pinned, W):
+    """Under the 'sched' pin MessagePassing resolves 'sched' (the plan
+    carries a schedule), and the communicator's exchange, which takes no
+    schedule in either package, raises the reference's error."""
+    plan, case = ranks[W][0][0]
+    jcfg.set_flags(halo_impl="sched")
+    with pytest.raises(ValueError) as ref:
+        _jax_message_passing(plan, case["x"], W)
+    assert "needs the plan's compiled halo schedule" in str(ref.value)
+    for r, res in enumerate(ranks[W][2]):
+        impl, err = res["message_passing_sched"]
+        assert impl == "sched", f"rank {r} resolved {impl}"
+        assert err == str(ref.value), f"rank {r}: {err}"
 
 
 def _jax_facade(plan, case, W):

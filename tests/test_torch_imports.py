@@ -51,7 +51,7 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/obs/health.py", "dgraph_tpu_torch/utils/cli.py",
                  "dgraph_tpu_torch/native.py", "dgraph_tpu_torch/partition.py",
                  "dgraph_tpu_torch/data/ogbn.py", "dgraph_tpu_torch/data/ogb_raw.py",
-                 "dgraph_tpu_torch/data/memmap.py",
+                 "dgraph_tpu_torch/data/memmap.py", "dgraph_tpu_torch/sched/ir.py",
                  "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -71,7 +71,7 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.analysis.host.__main__, dgraph_tpu_torch.obs.health\n"
         "import dgraph_tpu_torch.utils.cli, dgraph_tpu_torch.native\n"
         "import dgraph_tpu_torch.data.ogbn, dgraph_tpu_torch.data.ogb_raw\n"
-        "import dgraph_tpu_torch.data.memmap\n"
+        "import dgraph_tpu_torch.data.memmap, dgraph_tpu_torch.sched.__main__\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"

@@ -8,9 +8,11 @@ the JAX package's (host-only: no collective runs here).
   the cases of ``tests/test_pallas_p2p.py``'s ``TestResolveP2PLadder`` that
   need no adopted record (the port has no record tier), on the port's
   resolver, and the pin's build-time rejections;
-- the one lowering the port does not have yet ('sched') raises where it is
-  asked for by name, and a 'sched' pin warns and runs the heuristic's
-  lowering, as a pin the plan cannot lower does in the reference.
+- 'sched' asked for by name with no schedule raises the reference's
+  error; a 'sched' pin on a plan without a schedule warns and runs the
+  heuristic's lowering, as a pin the plan cannot lower does in the
+  reference; a plan that carries a schedule resolves 'sched', off the
+  split route.
 """
 
 import dataclasses
@@ -148,8 +150,11 @@ def test_p2p_pin_rejects_knobs(flags, kw, match):
 
 
 def test_unported_lowerings_raise(flags, caplog):
-    """Only 'sched' raises, asked for by name; a 'sched' pin warns and the
-    heuristic decides; 'overlap' and 'ppermute' resolve and run."""
+    """'sched' asked for by name with no schedule raises the reference's
+    error (``collectives.py:771-777``, ``:853-858``); a 'sched' pin on a plan
+    without a schedule warns once and the heuristic decides; a plan that
+    carries a schedule resolves 'sched' off the split route. 'overlap' and
+    'ppermute' resolve and run."""
     import logging
 
     @dataclasses.dataclass(frozen=True)
@@ -160,16 +165,25 @@ def test_unported_lowerings_raise(flags, caplog):
     edges = np.stack([np.arange(32), (np.arange(32) + 1) % 32])
     plan, _ = pl.build_edge_plan(edges, part, world_size=2, overlap=True)
     view = plan.shard(0)
-    with pytest.raises(NotImplementedError, match="compiled-schedule"):
-        collectives._lowerable("sched")
-    with pytest.raises(NotImplementedError, match="compiled-schedule"):
-        collectives.halo_exchange(torch.zeros(view.n_src_pad, 3), view.halo, Group(),
-                                  view.halo_deltas, "sched")
-    set_flags(halo_impl="sched")  # a pin the plan cannot lower: warned, the heuristic runs
+    assert view.halo_schedule is not None
+    for fn, args in ((collectives.halo_exchange, (torch.zeros(view.n_src_pad, 3), view.halo)),
+                     (collectives.halo_scatter_sum,
+                      (torch.zeros(2 * view.halo.s_pad, 3), view.halo, view.n_src_pad))):
+        with pytest.raises(ValueError, match=rf"{fn.__name__}\(impl='sched'\) needs the plan's "
+                           "compiled halo schedule; resolve through resolve_plan_impl and pass "
+                           r"schedule=plan.halo_schedule"):
+            fn(*args, group=Group(), deltas=view.halo_deltas, impl="sched")
+    bare = dataclasses.replace(view, halo_schedule=None)
+    set_flags(halo_impl="sched")  # a pin the plan cannot lower: warned once, the heuristic runs
     pl._warned.clear()
     with caplog.at_level(logging.WARNING):
-        assert collectives.resolve_plan_impl(view, Group()) == "overlap"
-    assert "'sched'" in caplog.text and "'overlap'" in caplog.text
+        assert collectives.resolve_plan_impl(bare, Group()) == "overlap"
+        assert collectives.resolve_plan_impl(bare, Group()) == "overlap"
+    warned = [r for r in caplog.records if "'sched'" in r.getMessage()]
+    assert len(warned) == 1 and "'overlap'" in warned[0].getMessage()
+    assert collectives.resolve_plan_impl(view, Group()) == "sched"  # the plan has one
+    assert not collectives.split_active(view, Group())
+    assert not collectives.overlap_active(view, Group())
     set_flags(halo_impl="overlap")
     assert collectives.split_active(view, Group()) and collectives.overlap_active(view, Group())
     set_flags(halo_impl="auto")  # the split alone resolves to 'overlap' too
@@ -187,8 +201,8 @@ def test_unported_lowerings_raise(flags, caplog):
     (True, "overlap"), (False, "all_to_all")], ids=["split", "no_split"])
 def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fallback):
     """A pallas_p2p pin the rank cannot run resolves as the reference does;
-    the warning names the lowering it falls to, and that lowering runs (the
-    'overlap' rounds where the plan carries the split)."""
+    the warning names the lowering it falls to (the 'overlap' rounds where
+    the plan carries the split; ``test_torch_dist.py`` runs each)."""
     import logging
 
     set_flags(halo_impl="pallas_p2p", use_pallas_p2p=None)
@@ -198,4 +212,3 @@ def test_unlowerable_p2p_pin_warning_says_what_runs(flags, caplog, overlap, fall
     assert got == (fallback, "heuristic")
     text = " ".join(r.getMessage() for r in caplog.records)
     assert repr(fallback) in text and "will raise" not in text
-    assert collectives._lowerable(fallback) == fallback

@@ -26,26 +26,28 @@ from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import build_edge_plan
 from dgraph_tpu_torch.train import loop
 
-IMPLS = ("all_to_all", "pallas_p2p", "ppermute", "overlap")
+IMPLS = ("all_to_all", "pallas_p2p", "ppermute", "overlap", "sched")
 # the lowerings MessagePassing runs under (pinned; the plan carries the split)
 MP_IMPLS = ("all_to_all", "ppermute", "overlap")
 
 
 def _halo_case(group, case: dict) -> dict:
     """Every lowering's halo buffer, halo_scatter_sum and both VJPs on this
-    rank, for one graph."""
+    rank, for one graph ('sched' on the halo-side inputs of its own,
+    ``h_sched``/``ct_halo_sched``), and the plan's schedule id."""
     r = group.rank
     plan, _ = build_edge_plan(case["edges"], case["part"], world_size=group.world_size,
                               overlap=True)
     plan = plan.shard(r)
-    n_pad = plan.n_src_pad
-    out = {"deltas": np.asarray(plan.halo_deltas)}
+    n_pad, sched = plan.n_src_pad, plan.halo_schedule
+    out = {"deltas": np.asarray(plan.halo_deltas), "schedule_id": sched.schedule_id}
     for impl in IMPLS:
+        own = "_sched" if impl == "sched" else ""
         x = torch.from_numpy(case["xs"][r]).requires_grad_()
-        buf = coll.halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
-        (buf * torch.from_numpy(case["ct_halo"][r])).sum().backward()
-        h = torch.from_numpy(case["h"][r]).requires_grad_()
-        back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl)
+        buf = coll.halo_exchange(x, plan.halo, group, plan.halo_deltas, impl, sched)
+        (buf * torch.from_numpy(case["ct_halo" + own][r])).sum().backward()
+        h = torch.from_numpy(case["h" + own][r]).requires_grad_()
+        back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl, sched)
         (back * torch.from_numpy(case["ct_owner"][r])).sum().backward()
         out[impl] = [a.detach().numpy() for a in (buf, x.grad, back, h.grad)]
     # the overlap pair with its rounds left in flight, a view taken before
@@ -83,6 +85,24 @@ def _message_passing(group, case: dict) -> dict:
     return out
 
 
+def _message_passing_sched(group, case: dict) -> tuple:
+    """MessagePassing under the 'sched' pin on this rank: the plan carries a
+    schedule, so the lowering resolves 'sched', and the communicator's
+    ``halo_exchange`` (which takes no schedule, as the reference's) raises.
+    Returns the lowering resolved and the error."""
+    r, W = group.rank, group.world_size
+    plan = build_edge_plan(case["edges"], case["part"], world_size=W)[0].shard(r)
+    mp = MessagePassing(mp_layer, DistComm(group))
+    config.halo_impl = "sched"
+    try:
+        mp(torch.from_numpy(case["x"][r]), plan)
+        return coll.resolve_plan_impl(plan, group), None
+    except ValueError as e:
+        return coll.resolve_plan_impl(plan, group), str(e)
+    finally:
+        config.halo_impl = "auto"
+
+
 def _facade(group, case: dict) -> dict:
     """The communicator's ``put`` of this rank's ``[W, S, F]`` stack and its
     ``gather_concat`` of (x, x) on this rank."""
@@ -94,7 +114,7 @@ def _facade(group, case: dict) -> dict:
 
 
 def _model_rank(group, g: dict) -> dict:
-    """Step 0 of GAT or GraphSAGE (``g["model"]``) on this rank under the
+    """Step 0 of GAT, GCN or GraphSAGE (``g["model"]``) on this rank under the
     lowering ``g["impl"]`` pinned (the graph built under the pin, so
     'overlap' attaches the split): the lowering resolved, whether the split
     route ran, the logits, the global loss and the summed gradients."""
@@ -103,10 +123,15 @@ def _model_rank(group, g: dict) -> dict:
     try:
         comm = DistComm(group)
         graph = DistributedGraph.from_global(
-            g["edges"], g["features"], g["labels"], g["masks"], W, partition_method="random")
+            g["edges"], g["features"], g["labels"], g["masks"], W, partition_method="random",
+            add_symmetric_norm=g["model"] == "gcn")
         F = g["features"].shape[1]
-        model = (GAT(F, g["hidden"], g["classes"], comm, num_layers=2, num_heads=g["heads"])
-                 if g["model"] == "gat" else GraphSAGE(F, g["hidden"], g["classes"], comm))
+        if g["model"] == "gat":
+            model = GAT(F, g["hidden"], g["classes"], comm, num_layers=2, num_heads=g["heads"])
+        elif g["model"] == "gcn":
+            model = GCN(F, g["hidden"], g["classes"], comm)
+        else:
+            model = GraphSAGE(F, g["hidden"], g["classes"], comm)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in g["params"].items()})
         plan = graph.plan.shard(r)
         b = graph.rank_batch("train", r)
@@ -189,6 +214,7 @@ def run_cases(group, path: str) -> dict:
     out = {"halo": [_halo_case(group, c) for c in inputs["halo"]],
            "split_ops": _split_ops(group, inputs["halo"][0]),
            "message_passing": _message_passing(group, inputs["halo"][0]),
+           "message_passing_sched": _message_passing_sched(group, inputs["halo"][0]),
            "facade": _facade(group, inputs["halo"][0]),
            "models": [_model_rank(group, g) for g in inputs["models"]]}
     if "gcn" in inputs:
@@ -318,3 +344,9 @@ def analysis_case(group, w, labels: tuple, cases: tuple) -> dict:
             records.extend(log)
     out.update(plain_none_equal=same, mutant_records=records)
     return out
+
+
+def resolved_lowering(epoch, t) -> tuple:
+    """``on_step`` of the training CLI's runs in the tests: the lowering this
+    rank resolved and whether it took the split route."""
+    return coll.resolve_plan_impl(t.plan, t.comm.group), t.comm.split_active(t.plan)
