@@ -102,10 +102,13 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    card through CUDA IPC, or a card each): bit-equal to its plain version
    (the masked send stack through ``all_to_all``), bit patterns compared,
    at the real W = 4 plan's send lists (F = 256, f32 and bf16, the masked
-   exchange and the unmasked reverse leg) and at edge cases whose tiles
+   exchange and the unmasked reverse leg; the same rows fp8-encoded as
+   uint8 tiles of F + 4 = 260 bytes, no mask) and at edge cases whose tiles
    hold NaN, -inf and negative values (deltas {1} and {1, 3}, F in {1, 33,
-   256}, both directions, with and without a mask, unaligned rows), two
-   launches equal; kernel 6 (its fault-seeded copy) ``None`` bit-equal to
+   256}, both directions, with and without a mask, unaligned rows; uint8
+   tiles of 260 and 37 bytes a row, aligned and one byte off, where a mask
+   must raise), two launches equal; kernel 6 (its fault-seeded copy)
+   ``None`` bit-equal to
    kernel 5 and to its plain version at the same cases and at the real
    send lists, each seeded fault (``bad_dst_row``, ``oversize``) bit-equal
    to its plain version at deltas whose landings no two senders share;
@@ -196,12 +199,24 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    reverse without the first delta's rounds) must exceed; a second
    control, the schedule with one transfer taken out by hand, must miss
    all_to_all's bits on that transfer's rows; each leg timed barrier to
-   barrier (median of LOWERING_REPS). Then
+   barrier (median of LOWERING_REPS). Before them the wire codecs
+   (``dgraph_tpu_torch.wire``) on the card: bf16 and fp8 at f32 and bf16
+   activations, rows with zero rows and subnormals, the card's bytes equal
+   to the host's and to the numpy reference codec's, decode bit-equal,
+   each codec timed at one rank's exchange; after them the same five
+   lowerings under each of WIRE_TURNS (bf16 and fp8 wire on f32
+   activations, fp8 on bf16), in the same processes, bit-equal to
+   all_to_all under the same format in both legs (ppermute's reverse
+   within TOL). Then
    ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
    at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
    the split) and GraphSAGE (its split route, kernel 2 on both subsets)
    under DGRAPH_TPU_HALO_IMPL=overlap, GAT (gat_arxiv's width) under
-   overlap and under ppermute, GCN (unsplit) under sched; each run: every
+   overlap and under ppermute, GCN (unsplit) under sched, and GCN under
+   pallas_p2p with DGRAPH_TPU_WIRE_FORMAT=fp8 (kernel 5 moving the encoded
+   uint8 tiles at every put; its step-0 loss within
+   ``np_roundtrip_bound('fp8')`` of the f32-wire GCN overlap run's on the
+   same plan, no CPU oracle); each run: every
    rank resolved the pin, every
    step launched the pinned kernels, the loss fell, the ranks' parameters
    are bit-equal, and step 0's loss and every rank's gradients match a
@@ -503,11 +518,11 @@ def max_err(got, want) -> float:
 
 
 def bits(t):
-    """The bit patterns of an f32 or bf16 tensor: ``-0.0`` and ``0.0``
-    differ, a NaN equals only the same NaN."""
+    """The bit patterns of an f32, bf16 or uint8 tensor: ``-0.0`` and
+    ``0.0`` differ, a NaN equals only the same NaN."""
     import torch
 
-    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
 
 
 def check_close(name, got, want, dtype_name, tols=TOL) -> float:
@@ -2254,16 +2269,29 @@ def p2p_edge_cases(W: int) -> list:
     tiles than peers): every F in {1, 33, 256} and both types, with and
     without a mask, in the forward direction; the reverse direction, and
     blocks one element off (rows start unaligned: the scalar path), at
-    F = 256. W = 2, delta {1}: F = 256, both types, both directions,
-    masked. 18 and 4 cases."""
+    F = 256; uint8 byte tiles (no mask) of fp8 rows F + 4 = 260 (a tile's
+    run of S*260 bytes 16-byte aligned: the vector path) and 37 (unaligned:
+    a byte a thread), both directions, and 260 one byte off. W = 2, delta
+    {1}: F = 256, both types, both directions, masked; uint8 at 260, both
+    directions. 24 and 6 cases."""
     if W == 2:
-        return [((1,), 256, dt, sign, True, 0)
-                for dt in ("float32", "bfloat16") for sign in (1, -1)]
+        return ([((1,), 256, dt, sign, True, 0)
+                 for dt in ("float32", "bfloat16") for sign in (1, -1)]
+                + [((1,), 260, "uint8", sign, False, 0) for sign in (1, -1)])
     dts = ("float32", "bfloat16")
     return ([((1, 3), F, dt, 1, masked, 0)
              for F in (1, 33, 256) for dt in dts for masked in (True, False)]
             + [((1, 3), 256, dt, -1, masked, 0) for dt in dts for masked in (True, False)]
-            + [((1, 3), 256, dt, 1, True, 1) for dt in dts])
+            + [((1, 3), 256, dt, 1, True, 1) for dt in dts]
+            + [((1, 3), Fw, "uint8", sign, False, 0) for Fw in (260, 37) for sign in (1, -1)]
+            + [((1, 3), 260, "uint8", 1, False, 1)])
+
+
+def p2p_case_name(dtype_name, sign, masked, W, S, F) -> str:
+    """The name of a kernel-5 record at the real shape (phase 9), which the
+    kernels line finds it by."""
+    return (f"p2p_transport {dtype_name} sign={sign:+d} {'mask' if masked else 'no mask'} "
+            f"W={W} S={S} F={F}")
 
 
 def p2p_mutant_cases(W: int) -> list:
@@ -2343,7 +2371,12 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
     def tiles(n, S, F, dtype_name, off, masked):
         """Blocks with negative values, NaN and -inf (a masked row must
         come out as x * 0: -0.0, NaN, as in the plain version, where a
-        select gives +0.0) and a mask or None."""
+        select gives +0.0) and a mask or None; uint8 tiles every byte
+        value."""
+        if dtype_name == "uint8":
+            raw = torch.randint(0, 256, (n * S * F + off,), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            return raw[off:].view(n, S, F), None
         raw = torch.randn(n * S * F + off, generator=gen, device=dev)
         raw[::7], raw[3::11] = float("nan"), float("-inf")
         raw = raw.to(getattr(torch, dtype_name))
@@ -2378,6 +2411,14 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
                 f"offset={off}")
         k5 = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
         check(f"p2p edge {case}", k5, lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw))
+        if dtype_name == "uint8":  # kernel 6 stays f32 and bf16; a mask is refused
+            try:
+                p2p.p2p_transport(blocks, deltas, W, S, sign=sign, group=group,
+                                  mask=torch.ones(blocks.shape[:2], device=dev))
+                failures.append(f"p2p edge {case}: a mask with uint8 tiles did not raise")
+            except ValueError:
+                pass
+            continue
         check(f"p2p mutant None edge {case}",
               lambda: p2p.p2p_transport_mutant(blocks, deltas, W, S, **kw),
               lambda: p2p.p2p_transport_mutant_plain(blocks, deltas, W, S, **kw), k5)
@@ -2400,27 +2441,37 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
     if real is not None:
         import numpy as np
 
+        from dgraph_tpu_torch.wire.codec import make_wire_transform
+
         deltas, S, n = real["deltas"], real["S"], len(real["deltas"])
         idx = torch.from_numpy(real["send_idx"][me]).to(dev).long()
         smask = torch.from_numpy(real["send_mask"][me]).to(dev)
         x = torch.randn(real["n_pad"], P2P_F, generator=gen, device=dev)
         h = torch.randn(W, S, P2P_F, generator=gen, device=dev)
-        for dtype_name in ("float32", "bfloat16"):
+        fp8_encode = make_wire_transform("fp8", torch.float32)[0]
+        # uint8: the fp8 wire tiles of the same rows ([n, S, F + 4]; the
+        # exchange's masked before encoding), moved with no mask
+        for dtype_name in ("float32", "bfloat16", "uint8"):
             dtype = getattr(torch, dtype_name)
             for sign in (1, -1):
                 rows = [(me + sign * d) % W for d in deltas]
                 if sign == 1:  # the exchange: send rows, masked in flight
-                    blocks = x.to(dtype)[idx[rows].reshape(-1)].view(n, S, P2P_F)
+                    blocks = x[idx[rows].reshape(-1)].view(n, S, P2P_F)
                     mask = smask[rows].contiguous()
+                    if dtype_name == "uint8":
+                        blocks, mask = fp8_encode(blocks * mask[..., None]), None
+                    else:
+                        blocks = blocks.to(dtype)
                 else:  # the reverse leg: halo rows back to their owners
-                    blocks, mask = h.to(dtype)[rows].contiguous(), None
+                    blocks, mask = h[rows].contiguous(), None
+                    blocks = fp8_encode(blocks) if dtype_name == "uint8" else blocks.to(dtype)
+                Fw = blocks.shape[2]
                 kw = dict(sign=sign, mask=mask, group=group)
-                name = (f"p2p_transport {dtype_name} sign={sign:+d} "
-                        f"{'mask' if mask is not None else 'no mask'} W={W} S={S} F={P2P_F}")
+                name = p2p_case_name(dtype_name, sign, mask is not None, W, S, Fw)
                 run = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
                 plain = lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)  # noqa: E731
                 err = check(name, run, plain)
-                land = p2p.landing_buffer(group, W * S, P2P_F, dtype, sign)
+                land = p2p.landing_buffer(group, W * S, Fw, dtype, sign)
                 kernel = lambda: p2p.launch_puts(blocks, deltas, W, S, sign, mask, group, land)  # noqa: E731
                 views = [land.peers[(me + sign * d) % W][me * S:(me + 1) * S] for d in deltas]
                 if group.backend == "nccl":
@@ -2440,11 +2491,11 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
                             else:
                                 torch.mul(blocks[k], mask[k, :, None].to(dtype), out=v)
                     lib_ms = in_turn(lib_call)
-                nbytes, ops = p2p_work(n, S, P2P_F, blocks.element_size(), mask is not None)
-                b_ms, b_by = bound(nbytes, ops, dtype_name)
+                nbytes, ops = p2p_work(n, S, Fw, blocks.element_size(), mask is not None)
+                b_ms, b_by = bound(nbytes, ops, "float32" if dtype_name == "uint8" else dtype_name)
                 rec = {
                     "kernel": "p2p_transport", "case": name, "dtype": dtype_name, "sign": sign,
-                    "masked": mask is not None, "n": n, "S": S, "F": P2P_F, "W": W,
+                    "masked": mask is not None, "n": n, "S": S, "F": Fw, "W": W,
                     "max_abs_err": err,
                     "ms": in_turn(kernel), "wall_ms": host_ms(run, P2P_REPS),
                     "plain_ms": host_ms(plain, 2), "library_ms": lib_ms, "library": library,
@@ -2452,7 +2503,7 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
                     "rows_live": int(np.asarray(real["send_mask"][me])[rows].sum()),
                 }
                 records.append(rec)
-                if sign != 1:
+                if sign != 1 or dtype_name == "uint8":
                     continue
                 # kernel 6 None at the same shape: bit-equal to kernel 5 and to
                 # its plain version; the same bytes, so the same bound and the
@@ -3546,6 +3597,14 @@ W13_RUNS = (("gcn", "overlap"), ("sage", "overlap"), ("gat", "overlap"), ("gat",
             ("gcn", "sched"))
 # runs held to the CPU oracle of another run: the same step 0, another lowering
 W13_SHARED_ORACLE = {("gcn", "sched"): ("gcn", "overlap")}
+# (wire format, activation dtype) of the lowering parity's wire turns (bf16
+# on bf16 activations is the identity, which the turns without one cover)
+WIRE_TURNS = (("bf16", "float32"), ("fp8", "float32"), ("fp8", "bfloat16"))
+# the training run under a wire format: (model, lowering, format), its step
+# 0 held to the f32-wire run of the same model on the same plan
+W13_WIRE_RUN = ("gcn", "pallas_p2p", "fp8")
+W13_WIRE_BASE = ("gcn", "overlap")
+CODEC_REPS = 10
 @contextlib.contextmanager
 def deterministic():
     """torch's deterministic algorithms on inside (``index_add_`` on the
@@ -3696,6 +3755,43 @@ def lowering_parity_rank(group, real: dict) -> dict:
                              "transfer": [cut.src, cut.dst, cut.row_start, cut.row_count]})
         if dtype_name == "float32":
             failures += ppermute_x_vjp(group, x, h, halo, deltas, n_pad, records)
+    # the wire turns: each lowering under each (format, activation dtype) of
+    # WIRE_TURNS, bit-equal to all_to_all under the same format in both legs
+    # (ppermute's reverse within TOL, its per-delta order)
+    for fmt, dtype_name in WIRE_TURNS:
+        dtype = getattr(torch, dtype_name)
+        x, h = x32.to(dtype), h32.to(dtype)
+        out = {}
+        for impl in LOWERINGS:
+            ex = lambda: coll.halo_exchange(x, halo, group, deltas, impl, sched, fmt)  # noqa: E731
+            rv = lambda: coll.halo_scatter_sum(h, halo, n_pad, group, deltas,  # noqa: E731
+                                               impl, sched, fmt)
+            t = time.perf_counter()
+            with deterministic():
+                out[impl] = (ex(), rv())
+            torch.cuda.synchronize(dev)
+            spent["check_s"] += time.perf_counter() - t
+            t = time.perf_counter()
+            records.append({"impl": impl, "dtype": dtype_name, "wire": fmt,
+                            "exchange_ms": barrier_ms(ex), "reverse_ms": barrier_ms(rv),
+                            "backend": group.backend})
+            spent["time_s"] += time.perf_counter() - t
+        buf0, back0 = out["all_to_all"]
+        for impl in LOWERINGS[1:]:
+            buf, back = out[impl]
+            rows = landed_rows[impl]
+            if not torch.equal(bits(buf[rows]), bits(buf0[rows])):
+                failures.append(f"{impl} {dtype_name} wire {fmt}: the exchange's landed rows "
+                                "differ from all_to_all's")
+            if impl != "ppermute" and not torch.equal(bits(back), bits(back0)):
+                failures.append(f"{impl} {dtype_name} wire {fmt}: the reverse sum differs from "
+                                "all_to_all's")
+        err = rel(out["ppermute"][1], back0)
+        if not err <= TOL[dtype_name]:
+            failures.append(f"ppermute {dtype_name} wire {fmt}: the reverse sum is {err:.3g} from "
+                            f"all_to_all's (limit {TOL[dtype_name]})")
+        records.append({"impl": "ppermute reverse vs all_to_all", "dtype": dtype_name,
+                        "wire": fmt, "rel_err": err, "control": None, "limit": TOL[dtype_name]})
     return {"failures": failures, "records": records, "controls": controls, **spent}
 
 
@@ -3723,6 +3819,104 @@ def ppermute_x_vjp(group, x, g, halo, deltas, n_pad, records: list) -> list:
                     "bit_equal": same,
                     "delta_order_differs": not torch.equal(bits(fwd_order), bits(want))})
     return [] if same else ["ppermute float32: the x VJP misses its reverse-order sum's bits"]
+
+
+def codec_rows(F: int, seed: int):
+    """Seeded f32 rows on the host: normal rows, a zero row, a row of -0.0,
+    rows of 1e-4 and 1e4 scale, a row whose small entries land in e4m3's
+    subnormal range after the row scale, and a row of f32 subnormals."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(64, F, generator=g)
+    x[1], x[2] = 0.0, -0.0
+    x[3] *= 1e-4
+    x[4] *= 1e4
+    x[5, 1:] *= 1e-3
+    x[6] = torch.tensor([1e-40, -3e-42, 5e-39, 0.0, -1e-45, 2e-39] * F)[:F]
+    return x
+
+
+def device_kernels(fn) -> "int | None":
+    """The device kernels one call of ``fn`` launches (torch.profiler): the
+    larger count of two profiled calls (in a process that profiled before,
+    a profile has been seen to record no device activity), or None where
+    neither saw any."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+    return max(counts) or None
+
+
+def wire_codec_check(S: int) -> dict:
+    """The wire codecs on the card: for bf16 and fp8, f32 and bf16
+    activations (bf16 on bf16 is the identity), F in {6, 256}, on
+    :func:`codec_rows`: the torch codec's bytes on the card equal its bytes
+    on the host and the port's numpy reference codec's
+    (``spec.np_encode(compiled=True)``: the reference's compiled fp8
+    scale), and decoding either gives the same bits (f32 also
+    ``np_decode``'s). Then each codec's time at one rank's exchange of the
+    W = 4 plan (encode ``[3 S, 256]``, decode ``[3 S, wire width]``; CUDA
+    events, CODEC_REPS calls) and its device kernels a call."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.wire import codec, spec
+
+    def raw(t):
+        return t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+
+    failures, cases, times = [], 0, {}
+    for fmt in ("bf16", "fp8"):
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            enc, dec = codec.make_wire_transform(fmt, dtype)
+            if enc is None:
+                continue
+            for F in (6, 256):
+                x = codec_rows(F, seed=F)
+                if dtype == torch.bfloat16:
+                    x = codec.to_bf16(x)
+                want = np.ascontiguousarray(spec.np_encode(x.float().numpy(), fmt, compiled=True))
+                dev, host = enc(x.cuda()), enc(x)
+                what = f"codec {fmt} {dtype_name} F={F}"
+                if raw(dev) != want.view(np.uint8).tobytes() or raw(host) != raw(dev):
+                    failures.append(f"{what}: the card's bytes differ from the reference codec's")
+                back_dev, back_host = dec(dev).cpu(), dec(host)
+                if not torch.equal(bits(back_dev), bits(back_host)):
+                    failures.append(f"{what}: the card's decode differs from the host's")
+                if dtype == torch.float32 and raw(back_dev) != np.ascontiguousarray(
+                        spec.np_decode(want, fmt)).view(np.uint8).tobytes():
+                    failures.append(f"{what}: the card's decode differs from np_decode's")
+                cases += 1
+            x = torch.randn(3 * S, LOWERING_F, device="cuda").to(dtype)
+            y = enc(x)
+            times[f"{fmt} {dtype_name}"] = {
+                "encode_ms": time_ms(lambda: enc(x), reps=CODEC_REPS),
+                "decode_ms": time_ms(lambda: dec(y), reps=CODEC_REPS),
+                "encode_kernels": device_kernels(lambda: enc(x)),
+                "decode_kernels": device_kernels(lambda: dec(y)),
+                "rows": 3 * S, "F": LOWERING_F, "wire_width": y.shape[-1],
+                "wire_bytes": y.numel() * y.element_size(),
+                "activation_bytes": x.numel() * x.element_size()}
+    if failures:
+        fail(f"the wire codecs on the card: {failures[:5]}")
+    for k, t in times.items():
+        log(f"wire codec {k} at [{t['rows']}, {t['F']}] (one rank's exchange at W={P2P_W}): "
+            f"encode {t['encode_ms']:.4f} ms ({t['encode_kernels']} kernels), decode "
+            f"{t['decode_ms']:.4f} ms ({t['decode_kernels']} kernels); "
+            f"{t['activation_bytes']} -> {t['wire_bytes']} bytes")
+    log(f"wire codecs: {cases} cases bit-equal on the card, the host and the numpy reference "
+        "codec, encode and decode")
+    return {"cases": cases, "times": times}
 
 
 def phase_lowering_parity() -> dict:
@@ -3755,6 +3949,7 @@ def phase_lowering_parity() -> dict:
     log(f"W={P2P_W} halo schedule {sched.schedule_id}: {sched.num_rounds} rounds of "
         f"{sched.num_transfers} transfers, C_k {list(rows)}, {sched.operand_rows()} operand "
         f"rows a rank against all_to_all's (W-1)*S = {sched_rec['all_to_all_rows']}")
+    codec = wire_codec_check(real["S"])
     t0 = time.perf_counter()
     res = launch(lowering_parity_rank, P2P_W, real, device="cuda", timeout=600)
     failures = [f for r in res for f in r["failures"]]
@@ -3763,19 +3958,22 @@ def phase_lowering_parity() -> dict:
     recs = []
     for i, rec in enumerate(res[0]["records"]):
         per_rank = [r["records"][i] for r in res]
+        wire = f" wire {rec['wire']}" if rec.get("wire") else ""
         if "exchange_ms" in rec:
             rec = dict(rec, **{k: float(np.mean([r[k] for r in per_rank]))
                                for k in ("exchange_ms", "reverse_ms")},
                        exchange_ms_per_rank=[r["exchange_ms"] for r in per_rank])
-            log(f"lowering {rec['impl']} {rec['dtype']} W={P2P_W} S={real['S']} F={LOWERING_F}: "
-                f"exchange {rec['exchange_ms']:.2f} ms, reverse {rec['reverse_ms']:.2f} ms "
-                f"(barrier to barrier, median of {LOWERING_REPS}, mean over ranks; "
-                f"{rec['backend']})")
+            log(f"lowering {rec['impl']} {rec['dtype']}{wire} W={P2P_W} S={real['S']} "
+                f"F={LOWERING_F}: exchange {rec['exchange_ms']:.2f} ms, reverse "
+                f"{rec['reverse_ms']:.2f} ms (barrier to barrier, median of {LOWERING_REPS}, "
+                f"mean over ranks; {rec['backend']})")
         elif "rel_err" in rec:
+            ctrl = [r["control"] for r in per_rank if r["control"] is not None]
             rec = dict(rec, rel_err=max(r["rel_err"] for r in per_rank),
-                       control=min(r["control"] for r in per_rank))
-            log(f"{rec['impl']} {rec['dtype']}: {rec['rel_err']:.3g} relative (limit "
-                f"{rec['limit']}); control, a delta left out, {rec['control']:.3g}")
+                       control=min(ctrl) if ctrl else None)
+            log(f"{rec['impl']} {rec['dtype']}{wire}: {rec['rel_err']:.3g} relative (limit "
+                f"{rec['limit']})" + (f"; control, a delta left out, {rec['control']:.3g}"
+                                      if ctrl else ""))
         elif "bit_equal" in rec:
             rec = dict(rec, bit_equal=all(r["bit_equal"] for r in per_rank),
                        delta_order_differs=[r["delta_order_differs"] for r in per_rank])
@@ -3794,11 +3992,11 @@ def phase_lowering_parity() -> dict:
     log(f"halo lowerings W={P2P_W} S={real['S']} deltas={real['deltas']} F={LOWERING_F}: "
         "overlap, pallas_p2p and sched bit-equal to all_to_all in both legs (the exchange on "
         "its landed rows), ppermute's exchange bit-equal, its x VJP its reverse-order sum's "
-        "bits and its reverse within TOL "
+        f"bits and its reverse within TOL; the same under the wire turns {WIRE_TURNS} "
         f"({time.perf_counter() - t0:.1f} s with the spawn; rank 0: checks "
         f"{res[0]['check_s']:.1f} s, timed calls {res[0]['time_s']:.1f} s)")
     return {"records": recs, "S": real["S"], "deltas": list(real["deltas"]),
-            "schedule": sched_rec}
+            "schedule": sched_rec, "codec": codec}
 
 
 def w13_config(model: str):
@@ -3816,7 +4014,7 @@ def w13_config(model: str):
     return dataclasses.replace(base, model=model, world_size=P2P_W, epochs=epochs)
 
 
-def w13_launches(cfg, impl: str) -> tuple:
+def w13_launches(cfg, impl: str, wire=None) -> tuple:
     """(a train step's, an eval's) kernel launches a rank of a phase-13 run.
     GCN on the split route ('overlap', 'pallas_p2p'): kernel 1 on both
     subsets of each feature chunk, kernel 2 for each subset's bias gradient
@@ -3842,6 +4040,9 @@ def w13_launches(cfg, impl: str) -> tuple:
         if impl == "pallas_p2p":
             want.update(p2p_transport=2 * cfg.num_layers)
             want_eval.update(p2p_transport=cfg.num_layers)
+            if wire == "fp8":  # every put moves the encoded uint8 tiles
+                want["p2p_transport.byte_launches"] = want["p2p_transport"]
+                want_eval["p2p_transport.byte_launches"] = want_eval["p2p_transport"]
     elif cfg.model == "sage":
         widths = [cfg.data.feat_dim] + [cfg.hidden] * (cfg.num_layers - 1)
         n = sum(2 * math.ceil(w / cb) + 1 for w in widths)
@@ -3874,12 +4075,14 @@ class Phase13Probe:
         from torch.profiler import ProfilerActivity
 
         from dgraph_tpu_torch.comm import collectives
-        from dgraph_tpu_torch.ops import kernels
+        from dgraph_tpu_torch.ops import kernels, p2p
 
-        out = {"counts": kernels.launch_counts()}
+        out = {"counts": {**kernels.launch_counts(),
+                          "p2p_transport.byte_launches": p2p.p2p_transport.byte_launches}}
         kernels.reset_launch_counts()
         if epoch == 0:
             out.update(impl=collectives.resolve_plan_impl(t.plan, t.comm.group),
+                       wire=collectives.resolve_plan_wire_format(t.plan, t.comm.group),
                        split=t.comm.split_active(t.plan), grads=grads_of(t.model),
                        hub_rows=cached_hub_rows())
             if self.small is not None:
@@ -3948,13 +4151,31 @@ def cpu_step0_w13(group, cfgs: list) -> list:
     return out
 
 
-def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
+@contextlib.contextmanager
+def wire_format_env(fmt):
+    """DGRAPH_TPU_WIRE_FORMAT=``fmt`` for the ranks spawned inside (None:
+    the variable as it is)."""
+    saved = os.environ.get("DGRAPH_TPU_WIRE_FORMAT")
+    if fmt is not None:
+        os.environ["DGRAPH_TPU_WIRE_FORMAT"] = fmt
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("DGRAPH_TPU_WIRE_FORMAT", None)
+        else:
+            os.environ["DGRAPH_TPU_WIRE_FORMAT"] = saved
+
+
+def train_w13_run(model: str, impl: str, trace: bool = False, wire=None) -> tuple:
     """``python -m dgraph_tpu_torch.train``'s main over 4 ranks with
     DGRAPH_TPU_HALO_IMPL=``impl``: every rank resolved ``impl`` (GCN and
     GraphSAGE under 'overlap' on the split route), every step launched
     :func:`w13_launches`' kernels, the loss fell and the ranks' parameters
     are bit-equal after the last step. With ``trace``, W13_TRACE_STEPS more
-    steps run under the profiler after the timed ones. Returns (the Config,
+    steps run under the profiler after the timed ones. With ``wire``,
+    DGRAPH_TPU_WIRE_FORMAT=``wire``: every rank resolved it (under fp8 on
+    'pallas_p2p' every put of kernel 5 moved uint8 tiles). Returns (the Config,
     the record, every rank's step-0 gradients, every rank's small step or
     None)."""
     import dataclasses
@@ -3964,22 +4185,23 @@ def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
 
     from dgraph_tpu_torch.train import __main__ as cli
 
-    what = f"{model} W={P2P_W} {impl}"
+    what = f"{model} W={P2P_W} {impl}" + (f" wire {wire}" if wire else "")
     cfg = w13_config(model)
     timed = cfg.epochs  # steps 1 to timed - 1 give the step times
     if trace:
         cfg = dataclasses.replace(cfg, epochs=timed + W13_TRACE_STEPS)
-    cfg.log_path = os.path.join(OUT_DIR, f"train_{model}_w4_{impl}.jsonl")
+    cfg.log_path = os.path.join(OUT_DIR, f"train_{model}_w4_{impl}"
+                                + (f"_{wire}" if wire else "") + ".jsonl")
     small = None
     if model == "gat":
         small = dataclasses.asdict(dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, num_nodes=GAT_STEP0_V)))
-    want, want_eval = w13_launches(cfg, impl)
+    want, want_eval = w13_launches(cfg, impl, wire)
     os.makedirs(OUT_DIR, exist_ok=True)
     if os.path.exists(cfg.log_path):
         os.remove(cfg.log_path)
     t0 = time.perf_counter()
-    with halo_impl_env(impl), contextlib.redirect_stdout(sys.stderr):
+    with halo_impl_env(impl), wire_format_env(wire), contextlib.redirect_stdout(sys.stderr):
         res = cli.main(cfg, on_step=Phase13Probe(cfg.epochs, small,
                                                  timed - 1 if trace else None))
     run_s = time.perf_counter() - t0
@@ -3988,6 +4210,8 @@ def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
         p0 = rank["on_step"][0]
         if p0["impl"] != impl or p0["split"] != (impl in ("overlap", "pallas_p2p")):
             fail(f"{what}: rank {r} resolved {p0['impl']!r} (split {p0['split']})")
+        if p0["wire"] != (wire or "fp32"):
+            fail(f"{what}: rank {r} resolved the wire format {p0['wire']!r}")
         for i, probe in enumerate(rank["on_step"]):
             evals = int(i % 10 == 0 or i == cfg.epochs - 1)
             check_step_launches(f"{what} rank {r}", i, probe["counts"],
@@ -4002,7 +4226,7 @@ def train_w13_run(model: str, impl: str, trace: bool = False) -> tuple:
             if not np.array_equal(last[r][k], v):
                 fail(f"{what}: rank {r}'s {k} differs from rank 0's after the last step")
     ms = [[rec["wall_ms"] for rec in rank["records"]] for rank in ranks]
-    rec = {"config": what, "model": model, "impl": impl, "world_size": P2P_W,
+    rec = {"config": what, "model": model, "impl": impl, "world_size": P2P_W, "wire": wire,
            "backend": "nccl" if torch.cuda.device_count() >= P2P_W else "gloo",
            "losses": losses, "launches_per_step": want, "launches_per_eval": want_eval,
            "launches": {k: sum(p["counts"][k] for rank in ranks for p in rank["on_step"])
@@ -4042,9 +4266,11 @@ def lowering_phase(cfg) -> tuple:
 
     from dgraph_tpu_torch.comm.dist import launch
 
-    log("phase 13: the halo lowerings all_to_all, ppermute, overlap, pallas_p2p and sched at "
-        "W = 4, then GCN and GraphSAGE under overlap, GAT under overlap and ppermute and GCN "
-        "under sched over 4 ranks (python -m dgraph_tpu_torch.train)")
+    log("phase 13: the wire codecs, the halo lowerings all_to_all, ppermute, overlap, "
+        "pallas_p2p and sched at W = 4 (f32, bf16, and under the wire formats), then GCN and "
+        "GraphSAGE under overlap, GAT under overlap and ppermute, GCN under sched and GCN under "
+        "pallas_p2p with DGRAPH_TPU_WIRE_FORMAT=fp8 over 4 ranks (python -m "
+        "dgraph_tpu_torch.train)")
     parity = phase_lowering_parity()
     four = torch.cuda.device_count() >= P2P_W
     runs = list(W13_RUNS)
@@ -4076,6 +4302,8 @@ def lowering_phase(cfg) -> tuple:
         for model, impl in runs:
             trace = four and (model, impl) == ("gcn", "overlap")
             out.append((model, impl) + train_w13_run(model, impl, trace))
+        wire_model, wire_impl, wire_fmt = W13_WIRE_RUN
+        wire_run = train_w13_run(wire_model, wire_impl, wire=wire_fmt)
         cpu, cpu_s = cpu_future.result()
         cpu = dict(zip(oracles, cpu))
     if _W4_GCN_CPU:
@@ -4106,6 +4334,24 @@ def lowering_phase(cfg) -> tuple:
         recs.append(rec)
     log(f"phase 13's CPU oracles {oracles}: {cpu_s:.1f} s (4 gloo ranks, {threads} threads "
         f"each, {'before' if four else 'beside'} the card's runs)")
+    # the wire run's step 0 against the f32-wire run of the same model on
+    # the same plan, within one round trip of the format
+    from dgraph_tpu_torch.wire.spec import np_roundtrip_bound
+
+    wrec = wire_run[1]
+    base = next(r for r in recs if (r["model"], r["impl"]) == W13_WIRE_BASE)
+    limit = np_roundtrip_bound(wire_fmt)
+    l0, b0 = wrec["losses"][0], base["losses"][0]
+    if not (math.isfinite(l0) and abs(l0 - b0) <= limit * abs(b0)):
+        fail(f"{wrec['config']}: step-0 loss {l0} vs the f32-wire {base['config']} run's {b0} "
+             f"(limit {limit} relative)")
+    wrec["step0_vs_f32_wire"] = {"base": base["config"], "loss": l0, "loss_f32_wire": b0,
+                                 "rel_diff": abs(l0 - b0) / abs(b0), "limit": limit}
+    log(f"{wrec['config']}: step-0 loss {l0:.6f} vs the f32-wire {base['config']} run's "
+        f"{b0:.6f}: {abs(l0 - b0) / abs(b0):.3g} relative (limit {limit:.4g}, "
+        f"np_roundtrip_bound); kernel 5 moved uint8 tiles "
+        f"{wrec['launches']['p2p_transport.byte_launches']} times")
+    recs.append(wrec)
     gcn = next(r for r in recs if r["model"] == "gcn")
     gcn_sched = next(r for r in recs if (r["model"], r["impl"]) == ("gcn", "sched"))
     sage = next(r for r in recs if r["model"] == "sage")
@@ -4118,6 +4364,11 @@ def lowering_phase(cfg) -> tuple:
                                 "sage_w4_overlap")] + [
             ("sorted_segment_sum float32 none F=128", r["launches"], f"{r['model']}_w4_{r['impl']}")
             for r in gats + [gcn_sched]],
+        # kernel 5 on uint8 tiles: phase 9's record at the plan's fp8 width,
+        # the launches of the fp8 run's puts
+        "p2p_transport": [(p2p_case_name("uint8", 1, False, P2P_W, parity["S"], LOWERING_F + 4),
+                           {"p2p_transport": wrec["launches"]["p2p_transport.byte_launches"]},
+                           "uint8_fp8_wire")],
     }
     return [], main_case, {"train": recs, "lowerings": parity}
 

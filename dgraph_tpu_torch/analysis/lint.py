@@ -24,12 +24,19 @@ are the reference's that have a meaning in PyTorch:
   transport) under a branch on this rank's identity, or after a
   rank-dependent early exit, in ``comm/`` and ``ops/p2p.py``. A rank that
   skips a collective its peers enter hangs them: it never errors.
+- ``no-unpriced-wire-cast`` (``dgraph_tpu/analysis/lint.py:852-925``, in
+  its torch meaning): in ``comm/`` and ``ops/``, a function that calls a
+  ``torch.distributed`` collective or point-to-point op, or the p2p
+  transport, narrows no tensor to a literal dtype (``.to(torch.bfloat16)``,
+  ``float16``, ``float8_*``, ``int8`` or ``uint8``; ``.bfloat16()``,
+  ``.half()``): narrowing a wire payload is :mod:`dgraph_tpu_torch.wire`'s
+  job, whose formats are priced and verified.
 
-The reference's rules tied to jit tracing, ``shard_map`` or wire casts
+The reference's rules tied to jit tracing or ``shard_map``
 (``no-config-read-in-trace``, ``no-span-in-trace``,
 ``named-scope-on-collectives``, ``no-unchecked-shard-map``,
-``no-monolithic-plan-pickle``, ``no-unpriced-wire-cast``) wait for the port
-modules they guard (ROADMAP).
+``no-monolithic-plan-pickle``) wait for the port modules they guard
+(ROADMAP).
 
 Adding a rule: write ``check(path, tree, lines) -> list[Finding]``,
 decorate with :func:`rule`, and add a fixture pair to :data:`FIXTURES` (a
@@ -365,6 +372,74 @@ def check_rank_branch_around_collective(relpath: str, tree: ast.AST, lines: list
 
 
 # ---------------------------------------------------------------------------
+# no-unpriced-wire-cast
+# ---------------------------------------------------------------------------
+
+# dtypes narrower than fp32 whose literal spelling in a cast marks a
+# deliberate narrowing (a cast to ``x.dtype`` or a widening never matches)
+NARROW_DTYPES = frozenset({
+    "bfloat16", "float16", "half", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+    "float8_e5m2fnuz", "int8", "uint8",
+})
+# methods that narrow by their name alone
+NARROW_METHODS = frozenset({"bfloat16", "half"})
+# calls that put an operand on the wire: the collectives, torch.distributed's
+# point-to-point ops, and the p2p transport
+WIRE_EXCHANGE_CALLS = COLLECTIVE_CALLS | frozenset({
+    "isend", "irecv", "send", "recv", "batch_isend_irecv", "P2POp",
+})
+
+
+def _narrow_cast(call: ast.Call) -> Optional[str]:
+    """The narrow dtype a call casts to literally: ``.to(torch.bfloat16)``
+    (or ``dtype=``), ``.bfloat16()``, ``.half()``; else None."""
+    last = _last_segment(call.func)
+    if last in NARROW_METHODS and isinstance(call.func, ast.Attribute) and not call.args:
+        return last
+    if last != "to":
+        return None
+    for arg in list(call.args) + [k.value for k in call.keywords if k.arg == "dtype"]:
+        name = _last_segment(arg) if isinstance(arg, (ast.Attribute, ast.Name)) else None
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            name = arg.value
+        if name in NARROW_DTYPES:
+            return name
+    return None
+
+
+@rule(
+    "no-unpriced-wire-cast",
+    "no literal dtype-narrowing cast (.to(torch.bfloat16 | float16 | float8_* | int8 | "
+    "uint8), .bfloat16(), .half()) in a function that puts operands on the wire (a "
+    "torch.distributed collective or point-to-point op, or the p2p transport): an ad-hoc "
+    "cast ships bytes no wire format prices — narrowing wire payloads is "
+    "dgraph_tpu_torch.wire's job",
+    path_matcher(PORT + "comm/", PORT + "ops/"),
+    scope="comm/, ops/",
+)
+def check_unpriced_wire_cast(relpath: str, tree: ast.AST, lines: list):
+    findings = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        issues = [sub.lineno for sub in ast.walk(fn) if isinstance(sub, ast.Call)
+                  and _last_segment(sub.func) in WIRE_EXCHANGE_CALLS]
+        if not issues:
+            continue
+        for sub in ast.walk(fn):
+            dt = _narrow_cast(sub) if isinstance(sub, ast.Call) else None
+            if dt:
+                findings.append(Finding(
+                    "no-unpriced-wire-cast", relpath, sub.lineno,
+                    f"literal narrowing cast to {dt!r} inside {fn.name!r} (line {fn.lineno}), "
+                    f"which puts operands on the wire (exchange call at line {issues[0]}): "
+                    f"those bytes ride no priced wire format — encode through "
+                    f"dgraph_tpu_torch.wire (make_wire_transform)",
+                ))
+    return findings
+
+
+# ---------------------------------------------------------------------------
 # fixtures: every rule must fire on `bad` and not on `good`
 # ---------------------------------------------------------------------------
 
@@ -417,6 +492,23 @@ FIXTURES = {
             "    group.barrier()\n",
             "import os\ndef step(group):\n    if int(os.environ['RANK']) > 0:\n"
             "        p2p_transport(group=group)\n",
+        ),
+    },
+    "no-unpriced-wire-cast": {
+        "path": "dgraph_tpu_torch/comm/x.py",
+        "bad": (
+            "import torch\nimport torch.distributed as dist\ndef send(x, group):\n"
+            "    y = x.to(torch.bfloat16)\n    dist.all_reduce(y, group=group.pg)\n"
+        ),
+        "good": (
+            "import torch\nimport torch.distributed as dist\ndef send(x, group, like):\n"
+            "    y = x.to(like.dtype).to(torch.float32)\n    dist.all_reduce(y, group=group.pg)\n"
+        ),
+        "more_bad": (
+            "def put(blocks, group):\n    return p2p_transport(blocks.half(), group=group)\n",
+            "import torch\nimport torch.distributed as dist\ndef post(x, peer):\n"
+            "    return dist.isend(x.to(dtype=torch.float8_e4m3fn).view(torch.uint8), peer)\n",
+            "def put(blocks, group):\n    return p2p_transport(blocks.bfloat16(), group=group)\n",
         ),
     },
 }

@@ -39,6 +39,16 @@ pins its custom VJPs (``collectives.py:266-466``):
   back and reduces as ``all_to_all`` does. A rank idle in a round posts
   nothing in it. Not a split lowering.
 
+Every lowering carries the call site's wire format (:mod:`dgraph_tpu_torch.wire`,
+resolved once by :func:`resolve_plan_wire_format`) into both directions, at
+the reference's encode points (``collectives.py:200-610``, ``:779-902``):
+each send block is encoded before it leaves (the exchange's blocks after the
+mask, a cotangent's unmasked, the mask applying after decode), each
+received block lands in a buffer of the wire operand's shape and is decoded
+after the wait, before it is placed (``sched`` encodes after its row slice;
+``pallas_p2p`` moves the encoded tiles with ``mask=None``). The fp32
+identity calls no codec and leaves every lowering as it is.
+
 ``overlap`` and ``pallas_p2p`` are the split lowerings (:data:`SPLIT_IMPLS`,
 :func:`split_active`, :func:`halo_exchange_split`). Every lowering lands
 the rows ``all_to_all`` lands with the same bits; the blocks no round
@@ -91,6 +101,42 @@ def resolve_plan_impl(plan: EdgePlan, group) -> str:
         sched_available=plan.halo_schedule is not None,
     )
     return impl
+
+
+def resolve_plan_wire_format(plan: EdgePlan, group) -> str:
+    """The wire format of this call site, resolved once (pin > adopted
+    record > the plan's build-time attachment > fp32;
+    :func:`dgraph_tpu_torch.wire.spec.resolve_wire_format`) and carried by
+    the lowering into both directions, so an exchange and its transpose
+    never use two codecs (``collectives.py:65-82``). 'fp32' at world size
+    1."""
+    if group is None:
+        return "fp32"
+    from dgraph_tpu_torch.wire.spec import resolve_wire_format
+
+    name, _source = resolve_wire_format(plan.world_size, tuple(plan.halo_deltas),
+                                        plan_format=plan.wire_format)
+    return name
+
+
+def _wire_fns(wire_format, dtype) -> tuple:
+    """The raw ``(encode, decode)`` of the format at this activation
+    dtype; ``(None, None)`` (the fp32 identity, bf16 on bf16) keeps the
+    path without a codec."""
+    if wire_format in (None, "fp32"):
+        return None, None
+    from dgraph_tpu_torch.wire.codec import make_wire_transform
+
+    return make_wire_transform(wire_format, dtype)
+
+
+def _wire_buffer(like: torch.Tensor, rows: int, wire_format) -> torch.Tensor:
+    """An empty receive buffer of ``rows`` encoded rows of ``like``'s
+    width and dtype under the format."""
+    from dgraph_tpu_torch.wire.codec import wire_operand
+
+    width, dtype = wire_operand(wire_format, like.shape[-1], like.dtype)
+    return torch.empty((rows, width), dtype=dtype, device=like.device)
 
 
 def overlap_active(plan: EdgePlan, group=None) -> bool:
@@ -188,44 +234,75 @@ class _Rounds:
         self._works, self._keep, self._land = [], [], []
 
 
+class _Posted:
+    """Rounds posted into a buffer: :meth:`finish` waits for them and,
+    under a codec, decodes each received block into its rows of the buffer
+    (every round posted before any is placed). Returns the buffer."""
+
+    def __init__(self, buffer, rounds: _Rounds, places: list, decode):
+        self.buffer, self.rounds, self.places, self.decode = buffer, rounds, places, decode
+
+    def finish(self) -> torch.Tensor:
+        self.rounds.wait()
+        for rows, wire in self.places:
+            rows.copy_(self.decode(wire))
+        return self.buffer
+
+
 @dataclasses.dataclass(frozen=True)
 class _Lowering:
     """One lowering of the exchange on one group: ``fwd`` (local rows ->
-    ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums).
-    The per-delta round lowerings post first (``post_fwd`` / ``post_rev``)
-    and finish in ``fwd`` / ``rev``, which take rounds already posted."""
+    ``[W*S, F]`` halo buffer) and ``rev`` (halo buffer -> owners' sums),
+    both under the call site's ``wire_format``. The per-delta round
+    lowerings post first (``post_fwd`` / ``post_rev``) and finish in
+    ``fwd`` / ``rev``, which take rounds already posted."""
 
     impl: str  # 'all_to_all' | 'ppermute' | 'overlap' | 'pallas_p2p' | 'sched'
     group: object
     deltas: tuple
     schedule: object = None  # sched.ir.HaloSchedule under 'sched' (frozen, hashable)
+    wire_format: str = "fp32"  # a key of wire.spec.WIRE_FORMATS
 
-    def post_fwd(self, x, halo: HaloSpec) -> tuple:
+    def _post(self, like, buffer, sends: list, lands: list) -> _Posted:
+        """Post ``sends`` ``(block, peer, tag)``, each encoded under the
+        codec, and receives for ``lands`` ``(rows of buffer, peer, tag)``:
+        straight into the rows without a codec, else into a wire buffer
+        each, decoded into the rows when the rounds finish."""
+        enc, dec = _wire_fns(self.wire_format, like.dtype)
+        if enc is None:
+            return _Posted(buffer, _Rounds(self.group, sends, lands, like, self.impl), [], None)
+        sends = [(enc(b), peer, tag) for b, peer, tag in sends]
+        wires = [_wire_buffer(like, rows.shape[0], self.wire_format) for rows, _, _ in lands]
+        recvs = [(w, peer, tag) for w, (_, peer, tag) in zip(wires, lands)]
+        return _Posted(buffer, _Rounds(self.group, sends, recvs, like, self.impl),
+                       [(rows, w) for w, (rows, _, _) in zip(wires, lands)], dec)
+
+    def post_fwd(self, x, halo: HaloSpec) -> _Posted:
         """The exchange's rounds, every block gathered before any is posted:
         the masked block to ``(me + d) % W`` and the block from ``(me - d) %
-        W`` landed at its rows of the ``[W*S, F]`` buffer. Returns (buffer,
-        rounds)."""
+        W`` landed at its rows of the ``[W*S, F]`` buffer."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me = self.group.rank
         out = x.new_zeros((W * S, x.shape[-1]))
         sends = [(_masked_block(x, halo, (me + d) % W), (me + d) % W, d) for d in self.deltas]
-        recvs = [(out[src * S:(src + 1) * S], src, d)
+        lands = [(out[src * S:(src + 1) * S], src, d)
                  for src, d in (((me - d) % W, d) for d in self.deltas)]
-        return out, _Rounds(self.group, sends, recvs, x, self.impl)
+        return self._post(x, out, sends, lands)
 
-    def post_rev(self, h, halo: HaloSpec) -> tuple:
+    def post_rev(self, h, halo: HaloSpec) -> _Posted:
         """The reverse rounds: each delta's halo block back to its owner
-        ``(me - d) % W``, and the partials of this rank's rows from ``(me +
-        d) % W`` parked at block ``(me + d) % W`` of a ``[W, S, F]`` buffer
-        (where ``all_to_all`` delivers them). Returns (buffer, rounds)."""
+        ``(me - d) % W`` (encoded unmasked under a codec), and the partials of
+        this rank's rows from ``(me + d) % W`` parked at block ``(me + d) %
+        W`` of a ``[W, S, F]`` buffer (where ``all_to_all`` delivers
+        them)."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, h.shape[-1]
         h = h.reshape(W * S, F)
         back = h.new_zeros((W, S, F))
         sends = [(h[src * S:(src + 1) * S], src, d)
                  for src, d in (((me - d) % W, d) for d in self.deltas)]
-        recvs = [(back[(me + d) % W], (me + d) % W, d) for d in self.deltas]
-        return back, _Rounds(self.group, sends, recvs, h, self.impl)
+        lands = [(back[(me + d) % W], (me + d) % W, d) for d in self.deltas]
+        return self._post(h, back, sends, lands)
 
     def _sched_fwd(self, x, halo: HaloSpec) -> torch.Tensor:
         """The compiled rounds (``collectives.py:515-566``): in round k
@@ -234,9 +311,12 @@ class _Lowering:
         own; after the wait each buffer is copied to rows ``src*S + start``
         of the ``[W*S, F]`` buffer in round order. Windows of one block can
         overlap across rounds (a round's C_k can exceed a transfer's rows),
-        with equal values: a copy, never an add."""
+        with equal values: a copy, never an add. Under a codec each window
+        is encoded after its row slice (``collectives.py:548-550``) and
+        decoded before its copy."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, x.shape[-1]
+        enc, dec = _wire_fns(self.wire_format, x.dtype)
         sends, recvs, lands = [], [], []
         for k, rnd in enumerate(self.schedule.rounds):
             C = rnd.row_count
@@ -244,15 +324,17 @@ class _Lowering:
                 if t.src == me:
                     rows = slice(t.row_start, t.row_start + C)
                     blk = x.index_select(0, halo.send_idx[t.dst, rows].long())
-                    sends.append((blk * halo.send_mask[t.dst, rows, None].to(x.dtype), t.dst, k))
+                    blk = blk * halo.send_mask[t.dst, rows, None].to(x.dtype)
+                    sends.append((blk if enc is None else enc(blk), t.dst, k))
                 if t.dst == me:
-                    buf = x.new_empty((C, F))
+                    buf = x.new_empty((C, F)) if enc is None else _wire_buffer(
+                        x, C, self.wire_format)
                     recvs.append((buf, t.src, k))
                     lands.append((t.src * S + t.row_start, buf))
         _Rounds(self.group, sends, recvs, x, self.impl).wait()
         out = x.new_zeros((W * S, F))
         for off, buf in lands:
-            out[off:off + buf.shape[0]] = buf
+            out[off:off + buf.shape[0]] = buf if dec is None else dec(buf)
         return out
 
     def _sched_rev(self, h, halo: HaloSpec, n_pad: int) -> torch.Tensor:
@@ -260,9 +342,11 @@ class _Lowering:
         forward receiver sends back the window its block landed in; the
         forward sender copies what returns into plane ``dst``, rows
         ``[start, start + C_k)``, of a ``[W, S, F]`` buffer in round order,
-        which reduces as ``all_to_all``'s does."""
+        which reduces as ``all_to_all``'s does (each window encoded
+        unmasked under a codec, decoded before its copy)."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, h.shape[-1]
+        enc, dec = _wire_fns(self.wire_format, h.dtype)
         h = h.reshape(W * S, F)
         sends, recvs, lands = [], [], []
         for k, rnd in enumerate(self.schedule.rounds):
@@ -270,51 +354,61 @@ class _Lowering:
             for t in rnd.transfers:
                 if t.dst == me:
                     off = t.src * S + t.row_start
-                    sends.append((h[off:off + C], t.src, k))
+                    blk = h[off:off + C]
+                    sends.append((blk if enc is None else enc(blk), t.src, k))
                 if t.src == me:
-                    buf = h.new_empty((C, F))
+                    buf = h.new_empty((C, F)) if enc is None else _wire_buffer(
+                        h, C, self.wire_format)
                     recvs.append((buf, t.dst, k))
                     lands.append((t.dst, t.row_start, buf))
         _Rounds(self.group, sends, recvs, h, self.impl).wait()
         back = h.new_zeros((W, S, F))
         for plane, start, buf in lands:
-            back[plane, start:start + buf.shape[0]] = buf
+            back[plane, start:start + buf.shape[0]] = buf if dec is None else dec(buf)
         return _masked_owner_sum(back, halo, n_pad)
 
-    def fwd(self, x, halo: HaloSpec, posted: Optional[tuple] = None) -> torch.Tensor:
+    def fwd(self, x, halo: HaloSpec, posted: Optional[_Posted] = None) -> torch.Tensor:
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, x.shape[-1]
         if self.impl == "sched":
             return self._sched_fwd(x, halo)
         if self.impl in ("ppermute", "overlap"):
-            out, rounds = posted or self.post_fwd(x, halo)
-            rounds.wait()
-            return out
+            return (posted or self.post_fwd(x, halo)).finish()
+        enc, dec = _wire_fns(self.wire_format, x.dtype)
         if self.impl == "pallas_p2p":
             from dgraph_tpu_torch.ops.p2p import p2p_transport
 
             rows = torch.tensor([(me + d) % W for d in self.deltas], device=x.device)
             blocks = x.index_select(0, halo.send_idx.index_select(0, rows).reshape(-1).long())
-            return p2p_transport(blocks.reshape(len(self.deltas), S, F), self.deltas, W, S,
-                                 sign=1, mask=halo.send_mask.index_select(0, rows),
-                                 group=self.group)
+            blocks = blocks.reshape(len(self.deltas), S, F)
+            mask = halo.send_mask.index_select(0, rows)
+            if enc is None:
+                return p2p_transport(blocks, self.deltas, W, S, sign=1, mask=mask,
+                                     group=self.group)
+            # masked, then encoded: kernel 5 moves the wire tiles as data
+            wire = enc(blocks * mask[..., None].to(x.dtype))
+            out = p2p_transport(wire, self.deltas, W, S, sign=1, group=self.group)
+            return dec(out.reshape(W, S, -1)).reshape(W * S, F)
         from dgraph_tpu_torch.ops.p2p import all_to_all
 
         send = x.index_select(0, halo.send_idx.reshape(-1).long()).reshape(W, S, F)
         send = send * halo.send_mask[..., None].to(x.dtype)
-        return all_to_all(send, self.group).reshape(W * S, F)
+        if enc is None:
+            return all_to_all(send, self.group).reshape(W * S, F)
+        return dec(all_to_all(enc(send), self.group)).reshape(W * S, F)
 
-    def rev(self, h, halo: HaloSpec, n_pad: int, posted: Optional[tuple] = None,
+    def rev(self, h, halo: HaloSpec, n_pad: int, posted: Optional[_Posted] = None,
             reverse_deltas: bool = False) -> torch.Tensor:
         """``reverse_deltas``: the exchange's backward, where ``ppermute``
-        adds its per-delta sums in reverse delta order."""
+        adds its per-delta sums in reverse delta order. Under a codec the
+        halo blocks are encoded unmasked; the mask applies after decode."""
         W, S = halo.send_idx.shape[0], halo.s_pad
         me, F = self.group.rank, h.shape[-1]
         if self.impl == "sched":
             return self._sched_rev(h, halo, n_pad)
+        enc, dec = _wire_fns(self.wire_format, h.dtype)
         if self.impl in ("ppermute", "overlap"):
-            back, rounds = posted or self.post_rev(h, halo)
-            rounds.wait()
+            back = (posted or self.post_rev(h, halo)).finish()
             if self.impl == "ppermute":
                 peers = [(me + d) % W for d in self.deltas]
                 return _per_delta_owner_sum(back, halo, n_pad,
@@ -323,12 +417,19 @@ class _Lowering:
             from dgraph_tpu_torch.ops.p2p import p2p_transport
 
             rows = torch.tensor([(me - d) % W for d in self.deltas], device=h.device)
-            back = p2p_transport(h.reshape(W, S, F).index_select(0, rows), self.deltas, W, S,
-                                 sign=-1, group=self.group).reshape(W, S, F)
+            blocks = h.reshape(W, S, F).index_select(0, rows)
+            if enc is None:
+                back = p2p_transport(blocks, self.deltas, W, S, sign=-1,
+                                     group=self.group).reshape(W, S, F)
+            else:
+                wire = p2p_transport(enc(blocks), self.deltas, W, S, sign=-1, group=self.group)
+                back = dec(wire.reshape(W, S, -1))
         else:
             from dgraph_tpu_torch.ops.p2p import all_to_all
 
-            back = all_to_all(h.reshape(W, S, F), self.group)
+            back = h.reshape(W, S, F)
+            back = all_to_all(back, self.group) if enc is None else dec(
+                all_to_all(enc(back), self.group))
         return _masked_owner_sum(back, halo, n_pad)
 
 
@@ -376,29 +477,32 @@ def _resolve_halo_arg(impl, deltas, W) -> str:
     return resolve_halo_impl(tuple(deltas))[0]
 
 
-def _lowering(impl, deltas, W, group, schedule, entry: str) -> _Lowering:
-    """The lowering of one call; under 'sched' with the plan's schedule,
-    whose absence raises the reference's error (``collectives.py:771-777``,
-    ``:853-858``)."""
+def _lowering(impl, deltas, W, group, schedule, entry: str, wire_format=None) -> _Lowering:
+    """The lowering of one call under ``wire_format`` (None: fp32);
+    under 'sched' with the plan's schedule, whose absence raises the
+    reference's error (``collectives.py:771-777``, ``:853-858``)."""
     impl = _resolve_halo_arg(impl, deltas, W)
     if impl == "sched" and schedule is None:
         raise ValueError(
             f"{entry}(impl='sched') needs the plan's compiled halo schedule; resolve "
             "through resolve_plan_impl and pass schedule=plan.halo_schedule")
     return _Lowering(impl, group, tuple(deltas or range(1, W)),
-                     schedule if impl == "sched" else None)
+                     schedule if impl == "sched" else None, wire_format or "fp32")
 
 
 def halo_exchange(x: torch.Tensor, halo: HaloSpec, group=None, deltas=None,
-                  impl: Optional[str] = None, schedule=None) -> torch.Tensor:
+                  impl: Optional[str] = None, schedule=None,
+                  wire_format: Optional[str] = None) -> torch.Tensor:
     """The halo buffer ``[W*S, F]`` of this rank: rows ``[p*S, (p+1)*S)``
     hold the rows rank p sends here, masked. ``deltas`` is the plan's live
     rank offsets; ``impl`` the lowering, resolved once by the caller (None
     resolves here); ``schedule`` the plan's compiled halo schedule
     (``plan.halo_schedule``), read under 'sched' only, where it must be
-    given. At world size 1 (``group=None``) the send lists are all
-    masked and the buffer is zeros of the plan's shape; the mask is cast to
-    x's dtype so a bf16 stream stays bf16."""
+    given; ``wire_format`` the payload codec, resolved once by the caller
+    (:func:`resolve_plan_wire_format`; None: the fp32 identity). At world
+    size 1 (``group=None``) the send lists are all masked and the buffer is
+    zeros of the plan's shape; the mask is cast to x's dtype so a bf16
+    stream stays bf16."""
     F = x.shape[-1]
     W, S = halo.send_idx.shape[0], halo.s_pad
     if group is None:
@@ -407,14 +511,16 @@ def halo_exchange(x: torch.Tensor, halo: HaloSpec, group=None, deltas=None,
         return send.reshape(-1, F)
     if deltas is not None and len(deltas) == 0:
         return x.new_zeros((W * S, F))
-    lowering = _lowering(impl, deltas, W, group, schedule, "halo_exchange")
+    lowering = _lowering(impl, deltas, W, group, schedule, "halo_exchange", wire_format)
     return _Exchange.apply(x, halo.send_idx, halo.send_mask, S, lowering)
 
 
 def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
-                     deltas=None, impl: Optional[str] = None, schedule=None) -> torch.Tensor:
+                     deltas=None, impl: Optional[str] = None, schedule=None,
+                     wire_format: Optional[str] = None) -> torch.Tensor:
     """Transpose of :func:`halo_exchange`: halo-slot values delivered back
-    to their owner ranks and summed into local rows."""
+    to their owner ranks (encoded under ``wire_format``) and summed into
+    local rows."""
     W, S = halo.send_idx.shape[0], halo.s_pad
     F = h.shape[-1]
     if group is None:
@@ -422,7 +528,7 @@ def halo_scatter_sum(h: torch.Tensor, halo: HaloSpec, n_pad: int, group=None,
         return local_ops.segment_sum(back, halo.send_idx.reshape(-1), n_pad)
     if deltas is not None and len(deltas) == 0:
         return h.new_zeros((n_pad, F))
-    lowering = _lowering(impl, deltas, W, group, schedule, "halo_scatter_sum")
+    lowering = _lowering(impl, deltas, W, group, schedule, "halo_scatter_sum", wire_format)
     return _Unexchange.apply(h, halo.send_idx, halo.send_mask, S, n_pad, lowering)
 
 
@@ -449,15 +555,16 @@ def ready(t) -> torch.Tensor:
     return t.wait() if isinstance(t, PendingHalo) else t
 
 
-def halo_exchange_overlap(x: torch.Tensor, halo: HaloSpec, group, deltas) -> PendingHalo:
+def halo_exchange_overlap(x: torch.Tensor, halo: HaloSpec, group, deltas,
+                          wire_format: str = "fp32") -> PendingHalo:
     """:func:`halo_exchange` under the overlap lowering with its rounds left
-    in flight: every block gathered and every round posted now, the buffer
-    (bit-equal to ``all_to_all``'s on the rows it lands) when the
-    :class:`PendingHalo` is waited for."""
+    in flight: every block gathered (and encoded) and every round posted
+    now, the buffer (bit-equal to ``all_to_all``'s under the same format on
+    the rows it lands) when the :class:`PendingHalo` is waited for."""
     if group is None or not deltas:
         buf = halo_exchange(x, halo, group, deltas)
         return PendingHalo(lambda: buf)
-    lowering = _Lowering("overlap", group, tuple(deltas))
+    lowering = _Lowering("overlap", group, tuple(deltas), wire_format=wire_format)
     with torch.no_grad():
         posted = lowering.post_fwd(x, halo)
     return PendingHalo(lambda: _Exchange.apply(x, halo.send_idx, halo.send_mask, halo.s_pad,
@@ -465,7 +572,7 @@ def halo_exchange_overlap(x: torch.Tensor, halo: HaloSpec, group, deltas) -> Pen
 
 
 def halo_scatter_sum_overlap(h: torch.Tensor, halo: HaloSpec, n_pad: int, group,
-                             deltas) -> PendingHalo:
+                             deltas, wire_format: str = "fp32") -> PendingHalo:
     """:func:`halo_scatter_sum` under the overlap lowering with its reverse
     rounds left in flight; waited for, the owners' sums, bit-equal to the
     ``all_to_all`` reverse's (the same masked flat sum over the same
@@ -473,7 +580,7 @@ def halo_scatter_sum_overlap(h: torch.Tensor, halo: HaloSpec, n_pad: int, group,
     if group is None or not deltas:
         out = halo_scatter_sum(h, halo, n_pad, group, deltas)
         return PendingHalo(lambda: out)
-    lowering = _Lowering("overlap", group, tuple(deltas))
+    lowering = _Lowering("overlap", group, tuple(deltas), wire_format=wire_format)
     with torch.no_grad():
         posted = lowering.post_rev(h, halo)
     return PendingHalo(lambda: _Unexchange.apply(h, halo.send_idx, halo.send_mask,
@@ -484,11 +591,12 @@ def halo_exchange_split(x: torch.Tensor, plan: EdgePlan, group):
     """The split lowerings' exchange: one resolution, then the one-sided
     puts (kernel 5; a tensor) or the overlap rounds (a
     :class:`PendingHalo`): the ``[W*S, F]`` buffer the boundary takes
-    index, the same bits either way."""
+    index, the same bits either way (under the same wire format)."""
     impl = resolve_plan_impl(plan, group)
+    wf = resolve_plan_wire_format(plan, group)
     if impl == "pallas_p2p":
-        return halo_exchange(x, plan.halo, group, plan.halo_deltas, impl)
-    return halo_exchange_overlap(x, plan.halo, group, plan.halo_deltas)
+        return halo_exchange(x, plan.halo, group, plan.halo_deltas, impl, wire_format=wf)
+    return halo_exchange_overlap(x, plan.halo, group, plan.halo_deltas, wf)
 
 
 def map_feature_chunks(fn, width: int, chunk: Optional[int] = None):
@@ -510,7 +618,8 @@ def halo_extend(x: torch.Tensor, plan: EdgePlan, side: str, group=None) -> torch
         return x
     impl = resolve_plan_impl(plan, group) if group is not None else None
     return torch.cat([x, halo_exchange(x, plan.halo, group, plan.halo_deltas, impl,
-                                       plan.halo_schedule)], dim=0)
+                                       plan.halo_schedule,
+                                       resolve_plan_wire_format(plan, group))], dim=0)
 
 
 def local_take(full: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
@@ -555,8 +664,9 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> t
                                                     gather_mv=plan.gather_mv)
         return local_ops.segment_sum(edata, idx, n_pad)
     impl = resolve_plan_impl(plan, group) if group is not None else None
+    wf = resolve_plan_wire_format(plan, group)
     if impl in SPLIT_IMPLS:
-        return _scatter_sum_split(edata, plan, side, group, impl)
+        return _scatter_sum_split(edata, plan, side, group, impl, wf)
     n_full = n_pad + plan.world_size * plan.halo.s_pad
     if plan.halo_sort_perm is not None:
         full = local_ops.segment_sum_sort_route(
@@ -564,7 +674,7 @@ def scatter_sum(edata: torch.Tensor, plan: EdgePlan, side: str, group=None) -> t
     else:
         full = local_ops.segment_sum(edata, idx, n_full)
     return full[:n_pad] + halo_scatter_sum(full[n_pad:], plan.halo, n_pad, group,
-                                           plan.halo_deltas, impl, plan.halo_schedule)
+                                           plan.halo_deltas, impl, plan.halo_schedule, wf)
 
 
 def scatter_bias_relu(
@@ -674,21 +784,24 @@ def gather_scatter_overlap(x_local: torch.Tensor, halo_buf: torch.Tensor, plan: 
     return agg_int + boundary_scatter_sum(m_bnd, plan, owner)
 
 
-def _scatter_sum_split(edata, plan: EdgePlan, side: str, group, impl: str) -> torch.Tensor:
+def _scatter_sum_split(edata, plan: EdgePlan, side: str, group, impl: str,
+                       wire_format: str = "fp32") -> torch.Tensor:
     """Halo-side scatter over the split (``collectives.py:1228-1262``):
     boundary rows pre-reduced into halo slots and sent back first (the
-    reverse overlap rounds, left in flight, or the reverse puts), interior
-    rows summed into local rows meanwhile, the two merged. ``edata`` is
-    already edge-masked."""
+    reverse overlap rounds, left in flight, or the reverse puts, under
+    ``wire_format``), interior rows summed into local rows meanwhile, the
+    two merged. ``edata`` is already edge-masked."""
     ov = _overlap_spec(plan)
     n_pad = _side_npad(plan, side)
     W, S = plan.world_size, plan.halo.s_pad
     bnd_rows = local_ops.take_rows(edata, ov.bnd_epos)
     slot_sums = local_ops.segment_sum(bnd_rows, ov.side("boundary", side), W * S)
     if impl == "pallas_p2p":
-        remote = halo_scatter_sum(slot_sums, plan.halo, n_pad, group, plan.halo_deltas, impl)
+        remote = halo_scatter_sum(slot_sums, plan.halo, n_pad, group, plan.halo_deltas, impl,
+                                  wire_format=wire_format)
     else:
-        remote = halo_scatter_sum_overlap(slot_sums, plan.halo, n_pad, group, plan.halo_deltas)
+        remote = halo_scatter_sum_overlap(slot_sums, plan.halo, n_pad, group, plan.halo_deltas,
+                                          wire_format)
     int_rows = local_ops.take_rows(edata, ov.int_epos)
     interior = local_ops.segment_sum(int_rows, ov.side("interior", side), n_pad)
     return interior + ready(remote)

@@ -39,10 +39,10 @@ class SingleComm:
     def overlap_active(self, plan: EdgePlan) -> bool:
         return collectives.overlap_active(plan)
 
-    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None):
+    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None, wire_format=None):
         """The world-size-1 exchange: the (all-masked) send lists read into
-        a buffer of the plan's shape."""
-        return collectives.halo_exchange(x, halo, None, deltas, impl)
+        a buffer of the plan's shape (no wire: ``wire_format`` is moot)."""
+        return collectives.halo_exchange(x, halo, None, deltas, impl, wire_format=wire_format)
 
     def halo_exchange_overlap(self, x, plan: EdgePlan):
         return collectives.halo_exchange_overlap(x, plan.halo, None, plan.halo_deltas)
@@ -124,8 +124,10 @@ class DistComm:
     def halo_exchange_overlap(self, x, plan: EdgePlan):
         """The overlap lowering's exchange, its rounds in flight: a
         :class:`~dgraph_tpu_torch.comm.collectives.PendingHalo` of the
-        ``[W*S, F]`` buffer."""
-        return collectives.halo_exchange_overlap(x, plan.halo, self.group, plan.halo_deltas)
+        ``[W*S, F]`` buffer, under the plan's resolved wire format."""
+        return collectives.halo_exchange_overlap(
+            x, plan.halo, self.group, plan.halo_deltas,
+            collectives.resolve_plan_wire_format(plan, self.group))
 
     def interior_take(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.interior_take(x, plan, side)
@@ -148,13 +150,16 @@ class DistComm:
                                                      side, edge_weight)
 
     # -- the unsplit primitives --
-    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None):
-        """Exchange boundary rows: the ``[W*S, F]`` halo buffer. ``deltas``
-        and ``impl`` (the plan's ``halo_deltas`` and
-        :func:`~dgraph_tpu_torch.comm.collectives.resolve_plan_impl`) pick
-        the lowering; resolve once a call site. Without them the padded
-        ``all_to_all`` runs."""
-        return collectives.halo_exchange(x, halo, self.group, deltas, impl)
+    def halo_exchange(self, x, halo: HaloSpec, deltas=None, impl=None, wire_format=None):
+        """Exchange boundary rows: the ``[W*S, F]`` halo buffer. ``deltas``,
+        ``impl`` and ``wire_format`` (the plan's ``halo_deltas``,
+        :func:`~dgraph_tpu_torch.comm.collectives.resolve_plan_impl` and
+        :func:`~dgraph_tpu_torch.comm.collectives.resolve_plan_wire_format`)
+        pick the lowering and the payload codec; resolve once a call site.
+        Without them the padded ``all_to_all`` runs with the fp32 identity
+        wire (``communicator.py:65-82``)."""
+        return collectives.halo_exchange(x, halo, self.group, deltas, impl,
+                                         wire_format=wire_format)
 
     def gather(self, x, plan: EdgePlan, side: str = "src"):
         return collectives.gather(x, plan, side, self.group)

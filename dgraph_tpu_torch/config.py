@@ -7,10 +7,12 @@ to switch. The one opt-in flag the reference keeps for a kernel that is off
 by default, ``use_pallas_gather`` (the sorted-row-gather kernel), is here
 with its name and semantics, and so are the halo-lowering pins
 (``halo_impl``, ``use_pallas_p2p``), so one environment drives both
-packages. The reference's adopted-record tier (``tuned_halo_impl``), wire
-codecs (``DGRAPH_TPU_WIRE_FORMAT``) and interior chunking
-(``DGRAPH_TPU_OVERLAP_CHUNKS``) are not here: the port has no tuner and no
-codec, moves halo payloads as they are, and sums each split subset at once.
+packages, and so is the wire-codec ladder (``wire_format``, read from
+``DGRAPH_TPU_WIRE_FORMAT``, and ``tuned_wire_format``, the record tier,
+which nothing sets until the tuner is ported). The reference's
+adopted-record tier of the lowering (``tuned_halo_impl``) and interior
+chunking (``DGRAPH_TPU_OVERLAP_CHUNKS``) are not here: the port has no
+tuner and sums each split subset at once.
 
 By the same rule the reference's ``use_flash_attention`` tri-state
 (``DGRAPH_TPU_FLASH_ATTN``) and its ``flash_attention_selfcheck`` latch
@@ -107,6 +109,31 @@ def pallas_p2p_available(device=None) -> bool:
     if device is None:
         return torch.cuda.is_available()
     return torch.device(device).type == "cuda"
+
+
+# Wire codec for halo payloads (dgraph_tpu_torch.wire): 'auto' (defer to the
+# adopted tuning record, then the plan-attached format, then the fp32
+# identity — a lossy codec never engages on its own), or an explicit
+# 'fp32' / 'bf16' / 'fp8' pin. Resolution order lives in
+# wire.spec.resolve_wire_format: this pin > tuned_wire_format (below) >
+# EdgePlan.wire_format > 'fp32'; a pinned format whose preconditions fail
+# (fp8 without torch.float8_e4m3fn, an unknown name) degrades with one
+# warning to the next tier.
+wire_format: str = os.environ.get("DGRAPH_TPU_WIRE_FORMAT", "auto")
+
+# Wire format chosen by an adopted tuning record, consulted AFTER the pin.
+# None: no record adopted (the port has no tuner yet, so nothing sets it).
+tuned_wire_format: "str | None" = None
+
+
+def set_flags(**kw) -> None:
+    """Set module flags by name (the reference's ``config.set_flags``); an
+    unknown name raises."""
+    g = globals()
+    for k, v in kw.items():
+        if k not in g:
+            raise KeyError(f"unknown dgraph_tpu_torch.config flag: {k}")
+        g[k] = v
 
 
 def default_device(device=None) -> torch.device:

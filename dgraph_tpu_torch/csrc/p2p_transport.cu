@@ -42,6 +42,16 @@
 // With no mask the kernel moves bytes. The TPU's VMEM staging and its 4 MiB
 // budget (pallas_p2p.py:58, :210-214) have no counterpart.
 //
+// Byte tiles (dtype 2, uint8, mask null only): the encoded halo payloads of
+// the wire codecs (dgraph_tpu_torch/wire/codec.py; fp8 rows of F + 4 bytes,
+// the f32 scale in the last 4), which the reference's dtype-generic kernel
+// moves pre-masked as pure data (collectives.py:336-343). With no mask a
+// tile and its destination rows are each one contiguous run of S*(F+4)
+// bytes, so the copy goes in 16-byte vectors whenever the run length and
+// both bases are 16-byte aligned (the wrapper decides once per launch),
+// else one byte a thread. No arithmetic touches the bytes: the scale lanes
+// and the payload keep their bits.
+//
 // Layout: a tile and its destination rows are each one contiguous S*F run,
 // so the grid is (chunks of the run, tile). The vector path (16-byte loads
 // and stores, 4 f32 or 8 bf16 of one row) is chosen once per launch by the
@@ -58,6 +68,7 @@
 // Plain C interface, loaded with ctypes (dgraph_tpu_torch/ops/_build.py).
 // Each entry point returns a cudaError_t as int (0 = success).
 
+#include <cstdint>
 #include <cstring>
 
 #include "vec.cuh"
@@ -69,6 +80,7 @@ using namespace dg;
 constexpr int kThreads = 256;
 constexpr int kMaxTiles = 64;
 constexpr int kMaxChunks = 2048;
+constexpr int kU8 = 2;  // byte tiles (kernel 5 only, no mask)
 
 // the destination of every tile, passed by value
 struct Dests {
@@ -159,6 +171,25 @@ p2p_put_mutant_kernel(const T* __restrict__ blocks, const float* __restrict__ ma
                                          S, F, M == kOversize ? S + 1 : S);
 }
 
+// kernel 5 on byte tiles: tile k's `run` bytes to dst[k], 16 bytes a
+// thread (VEC) or one
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+p2p_put_bytes_kernel(const uint8_t* __restrict__ blocks, Dests dst, int64_t run) {
+  const int k = blockIdx.y;
+  const uint8_t* in = blocks + k * run;
+  uint8_t* out = static_cast<uint8_t*>(dst.p[k]);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if constexpr (VEC) {
+    const int64_t units = run / 16;
+    for (int64_t i = first; i < units; i += stride)
+      reinterpret_cast<uint4*>(out)[i] = __ldg(reinterpret_cast<const uint4*>(in) + i);
+  } else {
+    for (int64_t i = first; i < run; i += stride) out[i] = in[i];
+  }
+}
+
 dim3 put_grid(int n, int64_t units) {
   const int64_t chunks = (units + kThreads - 1) / kThreads;
   return dim3(static_cast<unsigned>(chunks < kMaxChunks ? chunks : kMaxChunks), n);
@@ -240,8 +271,9 @@ int dg_p2p_ipc_open(int device, const void* handle, void** out) {
 // Store tile k of blocks [n, S, F] (contiguous), times mask[k, row] when
 // mask [n, S] (f32, contiguous) is not null, at dst[k] (S*F elements,
 // contiguous: the peer's landing rows). dst is a host array of n device
-// pointers. dtype: 0 = float32, 1 = bfloat16. Launches on `stream` of the
-// card that holds `blocks`.
+// pointers. dtype: 0 = float32, 1 = bfloat16, 2 = uint8 (bytes, mask null
+// only; vec: the run S*F and every base 16-byte aligned). Launches on
+// `stream` of the card that holds `blocks`.
 int dg_p2p_transport(int device, const void* blocks, const float* mask, void* const* dst,
                      int n, long long S, int F, int dtype, int vec, void* stream) {
   if (n <= 0 || n > kMaxTiles || S <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -256,6 +288,11 @@ int dg_p2p_transport(int device, const void* blocks, const float* mask, void* co
   } else if (dtype == kBF16) {
     if (vec) launch<__nv_bfloat16, true>(blocks, mask, d, n, S, F, s);
     else launch<__nv_bfloat16, false>(blocks, mask, d, n, S, F, s);
+  } else if (dtype == kU8 && mask == nullptr) {
+    const int64_t run = S * F;
+    const uint8_t* b = static_cast<const uint8_t*>(blocks);
+    if (vec) p2p_put_bytes_kernel<true><<<put_grid(n, run / 16), kThreads, 0, s>>>(b, d, run);
+    else p2p_put_bytes_kernel<false><<<put_grid(n, run), kThreads, 0, s>>>(b, d, run);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,10 +5,11 @@ is a rank-local segment operation (:func:`~dgraph_tpu_torch.models.
 message_passing.head_chunked_attention`): only the src-side take crosses
 ranks. Each :class:`GATConv` projects (``proj``, no bias), attends per head
 with the raw ``[H, D]`` parameters ``att_src`` and ``att_dst``, and takes
-the mean over heads; :class:`GAT` puts elu after each conv and a Dense head
-on top. Names follow flax's auto-names (``GATConv_{i}.proj``,
-``GATConv_{i}.att_src``, ``GATConv_{i}.att_dst``, ``Dense_0``). The
-reference conv's ``residual`` option, which no model sets, is not carried.
+the mean over heads, plus with ``residual`` a bias-free Dense of its input
+(``res``, the reference's option, ``gat.py:29``, ``:54-55``, which no model
+sets); :class:`GAT` puts elu after each conv and a Dense head on top. Names
+follow flax's auto-names (``GATConv_{i}.proj``, ``GATConv_{i}.att_src``,
+``GATConv_{i}.att_dst``, ``GATConv_{i}.res``, ``Dense_0``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from dgraph_tpu_torch.plan import EdgePlan
 
 class GATConv(nn.Module):
     def __init__(self, in_features: int, out_features: int, comm, num_heads: int = 1,
-                 negative_slope: float = 0.2, dtype=None):
+                 negative_slope: float = 0.2, residual: bool = False, dtype=None):
         super().__init__()
         H, D = num_heads, out_features
         self.comm, self.num_heads, self.out_features = comm, H, D
@@ -33,6 +34,7 @@ class GATConv(nn.Module):
         self.proj = nn.Linear(in_features, H * D, bias=False)
         self.att_src = nn.Parameter(torch.empty(H, D))
         self.att_dst = nn.Parameter(torch.empty(H, D))
+        self.res = nn.Linear(in_features, D, bias=False) if residual else None
 
     def forward(self, x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
         dt = _cfg.resolve_compute_dtype(self.dtype)
@@ -42,7 +44,10 @@ class GATConv(nn.Module):
         a_src, a_dst = self.att_src.to(hx.dtype), self.att_dst.to(hx.dtype)
         out = head_chunked_attention(self.comm, hx, hx, a_src, a_dst, plan,
                                      self.negative_slope)
-        return out.mean(dim=1)  # head mean
+        out = out.mean(dim=1)  # head mean
+        if self.res is not None:
+            out = out + dense(self.res, x, dt)
+        return out
 
 
 class GAT(nn.Module):

@@ -12,7 +12,11 @@ import torch
 from torch import nn
 
 from dgraph_tpu_torch import config as _cfg
-from dgraph_tpu_torch.comm.collectives import map_feature_chunks, resolve_plan_impl
+from dgraph_tpu_torch.comm.collectives import (
+    map_feature_chunks,
+    resolve_plan_impl,
+    resolve_plan_wire_format,
+)
 from dgraph_tpu_torch.ops import local as local_ops
 from dgraph_tpu_torch.plan import EdgePlan
 
@@ -66,10 +70,10 @@ def head_chunked_attention(comm, hs: torch.Tensor, hd: torch.Tensor, a_src: torc
 class MessagePassing(nn.Module):
     """halo exchange -> ``[local ; halo]`` -> ``layer(full, plan)`` (the
     reference's ``DGraphMessagePassing`` shape): ``layer`` indexes the
-    concatenated buffer with the plan's halo-slot numbering. The lowering is
-    resolved once from the plan (env pin > heuristic, the split's 'overlap'
-    included) and given to the exchange, whose buffer this wrapper reads at
-    once."""
+    concatenated buffer with the plan's halo-slot numbering. The lowering
+    (env pin > heuristic, the split's 'overlap' included) and the wire
+    format (``message_passing.py:97-103``) are resolved once from the plan
+    and given to the exchange, whose buffer this wrapper reads at once."""
 
     def __init__(self, layer: Callable, comm):
         super().__init__()
@@ -78,5 +82,7 @@ class MessagePassing(nn.Module):
 
     def forward(self, x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
         impl = resolve_plan_impl(plan, self.comm.group)
-        halo = self.comm.halo_exchange(x, plan.halo, deltas=plan.halo_deltas, impl=impl)
+        halo = self.comm.halo_exchange(
+            x, plan.halo, deltas=plan.halo_deltas, impl=impl,
+            wire_format=resolve_plan_wire_format(plan, self.comm.group))
         return self.layer(torch.cat([x, halo], dim=0), plan)

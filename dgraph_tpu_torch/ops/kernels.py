@@ -13,8 +13,11 @@ KERNELS = {**segment.KERNELS, **attention.KERNELS, **p2p.KERNELS}
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launches, kernel 5's launches on uint8 tiles
+    (``p2p.p2p_transport.byte_launches``) and the hub-route calls."""
     for k in KERNELS.values():
         k.wrapper.launches = 0
+    p2p.p2p_transport.byte_launches = 0
     segment.reset_launch_counts()
 
 

@@ -49,6 +49,12 @@ order run and the destinations over symbolic bases. It observes and changes
 nothing: on a CUDA tensor the steps run as always, on a CPU tensor the
 value is still the plain version's.
 
+Kernel 5 also moves ``uint8`` tiles, with ``mask=None`` only (a mask with
+them raises): the wire codecs' encoded payloads (``[n, S, F+4]`` under
+fp8), pre-masked before encoding, moved as bytes (``collectives.py:336-343``
+of the reference, whose kernel is dtype-generic). Kernel 6 stays f32 and
+bf16.
+
 Not differentiable by itself: ``comm.collectives`` pairs the two directions
 (``sign=+1`` the exchange, ``sign=-1`` its transpose) as autograd Functions.
 """
@@ -67,7 +73,10 @@ import torch.distributed as dist
 from dgraph_tpu_torch.ops import _build
 from dgraph_tpu_torch.ops.segment import Kernel
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+# kernel 6's types (no byte tiles)
+_MUTANT_DTYPES = (torch.float32, torch.bfloat16)
+_TYPESTR = {torch.float32: "<f4", torch.bfloat16: "<i2", torch.uint8: "|u1"}
 _IPC_HANDLE_BYTES = 64
 
 PROTOCOL = ("zero", "sync", "barrier", "put", "sync", "barrier", "read")
@@ -267,14 +276,14 @@ class _CudaArray:
 
     def __init__(self, ptr: int, shape: tuple, dtype: torch.dtype):
         self.__cuda_array_interface__ = {
-            "shape": shape, "typestr": "<f4" if dtype == torch.float32 else "<i2",
+            "shape": shape, "typestr": _TYPESTR[dtype],
             "data": (ptr, False), "version": 2, "strides": None,
         }
 
 
 def _as_tensor(ptr: int, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
     t = torch.as_tensor(_CudaArray(ptr, shape, dtype))
-    return t if dtype == torch.float32 else t.view(dtype)
+    return t if t.dtype == dtype else t.view(dtype)
 
 
 def landing_buffer(group, rows: int, F: int, dtype: torch.dtype, sign: int) -> Landing:
@@ -313,8 +322,9 @@ def landing_buffer(group, rows: int, F: int, dtype: torch.dtype, sign: int) -> L
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    """The bit patterns of an f32 or bf16 tensor, as int32 or int16."""
-    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+    """The bit patterns of an f32, bf16 or uint8 tensor, as int32, int16
+    or uint8."""
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
 
 
 class _CudaSteps:
@@ -344,6 +354,8 @@ class _CudaSteps:
     def put(self):
         self.launch()
         self.wrapper.launches += 1
+        if self.land.own.dtype == torch.uint8:
+            self.wrapper.byte_launches += 1
 
     def read(self):
         if self.t0 is not None and self.t1 is not None:
@@ -351,7 +363,12 @@ class _CudaSteps:
         return self.land.own.clone()
 
 
-def _check(blocks, deltas, W, S, mask, group, mutation=None):
+def _check(blocks, deltas, W, S, mask, group, mutation=None, kernel="p2p_transport"):
+    if kernel != "p2p_transport" and blocks.dtype not in _MUTANT_DTYPES:
+        raise TypeError(f"kernel 6 takes float32 or bfloat16 tiles, got {blocks.dtype}")
+    if blocks.dtype == torch.uint8 and mask is not None:
+        raise ValueError("uint8 tiles are encoded payloads, masked before encoding: "
+                         "kernel 5 moves them with mask=None only")
     if mutation not in MUTATIONS:
         raise ValueError(f"mutation must be one of {sorted(MUTATIONS, key=str)}, got {mutation!r}")
     if blocks.dim() != 3 or blocks.shape[0] != len(deltas) or blocks.shape[1] != S:
@@ -366,7 +383,8 @@ def _check_cuda(blocks):
     if blocks.device.type != "cuda":
         raise RuntimeError(f"no CUDA kernel for device {blocks.device}")
     if blocks.dtype not in _DTYPES:
-        raise TypeError(f"the transport kernels take float32 or bfloat16, got {blocks.dtype}")
+        raise TypeError(f"the transport kernels take float32, bfloat16 or uint8 tiles, got "
+                        f"{blocks.dtype}")
 
 
 def _transport(blocks, deltas, W, S, sign, mask, group, *, wrapper, mutation, guard,
@@ -395,13 +413,13 @@ def p2p_transport(
     S: int,
     *,
     sign: int = 1,  # +1: tile k -> (me + deltas[k]) % W; -1: its transpose
-    mask=None,  # [n, S] f32 send mask, or None (tiles already masked)
+    mask=None,  # [n, S] f32 send mask, or None (tiles already masked; uint8 tiles)
     group,  # comm.dist.RankGroup
 ) -> torch.Tensor:
     """``[W*S, F]`` halo buffer of this rank (see the module docstring).
-    Counts its launches in ``p2p_transport.launches`` and adds the host
-    seconds of each launched call, barrier to barrier, to
-    ``p2p_transport.wall_s``."""
+    Counts its launches in ``p2p_transport.launches`` (those on uint8 tiles
+    also in ``p2p_transport.byte_launches``) and adds the host seconds of
+    each launched call, barrier to barrier, to ``p2p_transport.wall_s``."""
     _check(blocks, deltas, W, S, mask, group)
     if blocks.device.type == "cpu":
         out = p2p_transport_plain(blocks, deltas, W, S, sign=sign, mask=mask, group=group)
@@ -413,8 +431,12 @@ def p2p_transport(
 
 def _vec_ok(blocks) -> bool:
     """The vector path, chosen once per launch: rows of whole 16-byte
-    vectors and aligned blocks (the landing buffers are 256-byte aligned)."""
-    return (blocks.shape[2] * blocks.element_size()) % 16 == 0 and blocks.data_ptr() % 16 == 0
+    vectors (uint8 tiles: a tile's whole run, which puts every tile and
+    destination on a 16-byte boundary) and aligned blocks (the landing
+    buffers are 256-byte aligned)."""
+    n, S, F = blocks.shape
+    width = S * F if blocks.dtype == torch.uint8 else F * blocks.element_size()
+    return width % 16 == 0 and blocks.data_ptr() % 16 == 0
 
 
 def launch_puts(blocks, deltas, W, S, sign, mask, group, land: Landing) -> None:
@@ -433,6 +455,7 @@ def launch_puts(blocks, deltas, W, S, sign, mask, group, land: Landing) -> None:
 
 
 p2p_transport.launches = 0
+p2p_transport.byte_launches = 0
 p2p_transport.wall_s = 0.0
 
 
@@ -490,9 +513,9 @@ def p2p_transport_mutant(
     """Kernel 6: :func:`p2p_transport` with the destinations computed in
     the kernel and one seeded fault (see the module docstring). Returns
     this rank's landing buffer, ``[W*S, F]``, or ``[(W+1)*S, F]`` with the
-    guard slot for ``oversize``. Counts its launches in
-    ``p2p_transport_mutant.launches``."""
-    _check(blocks, deltas, W, S, mask, group, mutation)
+    guard slot for ``oversize``. f32 and bf16 tiles only. Counts its
+    launches in ``p2p_transport_mutant.launches``."""
+    _check(blocks, deltas, W, S, mask, group, mutation, "p2p_transport_mutant")
     guard = mutation == "oversize"
     if blocks.device.type == "cpu":
         out = p2p_transport_mutant_plain(blocks, deltas, W, S, sign=sign, mask=mask,
@@ -531,7 +554,7 @@ def land_tiles(blocks, deltas, W, S, *, sign=1, mask=None, group, kernel="p2p_tr
     (``kernel="p2p_transport"``) or kernel 6 (``"p2p_transport_mutant"``
     with ``mutation``) runs through :data:`PROTOCOL`; on a CPU tensor the
     plain version of kernel 6 (kernel 5's placement is its ``None``)."""
-    _check(blocks, deltas, W, S, mask, group, mutation)
+    _check(blocks, deltas, W, S, mask, group, mutation, kernel)
     if kernel == "p2p_transport" and mutation is not None:
         raise ValueError("kernel 5 has no seeded fault; use kernel='p2p_transport_mutant'")
     if blocks.device.type == "cpu":

@@ -10,10 +10,11 @@ dataclass with ``.to(device)``.
 The interior/boundary split (:class:`OverlapSpec`, ``build_edge_plan(
 overlap=...)``) and the halo-lowering resolution (:func:`resolve_halo_impl`)
 are ported with the reference's semantics, and so is the compiled halo
-schedule (:func:`compile_plan_schedule`, ``EdgePlan.halo_schedule``). Not
-ported yet: the native streaming core (the reference only takes it from
-``NATIVE_PLAN_MIN_EDGES`` edges on), the sharded build, and the wire
-attachment.
+schedule (:func:`compile_plan_schedule`, ``EdgePlan.halo_schedule``) and
+the wire-format attachment (:func:`plan_wire_format`,
+``EdgePlan.wire_format``). Not ported yet: the native streaming core (the
+reference only takes it from ``NATIVE_PLAN_MIN_EDGES`` edges on) and the
+sharded build.
 
 Conventions (as in the reference): edge lists are ``[2, E]``; vertices are
 renumbered into contiguous per-rank blocks first; the default edge owner is
@@ -171,6 +172,11 @@ class EdgePlan:
     # hashable) of halo_pair_rows, the full-world matrix: the same on every
     # rank, so .to() and .shard() carry it whole; None without traffic
     halo_schedule: Any = None
+    # the wire format (wire.spec.WIRE_FORMATS) attached at build, the
+    # build-time pass of the wire ladder (plan_wire_format); the resolution
+    # at an exchange (comm.collectives.resolve_plan_wire_format) takes it as
+    # its plan tier, so a later pin still wins. "fp32" without traffic
+    wire_format: str = "fp32"
     # True on a per-rank view (leading rank axis dropped)
     per_rank: bool = False
     # the interior/boundary split (build_edge_plan(overlap=True)), or None
@@ -615,6 +621,7 @@ def _finalize_plan(
         gather_mv=gather_mv,
         halo_pair_rows=halo_pair_rows,
         halo_schedule=halo_schedule,
+        wire_format=plan_wire_format(W, prep.halo_deltas),
         overlap=overlap_spec,
     )
     layout = EdgePlanLayout(
@@ -741,6 +748,21 @@ def compile_plan_schedule(pair_rows: tuple, *, s_pad: int, world_size: int,
     from dgraph_tpu_torch.sched.passes import compile_halo_schedule
 
     return compile_halo_schedule(pair_rows, s_pad=int(s_pad), world_size=int(world_size))
+
+
+def plan_wire_format(world_size: int, halo_deltas: tuple) -> str:
+    """The one attach rule for a plan's wire format
+    (``dgraph_tpu/plan.py:614-635``): the build-time pass of the wire
+    ladder without a plan tier (the plan is being built): pin > adopted
+    record > the fp32 identity. The exchange re-resolves with this value as
+    the plan tier (``comm.collectives.resolve_plan_wire_format``)."""
+    if not halo_deltas:
+        return "fp32"
+    from dgraph_tpu_torch.wire.spec import resolve_wire_format
+
+    name, _source = resolve_wire_format(int(world_size), tuple(halo_deltas),
+                                        plan_format="fp32")
+    return name
 
 
 def pick_halo_impl(halo_deltas: tuple) -> str:

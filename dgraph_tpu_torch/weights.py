@@ -4,7 +4,9 @@ Module names follow flax's (auto-names like ``GraphConvLayer_0/src_proj``,
 ``SAGEConv_1/Dense_0``, ``Dense_0``, or explicit ones like ``block_0/qkv``),
 so a flax path maps to a state_dict key by joining with dots. The leaves:
 
-- ``Dense.kernel`` ``[in, out]`` <-> ``Linear.weight`` ``[out, in]`` (transposed);
+- ``Dense.kernel`` ``[in, out]`` <-> ``Linear.weight`` ``[out, in]``
+  (transposed; GAT's residual ``GATConv_{i}/res/kernel`` <->
+  ``GATConv_{i}.res.weight`` among them);
 - ``LayerNorm.scale`` <-> ``LayerNorm.weight``, ``Embed.embedding``
   ``[num, features]`` <-> ``Embedding.weight``, both as they are;
 - ``bias`` <-> ``bias``;

@@ -7,7 +7,11 @@ the port and ``chip_smoke.py`` lint clean; the host tier's fixture pairs and
 vacuity mutants hold (``host_selftest_failures``) and the port's threaded
 host code audits clean, with its real lock edge and guarded fields found.
 The ``no-jax-import`` rule agrees with ``tests/test_torch_imports.py``'s
-scan on every file of the port. ``python -m dgraph_tpu_torch.analysis
+scan on every file of the port. ``no-unpriced-wire-cast`` (the reference's
+rule in its torch meaning) holds to ``comm/`` and ``ops/``, sees only
+literal narrowing casts in functions that put operands on the wire, and
+yields to its pragma; ``wire/``, where narrowing belongs, is out of its
+scope. ``python -m dgraph_tpu_torch.analysis
 --selftest`` exits 0 with one JSON line, and nonzero on a seeded finding.
 """
 
@@ -25,7 +29,7 @@ from dgraph_tpu_torch.analysis import host, lint
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_RULES = ("no-jax-import", "no-nondeterminism-in-plan", "autograd-function-paired",
-              "no-rank-branch-around-collective")
+              "no-rank-branch-around-collective", "no-unpriced-wire-cast")
 
 
 @pytest.mark.parametrize("name", PORT_RULES)
@@ -125,3 +129,23 @@ def test_analysis_cli_fails_on_a_seeded_finding(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["lint"]["findings"][0]["path"] == "dgraph_tpu_torch/bad.py"
     assert out["run_health"]["wedge"] == "stage_failure"
+
+
+def test_wire_cast_rule_scope_and_pragma():
+    r = lint.RULES["no-unpriced-wire-cast"]
+    bad = ("import torch\ndef send(x, group):\n    y = x.to(torch.uint8)\n"
+           "    return all_to_all(y, group)\n")
+    assert r.applies("dgraph_tpu_torch/comm/collectives.py")
+    assert r.applies("dgraph_tpu_torch/ops/p2p.py")
+    assert not r.applies("dgraph_tpu_torch/wire/codec.py")
+    assert [f.line for f in r.check("dgraph_tpu_torch/comm/x.py", ast.parse(bad),
+                                    bad.splitlines())] == [3]
+    # the same cast where nothing goes on the wire, and a cast to a
+    # tensor's own dtype beside a collective, are not findings
+    quiet = ("import torch\ndef pack(x):\n    return x.to(torch.bfloat16)\n"
+             "def send(x, like, group):\n    return all_to_all(x.to(like.dtype), group)\n")
+    assert r.check("dgraph_tpu_torch/comm/x.py", ast.parse(quiet), quiet.splitlines()) == []
+    allowed = bad.replace("torch.uint8)", "torch.uint8)  # lint: allow(no-unpriced-wire-cast)")
+    path = "dgraph_tpu_torch/comm/x.py"
+    found = r.check(path, ast.parse(allowed), allowed.splitlines())
+    assert found and all(lint._suppressed(allowed.splitlines(), f.line, f.rule) for f in found)

@@ -53,11 +53,26 @@ made from seeds and handed over in a pickle.
   loss and gradients against the reference's split route (its overlap
   lowering) within 1e-5.
 - ``MessagePassing`` with a segment-sum layer at W = 1, 2 and 4 (the port
-  under the all_to_all, ppermute and overlap pins) against the
-  reference's within 1e-6; under the 'sched' pin it raises the
+  under the all_to_all, ppermute and overlap pins, and at W = 2 and 4 the
+  same under the fp8 wire pin against the reference's under it) against
+  the reference's within 1e-6; under the 'sched' pin it raises the
   reference's error, as the reference's does (the facade's exchange takes
   no schedule); the communicators' ``put`` (bit for bit; at W = 1 the
   reference's shape check) and ``gather_concat`` (1e-6).
+- The wire formats (``dgraph_tpu_torch.wire``): under bf16 and fp8 each of
+  the five lowerings against the reference's same lowering under the same
+  format on every halo case (W = 2 and 4), all four outputs bit for bit:
+  'pallas_p2p' against the reference's 'all_to_all' (the reference's
+  kernel does not run on the installed JAX), and the buffer and h VJP of
+  'pallas_p2p' and 'ppermute' against 'all_to_all''s with the unreached
+  blocks zeroed, as the checks without a format hold them. Under 'fp32'
+  every lowering is bit-identical to the run without a format, with no
+  codec call. GCN at W = 4 under fp8 on the p2p split route (kernel 5's
+  plain version moving the encoded uint8 tiles) against the reference's
+  step under fp8 (all_to_all): logits, loss and gradients within
+  ``np_roundtrip_bound('fp8')`` of each value's scale (each leaf's
+  largest magnitude; the loss), since layer 2's exchanged inputs differ
+  at rounding between the split and unsplit sums and an fp8 code can flip.
 - The CLI at two CPU ranks, and a rank that raises ends the launch.
 """
 
@@ -104,6 +119,8 @@ GAT_HIDDEN, GAT_HEADS = 64, 4  # two head groups of two (gather_col_block 128)
 # (model, pinned lowering) of the GAT and GraphSAGE cases at each world size
 MODEL_CASES = (("gat", "ppermute"), ("gat", "overlap"), ("sage", "overlap"))
 SCHED_MODEL_CASES = (("gcn", "sched"), ("gat", "sched"))  # at W = 4
+# (model, pinned lowering, wire format) at W = 4, and the reference's lowering
+WIRE_MODEL_CASES = (("gcn", "pallas_p2p", "fp8", "all_to_all"),)
 TIMEOUT = 120
 
 
@@ -220,10 +237,10 @@ def _halo_inputs(label, edges, part, W, seed):
     return plan, case
 
 
-def _jax_halo(plan, case, W, impl="all_to_all"):
-    """The reference's ``impl`` lowering: buffer, x's VJP, halo_scatter_sum
-    and h's VJP, per rank (the plan's schedule passed, which only 'sched'
-    reads)."""
+def _jax_halo(plan, case, W, impl="all_to_all", wire_format=None):
+    """The reference's ``impl`` lowering under ``wire_format`` (None: the
+    fp32 identity): buffer, x's VJP, halo_scatter_sum and h's VJP, per rank
+    (the plan's schedule passed, which only 'sched' reads)."""
     mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
     n_pad = plan.n_src_pad
 
@@ -232,12 +249,14 @@ def _jax_halo(plan, case, W, impl="all_to_all"):
 
         def ex(x_):
             return collectives.halo_exchange(x_, p.halo, GRAPH_AXIS, deltas=p.halo_deltas,
-                                             impl=impl, schedule=p.halo_schedule)
+                                             impl=impl, schedule=p.halo_schedule,
+                                             wire_format=wire_format)
 
         def unex(h_):
             return collectives.halo_scatter_sum(h_, p.halo, n_pad, GRAPH_AXIS,
                                                 deltas=p.halo_deltas, impl=impl,
-                                                schedule=p.halo_schedule)
+                                                schedule=p.halo_schedule,
+                                                wire_format=wire_format)
 
         buf, vjp = jax.vjp(ex, x)
         back, vjp2 = jax.vjp(unex, h)
@@ -253,9 +272,9 @@ def _jax_halo(plan, case, W, impl="all_to_all"):
 
 @pytest.fixture
 def pinned():
-    saved = (jcfg.halo_impl, jcfg.use_pallas_p2p)
+    saved = (jcfg.halo_impl, jcfg.use_pallas_p2p, jcfg.wire_format)
     yield
-    jcfg.set_flags(halo_impl=saved[0], use_pallas_p2p=saved[1])
+    jcfg.set_flags(halo_impl=saved[0], use_pallas_p2p=saved[1], wire_format=saved[2])
 
 
 def _gcn_inputs():
@@ -314,9 +333,9 @@ def _model_inputs(model: str, W: int) -> tuple:
     return ref, params, g
 
 
-def _jax_step(ref, params, impl, model="gcn", W=4):
+def _jax_step(ref, params, impl, model="gcn", W=4, wire="auto"):
     """(logits [W, n, C], loss, grads) of the reference's step 0 of
-    ``model`` at W ranks under ``impl``."""
+    ``model`` at W ranks under ``impl`` and the wire-format pin ``wire``."""
     mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
     jmodel = _jax_model(model, Communicator.init_process_group("tpu", world_size=W))
     batch = {"x": jnp.asarray(ref.features), "y": jnp.asarray(ref.labels),
@@ -324,7 +343,7 @@ def _jax_step(ref, params, impl, model="gcn", W=4):
     if model == "gcn":
         batch["edge_weight"] = jnp.asarray(ref.edge_weight)
     plan = jax.tree.map(jnp.asarray, ref.plan)
-    jcfg.set_flags(halo_impl=impl)
+    jcfg.set_flags(halo_impl=impl, wire_format=wire)
 
     def body(p, b, pl):
         from dgraph_tpu import compat
@@ -383,6 +402,11 @@ def ranks(tmp_path_factory):
         inputs = {"halo": [c for _, c in halo],
                   "models": [dict(g, impl=impl) for (_, _, g), (_, impl) in
                              zip(models, _model_cases(W))]}
+        if W == 4:
+            wire_models = [_model_inputs(m, W) for m, *_ in WIRE_MODEL_CASES]
+            models += wire_models
+            inputs["models"] += [dict(g, impl=impl, wire=wire) for (_, _, g), (_, impl, wire, _)
+                                 in zip(wire_models, WIRE_MODEL_CASES)]
         gcn = None
         if W == 4:
             gcn = _gcn_inputs()
@@ -433,6 +457,62 @@ def _zero_unreached(b, W, S, r, deltas):
     b = b.reshape(W, S, -1).copy()
     b[_unreached(W, r, deltas)] = 0.0
     return b.reshape(W * S, -1)
+
+
+_JAX_WIRE: dict = {}
+
+
+def _jax_halo_wire(ranks, W, i, impl, fmt):
+    """The reference's ``impl`` lowering under ``fmt`` on halo case (W, i),
+    on 'sched''s own halo-side inputs under 'sched' (computed once)."""
+    key = (W, i, impl, fmt)
+    if key not in _JAX_WIRE:
+        plan, case = ranks[W][0][i]
+        if impl == "sched":
+            case = dict(case, h=case["h_sched"], ct_halo=case["ct_halo_sched"])
+        _JAX_WIRE[key] = _jax_halo(plan, case, W, impl, fmt)
+    return _JAX_WIRE[key]
+
+
+LEGS = ("buffer", "x VJP", "halo_scatter_sum", "h VJP")
+
+
+@pytest.mark.parametrize("fmt", torch_dist_ranks.WIRE_FORMATS)
+@pytest.mark.parametrize("impl", torch_dist_ranks.IMPLS)
+@pytest.mark.parametrize("W, i", HALO_CASES, ids=HALO_IDS)
+def test_halo_lowerings_under_wire_format_bitwise_equal_reference(ranks, W, i, impl, fmt):
+    """Each lowering under bf16 and fp8 (the codec inside both legs and both
+    VJPs) against the reference's same lowering under the same format, bit
+    for bit; 'pallas_p2p' against the reference's 'all_to_all', and the
+    exchange-side outputs of 'pallas_p2p' and 'ppermute' against
+    'all_to_all''s with the unreached blocks zeroed."""
+    plan, _ = ranks[W][0][i]
+    S = plan.halo.s_pad
+    own = _jax_halo_wire(ranks, W, i, "all_to_all" if impl == "pallas_p2p" else impl, fmt)
+    a2a = (_jax_halo_wire(ranks, W, i, "all_to_all", fmt) if impl in ("pallas_p2p", "ppermute")
+           else None)
+    for r, res in enumerate(ranks[W][2]):
+        got = res["halo"][i][(fmt, impl)]
+        for k, name in enumerate(LEGS):
+            want = own[k][r]
+            if a2a is not None and name in ("buffer", "h VJP"):
+                want = _zero_unreached(a2a[k][r], W, S, r, plan.halo_deltas)
+            _assert_bits_equal(got[k], want, f"rank {r} {name} {impl} {fmt}")
+
+
+@pytest.mark.parametrize("impl", torch_dist_ranks.IMPLS)
+@pytest.mark.parametrize("W, i", HALO_CASES, ids=HALO_IDS)
+def test_fp32_wire_format_is_the_identity_with_no_codec_call(ranks, W, i, impl):
+    """Under 'fp32' every lowering's four outputs are the bits of the run
+    without a format, and no codec ran; the lossy turns ran the codec, one
+    decode for each encode."""
+    for r, res in enumerate(ranks[W][2]):
+        got = res["halo"][i]
+        for k, name in enumerate(LEGS):
+            _assert_bits_equal(got[("fp32", impl)][k], got[impl][k], f"rank {r} {name}")
+        assert got["fp32_codec_calls"] == {"encode": 0, "decode": 0}
+        calls = got["codec_calls"]
+        assert calls["encode"] == calls["decode"] > 0, calls
 
 
 @pytest.mark.parametrize("W, i", HALO_CASES, ids=HALO_IDS)
@@ -570,6 +650,38 @@ def test_sched_models_at_w4_match_reference_sched(ranks, pinned, model, tol):
     assert not any(g["split"] for g in got)
 
 
+def test_gcn_fp8_wire_on_the_p2p_route_matches_reference_fp8(ranks, pinned):
+    """GCN's step 0 at W = 4 under the fp8 pin on the p2p split route (the
+    encoded uint8 tiles through kernel 5's plain version) against the
+    reference's step under fp8 ('all_to_all'): every rank resolves
+    'pallas_p2p' and 'fp8'; logits, loss and every gradient leaf within
+    ``np_roundtrip_bound('fp8')`` times the largest magnitude of that value
+    (the loss: of the loss), and the loss nearer the reference's fp8 loss
+    than that is to the reference's f32 one. Without the codec the same step
+    is held to 1e-5 (``test_gcn_p2p_split_matches_reference``)."""
+    from dgraph_tpu.wire.spec import np_roundtrip_bound
+
+    bound = np_roundtrip_bound("fp8")
+    model, impl, wire, jax_impl = WIRE_MODEL_CASES[0]
+    k = len(_model_cases(4))
+    ref, params, _ = ranks[4][3][k]
+    logits, loss, grads = _jax_step(ref, params, jax_impl, model, 4, wire)
+    want_sd = {k2: v.numpy() for k2, v in params_from_jax(grads).items()}
+    _, f32_loss, _ = _jax_step(ref, params, jax_impl, model, 4, "auto")
+    assert abs(f32_loss - loss) > 0, "the fp8 step equals the f32 one: no codec ran"
+    for r, res in enumerate(ranks[4][2]):
+        got = res["models"][k]
+        assert (got["impl"], got["wire"], got["split"]) == (impl, wire, True), got["impl"]
+        scale = np.abs(logits[r]).max()
+        np.testing.assert_allclose(got["logits"], logits[r], rtol=0, atol=bound * scale)
+        assert abs(got["loss"] - loss) <= bound * abs(loss)
+        for key, w in want_sd.items():
+            np.testing.assert_allclose(got["grads"][key], w, rtol=0,
+                                       atol=bound * np.abs(w).max(), err_msg=key)
+        # and closer to the reference's fp8 step than fp8 is to f32
+        assert abs(got["loss"] - loss) < abs(f32_loss - loss)
+
+
 @pytest.mark.parametrize("W", [2, 4])
 def test_sage_split_route_matches_reference(ranks, pinned, W):
     """GraphSAGE on the split route under 'overlap' against the reference's
@@ -615,10 +727,31 @@ def test_message_passing_matches_reference(ranks, W):
         got = [res["message_passing"] for res in ranks[W][2]]
     want = _jax_message_passing(plan, case["x"], W)
     for r, per_impl in enumerate(got):
-        for pin, (impl, out) in per_impl.items():
+        for pin, (impl, out) in ((k, v) for k, v in per_impl.items() if isinstance(k, str)):
             assert impl == pin, f"rank {r} resolved {impl} under the pin {pin}"
             np.testing.assert_allclose(out, want[r], rtol=1e-6, atol=1e-6,
                                        err_msg=f"rank {r} {impl}")
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_message_passing_under_fp8_wire_matches_reference(ranks, pinned, W):
+    """MessagePassing resolves the wire format as the reference's does
+    (``message_passing.py:97-103``): under the fp8 pin each lowering of
+    MP_IMPLS resolves 'fp8' and its output matches the reference's under
+    the same pin within 1e-6 (the layer's sums in another order, as the
+    f32 case)."""
+    plan, case = ranks[W][0][0]
+    jcfg.set_flags(wire_format="fp8")
+    want = _jax_message_passing(plan, case["x"], W)
+    for r, res in enumerate(ranks[W][2]):
+        for pin in torch_dist_ranks.MP_IMPLS:
+            impl, wire, out = res["message_passing"][("fp8", pin)]
+            assert (impl, wire) == (pin, "fp8"), f"rank {r}: {impl}, {wire} under {pin}"
+            np.testing.assert_allclose(out, want[r], rtol=1e-6, atol=1e-6,
+                                       err_msg=f"rank {r} {impl} fp8")
+        # the payloads did ride the wire in fp8: the f32 output differs
+        assert not np.array_equal(res["message_passing"]["all_to_all"][1],
+                                  res["message_passing"][("fp8", "all_to_all")][2])
 
 
 @pytest.mark.parametrize("W", [2, 4])

@@ -224,6 +224,36 @@ def test_gat_weights_round_trip_with_raw_parameters(graphs):
                                           err_msg=jax.tree_util.keystr(path))
 
 
+def test_gat_conv_residual_loads_flax_tree_and_matches_forward(graphs):
+    """GATConv(residual=True): a flax tree with the conv's ``res`` Dense
+    (``res/kernel``) loads into the port's conv, comes back the same, and
+    the forward equals the reference's within 1e-4 (GAT's limit); without
+    the option the same tree does not load."""
+    from dgraph_tpu.models.gat import GATConv as JaxGATConv
+
+    ours, ref = graphs
+    jconv = JaxGATConv(HIDDEN, comm=JAX_COMM, num_heads=HEADS, residual=True)
+    jargs = (jnp.asarray(ref.features[0]), jax.tree.map(lambda a: jnp.asarray(a[0]), ref.plan))
+    params = jconv.init(jax.random.key(3), *jargs)
+    assert set(params["params"]) == {"proj", "att_src", "att_dst", "res"}
+    sd = params_from_jax(params)
+    conv = GATConv(ours.features.shape[-1], HIDDEN, SingleComm(), num_heads=HEADS,
+                   residual=True)
+    conv.load_state_dict(sd)
+    np.testing.assert_array_equal(conv.res.weight.detach().numpy(),
+                                  np.asarray(params["params"]["res"]["kernel"]).T)
+    with torch.no_grad():
+        got = conv(ours.features[0], ours.plan.shard(0))
+    want = np.asarray(jconv.apply(params, *jargs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    back = params_to_jax(conv.state_dict(), conv)
+    np.testing.assert_array_equal(back["params"]["res"]["kernel"],
+                                  np.asarray(params["params"]["res"]["kernel"]))
+    plain = GATConv(ours.features.shape[-1], HIDDEN, SingleComm(), num_heads=HEADS)
+    with pytest.raises(RuntimeError, match="res.weight"):
+        plain.load_state_dict(sd)
+
+
 def test_init_params_draws_attention_parameters_glorot_uniform():
     """init_params gives att_src/att_dst flax's glorot_uniform range,
     ±sqrt(6 / (H + D)), from the seed."""

@@ -52,6 +52,8 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/native.py", "dgraph_tpu_torch/partition.py",
                  "dgraph_tpu_torch/data/ogbn.py", "dgraph_tpu_torch/data/ogb_raw.py",
                  "dgraph_tpu_torch/data/memmap.py", "dgraph_tpu_torch/sched/ir.py",
+                 "dgraph_tpu_torch/wire/spec.py", "dgraph_tpu_torch/wire/codec.py",
+                 "dgraph_tpu_torch/wire/dedup.py", "dgraph_tpu_torch/wire/__main__.py",
                  "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -72,6 +74,7 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.utils.cli, dgraph_tpu_torch.native\n"
         "import dgraph_tpu_torch.data.ogbn, dgraph_tpu_torch.data.ogb_raw\n"
         "import dgraph_tpu_torch.data.memmap, dgraph_tpu_torch.sched.__main__\n"
+        "import dgraph_tpu_torch.wire.__main__, dgraph_tpu_torch.wire.codec\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
@@ -121,6 +124,31 @@ def test_analysis_host_tier_and_health_are_stdlib_only():
         "import dgraph_tpu_torch.analysis.lint, dgraph_tpu_torch.obs.health\n"
         "import dgraph_tpu_torch.utils.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+WIRE_FILES = sorted((ROOT / "dgraph_tpu_torch" / "wire").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", WIRE_FILES, ids=lambda p: p.name)
+def test_wire_imports_no_ml_dtypes(path):
+    """The card's machine has no ``ml_dtypes``: the wire codecs write bf16
+    and e4m3 with torch and numpy bit arithmetic."""
+    assert not [mod for _, mod in _imports(path) if mod.split(".")[0] == "ml_dtypes"]
+
+
+def test_wire_codecs_run_without_ml_dtypes_or_jax():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from dgraph_tpu_torch.wire import codec, spec\n"
+        "from dgraph_tpu_torch.wire.__main__ import _selftest\n"
+        "assert _selftest()['ok']\n"
+        "enc, dec = codec.make_wire_transform('fp8', torch.float32)\n"
+        "x = torch.randn(4, 6)\n"
+        "assert enc(x).shape == (4, 10) and spec.np_encode(x.numpy(), 'fp8').shape == (4, 10)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ml_dtypes', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -27,6 +27,9 @@ from dgraph_tpu_torch.plan import build_edge_plan
 from dgraph_tpu_torch.train import loop
 
 IMPLS = ("all_to_all", "pallas_p2p", "ppermute", "overlap", "sched")
+# the lossy wire formats every lowering runs under (the identity 'fp32' too,
+# against the run without a format)
+WIRE_FORMATS = ("bf16", "fp8")
 # the lowerings MessagePassing runs under (pinned; the plan carries the split)
 MP_IMPLS = ("all_to_all", "ppermute", "overlap")
 
@@ -34,22 +37,40 @@ MP_IMPLS = ("all_to_all", "ppermute", "overlap")
 def _halo_case(group, case: dict) -> dict:
     """Every lowering's halo buffer, halo_scatter_sum and both VJPs on this
     rank, for one graph ('sched' on the halo-side inputs of its own,
-    ``h_sched``/``ct_halo_sched``), and the plan's schedule id."""
+    ``h_sched``/``ct_halo_sched``), and the plan's schedule id; then the
+    same under each wire format (``out[(fmt, impl)]``): 'fp32' with the
+    codec's calls counted (``fp32_codec_calls``), then WIRE_FORMATS
+    (``codec_calls`` after them)."""
+    from dgraph_tpu_torch.wire import codec
+
     r = group.rank
     plan, _ = build_edge_plan(case["edges"], case["part"], world_size=group.world_size,
                               overlap=True)
     plan = plan.shard(r)
     n_pad, sched = plan.n_src_pad, plan.halo_schedule
     out = {"deltas": np.asarray(plan.halo_deltas), "schedule_id": sched.schedule_id}
-    for impl in IMPLS:
+
+    def legs(impl, fmt=None):
         own = "_sched" if impl == "sched" else ""
         x = torch.from_numpy(case["xs"][r]).requires_grad_()
-        buf = coll.halo_exchange(x, plan.halo, group, plan.halo_deltas, impl, sched)
+        buf = coll.halo_exchange(x, plan.halo, group, plan.halo_deltas, impl, sched, fmt)
         (buf * torch.from_numpy(case["ct_halo" + own][r])).sum().backward()
         h = torch.from_numpy(case["h" + own][r]).requires_grad_()
-        back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl, sched)
+        back = coll.halo_scatter_sum(h, plan.halo, n_pad, group, plan.halo_deltas, impl, sched,
+                                     fmt)
         (back * torch.from_numpy(case["ct_owner"][r])).sum().backward()
-        out[impl] = [a.detach().numpy() for a in (buf, x.grad, back, h.grad)]
+        return [a.detach().numpy() for a in (buf, x.grad, back, h.grad)]
+
+    for impl in IMPLS:
+        out[impl] = legs(impl)
+    codec.reset_calls()
+    for impl in IMPLS:
+        out[("fp32", impl)] = legs(impl, "fp32")
+    out["fp32_codec_calls"] = dict(codec.CALLS)
+    for fmt in WIRE_FORMATS:
+        for impl in IMPLS:
+            out[(fmt, impl)] = legs(impl, fmt)
+    out["codec_calls"] = dict(codec.CALLS)
     # the overlap pair with its rounds left in flight, a view taken before
     # the wait
     x, h = torch.from_numpy(case["xs"][r]), torch.from_numpy(case["h"][r])
@@ -70,7 +91,9 @@ def mp_layer(full: torch.Tensor, plan) -> torch.Tensor:
 
 def _message_passing(group, case: dict) -> dict:
     """MessagePassing with :func:`mp_layer` on this rank under each of
-    MP_IMPLS (the lowering it resolved beside its output)."""
+    MP_IMPLS (the lowering it resolved beside its output), then under each
+    with the fp8 wire pin (``("fp8", impl)``: the lowering and the wire
+    format resolved, the output)."""
     r, W = group.rank, group.world_size
     plan = build_edge_plan(case["edges"], case["part"], world_size=W, overlap=True)[0].shard(r)
     x = torch.from_numpy(case["x"][r])
@@ -80,8 +103,13 @@ def _message_passing(group, case: dict) -> dict:
         for impl in MP_IMPLS:
             config.halo_impl = impl
             out[impl] = (coll.resolve_plan_impl(plan, group), mp(x, plan).numpy())
+        config.wire_format = "fp8"
+        for impl in MP_IMPLS:
+            config.halo_impl = impl
+            out[("fp8", impl)] = (coll.resolve_plan_impl(plan, group),
+                                  coll.resolve_plan_wire_format(plan, group), mp(x, plan).numpy())
     finally:
-        config.halo_impl = "auto"
+        config.halo_impl, config.wire_format = "auto", "auto"
     return out
 
 
@@ -116,10 +144,13 @@ def _facade(group, case: dict) -> dict:
 def _model_rank(group, g: dict) -> dict:
     """Step 0 of GAT, GCN or GraphSAGE (``g["model"]``) on this rank under the
     lowering ``g["impl"]`` pinned (the graph built under the pin, so
-    'overlap' attaches the split): the lowering resolved, whether the split
+    'overlap' and 'pallas_p2p' attach the split; 'pallas_p2p' runs kernel
+    5's plain version) and the wire format ``g["wire"]`` pinned (default
+    'auto'): the lowering and the wire format resolved, whether the split
     route ran, the logits, the global loss and the summed gradients."""
     r, W = group.rank, group.world_size
-    config.halo_impl = g["impl"]
+    config.halo_impl, config.wire_format = g["impl"], g.get("wire", "auto")
+    config.use_pallas_p2p = True if g["impl"] == "pallas_p2p" else None
     try:
         comm = DistComm(group)
         graph = DistributedGraph.from_global(
@@ -141,11 +172,12 @@ def _model_rank(group, g: dict) -> dict:
         loss.backward()
         comm.grad_sync(list(model.parameters()))
         return {"impl": coll.resolve_plan_impl(plan, group), "split": comm.split_active(plan),
+                "wire": coll.resolve_plan_wire_format(plan, group),
                 "logits": logits.detach().numpy(),
                 "loss": float(coll.all_reduce_sum(loss.detach(), group)),
                 "grads": {k: p.grad.numpy().copy() for k, p in model.named_parameters()}}
     finally:
-        config.halo_impl = "auto"
+        config.halo_impl, config.wire_format, config.use_pallas_p2p = "auto", "auto", None
 
 
 def _split_ops(group, case: dict) -> dict:
@@ -252,7 +284,8 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 def p2p_parity(group) -> list:
     """Kernel 5 on this rank's card against its plain version (bit for bit,
     two launches equal): both types, both directions, with and without a
-    mask, F in {1, 33, 256}, aligned and one element off. The tiles hold
+    mask, F in {1, 33, 256}, aligned and one element off; and uint8 tiles
+    with no mask, rows of 37 and 260 bytes. The tiles hold
     negative values, NaN and -inf, so a masked row comes out as ``x * 0``
     (-0.0, NaN) as in the ``all_to_all`` lowering, where a select would
     give +0.0. Returns the cases that failed."""
@@ -276,6 +309,19 @@ def p2p_parity(group) -> list:
         again = p2p.p2p_transport(blocks, deltas, W, S, **kw)
         if not (torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))):
             bad.append((F, str(dtype), sign, masked, off))
+    # uint8 byte tiles (the wire codecs' payloads), no mask: rows of 260
+    # bytes (a tile's run 16-byte aligned) and 37, aligned and one byte off
+    for F, sign, off in itertools.product((37, 260), (1, -1), (0, 1)):
+        n, S = len(deltas), 200
+        raw = torch.randint(0, 256, (n * S * F + off,), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        blocks = raw[off:].view(n, S, F)
+        kw = dict(sign=sign, group=group)
+        got = p2p.p2p_transport(blocks, deltas, W, S, **kw)
+        want = p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)
+        if not (got.dtype == torch.uint8 and torch.equal(got, want)
+                and torch.equal(got, p2p.p2p_transport(blocks, deltas, W, S, **kw))):
+            bad.append((F, "torch.uint8", sign, False, off))
     return bad
 
 
