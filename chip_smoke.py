@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase 11   # phases 1, 2 and 11
     python3 chip_smoke.py --phase 12   # phases 1, 2 and 12
     python3 chip_smoke.py --phase 13   # phases 1, 2 and 13 (e.g. a card a rank)
+    python3 chip_smoke.py --phase 14   # phases 1, 2 and 14 (GraphCast)
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
@@ -229,6 +230,31 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    trains under every lowering (its step timed under each, no profiler),
    and its overlap run profiles W13_TRACE_STEPS more steps after its timed
    ones: how many of kernel 1's launches ran beside an NCCL kernel;
+14. GraphCast — ``python -m dgraph_tpu_torch.train.graphcast``'s ``main`` at
+   bench_graphcast's configuration (GC_MAIN: the level-6 multimesh on the
+   721x1440 grid, 73 channels, latent 256, 16 processor layers, remat; one
+   card, f32): the graphs' anchors (GC_ANCHORS), GC_WARMUP + GC_TIMED steps,
+   each launching exactly the kernel-2 calls :func:`graphcast_launches`
+   derives (forward, recompute and backward) and no other kernel, no step
+   after the first computing CSR offsets, the loss falling (the mean of
+   the last 4 below the first 4's), the peak memory, then GC_PROF steps
+   under torch.profiler (busy share, top kernels); the same on the same
+   weights in bf16 (the same launches, step-0 loss within BF16_LOSS_TOL of
+   f32's); ``--eval_rollout`` GC_ROLLOUT with the sorted-row-gather kernel
+   on (forward launches only, finite RMSE for the raw and EMA tracks);
+   kernels 2 and 3 at the three relations' dst ids (F = 256 and 128, f32
+   and bf16: bit-equal to the plain versions on exact values, within TOL
+   on normal ones, two launches equal, timed beside the plain version, the
+   library call and the bound); the level-6 partition at W = 4 (host: each
+   relation's halo against its src side); step 0 at GC_SMALL against the
+   CPU plain path (GRAD_TOL; a control, kernel 2 leaving out one edge a
+   call, must miss it); then GC_W4 ranks at the CLI's defaults under the
+   default lowering (with the CLI's microbenchmark) and under pallas_p2p
+   (kernel 5), each step-0 loss within GC_W4_TOL of one rank's and the
+   ranks' parameters bit-equal, and under pallas_p2p kernel 5 timed at the
+   g2m exchange and its reverse after the run. The kernels line's
+   GraphCast rows carry the launches counted at each row's exact shape
+   (:class:`LaunchesByShape`);
 then the kernels line (one JSON object) and the device line (last line).
 Every progress line carries the seconds since the start, and the end logs
 each phase's seconds.
@@ -244,6 +270,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -2330,6 +2357,130 @@ def p2p_work(n, S, F, b, masked) -> tuple:
     return 2 * n * S * F * b + (4 * n * S if masked else 0), (n * S * F if masked else 0)
 
 
+def p2p_check(failures, name, run, plain, k5=None) -> float:
+    """Bit-equal to the plain version (and to kernel 5's output ``k5()``
+    when given), and two launches equal (each fault appended to
+    ``failures``); the max abs error against the plain version (NaN where
+    the data holds NaN)."""
+    import torch
+
+    got, want, again = run(), plain(), run()
+    torch.cuda.synchronize()
+    for what, ref in [("plain", want)] + ([("kernel 5", k5())] if k5 else []):
+        if not torch.equal(bits(got), bits(ref)):
+            failures.append(f"{name}: kernel != {what} in "
+                            f"{int((bits(got) != bits(ref)).sum())} elements")
+    if not torch.equal(bits(got), bits(again)):
+        failures.append(f"{name}: two launches differ")
+    return max_err(got, want)
+
+
+def in_turn(group, fn):
+    """ms of ``fn`` on each rank while the others wait (this rank's)."""
+    out = None
+    for r in range(group.world_size):
+        group.barrier()
+        if r == group.rank:
+            out = time_ms(fn, reps=P2P_REPS)
+    group.barrier()
+    return out
+
+
+def host_ms(group, fn, reps):
+    """Host ms a call of ``fn`` over ``reps`` calls, all ranks together,
+    after one call and a barrier."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(group.device)
+    group.barrier()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(group.device)
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def p2p_real_case(group, gen, real, F, dtype_name, sign, failures, tag="") -> tuple:
+    """Kernel 5 at a plan's real shape (``real``: :func:`w4_halo_arrays`)
+    and width ``F``: the exchange (``sign`` +1: this rank's send rows of a
+    random ``[n_pad, F]`` table, masked in flight; uint8: the fp8 wire
+    tiles of those rows, masked before encoding, moved with no mask) or the
+    reverse leg (-1: random halo rows back to their owners). Bit-equal to
+    the plain version, two launches equal; the kernel's own time (CUDA
+    events, the ranks in turn, the others idle), the exchange's wall time
+    from barrier to barrier (all ranks together), the plain version's, and
+    the yardstick's: the per-tile ``torch.mul``/``copy_`` into the mapped
+    peer rows on one card, NCCL ``all_to_all_single`` where each rank has
+    its card. Returns (the record, named by :func:`p2p_case_name` and
+    ``tag``; the call's operands, for kernel 6 at the same shape)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dgraph_tpu_torch.ops import p2p
+    from dgraph_tpu_torch.wire.codec import make_wire_transform
+
+    dev, W, me = group.device, group.world_size, group.rank
+    deltas, S, n = real["deltas"], real["S"], len(real["deltas"])
+    dtype = getattr(torch, dtype_name)
+    rows = [(me + sign * d) % W for d in deltas]
+    if sign == 1:  # the exchange: send rows, masked in flight
+        idx = torch.from_numpy(real["send_idx"][me]).to(dev).long()
+        smask = torch.from_numpy(real["send_mask"][me]).to(dev)
+        x = torch.randn(real["n_pad"], F, generator=gen, device=dev)
+        blocks = x[idx[rows].reshape(-1)].view(n, S, F)
+        mask = smask[rows].contiguous()
+        if dtype_name == "uint8":
+            fp8_encode = make_wire_transform("fp8", torch.float32)[0]
+            blocks, mask = fp8_encode(blocks * mask[..., None]), None
+        else:
+            blocks = blocks.to(dtype)
+    else:  # the reverse leg: halo rows back to their owners
+        h = torch.randn(n, S, F, generator=gen, device=dev)
+        mask = None
+        blocks = (make_wire_transform("fp8", torch.float32)[0](h) if dtype_name == "uint8"
+                  else h.to(dtype))
+    Fw = blocks.shape[2]
+    kw = dict(sign=sign, mask=mask, group=group)
+    name = p2p_case_name(dtype_name, sign, mask is not None, W, S, Fw) + tag
+    run = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
+    plain = lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)  # noqa: E731
+    err = p2p_check(failures, name, run, plain)
+    land = p2p.landing_buffer(group, W * S, Fw, dtype, sign)
+    kernel = lambda: p2p.launch_puts(blocks, deltas, W, S, sign, mask, group, land)  # noqa: E731
+    views = [land.peers[(me + sign * d) % W][me * S:(me + 1) * S] for d in deltas]
+    if group.backend == "nccl":
+        stack = p2p.send_stack(blocks, deltas, W, sign, me, mask)
+        recv = torch.empty_like(stack)
+        library = "NCCL all_to_all_single of the masked [W, S, F] stack"
+        lib_ms = host_ms(group, lambda: dist.all_to_all_single(recv, stack, group=group.pg),
+                         P2P_REPS)
+    else:
+        library = ("per-tile torch.mul(out=) into the mapped peer rows" if mask is not None
+                   else "per-tile copy_ into the mapped peer rows")
+
+        def lib_call():
+            for k, v in enumerate(views):
+                if mask is None:
+                    v.copy_(blocks[k])
+                else:
+                    torch.mul(blocks[k], mask[k, :, None].to(dtype), out=v)
+        lib_ms = in_turn(group, lib_call)
+    nbytes, ops = p2p_work(n, S, Fw, blocks.element_size(), mask is not None)
+    b_ms, b_by = bound(nbytes, ops, "float32" if dtype_name == "uint8" else dtype_name)
+    rec = {
+        "kernel": "p2p_transport", "case": name, "dtype": dtype_name, "sign": sign,
+        "masked": mask is not None, "n": n, "S": S, "F": Fw, "W": W,
+        "max_abs_err": err,
+        "ms": in_turn(group, kernel), "wall_ms": host_ms(group, run, P2P_REPS),
+        "plain_ms": host_ms(group, plain, 2), "library_ms": lib_ms, "library": library,
+        "bound_ms": b_ms, "bound_by": b_by, "backend": group.backend,
+        "rows_live": int(np.asarray(real["send_mask"][me])[rows].sum()),
+    }
+    return rec, dict(blocks=blocks, mask=mask, kw=kw, land=land, run=run, name=name)
+
+
 def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
     """One rank of the kernel-5 and kernel-6 checks (run under
     ``comm.dist.launch``): every case bit-equal to the plain version, two
@@ -2337,36 +2488,21 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
     kernel 6's faults bit-equal to its plain version; then kernel 6's path,
     the verifier's landing check (``analysis.kernel.audit_landing``) with
     the launch counts zeroed before and read after; at the real shape
-    (``real``: the W = 4 plan's send lists, F = 256) each kernel's own time
-    (CUDA events, the ranks in turn, the others idle), the exchange's wall
-    time from barrier to barrier (all ranks together), the plain version's,
-    and the yardstick's: the per-tile ``torch.mul``/``copy_`` into the
-    mapped peer rows on one card, NCCL ``all_to_all_single`` where each
-    rank has its card."""
+    (``real``: the W = 4 plan's send lists, F = 256) kernel 5's checks and
+    times (:func:`p2p_real_case`) in f32, bf16 and on uint8 fp8 tiles, both
+    legs, and kernel 6 ``None`` on the f32 and bf16 exchange."""
     import torch
-    import torch.distributed as dist
 
     from dgraph_tpu_torch.analysis.kernel import audit_landing, disjoint_deltas
     from dgraph_tpu_torch.ops import kernels, p2p
 
-    dev, W, me = group.device, group.world_size, group.rank
-    gen = torch.Generator(device=dev).manual_seed(100 + me)
+    dev, W = group.device, group.world_size
+    gen = torch.Generator(device=dev).manual_seed(100 + group.rank)
     failures, records = [], []
     t0 = time.perf_counter()
 
     def check(name, run, plain, k5=None) -> float:
-        """Bit-equal to the plain version (and to kernel 5's output ``k5()``
-        when given), and two launches equal; the max abs error against the
-        plain version (NaN where the data holds NaN)."""
-        got, want, again = run(), plain(), run()
-        torch.cuda.synchronize(dev)
-        for what, ref in [("plain", want)] + ([("kernel 5", k5())] if k5 else []):
-            if not torch.equal(bits(got), bits(ref)):
-                failures.append(f"{name}: kernel != {what} in "
-                                f"{int((bits(got) != bits(ref)).sum())} elements")
-        if not torch.equal(bits(got), bits(again)):
-            failures.append(f"{name}: two launches differ")
-        return max_err(got, want)
+        return p2p_check(failures, name, run, plain, k5)
 
     def tiles(n, S, F, dtype_name, off, masked):
         """Blocks with negative values, NaN and -inf (a masked row must
@@ -2382,26 +2518,6 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
         raw = raw.to(getattr(torch, dtype_name))
         mask = (torch.rand(n, S, generator=gen, device=dev) > 0.3).float() if masked else None
         return raw[off:].view(n, S, F), mask
-
-    def in_turn(fn):
-        """ms of ``fn`` on each rank while the others wait (this rank's)."""
-        out = None
-        for r in range(W):
-            group.barrier()
-            if r == me:
-                out = time_ms(fn, reps=P2P_REPS)
-        group.barrier()
-        return out
-
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize(dev)
-        group.barrier()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t) * 1e3 / reps
 
     for deltas, F, dtype_name, sign, masked, off in edge_cases:
         n, S = len(deltas), P2P_EDGE_S
@@ -2439,87 +2555,29 @@ def p2p_parity_rank(group, edge_cases, mutant_cases, landing_cases, real):
     landing_counts = kernels.launch_counts()
     landing_s = time.perf_counter() - t1
     if real is not None:
-        import numpy as np
-
-        from dgraph_tpu_torch.wire.codec import make_wire_transform
-
-        deltas, S, n = real["deltas"], real["S"], len(real["deltas"])
-        idx = torch.from_numpy(real["send_idx"][me]).to(dev).long()
-        smask = torch.from_numpy(real["send_mask"][me]).to(dev)
-        x = torch.randn(real["n_pad"], P2P_F, generator=gen, device=dev)
-        h = torch.randn(W, S, P2P_F, generator=gen, device=dev)
-        fp8_encode = make_wire_transform("fp8", torch.float32)[0]
-        # uint8: the fp8 wire tiles of the same rows ([n, S, F + 4]; the
-        # exchange's masked before encoding), moved with no mask
+        deltas, S = real["deltas"], real["S"]
         for dtype_name in ("float32", "bfloat16", "uint8"):
-            dtype = getattr(torch, dtype_name)
             for sign in (1, -1):
-                rows = [(me + sign * d) % W for d in deltas]
-                if sign == 1:  # the exchange: send rows, masked in flight
-                    blocks = x[idx[rows].reshape(-1)].view(n, S, P2P_F)
-                    mask = smask[rows].contiguous()
-                    if dtype_name == "uint8":
-                        blocks, mask = fp8_encode(blocks * mask[..., None]), None
-                    else:
-                        blocks = blocks.to(dtype)
-                else:  # the reverse leg: halo rows back to their owners
-                    blocks, mask = h[rows].contiguous(), None
-                    blocks = fp8_encode(blocks) if dtype_name == "uint8" else blocks.to(dtype)
-                Fw = blocks.shape[2]
-                kw = dict(sign=sign, mask=mask, group=group)
-                name = p2p_case_name(dtype_name, sign, mask is not None, W, S, Fw)
-                run = lambda: p2p.p2p_transport(blocks, deltas, W, S, **kw)  # noqa: E731
-                plain = lambda: p2p.p2p_transport_plain(blocks, deltas, W, S, **kw)  # noqa: E731
-                err = check(name, run, plain)
-                land = p2p.landing_buffer(group, W * S, Fw, dtype, sign)
-                kernel = lambda: p2p.launch_puts(blocks, deltas, W, S, sign, mask, group, land)  # noqa: E731
-                views = [land.peers[(me + sign * d) % W][me * S:(me + 1) * S] for d in deltas]
-                if group.backend == "nccl":
-                    stack = p2p.send_stack(blocks, deltas, W, sign, me, mask)
-                    recv = torch.empty_like(stack)
-                    library = "NCCL all_to_all_single of the masked [W, S, F] stack"
-                    lib_ms = host_ms(lambda: dist.all_to_all_single(recv, stack, group=group.pg),
-                                     P2P_REPS)
-                else:
-                    library = ("per-tile torch.mul(out=) into the mapped peer rows" if mask is not None
-                               else "per-tile copy_ into the mapped peer rows")
-
-                    def lib_call():
-                        for k, v in enumerate(views):
-                            if mask is None:
-                                v.copy_(blocks[k])
-                            else:
-                                torch.mul(blocks[k], mask[k, :, None].to(dtype), out=v)
-                    lib_ms = in_turn(lib_call)
-                nbytes, ops = p2p_work(n, S, Fw, blocks.element_size(), mask is not None)
-                b_ms, b_by = bound(nbytes, ops, "float32" if dtype_name == "uint8" else dtype_name)
-                rec = {
-                    "kernel": "p2p_transport", "case": name, "dtype": dtype_name, "sign": sign,
-                    "masked": mask is not None, "n": n, "S": S, "F": Fw, "W": W,
-                    "max_abs_err": err,
-                    "ms": in_turn(kernel), "wall_ms": host_ms(run, P2P_REPS),
-                    "plain_ms": host_ms(plain, 2), "library_ms": lib_ms, "library": library,
-                    "bound_ms": b_ms, "bound_by": b_by, "backend": group.backend,
-                    "rows_live": int(np.asarray(real["send_mask"][me])[rows].sum()),
-                }
+                rec, c = p2p_real_case(group, gen, real, P2P_F, dtype_name, sign, failures)
                 records.append(rec)
                 if sign != 1 or dtype_name == "uint8":
                     continue
                 # kernel 6 None at the same shape: bit-equal to kernel 5 and to
                 # its plain version; the same bytes, so the same bound and the
                 # same yardstick (measured above on these inputs)
+                blocks, mask, kw = c["blocks"], c["mask"], c["kw"]
                 run6 = lambda: p2p.p2p_transport_mutant(blocks, deltas, W, S, **kw)  # noqa: E731
                 plain6 = lambda: p2p.p2p_transport_mutant_plain(  # noqa: E731
                     blocks, deltas, W, S, **kw)
-                err6 = check(name.replace("p2p_transport", "p2p_transport_mutant None"), run6,
-                             plain6, run)
+                err6 = check(c["name"].replace("p2p_transport", "p2p_transport_mutant None"),
+                             run6, plain6, c["run"])
                 kernel6 = lambda: p2p.launch_mutant_puts(  # noqa: E731
-                    blocks, deltas, W, S, sign, mask, group, land, None)
+                    blocks, deltas, W, S, sign, mask, group, c["land"], None)
                 records.append(dict(
                     rec, kernel="p2p_transport_mutant",
-                    case=name.replace("p2p_transport", "p2p_transport_mutant"),
-                    max_abs_err=err6, ms=in_turn(kernel6), wall_ms=host_ms(run6, P2P_REPS),
-                    plain_ms=host_ms(plain6, 1)))
+                    case=c["name"].replace("p2p_transport", "p2p_transport_mutant"),
+                    max_abs_err=err6, ms=in_turn(group, kernel6),
+                    wall_ms=host_ms(group, run6, P2P_REPS), plain_ms=host_ms(group, plain6, 1)))
     return {"failures": failures, "records": records,
             "cases": len(edge_cases) + len(mutant_cases), "landing": landing,
             "landing_counts": landing_counts, "landing_s": landing_s, "edge_s": edge_s,
@@ -2618,6 +2676,27 @@ def cpu_step0_rank(group, cfg: dict):
             "grads": {k: v.numpy() for k, v in grads_of(t.model).items()}}
 
 
+def merged_p2p_record(per_rank: list) -> dict:
+    """One real-shape kernel-5 (or kernel-6) record from every rank's: the
+    times averaged over the ranks (each rank's kept), the largest error;
+    logged."""
+    import numpy as np
+
+    rec = dict(per_rank[0], ms_per_rank=[r["ms"] for r in per_rank],
+               wall_ms_per_rank=[r["wall_ms"] for r in per_rank],
+               ms=float(np.mean([r["ms"] for r in per_rank])),
+               wall_ms=float(np.mean([r["wall_ms"] for r in per_rank])),
+               plain_ms=float(np.mean([r["plain_ms"] for r in per_rank])),
+               library_ms=float(np.mean([r["library_ms"] for r in per_rank])),
+               max_abs_err=max(r["max_abs_err"] for r in per_rank))
+    log(f"{rec['case']}: err {rec['max_abs_err']} kernel {rec['ms']:.4f} ms (ranks in turn; "
+        f"per rank {[round(v, 4) for v in rec['ms_per_rank']]}) exchange wall "
+        f"{rec['wall_ms']:.3f} ms (barrier to barrier) plain {rec['plain_ms']:.3f} ms "
+        f"{rec['library']} {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}) [{rec['backend']}]")
+    return rec
+
+
 def phase_p2p_kernel(graph) -> dict:
     """Kernels 5 and 6 against their plain versions on the card: the real
     W = 4 plan's send lists at F = 256 (f32 and bf16, the exchange with its
@@ -2626,8 +2705,6 @@ def phase_p2p_kernel(graph) -> dict:
     (kernel 6's path, its launches counted), at W = 4 and W = 2 (four and
     two ranks sharing the card, or a card each); the verifier's static
     selftest first."""
-    import numpy as np
-
     from dgraph_tpu_torch.comm.dist import launch
 
     from dgraph_tpu_torch.analysis.kernel import check_landing, kernel_selftest_failures
@@ -2660,22 +2737,8 @@ def phase_p2p_kernel(graph) -> dict:
             f"{res[0]['edge_s']:.1f} s, landing check {res[0]['landing_s']:.1f} s, the real "
             f"shape's checks and times {res[0]['real_s']:.1f} s)")
         out[W] = res
-    recs = []
-    for i, rec in enumerate(out[P2P_W][0]["records"]):
-        per_rank = [r["records"][i] for r in out[P2P_W]]
-        rec = dict(rec, ms_per_rank=[r["ms"] for r in per_rank],
-                   wall_ms_per_rank=[r["wall_ms"] for r in per_rank],
-                   ms=float(np.mean([r["ms"] for r in per_rank])),
-                   wall_ms=float(np.mean([r["wall_ms"] for r in per_rank])),
-                   plain_ms=float(np.mean([r["plain_ms"] for r in per_rank])),
-                   library_ms=float(np.mean([r["library_ms"] for r in per_rank])),
-                   max_abs_err=max(r["max_abs_err"] for r in per_rank))
-        recs.append(rec)
-        log(f"{rec['case']}: err {rec['max_abs_err']} kernel {rec['ms']:.4f} ms (ranks in turn; "
-            f"per rank {[round(v, 4) for v in rec['ms_per_rank']]}) exchange wall "
-            f"{rec['wall_ms']:.3f} ms (barrier to barrier) plain {rec['plain_ms']:.3f} ms "
-            f"{rec['library']} {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}) [{rec['backend']}]")
+    recs = [merged_p2p_record([r["records"][i] for r in out[P2P_W]])
+            for i in range(len(out[P2P_W][0]["records"]))]
     return {"records": recs, "edge_cases": {W: out[W][0]["cases"] for W in out},
             "landing": landing,
             "landing_launches": {"p2p_transport_mutant": sum(
@@ -3027,13 +3090,13 @@ def gt_sampled_rows(t, seed: int = 0) -> dict:
 
 # the graph transformer's steps in phase 10 (~4.8 s each in f32): a warm-up
 # and two timed steps keep the whole run inside its time limit
-GT_EPOCHS = 3
+GT_EPOCHS = 2  # a step takes seconds in f32: step 0 warms up, step 1 is timed
 
 
 def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
     """``python -m dgraph_tpu_torch.train --model gt`` at arxiv width
     (gt_arxiv: hidden 128, 4 heads of 32, 2 layers, attention over all
-    169,344 slots): GT_EPOCHS steps, 1 warm-up and 2 timed (steps 1-2
+    169,344 slots): GT_EPOCHS steps, 1 warm-up and 1 timed (step 1
     profiled); every step launches the forward, dK/dV and dQ attention kernels once a layer
     and kernel 2 three times a layer and feature chunk (the local branch's
     sum and the backward of its two takes); an eval forward the forward
@@ -4373,18 +4436,740 @@ def lowering_phase(cfg) -> tuple:
     return [], main_case, {"train": recs, "lowerings": parity}
 
 
+# --- phase 14 ----------------------------------------------------------------
+
+
+def graphcast_launches(layers: int, latent: int, gather: bool = False, train: bool = True,
+                       p2p: bool = False) -> dict:
+    """The launches of kernels 2, 3 and 5 in one GraphCast training step a
+    rank (``train``: forward under remat, the recompute and the backward) or
+    in one forward (a rollout step), derived from the model: ``layers + 2``
+    edge and node blocks (encoder, processor, decoder), each edge block's
+    takes cut into ``ceil(latent / gather_col_block)`` feature chunks.
+
+    - kernel 2: every node block's dst-side sum, in the forward and again
+      in its recompute; in the backward, a chunk's halo-side take (the sort
+      route's sum) and its dst-side take (the sorted take's transpose);
+    - kernel 3 with ``gather`` (``DGRAPH_TPU_PALLAS_GATHER=1``): a chunk's
+      dst-side take, in the forward and the recompute, and the backward's
+      row take of each node block's sum;
+    - kernel 5 with ``p2p`` (the ``pallas_p2p`` lowering over ranks): every
+      edge block's src-side exchange, in the forward and the recompute, and
+      its reverse in the backward.
+
+    Kernels 1, 1a and 4 never launch (no fused bias-relu)."""
+    from dgraph_tpu_torch import config
+
+    blocks = layers + 2
+    chunks = -(-latent // (config.gather_col_block or latent))
+    if train:
+        return {"sorted_segment_sum": blocks * (2 + 2 * chunks),
+                "sorted_row_gather": blocks * (2 * chunks + 1) if gather else 0,
+                "p2p_transport": 3 * blocks if p2p else 0}
+    return {"sorted_segment_sum": blocks, "sorted_row_gather": blocks * chunks if gather else 0,
+            "p2p_transport": blocks if p2p else 0}
+
+
+# bench_graphcast's configuration (bench.py:660-662), the widest GraphCast the
+# repo supports: the level-6 multimesh on the 0.25-degree ERA5 grid, 73
+# channels, latent 256, 16 processor layers, through the training CLI
+GC_MAIN = dict(mesh_level=6, num_lat=721, num_lon=1440, channels=73, latent=256,
+               processor_layers=16)
+# the reference's structural anchors at level 6 on 721x1440
+# (tests/test_graphcast.py:57-64): mesh vertices, directed multimesh edges,
+# grid2mesh and mesh2grid edges
+GC_ANCHORS = {"mesh_vertices": 40_962, "mesh_edges": 327_660, "g2m_edges": 1_618_824,
+              "m2g_edges": 3_114_720}
+GC_WARMUP, GC_TIMED, GC_PROF = 2, 12, 2  # main-path steps: warm-up, timed, profiled after
+GC_BF16_TIMED = 4  # the bf16 turn's timed steps, after GC_WARMUP
+GC_ROLLOUT = 2  # --eval_rollout's steps at full width (raw and EMA tracks)
+# step 0 against the CPU plain path at a depth the CPU runs in seconds
+GC_SMALL = dict(mesh_level=3, num_lat=91, num_lon=180, channels=73, latent=64,
+                processor_layers=2)
+# the W = 4 turns at the experiment's defaults (level 4, 181x360, latent
+# 128, 4 layers): their step-0 loss within GC_W4_TOL relative of a W = 1
+# run's on the same weights and sample
+GC_W4, GC_W4_STEPS, GC_W4_TOL = 4, 2, 1e-5
+GC_W4_STEPS_NCCL = 12  # on a host of GC_W4 cards (NCCL): step 0, then 11 timed
+GC_P2P_REL = "g2m"  # kernel 5 timed at this relation's W = 4 exchange (the grid's halo)
+GC_KERNEL_F = (256, 128)  # kernel 2 and 3 at the GraphCast shapes: latent 256's
+# feature chunk (and a whole latent-128 row) and the main path's chunk width
+
+
+def graphcast_config(**kw):
+    """The GraphCast CLI's Config with its log under OUT_DIR."""
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    return gc_cli.Config(**{"log_path": os.path.join(OUT_DIR, "graphcast_torch.jsonl"), **kw})
+
+
+def graphcast_want(layers: int, latent: int, gather: bool = False, train: bool = True,
+                   p2p: bool = False) -> dict:
+    """Every kernel's launches a GraphCast step (or forward): kernels 2, 3
+    and 5 as :func:`graphcast_launches` derives them, no other kernel."""
+    from dgraph_tpu_torch.ops.kernels import KERNELS
+
+    return {**{k: 0 for k in KERNELS}, **graphcast_launches(layers, latent, gather, train, p2p)}
+
+
+def check_exact_launches(what, step, counts, want) -> None:
+    """Every kernel of ``want`` launched exactly as often; the hub route on
+    no more calls than its kernel launched."""
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"{what}: step {step} launched {k} {counts[k]} times (want {n}); "
+                 f"counts {counts}")
+    for k, n in counts.items():
+        if k.endswith(".hub_calls") and n > counts[k.removesuffix(".hub_calls")]:
+            fail(f"{what}: step {step}: {k} = {n} above its launches; counts {counts}")
+
+
+class LaunchesByShape:
+    """Kernels 2, 3 and 5 counted at each shape they launch at. Their
+    launch sites (``ops.segment._segment_sum`` and ``_row_gather``,
+    ``ops.p2p._transport``) are wrapped while it is installed, and each
+    call's launches are read from its wrapper's count around the call.
+    ``counts`` maps a shape's key (:func:`shape_key`) to its launches.
+    ``with LaunchesByShape() as tally:`` installs it for the block;
+    :class:`GraphCastProbe` installs one in each rank's process."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.saved = None
+
+    def _count(self, key, wrapper, call):
+        before = wrapper.launches
+        out = call()
+        if wrapper.launches > before:
+            self.counts[key] = self.counts.get(key, 0) + wrapper.launches - before
+        return out
+
+    def install(self) -> None:
+        from dgraph_tpu_torch.ops import p2p
+        from dgraph_tpu_torch.ops import segment as seg
+
+        segment_sum, row_gather, transport = self.saved = (
+            seg._segment_sum, seg._row_gather, p2p._transport)
+        seg._segment_sum = lambda data, ids, n, op: self._count(  # noqa: E731
+            shape_key("sorted_segment_sum", data.shape[0], n, data.shape[1], data.dtype),
+            seg.sorted_segment_sum, lambda: segment_sum(data, ids, n, op))
+        seg._row_gather = lambda x, ids: self._count(  # noqa: E731
+            shape_key("sorted_row_gather", ids.shape[0], x.shape[0], x.shape[1], x.dtype),
+            seg.sorted_row_gather, lambda: row_gather(x, ids))
+
+        def counted_transport(blocks, deltas, W, S, sign, mask, group, *, wrapper, **kw):
+            key = p2p_shape_key(wrapper.__name__, S, blocks.shape[2], blocks.dtype, sign)
+            return self._count(key, wrapper, lambda: transport(
+                blocks, deltas, W, S, sign, mask, group, wrapper=wrapper, **kw))
+        p2p._transport = counted_transport
+
+    def remove(self) -> None:
+        from dgraph_tpu_torch.ops import p2p
+        from dgraph_tpu_torch.ops import segment as seg
+
+        seg._segment_sum, seg._row_gather, p2p._transport = self.saved
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
+
+
+def shape_key(kernel, E, N, F, dtype) -> str:
+    """A kernel-2 or kernel-3 shape: E ids (edges) into N rows, F wide."""
+    return f"{kernel} E={E} N={N} F={F} {str(dtype).removeprefix('torch.')}"
+
+
+def p2p_shape_key(kernel, S, F, dtype, sign) -> str:
+    """A kernel-5 (or kernel-6) shape: tiles of S rows, F wide, one leg."""
+    return f"{kernel} S={S} F={F} {str(dtype).removeprefix('torch.')} sign={sign:+d}"
+
+
+class GraphCastProbe:
+    """``on_step`` of a GraphCast CLI run (in each rank's process above one
+    rank): each step's launches (then zeroed), loss and CSR offsets
+    computed; at step 0 the lowering each plan resolved; at the last step
+    (``last``) the parameters, and with ``micro`` the CLI's
+    microbenchmark on the rank's training (``train.graphcast.microbenchmark``).
+    With ``p2p_rel``, a :class:`LaunchesByShape` is installed in each rank's
+    process as the probe arrives there (before the rank's first step), and
+    the last step hands back its counts, then times kernel 5 at that
+    relation's exchange and its reverse (:func:`p2p_real_case`, f32 at the
+    model's latent width), after the run's launches are read."""
+
+    def __init__(self, last: int, micro: bool = False, p2p_rel: str = ""):
+        self.last, self.micro, self.p2p_rel = last, micro, p2p_rel
+        self.by_shape = None
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        if self.p2p_rel:
+            self.by_shape = LaunchesByShape()
+            self.by_shape.install()
+
+    def __call__(self, step, t, sm):
+        import torch
+
+        from dgraph_tpu_torch.comm import collectives
+        from dgraph_tpu_torch.ops import kernels
+        from dgraph_tpu_torch.ops import segment as seg
+
+        out = {"counts": kernels.launch_counts(), "loss": float(sm.loss),
+               "offsets": seg.csr_offsets.computed}
+        kernels.reset_launch_counts()
+        seg.csr_offsets.computed = 0
+        if step == 0:
+            out["impl"] = {k: collectives.resolve_plan_impl(p, t.comm.group)
+                           for k, p in t.plans.items()}
+            out["pads"] = {k: {"s_pad": p.halo.s_pad, "n_src_pad": p.n_src_pad,
+                               "deltas": p.halo_deltas} for k, p in t.plans.items()}
+        if step == self.last:
+            out["params"] = {k: p.detach().cpu().numpy().copy()
+                             for k, p in t.model.named_parameters()}
+            if self.micro:
+                from dgraph_tpu_torch.train import graphcast as gc_cli
+
+                out["microbenchmark"] = gc_cli.microbenchmark(t)
+                kernels.reset_launch_counts()
+            if self.by_shape is not None:
+                self.by_shape.remove()
+                out["by_shape"] = dict(self.by_shape.counts)
+                group = t.comm.group
+                gen = torch.Generator(device=group.device).manual_seed(140 + group.rank)
+                real = w4_halo_arrays(getattr(t.graphs, f"{self.p2p_rel}_plan"))
+                out["p2p_failures"], out["p2p_records"] = [], []
+                for sign in (1, -1):
+                    rec, _ = p2p_real_case(group, gen, real, t.model.latent, "float32", sign,
+                                           out["p2p_failures"], f" graphcast {self.p2p_rel}")
+                    out["p2p_records"].append(rec)
+                kernels.reset_launch_counts()
+        return out
+
+
+def graphcast_steps_check(what, probes, want) -> list:
+    """Each step's launches exact, no step after the first computing CSR
+    offsets, every loss finite; returns the losses."""
+    for i, p in enumerate(probes):
+        check_exact_launches(what, i, p["counts"], want)
+    offsets = [p["offsets"] for p in probes]
+    if any(offsets[1:]):
+        fail(f"{what}: steps after the first computed CSR offsets again: {offsets}")
+    losses = [p["loss"] for p in probes]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: a non-finite loss: {losses}")
+    return losses
+
+
+def graphcast_kernel_cases(t) -> list:
+    """Kernels 2 and 3 at the main path's shapes: each relation's dst ids
+    (m2g 3 edges a grid row, g2m about 40 a mesh row, mesh about 8), F in
+    GC_KERNEL_F, f32 and bf16. On values that are multiples of 1/4 (sums
+    exact in any order) the kernel must equal its plain version bit for
+    bit; on normal values each output is held to TOL of the sum of its
+    terms' magnitudes (the summation order differs: the plain version adds
+    by atomics), two launches must give equal bits, and it is timed beside
+    the plain version, the one PyTorch call
+    (``index_add_`` for kernel 2 in f32, ``index_select`` for kernel 3) and
+    the bound."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    dev = t.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    records = []
+    for rel in ("m2g", "g2m", "mesh"):
+        plan = t.plans[rel]
+        ids, n = plan.dst_index, plan.n_dst_pad
+        e_pad, e_valid = ids.shape[0], int((ids < n).sum())
+        deg = seg._row_ptr(ids, n).diff()
+        hubs = int((deg > seg.HUB_DEGREE).sum())
+        for (dtype_name, dtype), F in itertools.product(
+                (("float32", torch.float32), ("bfloat16", torch.bfloat16)), GC_KERNEL_F):
+            exact = quarter_values(gen, e_pad, F).to(dtype)
+            table = quarter_values(gen, n, F).to(dtype)
+            for kernel, run, plain in (
+                    ("sorted_segment_sum", lambda d: seg.sorted_segment_sum(d, ids, n),
+                     lambda d: seg.sorted_segment_sum_plain(d, ids, n)),
+                    ("sorted_row_gather", lambda x: seg.sorted_row_gather(x, ids),
+                     lambda x: seg.sorted_row_gather_plain(x, ids))):
+                name = f"{kernel} {dtype_name} graphcast {rel} F={F}"
+                arg = exact if kernel == "sorted_segment_sum" else table
+                if not torch.equal(bits(run(arg)), bits(plain(arg))):
+                    fail(f"{name}: the kernel's bits differ from its plain version's on "
+                         f"values whose sums are exact")
+                arg = torch.randn(arg.shape, generator=gen, device=dev).to(dtype)
+                got, want = run(arg), plain(arg)
+                # the sum's order differs from the plain version's atomics:
+                # each output against TOL of its terms' magnitudes (a pole
+                # hub's ~2,000-term sum cancels far below them)
+                scale = plain(arg.abs()).float() + 1.0
+                err = max_err(got, want)
+                if not bool(((got.float() - want.float()).abs() <= TOL[dtype_name] * scale).all()):
+                    fail(f"{name}: kernel disagrees with plain beyond TOL of its terms' "
+                         f"magnitudes (max abs err {err})")
+                if not torch.equal(bits(got), bits(run(arg))):
+                    fail(f"{name}: two launches differ")
+                del got, want, scale
+                tag = "none" if kernel == "sorted_segment_sum" else ""
+                nbytes, ops = main_shape_bytes(kernel, tag, e_pad, e_valid, n, F,
+                                               arg.element_size())
+                b_ms, b_by = bound(nbytes, ops, dtype_name)
+                if kernel == "sorted_segment_sum":
+                    lib = library_call(kernel, tag, arg, ids, n, e_valid, None)
+                else:
+                    lib = library_call(kernel, tag, None, ids, n, e_valid, arg)
+                rec = {"kernel": kernel, "case": name, "dtype": dtype_name, "relation": rel,
+                       "E": e_pad, "E_valid": e_valid, "N": n, "F": F,
+                       "edges_a_row_max": int(deg.max()), "hub_rows": hubs,
+                       "edges_a_row_mean": e_valid / max(int((deg > 0).sum()), 1),
+                       "max_abs_err": err, "ms": time_ms(lambda: run(arg)),
+                       "plain_ms": time_ms(lambda: plain(arg), reps=5, warmup=1),
+                       "library_ms": None if lib is None else time_ms(lib),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                records.append(rec)
+                log(f"{name}: E={e_pad} N={n} (rows of up to {rec['edges_a_row_max']} edges, "
+                    f"{rec['edges_a_row_mean']:.2f} a non-empty row, {hubs} hub rows) err "
+                    f"{err:.3g} kernel "
+                    f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
+                    f"{rec['library_ms']} ms bound {b_ms:.4f} ms ({b_by})")
+                del arg
+            del exact, table
+    return records
+
+
+def graphcast_step0_vs_cpu() -> dict:
+    """Step 0 of the CLI's training at GC_SMALL on the card and on the CPU
+    plain path (the same seeded weights and sample 0): the loss within
+    GRAD_TOL of its magnitude and every gradient within GRAD_TOL
+    (:func:`check_grads`). A control, the CPU step with kernel 2's plain
+    version leaving out the last edge of its longest row in every call
+    (:func:`dropped_row_edge`), must miss that limit."""
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    cfg = graphcast_config(**GC_SMALL, steps=1, world_size=1, log_path="")
+    out = {}
+    for device in ("cuda", "cpu"):
+        t = gc_cli.build_graphcast(cfg, device=device)
+        t0 = time.perf_counter()
+        loss = float(t.train_step(*t.batch(0)).loss)
+        out[device] = (loss, grads_of(t.model), time.perf_counter() - t0)
+        if device == "cpu":
+            t.restart()
+            with dropped_row_edge() as dropped:
+                t.train_step(*t.batch(0))
+            control = grad_margins(grads_of(t.model), out["cpu"][1])
+        del t
+    (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = out["cuda"], out["cpu"]
+    if abs(loss_gpu - loss_cpu) > GRAD_TOL * max(1.0, abs(loss_cpu)):
+        fail(f"graphcast small: step-0 loss {loss_gpu} vs CPU {loss_cpu}")
+    leaves = {}
+    err = check_grads("graphcast small", grads_gpu, grads_cpu, leaves=leaves)
+    sound = max(m["margin"] for m in leaves.values())
+    ctl = max(m["margin"] for m in control.values())
+    if not ctl > 1.0:
+        fail(f"graphcast small: the control (kernel 2 leaving out one edge a call, {dropped}) "
+             f"passes GRAD_TOL: margin {ctl}")
+    log(f"graphcast small {GC_SMALL}: step-0 loss {loss_gpu:.6f} (CPU {loss_cpu:.6f}); grads "
+        f"vs the CPU max abs err {err:.3g}, margin {sound:.3g} of GRAD_TOL; the control "
+        f"(kernel 2 leaving out one edge a call) margin {ctl:.3g} (CPU step {cpu_s:.1f} s)")
+    return {"config": GC_SMALL, "loss": loss_gpu, "loss_cpu": loss_cpu, "grad_max_abs_err": err,
+            "margin": sound, "control_margin": ctl, "control": dropped, "cpu_step_s": cpu_s}
+
+
+@contextlib.contextmanager
+def dropped_row_edge():
+    """The CPU plain path with a fault: kernel 2's plain version
+    (``sorted_segment_sum_plain``) leaves out the last edge of its longest
+    row in every call, as a kernel that lost one edge would. Yields a dict
+    that counts the calls it changed."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    plain = seg.sorted_segment_sum_plain
+    dropped = {"calls": 0}
+
+    def faulty(data, ids, n, *, input_op="none"):
+        out = plain(data, ids, n, input_op=input_op)
+        row_ptr = seg._row_ptr(ids, n)
+        row = int(torch.argmax(row_ptr.diff()))
+        last = int(row_ptr[row + 1]) - 1
+        m = torch.relu(data[last]) if input_op == "relu" else data[last]
+        out = out.clone()
+        out[row] = (out[row].float() - m.float()).to(out.dtype)
+        dropped["calls"] += 1
+        return out
+
+    seg.sorted_segment_sum_plain = faulty
+    try:
+        yield dropped
+    finally:
+        seg.sorted_segment_sum_plain = plain
+
+
+def graphcast_main_path() -> tuple:
+    """The main path, f32: ``python -m dgraph_tpu_torch.train.graphcast``'s
+    ``main`` at GC_MAIN (--warmup_steps 4), GC_WARMUP + GC_TIMED steps, each
+    launching exactly what :func:`graphcast_want` derives (kernel 2 only;
+    no kernel 1, 1a, 3 or 4), the loss falling (the mean of the last 4
+    below the mean of the first 4); the graphs' anchors (GC_ANCHORS); the
+    peak device memory; then GC_PROF more steps under torch.profiler (the
+    device-busy share, the top kernels). Returns (the training, record)."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.ops import segment as seg
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+    from dgraph_tpu_torch.train.profile import device_ops
+
+    steps = GC_WARMUP + GC_TIMED
+    cfg = graphcast_config(**GC_MAIN, steps=steps, warmup_steps=4, world_size=1)
+    what = "graphcast_l6 f32"
+    want = graphcast_want(GC_MAIN["processor_layers"], GC_MAIN["latent"])
+    if os.path.exists(cfg.log_path):
+        os.remove(cfg.log_path)
+    kernels.reset_launch_counts()
+    seg.csr_offsets.computed = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr), LaunchesByShape() as by_shape:
+        res = gc_cli.main(cfg, on_step=GraphCastProbe(steps - 1))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t = res["training"]
+    probes = res["on_step"]
+    losses = graphcast_steps_check(what, probes, want)
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        fail(f"{what}: the loss did not fall: {losses}")
+    g = t.graphs
+    got = {"mesh_vertices": g.num_mesh, "mesh_edges": int(g.mesh_plan.num_edges.sum()),
+           "g2m_edges": int(g.g2m_plan.num_edges.sum()),
+           "m2g_edges": int(g.m2g_plan.num_edges.sum())}
+    if got != GC_ANCHORS:
+        fail(f"{what}: the graphs' anchors {got}, want {GC_ANCHORS}")
+    plans = {rel: {"E": int(getattr(g, f"{rel}_plan").num_edges.sum()),
+                   "e_pad": getattr(g, f"{rel}_plan").e_pad,
+                   "n_src_pad": getattr(g, f"{rel}_plan").n_src_pad,
+                   "n_dst_pad": getattr(g, f"{rel}_plan").n_dst_pad,
+                   "s_pad": getattr(g, f"{rel}_plan").halo.s_pad} for rel in ("mesh", "g2m", "m2g")}
+    # a step's sample: laid out on the host and moved to the card, before
+    # the step's clock starts
+    td = time.perf_counter()
+    x, y = t.batch(0)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - td
+    ms = res["step_ms"]
+    timed = ms[GC_WARMUP:]
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        tp = time.perf_counter()
+        for _ in range(GC_PROF):
+            t.train_step(x, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tp) * 1e3 / GC_PROF
+    ops = device_ops(prof, GC_PROF)
+    busy = sum(o["device_ms_per_step"] for o in ops)
+    kernels.reset_launch_counts()
+    rec = {"config": what, "cfg": GC_MAIN, "steps": steps, "graph_build_s": res["graph_build_s"],
+           "dataset_s": t.dataset_s,
+           "anchors": got, "plans": plans, "losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.percentile(timed, 50)),
+           "step_ms_p99": float(np.percentile(timed, 99)),
+           "launches_per_step": want,
+           "launches": {k: sum(p["counts"][k] for p in probes) for k in probes[0]["counts"]},
+           "launches_by_shape": by_shape.counts, "peak_memory_bytes": peak,
+           "sample_shard_s": shard_s, "run_s": run_s,
+           "records": res["records"],
+           "profile": {"steps": GC_PROF, "wall_ms_per_step": wall, "device_ms_per_step": busy,
+                       "device_busy_share": busy / wall, "top": ops[:5]}}
+    log(f"{what}: graphs {res['graph_build_s']:.1f} s, weather {t.dataset_s:.1f} s, anchors "
+        f"{got}; plans {plans}; step ms "
+        f"p50 {rec['step_ms_p50']:.1f} p99 {rec['step_ms_p99']:.1f} (steps "
+        f"{GC_WARMUP}-{steps - 1}, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"memory {peak / 2**30:.2f} GiB; kernel 2 {want['sorted_segment_sum']} a step "
+        f"(hub route on {rec['launches']['sorted_segment_sum.hub_calls']} of "
+        f"{rec['launches']['sorted_segment_sum']} calls); a step's sample laid out and moved in "
+        f"{shard_s:.2f} s; "
+        f"device busy {busy / wall:.1%} ({busy:.1f} of {wall:.1f} ms a step, {GC_PROF} steps "
+        f"profiled); run {run_s:.1f} s")
+    for o in ops[:5]:
+        log(f"  {o['device_ms_per_step']:9.3f} ms/step  x{o['count']:<5d} {o['name'][:80]}")
+    return t, rec
+
+
+def graphcast_bf16_turn(t, f32_loss0: float) -> dict:
+    """The main path again under DGRAPH_TPU_COMPUTE_DTYPE=bfloat16 on the
+    same graphs, data and seeded weights (``t.restart()``): the f32 run's
+    launches every step, step 0's loss within BF16_LOSS_TOL relative of the
+    f32 run's, every loss finite, the step times."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.ops import segment as seg
+
+    what = "graphcast_l6 bf16"
+    want = graphcast_want(GC_MAIN["processor_layers"], GC_MAIN["latent"])
+    config.set_flags(default_compute_dtype="bfloat16")
+    try:
+        t.restart()
+        kernels.reset_launch_counts()
+        seg.csr_offsets.computed = 0
+        probe, probes, ms = GraphCastProbe(-1), [], []
+        for i in range(GC_WARMUP + GC_BF16_TIMED):
+            x, y = t.batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sm = t.train_step(x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            probes.append(probe(i, t, sm))
+    finally:
+        config.set_flags(default_compute_dtype="float32")
+    losses = graphcast_steps_check(what, probes, want)
+    rel = abs(losses[0] - f32_loss0) / abs(f32_loss0)
+    if not rel <= BF16_LOSS_TOL:
+        fail(f"{what}: step-0 loss {losses[0]} vs the f32 run's {f32_loss0} ({rel:.3g} relative, "
+             f"limit {BF16_LOSS_TOL})")
+    timed = ms[GC_WARMUP:]
+    rec = {"config": what, "losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.percentile(timed, 50)),
+           "step_ms_p99": float(np.percentile(timed, 99)), "step0_rel_to_f32": rel,
+           "launches": {k: sum(p["counts"][k] for p in probes) for k in probes[0]["counts"]}}
+    log(f"{what}: step-0 loss {losses[0]:.5f} vs f32 {f32_loss0:.5f} ({rel:.3g} relative, "
+        f"limit {BF16_LOSS_TOL}); the f32 launches every step; step ms p50 "
+        f"{rec['step_ms_p50']:.1f} p99 {rec['step_ms_p99']:.1f} (steps {GC_WARMUP}-"
+        f"{len(ms) - 1})")
+    return rec
+
+
+def graphcast_rollout(t) -> dict:
+    """``--eval_rollout GC_ROLLOUT`` at full width (``train.graphcast.eval_rollout``),
+    f32, with the sorted-row-gather kernel on (DGRAPH_TPU_PALLAS_GATHER=1):
+    forward launches only, exactly two tracks x GC_ROLLOUT steps of one
+    forward's (kernel 2 the node sums, kernel 3 the dst-side takes), and a
+    finite RMSE a step for the raw and the EMA tracks."""
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    config.use_pallas_gather = True
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with LaunchesByShape() as by_shape:
+            recs = gc_cli.eval_rollout(t, GC_ROLLOUT)
+        run_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        config.use_pallas_gather = None
+    tracks = len(recs)
+    per = graphcast_want(GC_MAIN["processor_layers"], GC_MAIN["latent"], gather=True,
+                         train=False)
+    check_exact_launches("graphcast_l6 rollout", "all", counts,
+                         {k: v * tracks * GC_ROLLOUT for k, v in per.items()})
+    if tracks != 2 or not all(math.isfinite(r) for rec in recs for r in rec["rmse_per_step"]):
+        fail(f"graphcast_l6 rollout: {recs}")
+    log(f"graphcast_l6 --eval_rollout {GC_ROLLOUT} (gather kernel on): {recs}; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}; {run_s:.1f} s")
+    return {"records": recs, "launches": counts, "launches_by_shape": by_shape.counts,
+            "run_s": run_s}
+
+
+def graphcast_w4() -> tuple:
+    """GraphCast at the experiment's defaults over GC_W4 ranks through the
+    CLI, GC_W4_STEPS steps (GC_W4_STEPS_NCCL on a host of GC_W4 cards, a
+    card a rank): the default lowering (its last step also runs
+    the CLI's microbenchmark), then DGRAPH_TPU_HALO_IMPL=pallas_p2p (kernel
+    5 moves every relation's src-side halo, the g2m relation's the grid
+    rows: three exchanges a block a step, forward, recompute and reverse).
+    Each: every plan resolved the lowering, the launches derived, step 0's
+    loss within GC_W4_TOL relative of one rank's on the card (the same
+    seeded weights and sample 0), the ranks' parameters bit-equal after the
+    last step."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    four = torch.cuda.device_count() >= GC_W4
+    base = graphcast_config(steps=GC_W4_STEPS_NCCL if four else GC_W4_STEPS, world_size=1)
+    layers, latent = base.processor_layers, base.latent
+
+    def one_rank_loss():
+        t1 = gc_cli.build_graphcast(base)
+        return float(t1.train_step(*t1.batch(0)).loss)
+
+    out = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # one rank's step 0 in this process, while the first run's ranks start
+        base_loss = pool.submit(one_rank_loss)
+        for impl in ("all_to_all", "pallas_p2p"):
+            what = f"graphcast W={GC_W4} {impl}"
+            cfg = dataclasses.replace(base, world_size=GC_W4)
+            want = graphcast_want(layers, latent, p2p=impl == "pallas_p2p")
+            t0 = time.perf_counter()
+            env = halo_impl_env(impl) if impl != "all_to_all" else contextlib.nullcontext()
+            p2p_rel = GC_P2P_REL if impl == "pallas_p2p" else ""
+            with env, contextlib.redirect_stdout(sys.stderr):
+                res = gc_cli.main(cfg, on_step=GraphCastProbe(cfg.steps - 1,
+                                                              micro=impl == "all_to_all",
+                                                              p2p_rel=p2p_rel))
+            run_s = time.perf_counter() - t0
+            ranks = [r["on_step"] for r in res["ranks"]]
+            for r, probes in enumerate(ranks):
+                if set(probes[0]["impl"].values()) != {impl}:
+                    fail(f"{what}: rank {r}'s plans resolved {probes[0]['impl']}")
+                graphcast_steps_check(f"{what} rank {r}", probes, want)
+            loss0 = ranks[0][0]["loss"]
+            loss1 = base_loss.result()
+            rel = abs(loss0 - loss1) / abs(loss1)
+            if not rel <= GC_W4_TOL:
+                fail(f"{what}: step-0 loss {loss0} vs one rank's {loss1} ({rel:.3g} relative)")
+            last = [probes[-1]["params"] for probes in ranks]
+            for r in range(1, GC_W4):
+                for k, v in last[0].items():
+                    if not np.array_equal(last[r][k], v):
+                        fail(f"{what}: rank {r}'s {k} differs from rank 0's after the last step")
+            ms = [r["step_ms"] for r in res["ranks"]]
+            rec = {"config": what, "impl": impl, "losses": res["losses"], "loss_w1": loss1,
+                   "backend": "nccl" if four else "gloo", "step0_rel": rel, "step_ms": ms,
+                   "step_ms_p50": [float(np.percentile(m[1:], 50)) for m in ms],
+                   "launches_per_step": want,
+                   "launches": {k: sum(p["counts"][k] for probes in ranks for p in probes)
+                                for k in want},
+                   "pads": ranks[0][0]["pads"], "run_s": run_s,
+                   "microbenchmark": [probes[-1].get("microbenchmark") for probes in ranks]}
+            if p2p_rel:
+                # kernel 5 at the relation's exchange, timed after the run, and
+                # the run's launches at each shape, summed over the ranks
+                failures = [f for probes in ranks for f in probes[-1]["p2p_failures"]]
+                if failures:
+                    fail(f"{what}: kernel 5 at the {p2p_rel} exchange: {failures[:5]}")
+                rec["p2p_records"] = [merged_p2p_record([probes[-1]["p2p_records"][i]
+                                                         for probes in ranks])
+                                      for i in range(len(ranks[0][-1]["p2p_records"]))]
+                by_shape = {}
+                for probes in ranks:
+                    for k, v in probes[-1]["by_shape"].items():
+                        by_shape[k] = by_shape.get(k, 0) + v
+                rec["launches_by_shape"] = by_shape
+            out.append(rec)
+            log(f"{what}: every plan resolved {impl!r}; step-0 loss {loss0:.6f} vs one rank's "
+                f"{loss1:.6f} ({rel:.3g} relative, limit {GC_W4_TOL}); launches a step a rank "
+                f"{dict((k, v) for k, v in want.items() if v)}; parameters bit-equal across "
+                f"ranks; step ms per rank {[[round(x, 1) for x in m] for m in ms]} (p50 of steps "
+                f"1- {[round(x, 1) for x in rec['step_ms_p50']]}, {rec['backend']}); run "
+                f"{run_s:.1f} s; rank 0's halo pads {rec['pads']}")
+            if rec["microbenchmark"][0] is not None:
+                log(f"{what}: --microbenchmark on the mesh plan, per rank: "
+                    f"{[{k: round(v, 3) for k, v in m.items()} for m in rec['microbenchmark']]}")
+    return out
+
+
+def graphcast_halo_l6_w4() -> dict:
+    """The main path's graphs partitioned for GC_W4 ranks (host only, the
+    CLI's partitions: multilevel mesh, latitude-band grid): each relation's
+    send pad S against the src side's padded rows a rank, per live delta.
+    The grid's bands and the mesh's parts do not line up, so g2m's halo is
+    nearly the whole grid shard."""
+    from dgraph_tpu_torch.models.graphcast import build_graphcast_graphs
+
+    t0 = time.perf_counter()
+    g = build_graphcast_graphs(GC_MAIN["mesh_level"], GC_MAIN["num_lat"], GC_MAIN["num_lon"],
+                               GC_W4)
+    out = {"build_s": time.perf_counter() - t0}
+    for rel in ("mesh", "g2m", "m2g"):
+        plan = getattr(g, f"{rel}_plan")
+        out[rel] = {"s_pad": plan.halo.s_pad, "n_src_pad": plan.n_src_pad,
+                    "deltas": plan.halo_deltas,
+                    "s_over_n_src": plan.halo.s_pad / plan.n_src_pad,
+                    "bytes_an_exchange_f32": len(plan.halo_deltas) * plan.halo.s_pad
+                    * GC_MAIN["latent"] * 4}
+    return out
+
+
+def graphcast_phase(cfg) -> tuple:
+    """Phase 14, in the form of :func:`one_rank_phases`: GraphCast through
+    ``python -m dgraph_tpu_torch.train.graphcast`` at bench_graphcast's
+    level-6 width (f32, then bf16, then a rollout with the gather kernel),
+    kernels 2 and 3 at its three relations' shapes, step 0 against the CPU
+    at a small depth, then over GC_W4 ranks at the experiment's defaults."""
+    import torch
+
+    log("phase 14: GraphCast (python -m dgraph_tpu_torch.train.graphcast) at level 6, "
+        "721x1440, 73 channels, latent 256, 16 layers: f32, bf16, --eval_rollout; kernels 2 "
+        "and 3 at its shapes; step 0 vs the CPU; then 4 ranks at level 4")
+    t, main_rec = graphcast_main_path()
+    bf16 = graphcast_bf16_turn(t, main_rec["losses"][0])
+    roll = graphcast_rollout(t)
+    records = graphcast_kernel_cases(t)
+    del t
+    torch.cuda.empty_cache()
+    small = graphcast_step0_vs_cpu()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the level-6 W = 4 partition's halo, on the host while the W = 4
+        # runs' ranks work (no time of the card is read there)
+        halo = pool.submit(graphcast_halo_l6_w4)
+        w4 = graphcast_w4()
+        halo = halo.result()
+    log(f"graphcast level 6 at W={GC_W4} (host, {halo['build_s']:.1f} s): S against the src "
+        f"side's rows a rank, per delta: " + "; ".join(
+            f"{rel} {h['s_pad']} of {h['n_src_pad']} ({h['s_over_n_src']:.1%}), deltas "
+            f"{h['deltas']}, {h['bytes_an_exchange_f32'] / 1e6:.1f} MB an f32 exchange"
+            for rel, h in halo.items() if rel != "build_s"))
+    p2p = next(r for r in w4 if r["impl"] == "pallas_p2p")
+    records += p2p["p2p_records"]
+    # the kernels line: kernels 2 and 3 at each relation's dst-side shape
+    # (f32; F = 256, the node sums, and F = 128, a feature chunk), each with
+    # the launches counted at that shape in the main path's run (kernel 2)
+    # and the rollout's (kernel 3); kernel 5 at the g2m exchange and its
+    # reverse, with the launches counted at that shape in the W = 4 run
+    main_case = {}
+    for kernel, counts in (("sorted_segment_sum", main_rec["launches_by_shape"]),
+                           ("sorted_row_gather", roll["launches_by_shape"])):
+        for rec in records:
+            if rec.get("kernel") != kernel or rec.get("relation") is None \
+                    or rec["dtype"] != "float32":
+                continue
+            n = counts.get(shape_key(kernel, rec["E"], rec["N"], rec["F"], "float32"), 0)
+            if n:
+                main_case.setdefault(kernel, []).append(
+                    (rec["case"], {kernel: n}, f"graphcast_{rec['relation']}_f{rec['F']}"))
+    for rec in p2p["p2p_records"]:
+        n = p2p["launches_by_shape"].get(p2p_shape_key("p2p_transport", rec["S"], rec["F"],
+                                                       "float32", rec["sign"]), 0)
+        main_case.setdefault("p2p_transport", []).append(
+            (rec["case"], {"p2p_transport": n},
+             f"graphcast_w4_{GC_P2P_REL}" + ("" if rec["sign"] == 1 else "_reverse")))
+    for what, counts in (("graphcast_l6 f32", main_rec["launches_by_shape"]),
+                         ("graphcast_l6 rollout", roll["launches_by_shape"]),
+                         (p2p["config"], p2p["launches_by_shape"])):
+        log(f"{what}: launches at each shape {counts}")
+    return records, main_case, {"train": [main_rec, bf16, *w4],
+                                "graphcast": {"rollout": roll, "step0_vs_cpu": small,
+                                              "halo_l6_w4": halo}}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
 def main(argv) -> None:
     """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
     multi-rank path, e.g. on a host with a card a rank; its W = 4 training
-    in the turns W4_TURNS_ABBA); with ``--phase 11``, phases 1, 2 and 11;
-    with ``--phase 12``, phases 1, 2 and 12."""
+    in the turns W4_TURNS_ABBA); with ``--phase 11``, ``12``, ``13`` or
+    ``14``, phases 1, 2 and that one."""
     only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase,
-            "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True), "13": lowering_phase}
+            "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True), "13": lowering_phase,
+            "14": graphcast_phase}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
-        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13]")
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13|14]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -4396,7 +5181,7 @@ def main(argv) -> None:
     records, main_case, detail = [], {}, {"train": []}
     for phases in ([only[argv[1]]] if argv else
                    [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase,
-                    skewed_phase, lowering_phase]):
+                    skewed_phase, lowering_phase, graphcast_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():

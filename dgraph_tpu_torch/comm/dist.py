@@ -16,10 +16,15 @@ process groups:
 
 :func:`launch` runs ``fn(group, *args)`` on W ranks. Under ``torchrun``
 (``RANK`` and ``WORLD_SIZE`` set) it joins that group and runs this rank
-only; otherwise it spawns W processes (start method ``spawn``) that meet
-through a ``FileStore`` in a temporary directory, so concurrent launches
-never collide on a TCP port. A rank that raises ends the whole launch with
-its traceback; a launch that outlives ``timeout`` is killed.
+only; otherwise it starts W processes that meet through a ``FileStore`` in
+a temporary directory, so concurrent launches never collide on a TCP port.
+The processes fork from a server that imported torch once (start method
+``forkserver``, torch preloaded): a rank then skips the import, the bulk
+of its start-up. CUDA is never initialised in the server. Each rank takes
+the launcher's environment as it is at the launch (the server's is the one
+it started with) and reads the ``config`` flags from it again. A rank that
+raises ends the whole launch with its traceback; a launch that outlives
+``timeout`` is killed.
 """
 
 from __future__ import annotations
@@ -113,10 +118,23 @@ def init_group(rank: int, world_size: int, init_method: str, device_type: str,
                      pg=pg, host_pg=host_pg)
 
 
-def _rank_entry(rank, world_size, tmp, fn, args, device_type, timeout, threads):
-    """A spawned rank: join the group, run ``fn``, leave its result (or its
-    traceback) in ``tmp``."""
+def _take_environment(env: dict) -> None:
+    """Make ``env`` this process's environment and read the ``config``
+    flags from it again."""
+    import importlib
+
+    from dgraph_tpu_torch import config
+
+    os.environ.clear()
+    os.environ.update(env)
+    importlib.reload(config)
+
+
+def _rank_entry(rank, world_size, tmp, fn, args, device_type, timeout, threads, env):
+    """A started rank: take the launcher's environment, join the group, run
+    ``fn``, leave its result (or its traceback) in ``tmp``."""
     try:
+        _take_environment(env)
         if threads:
             torch.set_num_threads(threads)
         group = init_group(rank, world_size, f"file://{tmp}/store", device_type, timeout)
@@ -170,10 +188,13 @@ def launch(fn: Callable, world_size: int, *args, device: str = "cuda",
             return [fn(group, *args)]
         finally:
             dist.destroy_process_group()
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
+    env = dict(os.environ)
     with tempfile.TemporaryDirectory(prefix="dgraph_ranks_") as tmp:
         procs = [ctx.Process(target=_rank_entry, name=f"rank{r}",
-                             args=(r, world_size, tmp, fn, args, device, pg_timeout, threads))
+                             args=(r, world_size, tmp, fn, args, device, pg_timeout, threads,
+                                   env))
                  for r in range(world_size)]
         for p in procs:
             p.start()

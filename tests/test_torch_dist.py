@@ -832,6 +832,20 @@ def test_train_cli_two_cpu_ranks(tmp_path):
     assert (tmp_path / "log.jsonl").read_text().count("\n") == len(out.splitlines())
 
 
+def test_ranks_take_the_launchers_environment_at_each_launch(monkeypatch):
+    """The ranks fork from a server started at the first launch; each
+    launch still hands them the environment of that moment, and the config
+    flags are read from it."""
+    for impl in ("ppermute", "sched", None):
+        if impl is None:
+            monkeypatch.delenv("DGRAPH_TPU_HALO_IMPL", raising=False)
+        else:
+            monkeypatch.setenv("DGRAPH_TPU_HALO_IMPL", impl)
+        got = launch(torch_dist_ranks.halo_impl_seen, 2, device="cpu", timeout=TIMEOUT,
+                     threads=1)
+        assert got == [(impl, impl or "auto")] * 2
+
+
 def test_a_failing_rank_ends_the_launch():
     t = time.perf_counter()
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed(.|\n)*rank 1 gives up"):

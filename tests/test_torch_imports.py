@@ -54,6 +54,12 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/data/memmap.py", "dgraph_tpu_torch/sched/ir.py",
                  "dgraph_tpu_torch/wire/spec.py", "dgraph_tpu_torch/wire/codec.py",
                  "dgraph_tpu_torch/wire/dedup.py", "dgraph_tpu_torch/wire/__main__.py",
+                 "dgraph_tpu_torch/models/graphcast/mesh.py",
+                 "dgraph_tpu_torch/models/graphcast/graph.py",
+                 "dgraph_tpu_torch/models/graphcast/model.py",
+                 "dgraph_tpu_torch/models/graphcast/__init__.py",
+                 "dgraph_tpu_torch/data/weather.py", "dgraph_tpu_torch/train/schedules.py",
+                 "dgraph_tpu_torch/train/ema.py", "dgraph_tpu_torch/train/graphcast.py",
                  "tests/torch_dist_ranks.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -75,6 +81,9 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.data.ogbn, dgraph_tpu_torch.data.ogb_raw\n"
         "import dgraph_tpu_torch.data.memmap, dgraph_tpu_torch.sched.__main__\n"
         "import dgraph_tpu_torch.wire.__main__, dgraph_tpu_torch.wire.codec\n"
+        "import dgraph_tpu_torch.models.graphcast, dgraph_tpu_torch.data.weather\n"
+        "import dgraph_tpu_torch.train.graphcast, dgraph_tpu_torch.train.schedules\n"
+        "import dgraph_tpu_torch.train.ema\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"

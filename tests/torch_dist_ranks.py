@@ -275,6 +275,14 @@ def fail_on_rank1(group):
     group.barrier()
 
 
+def halo_impl_seen(group):
+    """The launcher's ``DGRAPH_TPU_HALO_IMPL`` as this rank sees it: the
+    variable and the ``config`` flag read from it."""
+    import os
+
+    return os.environ.get("DGRAPH_TPU_HALO_IMPL"), config.halo_impl
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     """The bit patterns of an f32 or bf16 tensor (``torch.equal`` holds
     ``-0.0 == 0.0`` and ``NaN != NaN``; these compare as stored)."""
@@ -396,3 +404,50 @@ def resolved_lowering(epoch, t) -> tuple:
     """``on_step`` of the training CLI's runs in the tests: the lowering this
     rank resolved and whether it took the split route."""
     return coll.resolve_plan_impl(t.plan, t.comm.group), t.comm.split_active(t.plan)
+
+
+def graphcast_step0(group, case: dict) -> dict:
+    """GraphCast's forward and step-0 gradients on this rank under each of
+    IMPLS pinned (the graphs built under the pin, so 'overlap' and
+    'pallas_p2p' attach the split; 'pallas_p2p' runs kernel 5's plain
+    version): {impl: (the lowering each plan resolved, this rank's output
+    shard, the global loss, the summed gradients, the calls of kernel 5's
+    wrapper)}. ``case``: the graphs' arguments, the model's widths, its
+    state_dict and the input and target of every rank (``[W, n_grid_pad,
+    C]``)."""
+    from dgraph_tpu_torch.models.graphcast import GraphCast, build_graphcast_graphs
+    from dgraph_tpu_torch.models.graphcast.graph import rank_inputs
+    from dgraph_tpu_torch.ops import p2p
+    from dgraph_tpu_torch.train.graphcast import masked_mse
+
+    r, W = group.rank, group.world_size
+    comm = DistComm(group)
+    out, calls, transport = {}, [], p2p.p2p_transport
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return transport(*args, **kw)
+
+    p2p.p2p_transport = counted
+    try:
+        for impl in IMPLS:
+            calls.clear()
+            config.halo_impl = impl
+            config.use_pallas_p2p = True if impl == "pallas_p2p" else None
+            graphs = build_graphcast_graphs(*case["graph"], W)
+            statics, plans, mask = rank_inputs(graphs, r, "cpu")
+            model = GraphCast(comm=comm, **case["model"])
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in case["params"].items()})
+            pred = model(torch.from_numpy(case["x"][r]), statics, plans)
+            count = coll.all_reduce_sum(mask.sum(), group)
+            loss = masked_mse(pred, torch.from_numpy(case["y"][r]), mask, count)
+            loss.backward()
+            comm.grad_sync(list(model.parameters()))
+            out[impl] = ({k: coll.resolve_plan_impl(p, group) for k, p in plans.items()},
+                         pred.detach().numpy(), float(coll.all_reduce_sum(loss.detach(), group)),
+                         {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
+                         len(calls))
+    finally:
+        config.halo_impl, config.use_pallas_p2p = "auto", None
+        p2p.p2p_transport = transport
+    return out
