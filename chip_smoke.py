@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase 12   # phases 1, 2 and 12
     python3 chip_smoke.py --phase 13   # phases 1, 2 and 13 (e.g. a card a rank)
     python3 chip_smoke.py --phase 14   # phases 1, 2 and 14 (GraphCast)
+    python3 chip_smoke.py --phase 15   # phases 1, 2 and 15 (replicas; e.g. four cards)
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
@@ -208,7 +209,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    lowerings under each of WIRE_TURNS (bf16 and fp8 wire on f32
    activations, fp8 on bf16), in the same processes, bit-equal to
    all_to_all under the same format in both legs (ppermute's reverse
-   within TOL). Then
+   within TOL), each leg timed once on a shared card
+   (WIRE_REPS_SHARED_CARD). Then
    ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
    at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
    the split) and GraphSAGE (its split route, kernel 2 on both subsets)
@@ -255,6 +257,27 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    g2m exchange and its reverse after the run. The kernels line's
    GraphCast rows carry the launches counted at each row's exact shape
    (:class:`LaunchesByShape`);
+15. replicas — GraphCast over R = 2 replica groups of W = 2 graph ranks
+   (``comm.dist.launch(..., num_replicas=2)``; four ranks sharing the card
+   over gloo, a card a rank over NCCL on a host of four) through
+   ``train.graphcast``'s rank function at GC_R: bench_graphcast's width
+   (73 channels, latent 256) on the level-4 181x360 grid, its depth cut to
+   4 processor layers so that four ranks on one card fit the time limit.
+   Under the default lowering and under pallas_p2p (kernel 5 among each
+   replica group's two ranks), GC_R_STEPS steps each: (a) each replica
+   group's step-0 loss within GC_W4_TOL relative of a one-rank run on the
+   card on that group's sample (``ReplicaSampler(8, 2, seed=0)``; the two
+   samples differ), the same seeded weights; (b) the synced gradient on
+   global rank 0 within GC_R_GRAD_TOL of each leaf's magnitude of the mean
+   of the two one-rank gradients; (c) the four ranks' parameters bit-equal
+   after the last step; (d) each step a rank launching exactly what
+   :func:`graphcast_want` derives. Kernel 2 timed at the replica path's
+   mesh node sum (f32, F = 256), kernel 5 at a replica group's g2m
+   exchange and its reverse (replica 0 timing, replica 1 waiting), and the
+   gradient all-reduce over the four ranks timed. On a host of four cards
+   the runs take GC_R_STEPS_NCCL steps, and R = 1 x W = 4 under all_to_all
+   trains beside R = 2 x W = 2 on the same configuration: a step's p50 a
+   rank and the all-reduce's time of each;
 then the kernels line (one JSON object) and the device line (last line).
 Every progress line carries the seconds since the start, and the end logs
 each phase's seconds.
@@ -278,6 +301,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
 # non-tensor-core float32 rate, the dense bf16 tensor-core rate, and the
@@ -3650,6 +3674,10 @@ def skewed_phase(cfg, kernel_cases_too: bool = False) -> tuple:
 LOWERINGS = ("all_to_all", "ppermute", "overlap", "pallas_p2p", "sched")
 LOWERING_F = 256
 LOWERING_REPS = 3  # timed calls a leg and lowering (the median is logged)
+# the wire turns' timed calls on one shared card, where their host-staged
+# times compare no lowering (a cut of depth that keeps the whole run inside
+# its time limit; every check still runs); a card a rank: LOWERING_REPS
+WIRE_REPS_SHARED_CARD = 1
 W13_EPOCHS = 2  # training steps a phase-13 run on one card (at most 4)
 W13_EPOCHS_NCCL = 12  # on cards of their own, where a step takes a tenth
 W13_TRACE_STEPS = 4  # GCN 'overlap' on four cards: steps profiled after the timed ones
@@ -3721,7 +3749,8 @@ def lowering_parity_rank(group, real: dict) -> dict:
     order that varies from call to call (and so did ``all_to_all``'s against
     itself). Each leg timed
     barrier to barrier (the deterministic mode off, as in training), the
-    median of LOWERING_REPS calls."""
+    median of LOWERING_REPS calls (the wire turns' on a shared card:
+    WIRE_REPS_SHARED_CARD)."""
     import statistics
 
     import torch
@@ -3752,9 +3781,9 @@ def lowering_parity_rank(group, real: dict) -> dict:
     failures, records, controls = [], [], []
     spent = {"check_s": 0.0, "time_s": 0.0}
 
-    def barrier_ms(fn) -> float:
+    def barrier_ms(fn, reps=LOWERING_REPS) -> float:
         ts = []
-        for _ in range(LOWERING_REPS):
+        for _ in range(reps):
             torch.cuda.synchronize(dev)
             group.barrier()
             t = time.perf_counter()
@@ -3821,6 +3850,7 @@ def lowering_parity_rank(group, real: dict) -> dict:
     # the wire turns: each lowering under each (format, activation dtype) of
     # WIRE_TURNS, bit-equal to all_to_all under the same format in both legs
     # (ppermute's reverse within TOL, its per-delta order)
+    wire_reps = LOWERING_REPS if group.backend == "nccl" else WIRE_REPS_SHARED_CARD
     for fmt, dtype_name in WIRE_TURNS:
         dtype = getattr(torch, dtype_name)
         x, h = x32.to(dtype), h32.to(dtype)
@@ -3836,8 +3866,9 @@ def lowering_parity_rank(group, real: dict) -> dict:
             spent["check_s"] += time.perf_counter() - t
             t = time.perf_counter()
             records.append({"impl": impl, "dtype": dtype_name, "wire": fmt,
-                            "exchange_ms": barrier_ms(ex), "reverse_ms": barrier_ms(rv),
-                            "backend": group.backend})
+                            "exchange_ms": barrier_ms(ex, wire_reps),
+                            "reverse_ms": barrier_ms(rv, wire_reps), "backend": group.backend,
+                            "reps": wire_reps})
             spent["time_s"] += time.perf_counter() - t
         buf0, back0 = out["all_to_all"]
         for impl in LOWERINGS[1:]:
@@ -4593,19 +4624,22 @@ class GraphCastProbe:
     computed; at step 0 the lowering each plan resolved; at the last step
     (``last``) the parameters, and with ``micro`` the CLI's
     microbenchmark on the rank's training (``train.graphcast.microbenchmark``).
-    With ``p2p_rel``, a :class:`LaunchesByShape` is installed in each rank's
-    process as the probe arrives there (before the rank's first step), and
-    the last step hands back its counts, then times kernel 5 at that
-    relation's exchange and its reverse (:func:`p2p_real_case`, f32 at the
-    model's latent width), after the run's launches are read."""
+    With ``p2p_rel`` or ``shapes``, a :class:`LaunchesByShape` is installed
+    in each rank's process as the probe arrives there (before the rank's
+    first step), and the last step hands back its counts; with ``p2p_rel``
+    it then times kernel 5 at that relation's exchange and its reverse
+    (:func:`p2p_real_case`, f32 at the model's latent width), after the
+    run's launches are read (over replica groups, replica 0's ranks)."""
 
-    def __init__(self, last: int, micro: bool = False, p2p_rel: str = ""):
+    def __init__(self, last: int, micro: bool = False, p2p_rel: str = "",
+                 shapes: bool = False):
         self.last, self.micro, self.p2p_rel = last, micro, p2p_rel
+        self.shapes = shapes or bool(p2p_rel)
         self.by_shape = None
 
     def __setstate__(self, state):
         self.__dict__.update(state)
-        if self.p2p_rel:
+        if self.shapes:
             self.by_shape = LaunchesByShape()
             self.by_shape.install()
 
@@ -4636,6 +4670,8 @@ class GraphCastProbe:
             if self.by_shape is not None:
                 self.by_shape.remove()
                 out["by_shape"] = dict(self.by_shape.counts)
+            # over replica groups sharing a card, replica 0's ranks time it
+            if self.p2p_rel and t.replica == 0:
                 group = t.comm.group
                 gen = torch.Generator(device=group.device).manual_seed(140 + group.rank)
                 real = w4_halo_arrays(getattr(t.graphs, f"{self.p2p_rel}_plan"))
@@ -4662,10 +4698,15 @@ def graphcast_steps_check(what, probes, want) -> list:
     return losses
 
 
-def graphcast_kernel_cases(t) -> list:
+def graphcast_kernel_cases(t, relations=("m2g", "g2m", "mesh"), widths=GC_KERNEL_F,
+                           dtypes=("float32", "bfloat16"),
+                           kernels=("sorted_segment_sum", "sorted_row_gather"),
+                           label="graphcast") -> list:
     """Kernels 2 and 3 at the main path's shapes: each relation's dst ids
     (m2g 3 edges a grid row, g2m about 40 a mesh row, mesh about 8), F in
-    GC_KERNEL_F, f32 and bf16. On values that are multiples of 1/4 (sums
+    GC_KERNEL_F, f32 and bf16 (or the ``relations``, ``widths``, ``dtypes``
+    and ``kernels`` given; ``t.plans[rel]`` needs only ``dst_index`` and
+    ``n_dst_pad``; each case named with ``label``). On values that are multiples of 1/4 (sums
     exact in any order) the kernel must equal its plain version bit for
     bit; on normal values each output is held to TOL of the sum of its
     terms' magnitudes (the summation order differs: the plain version adds
@@ -4680,14 +4721,14 @@ def graphcast_kernel_cases(t) -> list:
     dev = t.device
     gen = torch.Generator(device=dev).manual_seed(14)
     records = []
-    for rel in ("m2g", "g2m", "mesh"):
+    for rel in relations:
         plan = t.plans[rel]
         ids, n = plan.dst_index, plan.n_dst_pad
         e_pad, e_valid = ids.shape[0], int((ids < n).sum())
         deg = seg._row_ptr(ids, n).diff()
         hubs = int((deg > seg.HUB_DEGREE).sum())
-        for (dtype_name, dtype), F in itertools.product(
-                (("float32", torch.float32), ("bfloat16", torch.bfloat16)), GC_KERNEL_F):
+        for dtype_name, F in itertools.product(dtypes, widths):
+            dtype = getattr(torch, dtype_name)
             exact = quarter_values(gen, e_pad, F).to(dtype)
             table = quarter_values(gen, n, F).to(dtype)
             for kernel, run, plain in (
@@ -4695,7 +4736,9 @@ def graphcast_kernel_cases(t) -> list:
                      lambda d: seg.sorted_segment_sum_plain(d, ids, n)),
                     ("sorted_row_gather", lambda x: seg.sorted_row_gather(x, ids),
                      lambda x: seg.sorted_row_gather_plain(x, ids))):
-                name = f"{kernel} {dtype_name} graphcast {rel} F={F}"
+                if kernel not in kernels:
+                    continue
+                name = f"{kernel} {dtype_name} {label} {rel} F={F}"
                 arg = exact if kernel == "sorted_segment_sum" else table
                 if not torch.equal(bits(run(arg)), bits(plain(arg))):
                     fail(f"{name}: the kernel's bits differ from its plain version's on "
@@ -5157,19 +5200,274 @@ def graphcast_phase(cfg) -> tuple:
                                               "halo_l6_w4": halo}}
 
 
+# --- phase 15 ----------------------------------------------------------------
+
+
+# GraphCast over R = 2 replica groups of W = 2 graph ranks: bench_graphcast's
+# width (73 channels, latent 256) on the experiment's level-4 181x360 grid,
+# its depth cut from 16 to 4 processor layers so that four ranks sharing one
+# card train both lowerings' steps inside the whole run's time limit
+GC_R = dict(mesh_level=4, num_lat=181, num_lon=360, channels=73, latent=256,
+            processor_layers=4)
+GC_R_SHAPE = (2, 2)  # (replica groups R, graph ranks W)
+GC_R_STEPS, GC_R_STEPS_NCCL = 2, 12  # steps a run: one card; a card a rank
+GC_R_GRAD_TOL = 1e-5  # the synced gradient vs the one-rank mean, of each leaf's magnitude
+GC_R_ALLREDUCE_REPS = 5  # timed calls of the gradient all-reduce a run
+GC_R_KERNEL_REL = "mesh"  # kernel 2 timed at this relation's node sum (F = latent)
+
+
+class ReplicaProbe(GraphCastProbe):
+    """:class:`GraphCastProbe` on a replica run: also, at step 0, the graph
+    group's own loss, the sample it trained on and (global rank 0) the
+    synced gradients and rank 0's plan ids of GC_R_KERNEL_REL; at the last
+    step the gradient all-reduce (``collectives.grad_sync`` over every
+    rank) timed GC_R_ALLREDUCE_REPS times, every rank together, after the
+    parameters are read."""
+
+    def __call__(self, step, t, sm):
+        import torch
+
+        from dgraph_tpu_torch.comm import collectives
+
+        out = super().__call__(step, t, sm)
+        if step == 0:
+            out.update(group_loss=float(t.group_loss), sample=t.sample_index(0))
+            if t.global_rank == 0:
+                out["grads"] = {k: p.grad.detach().cpu().numpy().copy()
+                                for k, p in t.model.named_parameters()}
+                plan = t.plans[GC_R_KERNEL_REL]
+                out["kernel_plan"] = (plan.dst_index.cpu(), plan.n_dst_pad)
+        if step == self.last:
+            group, params = t.comm.group, list(t.model.parameters())
+            sync = (lambda: torch.cuda.synchronize(group.device)) \
+                if group.device.type == "cuda" else (lambda: None)
+            ms = []
+            for _ in range(GC_R_ALLREDUCE_REPS + 1):
+                group.world_barrier()
+                sync()
+                t0 = time.perf_counter()
+                collectives.grad_sync(params, group, prescaled=True)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["allreduce_ms"] = ms[1:]
+            out["grad_elements"] = sum(p.numel() for p in params)
+        return out
+
+
+def replica_one_rank(base, samples: list) -> list:
+    """One rank on the card (this process) at ``base``: for each sample, from
+    the seeded weights, step 0's loss and gradients (``restart()`` between)."""
+    import torch
+
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    t = gc_cli.build_graphcast(base)
+    out = []
+    for s in samples:
+        t.restart()
+        x, y = t.dataset.get_sharded(s)
+        loss = float(t.train_step(torch.from_numpy(x[0]).to(t.device),
+                                  torch.from_numpy(y[0]).to(t.device)).loss)
+        out.append((loss, {k: p.grad.detach().cpu().numpy().copy()
+                           for k, p in t.model.named_parameters()}))
+    del t
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def replica_run(what, cfg, R: int, impl: str) -> tuple:
+    """``train.graphcast``'s rank function on R replica groups of
+    ``cfg.world_size`` ranks under ``impl`` with a :class:`ReplicaProbe`:
+    (every rank's result, the run's seconds)."""
+    from dgraph_tpu_torch.comm.dist import launch
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    env = halo_impl_env(impl) if impl != "all_to_all" else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with env, contextlib.redirect_stdout(sys.stderr):
+        ranks = launch(gc_cli._train_rank, cfg.world_size, dataclasses.asdict(cfg),
+                       ReplicaProbe(cfg.steps - 1, p2p_rel=GC_P2P_REL if impl == "pallas_p2p"
+                                    else "", shapes=True),
+                       num_replicas=R, device=cfg.device or "cuda", timeout=600,
+                       threads=1 if cfg.device == "cpu" else 0)
+    return ranks, time.perf_counter() - t0
+
+
+def replica_checks(what, ranks, want, one_rank, W) -> dict:
+    """Checks (a)-(d) of phase 15 on one run (see the module docstring);
+    the run's record."""
+    import numpy as np
+
+    probes = [r["on_step"] for r in ranks]
+    for g, p in enumerate(probes):
+        graphcast_steps_check(f"{what} rank {g}", p, want)
+    samples = [probes[rep * W][0]["sample"] for rep in range(len(probes) // W)]
+    if len(set(samples)) != len(samples):
+        fail(f"{what}: the replica groups trained on one sample: {samples}")
+    rels = []
+    for g, p in enumerate(probes):
+        rep = g // W
+        if p[0]["sample"] != samples[rep]:
+            fail(f"{what}: rank {g} trained on sample {p[0]['sample']}, its group on "
+                 f"{samples[rep]}")
+        loss1 = one_rank[rep][0]
+        rel = abs(p[0]["group_loss"] - loss1) / abs(loss1)
+        if not rel <= GC_W4_TOL:
+            fail(f"{what}: replica {rep}'s step-0 loss {p[0]['group_loss']} vs one rank's "
+                 f"{loss1} on sample {samples[rep]} ({rel:.3g} relative, limit {GC_W4_TOL})")
+        rels.append(rel)
+    mean = {k: np.mean([g[k] for _, g in one_rank], axis=0) for k in one_rank[0][1]}
+    got = probes[0][0]["grads"]
+    grad_rel = {}
+    for k, w in mean.items():
+        scale = float(np.abs(w).max()) or 1.0
+        grad_rel[k] = float(np.abs(got[k] - w).max()) / scale
+    worst = max(grad_rel, key=grad_rel.get)
+    if not grad_rel[worst] <= GC_R_GRAD_TOL:
+        fail(f"{what}: global rank 0's synced gradient {worst} is {grad_rel[worst]:.3g} of its "
+             f"magnitude from the mean of the one-rank gradients (limit {GC_R_GRAD_TOL})")
+    last = [p[-1]["params"] for p in probes]
+    for g in range(1, len(last)):
+        for k, v in last[0].items():
+            if not np.array_equal(last[g][k], v):
+                fail(f"{what}: rank {g}'s {k} differs from rank 0's after the last step")
+    ms = [r["step_ms"] for r in ranks]
+    allreduce = [p[-1]["allreduce_ms"] for p in probes]
+    return {"config": what, "samples": samples, "losses": ranks[0]["losses"],
+            "group_losses": [p[0]["group_loss"] for p in probes[::W]],
+            "loss_one_rank": [loss for loss, _ in one_rank], "step0_rel": rels,
+            "grad_rel_max": grad_rel[worst], "grad_rel_worst_leaf": worst, "step_ms": ms,
+            "step_ms_p50": [float(np.percentile(m[1:], 50)) for m in ms],
+            "allreduce_ms_p50": [float(np.percentile(a, 50)) for a in allreduce],
+            "grad_elements": probes[0][-1]["grad_elements"],
+            "launches_per_step": want,
+            "launches": {k: sum(p["counts"][k] for ps in probes for p in ps) for k in want},
+            "impl": probes[0][0]["impl"]}
+
+
+def replica_phase(cfg) -> tuple:
+    """Phase 15, in the form of :func:`one_rank_phases`: GraphCast at GC_R
+    over R x W = GC_R_SHAPE ranks under the default lowering and
+    pallas_p2p, each held by checks (a)-(d) (see the module docstring);
+    kernel 2 at the replica path's node-sum shape and kernel 5 at a replica
+    group's g2m exchange; on a host of four cards R = 1 x W = 4 beside it
+    under all_to_all."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.train.sampler import ReplicaSampler
+
+    R, W = GC_R_SHAPE
+    four = torch.cuda.device_count() >= R * W
+    steps = GC_R_STEPS_NCCL if four else GC_R_STEPS
+    where = "NCCL, a card a rank" if four else "gloo, one card"
+    log(f"phase 15: replicas: GraphCast at level 4, 181x360, 73 channels, latent 256, 4 layers "
+        f"over R = {R} replica groups of W = {W} ranks ({where}), under all_to_all and "
+        f"pallas_p2p, {steps} steps each")
+    base = graphcast_config(**GC_R, steps=steps, world_size=1, ema_decay=0.0, log_path="")
+    cfg_r = dataclasses.replace(base, world_size=W)
+    # the samples the replica groups train on at step 0: the dataset's 8
+    samples = ReplicaSampler(8, R, seed=0).indices(0)
+    layers, latent = GC_R["processor_layers"], GC_R["latent"]
+    recs, runs = [], {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # one rank's step 0 on each sample, in this process, while the ranks start
+        one = pool.submit(replica_one_rank, base, samples)
+        for impl in ("all_to_all", "pallas_p2p"):
+            what = f"graphcast R={R} W={W} {impl}"
+            ranks, run_s = replica_run(what, cfg_r, R, impl)
+            want = graphcast_want(layers, latent, p2p=impl == "pallas_p2p")
+            one_rank = one.result()
+            rec = replica_checks(what, ranks, want, one_rank, W)
+            if set(rec["impl"].values()) != {impl}:
+                fail(f"{what}: rank 0's plans resolved {rec['impl']}")
+            rec.update(run_s=run_s, backend="nccl" if four else "gloo")
+            runs[impl] = ranks
+            recs.append(rec)
+            log(f"{what}: samples {rec['samples']}; step-0 loss of each replica group "
+                f"{[round(x, 6) for x in rec['group_losses']]} vs one rank's "
+                f"{[round(x, 6) for x in rec['loss_one_rank']]} ({max(rec['step0_rel']):.3g} "
+                f"relative at most, limit {GC_W4_TOL}); global rank 0's synced gradient vs the "
+                f"one-rank mean {rec['grad_rel_max']:.3g} of {rec['grad_rel_worst_leaf']}'s "
+                f"magnitude (limit {GC_R_GRAD_TOL}); parameters bit-equal over the "
+                f"{R * W} ranks; launches a step a rank "
+                f"{dict((k, v) for k, v in want.items() if v)}; step ms per rank "
+                f"{[[round(x, 1) for x in m] for m in rec['step_ms']]}; the gradient "
+                f"all-reduce ({rec['grad_elements']} f32 over {R * W} ranks) p50 per rank "
+                f"{[round(x, 2) for x in rec['allreduce_ms_p50']]} ms; run {run_s:.1f} s "
+                f"[{rec['backend']}]")
+        if four:
+            # R = 1 x W = 4 on the same configuration, a card a rank
+            what = f"graphcast R=1 W={R * W} all_to_all"
+            flat, run_s = replica_run(what, dataclasses.replace(base, world_size=R * W), 1,
+                                      "all_to_all")
+            ms = [r["step_ms"] for r in flat]
+            ar = [r["on_step"][-1]["allreduce_ms"] for r in flat]
+            recs.append({"config": what, "losses": flat[0]["losses"], "step_ms": ms,
+                         "step_ms_p50": [float(np.percentile(m[1:], 50)) for m in ms],
+                         "allreduce_ms_p50": [float(np.percentile(a, 50)) for a in ar],
+                         "run_s": run_s, "backend": "nccl"})
+            two = recs[0]
+            log(f"four cards, all_to_all: a step's p50 a rank (steps 1-{steps - 1}) R={R} "
+                f"W={W} {[round(x, 1) for x in two['step_ms_p50']]} ms, R=1 W={R * W} "
+                f"{[round(x, 1) for x in recs[-1]['step_ms_p50']]} ms; the gradient "
+                f"all-reduce p50 {[round(x, 2) for x in two['allreduce_ms_p50']]} ms against "
+                f"{[round(x, 2) for x in recs[-1]['allreduce_ms_p50']]} ms; run {run_s:.1f} s")
+    # kernel 2 at the replica path's node-sum shape (rank 0's plan), f32, F = latent
+    ids, n = runs["all_to_all"][0]["on_step"][0]["kernel_plan"]
+    plan = types.SimpleNamespace(dst_index=ids.to("cuda"), n_dst_pad=n)
+    records = graphcast_kernel_cases(types.SimpleNamespace(plans={GC_R_KERNEL_REL: plan},
+                                                           device=torch.device("cuda")),
+                                     relations=(GC_R_KERNEL_REL,), widths=(latent,),
+                                     dtypes=("float32",), kernels=("sorted_segment_sum",),
+                                     label=f"graphcast r{R}w{W}")
+    p2p_ranks = [r["on_step"] for r in runs["pallas_p2p"]][:W]
+    failures = [f for probes in p2p_ranks for f in probes[-1]["p2p_failures"]]
+    if failures:
+        fail(f"graphcast R={R} W={W} pallas_p2p: kernel 5 at the {GC_P2P_REL} exchange: "
+             f"{failures[:5]}")
+    p2p_recs = [merged_p2p_record([probes[-1]["p2p_records"][i] for probes in p2p_ranks])
+                for i in range(len(p2p_ranks[0][-1]["p2p_records"]))]
+    records += p2p_recs
+
+    def by_shape(impl):
+        out = {}
+        for r in runs[impl]:
+            for k, v in r["on_step"][-1]["by_shape"].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    k2 = records[0]
+    key2 = shape_key("sorted_segment_sum", k2["E"], k2["N"], k2["F"], "float32")
+    main_case = {"sorted_segment_sum": [
+        (k2["case"], {"sorted_segment_sum": sum(by_shape(i).get(key2, 0) for i in runs)},
+         f"graphcast_r{R}w{W}_{GC_R_KERNEL_REL}_f{latent}")], "p2p_transport": []}
+    p2p_shapes = by_shape("pallas_p2p")
+    for rec in p2p_recs:
+        n5 = p2p_shapes.get(p2p_shape_key("p2p_transport", rec["S"], rec["F"], "float32",
+                                          rec["sign"]), 0)
+        main_case["p2p_transport"].append(
+            (rec["case"], {"p2p_transport": n5},
+             f"graphcast_r{R}w{W}_{GC_P2P_REL}" + ("" if rec["sign"] == 1 else "_reverse")))
+    for impl in runs:
+        log(f"graphcast R={R} W={W} {impl}: launches at each shape {by_shape(impl)}")
+    return records, main_case, {"train": recs}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
 def main(argv) -> None:
     """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
     multi-rank path, e.g. on a host with a card a rank; its W = 4 training
-    in the turns W4_TURNS_ABBA); with ``--phase 11``, ``12``, ``13`` or
-    ``14``, phases 1, 2 and that one."""
+    in the turns W4_TURNS_ABBA); with ``--phase 11``, ``12``, ``13``,
+    ``14`` or ``15``, phases 1, 2 and that one."""
     only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase,
             "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True), "13": lowering_phase,
-            "14": graphcast_phase}
+            "14": graphcast_phase, "15": replica_phase}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
-        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13|14]")
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13|14|15]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -5181,7 +5479,7 @@ def main(argv) -> None:
     records, main_case, detail = [], {}, {"train": []}
     for phases in ([only[argv[1]]] if argv else
                    [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase,
-                    skewed_phase, lowering_phase, graphcast_phase]):
+                    skewed_phase, lowering_phase, graphcast_phase, replica_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():

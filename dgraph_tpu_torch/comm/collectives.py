@@ -203,7 +203,8 @@ def _masked_block(x: torch.Tensor, halo: HaloSpec, peer: int) -> torch.Tensor:
 class _Rounds:
     """Rounds posted in one ``batch_isend_irecv``, every rank in the same
     (delta or round) order: each send ``(block, peer, tag)``, each receive
-    ``(rows, peer, tag)``, ``rows`` a view of the buffer its block lands in.
+    ``(rows, peer, tag)``, ``rows`` a view of the buffer its block lands in,
+    ``peer`` a graph rank (posted as its global rank).
     A rank with nothing to post posts no batch.
     :meth:`wait` returns once every block has landed: on NCCL it orders the
     current stream after the rounds (the host does not wait, and work queued
@@ -217,9 +218,11 @@ class _Rounds:
         keep = [b.cpu() if self._staged else b.contiguous() for b, _, _ in sends]
         land = [torch.empty(rows.shape, dtype=rows.dtype) if self._staged else rows
                 for rows, _, _ in recvs]
-        ops = [dist.P2POp(dist.isend, b, peer, group.pg, tag)
+        # torch reads a P2POp's peer as a global rank, whatever its group:
+        # graph rank p of this replica group is global_peer(p)
+        ops = [dist.P2POp(dist.isend, b, group.global_peer(peer), group.pg, tag)
                for b, (_, peer, tag) in zip(keep, sends)]
-        ops += [dist.P2POp(dist.irecv, buf, peer, group.pg, tag)
+        ops += [dist.P2POp(dist.irecv, buf, group.global_peer(peer), group.pg, tag)
                 for buf, (_, peer, tag) in zip(land, recvs)]
         self._works = dist.batch_isend_irecv(ops) if ops else []
         self._keep = keep
@@ -727,24 +730,44 @@ def boundary_take(x_or_halo: torch.Tensor, plan: EdgePlan, side: str) -> torch.T
                                and plan.ids_sorted(side))
 
 
-def _subset_owner_sum(edata, plan, side, which):
+def interior_chunks(n_deltas: int) -> int:
+    """Edge-axis chunks of the overlap lowering's interior sum
+    (``collectives.py:1086-1098``): ``config.overlap_interior_chunks``
+    (``DGRAPH_TPU_OVERLAP_CHUNKS``, default 1: one sum, the bits of the
+    serial path) capped at the live-delta count. More chunks regroup the
+    float adds."""
+    c = _cfg.overlap_interior_chunks
+    return max(1, min(int(c) if c else 1, max(n_deltas, 1)))
+
+
+def _subset_owner_sum(edata, plan, side, which, chunks: int = 1):
     """Owner-side sum of one subset's rows (the sorted sum when the plan's
-    ids are sorted). One sum per subset, the reference's default: its
-    edge-axis chunks of the interior sum (``DGRAPH_TPU_OVERLAP_CHUNKS``,
-    default 1) are not ported."""
+    ids are sorted), in ``chunks`` edge-axis pieces added in order when the
+    subset has at least two rows a piece (``collectives.py:1123-1145``)."""
     ids = _overlap_spec(plan).side(which, side)
     n_pad = _side_npad(plan, side)
     if not plan.ids_sorted(side):
         return local_ops.segment_sum(edata, ids, n_pad)
-    return local_ops.sorted_segment_sum_any(edata, ids, n_pad)
+    E = edata.shape[0]
+    if chunks <= 1 or E < 2 * chunks:
+        return local_ops.sorted_segment_sum_any(edata, ids, n_pad)
+    step = -(-E // chunks)
+    out = None
+    for j in range(0, E, step):
+        part = local_ops.sorted_segment_sum_any(edata[j:j + step], ids[j:j + step], n_pad)
+        out = part if out is None else out + part
+    return out
 
 
 def interior_scatter_sum(edata_int: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
-    """Sum INTERIOR rows into ``side``'s vertices."""
+    """Sum INTERIOR rows into ``side``'s vertices; on the owner side in
+    :func:`interior_chunks` pieces, so they can interleave with the rounds
+    in flight."""
     ov = _overlap_spec(plan)
     if side == plan.halo_side:
         return local_ops.segment_sum(edata_int, ov.side("interior", side), _side_npad(plan, side))
-    return _subset_owner_sum(edata_int, plan, side, "interior")
+    return _subset_owner_sum(edata_int, plan, side, "interior",
+                             interior_chunks(len(plan.halo_deltas)))
 
 
 def boundary_scatter_sum(edata_bnd: torch.Tensor, plan: EdgePlan, side: str) -> torch.Tensor:
@@ -845,25 +868,48 @@ def gather_concat(x_src: torch.Tensor, x_dst: torch.Tensor, plan: EdgePlan,
 # --- reductions over the ranks ----------------------------------------------
 
 
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum of ``x`` over the ranks (the reference's ``psum``), as a new
-    tensor; ``x`` itself at world size 1."""
-    if group is None:
-        return x
+def _all_reduce(x: torch.Tensor, group, pg) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``pg``, as a new tensor (through the
+    host on a shared card's gloo group)."""
     staged = _staged(x, group, "all_reduce")
     out = x.detach().cpu() if staged else x.detach().clone()
-    dist.all_reduce(out, group=group.pg)
+    dist.all_reduce(out, group=pg)
     return out.to(x.device) if staged else out
 
 
-def grad_sync(params, group=None) -> None:
-    """Sum every parameter's gradient over the ranks in place (the
-    reference's ``grad_sync`` over the graph axis, communicator.py:258-270):
-    each rank's gradient is a partial sum of the one global loss. One
-    collective over the flattened gradients."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``x`` over the graph group (the reference's ``psum`` over
+    the graph axis), as a new tensor; ``x`` itself at world size 1."""
+    if group is None:
+        return x
+    return _all_reduce(x, group, group.pg)
+
+
+def replica_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of ``x`` over the replica axis (the reference's ``pmean`` over
+    ``replica``): over this graph rank's R ranks, one in each replica
+    group. ``x`` itself at one replica."""
+    if group is None or group.num_replicas == 1:
+        return x
+    return _all_reduce(x, group, group.replica_pg) / group.num_replicas
+
+
+def grad_sync(params, group=None, *, prescaled: bool = False) -> None:
+    """The DDP all-reduce of every parameter's gradient, in place (the
+    reference's ``grad_sync``, communicator.py:251-270): the SUM over the
+    graph group (each rank's gradient is a partial sum of one sample's
+    loss) and the MEAN over the replicas (each replica group holds its own
+    sample), as one collective over all R * W ranks. ``prescaled``: the
+    loss was already divided by R before the backward (the reference's
+    train step, ``train/loop.py:162-166``, ``:206-211``), so the sum over
+    all ranks is the mean. At R = 1 the sum over the graph group."""
     grads = [p.grad for p in params if p.grad is not None]
     if group is None or not grads:
         return
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    R = group.num_replicas
+    flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group,
+                       group.pg if R == 1 else group.world_pg)
+    if R > 1 and not prescaled:
+        flat = flat / R
     for g, s in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(s.view_as(g))

@@ -200,14 +200,21 @@ class DistComm:
 
     # -- reductions over the ranks --
     def all_reduce_sum(self, x):
+        """Sum over the graph group."""
         return collectives.all_reduce_sum(x, self.group)
 
     def all_reduce_mean(self, x):
+        """Mean over the graph group."""
         return collectives.all_reduce_sum(x, self.group) / self.group.world_size
 
+    def replica_mean(self, x):
+        """Mean over the replica axis (``x`` itself at one replica)."""
+        return collectives.replica_mean(x, self.group)
+
     def grad_sync(self, params) -> None:
-        """Sum every gradient over the ranks in place (each rank holds a
-        slice of the one graph: its gradients are partial sums)."""
+        """The DDP all-reduce of every gradient, in place: the sum over the
+        graph group (each rank holds a slice of one sample's graph: its
+        gradients are partial sums) and the mean over the replicas."""
         collectives.grad_sync(params, self.group)
 
 
@@ -222,11 +229,13 @@ class Communicator:
     @staticmethod
     def init_process_group(backend: str = "single", *, rank: int = 0, world_size: int = 1,
                            init_method: str = "env://", device: Optional[str] = None,
-                           timeout: float = 600.0):
+                           timeout: float = 600.0, num_replicas: int = 1):
         """``device`` is the rank's device type: the card by default (the
         port's device rule; no card raises before any group is joined), or
         ``"cpu"`` for a gloo rank on the plain path. NCCL ranks are always
-        on the card."""
+        on the card. ``world_size`` is the graph ranks W and
+        ``num_replicas`` the replica groups R (the reference's
+        ``replica_axis=``): ``rank`` is the global rank of R * W."""
         if backend == "single":
             return SingleComm()
         if backend not in ("nccl", "gloo"):
@@ -240,4 +249,4 @@ class Communicator:
             raise RuntimeError(f"backend {backend!r} on the card, but no CUDA device is "
                                "available")
         return DistComm(init_group(rank, world_size, init_method, dev.type, timeout,
-                                   backend=backend))
+                                   backend=backend, num_replicas=num_replicas))

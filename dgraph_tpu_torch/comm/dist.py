@@ -1,10 +1,16 @@
 """Process groups and the rank launcher: the counterpart of
 ``dgraph_tpu/comm/mesh.py``.
 
-The reference runs W ranks as one SPMD program over a mesh axis. Here each
-rank is a process, and :class:`RankGroup` is what a rank's code holds in
-place of the axis name: its rank, the world size, its device and two
-process groups:
+The reference runs one SPMD program over a ``('replica', 'graph')`` mesh
+(``make_graph_mesh(ranks_per_graph, num_replicas)``). Here each rank is a
+process, and :class:`RankGroup` is what a rank's code holds in place of
+the two axis names. R replica groups of W graph ranks make R * W processes;
+global rank g is replica ``g // W``, graph rank ``g % W`` (the mesh's
+row-major order), so a graph group is W contiguous ranks and, under
+``torchrun``, sits on one node when W divides the node's ranks.
+
+:class:`RankGroup`'s ``rank``, ``world_size``, ``pg`` and ``host_pg`` are
+the GRAPH axis, so every graph collective runs as it does at R = 1:
 
 - ``pg`` carries the collectives: NCCL when every rank has a card of its
   own, gloo when ranks share a card (NCCL refuses two ranks on one device)
@@ -14,17 +20,25 @@ process groups:
   two-sided lowerings, whose CUDA tensors gloo cannot move: they are copied
   to the host and back (:meth:`RankGroup.staged`).
 
-:func:`launch` runs ``fn(group, *args)`` on W ranks. Under ``torchrun``
+The replica axis adds ``replica``, ``num_replicas``, ``replica_pg`` (the
+R ranks of this graph rank, one in each replica group: the gradient mean)
+and ``world_pg`` (all R * W ranks). A send or receive names its peer by
+global rank (:meth:`RankGroup.global_peer`). At R = 1 the groups are the
+default group and, over NCCL, one gloo group, as before the replica axis.
+Every rank creates every group in one order (``new_group`` is collective
+over the whole world).
+
+:func:`launch` runs ``fn(group, *args)`` on R * W ranks. Under ``torchrun``
 (``RANK`` and ``WORLD_SIZE`` set) it joins that group and runs this rank
-only; otherwise it starts W processes that meet through a ``FileStore`` in
-a temporary directory, so concurrent launches never collide on a TCP port.
-The processes fork from a server that imported torch once (start method
-``forkserver``, torch preloaded): a rank then skips the import, the bulk
-of its start-up. CUDA is never initialised in the server. Each rank takes
-the launcher's environment as it is at the launch (the server's is the one
-it started with) and reads the ``config`` flags from it again. A rank that
-raises ends the whole launch with its traceback; a launch that outlives
-``timeout`` is killed.
+only; otherwise it starts the processes, which meet through a ``FileStore``
+in a temporary directory, so concurrent launches never collide on a TCP
+port. The processes fork from a server that imported torch once (start
+method ``forkserver``, torch preloaded): a rank then skips the import, the
+bulk of its start-up. CUDA is never initialised in the server. Each rank
+takes the launcher's environment as it is at the launch (the server's is
+the one it started with) and reads the ``config`` flags from it again. A
+rank that raises ends the whole launch with its traceback; a launch that
+outlives ``timeout`` is killed.
 """
 
 from __future__ import annotations
@@ -50,14 +64,30 @@ DEFAULT_TIMEOUT_S = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class RankGroup:
-    """One rank's view of the process group (see the module docstring)."""
+    """One rank's view of the process groups (see the module docstring):
+    ``rank``, ``world_size``, ``pg`` and ``host_pg`` are the graph axis."""
 
     rank: int
     world_size: int
     device: torch.device
-    backend: str  # of pg: "nccl" or "gloo"
+    backend: str  # of pg, replica_pg and world_pg: "nccl" or "gloo"
     pg: object
     host_pg: object
+    replica: int = 0
+    num_replicas: int = 1
+    replica_pg: object = None  # None at R = 1
+    world_pg: object = None  # pg at R = 1
+    world_host_pg: object = None  # host_pg at R = 1
+
+    @property
+    def global_rank(self) -> int:
+        return self.replica * self.world_size + self.rank
+
+    def global_peer(self, peer: int) -> int:
+        """The global rank of graph rank ``peer`` of this replica group:
+        what a send or receive names (torch reads ``peer`` as a global
+        rank, whatever the group)."""
+        return self.replica * self.world_size + peer
 
     def staged(self, t: torch.Tensor) -> bool:
         """True when ``t`` must go through the host to cross ranks: a CUDA
@@ -65,10 +95,15 @@ class RankGroup:
         return self.backend == "gloo" and t.device.type == "cuda"
 
     def barrier(self) -> None:
-        """Host barrier over the ranks (gloo)."""
+        """Host barrier over the graph group (gloo)."""
         dist.barrier(group=self.host_pg)
 
+    def world_barrier(self) -> None:
+        """Host barrier over all R * W ranks (gloo)."""
+        dist.barrier(group=self.world_host_pg or self.host_pg)
+
     def all_gather_object(self, obj) -> list:
+        """``obj`` of every rank of the graph group, in graph-rank order."""
         out = [None] * self.world_size
         dist.all_gather_object(out, obj, group=self.host_pg)
         return out
@@ -87,7 +122,8 @@ def log_staged_once(what: str) -> None:
 
 
 def rank_device(rank: int, device_type: str) -> torch.device:
-    """``cuda:{rank % device_count}`` for a CUDA run, else the CPU."""
+    """``cuda:{rank % device_count}`` for a CUDA run, else the CPU. ``rank``
+    is the rank on its node (``LOCAL_RANK`` under ``torchrun``)."""
     if device_type == "cuda":
         n = torch.cuda.device_count()
         if n == 0:
@@ -98,24 +134,80 @@ def rank_device(rank: int, device_type: str) -> torch.device:
     return torch.device("cpu")
 
 
-def init_group(rank: int, world_size: int, init_method: str, device_type: str,
-               timeout: float = DEFAULT_TIMEOUT_S, backend: str = "") -> RankGroup:
-    """Join the default process group as ``rank`` and build the
-    :class:`RankGroup`. ``backend`` "" picks NCCL when every rank has its
-    own card, else gloo."""
-    device = rank_device(rank, device_type)
+def check_layout(ranks_per_graph: int, num_replicas: int, n: int) -> None:
+    """Raise unless R * W ranks make the world of ``n`` (the reference's
+    ``make_graph_mesh`` message)."""
+    if ranks_per_graph < 1 or num_replicas < 1 or ranks_per_graph * num_replicas != n:
+        raise ValueError(f"ranks_per_graph ({ranks_per_graph}) x num_replicas "
+                         f"({num_replicas}) != {n}")
+
+
+def join_world(rank: int, n: int, init_method: str, device_type: str,
+               timeout: float = DEFAULT_TIMEOUT_S, backend: str = "") -> tuple:
+    """Bind this rank's card (``LOCAL_RANK``'s under ``torchrun``) and join
+    the default process group of ``n`` ranks as global rank ``rank``.
+    ``backend`` "" picks NCCL when every rank of the node has its own card,
+    else gloo. Returns (device, backend)."""
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is outside a world of {n} ranks")
+    device = rank_device(int(os.environ.get("LOCAL_RANK", rank)), device_type)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if not backend:
-        nccl = device.type == "cuda" and torch.cuda.device_count() >= world_size
+        on_node = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+        nccl = device.type == "cuda" and torch.cuda.device_count() >= on_node
         backend = "nccl" if nccl else "gloo"
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=timeout))
+    return device, backend
+
+
+def init_group(rank: int, world_size: int, init_method: str, device_type: str,
+               timeout: float = DEFAULT_TIMEOUT_S, backend: str = "",
+               num_replicas: int = 1) -> RankGroup:
+    """Join the default process group of ``world_size * num_replicas``
+    ranks as global rank ``rank`` (:func:`join_world`) and build the
+    :class:`RankGroup` of W = ``world_size`` graph ranks."""
+    n = world_size * num_replicas
+    check_layout(world_size, num_replicas, n)
+    device, backend = join_world(rank, n, init_method, device_type, timeout, backend)
+    return make_groups(world_size, num_replicas, device, backend, timeout)
+
+
+def make_groups(world_size: int, num_replicas: int, device: torch.device, backend: str,
+                timeout: float = DEFAULT_TIMEOUT_S) -> RankGroup:
+    """This rank's :class:`RankGroup` over the joined default group: W =
+    ``world_size`` graph ranks in each of ``num_replicas`` replica groups.
+    Every rank creates every group in the same order: the gloo world group
+    (over NCCL), each replica group's graph group (and its gloo twin over
+    NCCL), then the W strided groups of the replica axis. At R = 1 only the
+    first, as before the replica axis."""
+    n, g = dist.get_world_size(), dist.get_rank()
+    check_layout(world_size, num_replicas, n)
     td = datetime.timedelta(seconds=timeout)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size, timeout=td)
-    pg = dist.group.WORLD
-    host_pg = dist.new_group(backend="gloo", timeout=td) if backend == "nccl" else pg
-    return RankGroup(rank=rank, world_size=world_size, device=device, backend=backend,
-                     pg=pg, host_pg=host_pg)
+    world = dist.group.WORLD
+    world_host = dist.new_group(backend="gloo", timeout=td) if backend == "nccl" else world
+    if num_replicas == 1:
+        return RankGroup(rank=g, world_size=world_size, device=device, backend=backend,
+                         pg=world, host_pg=world_host, world_pg=world,
+                         world_host_pg=world_host)
+    replica, rank = divmod(g, world_size)
+    pg = host_pg = replica_pg = None
+    for r in range(num_replicas):
+        ranks = list(range(r * world_size, (r + 1) * world_size))
+        p = dist.new_group(ranks, timeout=td, backend=backend)
+        h = dist.new_group(ranks, timeout=td, backend="gloo") if backend == "nccl" else p
+        if r == replica:
+            pg, host_pg = p, h
+    for j in range(world_size):
+        p = dist.new_group(list(range(j, n, world_size)), timeout=td, backend=backend)
+        if j == rank:
+            replica_pg = p
+    if pg is None or replica_pg is None:
+        raise RuntimeError(f"rank {g} found no graph or replica group of its own")
+    return RankGroup(rank=rank, world_size=world_size, device=device, backend=backend, pg=pg,
+                     host_pg=host_pg, replica=replica, num_replicas=num_replicas,
+                     replica_pg=replica_pg, world_pg=world, world_host_pg=world_host)
 
 
 def _take_environment(env: dict) -> None:
@@ -130,16 +222,18 @@ def _take_environment(env: dict) -> None:
     importlib.reload(config)
 
 
-def _rank_entry(rank, world_size, tmp, fn, args, device_type, timeout, threads, env):
-    """A started rank: take the launcher's environment, join the group, run
-    ``fn``, leave its result (or its traceback) in ``tmp``."""
+def _rank_entry(rank, world_size, tmp, fn, args, device_type, timeout, threads, env,
+                num_replicas=1):
+    """A started rank: take the launcher's environment, join the groups,
+    run ``fn``, leave its result (or its traceback) in ``tmp``."""
     try:
         _take_environment(env)
         if threads:
             torch.set_num_threads(threads)
-        group = init_group(rank, world_size, f"file://{tmp}/store", device_type, timeout)
+        group = init_group(rank, world_size, f"file://{tmp}/store", device_type, timeout,
+                           num_replicas=num_replicas)
         out = fn(group, *args)
-        group.barrier()
+        group.world_barrier()
         path = os.path.join(tmp, f"result.{rank}")
         with open(path + ".part", "wb") as f:
             pickle.dump(out, f)
@@ -166,24 +260,30 @@ def _stop(procs) -> None:
             p.join()
 
 
-def launch(fn: Callable, world_size: int, *args, device: str = "cuda",
+def launch(fn: Callable, world_size: int, *args, num_replicas: int = 1, device: str = "cuda",
            timeout: Optional[float] = None, threads: int = 0) -> list:
-    """Run ``fn(group, *args)`` on ``world_size`` ranks and return the
-    ranks' results in rank order (under ``torchrun``: this rank's only).
-    ``fn`` and ``args`` must pickle (``fn`` a module-level function);
-    ``threads`` > 0 sets each rank's ``torch.set_num_threads``. Raises
-    ``RuntimeError`` with the traceback of a rank that failed and
-    ``TimeoutError`` when the ranks outlive ``timeout`` seconds (None: no
-    deadline; a collective that waits longer than the group's timeout,
-    ``min(timeout, DEFAULT_TIMEOUT_S)``, fails its rank either way)."""
+    """Run ``fn(group, *args)`` on ``num_replicas`` replica groups of
+    ``world_size`` graph ranks each and return the ranks' results in global
+    rank order (under ``torchrun``, whose ``WORLD_SIZE`` must be R * W:
+    this rank's only). ``fn`` and ``args`` must pickle (``fn`` a
+    module-level function); ``threads`` > 0 sets each rank's
+    ``torch.set_num_threads``. Raises ``RuntimeError`` with the traceback of
+    a rank that failed and ``TimeoutError`` when the ranks outlive
+    ``timeout`` seconds (None: no deadline; a collective that waits longer
+    than the group's timeout, ``min(timeout, DEFAULT_TIMEOUT_S)``, fails its
+    rank either way)."""
     import multiprocessing as mp
 
+    n = world_size * num_replicas
+    check_layout(world_size, num_replicas, n)
     pg_timeout = min(timeout or DEFAULT_TIMEOUT_S, DEFAULT_TIMEOUT_S)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, w = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-        if w != world_size:
-            raise ValueError(f"torchrun started {w} ranks, the run asks for {world_size}")
-        group = init_group(rank, w, "env://", device, pg_timeout)
+        if w != n:
+            raise ValueError(f"torchrun started {w} ranks, the run asks for {n} "
+                             f"({num_replicas} x {world_size})")
+        group = init_group(rank, world_size, "env://", device, pg_timeout,
+                           num_replicas=num_replicas)
         try:
             return [fn(group, *args)]
         finally:
@@ -194,8 +294,8 @@ def launch(fn: Callable, world_size: int, *args, device: str = "cuda",
     with tempfile.TemporaryDirectory(prefix="dgraph_ranks_") as tmp:
         procs = [ctx.Process(target=_rank_entry, name=f"rank{r}",
                              args=(r, world_size, tmp, fn, args, device, pg_timeout, threads,
-                                   env))
-                 for r in range(world_size)]
+                                   env, num_replicas))
+                 for r in range(n)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout if timeout else float("inf")
@@ -211,16 +311,16 @@ def launch(fn: Callable, world_size: int, *args, device: str = "cuda",
                             if os.path.exists(errs[r]) else float("inf"))
                     why = (open(errs[r]).read() if os.path.exists(errs[r])
                            else f"exit code {codes[r]}")
-                    raise RuntimeError(f"rank {r} of {world_size} failed:\n{why}")
+                    raise RuntimeError(f"rank {r} of {n} failed:\n{why}")
                 if all(c == 0 for c in codes):
                     break
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"{world_size} ranks still running after {timeout} s")
+                    raise TimeoutError(f"{n} ranks still running after {timeout} s")
                 procs[codes.index(None)].join(0.05)
         finally:
             _stop(procs)
         out = []
-        for r in range(world_size):
+        for r in range(n):
             with open(os.path.join(tmp, f"result.{r}"), "rb") as f:
                 out.append(pickle.load(f))
         return out

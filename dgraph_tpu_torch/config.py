@@ -10,9 +10,8 @@ with its name and semantics, and so are the halo-lowering pins
 packages, and so is the wire-codec ladder (``wire_format``, read from
 ``DGRAPH_TPU_WIRE_FORMAT``, and ``tuned_wire_format``, the record tier,
 which nothing sets until the tuner is ported). The reference's
-adopted-record tier of the lowering (``tuned_halo_impl``) and interior
-chunking (``DGRAPH_TPU_OVERLAP_CHUNKS``) are not here: the port has no
-tuner and sums each split subset at once.
+adopted-record tier of the lowering (``tuned_halo_impl``) is not here: the
+port has no tuner. Interior chunking (``DGRAPH_TPU_OVERLAP_CHUNKS``) is.
 
 By the same rule the reference's ``use_flash_attention`` tri-state
 (``DGRAPH_TPU_FLASH_ATTN``) and its ``flash_attention_selfcheck`` latch
@@ -92,6 +91,13 @@ def pallas_gather_enabled() -> bool:
 # heuristic never picks 'pallas_p2p' or 'sched'. A pin the plan cannot lower
 # warns and the heuristic decides.
 halo_impl: str = os.environ.get("DGRAPH_TPU_HALO_IMPL", "auto")
+
+# Edge-axis chunk count of the split lowerings' interior sum
+# (comm.collectives.interior_chunks): 1 = one sorted segment sum (the
+# default: the bits of the serial path); > 1 splits it so the pieces can
+# interleave with the rounds in flight (capped at the live-delta count;
+# the partial sums regroup the float adds).
+overlap_interior_chunks: int = int(os.environ.get("DGRAPH_TPU_OVERLAP_CHUNKS", "1"))
 
 # The one-sided transport kernel (ops.p2p). Tri-state as in the reference:
 # None = available where the rank's device is CUDA; True also on the CPU

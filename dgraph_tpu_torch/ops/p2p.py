@@ -289,7 +289,10 @@ def _as_tensor(ptr: int, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
 def landing_buffer(group, rows: int, F: int, dtype: torch.dtype, sign: int) -> Landing:
     """The rank's landing buffer for ``(rows, F, dtype, sign)``, allocated
     and mapped by every rank of ``group`` at its first use (a collective
-    call: the ranks reach it in the same order)."""
+    call: the ranks reach it in the same order). Per graph group: the key,
+    the handles' exchange and the peers' order are the graph group's
+    (``host_pg``, graph ranks), so each replica group maps only its own W
+    buffers."""
     key = (id(group.host_pg), rows, F, dtype, sign)
     land = _landings.get(key)
     if land is not None:

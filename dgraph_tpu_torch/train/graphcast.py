@@ -33,10 +33,15 @@ feeds its own shard, the loss's count and value are summed over the ranks,
 and so are the gradients (``DGRAPH_TPU_HALO_IMPL`` pins the halo lowering).
 Each step lays its sample out and moves it to the device, as the
 reference does. Runs on ``cuda`` unless ``--device
-cpu``; with no card it raises. Not ported yet: ``--ckpt_dir`` (checkpoints,
-slice 9) and ``--step_deadline_s`` with the SIGTERM preemption guard (the
-elastic pieces, slice 12) raise; the reference's start-up and timing
-records are not written.
+cpu``; with no card it raises. On a communicator of R replica groups
+(``comm.dist.launch(..., num_replicas=R)``; the CLI has no flag for it, as
+the reference's has none) ``build_graphcast`` trains each replica group on
+its own sample (``train.sampler.ReplicaSampler``), divides the loss by R
+and sums the gradients over all R * W ranks (the DDP mean), as the
+reference's dry run does (``__graft_entry__.py:154-267``). Not ported yet:
+``--ckpt_dir`` (checkpoints, slice 9) and ``--step_deadline_s`` with the
+SIGTERM preemption guard (the elastic pieces, slice 12) raise; the
+reference's start-up and timing records are not written.
 """
 
 from __future__ import annotations
@@ -94,14 +99,36 @@ def masked_mse(pred, y, mask, count):
     return se.sum() / count.clamp_min(1.0)
 
 
+def replica_loss_backward(model, params, x, y, statics, plans, gmask, count, group):
+    """One step's forward and backward on this rank, its gradients synced:
+    the masked MSE over the graph group's ``count``, its backward divided by
+    the replicas R, the gradients summed over all R * W ranks (the DDP
+    mean; ``_dryrun_graphcast``'s ``lf``). Returns the graph group's loss
+    (summed over its ranks; the step's loss is its replica mean)."""
+    import torch
+
+    from dgraph_tpu_torch.comm import collectives as coll
+
+    R = group.num_replicas if group is not None else 1
+    loss = masked_mse(model(x, statics, plans), y, gmask, count)
+    (loss / R if R > 1 else loss).backward()
+    with torch.no_grad():
+        coll.grad_sync(params, group, prescaled=True)
+    return coll.all_reduce_sum(loss.detach(), group)
+
+
 def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespace:
     """Graphs, dataset, seeded model, AdamW, schedule, EMA and the train
     step of one rank (``comm``, None for one rank), on ``device`` (default
     the rank's device, else ``cfg.device``, else ``cuda``; raises with no
-    card before any work). ``batch(i)`` is sample ``i``'s ``(x, y)`` shard
-    on the device; ``train_step(x, y)`` returns a ``StepMetrics`` of the
-    global loss (and the gradient norm under ``cfg.step_metrics``);
-    ``restart()`` starts over from the seeded weights."""
+    card before any work). ``batch(i)`` is step ``i``'s ``(x, y)`` shard on
+    the device: sample ``sample_index(i)``, which is ``i`` modulo the
+    dataset at one replica and the replica's entry of
+    ``ReplicaSampler(len(dataset), R, seed=0).indices(i)`` on R > 1;
+    ``train_step(x, y)`` returns a ``StepMetrics`` of the global loss (the
+    replica mean) and the gradient norm under ``cfg.step_metrics``, and
+    leaves the graph group's own loss in ``group_loss``; ``restart()``
+    starts over from the seeded weights."""
     import torch
 
     from dgraph_tpu_torch.comm import SingleComm
@@ -114,6 +141,7 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
     from dgraph_tpu_torch.plan import check_owner_padding
     from dgraph_tpu_torch.train.ema import ema_init, ema_update
     from dgraph_tpu_torch.train.loop import _global_norm
+    from dgraph_tpu_torch.train.sampler import ReplicaSampler
     from dgraph_tpu_torch.train.schedules import graphcast_three_phase
     from dgraph_tpu_torch.weights import init_params
 
@@ -139,8 +167,12 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
                       out_channels=cfg.channels, comm=comm).to(dev)
     params = [p for p in model.parameters() if p.requires_grad]
     schedule = graphcast_three_phase(cfg.peak_lr, cfg.warmup_steps, cfg.decay_steps)
+    R = group.num_replicas if group is not None else 1
+    replica = group.replica if group is not None else 0
+    sampler = ReplicaSampler(len(ds), R, seed=0) if R > 1 else None
     t = types.SimpleNamespace(
-        device=dev, comm=comm, rank=rank, world_size=W, graphs=graphs, dataset=ds,
+        device=dev, comm=comm, rank=rank, world_size=W, replica=replica,
+        global_rank=replica * W + rank, graphs=graphs, dataset=ds,
         graph_build_s=graph_build_s, dataset_s=dataset_s, statics=statics, plans=plans,
         grid_mask=gmask, count=count, model=model, schedule=schedule)
 
@@ -153,26 +185,29 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
         t.scheduler = torch.optim.lr_scheduler.LambdaLR(t.optimizer, schedule)
         t.ema = ema_init(dict(model.named_parameters())) if cfg.ema_decay > 0 else None
 
+    def sample_index(i: int) -> int:
+        """The sample of step ``i`` on this rank's replica group."""
+        return i % len(ds) if sampler is None else sampler.indices(i)[replica]
+
     def batch(i: int):
-        """Sample ``i``'s (input, target) shard of this rank on the device."""
-        x, y = ds.get_sharded(i % len(ds))
+        """Step ``i``'s (input, target) shard of this rank on the device."""
+        x, y = ds.get_sharded(sample_index(i))
         return torch.from_numpy(x[rank]).to(dev), torch.from_numpy(y[rank]).to(dev)
 
     def train_step(x, y) -> StepMetrics:
         t.optimizer.zero_grad(set_to_none=True)
-        loss = masked_mse(model(x, statics, plans), y, gmask, count)
-        loss.backward()
+        t.group_loss = replica_loss_backward(model, params, x, y, statics, plans, gmask, count,
+                                             group)
         with torch.no_grad():
-            coll.grad_sync(params, group)
             gn = _global_norm(params) if cfg.step_metrics else None
             t.optimizer.step()
             t.scheduler.step()
             if t.ema is not None:
                 t.ema = ema_update(t.ema, dict(model.named_parameters()), cfg.ema_decay)
-        return StepMetrics(loss=coll.all_reduce_sum(loss.detach(), group), grad_norm=gn)
+        return StepMetrics(loss=coll.replica_mean(t.group_loss, group), grad_norm=gn)
 
     restart()
-    t.batch, t.train_step, t.restart = batch, train_step, restart
+    t.sample_index, t.batch, t.train_step, t.restart = sample_index, batch, train_step, restart
     return t
 
 
@@ -244,7 +279,7 @@ def _train(cfg: Config, on_step: Optional[Callable], comm=None) -> dict:
     from dgraph_tpu_torch.train.__main__ import _Log
 
     t = build_graphcast(cfg, comm=comm)
-    log = _Log(cfg.log_path) if t.rank == 0 else None
+    log = _Log(cfg.log_path) if t.global_rank == 0 else None
 
     def write(rec):
         if log is not None:

@@ -14,8 +14,13 @@ one loss over the whole graph.
 Batches are dicts whose leaves lead with the ``[W]`` rank axis, as
 ``DistributedGraph.batch`` returns them (plus ``"y"``); each rank takes its
 row. Ranks come from the model's communicator (``comm``: a ``DistComm`` at
-W > 1). ``per_replica_batch`` (replica groups of ranks, each with its own
-sample) is a later slice of the port and raises.
+W > 1). On R replica groups of W graph ranks (``comm.dist.launch(...,
+num_replicas=R)``) the loss is also divided by R before the backward and
+the gradients are summed over all R * W ranks: the DDP mean over the
+replicas of each group's summed gradient, as the reference's step does
+(``train/loop.py:162-166``, ``:194``, ``:206-211``). With ``per_replica_batch=True`` the leaves lead
+with ``[R, W]`` (``train.sampler.ReplicaSampler.stacked``), each replica
+group trains on its own sample, and the metrics are the replica means.
 """
 
 from __future__ import annotations
@@ -105,9 +110,18 @@ def _rank_plan(plan: EdgePlan, rank: int) -> EdgePlan:
     return plan if plan.per_rank else plan.shard(rank)
 
 
-def _rank_batch(batch: dict, rank: int, world_size: int) -> dict:
+def _rank_batch(batch: dict, rank: int, world_size: int, replica=None,
+                num_replicas: int = 1) -> dict:
+    """This rank's leaves: ``v[rank]`` of ``[W, ...]`` leaves, or
+    ``v[replica][rank]`` of ``[R, W, ...]`` leaves when ``replica`` is
+    given (a per-replica batch)."""
     out = {}
     for k, v in batch.items():
+        if replica is not None:
+            if v.shape[0] != num_replicas:
+                raise ValueError(f"batch[{k!r}] leads with {v.shape[0]} replicas, the run "
+                                 f"has {num_replicas}")
+            v = v[replica]
         if v.shape[0] != world_size:
             raise ValueError(f"batch[{k!r}] leads with {v.shape[0]} ranks, the plan has "
                              f"{world_size}")
@@ -125,15 +139,23 @@ def _loss(loss_fn, logits, b: dict, group):
     return loss_fn(logits, b["y"], b["mask"], count=all_reduce_sum(b["mask"].sum(), group))
 
 
-def _global_metrics(loss, correct, count, group) -> tuple:
-    """(loss, correct, count) summed over the ranks in one collective."""
-    if group is None:
-        return loss, correct, count
-    from dgraph_tpu_torch.comm.collectives import all_reduce_sum
+def _global_metrics(loss, correct, count, group, replica_mean: bool = False) -> tuple:
+    """(loss, accuracy, count): loss, correct and count summed over the
+    graph group in one collective, the accuracy their quotient; with
+    ``replica_mean`` the three then averaged over the replicas in one
+    more (distinct samples a replica group, ``train/loop.py:212-220``)."""
+    if group is not None:
+        from dgraph_tpu_torch.comm.collectives import all_reduce_sum
 
-    tot = all_reduce_sum(torch.stack([loss.detach().float(), correct.float(), count.float()]),
-                         group)
-    return tot[0], tot[1], tot[2]
+        tot = all_reduce_sum(
+            torch.stack([loss.detach().float(), correct.float(), count.float()]), group)
+        loss, correct, count = tot[0], tot[1], tot[2]
+    acc = correct / count.clamp_min(1.0)
+    if replica_mean and group is not None and group.num_replicas > 1:
+        from dgraph_tpu_torch.comm.collectives import replica_mean as mean
+
+        loss, acc, count = mean(torch.stack([loss, acc, count]), group)
+    return loss, acc, count
 
 
 def _global_norm(params) -> torch.Tensor:
@@ -158,8 +180,16 @@ def make_train_step(
     ``optimizer`` in place. ``plan`` is the stacked plan or this rank's
     view, on the model's device; ``comm`` is the model's communicator
     (None: one rank). Above one rank ``loss_fn`` is called with
-    ``count=`` the global mask count, the gradients are summed over the
-    ranks before the update, and the metrics are the global ones.
+    ``count=`` the graph group's mask count, the gradients are summed over
+    the ranks before the update, and the metrics are the global ones. On R
+    replica groups the loss is divided by R before the backward and the
+    gradients are summed over all R * W ranks (the DDP mean).
+
+    ``per_replica_batch=True``: the batch's leaves lead with ``[R, W]`` and
+    each replica group trains on its own sample (``train.sampler.
+    ReplicaSampler``); loss, accuracy and mask count are the replica means
+    of the graph groups' sums. With False every replica takes the same
+    ``[W]`` batch, and the gradient is the sum over the replicas / R.
 
     ``step_metrics=True`` returns a :class:`StepMetrics` (loss, accuracy,
     grad_norm, mask_count) instead of the ``{"loss", "accuracy"}`` dict.
@@ -168,28 +198,28 @@ def make_train_step(
     reads the norm on the host, one device sync a step (the reference
     selects inside its traced step instead). Metrics stay device tensors.
     """
-    if per_replica_batch:
-        raise NotImplementedError(
-            "per_replica_batch (replica groups of ranks, a sample each) is a later slice "
-            "of the port")
     rank, group = _rank_of(plan, comm)
     W = plan.world_size
+    R = group.num_replicas if group is not None else 1
+    replica = (group.replica if group is not None else 0) if per_replica_batch else None
     plan = _rank_plan(plan, rank)
     check_owner_padding(plan)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: dict):
-        b = _rank_batch(batch, rank, W)
+        b = _rank_batch(batch, rank, W, replica, R)
         optimizer.zero_grad(set_to_none=True)
         logits = model_apply(model, b, plan, batch_args)
         loss = _loss(loss_fn, logits, b, group)
-        loss.backward()
+        (loss / R if R > 1 else loss).backward()
         with torch.no_grad():
             if group is not None:
-                comm.grad_sync(params)
-            loss, correct, mask_count = _global_metrics(
-                loss, _correct(logits, b["y"], b["mask"]), b["mask"].sum(), group)
-            acc = correct / mask_count.clamp_min(1.0)
+                from dgraph_tpu_torch.comm.collectives import grad_sync
+
+                grad_sync(params, group, prescaled=True)
+            loss, acc, mask_count = _global_metrics(
+                loss, _correct(logits, b["y"], b["mask"]), b["mask"].sum(), group,
+                replica_mean=per_replica_batch)
             gnorm = _global_norm(params) if (step_metrics or nonfinite_guard) else None
             skipped = None
             if nonfinite_guard:
@@ -224,10 +254,9 @@ def make_eval_step(model: torch.nn.Module, plan: EdgePlan, *, comm=None,
         b = _rank_batch(batch, rank, W)
         with torch.no_grad():
             logits = model_apply(model, b, plan, batch_args)
-            loss, correct, count = _global_metrics(
+            loss, acc, _ = _global_metrics(
                 _loss(loss_fn, logits, b, group), _correct(logits, b["y"], b["mask"]),
                 b["mask"].sum(), group)
-            acc = correct / count.clamp_min(1.0)
         return {"loss": loss, "accuracy": acc}
 
     return step

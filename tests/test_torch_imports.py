@@ -13,7 +13,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the port, chip_smoke.py, and the rank functions the CPU tests spawn
 PORT_FILES = sorted((ROOT / "dgraph_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_ranks.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_ranks.py",
+    ROOT / "tests" / "torch_replica_ranks.py", ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -60,7 +61,10 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/models/graphcast/__init__.py",
                  "dgraph_tpu_torch/data/weather.py", "dgraph_tpu_torch/train/schedules.py",
                  "dgraph_tpu_torch/train/ema.py", "dgraph_tpu_torch/train/graphcast.py",
-                 "tests/torch_dist_ranks.py", "chip_smoke.py"):
+                 "dgraph_tpu_torch/train/sampler.py", "dgraph_tpu_torch/comm/multihost.py",
+                 "dgraph_tpu_torch/dryrun.py", "tests/torch_replica_ranks.py",
+                 "tests/torch_multihost_worker.py", "tests/torch_dist_ranks.py",
+                 "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
 
@@ -83,9 +87,10 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.wire.__main__, dgraph_tpu_torch.wire.codec\n"
         "import dgraph_tpu_torch.models.graphcast, dgraph_tpu_torch.data.weather\n"
         "import dgraph_tpu_torch.train.graphcast, dgraph_tpu_torch.train.schedules\n"
-        "import dgraph_tpu_torch.train.ema\n"
+        "import dgraph_tpu_torch.train.ema, dgraph_tpu_torch.train.sampler\n"
+        "import dgraph_tpu_torch.comm.multihost, dgraph_tpu_torch.dryrun\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_dist_ranks\n"
+        "import torch_dist_ranks, torch_replica_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -106,6 +111,19 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_device()
     assert default_device("cpu") == torch.device("cpu")
+
+
+def test_replica_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is cuda here")
+    from dgraph_tpu_torch.comm.multihost import initialize_multihost
+    from dgraph_tpu_torch.dryrun import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost(process_id=0, num_processes=1,
+                             coordinator_address="localhost:1")
 
 
 def test_nvcc_command_targets_hopper():

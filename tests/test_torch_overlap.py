@@ -8,6 +8,11 @@ the JAX package's (host-only: no collective runs here).
   the cases of ``tests/test_pallas_p2p.py``'s ``TestResolveP2PLadder`` that
   need no adopted record (the port has no record tier), on the port's
   resolver, and the pin's build-time rejections;
+- the interior sum in ``DGRAPH_TPU_OVERLAP_CHUNKS`` edge-axis chunks: at
+  chunks = 2 (and 3, and 1, the default) ``interior_scatter_sum`` and the
+  split neighbour sum ``gather_scatter_overlap`` bit-equal to the
+  reference's under the same setting on every rank of a W = 4 plan, the
+  chunks counted at the sorted sum (capped at the live-delta count);
 - 'sched' asked for by name with no schedule raises the reference's
   error; a 'sched' pin on a plan without a schedule warns and runs the
   heuristic's lowering, as a pin the plan cannot lower does in the
@@ -32,17 +37,19 @@ from dgraph_tpu_torch.data import synthetic
 OVERLAP_LEAVES = ("int_src", "int_dst", "int_mask", "int_epos", "bnd_src", "bnd_dst",
                   "bnd_mask", "bnd_epos", "num_interior", "num_boundary")
 OVERLAP_STATICS = ("e_int_pad", "e_bnd_pad", "interior_mc", "boundary_mc")
-FLAGS = ("halo_impl", "use_pallas_p2p")
+FLAGS = ("halo_impl", "use_pallas_p2p", "overlap_interior_chunks")
 
 
 @pytest.fixture
 def flags():
     saved = {k: getattr(cfg, k) for k in FLAGS}
-    jsaved = (jcfg.halo_impl, jcfg.tuned_halo_impl, jcfg.use_pallas_p2p)
+    jsaved = (jcfg.halo_impl, jcfg.tuned_halo_impl, jcfg.use_pallas_p2p,
+              jcfg.overlap_interior_chunks)
     yield
     for k, v in saved.items():
         setattr(cfg, k, v)
-    jcfg.set_flags(halo_impl=jsaved[0], tuned_halo_impl=jsaved[1], use_pallas_p2p=jsaved[2])
+    jcfg.set_flags(halo_impl=jsaved[0], tuned_halo_impl=jsaved[1], use_pallas_p2p=jsaved[2],
+                   overlap_interior_chunks=jsaved[3])
 
 
 def set_flags(**kw):
@@ -70,6 +77,49 @@ def test_overlap_spec_matches_reference(W, method):
     assert view.overlap.int_src.shape == (ours.overlap.e_int_pad,)
     assert int(view.overlap.num_interior) + int(view.overlap.num_boundary) == int(
         view.num_edges)
+
+
+@pytest.mark.parametrize("chunks", [2, 3, 1])
+def test_interior_chunks_match_reference(flags, monkeypatch, chunks):
+    import jax
+    import jax.numpy as jnp
+
+    from dgraph_tpu.comm import collectives as jcoll
+    from dgraph_tpu_torch.ops import local as local_ops
+
+    W, F = 4, 16
+    sbm = synthetic.sbm_classification_graph(num_nodes=400, seed=1)
+    new, ren = pt.partition_graph(sbm["edge_index"], 400, W, method="random", seed=3)
+    ours, _ = pl.build_edge_plan(new, ren.partition, world_size=W, overlap=True)
+    ref, _ = jpl.build_edge_plan(new, ren.partition, world_size=W, overlap=True,
+                                 use_native=False)
+    assert cfg.overlap_interior_chunks == 1  # the default: one sum
+    assert ours.halo_deltas == (1, 2, 3)
+    set_flags(overlap_interior_chunks=chunks)
+    jcfg.set_flags(overlap_interior_chunks=chunks)
+    assert collectives.interior_chunks(3) == chunks and collectives.interior_chunks(1) == 1
+    calls = []
+    summed = local_ops.sorted_segment_sum_any
+    monkeypatch.setattr(local_ops, "sorted_segment_sum_any",
+                        lambda *a, **k: calls.append(1) or summed(*a, **k))
+    rng = np.random.default_rng(chunks)
+    for r in range(W):
+        view = ours.shard(r)
+        jview = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)[r]), ref)
+        e_int = rng.normal(size=(ours.overlap.e_int_pad, F)).astype(np.float32)
+        x = rng.normal(size=(ours.n_src_pad, F)).astype(np.float32)
+        halo = rng.normal(size=(W * ours.halo.s_pad, F)).astype(np.float32)
+        w = rng.uniform(0.5, 1.5, ours.e_pad).astype(np.float32)
+        calls.clear()
+        got = collectives.interior_scatter_sum(torch.from_numpy(e_int), view, "dst").numpy()
+        assert len(calls) == chunks
+        want = np.asarray(jcoll.interior_scatter_sum(jnp.asarray(e_int), jview, "dst"))
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        got = collectives.gather_scatter_overlap(torch.from_numpy(x), torch.from_numpy(halo),
+                                                 view, torch.from_numpy(w)).numpy()
+        want = np.asarray(jcoll.gather_scatter_overlap(jnp.asarray(x), jnp.asarray(halo),
+                                                       jview, jnp.asarray(w)))
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_validate_plan_catches_a_broken_split():

@@ -209,13 +209,25 @@ def test_eval_step_and_fit(graphs):
 
 
 def test_multi_rank_training_is_a_later_slice(graphs):
-    """Replica groups are a later slice; a plan of 2 ranks needs a
-    communicator of 2 ranks (tests/test_torch_dist.py trains on one)."""
+    """A per-replica batch at one rank is one replica of one rank: its
+    ``[1, 1, ...]`` leaves give the step of the ``[1, ...]`` batch, and a
+    batch without the replica axis raises (tests/test_torch_replica.py
+    trains on replica groups); a plan of 2 ranks needs a communicator of 2
+    ranks (tests/test_torch_dist.py trains on one)."""
     ours, _ = graphs
+    batch = dict(ours.batch("train"), y=ours.labels)
+    losses = []
+    for per_replica in (False, True):
+        model = init_params(GCN(F_IN, HIDDEN, C, SingleComm()), seed=1)
+        step = loop.make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                                    ours.plan, per_replica_batch=per_replica)
+        b = {k: v[None] for k, v in batch.items()} if per_replica else batch
+        losses += [float(step(b)["loss"]) for _ in range(2)]  # two steps each
+    assert losses[:2] == losses[2:]
+    with pytest.raises(ValueError, match="ranks, the plan has 1"):
+        step(batch)
     model = GCN(F_IN, HIDDEN, C, SingleComm())
     opt = torch.optim.Adam(model.parameters())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        loop.make_train_step(model, opt, ours.plan, per_replica_batch=True)
     plan2, _ = build_edge_plan(ours.edge_index, np.arange(ours.num_nodes) * 2 // ours.num_nodes,
                                world_size=2)
     with pytest.raises(ValueError, match="DistComm of 2 ranks"):
