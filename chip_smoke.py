@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase 13   # phases 1, 2 and 13 (e.g. a card a rank)
     python3 chip_smoke.py --phase 14   # phases 1, 2 and 14 (GraphCast)
     python3 chip_smoke.py --phase 15   # phases 1, 2 and 15 (replicas; e.g. four cards)
+    python3 chip_smoke.py --phase 16   # phases 1, 2 and 16 (serving over ranks; e.g. four cards)
 
 Phases, each fatal on failure (the script exits non-zero and prints no result):
 
@@ -201,7 +202,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    reverse without the first delta's rounds) must exceed; a second
    control, the schedule with one transfer taken out by hand, must miss
    all_to_all's bits on that transfer's rows; each leg timed barrier to
-   barrier (median of LOWERING_REPS). Before them the wire codecs
+   barrier (median of LOWERING_REPS; once on a shared card,
+   SHARED_CARD_REPS). Before them the wire codecs
    (``dgraph_tpu_torch.wire``) on the card: bf16 and fp8 at f32 and bf16
    activations, rows with zero rows and subnormals, the card's bytes equal
    to the host's and to the numpy reference codec's, decode bit-equal,
@@ -209,8 +211,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    lowerings under each of WIRE_TURNS (bf16 and fp8 wire on f32
    activations, fp8 on bf16), in the same processes, bit-equal to
    all_to_all under the same format in both legs (ppermute's reverse
-   within TOL), each leg timed once on a shared card
-   (WIRE_REPS_SHARED_CARD). Then
+   within TOL), timed as the turns without a format. Then
    ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
    at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
    the split) and GraphSAGE (its split route, kernel 2 on both subsets)
@@ -278,6 +279,30 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the runs take GC_R_STEPS_NCCL steps, and R = 1 x W = 4 under all_to_all
    trains beside R = 2 x W = 2 on the same configuration: a step's p50 a
    rank and the all-reduce's time of each;
+16. serving over 4 ranks — ``build_serving`` at arxiv width
+   (``arxiv_config``: V = 169,343, F = 128, H = 256, C = 40, 2 layers,
+   ladder 8..1024, the CLI's random partition) on DistComm ranks started by
+   ``comm.dist.launch`` (four sharing the card over gloo, or a card each
+   over NCCL), in the same processes one turn a lowering (SERVE_W_TURNS:
+   GCN under the CLI's default lowering and under pallas_p2p, GraphSAGE
+   under the default; on four cards GCN also under all_to_all, ppermute,
+   overlap and sched). Each turn, the launch counts set to 0 just before:
+   rank 0 warms every bucket, drives SERVE_W_REQUESTS requests through the
+   MicroBatcher and takes ``full_logits()``, the others follow; then (a)
+   served rows equal ``full_logits()`` bit for bit, (b) every rank ran each
+   forward rank 0 announced and left ``follow()`` at stop, (c) each rank's
+   launches a forward are :func:`serve_w_want`'s (GCN: kernel 1 once a
+   chunk and layer, twice on the split route, kernel 5 once a layer under
+   pallas_p2p; SAGE: kernel 2) and no backward kernel, (d)
+   ``full_logits()`` is within SERVE_TOL of the model at one rank on the
+   CPU (computed beside the ranks). Request p50/p99 per bucket a turn, the
+   ranks' start-up and build seconds. After the counts are read, kernel 1
+   (GCN) and kernel 2 (SAGE) at each rank's serving shape and kernel 5 at
+   its exchange ([3, S, 256] f32), each against its plain version and
+   timed in turn beside it, the library call and the bound; on four cards
+   also kernel 5's NVLink bound (the bytes a rank puts over the sum of the
+   link speeds ``nvidia-smi nvlink -s`` reports), there and at the
+   readings of KERNEL5_NVLINK_READINGS;
 then the kernels line (one JSON object) and the device line (last line).
 Every progress line carries the seconds since the start, and the end logs
 each phase's seconds.
@@ -1610,7 +1635,7 @@ def arxiv_config(model: str):
     return Config(
         model=model, num_nodes=ARXIV_NODES, feat_dim=128, hidden=256,
         num_classes=40, avg_degree=ARXIV_AVG_DEGREE, num_layers=2,
-        min_bucket=8, max_bucket=1024, growth=2.0, seed=0,
+        min_bucket=8, max_bucket=1024, growth=2.0, seed=0, world_size=1,
     )
 
 
@@ -3674,10 +3699,10 @@ def skewed_phase(cfg, kernel_cases_too: bool = False) -> tuple:
 LOWERINGS = ("all_to_all", "ppermute", "overlap", "pallas_p2p", "sched")
 LOWERING_F = 256
 LOWERING_REPS = 3  # timed calls a leg and lowering (the median is logged)
-# the wire turns' timed calls on one shared card, where their host-staged
-# times compare no lowering (a cut of depth that keeps the whole run inside
-# its time limit; every check still runs); a card a rank: LOWERING_REPS
-WIRE_REPS_SHARED_CARD = 1
+# the timed calls a leg on one shared card, where host-staged times compare
+# no lowering (a cut of depth that keeps the whole run inside its time
+# limit; every check still runs); a card a rank: LOWERING_REPS
+SHARED_CARD_REPS = 1
 W13_EPOCHS = 2  # training steps a phase-13 run on one card (at most 4)
 W13_EPOCHS_NCCL = 12  # on cards of their own, where a step takes a tenth
 W13_TRACE_STEPS = 4  # GCN 'overlap' on four cards: steps profiled after the timed ones
@@ -3749,8 +3774,7 @@ def lowering_parity_rank(group, real: dict) -> dict:
     order that varies from call to call (and so did ``all_to_all``'s against
     itself). Each leg timed
     barrier to barrier (the deterministic mode off, as in training), the
-    median of LOWERING_REPS calls (the wire turns' on a shared card:
-    WIRE_REPS_SHARED_CARD)."""
+    median of LOWERING_REPS calls (on a shared card: SHARED_CARD_REPS)."""
     import statistics
 
     import torch
@@ -3780,8 +3804,9 @@ def lowering_parity_rank(group, real: dict) -> dict:
                             cut.src * S + cut.row_start + cut.row_count, device=dev)
     failures, records, controls = [], [], []
     spent = {"check_s": 0.0, "time_s": 0.0}
+    reps = LOWERING_REPS if group.backend == "nccl" else SHARED_CARD_REPS
 
-    def barrier_ms(fn, reps=LOWERING_REPS) -> float:
+    def barrier_ms(fn) -> float:
         ts = []
         for _ in range(reps):
             torch.cuda.synchronize(dev)
@@ -3811,7 +3836,8 @@ def lowering_parity_rank(group, real: dict) -> dict:
             spent["check_s"] += time.perf_counter() - t
             t = time.perf_counter()
             records.append({"impl": impl, "dtype": dtype_name, "exchange_ms": barrier_ms(ex),
-                            "reverse_ms": barrier_ms(rv), "backend": group.backend})
+                            "reverse_ms": barrier_ms(rv), "backend": group.backend,
+                            "reps": reps})
             spent["time_s"] += time.perf_counter() - t
         buf0, back0 = out["all_to_all"]
         for impl in LOWERINGS[1:]:
@@ -3850,7 +3876,6 @@ def lowering_parity_rank(group, real: dict) -> dict:
     # the wire turns: each lowering under each (format, activation dtype) of
     # WIRE_TURNS, bit-equal to all_to_all under the same format in both legs
     # (ppermute's reverse within TOL, its per-delta order)
-    wire_reps = LOWERING_REPS if group.backend == "nccl" else WIRE_REPS_SHARED_CARD
     for fmt, dtype_name in WIRE_TURNS:
         dtype = getattr(torch, dtype_name)
         x, h = x32.to(dtype), h32.to(dtype)
@@ -3866,9 +3891,9 @@ def lowering_parity_rank(group, real: dict) -> dict:
             spent["check_s"] += time.perf_counter() - t
             t = time.perf_counter()
             records.append({"impl": impl, "dtype": dtype_name, "wire": fmt,
-                            "exchange_ms": barrier_ms(ex, wire_reps),
-                            "reverse_ms": barrier_ms(rv, wire_reps), "backend": group.backend,
-                            "reps": wire_reps})
+                            "exchange_ms": barrier_ms(ex),
+                            "reverse_ms": barrier_ms(rv), "backend": group.backend,
+                            "reps": reps})
             spent["time_s"] += time.perf_counter() - t
         buf0, back0 = out["all_to_all"]
         for impl in LOWERINGS[1:]:
@@ -4059,7 +4084,8 @@ def phase_lowering_parity() -> dict:
                        exchange_ms_per_rank=[r["exchange_ms"] for r in per_rank])
             log(f"lowering {rec['impl']} {rec['dtype']}{wire} W={P2P_W} S={real['S']} "
                 f"F={LOWERING_F}: exchange {rec['exchange_ms']:.2f} ms, reverse "
-                f"{rec['reverse_ms']:.2f} ms (barrier to barrier, median of {LOWERING_REPS}, "
+                f"{rec['reverse_ms']:.2f} ms (barrier to barrier, median of "
+                f"{LOWERING_REPS if rec['backend'] == 'nccl' else SHARED_CARD_REPS}, "
                 f"mean over ranks; {rec['backend']})")
         elif "rel_err" in rec:
             ctrl = [r["control"] for r in per_rank if r["control"] is not None]
@@ -4511,7 +4537,7 @@ GC_MAIN = dict(mesh_level=6, num_lat=721, num_lon=1440, channels=73, latent=256,
 # grid2mesh and mesh2grid edges
 GC_ANCHORS = {"mesh_vertices": 40_962, "mesh_edges": 327_660, "g2m_edges": 1_618_824,
               "m2g_edges": 3_114_720}
-GC_WARMUP, GC_TIMED, GC_PROF = 2, 12, 2  # main-path steps: warm-up, timed, profiled after
+GC_WARMUP, GC_TIMED, GC_PROF = 2, 8, 2  # main-path steps: warm-up, timed, profiled after
 GC_BF16_TIMED = 4  # the bf16 turn's timed steps, after GC_WARMUP
 GC_ROLLOUT = 2  # --eval_rollout's steps at full width (raw and EMA tracks)
 # step 0 against the CPU plain path at a depth the CPU runs in seconds
@@ -5455,6 +5481,328 @@ def replica_phase(cfg) -> tuple:
     return records, main_case, {"train": recs}
 
 
+# --- phase 16 ----------------------------------------------------------------
+
+
+SERVE_W = 4
+# (model, lowering) a turn of phase 16 serves, in the same rank processes:
+# "auto" is the CLI's default (the unsplit plan: all_to_all). One card:
+# GCN under the default and pallas_p2p (kernels 1 and 5), SAGE under the
+# default (kernel 2); four cards: GCN under every lowering too
+SERVE_W_TURNS = (("gcn", "auto"), ("gcn", "pallas_p2p"), ("sage", "auto"))
+SERVE_W_TURNS_NCCL = SERVE_W_TURNS + tuple(
+    ("gcn", impl) for impl in ("all_to_all", "ppermute", "overlap", "sched"))
+# requests a GCN turn drives (two a bucket of 8..1024), a SAGE turn's; on
+# four cards each forward takes milliseconds, not a host-staged half second
+SERVE_W_REQUESTS = {"gcn": 16, "sage": 8}
+SERVE_W_REQUESTS_NCCL = {"gcn": 64, "sage": 32}
+SERVE_W_GROUP_TIMEOUT = 120.0  # s: a lost rank fails a request within it
+
+
+def serve_w_want(cfg, model: str, split: bool, p2p: bool) -> dict:
+    """Launches a forward of one rank, as the code derives them: GCN's
+    fused kernel once a feature chunk and layer (twice on the split route,
+    interior and boundary) and kernel 5 once a layer's exchange under
+    pallas_p2p; SAGE's segment sums (:func:`sage_launches_per_forward`);
+    nothing else (no backward kernel, the gather flag off)."""
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.ops.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    if model == "gcn":
+        chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+        want["sorted_segment_sum_bias_relu"] = chunks * (2 if split else 1)
+    else:
+        want["sorted_segment_sum"] = sage_launches_per_forward(cfg)
+    want["p2p_transport"] = cfg.num_layers if p2p else 0
+    return want
+
+
+def serve_w_kernel_cases(group, graph, gen, model: str) -> list:
+    """Kernel 1 (GCN: the weighted fused sum) or kernel 2 (SAGE: the plain
+    sum) at this rank's serving shape (its unsplit plan's dst ids, F = 128,
+    f32): bit patterns of two launches equal, within TOL of the plain
+    version, each timed with CUDA events while the other ranks wait (the
+    plain version and ``index_add_`` too), with its bound."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+
+    dev = group.device
+    plan = graph.plan.shard(group.rank).to(dev)
+    ids, n, F = plan.dst_index, plan.n_dst_pad, 128
+    e_pad, e_valid = ids.shape[0], int((ids < n).sum())
+    data = torch.randn(e_pad, F, generator=gen, device=dev)
+    bias = torch.randn(n, F, generator=gen, device=dev)
+    if model == "gcn":
+        kernel, tag, w = "sorted_segment_sum_bias_relu", "w", graph.edge_weight[group.rank].to(dev)
+        run = lambda: seg.sorted_segment_sum_bias_relu(data, ids, bias, n, edge_weight=w)  # noqa: E731
+        plain = lambda: seg.sorted_segment_sum_bias_relu_plain(  # noqa: E731
+            data, ids, bias, n, edge_weight=w)
+    else:
+        kernel, tag = "sorted_segment_sum", "none"
+        run = lambda: seg.sorted_segment_sum(data, ids, n)  # noqa: E731
+        plain = lambda: seg.sorted_segment_sum_plain(data, ids, n)  # noqa: E731
+    name = f"{kernel} float32 {tag} F={F} serve W={group.world_size}"
+    got, want = run(), plain()
+    torch.cuda.synchronize(dev)
+    failures = []
+    if not torch.equal(bits(got), bits(run())):
+        failures.append(f"{name} rank {group.rank}: two launches differ")
+    if not torch.allclose(got, want, rtol=TOL["float32"], atol=TOL["float32"]):
+        failures.append(f"{name} rank {group.rank}: kernel != plain (max abs err "
+                        f"{max_err(got, want)})")
+    lib = library_call(kernel, tag, data, ids, n, e_valid, bias)
+    nbytes, ops = main_shape_bytes(kernel, tag, e_pad, e_valid, n, F, 4)
+    b_ms, b_by = bound(nbytes, ops)
+    return [{"kernel": kernel, "case": name, "rank": group.rank, "E": e_pad,
+             "E_valid": e_valid, "N": n, "F": F, "max_abs_err": max_err(got, want),
+             "ms": in_turn(group, run), "plain_ms": in_turn(group, plain),
+             "library_ms": None if lib is None else in_turn(group, lib),
+             "bound_ms": b_ms, "bound_by": b_by, "failures": failures}]
+
+
+def serve_w_rank(group, turns, requests: dict, t_launch: float) -> dict:
+    """One of phase 16's ranks: each turn of ``turns`` pins its lowering,
+    builds its engine through ``build_serving`` and, with every launch
+    count set to 0 just before, serves: rank 0 warms every bucket, drives
+    ``requests[model]`` requests through the batcher (latency a request),
+    takes ``full_logits()``, checks the served rows against it bit for bit
+    and stops the followers; ranks 1..W-1 follow. Then (not counted) the
+    turn's kernel at this rank's shape: kernel 1 or 2 under the default
+    lowering, kernel 5 at the exchange under pallas_p2p."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import DistComm
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.serve.__main__ import build_serving
+
+    start_s = time.time() - t_launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=group.device).manual_seed(16 + group.rank)
+    out = {"start_s": start_s, "turns": []}
+    for model, impl in turns:
+        config.halo_impl = impl
+        cfg = dataclasses.replace(arxiv_config(model), world_size=group.world_size)
+        t0 = time.perf_counter()
+        engine, batcher, graph = build_serving(cfg, comm=DistComm(group))
+        turn = {"model": model, "impl": impl, "halo_impl": engine.halo_impl,
+                "build_s": time.perf_counter() - t0, "failures": []}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if batcher is None:
+            turn["dispatches"] = engine.follow()
+        else:
+            try:
+                turn["warmup_s"] = engine.warmup()["warmup_s"]
+                rng, sizes = request_sizes(requests[model], engine.ladder, seed=1)
+                served, lat = [], {}
+                for n in sizes:
+                    ids = rng.choice(engine.num_nodes, size=n, replace=False)
+                    t = time.perf_counter()
+                    served.append((ids, batcher.infer(ids)))
+                    lat.setdefault(engine.ladder.bucket_for(n), []).append(
+                        (time.perf_counter() - t) * 1e3)
+                full = engine.full_logits()
+            finally:
+                batcher.stop()
+                engine.stop()
+            for ids, rows in served:
+                r, s = engine.rank_slot(ids)
+                if rows.shape != (len(ids), cfg.num_classes) or not np.array_equal(rows,
+                                                                                  full[r, s]):
+                    turn["failures"].append("served rows differ from full_logits()")
+                    break
+            turn["finite"] = bool(np.isfinite(full).all())
+            turn["shape"] = full.shape
+            r, s = engine.rank_slot(np.arange(engine.num_nodes))
+            turn["logits"] = full[r, s]  # the original vertex numbering
+            turn["requests"] = len(served)
+            turn["buckets"] = {str(b): {"count": len(v), "p50_ms": float(np.percentile(v, 50)),
+                                        "p99_ms": float(np.percentile(v, 99))}
+                               for b, v in sorted(lat.items())}
+        torch.cuda.synchronize(group.device)
+        turn.update(serve_s=time.perf_counter() - t0, counts=kernels.launch_counts(),
+                    forwards=engine.forwards, hub_rows=cached_hub_rows())
+        group.barrier()
+        if impl == "auto":
+            turn["kernel_records"] = serve_w_kernel_cases(group, graph, gen, model)
+        elif impl == "pallas_p2p":
+            failures = []
+            rec, _ = p2p_real_case(group, gen, w4_halo_arrays(graph.plan), cfg.hidden,
+                                   "float32", 1, failures, tag=" serve")
+            turn["kernel_records"] = [dict(rec, failures=failures)]
+        del engine, batcher, graph
+        torch.cuda.empty_cache()
+        out["turns"].append(turn)
+    config.halo_impl = "auto"
+    return out
+
+
+def serve_w_cpu_reference(models) -> dict:
+    """Each model's logits on the CPU at one rank (plain path; the same
+    seeded weights and graph), in the original vertex numbering."""
+    import numpy as np
+
+    from dgraph_tpu_torch.serve.__main__ import build_serving
+
+    out = {}
+    for model in models:
+        t = time.perf_counter()
+        engine, batcher, _ = build_serving(arxiv_config(model), device="cpu")
+        batcher.stop()
+        full = engine.full_logits()
+        r, s = engine.rank_slot(np.arange(engine.num_nodes))
+        out[model] = (full[r, s], time.perf_counter() - t)
+    return out
+
+
+def merged_rank_record(per_rank: list) -> dict:
+    """One kernel-1 or kernel-2 record of phase 16 from every rank's: the
+    times averaged over the ranks (each rank's kept), the largest error;
+    logged."""
+    import numpy as np
+
+    rec = dict(per_rank[0], max_abs_err=max(r["max_abs_err"] for r in per_rank),
+               **{f"{k}_per_rank": [r[k] for r in per_rank]
+                  for k in ("ms", "plain_ms", "library_ms", "E", "N", "bound_ms")})
+    for k in ("ms", "plain_ms", "bound_ms"):
+        rec[k] = float(np.mean([r[k] for r in per_rank]))
+    if rec["library_ms"] is not None:
+        rec["library_ms"] = float(np.mean([r["library_ms"] for r in per_rank]))
+    log(f"{rec['case']}: err {rec['max_abs_err']:.3g} kernel {rec['ms']:.4f} ms a rank "
+        f"(in turn; per rank {[round(v, 4) for v in rec['ms_per_rank']]}, E "
+        f"{rec['E_per_rank']}) plain {rec['plain_ms']:.3f} ms library {rec['library_ms']} ms "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def nvlink_rate() -> "float | None":
+    """This card's NVLink bytes/s in one direction: the sum of its active
+    links' speeds as ``nvidia-smi nvlink -s`` reports them (None without
+    a link)."""
+    import re
+
+    try:
+        text = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"], capture_output=True,
+                              text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    rates = [float(x) for x in re.findall(r"Link \d+: ([\d.]+) GB/s", text)]
+    log(f"nvidia-smi nvlink -s -i 0: {len(rates)} active links, {sum(rates):.3f} GB/s")
+    return sum(rates) * 1e9 if rates else None
+
+
+# kernel 5's earlier four-card shapes, whose NVLink bounds are logged
+# beside the serving exchange's: (what, live tiles n, S, F, bytes an
+# element) of the call a rank makes
+KERNEL5_NVLINK_READINGS = (("W = 4 random-partition exchange f32 (phase 9)", 3, 41056, 256, 4),
+                           ("W = 4 random-partition exchange bf16 (phase 9)", 3, 41056, 256, 2),
+                           ("replica group g2m f32 (phase 15)", 1, 25520, 256, 4))
+
+
+def serve_w_phase(cfg) -> tuple:
+    """Phase 16, in the form of :func:`one_rank_phases`: GCN and GraphSAGE
+    served over SERVE_W ranks at arxiv width (SERVE_W_TURNS; on four cards
+    SERVE_W_TURNS_NCCL), each turn held to its checks (see the module
+    docstring); kernels 1 and 2 at a rank's serving shape and kernel 5 at
+    its exchange."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.comm.dist import launch
+
+    four = torch.cuda.device_count() >= SERVE_W
+    turns = SERVE_W_TURNS_NCCL if four else SERVE_W_TURNS
+    requests = SERVE_W_REQUESTS_NCCL if four else SERVE_W_REQUESTS
+    where = "NCCL, a card a rank" if four else "gloo, one card"
+    log(f"phase 16: serve over {SERVE_W} ranks at arxiv width ({where}): "
+        f"{', '.join(f'{m} {i}' for m, i in turns)}")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(serve_w_cpu_reference, sorted({m for m, _ in turns}))
+        t_launch = time.time()
+        t0 = time.perf_counter()
+        ranks = launch(serve_w_rank, SERVE_W, turns, requests, t_launch, device="cuda",
+                       timeout=900, group_timeout=SERVE_W_GROUP_TIMEOUT,
+                       threads=max(1, (os.cpu_count() or 1) // SERVE_W))
+        run_s = time.perf_counter() - t0
+        cpu = cpu.result()
+    log(f"serve W={SERVE_W}: {run_s:.1f} s with the spawn; the ranks started "
+        f"{[round(r['start_s'], 2) for r in ranks]} s after the launch; the CPU references "
+        f"{ {m: round(v[1], 1) for m, v in cpu.items()} } s beside")
+    records, recs, launched = [], [], {}
+    rate = nvlink_rate() if four else None
+    for i, (model, impl) in enumerate(turns):
+        what = f"serve {model} W={SERVE_W} {impl}"
+        per_rank = [r["turns"][i] for r in ranks]
+        front = per_rank[0]
+        failures = [f for t in per_rank for f in t["failures"]]
+        failures += [f for t in per_rank for k in t.get("kernel_records", [])
+                     for f in k["failures"]]
+        if failures:
+            fail(f"{what}: {failures[:5]}")
+        resolved = {t["halo_impl"] for t in per_rank}
+        if impl != "auto" and resolved != {impl}:
+            fail(f"{what}: the ranks resolved {resolved}")
+        halo = resolved.pop()
+        want = serve_w_want(arxiv_config(model), model, halo in ("overlap", "pallas_p2p"),
+                            halo == "pallas_p2p")
+        for r, t in enumerate(per_rank):
+            if t["forwards"] != front["forwards"] or (r and t["dispatches"] != t["forwards"]):
+                fail(f"{what}: rank {r} ran {t['forwards']} forwards and "
+                     f"{t.get('dispatches')} dispatches, rank 0 {front['forwards']}")
+            check_step_launches(f"{what} rank {r}", "all", t["counts"],
+                                {k: v * t["forwards"] for k, v in want.items()},
+                                hub_rows=t["hub_rows"])
+        if not front["finite"] or front["shape"][0] != SERVE_W:
+            fail(f"{what}: full logits non-finite or shape {front['shape']}")
+        ref, cpu_s = cpu[model]
+        err = float(np.abs(front["logits"] - ref).max())
+        if not np.allclose(front["logits"], ref, rtol=SERVE_TOL, atol=SERVE_TOL):
+            fail(f"{what}: full_logits() differs from the CPU at one rank (max abs err {err})")
+        for k in want:
+            launched[k] = launched.get(k, 0) + sum(t["counts"][k] for t in per_rank)
+        rec = {"config": what, "halo_impl": halo, "world_size": SERVE_W,
+               "backend": "nccl" if four else "gloo", "requests": front["requests"],
+               "forwards": front["forwards"], "launches_per_forward": want,
+               "cpu_max_abs_err": err, "buckets": front["buckets"],
+               "warmup_s": front["warmup_s"], "build_s": [t["build_s"] for t in per_rank],
+               "serve_s": front["serve_s"], "hub_rows": [t["hub_rows"] for t in per_rank]}
+        recs.append(rec)
+        log(f"{what}: resolved {halo}; {rec['requests']} requests, {rec['forwards']} forwards "
+            f"a rank (every rank each dispatch rank 0 announced, all left follow() at stop); "
+            f"launches a forward a rank {dict((k, v) for k, v in want.items() if v)}, no "
+            f"backward kernel; served == full_logits bitwise; vs one rank on the CPU max abs "
+            f"err {err:.3g}; build s per rank {[round(x, 1) for x in rec['build_s']]}, warmup "
+            f"{rec['warmup_s']} s, serving {rec['serve_s']:.1f} s")
+        for b, q in rec["buckets"].items():
+            log(f"{what}: bucket {b}: n={q['count']} p50 {q['p50_ms']:.3f} ms "
+                f"p99 {q['p99_ms']:.3f} ms")
+        kernel_recs = [t["kernel_records"] for t in per_rank if "kernel_records" in t]
+        for j in range(len(kernel_recs[0]) if kernel_recs else 0):
+            rows = [k[j] for k in kernel_recs]
+            if rows[0]["kernel"] == "p2p_transport":
+                k5 = merged_p2p_record(rows)
+                if rate:
+                    k5["nvlink_bound_ms"] = k5["n"] * k5["S"] * k5["F"] * 4 / rate * 1e3
+                    log(f"{k5['case']}: NVLink bound {k5['nvlink_bound_ms']:.4f} ms (the "
+                        f"{k5['n']} tiles a rank puts over {rate / 1e9:.3f} GB/s)")
+                records.append(k5)
+            else:
+                records.append(merged_rank_record(rows))
+    if rate:
+        for what, n, S, F, b in KERNEL5_NVLINK_READINGS:
+            log(f"kernel 5 NVLink bound, {what} [{n}, {S}, {F}]: "
+                f"{n * S * F * b / rate * 1e3:.4f} ms")
+    main_case = {}
+    for rec in records:
+        main_case.setdefault(rec["kernel"], []).append(
+            (rec["case"], launched, f"serve_w{SERVE_W}"))
+    return records, main_case, {"train": [], "serve_w": recs, "nvlink_bytes_per_s": rate}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
 
 
@@ -5462,12 +5810,12 @@ def main(argv) -> None:
     """Every phase; with ``--phase 9``, phases 1, 2 and 9 only (the
     multi-rank path, e.g. on a host with a card a rank; its W = 4 training
     in the turns W4_TURNS_ABBA); with ``--phase 11``, ``12``, ``13``,
-    ``14`` or ``15``, phases 1, 2 and that one."""
+    ``14``, ``15`` or ``16``, phases 1, 2 and that one."""
     only = {"9": lambda cfg: multi_rank_phase(cfg, W4_TURNS_ABBA), "11": ogb_raw_phase,
             "12": lambda cfg: skewed_phase(cfg, kernel_cases_too=True), "13": lowering_phase,
-            "14": graphcast_phase, "15": replica_phase}
+            "14": graphcast_phase, "15": replica_phase, "16": serve_w_phase}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in only):
-        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13|14|15]")
+        raise SystemExit("usage: chip_smoke.py [--phase 9|11|12|13|14|15|16]")
     t_start = time.perf_counter()
     log("phase 1: device")
     smi = phase_device()
@@ -5479,7 +5827,8 @@ def main(argv) -> None:
     records, main_case, detail = [], {}, {"train": []}
     for phases in ([only[argv[1]]] if argv else
                    [one_rank_phases, multi_rank_phase, graph_model_phases, ogb_raw_phase,
-                    skewed_phase, lowering_phase, graphcast_phase, replica_phase]):
+                    skewed_phase, lowering_phase, graphcast_phase, replica_phase,
+                    serve_w_phase]):
         r, m, d = phases(cfg)
         records += r
         for name, rows in m.items():

@@ -261,7 +261,8 @@ def _stop(procs) -> None:
 
 
 def launch(fn: Callable, world_size: int, *args, num_replicas: int = 1, device: str = "cuda",
-           timeout: Optional[float] = None, threads: int = 0) -> list:
+           timeout: Optional[float] = None, threads: int = 0,
+           group_timeout: Optional[float] = None) -> list:
     """Run ``fn(group, *args)`` on ``num_replicas`` replica groups of
     ``world_size`` graph ranks each and return the ranks' results in global
     rank order (under ``torchrun``, whose ``WORLD_SIZE`` must be R * W:
@@ -270,13 +271,15 @@ def launch(fn: Callable, world_size: int, *args, num_replicas: int = 1, device: 
     ``torch.set_num_threads``. Raises ``RuntimeError`` with the traceback of
     a rank that failed and ``TimeoutError`` when the ranks outlive
     ``timeout`` seconds (None: no deadline; a collective that waits longer
-    than the group's timeout, ``min(timeout, DEFAULT_TIMEOUT_S)``, fails its
-    rank either way)."""
+    than the group's timeout fails its rank either way). The groups'
+    timeout is ``group_timeout`` seconds when given (a server bounds a
+    request by it, whatever the launch lasts), else ``min(timeout,
+    DEFAULT_TIMEOUT_S)``."""
     import multiprocessing as mp
 
     n = world_size * num_replicas
     check_layout(world_size, num_replicas, n)
-    pg_timeout = min(timeout or DEFAULT_TIMEOUT_S, DEFAULT_TIMEOUT_S)
+    pg_timeout = group_timeout or min(timeout or DEFAULT_TIMEOUT_S, DEFAULT_TIMEOUT_S)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, w = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         if w != n:

@@ -318,7 +318,10 @@ def landing_buffer(group, rows: int, F: int, dtype: torch.dtype, sign: int) -> L
                 f"landing buffer (cudaIpcOpenMemHandle error {rc}); the pallas_p2p "
                 "lowering needs the ranks' processes to share their cards' memory")
         ptrs.append(peer.value)
-    peers = [_as_tensor(p, (rows, F), dtype) for p in ptrs]
+    # normal tensors even when the first use is under inference_mode (a
+    # serving forward): an inference tensor could not be zeroed after it
+    with torch.inference_mode(False):
+        peers = [_as_tensor(p, (rows, F), dtype) for p in ptrs]
     land = Landing(own=peers[group.rank], ptrs=ptrs, peers=peers)
     _landings[key] = land
     return land

@@ -37,7 +37,7 @@ def profile(model: str = "gcn", forwards: int = 5, out_dir: str = "chiprun_out")
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     cfg = Config(model=model, num_nodes=ARXIV_NODES, feat_dim=128, hidden=256,
-                 num_classes=40, avg_degree=ARXIV_AVG_DEGREE, max_bucket=1024)
+                 num_classes=40, avg_degree=ARXIV_AVG_DEGREE, max_bucket=1024, world_size=1)
     engine, batcher, _ = build_serving(cfg, device="cuda")
     batcher.stop()
     engine.warmup()

@@ -813,3 +813,14 @@ def test_p2p_transport_mutant_bitwise_equal_plain_across_ranks(dev, W):
     from dgraph_tpu_torch.comm.dist import launch
 
     assert launch(torch_dist_ranks.p2p_mutant_parity, W, device="cuda", timeout=300) == [[]] * W
+
+
+def test_p2p_landing_buffer_mapped_under_inference_mode_stays_writable(dev):
+    """A landing buffer that kernel 5 first maps under ``inference_mode`` (a
+    serving forward) is reused outside it: its tensors must be normal ones,
+    which the protocol's zeroing can write (two ranks on the card)."""
+    import torch_serve_ranks
+    from dgraph_tpu_torch.comm.dist import launch
+
+    assert launch(torch_serve_ranks.landing_after_inference, 2, device="cuda",
+                  timeout=300) == [True, True]

@@ -14,7 +14,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the port, chip_smoke.py, and the rank functions the CPU tests spawn
 PORT_FILES = sorted((ROOT / "dgraph_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_ranks.py",
-    ROOT / "tests" / "torch_replica_ranks.py", ROOT / "tests" / "torch_multihost_worker.py"]
+    ROOT / "tests" / "torch_replica_ranks.py", ROOT / "tests" / "torch_multihost_worker.py",
+    ROOT / "tests" / "torch_serve_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -64,6 +65,7 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/train/sampler.py", "dgraph_tpu_torch/comm/multihost.py",
                  "dgraph_tpu_torch/dryrun.py", "tests/torch_replica_ranks.py",
                  "tests/torch_multihost_worker.py", "tests/torch_dist_ranks.py",
+                 "tests/torch_serve_ranks.py", "dgraph_tpu_torch/serve/__main__.py",
                  "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
@@ -90,7 +92,8 @@ def test_importing_the_port_loads_no_jax():
         "import dgraph_tpu_torch.train.ema, dgraph_tpu_torch.train.sampler\n"
         "import dgraph_tpu_torch.comm.multihost, dgraph_tpu_torch.dryrun\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_dist_ranks, torch_replica_ranks\n"
+        "import torch_dist_ranks, torch_replica_ranks, torch_serve_ranks\n"
+        "import dgraph_tpu_torch.serve.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dgraph_tpu')]\n"
         "assert not bad, bad\n"
     )

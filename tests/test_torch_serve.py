@@ -208,6 +208,8 @@ def test_cli_selftest_on_cpu(capsys):
 
 
 def test_engine_refuses_multi_rank_plans():
+    """A W-rank plan needs a communicator of W ranks: a model built on
+    ``SingleComm`` raises before any work."""
     from dgraph_tpu_torch.data import DistributedGraph, synthetic
     from dgraph_tpu_torch.models import GCN
     from dgraph_tpu_torch.comm import SingleComm
@@ -216,14 +218,14 @@ def test_engine_refuses_multi_rank_plans():
     d = synthetic.sbm_classification_graph(num_nodes=100, seed=0)
     g = DistributedGraph.from_global(d["edge_index"], d["features"], None, None, 2,
                                      partition_method="block")
-    with pytest.raises(NotImplementedError, match="world_size=1"):
+    with pytest.raises(ValueError, match="a plan of 2 ranks needs a communicator"):
         ServeEngine.from_distributed_graph(GCN(16, 8, 4, SingleComm()), g, device="cpu")
 
 
 def test_engine_multi_rank_message_names_the_port_slice():
-    """The multi-rank communicator is ported (training runs over ranks);
-    serving a multi-rank plan is slice 9 of the port, and the message says
-    so instead of calling the communicator missing."""
+    """Serving over ranks is ported: the mismatch names how to build a
+    W-rank engine (a ``DistComm`` in ranks that ``launch`` starts), not a
+    slice still to come."""
     from dgraph_tpu_torch.data import DistributedGraph, synthetic
     from dgraph_tpu_torch.models import GCN
     from dgraph_tpu_torch.comm import SingleComm
@@ -232,6 +234,6 @@ def test_engine_multi_rank_message_names_the_port_slice():
     d = synthetic.sbm_classification_graph(num_nodes=100, seed=0)
     g = DistributedGraph.from_global(d["edge_index"], d["features"], None, None, 2,
                                      partition_method="block")
-    with pytest.raises(NotImplementedError, match="slice 9 of the port") as info:
+    with pytest.raises(ValueError, match="DistComm") as info:
         ServeEngine.from_distributed_graph(GCN(16, 8, 4, SingleComm()), g, device="cpu")
-    assert "not ported yet" not in str(info.value)
+    assert "comm.dist.launch" in str(info.value) and "slice 9" not in str(info.value)
