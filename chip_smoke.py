@@ -66,12 +66,18 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    each kernel timed beside SDPA on the 169,343 real rows; then the
    autograd Function's gradients against autograd of the plain version;
 4. serve GCN — ``build_serving`` at ogbn-arxiv width (V = 169,343, F = 128,
-   H = 256, C = 40, 2 layers, ladder 8..1024), every bucket warmed, 32
-   mixed-size requests through the MicroBatcher; served rows must equal
+   H = 256, C = 40, 2 layers, ladder 8..1024) through ``--ckpt_dir`` on an
+   empty directory (seeded at step 0, then restored), every bucket warmed,
+   32 mixed-size requests through the MicroBatcher; served rows must equal
    ``full_logits()`` bit for bit, the fused kernel must launch 4 times per
    forward and no backward kernel at all, and ``full_logits()`` must match
    the same model and graph run on the CPU (plain path) within 1e-4;
-   request latency p50/p99 per bucket;
+   request latency p50/p99 per bucket; then a step 1 of scaled params,
+   saved and torn (every file cut to 3 bytes): a fresh
+   ``ServeEngine.from_checkpoint`` on the same graph must restore step 0,
+   quarantine step 1 and serve rows and ``full_logits()`` bit-equal to the
+   first engine's, 4 fused launches a forward; save and restore seconds and
+   the checkpoint's bytes;
 5. serve SAGE — same width, a few requests, the segment-sum kernel's
    launches checked per forward;
 6. train bench_gcn — bench.py's GCN training step on the port (random
@@ -213,7 +219,10 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    all_to_all under the same format in both legs (ppermute's reverse
    within TOL), timed as the turns without a format. Then
    ``python -m dgraph_tpu_torch.train``'s ``main`` at ``--world_size 4``
-   at arxiv width, W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
+   at arxiv width (on one shared card under the random partition,
+   W13_PARTITION: the host time of the CLI's default multilevel, which
+   phase 9 trains, is cut there; on four cards under multilevel),
+   W13_EPOCHS steps each: GCN (kernel 1 on both subsets of
    the split) and GraphSAGE (its split route, kernel 2 on both subsets)
    under DGRAPH_TPU_HALO_IMPL=overlap, GAT (gat_arxiv's width) under
    overlap and under ppermute, GCN (unsplit) under sched, and GCN under
@@ -241,7 +250,18 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    derives (forward, recompute and backward) and no other kernel, no step
    after the first computing CSR offsets, the loss falling (the mean of
    the last 4 below the first 4's), the peak memory, then GC_PROF steps
-   under torch.profiler (busy share, top kernels); the same on the same
+   under torch.profiler (busy share, top kernels); the run saves its train
+   state (``--ckpt_dir``, ``--save_freq`` half its steps) at its midpoint
+   and its end, and ``restore_training`` resumes a restarted training at
+   the midpoint: the remaining steps run again must end with params, AdamW
+   and schedule state and EMA bit-equal to the run's end (if not, a second
+   uninterrupted run bounds the difference and the ops without a
+   deterministic implementation are named); the save and restore seconds
+   and the checkpoint's bytes (two saves through ``save_agreed``, or the
+   phase fails), each step's garbage-collector pauses and page cache, the
+   p99 with and without the two steps after the midpoint save, and a save
+   taken apart and profiled between steps (:func:`save_window_probe`);
+   the same on the same
    weights in bf16 (the same launches, step-0 loss within BF16_LOSS_TOL of
    f32's); ``--eval_rollout`` GC_ROLLOUT with the sorted-row-gather kernel
    on (forward launches only, finite RMSE for the raw and EMA tracks);
@@ -286,7 +306,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    over NCCL), in the same processes one turn a lowering (SERVE_W_TURNS:
    GCN under the CLI's default lowering and under pallas_p2p, GraphSAGE
    under the default; on four cards GCN also under all_to_all, ppermute,
-   overlap and sched). Each turn, the launch counts set to 0 just before:
+   overlap and sched), each turn's engines built through ``--ckpt_dir`` on
+   an empty directory of its own (global rank 0 seeds step 0, every rank
+   must restore it). Each turn, the launch counts set to 0 just before:
    rank 0 warms every bucket, drives SERVE_W_REQUESTS requests through the
    MicroBatcher and takes ``full_logits()``, the others follow; then (a)
    served rows equal ``full_logits()`` bit for bit, (b) every rank ran each
@@ -319,12 +341,15 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1665,19 +1690,26 @@ def cpu_reference(engine, graph):
         return model_apply(model, batch, graph.plan.shard(0)).numpy()
 
 
-def serve_path(model: str, kernel: str, per_forward, n_requests: int) -> dict:
+def serve_path(model: str, kernel: str, per_forward, n_requests: int,
+               ckpt_dir: str = "") -> dict:
     """Build, warm, drive ``n_requests`` through the batcher with the launch
-    counts reset just before, and check the results."""
+    counts reset just before, and check the results. With ``ckpt_dir`` (an
+    empty directory) the engine is built through ``--ckpt_dir``: seeded at
+    step 0, then restored; then :func:`serve_checkpoint_fallback`."""
     import numpy as np
     import torch
 
     from dgraph_tpu_torch.ops import segment as seg
     from dgraph_tpu_torch.serve.__main__ import build_serving
+    from dgraph_tpu_torch.train import checkpoint
 
-    cfg = arxiv_config(model)
+    cfg = dataclasses.replace(arxiv_config(model), ckpt_dir=ckpt_dir)
     t0 = time.perf_counter()
     engine, batcher, graph = build_serving(cfg, device="cuda")
     build_s = time.perf_counter() - t0
+    if ckpt_dir and (engine.restored_step != 0 or checkpoint.all_steps(ckpt_dir) != [0]):
+        fail(f"{model}: --ckpt_dir on an empty dir restored step {engine.restored_step}, "
+             f"the dir holds {checkpoint.all_steps(ckpt_dir)} (want step 0 seeded)")
     try:
         warm = engine.warmup()
         log(f"{model}: graph+engine {build_s:.1f} s, warmup {warm['warmup_s']} s "
@@ -1731,11 +1763,96 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int) -> dict:
     for b, rec in buckets.items():
         log(f"{model}: bucket {b}: n={rec['count']} p50 {rec['p50_ms']:.3f} ms "
             f"p99 {rec['p99_ms']:.3f} ms")
+    ckpt = (serve_checkpoint_fallback(engine, graph, full, served, kernel, per_forward)
+            if ckpt_dir else None)
     del engine
     torch.cuda.empty_cache()
     return {"model": model, "requests": len(served), "forwards": forwards,
             "launches": launches, "cpu_max_abs_err": err, "buckets": buckets,
-            "warmup_s": warm["warmup_s"], "build_s": build_s}
+            "warmup_s": warm["warmup_s"], "build_s": build_s, "checkpoint": ckpt}
+
+
+CKPT_SCALE = 1.0625  # the torn step's params: the seeded ones scaled (tests/test_serve.py)
+CKPT_SERVED = 8  # requests the engine restored past the torn step serves again
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def truncate_tree(root: str, keep: int = 3) -> int:
+    """Cut every file under ``root`` to ``keep`` bytes (a torn copy, as
+    ``tests/test_serve.py:515-523`` makes one); the files cut."""
+    n = 0
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(d, f), "r+b") as fh:
+                fh.truncate(keep)
+            n += 1
+    return n
+
+
+def serve_checkpoint_fallback(engine, graph, full, served, kernel, per_forward) -> dict:
+    """Phase 4's checkpoint leg, on the engine ``--ckpt_dir`` built from
+    step 0: a step 1 of the params scaled by CKPT_SCALE is saved and torn;
+    a fresh ``ServeEngine.from_checkpoint`` on the same graph (into a copy
+    of the model with its weights halved, so only the restore can give the
+    bits back) must restore step 0, quarantine step 1, and serve
+    CKPT_SERVED of the requests and ``full_logits()`` bit-equal to the
+    in-memory engine's ``full_logits()``, launching the fused kernel
+    ``per_forward`` times a forward. Logs the save and restore seconds and
+    the checkpoint's bytes."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.ops import segment as seg
+    from dgraph_tpu_torch.serve.engine import ServeEngine
+    from dgraph_tpu_torch.train import checkpoint
+
+    ckpt = engine.ckpt_dir
+    nbytes = dir_bytes(checkpoint.step_path(ckpt, 0))
+    t = time.perf_counter()
+    state = checkpoint.restore_checkpoint(ckpt)
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    checkpoint.save_checkpoint(ckpt, {"params": {k: v * CKPT_SCALE for k, v in
+                                                 state["params"].items()}, "step": 1}, 1)
+    save_s = time.perf_counter() - t
+    torn = truncate_tree(checkpoint.step_path(ckpt, 1))
+    model = copy.deepcopy(engine.model)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    t = time.perf_counter()
+    again = ServeEngine.from_checkpoint(model, graph, ckpt, device=engine.device)
+    from_s = time.perf_counter() - t
+    if (again.restored_step != 0 or checkpoint.quarantined_steps(ckpt) != [1]
+            or checkpoint.all_steps(ckpt) != [0]):
+        fail(f"serve checkpoint: restored step {again.restored_step}, steps "
+             f"{checkpoint.all_steps(ckpt)}, quarantined {checkpoint.quarantined_steps(ckpt)} "
+             "(want step 0 restored past the torn step 1, which is quarantined)")
+    seg.reset_launch_counts()
+    forwards0 = again.forwards
+    for ids, _ in served[:CKPT_SERVED]:
+        r, s = again.rank_slot(ids)
+        if not np.array_equal(again.infer(ids), full[r, s]):
+            fail("serve checkpoint: rows served after the fallback differ from the in-memory "
+                 "engine's full_logits()")
+    if not np.array_equal(again.full_logits().view(np.int32), full.view(np.int32)):
+        fail("serve checkpoint: full_logits() after the fallback differs from the in-memory "
+             "engine's")
+    launches, forwards = seg.launch_counts(), again.forwards - forwards0
+    if launches[kernel] != per_forward * forwards:
+        fail(f"serve checkpoint: {kernel} launched {launches[kernel]} times over {forwards} "
+             f"forwards (want {per_forward} a forward)")
+    rec = {"bytes": nbytes, "save_s": save_s, "load_s": load_s, "from_checkpoint_s": from_s,
+           "torn_files": torn, "forwards": forwards, "launches": launches[kernel]}
+    log(f"serve checkpoint: step 0 {nbytes} bytes, read {load_s:.4f} s; step 1 saved in "
+        f"{save_s:.4f} s and torn ({torn} files); from_checkpoint {from_s:.2f} s restored step 0 "
+        f"and quarantined step 1; {CKPT_SERVED} requests and full_logits() bit-equal to the "
+        f"in-memory engine's; {kernel} {per_forward} a forward")
+    del again
+    return rec
 
 
 def sage_launches_per_forward(cfg) -> int:
@@ -3297,9 +3414,11 @@ def one_rank_phases(cfg) -> tuple:
     torch.cuda.empty_cache()
     attention = phase_attention()
 
-    log("phase 4: serve GCN")
+    log("phase 4: serve GCN (through --ckpt_dir)")
     gcn_chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
-    gcn = serve_path("gcn", "sorted_segment_sum_bias_relu", gcn_chunks, 32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_ckpt_") as ckpt:
+        gcn = serve_path("gcn", "sorted_segment_sum_bias_relu", gcn_chunks, 32,
+                         ckpt_dir=os.path.join(ckpt, "gcn"))
 
     log("phase 5: serve SAGE")
     sage = serve_path("sage", "sorted_segment_sum",
@@ -3704,6 +3823,14 @@ LOWERING_REPS = 3  # timed calls a leg and lowering (the median is logged)
 # limit; every check still runs); a card a rank: LOWERING_REPS
 SHARED_CARD_REPS = 1
 W13_EPOCHS = 2  # training steps a phase-13 run on one card (at most 4)
+# the partition of phase 13's training runs when the 4 ranks share one
+# card: random, whose host time is nil, where the CLI's default (multilevel,
+# trained in phase 9) costs every rank of every run about 10 s on the host
+# (a cut of the one-card run's host work; its step times are those of
+# another plan than before). On a card a rank the CLI's multilevel default
+# stays, the workload of the four-card numbers. The lowering parity before
+# them stays on phase 9's multilevel plan either way
+W13_PARTITION = "random"
 W13_EPOCHS_NCCL = 12  # on cards of their own, where a step takes a tenth
 W13_TRACE_STEPS = 4  # GCN 'overlap' on four cards: steps profiled after the timed ones
 GAT_STEP0_V = 16384  # GAT's step 0 against the CPU, as phase 10 holds it
@@ -4121,8 +4248,9 @@ def phase_lowering_parity() -> dict:
 
 def w13_config(model: str):
     """The CLI's Config of a phase-13 run: ogb_gcn's arxiv-width graph over 4
-    ranks (GAT at gat_arxiv's width), W13_EPOCHS steps (W13_EPOCHS_NCCL on
-    four cards)."""
+    ranks (GAT at gat_arxiv's width): on one shared card under W13_PARTITION,
+    W13_EPOCHS steps; on four cards under the CLI's default partition,
+    W13_EPOCHS_NCCL steps."""
     import dataclasses
 
     from dgraph_tpu_torch.train.profile import gat_arxiv_config, ogb_gcn_config
@@ -4130,8 +4258,10 @@ def w13_config(model: str):
     import torch
 
     base = gat_arxiv_config() if model == "gat" else ogb_gcn_config()
-    epochs = W13_EPOCHS_NCCL if torch.cuda.device_count() >= P2P_W else W13_EPOCHS
-    return dataclasses.replace(base, model=model, world_size=P2P_W, epochs=epochs)
+    if torch.cuda.device_count() >= P2P_W:
+        return dataclasses.replace(base, model=model, world_size=P2P_W, epochs=W13_EPOCHS_NCCL)
+    return dataclasses.replace(base, model=model, world_size=P2P_W, epochs=W13_EPOCHS,
+                               data=dataclasses.replace(base.data, partition=W13_PARTITION))
 
 
 def w13_launches(cfg, impl: str, wire=None) -> tuple:
@@ -4879,14 +5009,268 @@ def dropped_row_edge():
         seg.sorted_segment_sum_plain = plain
 
 
-def graphcast_main_path() -> tuple:
+class TimedSaves:
+    """Times every ``train.checkpoint.save_agreed`` call while installed
+    (the GraphCast CLI imports it at the call): ``seconds``, one a save."""
+
+    def __enter__(self):
+        from dgraph_tpu_torch.train import checkpoint
+
+        self.seconds, self._real = [], checkpoint.save_agreed
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            self._real(*args, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+
+        checkpoint.save_agreed = timed
+        return self
+
+    def __exit__(self, *exc):
+        from dgraph_tpu_torch.train import checkpoint
+
+        checkpoint.save_agreed = self._real
+
+
+def meminfo_kb() -> dict:
+    """The page cache's dirty and writeback kB (/proc/meminfo; empty where
+    the file is not there)."""
+    out = {}
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, _, rest = line.partition(":")
+                if key in ("Dirty", "Writeback"):
+                    out[key.lower() + "_kb"] = int(rest.split()[0])
+    except OSError:
+        pass
+    return out
+
+
+class HostWatch:
+    """Host-side readings of a run at each step, at no cost to the step:
+    the garbage collector's pauses (``gc.callbacks``) and the page cache's
+    dirty and writeback kB at each step's end. ``wrap(on_step)`` marks a
+    step's end (after the CLI's save, before ``on_step``)."""
+
+    def __enter__(self):
+        self.marks, self.pauses, self._start = [], [], None
+        self.t0 = time.perf_counter()
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.pauses.append((self._start, time.perf_counter() - self._start,
+                                info["generation"]))
+            self._start = None
+
+    def wrap(self, on_step):
+        def call(step, t, sm):
+            self.marks.append((step, time.perf_counter(), meminfo_kb()))
+            return on_step(step, t, sm)
+        return call
+
+    def per_step(self) -> list:
+        """A record a step: the collections that started between the last
+        step's end and this one's (its sample, its step), their ms, the
+        full (generation 2) ones' count and ms, and the page cache at its
+        end."""
+        out, prev = [], self.t0
+        for step, at, mem in self.marks:
+            mine = [(d, g) for s, d, g in self.pauses if prev < s <= at]
+            full = [d for d, g in mine if g == 2]
+            out.append({"step": step, "gc_ms": sum(d for d, _ in mine) * 1e3,
+                        "gc_full": len(full), "gc_full_ms": sum(full) * 1e3, **mem})
+            prev = at
+        return out
+
+
+def save_window_probe(t, x, y) -> dict:
+    """The midpoint save's neighbourhood, profiled once, outside the timed
+    run: first the save's parts timed apart (the device-to-host copy of the
+    train state, ``torch.save`` into the page cache, the ``fsync``), then a
+    step, the CLI's save (``save_agreed`` into a directory of its own), and
+    two steps, under torch.profiler: for each step the host ms (synchronize
+    to synchronize), the device ms (its kernels and copies), the garbage
+    collector's ms and the page cache's dirty and writeback kB at its
+    start. The training is left where the steps took it."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from dgraph_tpu_torch.train import checkpoint
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    parts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gc_save_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = checkpoint.to_cpu(gc_cli.training_state(t))
+        t1 = time.perf_counter()
+        with open(os.path.join(d, checkpoint.STATE_FILE), "wb") as f:
+            torch.save(cpu, f)
+            f.flush()
+            t2 = time.perf_counter()
+            before_fsync = meminfo_kb()
+            os.fsync(f.fileno())
+        t3 = time.perf_counter()
+        del cpu
+        parts = {"to_cpu_s": t1 - t0, "torch_save_s": t2 - t1, "fsync_s": t3 - t2,
+                 "page_cache_before_fsync": before_fsync, "page_cache_after": meminfo_kb()}
+        steps = []
+        with HostWatch() as watch, torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i, save in enumerate((True, False, False)):
+                mem = meminfo_kb()
+                with torch.profiler.record_function(f"save_window_step_{i}"):
+                    torch.cuda.synchronize()
+                    ts = time.perf_counter()
+                    t.train_step(x, y)
+                    torch.cuda.synchronize()
+                    te = time.perf_counter()
+                steps.append({"after_save": i > 0, "host_ms": (te - ts) * 1e3,
+                              "gc_ms": sum(dur for s, dur, _ in watch.pauses if ts < s <= te) * 1e3,
+                              **mem})
+                if save:
+                    tsave = time.perf_counter()
+                    checkpoint.save_agreed(os.path.join(d, "ckpt"), gc_cli.training_state(t), 1)
+                    parts["save_agreed_s"] = time.perf_counter() - tsave
+    spans = {e.name: e.time_range for e in prof.events()
+             if e.name.startswith("save_window_step_")}
+    for i, rec in enumerate(steps):
+        r = spans.get(f"save_window_step_{i}")
+        rec["device_ms"] = None if r is None else sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and r.start <= e.time_range.start <= r.end) / 1e3
+    return {"save_parts": parts, "steps": steps}
+
+
+def state_diff(got, want, where: str = "") -> dict:
+    """How two train states (nested dicts and lists of tensors and scalars)
+    differ: the leaves whose bits differ, the first of them, the largest
+    absolute difference."""
+    import torch
+
+    out = {"leaves": 0, "first": None, "max_abs": 0.0}
+
+    def walk(a, b, path):
+        if isinstance(a, dict) or isinstance(a, (list, tuple)):
+            keys = list(a) if isinstance(a, dict) else range(len(a))
+            if (set(a) != set(b)) if isinstance(a, dict) else len(a) != len(b):
+                out["leaves"] += 1
+                out["first"] = out["first"] or f"{path} (structure)"
+                return
+            for k in keys:
+                walk(a[k], b[k], f"{path}.{k}")
+        elif isinstance(a, torch.Tensor):
+            same = (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+            if not same:
+                out["leaves"] += 1
+                out["first"] = out["first"] or path
+                if a.shape == b.shape and a.is_floating_point():
+                    out["max_abs"] = max(out["max_abs"], float((a - b).abs().max()))
+        elif a != b:
+            out["leaves"] += 1
+            out["first"] = out["first"] or path
+
+    walk(got, want, where)
+    return out
+
+
+def graphcast_resume(t, ckpt: str) -> dict:
+    """Phase 14's resume leg: the main path's run (GC_WARMUP + GC_TIMED
+    steps through the CLI, ``--save_freq`` half of them) saved at its
+    midpoint and at its end. The end's checkpoint is read (the
+    uninterrupted run's state) and taken away; ``t.restart()``, then
+    ``restore_training`` resumes at the midpoint and the remaining steps
+    run again. The params, AdamW and schedule state and EMA must equal the
+    uninterrupted run's bit for bit. If they do not, a second uninterrupted
+    run says whether the card's step is itself not deterministic (one more
+    step under ``torch.use_deterministic_algorithms(warn_only=True)`` names
+    the ops); the resume is then held to the two uninterrupted runs'
+    difference, never to a fixed tolerance."""
+    import warnings
+
+    import torch
+
+    from dgraph_tpu_torch.train import checkpoint
+    from dgraph_tpu_torch.train import graphcast as gc_cli
+
+    steps = GC_WARMUP + GC_TIMED
+    mid = steps // 2
+    if checkpoint.all_steps(ckpt) != [mid, steps]:
+        fail(f"graphcast resume: the run saved {checkpoint.all_steps(ckpt)}, want [{mid}, "
+             f"{steps}] (--save_freq {mid})")
+    nbytes = dir_bytes(checkpoint.step_path(ckpt, mid))
+    t0 = time.perf_counter()
+    want = checkpoint.restore_checkpoint(ckpt, step=steps)
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(checkpoint.step_path(ckpt, steps))
+
+    def rerun(first: int) -> dict:
+        for i in range(first, steps):
+            x, y = t.batch(i)
+            t.train_step(x, y)
+        torch.cuda.synchronize()
+        return checkpoint.to_cpu(gc_cli.training_state(t))
+
+    t.restart()
+    t0 = time.perf_counter()
+    got_step = gc_cli.restore_training(t, ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if got_step != mid or t.step != mid:
+        fail(f"graphcast resume: restore_training gave step {got_step}, want {mid}")
+    diff = state_diff(rerun(mid), want)
+    rec = {"bytes": nbytes, "restore_s": restore_s, "read_s": read_s, "resumed_at": mid,
+           "steps": steps, "diff": diff, "uninterrupted_diff": None, "nondeterministic_ops": []}
+    if diff["leaves"]:
+        t.restart()
+        base = state_diff(rerun(0), want)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                t.train_step(*t.batch(0))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split(" does not have")[0][:120] for w in caught
+                      if "deterministic" in str(w.message)})
+        rec.update(uninterrupted_diff=base, nondeterministic_ops=ops)
+        log(f"graphcast resume: the resumed run differs from the uninterrupted one ({diff}); "
+            f"two uninterrupted runs differ by {base}; ops without a deterministic "
+            f"implementation on the card: {ops}")
+        if base["leaves"] == 0 or diff["max_abs"] > base["max_abs"]:
+            fail(f"graphcast resume: resumed {diff} against two uninterrupted runs' {base}")
+    log(f"graphcast resume: step {mid} of {steps} ({nbytes / 1e6:.1f} MB: params, AdamW, "
+        f"schedule, EMA) restored in {restore_s:.3f} s (a read alone {read_s:.3f} s), steps "
+        f"{mid}-{steps - 1} run again: params, AdamW state and EMA "
+        + ("bit-equal to the uninterrupted run's" if not diff["leaves"] else
+           f"within the two uninterrupted runs' difference {rec['uninterrupted_diff']}"))
+    return rec
+
+
+def graphcast_main_path(ckpt: str) -> tuple:
     """The main path, f32: ``python -m dgraph_tpu_torch.train.graphcast``'s
-    ``main`` at GC_MAIN (--warmup_steps 4), GC_WARMUP + GC_TIMED steps, each
+    ``main`` at GC_MAIN (--warmup_steps 4, --ckpt_dir ``ckpt`` with
+    --save_freq half the steps), GC_WARMUP + GC_TIMED steps, each
     launching exactly what :func:`graphcast_want` derives (kernel 2 only;
     no kernel 1, 1a, 3 or 4), the loss falling (the mean of the last 4
-    below the mean of the first 4); the graphs' anchors (GC_ANCHORS); the
-    peak device memory; then GC_PROF more steps under torch.profiler (the
-    device-busy share, the top kernels). Returns (the training, record)."""
+    below the mean of the first 4), its two saves through
+    ``checkpoint.save_agreed``; each step's garbage-collector pauses and
+    page cache (:class:`HostWatch`), the p99 with and without the two steps
+    after the midpoint save; the graphs' anchors (GC_ANCHORS); the peak
+    device memory; then GC_PROF more steps under torch.profiler (the
+    device-busy share, the top kernels), and :func:`save_window_probe`.
+    Returns (the training, record)."""
     import numpy as np
     import torch
 
@@ -4896,7 +5280,8 @@ def graphcast_main_path() -> tuple:
     from dgraph_tpu_torch.train.profile import device_ops
 
     steps = GC_WARMUP + GC_TIMED
-    cfg = graphcast_config(**GC_MAIN, steps=steps, warmup_steps=4, world_size=1)
+    cfg = graphcast_config(**GC_MAIN, steps=steps, warmup_steps=4, world_size=1,
+                           ckpt_dir=ckpt, save_freq=steps // 2)
     what = "graphcast_l6 f32"
     want = graphcast_want(GC_MAIN["processor_layers"], GC_MAIN["latent"])
     if os.path.exists(cfg.log_path):
@@ -4905,9 +5290,13 @@ def graphcast_main_path() -> tuple:
     seg.csr_offsets.computed = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr), LaunchesByShape() as by_shape:
-        res = gc_cli.main(cfg, on_step=GraphCastProbe(steps - 1))
+    with contextlib.redirect_stdout(sys.stderr), LaunchesByShape() as by_shape, \
+            TimedSaves() as saves, HostWatch() as host:
+        res = gc_cli.main(cfg, on_step=host.wrap(GraphCastProbe(steps - 1)))
     run_s = time.perf_counter() - t0
+    if len(saves.seconds) != 2:
+        fail(f"{what}: {len(saves.seconds)} train-state saves went through "
+             f"checkpoint.save_agreed, want 2 (steps {steps // 2} and {steps})")
     peak = torch.cuda.max_memory_allocated()
     t = res["training"]
     probes = res["on_step"]
@@ -4933,6 +5322,9 @@ def graphcast_main_path() -> tuple:
     shard_s = time.perf_counter() - td
     ms = res["step_ms"]
     timed = ms[GC_WARMUP:]
+    # the two steps that follow the midpoint save (the end's has none)
+    post_save = (steps // 2, steps // 2 + 1)
+    unsaved = [m for i, m in enumerate(ms) if i >= GC_WARMUP and i not in post_save]
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     with prof:
@@ -4943,31 +5335,53 @@ def graphcast_main_path() -> tuple:
         wall = (time.perf_counter() - tp) * 1e3 / GC_PROF
     ops = device_ops(prof, GC_PROF)
     busy = sum(o["device_ms_per_step"] for o in ops)
+    window = save_window_probe(t, x, y)
     kernels.reset_launch_counts()
     rec = {"config": what, "cfg": GC_MAIN, "steps": steps, "graph_build_s": res["graph_build_s"],
            "dataset_s": t.dataset_s,
            "anchors": got, "plans": plans, "losses": losses, "step_ms": ms,
            "step_ms_p50": float(np.percentile(timed, 50)),
            "step_ms_p99": float(np.percentile(timed, 99)),
+           "post_save_steps": list(post_save),
+           "step_ms_p99_without_post_save": float(np.percentile(unsaved, 99)),
+           "step_host": host.per_step(), "save_window": window,
            "launches_per_step": want,
            "launches": {k: sum(p["counts"][k] for p in probes) for k in probes[0]["counts"]},
            "launches_by_shape": by_shape.counts, "peak_memory_bytes": peak,
-           "sample_shard_s": shard_s, "run_s": run_s,
+           "sample_shard_s": shard_s, "run_s": run_s, "save_s": saves.seconds,
            "records": res["records"],
            "profile": {"steps": GC_PROF, "wall_ms_per_step": wall, "device_ms_per_step": busy,
                        "device_busy_share": busy / wall, "top": ops[:5]}}
     log(f"{what}: graphs {res['graph_build_s']:.1f} s, weather {t.dataset_s:.1f} s, anchors "
         f"{got}; plans {plans}; step ms "
         f"p50 {rec['step_ms_p50']:.1f} p99 {rec['step_ms_p99']:.1f} (steps "
-        f"{GC_WARMUP}-{steps - 1}, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"{GC_WARMUP}-{steps - 1}, host clock; p99 {rec['step_ms_p99_without_post_save']:.1f} "
+        f"without steps {list(post_save)}, which follow the midpoint save); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak "
         f"memory {peak / 2**30:.2f} GiB; kernel 2 {want['sorted_segment_sum']} a step "
         f"(hub route on {rec['launches']['sorted_segment_sum.hub_calls']} of "
         f"{rec['launches']['sorted_segment_sum']} calls); a step's sample laid out and moved in "
         f"{shard_s:.2f} s; "
         f"device busy {busy / wall:.1%} ({busy:.1f} of {wall:.1f} ms a step, {GC_PROF} steps "
-        f"profiled); run {run_s:.1f} s")
+        f"profiled); run {run_s:.1f} s, of which the train-state saves at steps "
+        f"{steps // 2} and {steps} {[round(x, 3) for x in saves.seconds]} s")
     for o in ops[:5]:
         log(f"  {o['device_ms_per_step']:9.3f} ms/step  x{o['count']:<5d} {o['name'][:80]}")
+    log(f"{what}: each step's ms, then the garbage collector's ms between the last step's end "
+        f"and its own (full collections: count, ms) and the page cache's dirty / writeback kB "
+        f"at its end: " + "; ".join(
+            f"{h['step']} {ms[h['step']]:.1f} gc {h['gc_ms']:.1f} ({h['gc_full']}, "
+            f"{h['gc_full_ms']:.1f}) {h.get('dirty_kb')} / {h.get('writeback_kb')}"
+            for h in rec["step_host"]))
+    sp = window["save_parts"]
+    log(f"{what}: a save's parts: device-to-host copy {sp['to_cpu_s']:.3f} s, torch.save into "
+        f"the page cache {sp['torch_save_s']:.3f} s, fsync {sp['fsync_s']:.3f} s (dirty kB "
+        f"before it {sp['page_cache_before_fsync']}, after {sp['page_cache_after']}); "
+        f"save_agreed {sp['save_agreed_s']:.3f} s; a step before it and two after, profiled: "
+        + "; ".join(f"host {w['host_ms']:.1f} ms device "
+                    + ("not measured" if w["device_ms"] is None else f"{w['device_ms']:.1f} ms")
+                    + f" gc "
+                    f"{w['gc_ms']:.1f} ms dirty {w.get('dirty_kb')} kB" for w in window["steps"]))
     return t, rec
 
 
@@ -5173,9 +5587,12 @@ def graphcast_phase(cfg) -> tuple:
     import torch
 
     log("phase 14: GraphCast (python -m dgraph_tpu_torch.train.graphcast) at level 6, "
-        "721x1440, 73 channels, latent 256, 16 layers: f32, bf16, --eval_rollout; kernels 2 "
-        "and 3 at its shapes; step 0 vs the CPU; then 4 ranks at level 4")
-    t, main_rec = graphcast_main_path()
+        "721x1440, 73 channels, latent 256, 16 layers: f32 (saved at its midpoint, resumed "
+        "there), bf16, --eval_rollout; kernels 2 and 3 at its shapes; step 0 vs the CPU; then "
+        "4 ranks at level 4")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gc_ckpt_") as ckpt:
+        t, main_rec = graphcast_main_path(ckpt)
+        resume = graphcast_resume(t, ckpt)
     bf16 = graphcast_bf16_turn(t, main_rec["losses"][0])
     roll = graphcast_rollout(t)
     records = graphcast_kernel_cases(t)
@@ -5223,7 +5640,7 @@ def graphcast_phase(cfg) -> tuple:
         log(f"{what}: launches at each shape {counts}")
     return records, main_case, {"train": [main_rec, bf16, *w4],
                                 "graphcast": {"rollout": roll, "step0_vs_cpu": small,
-                                              "halo_l6_w4": halo}}
+                                              "halo_l6_w4": halo, "resume": resume}}
 
 
 # --- phase 15 ----------------------------------------------------------------
@@ -5562,9 +5979,11 @@ def serve_w_kernel_cases(group, graph, gen, model: str) -> list:
              "bound_ms": b_ms, "bound_by": b_by, "failures": failures}]
 
 
-def serve_w_rank(group, turns, requests: dict, t_launch: float) -> dict:
+def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list) -> dict:
     """One of phase 16's ranks: each turn of ``turns`` pins its lowering,
-    builds its engine through ``build_serving`` and, with every launch
+    builds its engine through ``build_serving`` with ``--ckpt_dir`` (an empty
+    directory a turn, ``ckpt_dirs``: global rank 0 seeds step 0, every rank
+    restores the step it took) and, with every launch
     count set to 0 just before, serves: rank 0 warms every bucket, drives
     ``requests[model]`` requests through the batcher (latency a request),
     takes ``full_logits()``, checks the served rows against it bit for bit
@@ -5583,13 +6002,15 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=group.device).manual_seed(16 + group.rank)
     out = {"start_s": start_s, "turns": []}
-    for model, impl in turns:
+    for (model, impl), ckpt in zip(turns, ckpt_dirs):
         config.halo_impl = impl
-        cfg = dataclasses.replace(arxiv_config(model), world_size=group.world_size)
+        cfg = dataclasses.replace(arxiv_config(model), world_size=group.world_size,
+                                  ckpt_dir=ckpt)
         t0 = time.perf_counter()
         engine, batcher, graph = build_serving(cfg, comm=DistComm(group))
         turn = {"model": model, "impl": impl, "halo_impl": engine.halo_impl,
-                "build_s": time.perf_counter() - t0, "failures": []}
+                "build_s": time.perf_counter() - t0, "failures": [],
+                "restored_step": engine.restored_step}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         if batcher is None:
@@ -5720,15 +6141,20 @@ def serve_w_phase(cfg) -> tuple:
     where = "NCCL, a card a rank" if four else "gloo, one card"
     log(f"phase 16: serve over {SERVE_W} ranks at arxiv width ({where}): "
         f"{', '.join(f'{m} {i}' for m, i in turns)}")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    from dgraph_tpu_torch.train import checkpoint
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_serve_w_ckpt_") as root:
         cpu = pool.submit(serve_w_cpu_reference, sorted({m for m, _ in turns}))
+        ckpt_dirs = [os.path.join(root, f"turn{i}") for i in range(len(turns))]
         t_launch = time.time()
         t0 = time.perf_counter()
-        ranks = launch(serve_w_rank, SERVE_W, turns, requests, t_launch, device="cuda",
-                       timeout=900, group_timeout=SERVE_W_GROUP_TIMEOUT,
+        ranks = launch(serve_w_rank, SERVE_W, turns, requests, t_launch, ckpt_dirs,
+                       device="cuda", timeout=900, group_timeout=SERVE_W_GROUP_TIMEOUT,
                        threads=max(1, (os.cpu_count() or 1) // SERVE_W))
         run_s = time.perf_counter() - t0
         cpu = cpu.result()
+        seeded = [checkpoint.all_steps(d) for d in ckpt_dirs]
     log(f"serve W={SERVE_W}: {run_s:.1f} s with the spawn; the ranks started "
         f"{[round(r['start_s'], 2) for r in ranks]} s after the launch; the CPU references "
         f"{ {m: round(v[1], 1) for m, v in cpu.items()} } s beside")
@@ -5746,6 +6172,10 @@ def serve_w_phase(cfg) -> tuple:
         resolved = {t["halo_impl"] for t in per_rank}
         if impl != "auto" and resolved != {impl}:
             fail(f"{what}: the ranks resolved {resolved}")
+        restored = [t["restored_step"] for t in per_rank]
+        if restored != [0] * SERVE_W or seeded[i] != [0]:
+            fail(f"{what}: --ckpt_dir on an empty dir: the ranks restored steps {restored}, the "
+                 f"dir holds {seeded[i]} (want step 0 seeded once, restored on every rank)")
         halo = resolved.pop()
         want = serve_w_want(arxiv_config(model), model, halo in ("overlap", "pallas_p2p"),
                             halo == "pallas_p2p")
@@ -5773,6 +6203,7 @@ def serve_w_phase(cfg) -> tuple:
         recs.append(rec)
         log(f"{what}: resolved {halo}; {rec['requests']} requests, {rec['forwards']} forwards "
             f"a rank (every rank each dispatch rank 0 announced, all left follow() at stop); "
+            f"every rank restored step 0 of the turn's --ckpt_dir; "
             f"launches a forward a rank {dict((k, v) for k, v in want.items() if v)}, no "
             f"backward kernel; served == full_logits bitwise; vs one rank on the CPU max abs "
             f"err {err:.3g}; build s per rank {[round(x, 1) for x in rec['build_s']]}, warmup "

@@ -31,9 +31,11 @@ Rule families (all registered in
   of :data:`HOST_SCOPE` at once must be acyclic: an inverted order
   *deadlocks*, it never errors.
 - ``host-durable-write`` — every write destined for a durable artifact
-  (generation pointers, manifests, ledgers) must flow through an atomic
-  fsync+rename writer; a bare ``open(path, "w")`` or ``np.savez`` onto
-  such a path is RED.
+  (generation pointers, manifests, ledgers, a checkpoint step's files)
+  must flow through an atomic fsync+rename writer (or, for a checkpoint
+  step, a synced writer into the temporary directory renamed into place);
+  a bare ``open(path, "w")``, ``np.savez`` or ``torch.save`` onto such a
+  path is RED.
 - ``host-pointer-flip-last`` — in a function that writes a generation
   pointer, the pointer write is the LAST filesystem effect on every
   intra-procedural path to the exit.
@@ -93,9 +95,9 @@ HOST_SCOPE = (
     "dgraph_tpu_torch/comm/dist.py",
 )
 
-# the durable-write rules cover the same modules (the port writes no
-# generation pointer, checkpoint or tuning record yet)
-DURABLE_SCOPE = HOST_SCOPE
+# the durable-write rules cover the same modules and the checkpoint writer
+# (the port writes no generation pointer or tuning record yet)
+DURABLE_SCOPE = HOST_SCOPE + ("dgraph_tpu_torch/train/checkpoint.py",)
 
 LOCK_CONSTRUCTORS = frozenset({"Lock", "RLock", "Condition"})
 
@@ -127,10 +129,12 @@ ATOMIC_WRITERS = frozenset({
 # path-returning helpers whose results name durable artifacts
 DURABLE_PATH_FNS = frozenset({
     "world_path", "graph_path", "manifest_path", "record_path",
-    "ledger_path",
+    "ledger_path", "step_path",
 })
+# file names of durable artifacts; a module-level constant holding one
+# (the checkpoint's STATE_FILE / KEYS_FILE) is durable in every function
 DURABLE_NAME_HINTS = ("world.json", "serving.json", "manifest.json",
-                      "ledger.jsonl")
+                      "ledger.jsonl", "state.pt", "keys.json")
 
 # calls that touch the filesystem, for the pointer-flip-last walk
 FS_EFFECT_CALLS = frozenset({
@@ -733,6 +737,12 @@ def _open_write_mode(call: ast.Call) -> bool:
 
 def durable_write_findings(relpath: str, tree: ast.AST, lines: list) -> list:
     findings = []
+    module_names = {
+        t.id
+        for node in getattr(tree, "body", [])
+        if isinstance(node, ast.Assign) and _expr_durable(node.value, set())
+        for t in node.targets if isinstance(t, ast.Name)
+    }
     for fn in ast.walk(tree):
         if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
             continue
@@ -740,7 +750,7 @@ def durable_write_findings(relpath: str, tree: ast.AST, lines: list) -> list:
             continue  # the blessed writers' own tmp-file opens
         # local taint: names assigned from durable path expressions,
         # iterated to fixpoint (handles tmp = path + ".tmp")
-        tainted: set = set()
+        tainted: set = set(module_names)
         for _ in range(4):
             grew = False
             for node in ast.walk(fn):
@@ -764,6 +774,9 @@ def durable_write_findings(relpath: str, tree: ast.AST, lines: list) -> list:
             elif fname in ("savez", "savez_compressed") and node.args:
                 why = _expr_durable(node.args[0], tainted)
                 verb = f"direct np.{fname}"
+            elif fname == "save" and len(node.args) >= 2:
+                why = _expr_durable(node.args[1], tainted)
+                verb = "direct torch.save"
             if why:
                 findings.append(Finding(
                     "host-durable-write", relpath, node.lineno,
@@ -781,12 +794,14 @@ def durable_write_findings(relpath: str, tree: ast.AST, lines: list) -> list:
 @rule(
     "host-durable-write",
     "writes to durable artifacts (world.json/serving.json pointers, "
-    "graph_g<N>.npz snapshots, plan-shard manifests, tuning records) "
-    "must flow through atomic_write_json/atomic_pickle_dump/atomic_savez"
-    " — a bare open(path,'w') or direct np.savez to such a path is a "
+    "graph_g<N>.npz snapshots, plan-shard manifests, tuning records, "
+    "checkpoint step files) must flow through atomic_write_json/"
+    "atomic_pickle_dump/atomic_savez or a synced writer — a bare "
+    "open(path,'w'), direct np.savez or torch.save to such a path is a "
     "torn write waiting for a host crash",
     path_matcher(*DURABLE_SCOPE),
-    scope="the host modules of HOST_SCOPE",
+    scope="the host modules of HOST_SCOPE and the checkpoint writer "
+          "(DURABLE_SCOPE)",
 )
 def check_host_durable_write(relpath: str, tree: ast.AST, lines: list):
     return durable_write_findings(relpath, tree, lines)
@@ -1347,6 +1362,32 @@ _LEDGER_DURABLE_FIXTURE = {
     ),
 }
 
+_CKPT_DURABLE_FIXTURE = {
+    "path": "dgraph_tpu_torch/train/checkpoint.py",
+    # the checkpoint's own shape with its discipline gone: torch.save and
+    # a bare open straight into the step directory, no tmp dir, no fsync
+    "bad": (
+        "import os, torch\n"
+        "STATE_FILE = 'state.pt'\n"
+        "KEYS_FILE = 'keys.json'\n"
+        "def save_checkpoint(ckpt_dir, state, step):\n"
+        "    final = step_path(ckpt_dir, step)\n"
+        "    os.makedirs(final, exist_ok=True)\n"
+        "    torch.save(state, os.path.join(final, STATE_FILE))\n"
+        "    open(os.path.join(final, KEYS_FILE), 'w').write('[]')\n"
+    ),
+    # the blessed shape: a synced writer into the tmp dir renamed into place
+    "good": (
+        "import os, torch\n"
+        "STATE_FILE = 'state.pt'\n"
+        "def save_checkpoint(ckpt_dir, state, step):\n"
+        "    final = step_path(ckpt_dir, step)\n"
+        "    tmp = final + '.tmp'\n"
+        "    _write_synced(os.path.join(tmp, STATE_FILE), lambda f: torch.save(state, f))\n"
+        "    os.replace(tmp, final)\n"
+    ),
+}
+
 _FLIP_FIXTURE = {
     "path": "dgraph_tpu_torch/train/shrink.py",
     # pointer-flip-before-payload: the world pointer moves, THEN the
@@ -1462,6 +1503,15 @@ def host_selftest_failures(root: Optional[str] = None) -> list:
                         _LEDGER_DURABLE_FIXTURE["good"])
     check(not got, f"host-durable-write false-positived on "
                    f"atomic_append_jsonl: {got}")
+    got = run_file_rule("host-durable-write", _CKPT_DURABLE_FIXTURE["path"],
+                        _CKPT_DURABLE_FIXTURE["bad"])
+    check(len(got) >= 2, "host-durable-write missed a torch.save / bare "
+                         "open straight into a checkpoint step (vacuity "
+                         "mutant stayed GREEN)")
+    got = run_file_rule("host-durable-write", _CKPT_DURABLE_FIXTURE["path"],
+                        _CKPT_DURABLE_FIXTURE["good"])
+    check(not got, f"host-durable-write false-positived on the "
+                   f"checkpoint's synced tmp-dir write: {got}")
 
     # --- host-pointer-flip-last ---
     got = run_file_rule("host-pointer-flip-last", _FLIP_FIXTURE["path"],

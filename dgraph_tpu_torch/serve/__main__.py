@@ -9,6 +9,14 @@ full-graph forward's bit-for-bit (over W ranks: the gathered
 structured ``too_large`` error. Runs on ``cuda`` unless ``--device cpu``;
 with no card it raises.
 
+``--ckpt_dir`` serves from a checkpoint directory (``train.checkpoint``),
+never from in-process state: an empty directory is first seeded with the
+seeded parameters as step 0 (by global rank 0 alone), a directory that
+holds steps is never written to, and every rank restores the newest
+readable step (``ServeEngine.from_checkpoint``; the record's
+``restored_step``). ``--selftest`` without ``--ckpt_dir`` uses a temporary
+directory, so the save -> restore round trip always runs.
+
     python -m dgraph_tpu_torch.serve --num_nodes 169343 --feat_dim 128 \\
         --hidden 256 --num_classes 40 --avg_degree 13.77 --max_bucket 1024
     python -m dgraph_tpu_torch.serve --device cpu --world_size 2 --selftest
@@ -29,6 +37,7 @@ the rank's process exits), never after the launcher's default 600 s.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -58,6 +67,9 @@ class Config:
     hidden: int = 16
     num_layers: int = 2
     seed: int = 0
+    # checkpoint ("" = the seeded params; an empty dir is seeded with them at
+    # step 0; the selftest uses a temporary dir so the restore always runs)
+    ckpt_dir: str = ""
     # bucket ladder
     min_bucket: int = 8
     max_bucket: int = 64
@@ -99,8 +111,9 @@ def build_serving(cfg: Optional[Config] = None, *, device=None, comm=None):
     ``device`` (default: the rank's card, else ``cfg.device``, else
     ``cuda``; raises with no card before any work). Every rank builds the
     W-rank graph and its engine holds its shard; ranks 1..W-1 get no
-    batcher (they run ``engine.follow()``). Returns (engine, batcher,
-    graph)."""
+    batcher (they run ``engine.follow()``). With ``cfg.ckpt_dir`` the
+    parameters come from that directory (seeded with the seeded ones at
+    step 0 when it holds no step). Returns (engine, batcher, graph)."""
     from dgraph_tpu_torch.comm import SingleComm
     from dgraph_tpu_torch.config import default_device
     from dgraph_tpu_torch.data import DistributedGraph
@@ -109,6 +122,7 @@ def build_serving(cfg: Optional[Config] = None, *, device=None, comm=None):
     from dgraph_tpu_torch.serve.batcher import MicroBatcher
     from dgraph_tpu_torch.serve.bucketing import BucketLadder
     from dgraph_tpu_torch.serve.engine import ServeEngine
+    from dgraph_tpu_torch.train import checkpoint
     from dgraph_tpu_torch.train.__main__ import resolve_world_size
     from dgraph_tpu_torch.weights import init_params
 
@@ -136,10 +150,21 @@ def build_serving(cfg: Optional[Config] = None, *, device=None, comm=None):
         model = GraphSAGE(F, cfg.hidden, C, comm, num_layers=cfg.num_layers)
     init_params(model, cfg.seed)
     registry = Metrics()
-    engine = ServeEngine.from_distributed_graph(
-        model, g, device=dev, registry=registry,
-        ladder=BucketLadder.geometric(cfg.min_bucket, cfg.max_bucket, cfg.growth),
-    )
+    kw = dict(device=dev, registry=registry,
+              ladder=BucketLadder.geometric(cfg.min_bucket, cfg.max_bucket, cfg.growth))
+    if cfg.ckpt_dir:
+        # an EMPTY dir is seeded with the seeded params so the save ->
+        # restore round trip runs; one that holds steps is a real training
+        # artifact, never written to
+        def seed():
+            if checkpoint.latest_step(cfg.ckpt_dir) is None:
+                checkpoint.save_checkpoint(cfg.ckpt_dir,
+                                           {"params": model.state_dict(), "step": 0}, 0)
+
+        checkpoint.on_rank0(comm.group, seed)
+        engine = ServeEngine.from_checkpoint(model, g, cfg.ckpt_dir, **kw)
+    else:
+        engine = ServeEngine.from_distributed_graph(model, g, **kw)
     if engine.rank != 0:
         return engine, None, g
     batcher = MicroBatcher(
@@ -158,14 +183,29 @@ def serve(cfg: Config, comm=None) -> dict:
     mixed-size requests through the batcher (with ``cfg.selftest`` each
     checked against ``full_logits()`` bit for bit, then an over-ladder
     request rejected), stop the followers and return the ``serve_health``
-    record. Ranks 1..W-1 follow and return what they ran."""
+    record. Ranks 1..W-1 follow and return what they ran. ``cfg.selftest``
+    without ``cfg.ckpt_dir`` serves from a temporary directory that global
+    rank 0 makes (its path agreed over the ranks; one host's)."""
+    import tempfile
+
+    from dgraph_tpu_torch.train.checkpoint import on_rank0
+
+    with contextlib.ExitStack() as stack:
+        if cfg.selftest and not cfg.ckpt_dir:
+            tmp = on_rank0(comm.group if comm is not None else None, lambda: stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="dgraph_serve_selftest_")))
+            cfg = dataclasses.replace(cfg, ckpt_dir=os.path.join(tmp, "ckpt"))
+        return _serve(cfg, comm)
+
+
+def _serve(cfg: Config, comm=None) -> dict:
     from dgraph_tpu_torch.serve.errors import RequestTooLarge
 
     engine, batcher, _ = build_serving(cfg, comm=comm)
     if batcher is None:
         dispatches = engine.follow()
         return {"kind": "serve_follower", "rank": engine.rank, "dispatches": dispatches,
-                "forwards": engine.forwards}
+                "forwards": engine.forwards, "restored_step": engine.restored_step}
     failures = []
     try:
         try:
@@ -193,6 +233,9 @@ def serve(cfg: Config, comm=None) -> dict:
                 failures.append("over-ladder request was not rejected")
             except RequestTooLarge:
                 pass
+            # the reference's swap leg (_selftest_swap: adopt a perturbed
+            # step-1 checkpoint, roll back a faulted swap) comes with
+            # swap_params, slice 9d
     finally:
         engine.stop()
     rec = {
@@ -200,6 +243,9 @@ def serve(cfg: Config, comm=None) -> dict:
         "device": str(engine.device),
         "world_size": engine.world_size,
         "halo_impl": engine.halo_impl,
+        "ckpt_dir": engine.ckpt_dir,
+        "restored_step": engine.restored_step,
+        "lineage": engine.lineage,
         "warmup": warm,
         "forwards": engine.forwards,
         "metrics": engine.registry.snapshot(),
@@ -220,7 +266,7 @@ def _serve_rank(group, cfg: dict) -> dict:
 def main(cfg: Config) -> dict:
     """Serve on ``cfg.world_size`` ranks; print and return rank 0's
     ``serve_health`` record (raises SystemExit when a selftest check
-    failed)."""
+    failed). Over ranks the record's ``restored_steps`` lists every rank's."""
     from dgraph_tpu_torch.comm.dist import launch
     from dgraph_tpu_torch.train.__main__ import resolve_world_size
 
@@ -235,11 +281,13 @@ def main(cfg: Config) -> dict:
             default_device()  # raises with no card, before any rank starts
         # by its module's name, not __main__'s: a spawned rank imports it
         rank_fn = importlib.import_module("dgraph_tpu_torch.serve.__main__")._serve_rank
-        rec = launch(rank_fn, W, dataclasses.asdict(cfg), device=device,
-                     group_timeout=cfg.request_timeout_s,
-                     threads=max(1, (os.cpu_count() or 1) // W) if device == "cpu" else 0)[0]
+        recs = launch(rank_fn, W, dataclasses.asdict(cfg), device=device,
+                      group_timeout=cfg.request_timeout_s,
+                      threads=max(1, (os.cpu_count() or 1) // W) if device == "cpu" else 0)
+        rec = recs[0]
         if rec["kind"] != "serve_health":  # a follower under torchrun
             return rec
+        rec["restored_steps"] = [r["restored_step"] for r in recs]
     print(json.dumps(rec, default=str))
     if "error" in rec:
         raise SystemExit("selftest FAILED: " + rec["error"])

@@ -43,9 +43,13 @@ next announcement on the control group, whose timeout is
 reference's serving mesh (``make_graph_mesh(ranks_per_graph=world)``,
 ``dgraph_tpu/serve/__main__.py:88``): a replica layout raises.
 
-PyTorch runs eagerly, so there is no compile to count (the reference's
-recompile counter has no counterpart); one CUDA graph per bucket is later
-work, as are checkpoint restore, ``swap_params`` and ``append_vertices``.
+:meth:`ServeEngine.from_checkpoint` restores the parameters from a
+checkpoint directory (``train.checkpoint``; over W ranks global rank 0
+resolves the step and every rank restores that step) and records it in
+``lineage``, against whose ``ckpt_dir`` a later ``swap_params`` resolves
+bare step numbers. PyTorch runs eagerly, so there is no compile to count
+(the reference's recompile counter has no counterpart); one CUDA graph per
+bucket is later work, as are ``swap_params`` and ``append_vertices``.
 """
 
 from __future__ import annotations
@@ -165,6 +169,11 @@ class ServeEngine:
         self.forwards = 0  # full-graph forwards this rank ran so far
         self.last_stage_ms: dict = {}
         self.warmup_s: Optional[float] = None
+        # the checkpoint the parameters came from (from_checkpoint), and the
+        # record of each adoption
+        self.ckpt_dir: Optional[str] = None
+        self.restored_step: Optional[int] = None
+        self.lineage: list = []
         self._ctrl = None
         if W > 1:  # collective: every rank builds its engine at this point
             self._ctrl = dist.new_group([group.global_peer(r) for r in range(W)],
@@ -180,6 +189,39 @@ class ServeEngine:
         if g.edge_weight is not None:
             batch["edge_weight"] = g.edge_weight
         return cls(model, g.plan, batch, rank, slot, **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, model, g, ckpt_dir: str, *, step: Optional[int] = None,
+                        template=None, **kwargs) -> "ServeEngine":
+        """Restore the parameters from ``ckpt_dir`` (the newest readable
+        step, corrupt steps falling back older; a named ``step`` strictly)
+        into ``model`` and build the engine (:meth:`from_distributed_graph`).
+        The checkpoint may be a bare ``state_dict`` or a train state with a
+        ``'params'`` entry; ``template`` checks it as
+        :func:`~dgraph_tpu_torch.train.checkpoint.restore_checkpoint` does.
+        Over W ranks every rank calls it at the same point: global rank 0
+        resolves the step and every rank restores that one
+        (:func:`~dgraph_tpu_torch.train.checkpoint.restore_agreed`)."""
+        from dgraph_tpu_torch.train.checkpoint import restore_agreed
+
+        state, s = restore_agreed(ckpt_dir, template, model_comm(model).group, step=step)
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
+        params = state["params"] if isinstance(state, dict) and "params" in state else state
+        model.load_state_dict(params)
+        eng = cls.from_distributed_graph(model, g, **kwargs)
+        # the lineage root: swap_params(step=...) resolves bare step numbers
+        # against this directory
+        eng.ckpt_dir, eng.restored_step = ckpt_dir, s
+        saved = state.get("step") if isinstance(state, dict) else None
+        eng.lineage.append({
+            "kind": "serve_rollover",
+            "event": "restore",
+            "ckpt_dir": ckpt_dir,
+            "step": int(step) if step is not None else int(s if saved is None else saved),
+            "adopted": True,
+        })
+        return eng
 
     @property
     def halo_impl(self) -> str:

@@ -38,10 +38,18 @@ cpu``; with no card it raises. On a communicator of R replica groups
 the reference's has none) ``build_graphcast`` trains each replica group on
 its own sample (``train.sampler.ReplicaSampler``), divides the loss by R
 and sums the gradients over all R * W ranks (the DDP mean), as the
-reference's dry run does (``__graft_entry__.py:154-267``). Not ported yet:
-``--ckpt_dir`` (checkpoints, slice 9) and ``--step_deadline_s`` with the
-SIGTERM preemption guard (the elastic pieces, slice 12) raise; the
-reference's start-up and timing records are not written.
+reference's dry run does (``__graft_entry__.py:154-267``).
+
+``--ckpt_dir`` resumes from the newest readable step there
+(:func:`restore_training`: params, AdamW and schedule state, the step and
+the EMA track, chosen as the reference chooses it) and saves the train
+state every ``--save_freq`` steps (:func:`training_state`; global rank 0
+writes, every rank restores the step it took: ``train.checkpoint``). The
+run then goes on from the restored step to ``--steps``, each step on its
+own sample, so a resumed run ends where an uninterrupted one does. Not
+ported yet: ``--step_deadline_s`` with the SIGTERM preemption guard (the
+elastic pieces, slice 12) raises; the reference's start-up and timing
+records are not written.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ class Config:
     decay_steps: int = 10_000
     steps: int = 200
     world_size: int = 0  # ranks; 0 = every visible card (1 with --device cpu)
-    ckpt_dir: str = ""  # checkpoints: slice 9 of the port (raises)
+    ckpt_dir: str = ""  # resume from its newest step, save every save_freq steps
     save_freq: int = 100
     microbenchmark: bool = False
     ema_decay: float = 0.999  # 0 disables the EMA track
@@ -83,9 +91,6 @@ class Config:
 
 def check_ported(cfg: Config) -> None:
     """Raise before any work for an option whose module the port lacks."""
-    if cfg.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt_dir: checkpoints (train/checkpoint.py) come with slice 9 of the port")
     if cfg.step_deadline_s > 0:
         raise NotImplementedError(
             "--step_deadline_s: the step watchdog and the preemption guard "
@@ -128,7 +133,8 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
     ``train_step(x, y)`` returns a ``StepMetrics`` of the global loss (the
     replica mean) and the gradient norm under ``cfg.step_metrics``, and
     leaves the graph group's own loss in ``group_loss``; ``restart()``
-    starts over from the seeded weights."""
+    starts over from the seeded weights; ``step`` is the number of updates
+    made (a restore sets it)."""
     import torch
 
     from dgraph_tpu_torch.comm import SingleComm
@@ -184,6 +190,7 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
         t.optimizer = torch.optim.AdamW(model.parameters(), lr=1.0, weight_decay=0.1)
         t.scheduler = torch.optim.lr_scheduler.LambdaLR(t.optimizer, schedule)
         t.ema = ema_init(dict(model.named_parameters())) if cfg.ema_decay > 0 else None
+        t.step = 0
 
     def sample_index(i: int) -> int:
         """The sample of step ``i`` on this rank's replica group."""
@@ -204,11 +211,95 @@ def build_graphcast(cfg: Config, device=None, comm=None) -> types.SimpleNamespac
             t.scheduler.step()
             if t.ema is not None:
                 t.ema = ema_update(t.ema, dict(model.named_parameters()), cfg.ema_decay)
+        t.step += 1
         return StepMetrics(loss=coll.replica_mean(t.group_loss, group), grad_norm=gn)
 
     restart()
     t.sample_index, t.batch, t.train_step, t.restart = sample_index, batch, train_step, restart
     return t
+
+
+def training_state(t) -> dict:
+    """The train state a checkpoint holds, the reference's plus the
+    schedule: ``params`` (the model's ``state_dict``), ``opt_state``
+    (AdamW's), ``sched`` (the ``LambdaLR``'s: its position), ``step`` and,
+    with an EMA track, ``ema``. Tensors as they are (the save copies them
+    to the CPU)."""
+    state = {"params": t.model.state_dict(), "opt_state": t.optimizer.state_dict(),
+             "sched": t.scheduler.state_dict(), "step": t.step}
+    if t.ema is not None:
+        state["ema"] = t.ema
+    return state
+
+
+def adamw_template(optimizer) -> dict:
+    """The ``state_dict()`` structure a stepped ``torch.optim.AdamW`` has:
+    for each parameter its ``step`` (a scalar tensor) and two moments of its
+    shape, whether or not it has stepped yet (a fresh optimizer's state is
+    empty), so a restore can check a checkpoint against it."""
+    import torch
+
+    sd = optimizer.state_dict()
+    if sd["state"]:
+        return sd
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    moments = ("exp_avg", "exp_avg_sq") + (
+        ("max_exp_avg_sq",) if optimizer.defaults.get("amsgrad") else ())
+    step = torch.zeros((), dtype=torch.get_default_dtype())
+    return {"state": {i: {"step": step, **{m: p for m in moments}}
+                      for i, p in enumerate(params)},
+            "param_groups": sd["param_groups"]}
+
+
+def restore_training(t, ckpt_dir: str) -> Optional[int]:
+    """Resume ``t`` (:func:`build_graphcast`'s training) from the newest
+    readable step of ``ckpt_dir``: the parameters, AdamW's state (its
+    ``step`` a parameter), the schedule's position and the EMA track, on
+    every rank (global rank 0 picks the step). The template follows the
+    reference (``experiments/graphcast_train.py:126-156``): the checkpoint's
+    keys say whether it holds an EMA track; a track under an EMA run is
+    restored, a checkpoint without one under an EMA run restarts it from
+    the restored parameters, and one under ``ema_decay 0`` is dropped. When
+    the keys are unreadable, the two templates are tried in turn. Returns
+    the restored step (``t.step``), or None with no checkpoint."""
+    from dgraph_tpu_torch.train.checkpoint import checkpoint_keys, on_rank0, restore_agreed
+    from dgraph_tpu_torch.train.ema import ema_init
+
+    def restore(with_ema: bool):
+        template = {"params": t.model.state_dict(), "opt_state": adamw_template(t.optimizer),
+                    "sched": t.scheduler.state_dict(), "step": 0}
+        if with_ema:
+            template["ema"] = dict(t.model.named_parameters())
+        return restore_agreed(ckpt_dir, template, group)[0]
+
+    group = t.comm.group
+    ema_run = t.ema is not None
+    keys = on_rank0(group, lambda: checkpoint_keys(ckpt_dir))
+    if keys is not None:
+        has_ema = "ema" in keys
+        state = restore(has_ema)
+    else:
+        # the keys unreadable (or no step): the reference's two-template
+        # probe; an error of the second attempt (corruption) propagates
+        has_ema = ema_run
+        try:
+            state = restore(has_ema)
+        except Exception:  # noqa: BLE001 — corruption propagates from the retry
+            has_ema = not has_ema
+            state = restore(has_ema)
+    if state is None:
+        return None
+    t.model.load_state_dict(state["params"])
+    t.optimizer.load_state_dict(state["opt_state"])
+    t.scheduler.load_state_dict(state["sched"])
+    t.step = int(state["step"])
+    if not ema_run:
+        t.ema = None
+    elif has_ema:
+        t.ema = {k: v.to(t.device) for k, v in state["ema"].items()}
+    else:
+        t.ema = ema_init(dict(t.model.named_parameters()))
+    return t.step
 
 
 def eval_rollout(t, num_steps: int) -> list:
@@ -272,11 +363,15 @@ def microbenchmark(t) -> dict:
 def _train(cfg: Config, on_step: Optional[Callable], comm=None) -> dict:
     """One rank's run. ``on_step(step, training, metrics)`` runs after each
     step (its gradients are still on the parameters); its return values
-    come back in ``"on_step"``. Returns {"records", "step_ms", "losses",
-    "rollout", "microbenchmark", "on_step", "graph_build_s", "training"}."""
+    come back in ``"on_step"``. With ``cfg.ckpt_dir`` it first resumes from
+    there (:func:`restore_training`) and saves every ``cfg.save_freq``
+    steps. Returns {"records", "step_ms", "losses", "rollout",
+    "microbenchmark", "on_step", "graph_build_s", "training",
+    "resumed_at_step"} (None when nothing was restored)."""
     import torch
 
     from dgraph_tpu_torch.train.__main__ import _Log
+    from dgraph_tpu_torch.train.checkpoint import save_agreed
 
     t = build_graphcast(cfg, comm=comm)
     log = _Log(cfg.log_path) if t.global_rank == 0 else None
@@ -290,13 +385,17 @@ def _train(cfg: Config, on_step: Optional[Callable], comm=None) -> dict:
             torch.cuda.synchronize(t.device)
 
     out = {"records": [], "step_ms": [], "losses": [], "rollout": [], "microbenchmark": None,
-           "on_step": [], "graph_build_s": t.graph_build_s, "training": t}
+           "on_step": [], "graph_build_s": t.graph_build_s, "training": t,
+           "resumed_at_step": None}
     if cfg.microbenchmark:
         out["microbenchmark"] = micro = microbenchmark(t)
         for name in ("comm_gather", "local_gather"):  # a record each, as the reference's
             write({k: v for k, v in micro.items() if k.startswith(name)})
         return out
-    for step_idx in range(cfg.steps):
+    if cfg.ckpt_dir and restore_training(t, cfg.ckpt_dir) is not None:
+        out["resumed_at_step"] = t.step
+        write({"resumed_at_step": t.step})
+    for step_idx in range(t.step, cfg.steps):
         x, y = t.batch(step_idx)
         sync()
         t0 = time.perf_counter()
@@ -310,6 +409,8 @@ def _train(cfg: Config, on_step: Optional[Callable], comm=None) -> dict:
             rec = sm.record(step=done, step_ms=round(dt, 2), lr=float(t.schedule(done)))
             write(rec)
             out["records"].append(rec)
+        if cfg.ckpt_dir and done % cfg.save_freq == 0:
+            save_agreed(cfg.ckpt_dir, training_state(t), done, t.comm.group)
         if on_step is not None:
             out["on_step"].append(on_step(step_idx, t, sm))
     if cfg.eval_rollout > 0:

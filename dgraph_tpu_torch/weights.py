@@ -14,10 +14,16 @@ so a flax path maps to a state_dict key by joining with dots. The leaves:
   ``att_dst``) <-> the ``nn.Parameter`` of that name, as it is.
 
 Any other leaf raises ``KeyError``, both ways.
+
+:func:`adamw_state_from_optax` carries the reference's ``optax.adamw``
+state (a checkpoint's ``opt_state``, as numpy leaves) into the
+``state_dict()``s of a ``torch.optim.AdamW`` and its ``LambdaLR``, so the
+port can resume from a reference checkpoint.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Mapping, Optional
 
@@ -54,6 +60,49 @@ def params_from_jax(tree: Mapping) -> dict:
             out[".".join(prefix + (key,))] = torch.tensor(arr.T if transposed else arr)
 
     walk(tree, ())
+    return out
+
+
+def adamw_state_from_optax(opt_state, model: nn.Module, optimizer: torch.optim.Optimizer,
+                           scheduler=None) -> dict:
+    """The reference's ``optax.adamw(schedule)`` state -> ``{"opt_state":
+    ..., "sched": ...}``, the ``state_dict()``s that ``optimizer`` (an
+    ``AdamW`` over ``model``'s parameters) and ``scheduler`` (its
+    ``LambdaLR``, or None) load. ``opt_state`` is the optax chain's state as
+    a checkpoint hands it back: a sequence of ``ScaleByAdamState`` (or the
+    dict ``{'count', 'mu', 'nu'}`` of a raw restore), the weight decay's
+    empty state and ``ScaleByScheduleState`` (``{'count'}``), leaves
+    numpy-convertible. ``mu`` and ``nu`` become each parameter's
+    ``exp_avg`` and ``exp_avg_sq`` (through :func:`params_from_jax`, in
+    the optimizer's parameter order), the Adam ``count`` its ``step``, and
+    the schedule's ``count`` the scheduler's ``last_epoch`` (each group's
+    ``lr`` the schedule's value there, as ``LambdaLR`` sets it)."""
+    adam, sched_count = None, None
+    for part in opt_state:
+        d = part._asdict() if hasattr(part, "_asdict") else part
+        if isinstance(d, Mapping) and "mu" in d:
+            adam = d
+        elif isinstance(d, Mapping) and "count" in d:
+            sched_count = int(np.asarray(d["count"]))
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    count = int(np.asarray(adam["count"]))
+    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    step = torch.tensor(float(count), dtype=torch.get_default_dtype())
+    sd = optimizer.state_dict()
+    state = {i: {"step": step.clone(), "exp_avg": mu[names[id(p)]],
+                 "exp_avg_sq": nu[names[id(p)]]} for i, p in enumerate(params)}
+    groups = copy.deepcopy(sd["param_groups"])
+    out = {"opt_state": {"state": state, "param_groups": groups}, "sched": None}
+    if scheduler is not None:
+        epoch = count if sched_count is None else sched_count
+        lrs = [base * lam(epoch) for base, lam in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+        for g, lr in zip(groups, lrs):
+            g["lr"] = lr
+        out["sched"] = dict(scheduler.state_dict(), last_epoch=epoch, _step_count=epoch + 1,
+                            _last_lr=lrs)
     return out
 
 

@@ -87,11 +87,38 @@ def test_host_selftest_and_clean_audit():
     assert host.host_selftest_failures() == []
     rep = host.run_host_audit()
     assert rep["ok"], rep["failures"]
-    assert rep["files_checked"] == len(host.HOST_SCOPE) and rep["chaos_points"] == 0
+    assert rep["files_checked"] == len(host.DURABLE_SCOPE) and rep["chaos_points"] == 0
     assert set(rep["classes"]) == {
         "dgraph_tpu_torch/obs/metrics.py::Metrics",
         "dgraph_tpu_torch/serve/batcher.py::MicroBatcher",
         "dgraph_tpu_torch/serve/engine.py::ServeEngine"}
+
+
+@pytest.mark.parametrize("mutant", [
+    # torch.save straight into the step directory: no tmp dir, no fsync
+    ("_write_synced(os.path.join(tmp, STATE_FILE), lambda f: torch.save(cpu, f))",
+     "torch.save(cpu, os.path.join(final, STATE_FILE))"),
+    # a bare open of the key file inside the step_path(...) directory
+    ("_write_synced(os.path.join(tmp, KEYS_FILE), lambda f: f.write(json.dumps(keys).encode()))",
+     "open(os.path.join(step_path(ckpt_dir, step), KEYS_FILE), 'wb').write(b'[]')"),
+    # a bare open into the tmp dir: the fsync is gone
+    ("_write_synced(os.path.join(tmp, STATE_FILE), lambda f: torch.save(cpu, f))",
+     "torch.save(cpu, open(os.path.join(tmp, STATE_FILE), 'wb'))"),
+], ids=["torch_save_into_step", "open_into_step_path", "open_into_tmp"])
+def test_durable_scope_covers_the_checkpoint_writer(mutant):
+    """The checkpoint writer is under the durable-write rules and clean; the
+    module's own writes, with their tmp dir or fsync taken away, are RED."""
+    path = "dgraph_tpu_torch/train/checkpoint.py"
+    assert path in host.DURABLE_SCOPE and path not in host.HOST_SCOPE
+    rule = lint.RULES["host-durable-write"]
+    assert rule.applies(path) and not rule.applies("dgraph_tpu_torch/train/loop.py")
+    src = open(f"{lint.repo_root()}/{path}").read()
+    assert rule.check(path, ast.parse(src), src.splitlines()) == []
+    old, new = mutant
+    assert src.count(old) == 1, "the writer changed shape: update the mutant"
+    bad = src.replace(old, new)
+    got = rule.check(path, ast.parse(bad), bad.splitlines())
+    assert got and {f.rule for f in got} == {"host-durable-write"}, got
 
 
 def test_host_rules_registered_once_in_one_registry():

@@ -21,10 +21,20 @@
   of each kernel's plain version.
 - The CLI on the CPU: the reference's record keys, two ranks equal to one,
   the options of later slices and the device rule raise.
+- ``--ckpt_dir``: a run of 2 steps saving every step, resumed to 4, ends
+  with params, AdamW and schedule state and EMA bit-equal to an
+  uninterrupted 4-step run, at W = 1, W = 2 and R = 2 x W = 1; the EMA
+  track is kept, restarted or dropped as the reference's CLI does on the
+  same checkpoints (both CLIs run); a reference checkpoint after 2
+  ``optax.adamw`` steps (carried by ``params_from_jax`` and
+  ``adamw_state_from_optax``) resumes the port, whose next 2 steps match
+  the reference's within 1e-5.
 """
 
 import contextlib
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 
@@ -47,6 +57,7 @@ from dgraph_tpu.models.graphcast import graph as jax_graph
 from dgraph_tpu.models.graphcast import mesh as jax_mesh
 from dgraph_tpu.models.graphcast import rollout as jax_rollout
 from dgraph_tpu.plan import unshard_vertex_data
+from dgraph_tpu.train import checkpoint as ref_ckpt
 from dgraph_tpu.train.ema import ema_update as jax_ema_update
 from dgraph_tpu.train.schedules import graphcast_three_phase as jax_schedule
 from dgraph_tpu_torch import config
@@ -60,10 +71,11 @@ from dgraph_tpu_torch.models.graphcast import graph as gc_graph
 from dgraph_tpu_torch.models.graphcast import mesh as gc_mesh
 from dgraph_tpu_torch.models.graphcast.graph import RELATIONS, STATIC_KEYS, rank_inputs
 from dgraph_tpu_torch.ops import segment as seg
+from dgraph_tpu_torch.train import checkpoint as port_ckpt
 from dgraph_tpu_torch.train import graphcast as cli
 from dgraph_tpu_torch.train.ema import ema_init, ema_update
 from dgraph_tpu_torch.train.schedules import graphcast_three_phase
-from dgraph_tpu_torch.weights import params_from_jax, params_to_jax
+from dgraph_tpu_torch.weights import adamw_state_from_optax, params_from_jax, params_to_jax
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
 import torch_dist_ranks  # noqa: E402
@@ -503,8 +515,6 @@ def test_cli_two_ranks_match_one_rank():
 
 
 def test_cli_refuses_later_slices_and_the_cpu_unless_asked():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        cli.main(cli.Config(**TINY, ckpt_dir="ckpt"))
     with pytest.raises(NotImplementedError, match="slice 12"):
         cli.main(cli.Config(**TINY, step_deadline_s=30.0))
     if torch.cuda.is_available():
@@ -513,6 +523,213 @@ def test_cli_refuses_later_slices_and_the_cpu_unless_asked():
         cli.build_graphcast(cli.Config(**dict(TINY, device="")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(cli.Config(**dict(TINY, device="", world_size=2)))
+
+
+# --- checkpoints ---------------------------------------------------------------
+
+
+def assert_states_bit_equal(a, b, where=""):
+    """Two restored train states (nested dicts, lists, tensors, scalars)
+    equal bit for bit."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), (where, set(a) ^ set(b))
+        for k in a:
+            assert_states_bit_equal(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_states_bit_equal(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), where
+    else:
+        assert a == b, (where, a, b)
+
+
+def _run(layout: str, cfg):
+    """One CLI run under ``layout``: W = 1 or 2 through ``main``, or R = 2
+    replica groups of one rank through ``launch`` (the CLI has no replica
+    flag, as the reference's has none)."""
+    if layout != "R2xW1":
+        return cli.main(cfg)
+    return launch(cli._train_rank, 1, dataclasses.asdict(cfg), None, num_replicas=2,
+                  device="cpu", timeout=TIMEOUT, threads=1)[0]
+
+
+@pytest.mark.parametrize("layout", ["W1", "W2", "R2xW1"])
+def test_resumed_run_is_bit_equal_to_an_uninterrupted_one(tmp_path, layout):
+    base = dict(TINY, world_size=2 if layout == "W2" else 1)
+    whole, cut = str(tmp_path / "whole"), str(tmp_path / "cut")
+    full = _run(layout, cli.Config(**base, steps=4, save_freq=4, ckpt_dir=whole))
+    first = _run(layout, cli.Config(**base, steps=2, save_freq=1, ckpt_dir=cut))
+    resumed = _run(layout, cli.Config(**base, steps=4, save_freq=1, ckpt_dir=cut))
+    assert full["resumed_at_step"] is None and first["resumed_at_step"] is None
+    assert resumed["resumed_at_step"] == 2
+    assert port_ckpt.all_steps(whole) == [4] and port_ckpt.all_steps(cut) == [1, 2, 3, 4]
+    # the same updates on the same samples: the resumed steps' losses are the
+    # uninterrupted run's last two, and the record cadence holds (step 4)
+    assert resumed["losses"] == full["losses"][2:] and first["losses"] == full["losses"][:2]
+    assert [r["step"] for r in resumed["records"]] == [4]
+    want, got = port_ckpt.restore_checkpoint(whole), port_ckpt.restore_checkpoint(cut)
+    assert set(want) == {"params", "opt_state", "sched", "step", "ema"} and want["step"] == 4
+    assert want["opt_state"]["state"][0]["step"].item() == 4.0
+    assert want["sched"]["last_epoch"] == 4
+    assert_states_bit_equal(got, want)
+
+
+def _ref_cli(ckpt_dir, log, **kw):
+    """The reference's GraphCast CLI (``experiments/graphcast_train.py``) at
+    TINY's shapes, in this process over every virtual device (its mesh takes
+    them all, as ``tests/test_experiments.py`` runs it)."""
+    from experiments import graphcast_train as ref_cli
+
+    tiny = {k: v for k, v in TINY.items() if k not in ("device", "log_path")}
+    ref_cli.main(ref_cli.Config(**tiny, world_size=0, ckpt_dir=str(ckpt_dir), log_path=str(log),
+                                **kw))
+
+
+@pytest.fixture(scope="module")
+def ema_bases(tmp_path_factory):
+    """Two steps saved with and without an EMA track, by each CLI."""
+    root = tmp_path_factory.mktemp("ema_bases")
+    for ema in (0.999, 0.0):
+        _ref_cli(root / f"ref_{ema}", root / "ref.jsonl", steps=2, save_freq=2, ema_decay=ema)
+        cli.main(cli.Config(**TINY, steps=2, save_freq=2, ema_decay=ema,
+                            ckpt_dir=str(root / f"port_{ema}")))
+    return root
+
+
+def _ema_rule(ema3, p2, e2, p3, decay, case: str, where: str):
+    """The track after the resumed step 3: kept (decay * e2 + (1 - decay) *
+    p3), restarted from the restored params (decay * p2 + ...), or gone;
+    and, where the checkpoint had a track, not the other choice."""
+    if case == "ema_dropped":
+        assert ema3 is None, where
+        return
+    start, other = (e2, p2) if case == "ema_kept" else (p2, e2)
+    np.testing.assert_allclose(ema3, decay * start + (1 - decay) * p3, rtol=0, atol=2e-7,
+                               err_msg=where)
+    if other is not None:
+        assert np.abs(ema3 - (decay * other + (1 - decay) * p3)).max() > 1e-5, where
+
+
+# case -> (the base checkpoint's EMA decay, the resumed run's)
+EMA_CASES = {"ema_kept": (0.999, 0.999), "ema_restarted": (0.0, 0.999),
+             "ema_dropped": (0.999, 0.0)}
+
+
+@pytest.mark.parametrize("case", list(EMA_CASES))
+def test_ema_track_on_resume_follows_the_reference(tmp_path, ema_bases, case):
+    """Each CLI resumes its own 2-step checkpoint for one step: the
+    checkpoint it saves at step 3 has the same keys (the port's beside
+    ``sched``) and its EMA track follows the same rule, in each package."""
+    base, decay = EMA_CASES[case]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    shutil.copytree(ema_bases / f"ref_{base}", ref_dir)
+    shutil.copytree(ema_bases / f"port_{base}", port_dir)
+    _ref_cli(ref_dir, tmp_path / "ref.jsonl", steps=3, save_freq=1, ema_decay=decay)
+    assert {"resumed_at_step": 2} in [json.loads(x) for x in (tmp_path / "ref.jsonl")
+                                      .read_text().splitlines() if x.startswith("{")]
+    got = cli.main(cli.Config(**TINY, steps=3, save_freq=1, ema_decay=decay,
+                              ckpt_dir=str(port_dir)))
+    assert got["resumed_at_step"] == 2
+    ref_keys, port_keys = ref_ckpt.checkpoint_keys(str(ref_dir), 3), port_ckpt.checkpoint_keys(
+        str(port_dir), 3)
+    assert port_keys - {"sched"} == ref_keys and ("ema" in ref_keys) == (case != "ema_dropped")
+    r2, r3 = (jax.tree.map(np.asarray, ref_ckpt.restore_checkpoint(str(ref_dir), step=s))
+              for s in (2, 3))
+    q2, q3 = (port_ckpt.restore_checkpoint(str(port_dir), step=s) for s in (2, 3))
+    for k in params_from_jax(r3["params"]):
+        ref_e2 = params_from_jax(r2["ema"])[k].numpy() if "ema" in r2 else None
+        _ema_rule(params_from_jax(r3["ema"])[k].numpy() if "ema" in r3 else None,
+                  params_from_jax(r2["params"])[k].numpy(), ref_e2,
+                  params_from_jax(r3["params"])[k].numpy(), decay, case, f"reference {k}")
+        _ema_rule(q3["ema"][k].numpy() if "ema" in q3 else None, q2["params"][k].numpy(),
+                  q2["ema"][k].numpy() if "ema" in q2 else None, q3["params"][k].numpy(), decay,
+                  case, f"port {k}")
+
+
+@pytest.mark.parametrize("base", [0.999, 0.0])
+def test_unreadable_keys_probe_both_templates(tmp_path, ema_bases, base):
+    """With its key file torn, a checkpoint is probed with both templates
+    (the reference's two-template fallback): under an EMA run the outcome
+    is the one its keys would have chosen, bit for bit."""
+    for name in ("keys", "torn"):
+        shutil.copytree(ema_bases / f"port_{base}", tmp_path / name)
+    with open(tmp_path / "torn" / "step_00000002" / port_ckpt.KEYS_FILE, "r+b") as f:
+        f.truncate(3)
+    assert port_ckpt.checkpoint_keys(str(tmp_path / "torn")) is None
+    for name in ("keys", "torn"):
+        res = cli.main(cli.Config(**TINY, steps=3, save_freq=1, ckpt_dir=str(tmp_path / name)))
+        assert res["resumed_at_step"] == 2
+    assert_states_bit_equal(port_ckpt.restore_checkpoint(str(tmp_path / "torn"), step=3),
+                            port_ckpt.restore_checkpoint(str(tmp_path / "keys"), step=3))
+
+
+def test_resume_from_a_reference_checkpoint_matches_optax(tmp_path):
+    """The reference runs 2 ``optax.adamw`` steps (with its EMA) and saves
+    them with its ``save_checkpoint``; its raw restore, carried across by
+    ``params_from_jax`` and ``adamw_state_from_optax`` and saved by the
+    port, resumes the port's CLI training (``restore_training``), whose next
+    2 steps match the reference's next 2 within 1e-5: losses, lr, params,
+    EMA and Adam moments."""
+    cfg = cli.Config(**TINY, steps=4)
+    t = cli.build_graphcast(cfg)
+    ref_g = jax_build_graphs(1, 10, 18, 1)
+    ds = JaxWeather(ref_g, 10, 18, 4)
+    jmodel = JaxGraphCast(comm=JAX_COMM, latent=16, processor_layers=2, out_channels=4)
+    params = jax.tree.map(jnp.asarray, params_to_jax(t.model.state_dict(), t.model))
+    ema = params
+    opt = optax.adamw(jax_schedule(cfg.peak_lr, cfg.warmup_steps, cfg.decay_steps),
+                      weight_decay=0.1)
+    opt_state = opt.init(params)
+    vg = jax_value_and_grad(jmodel, jnp.asarray(ref_g.grid_mask[0]), jax_statics(ref_g),
+                            jax_plans(ref_g))
+
+    @jax.jit
+    def update(grads, opt_state, params, ema):
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        return params, opt_state, jax_ema_update(ema, params, cfg.ema_decay)
+
+    def ref_step(i, params, opt_state, ema):
+        x, y = ds.get_sharded(i)
+        loss, grads = vg(params, jnp.asarray(x[0]), jnp.asarray(y[0]))
+        return (float(loss),) + update(grads, opt_state, params, ema)
+
+    for i in range(2):
+        _, params, opt_state, ema = ref_step(i, params, opt_state, ema)
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), {"params": params, "opt_state": opt_state,
+                                                     "step": 2, "ema": ema}, 2)
+    raw = ref_ckpt.restore_checkpoint(str(tmp_path / "ref"))
+    carried = adamw_state_from_optax(raw["opt_state"], t.model, t.optimizer, t.scheduler)
+    port_ckpt.save_checkpoint(str(tmp_path / "port"), {
+        "params": params_from_jax(raw["params"]), "opt_state": carried["opt_state"],
+        "sched": carried["sched"], "step": int(raw["step"]),
+        "ema": params_from_jax(raw["ema"])}, 2)
+    t.restart()
+    assert cli.restore_training(t, str(tmp_path / "port")) == 2 and t.step == 2
+    assert t.optimizer.param_groups[0]["lr"] == t.schedule(2)
+    for i in range(2, 4):
+        want_loss, params, opt_state, ema = ref_step(i, params, opt_state, ema)
+        got = t.train_step(*t.batch(i))
+        np.testing.assert_allclose(float(got.loss), want_loss, rtol=1e-5, atol=1e-5)
+        assert t.optimizer.param_groups[0]["lr"] == t.schedule(i + 1)
+    names = [n for n, _ in t.model.named_parameters()]
+    mu, nu = (params_from_jax(jax.tree.map(np.asarray, getattr(opt_state[0], m)))
+              for m in ("mu", "nu"))
+    sd = t.optimizer.state_dict()["state"]
+    assert int(opt_state[0].count) == 4 and all(sd[i]["step"].item() == 4 for i in sd)
+    for tree, want in (("params", params), ("ema", ema)):
+        got_tree = dict(t.model.named_parameters()) if tree == "params" else t.ema
+        for k, w in params_from_jax(jax.tree.map(np.asarray, want)).items():
+            np.testing.assert_allclose(got_tree[k].detach().numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{tree} {k}")
+    for i, k in enumerate(names):
+        np.testing.assert_allclose(sd[i]["exp_avg"].numpy(), mu[k].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"exp_avg {k}")
+        np.testing.assert_allclose(sd[i]["exp_avg_sq"].numpy(), nu[k].numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=f"exp_avg_sq {k}")
 
 
 # --- four ranks --------------------------------------------------------------

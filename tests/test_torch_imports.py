@@ -66,7 +66,7 @@ def test_scan_sees_the_whole_package():
                  "dgraph_tpu_torch/dryrun.py", "tests/torch_replica_ranks.py",
                  "tests/torch_multihost_worker.py", "tests/torch_dist_ranks.py",
                  "tests/torch_serve_ranks.py", "dgraph_tpu_torch/serve/__main__.py",
-                 "chip_smoke.py"):
+                 "dgraph_tpu_torch/train/checkpoint.py", "chip_smoke.py"):
         assert must in names
     assert not _forbidden("dgraph_tpu_torch.plan") and _forbidden("dgraph_tpu.plan")
 

@@ -7,6 +7,11 @@ package keeps). The oracle is the flax model's forward (``model.apply``
 with ``SingleComm``) indexed by the same (rank, slot) map. Served rows must
 equal the port's own ``full_logits()`` bit for bit, and the JAX forward
 within 1e-4.
+
+From a checkpoint: the reference's ``ServeEngine.from_checkpoint`` on its
+own save of the flax params is the oracle (within 1e-4) of the port served
+through ``--ckpt_dir`` on the same params, saved by the port; and a torn
+newer step is quarantined while the older one serves the same bits.
 """
 
 import threading
@@ -32,6 +37,7 @@ from dgraph_tpu_torch.serve.errors import (
     RequestTooLarge,
 )
 from dgraph_tpu_torch.weights import params_from_jax
+from test_torch_checkpoint import truncate_step
 
 TOL = 1e-4
 
@@ -237,3 +243,85 @@ def test_engine_multi_rank_message_names_the_port_slice():
     with pytest.raises(ValueError, match="DistComm") as info:
         ServeEngine.from_distributed_graph(GCN(16, 8, 4, SingleComm()), g, device="cpu")
     assert "comm.dist.launch" in str(info.value) and "slice 9" not in str(info.value)
+
+
+# --- serving from a checkpoint ------------------------------------------------
+
+
+def test_serves_from_a_checkpoint_as_the_reference_does(tmp_path):
+    """The reference saves its flax params (its own ``save_checkpoint``) and
+    serves them through its ``ServeEngine.from_checkpoint``; the port gets
+    the same params (restored raw, ``params_from_jax``) saved by its own
+    ``save_checkpoint`` and serves them through ``--ckpt_dir``: full logits
+    within TOL of the reference's, served rows bit-equal to its own."""
+    from dgraph_tpu.comm.mesh import make_graph_mesh
+    from dgraph_tpu.serve.engine import ServeEngine as JaxServeEngine
+    from dgraph_tpu.train import checkpoint as ref_ckpt
+    from dgraph_tpu_torch.train import checkpoint as port_ckpt
+
+    cfg = Config(model="gcn", num_nodes=400, max_bucket=64)
+    data = jax_synthetic.sbm_classification_graph(
+        num_nodes=cfg.num_nodes, num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
+        avg_degree=cfg.avg_degree, seed=cfg.seed)
+    ref = JaxGraph.from_global(data["edge_index"], data["features"], data["labels"],
+                               data["masks"], 1, partition_method=cfg.partition,
+                               add_symmetric_norm=True, tune="off")
+    jmodel = JaxGCN(cfg.hidden, cfg.num_classes, comm=Communicator.init_process_group("single"))
+    plan0 = jax.tree.map(lambda a: jnp.asarray(a[0]), ref.plan)
+    params = jmodel.init(jax.random.key(5), jnp.asarray(ref.features[0]), plan0,
+                         jnp.asarray(ref.edge_weight[0]))
+    ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    ref_ckpt.save_checkpoint(ref_dir, {"params": params, "step": 3}, 3)
+    jeng = JaxServeEngine.from_checkpoint(
+        jmodel, make_graph_mesh(ranks_per_graph=1, devices=jax.devices()[:1]), ref, ref_dir)
+    want = jeng.full_logits()
+    want_rank, want_slot = jeng.rank_slot(np.arange(cfg.num_nodes))
+    raw = ref_ckpt.restore_checkpoint(ref_dir)
+    port_ckpt.save_checkpoint(port_dir, {"params": params_from_jax(raw["params"]),
+                                         "step": int(raw["step"])}, 3)
+    engine, batcher, _ = build_serving(Config(**dict(vars(cfg), ckpt_dir=port_dir)),
+                                       device="cpu")
+    try:
+        assert engine.restored_step == 3 and engine.ckpt_dir == port_dir
+        # the reference's restore record, naming the port's directory
+        assert engine.lineage == [dict(jeng.lineage[-1], ckpt_dir=port_dir)]
+        assert engine.lineage[0]["step"] == 3
+        full = engine.full_logits()
+        r, s = engine.rank_slot(np.arange(cfg.num_nodes))
+        np.testing.assert_array_equal(r, want_rank)
+        np.testing.assert_allclose(full[r, s], want[want_rank, want_slot], rtol=TOL, atol=TOL)
+        for ids in _mixed_requests(engine, 6, seed=3):
+            r, s = engine.rank_slot(ids)
+            np.testing.assert_array_equal(batcher.infer(ids), full[r, s])
+    finally:
+        batcher.stop()
+    assert port_ckpt.all_steps(port_dir) == [3]  # a dir with steps is never written
+
+
+def test_checkpoint_fallback_serves_the_older_step(tmp_path):
+    """``--ckpt_dir`` on an empty dir seeds step 0; a step 1 of scaled
+    params, truncated, is then skipped by a fresh ``from_checkpoint``: it
+    restores step 0, quarantines step 1 and serves the in-memory engine's
+    full logits bit for bit."""
+    from dgraph_tpu_torch.serve.engine import ServeEngine
+    from dgraph_tpu_torch.train import checkpoint as port_ckpt
+
+    ckpt = str(tmp_path / "ckpt")
+    cfg = Config(model="sage", num_nodes=300, max_bucket=32, ckpt_dir=ckpt)
+    engine, batcher, g = build_serving(cfg, device="cpu")
+    batcher.stop()
+    assert port_ckpt.all_steps(ckpt) == [0] and engine.restored_step == 0
+    want = engine.full_logits()
+    state = port_ckpt.restore_checkpoint(ckpt)
+    port_ckpt.save_checkpoint(ckpt, {"params": {k: v * 1.0625 for k, v in
+                                                state["params"].items()}, "step": 1}, 1)
+    assert truncate_step(ckpt, 1) > 0
+    again = ServeEngine.from_checkpoint(engine.model, g, ckpt, device="cpu")
+    assert again.restored_step == 0 and again.lineage[0]["step"] == 0
+    assert port_ckpt.quarantined_steps(ckpt) == [1] and port_ckpt.all_steps(ckpt) == [0]
+    got = again.full_logits()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    with pytest.raises(FileNotFoundError):
+        ServeEngine.from_checkpoint(engine.model, g, ckpt, step=1, device="cpu")
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        ServeEngine.from_checkpoint(engine.model, g, str(tmp_path / "none"), device="cpu")

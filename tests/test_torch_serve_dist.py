@@ -31,6 +31,10 @@ W on ``jax.devices()[:W]``, indexed by the reference's ``rank_slot``.
 - ``python -m dgraph_tpu_torch.serve --device cpu --world_size 2
   --selftest`` exits 0 with ``world_size`` 2 in its record; without
   ``--device cpu`` and with no card it raises.
+- From a checkpoint at W = 2: both ranks restore the step global rank 0
+  took and hold bit-equal parameters, within 1e-5 of the reference's
+  restore served on its 2-device mesh; the CLI seeds an empty
+  ``--ckpt_dir`` once and a second run writes nothing.
 """
 
 import json
@@ -54,8 +58,10 @@ from dgraph_tpu.data import synthetic as jax_synthetic
 from dgraph_tpu.models import GCN as JaxGCN
 from dgraph_tpu.models import GraphSAGE as JaxSAGE
 from dgraph_tpu.serve.engine import ServeEngine as JaxServeEngine
+from dgraph_tpu.train import checkpoint as ref_ckpt
 from dgraph_tpu_torch.comm.dist import launch
 from dgraph_tpu_torch.serve.__main__ import Config
+from dgraph_tpu_torch.train import checkpoint as port_ckpt
 from dgraph_tpu_torch.weights import params_from_jax
 
 TOL = 1e-5
@@ -63,9 +69,12 @@ TIMEOUT = 300
 LOST_BOUND_S = 20.0  # the lost-rank launch's group timeout
 
 
-def _jax_side(model: str, W: int):
+def _jax_side(model: str, W: int, ckpt_dir: str = ""):
     """(flax params, the reference's full_logits [W, n_pad, C], its
-    rank_slot of every vertex) at W ranks on the CLI's default graph."""
+    rank_slot of every vertex) at W ranks on the CLI's default graph; with
+    ``ckpt_dir`` the params are saved there at step 0 (the reference's
+    ``save_checkpoint``) and the engine is built from what its
+    ``restore_checkpoint`` hands back."""
     cfg = Config(model=model)
     data = jax_synthetic.sbm_classification_graph(
         num_nodes=cfg.num_nodes, num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
@@ -83,6 +92,13 @@ def _jax_side(model: str, W: int):
     mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
     jmodel = cls(cfg.hidden, cfg.num_classes,
                  comm=Communicator.init_process_group("tpu", world_size=W))
+    if ckpt_dir:
+        # from_checkpoint's body (engine.py:171-201): restore_checkpoint, then
+        # from_distributed_graph. Called as one, it raises at W > 1 on the
+        # installed JAX: orbax commits every restored array to device 0,
+        # which the W-device jit refuses; the leaves go in as numpy instead
+        ref_ckpt.save_checkpoint(ckpt_dir, {"params": params, "step": 0}, 0)
+        params = jax.tree.map(np.asarray, ref_ckpt.restore_checkpoint(ckpt_dir)["params"])
     engine = JaxServeEngine.from_distributed_graph(jmodel, mesh, ref, params)
     full = engine.full_logits()
     return params, full, engine.rank_slot(np.arange(cfg.num_nodes))
@@ -220,3 +236,67 @@ def test_cli_over_ranks_without_a_card_raises():
         pytest.skip("a card is present: the default device is cuda here")
     p = _cli("--world_size", "2")
     assert p.returncode != 0 and "no CUDA device is available" in p.stderr
+
+
+# --- serving from a checkpoint ------------------------------------------------
+
+
+def test_two_ranks_serve_from_a_checkpoint_as_the_reference_does(tmp_path):
+    """The reference saves its flax params at step 0 and serves what it
+    restores on a 2-device mesh (``_jax_side``); the port's ranks serve the
+    same params (restored raw, ``params_from_jax``, saved by the port) through
+    ``--ckpt_dir``: every rank restores step 0 and holds bit-equal
+    parameters, the full logits are within TOL of the reference's, the
+    served rows are the gathered ``full_logits()``'s bits."""
+    W, dirs, ref = 2, {}, {}
+    for model in torch_serve_ranks.MODELS:
+        ref[model] = _jax_side(model, W, str(tmp_path / f"ref_{model}"))
+        raw = ref_ckpt.restore_checkpoint(str(tmp_path / f"ref_{model}"))
+        dirs[model] = str(tmp_path / f"port_{model}")
+        port_ckpt.save_checkpoint(dirs[model], {"params": params_from_jax(raw["params"]),
+                                                "step": int(raw["step"])}, 0)
+    res = launch(torch_serve_ranks.ckpt_cases, W, dirs, device="cpu", timeout=TIMEOUT,
+                 threads=1)
+    for model in torch_serve_ranks.MODELS:
+        _, ref_full, (ref_rank, ref_slot) = ref[model]
+        got = res[0][model]
+        assert [r[model]["restored_step"] for r in res] == [0] * W
+        assert got["lineage"] == [{"kind": "serve_rollover", "event": "restore",
+                                   "ckpt_dir": dirs[model], "step": 0, "adopted": True}]
+        for r in res[1:]:
+            assert set(r[model]["params"]) == set(got["params"])
+            for k, v in got["params"].items():
+                _assert_bits_equal(r[model]["params"][k], v, k)
+        rank, slot = got["rank_slot"]
+        np.testing.assert_array_equal(rank, ref_rank)
+        np.testing.assert_allclose(got["full"][rank, slot], ref_full[ref_rank, ref_slot],
+                                   rtol=TOL, atol=TOL)
+        for ids, out in got["served"]:
+            _assert_bits_equal(out, got["full"][rank[ids], slot[ids]], f"{model} {len(ids)}")
+        assert port_ckpt.all_steps(dirs[model]) == [0]
+
+
+def _tree_state(root) -> dict:
+    return {str(p.relative_to(root)): p.stat().st_mtime_ns for p in sorted(root.rglob("*"))}
+
+
+def test_cli_seeds_an_empty_ckpt_dir_once_at_two_ranks(tmp_path):
+    """``--ckpt_dir`` on an empty dir: step 0 seeded, both ranks restore it
+    and serve full_logits()'s bits; a second run on the same dir restores
+    the same step and writes nothing."""
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    recs = []
+    for run in range(2):
+        p = _cli("--device", "cpu", "--world_size", "2", "--selftest", "--requests", "6",
+                 "--ckpt_dir", str(ckpt))
+        assert p.returncode == 0, p.stderr[-3000:]
+        recs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        if run == 0:
+            seeded = _tree_state(ckpt)
+            assert port_ckpt.all_steps(str(ckpt)) == [0]
+    assert _tree_state(ckpt) == seeded
+    for rec in recs:
+        assert "error" not in rec and rec["world_size"] == 2
+        assert rec["restored_step"] == 0 and rec["restored_steps"] == [0, 0]
+        assert rec["ckpt_dir"] == str(ckpt) and rec["lineage"][0]["step"] == 0

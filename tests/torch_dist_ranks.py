@@ -451,3 +451,18 @@ def graphcast_step0(group, case: dict) -> dict:
         config.halo_impl, config.use_pallas_p2p = "auto", None
         p2p.p2p_transport = transport
     return out
+
+
+def restore_agreed_rank(group, ckpt: str) -> dict:
+    """``train.checkpoint.restore_agreed`` on this rank (no template), then
+    ``save_agreed`` of step 9 and whether this rank sees it after."""
+    from dgraph_tpu_torch.train import checkpoint
+
+    state, step = checkpoint.restore_agreed(ckpt, None, group)
+    out = {"step": step, "params": None, "saved_seen": None}
+    if state is None:
+        return out
+    out["params"] = {k: v.numpy() for k, v in state["params"].items()}
+    checkpoint.save_agreed(ckpt, {"params": state["params"], "step": 9}, 9, group)
+    out["saved_seen"] = checkpoint.latest_step(ckpt) == 9
+    return out

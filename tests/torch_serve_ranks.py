@@ -233,3 +233,35 @@ def landing_after_inference(group) -> bool:
     second = p2p.p2p_transport(blocks, (1,), W, S, group=group)
     want = p2p.p2p_transport_plain(blocks, (1,), W, S, group=group)
     return bool(torch.equal(first, want) and torch.equal(second, want))
+
+
+# requests a checkpoint case serves one at a time
+CKPT_SIZES = (1, 9, 33, 64)
+
+
+def ckpt_cases(group, dirs: dict) -> dict:
+    """Each model served through ``--ckpt_dir`` (``dirs[model]``): every
+    rank builds its engine from the directory (``ServeEngine.
+    from_checkpoint``: global rank 0 resolves the step, every rank restores
+    it), reports the step and its parameters; rank 0 takes ``full_logits()``
+    and serves CKPT_SIZES."""
+    out = {}
+    for model, ckpt in dirs.items():
+        cfg = Config(model=model, world_size=group.world_size, ckpt_dir=ckpt)
+        engine, batcher, _ = build_serving(cfg, comm=DistComm(group), device="cpu")
+        case = {"restored_step": engine.restored_step, "lineage": engine.lineage,
+                "params": {k: v.numpy().copy() for k, v in engine.model.state_dict().items()}}
+        if batcher is None:
+            case["dispatches"] = engine.follow()
+        else:
+            rng = np.random.default_rng(11)
+            try:
+                case["full"] = engine.full_logits()
+                case["rank_slot"] = engine.rank_slot(np.arange(engine.num_nodes))
+                case["served"] = [(ids, batcher.infer(ids)) for ids in (
+                    rng.choice(engine.num_nodes, size=n, replace=False) for n in CKPT_SIZES)]
+            finally:
+                batcher.stop()
+                engine.stop()
+        out[model] = case
+    return out
