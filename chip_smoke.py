@@ -77,9 +77,12 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    ``ServeEngine.from_checkpoint`` on the same graph must restore step 0,
    quarantine step 1 and serve rows and ``full_logits()`` bit-equal to the
    first engine's, 4 fused launches a forward; save and restore seconds and
-   the checkpoint's bytes;
+   the checkpoint's bytes; the plan comes through ``--plan_cache`` on an
+   empty directory: its one shard built and written (cold), seconds and
+   bytes logged;
 5. serve SAGE — same width, a few requests, the segment-sum kernel's
-   launches checked per forward;
+   launches checked per forward; the plan loaded, verified, from phase 4's
+   ``--plan_cache`` (warm: nothing written, the same ``plan_<key>``);
 6. train bench_gcn — bench.py's GCN training step on the port (random
    arxiv-shaped graph, unweighted, Adam 1e-3): 2 warm-up and 10 timed steps;
    every step launches the fused kernel, its act form, the fused-backward
@@ -308,7 +311,18 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    under the default; on four cards GCN also under all_to_all, ppermute,
    overlap and sched), each turn's engines built through ``--ckpt_dir`` on
    an empty directory of its own (global rank 0 seeds step 0, every rank
-   must restore it). Each turn, the launch counts set to 0 just before:
+   must restore it) and through one ``--plan_cache`` for the phase: a plan
+   key's first turn is cold (global rank 0 builds and writes the W = 4
+   artifact, the others load it), later turns warm (every rank loads it,
+   verified); before SERVE_W_REPAIR_TURN global rank 0 truncates
+   REPAIRED_SHARD, and must log and rebuild that shard alone (the manifest's
+   SHA-256s as the cold turn's); no follower may build or write anything
+   under the cache (:func:`plan_cache_watch`), and global rank 0's cached
+   plan must equal ``build_edge_plan`` on the same partition in every leaf
+   and static (digests; the uncached plans built beside the ranks, on four
+   cards after them); each turn logs the cold build-and-write, warm load
+   and repair seconds and the artifact's bytes. Each turn, the launch
+   counts set to 0 just before:
    rank 0 warms every bucket, drives SERVE_W_REQUESTS requests through the
    MicroBatcher and takes ``full_logits()``, the others follow; then (a)
    served rows equal ``full_logits()`` bit for bit, (b) every rank ran each
@@ -342,6 +356,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -1690,12 +1705,248 @@ def cpu_reference(engine, graph):
         return model_apply(model, batch, graph.plan.shard(0)).numpy()
 
 
+# --- the plan cache (phases 4, 5 and 16) ------------------------------------------
+
+
+@contextlib.contextmanager
+def plan_cache_watch(root: str):
+    """What this process does with the plan cache under ``root`` while the
+    block runs, as a dict: ``resolve_s`` (each ``cached_edge_plan``'s
+    seconds, the agreement's waits included), ``loads`` (each
+    ``load_sharded_plan``: seconds, ``verify``, ``ok``, a failure's error,
+    shard and reason; ``in_build`` for the load a build makes of what it
+    wrote), ``builds`` (each ``build_edge_plan_sharded``: seconds, the
+    shards it was told to rebuild), ``shards_written``
+    (``plan_shards.write_shard``), ``plan_dir`` and ``writes``: every path
+    under ``root`` opened for writing, renamed, deleted or made a directory
+    (one that exists already is not made)."""
+    import builtins
+
+    from dgraph_tpu_torch import plan as plan_mod
+    from dgraph_tpu_torch import plan_shards
+    from dgraph_tpu_torch.train import checkpoint
+
+    root = os.path.abspath(root)
+    rec = {"resolve_s": [], "loads": [], "builds": [], "shards_written": [], "writes": [],
+           "plan_dir": None}
+    in_build = [0]
+
+    def under(p) -> bool:
+        if not isinstance(p, (str, os.PathLike)):
+            return False
+        p = os.path.abspath(os.fspath(p))
+        return p == root or p.startswith(root + os.sep)
+
+    def timed(key, real, extra):
+        def call(*args, **kw):
+            entry = extra(*args, **kw)
+            t = time.perf_counter()
+            in_build[0] += key == "builds"
+            try:
+                return real(*args, **kw)
+            except (plan_shards.PlanShardError, plan_shards.PlanManifestError) as e:
+                entry.update(error=type(e).__name__, shard=getattr(e, "rank", None),
+                             reason=e.reason)
+                raise
+            finally:
+                in_build[0] -= key == "builds"
+                entry.update(s=time.perf_counter() - t, ok="error" not in entry)
+                rec[key].append(entry)
+        return call
+
+    def load_entry(plan_dir, **kw):
+        rec["plan_dir"] = os.path.basename(plan_dir)
+        return {"verify": kw.get("verify", True), "in_build": in_build[0] > 0}
+
+    def watched_fs(name, real, writes):
+        def call(*args, **kw):
+            if args and under(args[0]) and writes(*args, **kw):
+                rec["writes"].append((name, os.path.relpath(os.path.abspath(args[0]), root)))
+            if name in ("replace", "rename") and len(args) > 1 and under(args[1]):
+                rec["writes"].append((name, os.path.relpath(os.path.abspath(args[1]), root)))
+            return real(*args, **kw)
+        return call
+
+    def write_shard(real):
+        def call(plan_dir, rank, payload):
+            rec["shards_written"].append(int(rank))
+            return real(plan_dir, rank, payload)
+        return call
+
+    patches = [
+        (plan_mod, "load_sharded_plan",
+         timed("loads", plan_mod.load_sharded_plan, load_entry)),
+        (plan_mod, "build_edge_plan_sharded",
+         timed("builds", plan_mod.build_edge_plan_sharded,
+               lambda *a, **kw: {"rebuild_ranks": [int(r) for r in kw.get("rebuild_ranks", ())]})),
+        (checkpoint, "cached_edge_plan",
+         timed("resolve_s", checkpoint.cached_edge_plan, lambda *a, **kw: {})),
+        (plan_shards, "write_shard", write_shard(plan_shards.write_shard)),
+        (builtins, "open", watched_fs("open", builtins.open,
+                                      lambda f, mode="r", *a, **k: any(c in mode for c in "wax+"))),
+    ] + [(os, n, watched_fs(n, getattr(os, n), lambda *a, **k: True))
+         for n in ("replace", "rename", "unlink", "remove", "rmdir")] + [
+        (os, n, watched_fs(n, getattr(os, n), lambda p, *a, **k: not os.path.isdir(p)))
+        for n in ("makedirs", "mkdir")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield rec
+    finally:
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+
+
+def truncate_shard(plan_dir: str, rank: int) -> dict:
+    """Cut shard ``rank`` of ``plan_dir`` to half its bytes (a torn copy);
+    what was cut."""
+    from dgraph_tpu_torch import plan_shards
+
+    path = os.path.join(plan_dir, plan_shards.shard_filename(rank))
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(size // 2)
+    return {"shard": rank, "bytes": size, "kept": size // 2}
+
+
+def plan_digest(plan) -> dict:
+    """Every tensor leaf (halo and overlap specs included) of a plan as the
+    SHA-256 of its dtype, shape and bytes, and every static as its repr: two
+    plans are equal where their digests are."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for prefix, sub in (("", plan), ("halo.", plan.halo), ("overlap.", plan.overlap)):
+        if sub is None:
+            out[prefix or "overlap"] = "None"
+            continue
+        for f in dataclasses.fields(sub):
+            v = getattr(sub, f.name)
+            if f.name in ("halo", "overlap"):
+                continue
+            if isinstance(v, torch.Tensor):
+                t = v.detach().cpu().contiguous()
+                h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+                h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+                out[prefix + f.name] = h.hexdigest()
+            else:
+                out[prefix + f.name] = repr(v)
+    return out
+
+
+def digest_diffs(got: dict, want: dict) -> list:
+    """The names whose digests differ (or that one side lacks)."""
+    return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+
+
+def serve_w_reference_plans(W: int, impls) -> dict:
+    """The digests (:func:`plan_digest`) of ``build_edge_plan`` on phase
+    16's graph and partition (the CLI's random partition of
+    ``arxiv_config``'s graph, built here as ``from_global`` builds it), one
+    a plan key of ``impls``, with the digest of the partition's inputs:
+    the uncached plans a turn's cached plan must equal (host only)."""
+    import hashlib
+
+    from dgraph_tpu_torch import partition as pt
+    from dgraph_tpu_torch.plan import build_edge_plan
+    from dgraph_tpu_torch.serve.__main__ import load_data
+
+    t = time.perf_counter()
+    cfg = arxiv_config("gcn")
+    data = load_data(cfg)
+    edges, ren = pt.partition_graph(data["edge_index"], data["features"].shape[0], W,
+                                    method=cfg.partition, seed=0)
+    part = hashlib.sha256(edges.tobytes() + ren.partition.tobytes()).hexdigest()
+    out = {"partition": part, "plans": {}}
+    for key in sorted({overlap_intent(i) for i in impls}):
+        out["plans"][key] = plan_digest(build_edge_plan(edges, ren.partition, world_size=W,
+                                                        pad_multiple=8, overlap=key)[0])
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def plan_cache_failures(kind: str, rank0: dict, followers: list, W: int,
+                        repaired: int = -1) -> list:
+    """What a turn's plan-cache records (:func:`plan_cache_watch`) break of
+    the cache's rules: every follower loads the artifact once, verified,
+    and neither builds nor writes anything under the cache; global rank 0
+    builds every shard when ``kind`` is "cold", only loads (verified, no
+    write) when "warm", and when "repair" meets the truncated shard
+    ``repaired``, rebuilds that shard alone and writes nothing but it, the
+    manifest and the layout sidecar."""
+    from dgraph_tpu_torch import plan_shards
+
+    out = []
+
+    def top_loads(pc):
+        return [x for x in pc["loads"] if not x["in_build"]]
+
+    for r, pc in enumerate(followers, 1):
+        loads = top_loads(pc)
+        if pc["writes"] or pc["builds"] or pc["shards_written"]:
+            out.append(f"rank {r} wrote under the cache directory: {pc['writes'][:4]}, "
+                       f"builds {pc['builds']}, shards {pc['shards_written']}")
+        if len(loads) != 1 or not loads[0]["ok"] or not loads[0]["verify"]:
+            out.append(f"rank {r} did not load the artifact once, verified: {loads}")
+    loads, builds = top_loads(rank0), rank0["builds"]
+    if kind == "cold":
+        if len(builds) != 1 or builds[0]["rebuild_ranks"] or sorted(
+                rank0["shards_written"]) != list(range(W)):
+            out.append(f"cold: rank 0 built {builds}, wrote shards {rank0['shards_written']} "
+                       f"(want one build of all {W})")
+    elif kind == "warm":
+        if builds or rank0["writes"] or len(loads) != 1 or not loads[0]["ok"] or not loads[0][
+                "verify"]:
+            out.append(f"warm: rank 0 loads {loads}, builds {builds}, writes "
+                       f"{rank0['writes'][:4]} (want one verified load, nothing written)")
+    else:
+        files = {os.path.basename(p).split(".tmp")[0] for _, p in rank0["writes"]
+                 if os.sep in p}
+        allowed = {plan_shards.shard_filename(repaired), plan_shards.MANIFEST_NAME,
+                   plan_shards.LAYOUT_NAME}
+        if (not loads or loads[0]["ok"] or loads[0].get("shard") != repaired
+                or len(builds) != 1 or builds[0]["rebuild_ranks"] != [repaired]
+                or rank0["shards_written"] != [repaired] or not files <= allowed):
+            out.append(f"repair: rank 0 loads {loads}, builds {builds}, shards written "
+                       f"{rank0['shards_written']}, files {sorted(files)} (want shard "
+                       f"{repaired} alone rebuilt)")
+    return out
+
+
+def plan_cache_summary(kind: str, per_rank: list, manifest: dict) -> dict:
+    """The seconds and bytes a turn's plan cache took: global rank 0's cold
+    build and write, each rank's verified load, the repair (the failed load
+    and the one-shard build), each rank's whole ``cached_edge_plan`` (the
+    agreement's waits included), the artifact's shard and layout bytes."""
+    def top(pc):
+        return [x for x in pc["loads"] if not x["in_build"]]
+
+    rank0 = per_rank[0]
+    out = {"kind": kind, "plan_dir": rank0["plan_dir"],
+           "resolve_s": [sum(x["s"] for x in pc["resolve_s"]) for pc in per_rank],
+           "load_s": [next((x["s"] for x in top(pc) if x["ok"]), None) for pc in per_rank],
+           "shard_bytes": sum(e["bytes"] for e in manifest["shards"].values()),
+           "layout_bytes": (manifest.get("layout") or {}).get("bytes", 0)}
+    if kind == "cold":
+        out["build_write_s"] = rank0["builds"][0]["s"]
+    elif kind == "repair":
+        out["repair_s"] = top(rank0)[0]["s"] + rank0["builds"][0]["s"]
+        out["repair_build_s"] = rank0["builds"][0]["s"]
+    return out
+
+
 def serve_path(model: str, kernel: str, per_forward, n_requests: int,
-               ckpt_dir: str = "") -> dict:
+               ckpt_dir: str = "", plan_cache: str = "", cache_kind: str = "") -> dict:
     """Build, warm, drive ``n_requests`` through the batcher with the launch
     counts reset just before, and check the results. With ``ckpt_dir`` (an
     empty directory) the engine is built through ``--ckpt_dir``: seeded at
-    step 0, then restored; then :func:`serve_checkpoint_fallback`."""
+    step 0, then restored; then :func:`serve_checkpoint_fallback`. With
+    ``plan_cache`` the graph's plan comes through ``--plan_cache``, which
+    must go ``cache_kind`` ("cold": the one shard built and written;
+    "warm": loaded, verified, nothing written)."""
     import numpy as np
     import torch
 
@@ -1703,10 +1954,21 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int,
     from dgraph_tpu_torch.serve.__main__ import build_serving
     from dgraph_tpu_torch.train import checkpoint
 
-    cfg = dataclasses.replace(arxiv_config(model), ckpt_dir=ckpt_dir)
+    cfg = dataclasses.replace(arxiv_config(model), ckpt_dir=ckpt_dir, plan_cache=plan_cache)
     t0 = time.perf_counter()
-    engine, batcher, graph = build_serving(cfg, device="cuda")
+    with plan_cache_watch(plan_cache) if plan_cache else contextlib.nullcontext() as pc:
+        engine, batcher, graph = build_serving(cfg, device="cuda")
     build_s = time.perf_counter() - t0
+    cache = None
+    if plan_cache:
+        from dgraph_tpu_torch import plan_shards
+
+        bad = plan_cache_failures(cache_kind, pc, [], 1)
+        if bad:
+            fail(f"{model}: --plan_cache: {bad}")
+        man = plan_shards.read_manifest(os.path.join(plan_cache, pc["plan_dir"]))
+        cache = plan_cache_summary(cache_kind, [pc], man)
+        log(f"{model}: --plan_cache {cache_kind}: {cache}")
     if ckpt_dir and (engine.restored_step != 0 or checkpoint.all_steps(ckpt_dir) != [0]):
         fail(f"{model}: --ckpt_dir on an empty dir restored step {engine.restored_step}, "
              f"the dir holds {checkpoint.all_steps(ckpt_dir)} (want step 0 seeded)")
@@ -1769,7 +2031,8 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int,
     torch.cuda.empty_cache()
     return {"model": model, "requests": len(served), "forwards": forwards,
             "launches": launches, "cpu_max_abs_err": err, "buckets": buckets,
-            "warmup_s": warm["warmup_s"], "build_s": build_s, "checkpoint": ckpt}
+            "warmup_s": warm["warmup_s"], "build_s": build_s, "checkpoint": ckpt,
+            "plan_cache": cache}
 
 
 CKPT_SCALE = 1.0625  # the torn step's params: the seeded ones scaled (tests/test_serve.py)
@@ -3414,15 +3677,21 @@ def one_rank_phases(cfg) -> tuple:
     torch.cuda.empty_cache()
     attention = phase_attention()
 
-    log("phase 4: serve GCN (through --ckpt_dir)")
+    log("phase 4: serve GCN (through --ckpt_dir and a cold --plan_cache)")
     gcn_chunks = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_ckpt_") as ckpt:
+        plans = os.path.join(ckpt, "plans")
         gcn = serve_path("gcn", "sorted_segment_sum_bias_relu", gcn_chunks, 32,
-                         ckpt_dir=os.path.join(ckpt, "gcn"))
+                         ckpt_dir=os.path.join(ckpt, "gcn"), plan_cache=plans,
+                         cache_kind="cold")
 
-    log("phase 5: serve SAGE")
-    sage = serve_path("sage", "sorted_segment_sum",
-                      sage_launches_per_forward(arxiv_config("sage")), 8)
+        log("phase 5: serve SAGE (the same --plan_cache, warm)")
+        sage = serve_path("sage", "sorted_segment_sum",
+                          sage_launches_per_forward(arxiv_config("sage")), 8,
+                          plan_cache=plans, cache_kind="warm")
+    if sage["plan_cache"]["plan_dir"] != gcn["plan_cache"]["plan_dir"]:
+        fail(f"serve SAGE loaded {sage['plan_cache']['plan_dir']}, GCN built "
+             f"{gcn['plan_cache']['plan_dir']} (one plan key: edge weights are not in it)")
 
     log("phase 6: train bench_gcn")
     bench = phase_train_bench_gcn()
@@ -5905,13 +6174,44 @@ SERVE_W = 4
 # (model, lowering) a turn of phase 16 serves, in the same rank processes:
 # "auto" is the CLI's default (the unsplit plan: all_to_all). One card:
 # GCN under the default and pallas_p2p (kernels 1 and 5), SAGE under the
-# default (kernel 2); four cards: GCN under every lowering too
-SERVE_W_TURNS = (("gcn", "auto"), ("gcn", "pallas_p2p"), ("sage", "auto"))
+# default (kernel 2), GCN under pallas_p2p again (the plan cache's repair
+# turn); four cards: GCN under every lowering too. Every turn's plan comes
+# through one --plan_cache: a plan's first turn is cold (the split
+# lowerings' plan carries the interior/boundary split, a key of its own),
+# the others warm, the repair turn's after global rank 0 truncated one shard
+SERVE_W_TURNS = (("gcn", "auto"), ("gcn", "pallas_p2p"), ("sage", "auto"),
+                 ("gcn", "pallas_p2p"))
 SERVE_W_TURNS_NCCL = SERVE_W_TURNS + tuple(
     ("gcn", impl) for impl in ("all_to_all", "ppermute", "overlap", "sched"))
+SERVE_W_REPAIR_TURN = 3  # before it global rank 0 truncates REPAIRED_SHARD of its plan
+REPAIRED_SHARD = 2
+
+
+def overlap_intent(impl: str) -> bool:
+    """Whether a plan built under the lowering pin ``impl`` carries the
+    interior/boundary split (``plan.resolve_overlap_intent``): its cache key."""
+    return impl in ("overlap", "pallas_p2p")
+
+
+def plan_cache_kinds(turns) -> list:
+    """Each turn's expected plan-cache resolution: "cold" on a plan key's
+    first turn, "repair" at SERVE_W_REPAIR_TURN, else "warm"."""
+    seen, out = set(), []
+    for i, (_, impl) in enumerate(turns):
+        key = overlap_intent(impl)
+        out.append("cold" if key not in seen else "repair" if i == SERVE_W_REPAIR_TURN
+                   else "warm")
+        seen.add(key)
+    return out
+
+
 # requests a GCN turn drives (two a bucket of 8..1024), a SAGE turn's; on
-# four cards each forward takes milliseconds, not a host-staged half second
-SERVE_W_REQUESTS = {"gcn": 16, "sage": 8}
+# four cards each forward takes milliseconds, not a host-staged half second.
+# A (model, lowering) key overrides its model's: on one card GCN under the
+# default lowering drives one a bucket, whose host-staged forwards take most
+# of a second each (a cut of depth that keeps the whole run inside its time
+# limit with the plan cache's turns; every check still runs)
+SERVE_W_REQUESTS = {"gcn": 16, "sage": 8, ("gcn", "auto"): 8}
 SERVE_W_REQUESTS_NCCL = {"gcn": 64, "sage": 32}
 SERVE_W_GROUP_TIMEOUT = 120.0  # s: a lost rank fails a request within it
 
@@ -5979,21 +6279,31 @@ def serve_w_kernel_cases(group, graph, gen, model: str) -> list:
              "bound_ms": b_ms, "bound_by": b_by, "failures": failures}]
 
 
-def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list) -> dict:
+def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
+                 plan_cache: str) -> dict:
     """One of phase 16's ranks: each turn of ``turns`` pins its lowering,
     builds its engine through ``build_serving`` with ``--ckpt_dir`` (an empty
     directory a turn, ``ckpt_dirs``: global rank 0 seeds step 0, every rank
-    restores the step it took) and, with every launch
+    restores the step it took) and ``--plan_cache plan_cache`` (one for the
+    phase; :func:`plan_cache_watch` records what this rank did with it;
+    before SERVE_W_REPAIR_TURN global rank 0 truncates REPAIRED_SHARD of the
+    turn's plan) and, with every launch
     count set to 0 just before, serves: rank 0 warms every bucket, drives
-    ``requests[model]`` requests through the batcher (latency a request),
+    ``requests[(model, impl)]`` (else ``requests[model]``) requests through
+    the batcher (latency a request),
     takes ``full_logits()``, checks the served rows against it bit for bit
-    and stops the followers; ranks 1..W-1 follow. Then (not counted) the
-    turn's kernel at this rank's shape: kernel 1 or 2 under the default
-    lowering, kernel 5 at the exchange under pallas_p2p."""
+    and stops the followers; ranks 1..W-1 follow. Global rank 0 then holds
+    the turn's cached plan against ``build_edge_plan`` on the same partition
+    (its leaves' digests, :func:`plan_digest`, against
+    :func:`serve_w_reference_plans`' beside the ranks) and reads the
+    manifest. Then (not counted)
+    the turn's kernel at this rank's shape, on a (model, lowering)'s first
+    turn: kernel 1 or 2 under the default lowering, kernel 5 at the exchange
+    under pallas_p2p."""
     import numpy as np
     import torch
 
-    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch import config, plan_shards
     from dgraph_tpu_torch.comm import DistComm
     from dgraph_tpu_torch.ops import kernels
     from dgraph_tpu_torch.serve.__main__ import build_serving
@@ -6002,15 +6312,25 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=group.device).manual_seed(16 + group.rank)
     out = {"start_s": start_s, "turns": []}
-    for (model, impl), ckpt in zip(turns, ckpt_dirs):
+    timed = set()  # the (model, lowering) turns whose kernels were timed
+    for i, ((model, impl), ckpt) in enumerate(zip(turns, ckpt_dirs)):
         config.halo_impl = impl
+        intent = overlap_intent(impl)
         cfg = dataclasses.replace(arxiv_config(model), world_size=group.world_size,
-                                  ckpt_dir=ckpt)
+                                  ckpt_dir=ckpt, plan_cache=plan_cache)
+        truncated = None
+        if i == SERVE_W_REPAIR_TURN and group.global_rank == 0:
+            first = next(j for j in range(i) if overlap_intent(turns[j][1]) == intent)
+            truncated = truncate_shard(os.path.join(
+                plan_cache, out["turns"][first]["plan_cache"]["plan_dir"]), REPAIRED_SHARD)
+        group.barrier()
         t0 = time.perf_counter()
-        engine, batcher, graph = build_serving(cfg, comm=DistComm(group))
+        with plan_cache_watch(plan_cache) as pc:
+            engine, batcher, graph = build_serving(cfg, comm=DistComm(group))
         turn = {"model": model, "impl": impl, "halo_impl": engine.halo_impl,
                 "build_s": time.perf_counter() - t0, "failures": [],
-                "restored_step": engine.restored_step}
+                "restored_step": engine.restored_step, "plan_cache": pc,
+                "truncated": truncated}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         if batcher is None:
@@ -6018,7 +6338,8 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list)
         else:
             try:
                 turn["warmup_s"] = engine.warmup()["warmup_s"]
-                rng, sizes = request_sizes(requests[model], engine.ladder, seed=1)
+                rng, sizes = request_sizes(requests.get((model, impl), requests[model]),
+                                           engine.ladder, seed=1)
                 served, lat = [], {}
                 for n in sizes:
                     ids = rng.choice(engine.num_nodes, size=n, replace=False)
@@ -6047,10 +6368,20 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list)
         torch.cuda.synchronize(group.device)
         turn.update(serve_s=time.perf_counter() - t0, counts=kernels.launch_counts(),
                     forwards=engine.forwards, hub_rows=cached_hub_rows())
+        if group.global_rank == 0:
+            t = time.perf_counter()
+            turn["plan_digest"] = plan_digest(graph.plan)
+            turn["partition_digest"] = hashlib.sha256(
+                graph.edge_index.tobytes() + graph.ren.partition.tobytes()).hexdigest()
+            man = plan_shards.read_manifest(os.path.join(plan_cache, pc["plan_dir"]))
+            turn["manifest"] = {"shards": man["shards"], "layout": man["layout"]}
+            turn["digest_s"] = time.perf_counter() - t
         group.barrier()
-        if impl == "auto":
+        first_time = (model, impl) not in timed
+        timed.add((model, impl))
+        if impl == "auto" and first_time:
             turn["kernel_records"] = serve_w_kernel_cases(group, graph, gen, model)
-        elif impl == "pallas_p2p":
+        elif impl == "pallas_p2p" and first_time:
             failures = []
             rec, _ = p2p_real_case(group, gen, w4_halo_arrays(graph.plan), cfg.hidden,
                                    "float32", 1, failures, tag=" serve")
@@ -6146,24 +6477,51 @@ def serve_w_phase(cfg) -> tuple:
     with concurrent.futures.ThreadPoolExecutor(1) as pool, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_serve_w_ckpt_") as root:
         cpu = pool.submit(serve_w_cpu_reference, sorted({m for m, _ in turns}))
+        # the uncached plans are built beside the ranks on one card, where a
+        # request takes hundreds of host-staged milliseconds; on four cards,
+        # where it takes a few, after them, so no host work of the check
+        # lands in a request's latency
+        ref_plans = (None if four else
+                     pool.submit(serve_w_reference_plans, SERVE_W, [i for _, i in turns]))
         ckpt_dirs = [os.path.join(root, f"turn{i}") for i in range(len(turns))]
         t_launch = time.time()
         t0 = time.perf_counter()
         ranks = launch(serve_w_rank, SERVE_W, turns, requests, t_launch, ckpt_dirs,
+                       os.path.join(root, "plans"),
                        device="cuda", timeout=900, group_timeout=SERVE_W_GROUP_TIMEOUT,
                        threads=max(1, (os.cpu_count() or 1) // SERVE_W))
         run_s = time.perf_counter() - t0
         cpu = cpu.result()
+        ref_plans = (serve_w_reference_plans(SERVE_W, [i for _, i in turns]) if four
+                     else ref_plans.result())
         seeded = [checkpoint.all_steps(d) for d in ckpt_dirs]
     log(f"serve W={SERVE_W}: {run_s:.1f} s with the spawn; the ranks started "
         f"{[round(r['start_s'], 2) for r in ranks]} s after the launch; the CPU references "
         f"{ {m: round(v[1], 1) for m, v in cpu.items()} } s beside")
     records, recs, launched = [], [], {}
     rate = nvlink_rate() if four else None
+    kinds, cold_shards = plan_cache_kinds(turns), {}
     for i, (model, impl) in enumerate(turns):
         what = f"serve {model} W={SERVE_W} {impl}"
         per_rank = [r["turns"][i] for r in ranks]
         front = per_rank[0]
+        pcs = [t["plan_cache"] for t in per_rank]
+        bad = plan_cache_failures(kinds[i], pcs[0], pcs[1:], SERVE_W, REPAIRED_SHARD)
+        key = overlap_intent(impl)
+        diffs = digest_diffs(front["plan_digest"], ref_plans["plans"][key])
+        if diffs or front["partition_digest"] != ref_plans["partition"]:
+            bad.append(f"the cached plan differs from build_edge_plan's on the same partition "
+                       f"(partition equal: {front['partition_digest'] == ref_plans['partition']}) "
+                       f"in {diffs}")
+        cold_shards.setdefault(key, front["manifest"]["shards"])
+        if front["manifest"]["shards"] != cold_shards[key]:
+            bad.append("the manifest's shards (SHA-256, bytes) differ from the cold turn's")
+        if {pc["plan_dir"] for pc in pcs} != {pcs[0]["plan_dir"]}:
+            bad.append(f"the ranks used plan dirs {[pc['plan_dir'] for pc in pcs]}")
+        if bad:
+            fail(f"{what}: --plan_cache {kinds[i]}: {bad}")
+        cache = dict(plan_cache_summary(kinds[i], pcs, front["manifest"]),
+                     digest_s=front["digest_s"], truncated=front["truncated"])
         failures = [f for t in per_rank for f in t["failures"]]
         failures += [f for t in per_rank for k in t.get("kernel_records", [])
                      for f in k["failures"]]
@@ -6199,8 +6557,13 @@ def serve_w_phase(cfg) -> tuple:
                "forwards": front["forwards"], "launches_per_forward": want,
                "cpu_max_abs_err": err, "buckets": front["buckets"],
                "warmup_s": front["warmup_s"], "build_s": [t["build_s"] for t in per_rank],
-               "serve_s": front["serve_s"], "hub_rows": [t["hub_rows"] for t in per_rank]}
+               "serve_s": front["serve_s"], "hub_rows": [t["hub_rows"] for t in per_rank],
+               "plan_cache": cache}
         recs.append(rec)
+        log(f"{what}: --plan_cache {kinds[i]} ({cache['plan_dir']}): {cache}; global rank "
+            f"0's cached plan equals build_edge_plan's on the same partition in every leaf and "
+            f"static (digests; the uncached plans built {'after' if four else 'beside'} the "
+            f"ranks in {ref_plans['s']:.1f} s); only global rank 0 wrote under the cache")
         log(f"{what}: resolved {halo}; {rec['requests']} requests, {rec['forwards']} forwards "
             f"a rank (every rank each dispatch rank 0 announced, all left follow() at stop); "
             f"every rank restored step 0 of the turn's --ckpt_dir; "

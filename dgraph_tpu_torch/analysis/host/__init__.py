@@ -84,19 +84,21 @@ __all__ = [
     "host_selftest_failures",
 ]
 
-# the port's threaded host modules (repo-relative posix prefixes): the
-# serve engine's RLock, the batcher's Condition and worker thread, the
-# metrics registry, the kernel build module's library cache and the launcher
+# the port's host modules (repo-relative posix prefixes): the serve
+# engine's RLock, the batcher's Condition and worker thread, the metrics
+# registry, the kernel build module's library cache, the launcher, and the
+# plan cache's artifact IO (shards, manifest, layout sidecar)
 HOST_SCOPE = (
     "dgraph_tpu_torch/serve/engine.py",
     "dgraph_tpu_torch/serve/batcher.py",
     "dgraph_tpu_torch/obs/metrics.py",
     "dgraph_tpu_torch/ops/_build.py",
     "dgraph_tpu_torch/comm/dist.py",
+    "dgraph_tpu_torch/plan_shards.py",
 )
 
-# the durable-write rules cover the same modules and the checkpoint writer
-# (the port writes no generation pointer or tuning record yet)
+# the durable-write rules cover the same modules and the checkpoint and plan
+# cache writer (the port writes no generation pointer or tuning record yet)
 DURABLE_SCOPE = HOST_SCOPE + ("dgraph_tpu_torch/train/checkpoint.py",)
 
 LOCK_CONSTRUCTORS = frozenset({"Lock", "RLock", "Condition"})

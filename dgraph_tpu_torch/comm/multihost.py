@@ -111,8 +111,24 @@ def process_local_shards(world_size: int) -> list:
 
 def process_local_plan_shards(plan_dir: str, *, ranks: Optional[list] = None,
                               verify: bool = True) -> tuple:
-    """Each host loading only its ranks' plan shards from a sharded plan
-    artifact: needs ``plan_shards.py``, slice 12 of the port. Raises."""
-    raise NotImplementedError(
-        "process_local_plan_shards reads the sharded plan artifact (plan_shards.py), "
-        "which comes with slice 12 of the port")
+    """``(plan, ranks)`` holding only this process's ranks' shards of a
+    sharded plan artifact (:mod:`dgraph_tpu_torch.plan_shards`, written by
+    ``plan.build_plan_shards`` or ``train.checkpoint.cached_edge_plan``):
+    each process reads, verifies (size and SHA-256 a shard) and stacks just
+    the shards it needs, never the O(E) layout sidecar. ``ranks`` defaults
+    to :func:`process_local_shards` of the manifest's world. The plan's
+    leading axis is ``len(ranks)`` (``EdgePlan.ranks``; ``plan.shard(r)``
+    takes a global rank) while its statics describe the whole world.
+
+    Raises :class:`~dgraph_tpu_torch.plan_shards.PlanManifestError` or
+    :class:`~dgraph_tpu_torch.plan_shards.PlanShardError` on an integrity
+    failure and never rebuilds: processes rebuilding one artifact would
+    race; rebuild it on one process (``cached_edge_plan``) instead."""
+    from dgraph_tpu_torch import plan_shards as ps
+    from dgraph_tpu_torch.plan import load_sharded_plan
+
+    manifest = ps.read_manifest(plan_dir)
+    if ranks is None:
+        ranks = process_local_shards(int(manifest["world_size"]))
+    plan, _ = load_sharded_plan(plan_dir, ranks=ranks, verify=verify, load_layout=False)
+    return plan, list(ranks)

@@ -1,10 +1,16 @@
 """DistributedGraph: one vertex-partitioned graph, its plan and sharded tensors.
 
 Counterpart of ``dgraph_tpu/data/graph.py`` with the reference's
-``tune="off"`` semantics and no plan cache: the partition method and pad
-multiple are the caller's (defaults ``"rcm"`` / 8, the reference's
-hard-coded defaults). Everything is stacked ``[W, n_pad, ...]`` as torch
-tensors on the CPU; :meth:`DistributedGraph.to` moves them.
+``tune="off"`` semantics: the partition method and pad multiple are the
+caller's (defaults ``"rcm"`` / 8, the reference's hard-coded defaults).
+The plan comes from the on-disk plan cache when ``plan_cache_dir`` is set
+(:func:`~dgraph_tpu_torch.train.checkpoint.cached_edge_plan`, under the
+reference's key: the two packages share one artifact), over ranks in its
+agreed form (``group``: global rank 0 resolves and writes, the others load
+what it resolved). The reference's tuning-record lookup inside
+``plan_cache_dir`` comes with the port's tuner. Everything is stacked
+``[W, n_pad, ...]`` as torch tensors on the CPU;
+:meth:`DistributedGraph.to` moves them.
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ from dgraph_tpu_torch import partition as pt
 from dgraph_tpu_torch.plan import (
     EdgePlan,
     EdgePlanLayout,
-    build_edge_plan,
     shard_edge_data,
     shard_vertex_data,
 )
@@ -58,10 +63,20 @@ class DistributedGraph:
         pad_multiple: int = 8,
         seed: int = 0,
         overlap: Optional[bool] = None,
+        plan_cache_dir: str = "",
+        group=None,
     ) -> "DistributedGraph":
         """Partition + plan + shard one global graph (numpy in, torch out).
         ``overlap`` attaches the interior/boundary split (None = when the
-        halo-lowering pin asks for it, as ``build_edge_plan`` decides)."""
+        halo-lowering pin asks for it, as ``build_edge_plan`` decides; the
+        resolved intent is part of the cache key). ``plan_cache_dir`` ("" =
+        build without a cache) names the plan cache, keyed as the
+        reference's (the partition method folded in); ``group`` (a
+        :class:`~dgraph_tpu_torch.comm.dist.RankGroup`, every rank calling)
+        takes the cache's agreed form. Every rank partitions the graph
+        (deterministic, from ``seed``) and holds every rank's shards."""
+        from dgraph_tpu_torch.train.checkpoint import cached_edge_plan
+
         features = np.asarray(features)
         num_nodes = features.shape[0]
         edge_index = np.asarray(edge_index)
@@ -70,9 +85,13 @@ class DistributedGraph:
             edge_index, num_nodes, world_size, method=partition_method, seed=seed,
         )
         partition_s = time.perf_counter() - t0
-        plan, layout = build_edge_plan(
-            new_edges, ren.partition, world_size=world_size,
+        # a falsy plan_cache_dir is a plain build on every rank; the port's
+        # partitioners take no parameters beyond the method and the seed,
+        # so the reference's part_* key extras do not arise
+        plan, layout = cached_edge_plan(
+            plan_cache_dir, new_edges, ren.partition, world_size=world_size,
             edge_owner=edge_owner, pad_multiple=pad_multiple, overlap=overlap,
+            key_extra={"partition_method": partition_method}, group=group,
         )
         n_pad = plan.n_src_pad
         feats = shard_vertex_data(features[ren.inv], ren.counts, n_pad).astype(np.float32)

@@ -12,9 +12,13 @@ overlap=...)``) and the halo-lowering resolution (:func:`resolve_halo_impl`)
 are ported with the reference's semantics, and so is the compiled halo
 schedule (:func:`compile_plan_schedule`, ``EdgePlan.halo_schedule``) and
 the wire-format attachment (:func:`plan_wire_format`,
-``EdgePlan.wire_format``). Not ported yet: the native streaming core (the
-reference only takes it from ``NATIVE_PLAN_MIN_EDGES`` edges on) and the
-sharded build.
+``EdgePlan.wire_format``), and the sharded build and load behind the plan
+cache (:func:`build_plan_shards`, :func:`build_edge_plan_sharded`,
+:func:`load_sharded_plan`, :func:`assemble_plan`; the artifact's IO is
+:mod:`dgraph_tpu_torch.plan_shards`). Shard payloads stay numpy arrays and
+Python ints, as the reference's, so the two packages write the same bytes.
+Not ported yet: the native streaming core (the reference only takes it from
+``NATIVE_PLAN_MIN_EDGES`` edges on).
 
 Conventions (as in the reference): edge lists are ``[2, E]``; vertices are
 renumbered into contiguous per-rank blocks first; the default edge owner is
@@ -27,6 +31,7 @@ copy of a vertex owned by rank p at position i of p's send list lives at row
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import math
 import os
@@ -179,6 +184,9 @@ class EdgePlan:
     wire_format: str = "fp32"
     # True on a per-rank view (leading rank axis dropped)
     per_rank: bool = False
+    # the global ranks along the leading axis of a rank-subset plan
+    # (load_sharded_plan(ranks=...)); None: every rank 0..world_size-1
+    ranks: Optional[tuple] = None
     # the interior/boundary split (build_edge_plan(overlap=True)), or None
     overlap: Optional[OverlapSpec] = None
 
@@ -193,11 +201,17 @@ class EdgePlan:
         return _map_tensors(self, lambda t: t.to(device))
 
     def shard(self, rank: int) -> "EdgePlan":
-        """Per-rank view: every leaf indexed at ``rank`` (the counterpart of
-        the reference's ``squeeze_plan`` inside ``shard_map``)."""
+        """Per-rank view of global rank ``rank``: every leaf indexed at its
+        row (the counterpart of the reference's ``squeeze_plan`` inside
+        ``shard_map``); on a rank-subset plan, the row holding that rank."""
         if self.per_rank:
             raise ValueError("plan is already a per-rank view")
-        view = _map_tensors(self, lambda t: t[rank])
+        row = rank
+        if self.ranks is not None:
+            if rank not in self.ranks:
+                raise ValueError(f"rank {rank} is not in this plan's ranks {list(self.ranks)}")
+            row = self.ranks.index(rank)
+        view = _map_tensors(self, lambda t: t[row])
         return dataclasses.replace(view, per_rank=True)
 
 
@@ -532,9 +546,10 @@ def _numpy_plan_prep(
     n_owner_pad = N_dst_pad if edge_owner == "dst" else N_src_pad
     return types.SimpleNamespace(
         W=W, E=E, halo_side=halo_side, e_counts=e_counts, e_pad=E_pad,
-        edge_rank=edge_rank, edge_slot=edge_slot,
+        edge_rank=edge_rank, edge_slot=edge_slot, cross=cross,
         halo_counts=halo_counts, s_pad=S_pad,
         n_src_pad=N_src_pad, n_dst_pad=N_dst_pad, n_owner_pad=n_owner_pad,
+        n_halo_pad=N_halo_pad,
         send_idx=send_idx, send_mask=send_mask,
         own_local=own_local, halo_side_local_idx=halo_side_local_idx,
         src_counts=src_counts, dst_counts=dst_counts,
@@ -642,7 +657,8 @@ def _overlap_rows_for_rank(
     (``dgraph_tpu/plan.py:1499-1568``): interior halo-side fill
     ``n_halo_pad``, owner-side fill ``n_owner_pad``, ``epos`` fill
     ``e_pad``, boundary halo-side ids rebased into ``[0, W*s_pad)`` (padded
-    slots ``W*s_pad``)."""
+    slots ``W*s_pad``), and the subsets' live counts: a shard's payload
+    holds these rows as they are."""
     halo_row = src_row if halo_side == "src" else dst_row
     live = mask_row > 0
     is_bnd = live & (halo_row >= n_halo_pad)
@@ -684,6 +700,8 @@ def _overlap_rows_for_rank(
         "int_epos": int_epos,
         "bnd_src": bnd_src, "bnd_dst": bnd_dst, "bnd_mask": bnd_mask,
         "bnd_epos": bnd_epos,
+        "num_interior": int(is_int.sum()),
+        "num_boundary": int(is_bnd.sum()),
     }
     return rows, interior_mc, boundary_mc
 
@@ -720,7 +738,7 @@ def _build_overlap_spec(
         return torch.from_numpy(np.stack([p[0][key] for p in per_rank]))
 
     return OverlapSpec(
-        **{k: stack(k) for k in per_rank[0][0]},
+        **{k: stack(k) for k, v in per_rank[0][0].items() if isinstance(v, np.ndarray)},
         num_interior=torch.from_numpy(n_int.astype(np.int32)),
         num_boundary=torch.from_numpy(n_bnd.astype(np.int32)),
         e_int_pad=e_int_pad, e_bnd_pad=e_bnd_pad,
@@ -867,8 +885,9 @@ def check_owner_padding(plan: EdgePlan) -> None:
 
 
 def validate_plan(plan: EdgePlan) -> None:
-    """Host-side structural validation of a stacked plan: index bounds, send
-    lists, edge counts and the halo sort route. Raises ValueError."""
+    """Host-side structural validation of a stacked plan (a rank-subset plan
+    too): index bounds, send lists, edge counts and the halo sort route.
+    Raises ValueError."""
     if plan.per_rank:
         raise ValueError("validate_plan takes the stacked plan, not a per-rank view")
     W, S = plan.world_size, plan.halo.s_pad
@@ -889,8 +908,9 @@ def validate_plan(plan: EdgePlan) -> None:
         send_idx[send_mask].min() < 0 or send_idx[send_mask].max() >= n_halo_owner
     ):
         errors.append(f"halo send_idx out of [0,{n_halo_owner})")
-    for r in range(W):
-        if send_mask[r, r].any():
+    rows = plan.ranks if plan.ranks is not None else range(W)
+    for i, r in enumerate(rows):
+        if send_mask[i, r].any():
             errors.append(f"rank {r} sends to itself")
     counts = plan.num_edges.cpu().numpy()
     if (counts > plan.e_pad).any():
@@ -908,7 +928,7 @@ def validate_plan(plan: EdgePlan) -> None:
         sids = plan.halo_sorted_ids.cpu().numpy()
         halo_idx = src if plan.halo_side == "src" else dst
         seen = np.empty(plan.e_pad, bool)
-        for r in range(W):
+        for r in range(perm.shape[0]):
             pr = perm[r]
             in_range = (pr >= 0) & (pr < plan.e_pad)
             seen[:] = False
@@ -948,6 +968,392 @@ def _overlap_errors(plan: EdgePlan, num_edges: np.ndarray) -> list:
         if plan.owner_sorted and (np.diff(ov.side(which, owner).cpu().numpy(), axis=1) < 0).any():
             errors.append(f"overlap {which} owner ids not monotone")
     return errors
+
+
+# ---------------------------------------------------------------------------
+# Sharded plan builds and loads (dgraph_tpu/plan.py:1691-2187)
+# ---------------------------------------------------------------------------
+
+
+def _shard_statics(prep, *, homogeneous, edge_owner, sort_edges, sort_route, overlap) -> dict:
+    """The manifest's JSON-able statics of a sharded plan: everything
+    :func:`assemble_plan` needs besides the per-rank payloads. The per-rank
+    chunk hints are maxed in at finalize time (:func:`build_plan_shards`)."""
+    st = {
+        "world_size": int(prep.W),
+        "n_src_pad": int(prep.n_src_pad),
+        "n_dst_pad": int(prep.n_dst_pad),
+        "e_pad": int(prep.e_pad),
+        "s_pad": int(prep.s_pad),
+        "halo_side": prep.halo_side,
+        "homogeneous": bool(homogeneous),
+        "edge_owner": edge_owner,
+        "owner_sorted": bool(sort_edges),
+        "sort_route": bool(sort_route),
+        "overlap": bool(overlap),
+        "scatter_block_e": SCATTER_BLOCK_E,
+        "scatter_block_n": SCATTER_BLOCK_N,
+        "halo_deltas": [int(d) for d in prep.halo_deltas],
+        # the full-world traffic matrix: a rank-subset load keeps the whole
+        # world's statics, so every process compiles the same halo schedule
+        "halo_pair_rows": [[int(v) for v in row] for row in np.asarray(prep.halo_counts)],
+        # the build-time wire format (the monolithic build's one attach
+        # rule), stamped so a cache round trip keeps it
+        "wire_format": plan_wire_format(prep.W, tuple(prep.halo_deltas)),
+    }
+    if overlap:
+        # the subset pads are maxima over ranks, computable from the
+        # skeleton alone (boundary == cross edges), so every shard pads its
+        # subsets alike whether built in one run or resumed
+        n_bnd = np.bincount(prep.edge_rank[prep.cross], minlength=prep.W).astype(np.int64)
+        n_int = prep.e_counts - n_bnd
+        int_max = int(n_int.max(initial=1))
+        bnd_max = int(n_bnd.max(initial=1))
+        st["e_int_pad"] = _pad_to(int_max, _edge_pad_align(int_max, 8))
+        st["e_bnd_pad"] = _pad_to(bnd_max, _edge_pad_align(bnd_max, 8))
+    return st
+
+
+def shard_nbytes_estimate(statics: dict) -> int:
+    """Upper bound of one rank's shard payload bytes from the manifest
+    statics alone: the upfront memory-budget check's number (an over-budget
+    build fails before assembling anything)."""
+    e_pad, W, s_pad = statics["e_pad"], statics["world_size"], statics["s_pad"]
+    n = e_pad * (4 + 4 + 4)  # src/dst ids and the mask
+    if statics.get("sort_route"):
+        n += 2 * e_pad * 4  # halo_sort_perm and halo_sorted_ids
+    if statics.get("overlap"):
+        n += (statics["e_int_pad"] + statics["e_bnd_pad"]) * 4 * 4
+    n += 2 * W * s_pad * 4  # send_idx and send_mask rows
+    return n
+
+
+def _assemble_shard_payload(prep, r: int, *, sort_edges: bool, sort_route: bool,
+                            overlap: bool, overlap_pads: tuple = (None, None)):
+    """One rank's plan arrays (numpy) and chunk hints from the shared numpy
+    skeleton: row for row what the monolithic build's ``[W, e_pad]`` stack
+    holds at index ``r``."""
+    W, E_pad = prep.W, prep.e_pad
+    sel = prep.edge_rank == r
+    slots = prep.edge_slot[sel]
+    halo_row = np.zeros(E_pad, np.int32)
+    halo_row[slots] = prep.halo_side_local_idx[sel].astype(np.int32)
+    own_row = np.full(E_pad, prep.n_owner_pad, np.int32)
+    own_row[slots] = prep.own_local[sel].astype(np.int32)
+    mask_row = np.zeros(E_pad, np.float32)
+    mask_row[slots] = 1.0
+    if prep.halo_side == "src":
+        src_row, dst_row = halo_row, own_row
+    else:
+        src_row, dst_row = own_row, halo_row
+
+    hints = {"scatter_mc": 1, "gather_mv": 0, "halo_sort_mc": 1,
+             "interior_mc": 1, "boundary_mc": 1}
+    if sort_edges:
+        hints["scatter_mc"] = max_chunks_hint(own_row, prep.n_owner_pad,
+                                              block_e=SCATTER_BLOCK_E, block_n=SCATTER_BLOCK_N)
+        hints["gather_mv"] = max_vblocks_hint(own_row, prep.n_owner_pad,
+                                              block_e=SCATTER_BLOCK_E, block_n=SCATTER_BLOCK_N)
+
+    perm = sorted_ids = None
+    if sort_route:
+        n_halo_rows = prep.n_halo_pad + W * prep.s_pad
+        perm = np.argsort(halo_row, kind="stable").astype(np.int32)
+        sorted_ids = halo_row[perm]
+        hints["halo_sort_mc"] = max_chunks_hint(sorted_ids, n_halo_rows,
+                                                block_e=SCATTER_BLOCK_E, block_n=SCATTER_BLOCK_N)
+
+    payload = {
+        "src_index": src_row,
+        "dst_index": dst_row,
+        "edge_mask": mask_row,
+        "num_local_src": int(prep.src_counts[r]),
+        "num_local_dst": int(prep.dst_counts[r]),
+        "num_edges": int(prep.e_counts[r]),
+        "send_idx": prep.send_idx[r],
+        "send_mask": prep.send_mask[r],
+        "halo_sort_perm": perm,
+        "halo_sorted_ids": sorted_ids,
+        "overlap": None,
+    }
+    if overlap:
+        payload["overlap"], ov_hints = _assemble_overlap_rows(
+            prep, src_row, dst_row, mask_row, sort_edges,
+            e_int_pad=overlap_pads[0], e_bnd_pad=overlap_pads[1])
+        hints.update(ov_hints)
+    return payload, hints
+
+
+def _assemble_overlap_rows(prep, src_row, dst_row, mask_row, sort_edges: bool, *,
+                           e_int_pad: int, e_bnd_pad: int):
+    """One shard's interior/boundary rows: :func:`_overlap_rows_for_rank`,
+    the core the monolithic :func:`_build_overlap_spec` stacks, at the
+    subset pads the manifest statics record."""
+    rows, interior_mc, boundary_mc = _overlap_rows_for_rank(
+        src_row, dst_row, mask_row, halo_side=prep.halo_side, n_halo_pad=prep.n_halo_pad,
+        n_owner_pad=prep.n_owner_pad, s_pad=prep.s_pad, W=prep.W, e_pad=prep.e_pad,
+        e_int_pad=e_int_pad, e_bnd_pad=e_bnd_pad, owner_sorted=sort_edges)
+    return rows, {"interior_mc": interior_mc, "boundary_mc": boundary_mc}
+
+
+def _content_fingerprint(edge_index, src_partition, dst_partition) -> str:
+    """Streaming SHA-256 of the build inputs (dtype, shape, bytes), read in
+    64 MiB windows: the default fingerprint of a sharded build, so a resumed
+    manifest never adopts shards built from other edges with the same
+    statics."""
+    h = hashlib.sha256()
+    for arr in (edge_index, src_partition, dst_partition):
+        if arr is None:
+            h.update(b"|none")
+            continue
+        a = np.asarray(arr)
+        h.update(f"|{a.dtype.str}{a.shape}".encode())
+        if not a.flags.c_contiguous:
+            a = np.ascontiguousarray(a)
+        flat = a.reshape(-1)
+        step = max(1, (1 << 26) // max(a.itemsize, 1))
+        for i in range(0, flat.size, step):
+            h.update(flat[i:i + step].data)
+    return "content:" + h.hexdigest()[:24]
+
+
+def build_plan_shards(
+    edge_index: np.ndarray,
+    src_partition: np.ndarray,
+    dst_partition: Optional[np.ndarray] = None,
+    *,
+    out_dir: str,
+    world_size: int,
+    memory_budget_bytes: Optional[int] = None,
+    resume: bool = True,
+    rebuild_ranks: tuple = (),
+    write_layout: bool = True,
+    fingerprint: str = "",
+    edge_owner: str = "dst",
+    n_src_pad: Optional[int] = None,
+    n_dst_pad: Optional[int] = None,
+    e_pad: Optional[int] = None,
+    s_pad: Optional[int] = None,
+    pad_multiple: int = 8,
+    sort_edges: bool = True,
+    sort_route: Optional[bool] = None,
+    overlap: Optional[bool] = None,
+    use_native: Optional[bool] = None,
+) -> dict:
+    """The sharded build: assemble one rank's shard at a time and write it
+    durably under ``out_dir`` (``shard_XXXX.pkl``, a checksummed
+    ``manifest.json`` and, unless ``write_layout=False``, ``layout.pkl``;
+    :mod:`dgraph_tpu_torch.plan_shards`). Returns the final manifest, not
+    a plan: :func:`build_edge_plan_sharded` or :func:`load_sharded_plan`
+    assemble one.
+
+    The memory beyond the O(E) skeleton is one shard's arrays, held to
+    ``memory_budget_bytes`` (else ``$DGRAPH_PLAN_MEMORY_BUDGET_MB``): over
+    it, :class:`~dgraph_tpu_torch.plan_shards.PlanBuildMemoryExceeded` is
+    raised, before any shard when the upfront estimate is over. A killed
+    build resumes past the shards the manifest holds (same fingerprint,
+    format and statics, checksums intact), bit-identical to an
+    uninterrupted one; ``rebuild_ranks`` rebuilds named shards even when
+    the manifest holds them (the loaders' one-shard repair).
+
+    ``use_native=True`` raises: the native core fills the whole
+    ``[W, e_pad]`` stack at once, the allocation this build avoids.
+    ``fingerprint`` defaults to a content hash of the inputs
+    (:func:`_content_fingerprint`); pass one only when it is content-derived.
+    """
+    from dgraph_tpu_torch import plan_shards as ps
+
+    if use_native:
+        raise ValueError(
+            "build_plan_shards streams through the numpy per-rank core; use_native=True "
+            "would materialize the full [W, E_pad] stack this mode exists to avoid")
+    if not fingerprint:
+        fingerprint = _content_fingerprint(edge_index, src_partition, dst_partition)
+    pro = _plan_build_prologue(
+        edge_index, src_partition, dst_partition, edge_owner=edge_owner,
+        sort_edges=sort_edges, sort_route=sort_route, overlap=overlap,
+        pad_multiple=pad_multiple, e_pad=e_pad, s_pad=s_pad, world_size=world_size,
+    )
+    W = world_size
+    sort_route, overlap = pro.sort_route, pro.overlap
+    prep = _numpy_plan_prep(
+        pro.src, pro.dst, pro.src_partition, pro.dst_partition,
+        pro.src_offsets, pro.dst_offsets, pro.src_counts, pro.dst_counts,
+        W, edge_owner, sort_edges, n_src_pad, n_dst_pad, e_pad, s_pad, pad_multiple,
+    )
+    statics = _shard_statics(prep, homogeneous=pro.homogeneous, edge_owner=edge_owner,
+                             sort_edges=sort_edges, sort_route=sort_route, overlap=overlap)
+    writer = ps.PlanShardWriter(
+        out_dir, fingerprint=fingerprint, world_size=W, statics=statics,
+        build_kwargs={"edge_owner": edge_owner, "pad_multiple": pad_multiple,
+                      "sort_edges": sort_edges, "sort_route": bool(sort_route),
+                      "overlap": bool(overlap), "num_edges": pro.E},
+        memory_budget_bytes=memory_budget_bytes, resume=resume, rebuild_ranks=rebuild_ranks,
+    )
+    # fail before assembling anything when even one shard cannot fit
+    writer.check_budget(shard_nbytes_estimate(statics))
+    built = 0
+    for r in range(W):
+        if writer.done(r):
+            continue
+        # the reference's ``plan.build_shard`` chaos point fires here
+        # (index r; slice 12's chaos/)
+        payload, hints = _assemble_shard_payload(
+            prep, r, sort_edges=sort_edges, sort_route=sort_route, overlap=overlap,
+            overlap_pads=(statics.get("e_int_pad"), statics.get("e_bnd_pad")))
+        writer.write(r, payload, hints=hints)
+        built += 1
+    # plan-level hints are maxima over the per-shard values the manifest
+    # recorded: the same whether built in one pass or across resumes
+    entries = writer.manifest["shards"]
+    hints_max = {
+        name: max(int(entries[str(r)].get("hints", {}).get(name, 0)) for r in range(W))
+        for name in ("scatter_mc", "gather_mv", "halo_sort_mc", "interior_mc", "boundary_mc")
+    }
+    # the layout sidecar is O(E): callers that never read it (a per-process
+    # shard load) opt out with write_layout=False
+    layout_payload = None
+    if write_layout:
+        layout_payload = {"edge_rank": prep.edge_rank, "edge_slot": prep.edge_slot,
+                          "halo_counts": prep.halo_counts, "src_counts": pro.src_counts,
+                          "dst_counts": pro.dst_counts}
+    manifest = writer.finalize(layout_payload, statics_update=hints_max)
+    _logger.info("sharded EdgePlan built in %s: W=%d E=%d e_pad=%d s_pad=%d "
+                 "(%d shard(s) assembled this run, %d resumed)",
+                 out_dir, W, pro.E, prep.e_pad, prep.s_pad, built, W - built)
+    return manifest
+
+
+def build_edge_plan_sharded(
+    edge_index: np.ndarray,
+    src_partition: np.ndarray,
+    dst_partition: Optional[np.ndarray] = None,
+    *,
+    out_dir: str,
+    ranks: Optional[list] = None,
+    load_layout: Optional[bool] = None,
+    **build_kwargs: Any,
+) -> tuple:
+    """:func:`build_plan_shards` then :func:`load_sharded_plan`: the sharded
+    :func:`build_edge_plan`, returning ``(plan, layout)`` (every
+    :func:`build_plan_shards` keyword is taken).
+
+    ``ranks=None`` assembles every rank, equal to the monolithic build leaf
+    for leaf. A subset gives a plan whose leading axis is ``len(ranks)``
+    (``EdgePlan.ranks``) while every static, ``world_size`` too, describes
+    the full world. ``load_layout=None`` loads the O(E) layout sidecar only
+    for a full-world load.
+    """
+    build_plan_shards(edge_index, src_partition, dst_partition, out_dir=out_dir,
+                      **build_kwargs)
+    if load_layout is None:
+        load_layout = ranks is None and build_kwargs.get("write_layout", True)
+    # verify=False: every shard was written by this process moments ago or
+    # checksum-verified when the writer adopted it on resume
+    return load_sharded_plan(out_dir, ranks=ranks, load_layout=load_layout, verify=False)
+
+
+def assemble_plan(manifest: dict, payloads: dict, ranks: list) -> EdgePlan:
+    """Stack per-rank shard payloads (in ``ranks`` order) into an
+    :class:`EdgePlan` (torch tensors on the CPU) under the manifest's
+    statics, with the halo schedule compiled from its ``halo_pair_rows``
+    and its stamped ``wire_format``. ``ranks == range(W)`` gives the
+    monolithic build's plan; a subset the partial stack a process of a few
+    ranks holds (``EdgePlan.ranks`` names them)."""
+    st = manifest["statics"]
+    W = int(st["world_size"])
+    t = torch.from_numpy
+
+    def stack(key):
+        return t(np.stack([payloads[r][key] for r in ranks]))
+
+    def counts(key):
+        return t(np.asarray([payloads[r][key] for r in ranks], np.int32))
+
+    sort_route = st.get("sort_route", False)
+    pair_rows = tuple(tuple(int(v) for v in row) for row in st.get("halo_pair_rows", []))
+    deltas = tuple(int(d) for d in st["halo_deltas"])
+    overlap_spec = None
+    if st.get("overlap"):
+        def ostack(key):
+            return t(np.stack([payloads[r]["overlap"][key] for r in ranks]))
+
+        overlap_spec = OverlapSpec(
+            int_src=ostack("int_src"), int_dst=ostack("int_dst"),
+            int_mask=ostack("int_mask"), int_epos=ostack("int_epos"),
+            bnd_src=ostack("bnd_src"), bnd_dst=ostack("bnd_dst"),
+            bnd_mask=ostack("bnd_mask"), bnd_epos=ostack("bnd_epos"),
+            num_interior=t(np.asarray([payloads[r]["overlap"]["num_interior"] for r in ranks],
+                                      np.int32)),
+            num_boundary=t(np.asarray([payloads[r]["overlap"]["num_boundary"] for r in ranks],
+                                      np.int32)),
+            e_int_pad=int(st["e_int_pad"]), e_bnd_pad=int(st["e_bnd_pad"]),
+            interior_mc=int(st.get("interior_mc", 1)),
+            boundary_mc=int(st.get("boundary_mc", 1)),
+        )
+    return EdgePlan(
+        src_index=stack("src_index"),
+        dst_index=stack("dst_index"),
+        edge_mask=stack("edge_mask"),
+        num_local_src=counts("num_local_src"),
+        num_local_dst=counts("num_local_dst"),
+        num_edges=counts("num_edges"),
+        halo=HaloSpec(send_idx=stack("send_idx"), send_mask=stack("send_mask"),
+                      s_pad=int(st["s_pad"])),
+        world_size=W,
+        n_src_pad=int(st["n_src_pad"]),
+        n_dst_pad=int(st["n_dst_pad"]),
+        e_pad=int(st["e_pad"]),
+        halo_side=st["halo_side"],
+        homogeneous=bool(st["homogeneous"]),
+        owner_sorted=bool(st["owner_sorted"]),
+        scatter_mc=int(st.get("scatter_mc", 1)),
+        scatter_block_e=int(st["scatter_block_e"]),
+        scatter_block_n=int(st["scatter_block_n"]),
+        halo_deltas=deltas,
+        halo_sort_perm=stack("halo_sort_perm") if sort_route else None,
+        halo_sorted_ids=stack("halo_sorted_ids") if sort_route else None,
+        halo_sort_mc=int(st.get("halo_sort_mc", 1)),
+        gather_mv=int(st.get("gather_mv", 0)),
+        halo_pair_rows=pair_rows,
+        halo_schedule=compile_plan_schedule(pair_rows, s_pad=int(st["s_pad"]), world_size=W,
+                                            halo_deltas=deltas),
+        # a manifest without the key (none of format 10 lacks it) re-resolves
+        # through the one attach rule
+        wire_format=st.get("wire_format") or plan_wire_format(W, deltas),
+        ranks=None if list(ranks) == list(range(W)) else tuple(int(r) for r in ranks),
+        overlap=overlap_spec,
+    )
+
+
+def load_sharded_plan(plan_dir: str, *, ranks: Optional[list] = None, verify: bool = True,
+                      load_layout: bool = True) -> tuple:
+    """``(plan, layout)`` from a sharded-plan directory, reading only the
+    requested ranks' shards (size and SHA-256 checked with ``verify``).
+    Raises :class:`~dgraph_tpu_torch.plan_shards.PlanManifestError` or
+    :class:`~dgraph_tpu_torch.plan_shards.PlanShardError`: a caller that
+    can rebuild (``train.checkpoint.cached_edge_plan``) repairs the named
+    shard, one that cannot surfaces the error. ``load_layout=False`` gives
+    ``layout=None`` (the sidecar is O(E))."""
+    from dgraph_tpu_torch import plan_shards as ps
+
+    manifest = ps.read_manifest(plan_dir)
+    if not manifest.get("complete"):
+        raise ps.PlanManifestError(
+            ps.manifest_path(plan_dir),
+            "build incomplete (resume it with build_edge_plan_sharded)")
+    W = manifest["world_size"]
+    rank_list = list(range(W)) if ranks is None else [int(r) for r in ranks]
+    payloads = {r: ps.read_shard(plan_dir, r, manifest["shards"][str(r)], verify=verify)
+                for r in rank_list}
+    plan = assemble_plan(manifest, payloads, rank_list)
+    layout = None
+    if load_layout:
+        lp = ps.read_layout(plan_dir, manifest, verify=verify)
+        layout = EdgePlanLayout(edge_rank=lp["edge_rank"], edge_slot=lp["edge_slot"],
+                                halo_counts=lp["halo_counts"], src_counts=lp["src_counts"],
+                                dst_counts=lp["dst_counts"])
+    return plan, layout
 
 
 # ---------------------------------------------------------------------------

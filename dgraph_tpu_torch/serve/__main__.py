@@ -14,8 +14,13 @@ never from in-process state: an empty directory is first seeded with the
 seeded parameters as step 0 (by global rank 0 alone), a directory that
 holds steps is never written to, and every rank restores the newest
 readable step (``ServeEngine.from_checkpoint``; the record's
-``restored_step``). ``--selftest`` without ``--ckpt_dir`` uses a temporary
-directory, so the save -> restore round trip always runs.
+``restored_step``). ``--plan_cache`` names the plan cache
+(``train.checkpoint.cached_edge_plan``, the reference's artifact): over
+ranks global rank 0 alone loads, repairs or builds the plan and writes
+there, and every other rank loads what it resolved, verified. A selftest
+without ``--ckpt_dir`` or ``--plan_cache`` uses temporary ``ckpt/`` and
+``plans/`` directories, so the save -> restore round trip and the cache
+always run.
 
     python -m dgraph_tpu_torch.serve --num_nodes 169343 --feat_dim 128 \\
         --hidden 256 --num_classes 40 --avg_degree 13.77 --max_bucket 1024
@@ -70,6 +75,9 @@ class Config:
     # checkpoint ("" = the seeded params; an empty dir is seeded with them at
     # step 0; the selftest uses a temporary dir so the restore always runs)
     ckpt_dir: str = ""
+    # plan cache ("" = build the plan on every rank, no cache; the selftest
+    # uses a temporary dir so the cache path always runs)
+    plan_cache: str = ""
     # bucket ladder
     min_bucket: int = 8
     max_bucket: int = 64
@@ -113,7 +121,9 @@ def build_serving(cfg: Optional[Config] = None, *, device=None, comm=None):
     W-rank graph and its engine holds its shard; ranks 1..W-1 get no
     batcher (they run ``engine.follow()``). With ``cfg.ckpt_dir`` the
     parameters come from that directory (seeded with the seeded ones at
-    step 0 when it holds no step). Returns (engine, batcher, graph)."""
+    step 0 when it holds no step). With ``cfg.plan_cache`` the plan comes
+    from that cache in its agreed form (global rank 0 resolves and writes,
+    the others load what it resolved). Returns (engine, batcher, graph)."""
     from dgraph_tpu_torch.comm import SingleComm
     from dgraph_tpu_torch.config import default_device
     from dgraph_tpu_torch.data import DistributedGraph
@@ -141,7 +151,8 @@ def build_serving(cfg: Optional[Config] = None, *, device=None, comm=None):
     g = DistributedGraph.from_global(
         data["edge_index"], data["features"], data["labels"], data["masks"],
         world_size=W, partition_method=cfg.partition,
-        add_symmetric_norm=cfg.model == "gcn",
+        add_symmetric_norm=cfg.model == "gcn", plan_cache_dir=cfg.plan_cache,
+        group=comm.group,
     )
     F, C = g.features.shape[-1], data["num_classes"]
     if cfg.model == "gcn":
@@ -184,17 +195,19 @@ def serve(cfg: Config, comm=None) -> dict:
     checked against ``full_logits()`` bit for bit, then an over-ladder
     request rejected), stop the followers and return the ``serve_health``
     record. Ranks 1..W-1 follow and return what they ran. ``cfg.selftest``
-    without ``cfg.ckpt_dir`` serves from a temporary directory that global
-    rank 0 makes (its path agreed over the ranks; one host's)."""
+    without ``cfg.ckpt_dir`` or ``cfg.plan_cache`` serves from ``ckpt/``
+    and ``plans/`` in a temporary directory that global rank 0 makes (its
+    path agreed over the ranks; one host's)."""
     import tempfile
 
     from dgraph_tpu_torch.train.checkpoint import on_rank0
 
     with contextlib.ExitStack() as stack:
-        if cfg.selftest and not cfg.ckpt_dir:
+        if cfg.selftest and not (cfg.ckpt_dir and cfg.plan_cache):
             tmp = on_rank0(comm.group if comm is not None else None, lambda: stack.enter_context(
                 tempfile.TemporaryDirectory(prefix="dgraph_serve_selftest_")))
-            cfg = dataclasses.replace(cfg, ckpt_dir=os.path.join(tmp, "ckpt"))
+            cfg = dataclasses.replace(cfg, ckpt_dir=cfg.ckpt_dir or os.path.join(tmp, "ckpt"),
+                                      plan_cache=cfg.plan_cache or os.path.join(tmp, "plans"))
         return _serve(cfg, comm)
 
 
@@ -244,6 +257,7 @@ def _serve(cfg: Config, comm=None) -> dict:
         "world_size": engine.world_size,
         "halo_impl": engine.halo_impl,
         "ckpt_dir": engine.ckpt_dir,
+        "plan_cache": cfg.plan_cache,
         "restored_step": engine.restored_step,
         "lineage": engine.lineage,
         "warmup": warm,

@@ -1,5 +1,6 @@
-"""Train-state checkpoints: the counterpart of the state half of
-``dgraph_tpu/train/checkpoint.py`` (``:29-216``).
+"""Train-state checkpoints and the plan cache: the counterpart of
+``dgraph_tpu/train/checkpoint.py`` (the state half ``:29-216``, the plan
+cache ``:218-419``).
 
 The reference saves a pytree through orbax; here a step is a directory
 ``step_XXXXXXXX/`` holding the state's ``torch.save`` (``state.pt``) and its
@@ -24,12 +25,21 @@ global rank 0 alone resolves the step (falling back, quarantining) and
 alone writes; the others restore the step it took by name. ``ckpt_dir``
 must be on storage every host sees, as the reference's orbax directory is.
 
-The reference's ``cached_edge_plan`` (the plan cache, the second half of
-its module) is slice 9c of the port.
+The **plan cache** (:func:`cached_edge_plan`) keeps a built plan as a
+directory ``plan_<key>/`` of per-rank shards and a checksummed manifest
+(:mod:`dgraph_tpu_torch.plan_shards`), under the reference's key
+(:func:`_graph_fingerprint`, :data:`PLAN_FORMAT_VERSION`), so the two
+packages name, write and read the same artifact. A bad shard is rebuilt
+alone; only an unreadable manifest means a full rebuild. Over ranks
+(``group=``) global rank 0 alone resolves the plan (loads, repairs or
+builds) and alone writes under the cache directory; every other rank then
+loads that directory, verified, and never rebuilds: a bad shard there
+raises on every rank (processes that rebuilt one artifact would race).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -37,6 +47,7 @@ import pickle
 import shutil
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 _logger = logging.getLogger("dgraph_tpu_torch.checkpoint")
@@ -375,3 +386,187 @@ def restore_agreed(ckpt_dir: str, template=None, group=None, *,
     if not _single(group) and group.global_rank != 0:
         return on_every_rank(group, lambda: restore_checkpoint(ckpt_dir, template, step=s)), s
     return on_every_rank(group, lambda: got["state"]), s
+
+
+# --- plan cache ----------------------------------------------------------------
+
+
+# The reference's format version (``dgraph_tpu/train/checkpoint.py:225``):
+# part of every key, so a cache of an older format is never read, only
+# rebuilt beside. v10 stamps wire_format in the statics, v9 the halo traffic
+# matrix (the compiled schedule's input), v8 is the sharded artifact.
+PLAN_FORMAT_VERSION = 10
+
+
+def _hash_array(h, arr: np.ndarray) -> None:
+    # memoryview feeds hashlib without a copy of the array
+    arr = np.ascontiguousarray(arr)
+    h.update(str(arr.dtype).encode())
+    h.update(str(arr.shape).encode())
+    h.update(memoryview(arr).cast("B"))
+
+
+def _graph_fingerprint(edge_index: np.ndarray, partition: np.ndarray, **kw) -> str:
+    """The plan cache's key: the format version, the edges' and the
+    partition's dtype, shape and bytes, and ``repr(sorted(kw.items()))``
+    (so a knob's Python type is part of it, as in the reference)."""
+    h = hashlib.sha256()
+    h.update(f"plan-format-v{PLAN_FORMAT_VERSION};".encode())
+    _hash_array(h, edge_index)
+    _hash_array(h, partition)
+    h.update(repr(sorted(kw.items())).encode())
+    return h.hexdigest()[:24]
+
+
+def _plan_cache_key(edge_index, src_partition, dst_partition, key_extra,
+                    build_kwargs) -> tuple:
+    """(the key of ``plan_<key>``, the resolved overlap intent).
+    The resolved tile sizes and overlap intent are part of the key: the
+    builder resolves them from the environment, which a warm cache must
+    not ignore. ``key_extra`` folds upstream knobs (the partition method
+    and its parameters) into the key without reaching the builder;
+    ``write_layout`` shapes the artifact, not the plan, and stays out."""
+    from dgraph_tpu_torch import plan as _plan
+
+    overlap = build_kwargs.get("overlap")
+    if overlap is None:
+        overlap = _plan.resolve_overlap_intent()
+    key = _graph_fingerprint(
+        edge_index,
+        src_partition if dst_partition is None
+        else np.concatenate([src_partition, dst_partition]),
+        scatter_block_e=_plan.SCATTER_BLOCK_E,
+        scatter_block_n=_plan.SCATTER_BLOCK_N,
+        overlap=bool(overlap),
+        **{f"x_{k}": v for k, v in sorted((key_extra or {}).items())
+           if v is not None and (np.isscalar(v) or isinstance(v, str))},
+        **{k: v for k, v in build_kwargs.items()
+           if k not in ("overlap", "write_layout") and (np.isscalar(v) or isinstance(v, str))},
+    )
+    return key, bool(overlap)
+
+
+def _resolve_cached_plan(cache_dir, edge_index, src_partition, dst_partition, *, ranks,
+                         load_layout, memory_budget_bytes, verify, key_extra,
+                         build_kwargs) -> tuple:
+    """(plan_dir, (plan, layout)): load ``plan_<key>`` or repair or build
+    it, by :func:`cached_edge_plan`'s rules."""
+    from dgraph_tpu_torch import plan_shards as ps
+    from dgraph_tpu_torch.plan import build_edge_plan_sharded, load_sharded_plan
+
+    os.makedirs(cache_dir, exist_ok=True)
+    # the sharded cache always builds through the numpy per-rank core (the
+    # port has no native plan core; the reference's fills the whole
+    # [W, e_pad] stack at once): an explicit use_native is ignored
+    if build_kwargs.pop("use_native", None):
+        _logger.warning(
+            "plan cache %s: use_native is ignored for sharded (v8) cache builds — the "
+            "streaming numpy core bounds peak memory by one shard", cache_dir)
+    key, overlap = _plan_cache_key(edge_index, src_partition, dst_partition, key_extra,
+                                   build_kwargs)
+    plan_dir = os.path.join(cache_dir, f"plan_{key}")
+
+    def build(rebuild_ranks=()):
+        return build_edge_plan_sharded(
+            edge_index, src_partition, dst_partition, out_dir=plan_dir,
+            fingerprint=key, ranks=ranks,
+            load_layout=load_layout, memory_budget_bytes=memory_budget_bytes,
+            rebuild_ranks=rebuild_ranks, **{**build_kwargs, "overlap": overlap})
+
+    try:
+        return plan_dir, load_sharded_plan(plan_dir, ranks=ranks, load_layout=load_layout,
+                                           verify=verify)
+    except ps.PlanShardError as e:
+        # one bad shard is a shard repair, never a full rebuild: the builder
+        # resumes past every durable, checksum-intact shard and rebuilds
+        # what is broken (and the named shard, should it pass its checksum
+        # but not unpickle)
+        _logger.warning("plan cache %s: shard %s unreadable (%s); rebuilding that shard",
+                        plan_dir, e.rank, e.reason)
+        return plan_dir, build(rebuild_ranks=(e.rank,) if e.rank >= 0 else ())
+    except ps.PlanManifestError as e:
+        if os.path.exists(ps.manifest_path(plan_dir)):
+            # incomplete (a killed build: resume) or corrupt (the writer
+            # discards what it cannot verify: a full rebuild)
+            _logger.warning("plan cache %s: %s; %s", plan_dir, e.reason,
+                            "resuming the interrupted build" if "incomplete" in e.reason
+                            else "rebuilding")
+        return plan_dir, build()
+
+
+def cached_edge_plan(
+    cache_dir: str,
+    edge_index: np.ndarray,
+    src_partition: np.ndarray,
+    dst_partition: Optional[np.ndarray] = None,
+    *,
+    ranks: Optional[list] = None,
+    load_layout: Optional[bool] = None,
+    memory_budget_bytes: Optional[int] = None,
+    verify: bool = True,
+    key_extra: Optional[dict] = None,
+    group=None,
+    **build_kwargs: Any,
+):
+    """``build_edge_plan`` with an on-disk sharded cache: ``(plan, layout)``.
+
+    The artifact is ``plan_<key>/`` under ``cache_dir``: a shard a rank and
+    a checksummed manifest (:mod:`dgraph_tpu_torch.plan_shards`), written by
+    :func:`~dgraph_tpu_torch.plan.build_edge_plan_sharded`. ``key_extra``
+    folds scalar knobs into the key without passing them to the builder
+    (the partition method and its parameters shaped the inputs; the
+    partition's content is hashed as well).
+
+    A load verifies every shard's size and SHA-256 (``verify=False`` skips
+    the hash on a hit; a torn shard still fails to unpickle). A corrupt,
+    truncated or missing shard rebuilds that shard alone, logged with its
+    rank; an incomplete manifest (a killed build) resumes; an unreadable
+    manifest rebuilds everything.
+
+    ``ranks`` loads only those shards (the plan's leading axis is
+    ``len(ranks)``, its statics the full world's) and defaults
+    ``load_layout`` to False: the layout sidecar is O(E).
+    ``memory_budget_bytes`` bounds the build's memory a shard.
+    ``use_native`` is ignored with a warning. A falsy ``cache_dir`` builds
+    without a cache (the CLIs' ``--plan_cache ""``; ``ranks`` then raises).
+
+    ``group`` (a :class:`~dgraph_tpu_torch.comm.dist.RankGroup`; None for
+    one process) is the agreed form over ranks, as :func:`restore_agreed`:
+    global rank 0 alone resolves the plan (loads, repairs or builds) and
+    alone writes under ``cache_dir``; every other rank then loads the
+    directory it resolved, always verified, and never rebuilds. If any
+    rank fails (a follower that meets a bad shard), every rank raises.
+    ``cache_dir`` must be on storage every host sees. Without a cache dir
+    every rank builds its own plan.
+    """
+    from dgraph_tpu_torch.plan import build_edge_plan, load_sharded_plan
+
+    if not cache_dir:
+        if ranks is not None:
+            raise ValueError(
+                "cached_edge_plan(ranks=...) needs a cache_dir: per-rank "
+                "loading is a property of the sharded on-disk artifact")
+        # the layout sidecar's knob describes the artifact; without a cache
+        # there is none (build_edge_plan does not take it)
+        build_kwargs.pop("write_layout", None)
+        return build_edge_plan(edge_index, src_partition, dst_partition, **build_kwargs)
+    ll = load_layout if load_layout is not None else (
+        # no sidecar for a rank-subset load, nor when none was written
+        ranks is None and build_kwargs.get("write_layout", True))
+    kw = dict(ranks=ranks, load_layout=ll, memory_budget_bytes=memory_budget_bytes,
+              verify=verify, key_extra=key_extra, build_kwargs=build_kwargs)
+    if _single(group):
+        return _resolve_cached_plan(cache_dir, edge_index, src_partition, dst_partition,
+                                    **kw)[1]
+    got = {}
+
+    def resolve():
+        plan_dir, got["plan"] = _resolve_cached_plan(
+            cache_dir, edge_index, src_partition, dst_partition, **kw)
+        return plan_dir
+
+    plan_dir = on_rank0(group, resolve)
+    if group.global_rank == 0:
+        return on_every_rank(group, lambda: got.pop("plan"))
+    return on_every_rank(group, lambda: load_sharded_plan(plan_dir, ranks=ranks,
+                                                          load_layout=ll, verify=True))

@@ -18,7 +18,10 @@ environment ``torchrun`` gives two nodes of two ranks (``RANK``,
   n`` over the process's one device);
 - one per-replica GCN step at R = 2 x W = 2 gives, on every rank, the loss
   of the same step under the in-process ``launch``;
-- ``process_local_plan_shards`` raises and names slice 12.
+- ``process_local_plan_shards`` of a W = 4 sharded plan artifact gives each
+  rank only its own shard (``[RANK % 4]``, the plan's leading axis 1, its
+  statics the whole world's), leaf for leaf the full plan's
+  ``shard(rank)``.
 """
 
 import os
@@ -27,18 +30,28 @@ import socket
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from dgraph_tpu_torch.comm.dist import launch
+from dgraph_tpu_torch.plan import build_plan_shards, load_sharded_plan
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_replica_ranks  # noqa: E402
+from torch_serve_ranks import plan_leaves  # noqa: E402
 from test_torch_replica import _gcn_case  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_multihost_worker.py")
 NODES, PER_NODE = 2, 2
 TIMEOUT = 240
+
+
+def _plan_graph():
+    """A small random graph in contiguous blocks over the launch's 4 ranks."""
+    rng = np.random.default_rng(4)
+    part = np.sort(rng.integers(0, NODES * PER_NODE, 64)).astype(np.int64)
+    return rng.integers(0, 64, (2, 400)).astype(np.int64), part
 
 
 def _free_port() -> int:
@@ -54,8 +67,12 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("multihost")
     gcn, _ = _gcn_case()
     inputs = tmp / "inputs.pkl"
+    plan_dir = tmp / "plan"
+    edges, part = _plan_graph()
+    build_plan_shards(edges, part, out_dir=str(plan_dir), world_size=NODES * PER_NODE,
+                      overlap=True, write_layout=False)
     with open(inputs, "wb") as f:
-        pickle.dump({"gcn": gcn}, f)
+        pickle.dump({"gcn": gcn, "plan_dir": str(plan_dir)}, f)
     port, n = _free_port(), NODES * PER_NODE
     procs = []
     for rank in range(n):
@@ -118,7 +135,19 @@ def test_replica_step_under_torchrun_equals_launch(run):
         assert rec["loss"] == want
 
 
-def test_process_local_plan_shards_raises(run):
+def test_process_local_plan_shards_load_each_rank_its_own_shard(run, tmp_path):
     records, _ = run
-    for rec in records:
-        assert "slice 12" in rec["plan_shards"]
+    edges, part = _plan_graph()
+    n = NODES * PER_NODE
+    build_plan_shards(edges, part, out_dir=str(tmp_path), world_size=n, overlap=True,
+                      write_layout=False)
+    full, _ = load_sharded_plan(str(tmp_path), load_layout=False)
+    for g, rec in enumerate(records):
+        got = rec["plan_shards"]
+        assert got["ranks"] == [g] and got["plan_ranks"] == (g,) and got["world_size"] == n
+        want = plan_leaves(full.shard(g))
+        assert set(got["view"]) == set(want) and want
+        for k, v in want.items():
+            np.testing.assert_array_equal(got["view"][k], v, err_msg=k)
+            assert got["leaves"][k].shape == (1,) + v.shape, k
+            np.testing.assert_array_equal(got["leaves"][k][0], v, err_msg=k)

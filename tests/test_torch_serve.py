@@ -325,3 +325,57 @@ def test_checkpoint_fallback_serves_the_older_step(tmp_path):
         ServeEngine.from_checkpoint(engine.model, g, ckpt, step=1, device="cpu")
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ServeEngine.from_checkpoint(engine.model, g, str(tmp_path / "none"), device="cpu")
+
+
+# --- serving from a plan cache --------------------------------------------------
+
+
+def test_serves_from_a_plan_cache_cold_then_warm(tmp_path):
+    """``--plan_cache`` at one rank: the cold run builds the artifact, the warm
+    run loads it and writes nothing; both serve the uncached engine's bits
+    (the same seeded params), and the directory is the one the reference's
+    ``from_global(plan_cache_dir=)`` names for the same graph."""
+    import os
+
+    cfg = Config(model="gcn", num_nodes=400, max_bucket=64)
+    engine, batcher, _ = build_serving(cfg, device="cpu")
+    batcher.stop()
+    want = engine.full_logits()
+    cache = tmp_path / "plans"
+    state = None
+    for run in range(2):
+        engine, batcher, _ = build_serving(Config(**dict(vars(cfg), plan_cache=str(cache))),
+                                           device="cpu")
+        try:
+            full = engine.full_logits()
+            np.testing.assert_array_equal(full.view(np.int32), want.view(np.int32))
+            for ids in _mixed_requests(engine, 4, seed=run):
+                r, s = engine.rank_slot(ids)
+                np.testing.assert_array_equal(batcher.infer(ids), full[r, s])
+        finally:
+            batcher.stop()
+        now = {p.name: p.stat().st_mtime_ns for p in cache.rglob("*")}
+        assert state is None or now == state
+        state = now
+    data = jax_synthetic.sbm_classification_graph(
+        num_nodes=cfg.num_nodes, num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
+        avg_degree=cfg.avg_degree, seed=cfg.seed)
+    JaxGraph.from_global(data["edge_index"], data["features"], data["labels"], data["masks"], 1,
+                         partition_method=cfg.partition, add_symmetric_norm=True,
+                         plan_cache_dir=str(tmp_path / "ref"), tune="off")
+    assert os.listdir(str(cache)) == os.listdir(str(tmp_path / "ref"))
+
+
+def test_cli_selftest_runs_through_a_plan_cache(tmp_path):
+    """The selftest without ``--plan_cache`` serves through a temporary
+    ``plans/`` beside its temporary ``ckpt/`` (gone after the run); with one
+    it serves through that directory and keeps the artifact."""
+    import os
+
+    rec = main(Config(selftest=True, device="cpu", requests=4))
+    assert "error" not in rec
+    assert rec["plan_cache"] == os.path.join(os.path.dirname(rec["ckpt_dir"]), "plans")
+    assert not os.path.exists(rec["plan_cache"])
+    rec = main(Config(selftest=True, device="cpu", requests=4, plan_cache=str(tmp_path)))
+    assert "error" not in rec and rec["plan_cache"] == str(tmp_path)
+    assert [p.name.startswith("plan_") for p in tmp_path.iterdir()] == [True]

@@ -35,10 +35,15 @@ W on ``jax.devices()[:W]``, indexed by the reference's ``rank_slot``.
   took and hold bit-equal parameters, within 1e-5 of the reference's
   restore served on its 2-device mesh; the CLI seeds an empty
   ``--ckpt_dir`` once and a second run writes nothing.
+- From a plan cache at W = 2: cold, warm and one-shard-repair turns serve
+  ``full_logits()``'s bits within 1e-5 of the reference's, only global rank
+  0 writes, a follower's bad shard raises on every rank; the CLI's selftest
+  runs through a temporary ``plans/`` and an explicit ``--plan_cache``.
 """
 
 import json
 import multiprocessing
+import os
 import pickle
 import subprocess
 import sys
@@ -229,6 +234,8 @@ def test_cli_selftest_at_two_cpu_ranks():
     assert rec["kind"] == "serve_health" and "error" not in rec
     assert rec["world_size"] == 2 and rec["halo_impl"] == "all_to_all"
     assert rec["metrics"]["counters"]["serve.infer_calls"] >= 8
+    # through a temporary plan cache beside the temporary checkpoint dir
+    assert rec["plan_cache"] == os.path.join(os.path.dirname(rec["ckpt_dir"]), "plans")
 
 
 def test_cli_over_ranks_without_a_card_raises():
@@ -300,3 +307,88 @@ def test_cli_seeds_an_empty_ckpt_dir_once_at_two_ranks(tmp_path):
         assert "error" not in rec and rec["world_size"] == 2
         assert rec["restored_step"] == 0 and rec["restored_steps"] == [0, 0]
         assert rec["ckpt_dir"] == str(ckpt) and rec["lineage"][0]["step"] == 0
+
+
+# --- serving from a plan cache --------------------------------------------------
+
+
+def test_two_ranks_serve_from_a_plan_cache_cold_warm_then_repair(tmp_path):
+    """``--plan_cache`` at W = 2 (``torch_serve_ranks.plan_cache_cases``):
+    in every turn (cold, warm, one shard truncated) each rank's plan equals
+    the uncached build leaf for leaf, rank 0's ``full_logits()`` is within
+    TOL of the reference's and its served rows are their bits; only global
+    rank 0 writes under the cache: the whole artifact cold, nothing warm,
+    the truncated shard (bit-identical again), the manifest and the layout
+    sidecar (the same bytes) in the repair. A follower that meets a bad shard makes every rank raise, and
+    nobody writes. The directory is the reference's ``plan_<key>``."""
+    from dgraph_tpu_torch import plan_shards
+    from dgraph_tpu_torch.data import DistributedGraph
+
+    W, cfg = 2, Config(model="gcn")
+    params, ref_full, (ref_rank, ref_slot) = _jax_side("gcn", W)
+    path, cache = tmp_path / "inputs.pkl", tmp_path / "plans"
+    with open(path, "wb") as f:
+        pickle.dump({"gcn": {k: v.numpy() for k, v in params_from_jax(params).items()}}, f)
+    res = launch(torch_serve_ranks.plan_cache_cases, W, str(path), str(cache), device="cpu",
+                 timeout=TIMEOUT, threads=1)
+    data = jax_synthetic.sbm_classification_graph(
+        num_nodes=cfg.num_nodes, num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
+        avg_degree=cfg.avg_degree, seed=cfg.seed)
+    args = (data["edge_index"], data["features"], data["labels"], data["masks"], W)
+    plain = torch_serve_ranks.plan_leaves(DistributedGraph.from_global(
+        *args, partition_method=cfg.partition, add_symmetric_norm=True).plan)
+    JaxGraph.from_global(*args, partition_method=cfg.partition, add_symmetric_norm=True,
+                         plan_cache_dir=str(tmp_path / "ref"), tune="off")
+    (ref_dir,) = [p.name for p in (tmp_path / "ref").iterdir()]
+    shard = plan_shards.shard_filename(torch_serve_ranks.REPAIRED_SHARD)
+    cold = res[0]["turns"]["cold"]["manifest"]
+    for turn in torch_serve_ranks.PLAN_CACHE_TURNS:
+        front = res[0]["turns"][turn]
+        assert front["plan_dir"] == ref_dir, turn
+        for rank in range(W):
+            got = res[rank]["turns"][turn]
+            assert set(got["plan"]) == set(plain), (turn, rank)
+            for k, v in plain.items():
+                np.testing.assert_array_equal(got["plan"][k], v, err_msg=f"{turn} {rank} {k}")
+            if rank:
+                assert got["writes"] == [] and got["dispatches"] == front["forwards"], turn
+        rank, slot = front["rank_slot"]
+        np.testing.assert_array_equal(rank, ref_rank)
+        np.testing.assert_allclose(front["full"][rank, slot], ref_full[ref_rank, ref_slot],
+                                   rtol=TOL, atol=TOL)
+        for ids, out in front["served"]:
+            _assert_bits_equal(out, front["full"][rank[ids], slot[ids]], f"{turn} {len(ids)}")
+        assert front["manifest"]["complete"]
+        assert front["manifest"]["shards"] == cold["shards"], turn  # same bytes every turn
+        files = {os.path.basename(p).split(".tmp")[0] for _, p in front["writes"]
+                 if os.sep in p}
+        if turn == "cold":
+            assert files == {plan_shards.shard_filename(r) for r in range(W)} | {
+                plan_shards.MANIFEST_NAME, plan_shards.LAYOUT_NAME}, files
+        elif turn == "warm":
+            assert front["writes"] == []
+        else:
+            # the named shard alone; the build's finalize rewrites the layout
+            # sidecar with its bytes, as the reference's does
+            assert files == {shard, plan_shards.MANIFEST_NAME, plan_shards.LAYOUT_NAME}, files
+            assert front["manifest"]["layout"] == cold["layout"]
+    assert res[0]["bad_shard"].startswith("RuntimeError") and "[1] failed" in res[0]["bad_shard"]
+    assert res[1]["bad_shard"].startswith("PlanShardError") and "checksum" in res[1]["bad_shard"]
+    assert res[0]["bad_shard_writes"] == [] and res[1]["bad_shard_writes"] == []
+
+
+def test_cli_serves_from_an_explicit_plan_cache_at_two_ranks(tmp_path):
+    """``--plan_cache <dir>`` at two ranks: the record names it, and it holds
+    one complete W = 2 artifact."""
+    from dgraph_tpu_torch import plan_shards
+
+    cache = tmp_path / "plans"
+    p = _cli("--device", "cpu", "--world_size", "2", "--selftest", "--requests", "4",
+             "--plan_cache", str(cache))
+    assert p.returncode == 0, p.stderr[-3000:]
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    assert "error" not in rec and rec["plan_cache"] == str(cache)
+    (plan_dir,) = list(cache.iterdir())
+    man = plan_shards.read_manifest(str(plan_dir))
+    assert man["complete"] and man["world_size"] == 2 and not plan_shards.bad_shards(
+        str(plan_dir), man)

@@ -8,6 +8,7 @@ a pickle. Rank 0 returns what it served; ranks 1..W-1 what they followed.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import sys
@@ -37,12 +38,17 @@ FAULTY_ATTEMPTS = frozenset({0} | set(range(2, 11)))
 
 
 def _engine(group, model: str, params: dict, **kw):
-    cfg = Config(model=model, world_size=group.world_size)
-    engine, batcher, _ = build_serving(cfg, comm=DistComm(group), device="cpu")
+    engine, batcher, _ = _built(group, model, params, **kw)
+    return engine, batcher
+
+
+def _built(group, model: str, params: dict, plan_cache: str = "", **kw):
+    cfg = Config(model=model, world_size=group.world_size, plan_cache=plan_cache)
+    engine, batcher, graph = build_serving(cfg, comm=DistComm(group), device="cpu")
     engine.model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     for k, v in kw.items():
         setattr(engine, k, v)
-    return engine, batcher
+    return engine, batcher, graph
 
 
 def _serve_case(group, model: str, params: dict) -> dict:
@@ -264,4 +270,128 @@ def ckpt_cases(group, dirs: dict) -> dict:
                 batcher.stop()
                 engine.stop()
         out[model] = case
+    return out
+
+
+# --- serving from a plan cache --------------------------------------------------
+
+
+@contextlib.contextmanager
+def watch_writes(root: str):
+    """The paths under ``root`` this process writes, renames, deletes or
+    makes a directory at while the block runs (``open`` for writing and the
+    ``os`` calls that change a tree; a directory that exists already is not
+    made), in order."""
+    import builtins
+
+    root = os.path.abspath(root)
+    seen = []
+
+    def under(path) -> bool:
+        return isinstance(path, (str, os.PathLike)) and os.path.abspath(
+            os.fspath(path)).startswith(root)
+
+    def wrap(mod, name, writes=lambda *a, **k: True):
+        real = getattr(mod, name)
+
+        def watched(*args, **kw):
+            for a in args[:2]:
+                if under(a) and writes(*args, **kw):
+                    seen.append((name, os.path.relpath(os.fspath(a), root)))
+            return real(*args, **kw)
+
+        setattr(mod, name, watched)
+        return mod, name, real
+
+    def open_writes(file, mode="r", *a, **k):
+        return any(c in mode for c in "wax+")
+
+    def new_dir(path, *a, **k):
+        return not os.path.isdir(path)
+
+    patched = [wrap(builtins, "open", open_writes)] + [
+        wrap(os, name) for name in ("replace", "rename", "unlink", "remove", "rmdir")] + [
+        wrap(os, name, new_dir) for name in ("makedirs", "mkdir")]
+    try:
+        yield seen
+    finally:
+        for mod, name, real in reversed(patched):
+            setattr(mod, name, real)
+
+
+def plan_leaves(plan) -> dict:
+    """Every tensor leaf of a plan (halo and overlap specs included), numpy."""
+    import dataclasses
+
+    out = {}
+    for prefix, sub in (("", plan), ("halo.", plan.halo), ("overlap.", plan.overlap)):
+        for f in dataclasses.fields(sub) if sub is not None else ():
+            if isinstance(getattr(sub, f.name), torch.Tensor):
+                out[prefix + f.name] = getattr(sub, f.name).numpy().copy()
+    return out
+
+
+# the cache turns of plan_cache_cases, in order
+PLAN_CACHE_TURNS = ("cold", "warm", "repair")
+REPAIRED_SHARD = 1  # the shard rank 0 truncates before the repair turn
+
+
+def plan_cache_cases(group, path: str, cache_dir: str) -> dict:
+    """GCN served through ``--plan_cache cache_dir`` in PLAN_CACHE_TURNS:
+    cold (rank 0 builds and writes the artifact, the others load it), warm
+    (every rank loads it), repair (rank 0 first truncates REPAIRED_SHARD,
+    then rebuilds that shard alone). Each turn every rank reports its plan's
+    leaves and the writes it made under ``cache_dir`` while building its
+    engine; rank 0 takes ``full_logits()`` and serves SIZES, and the
+    manifest. Last, rank 1 sees shard 0's checksum fail (a torn read only it
+    meets): every rank's build raises, and nobody writes."""
+    from dgraph_tpu_torch import plan_shards
+
+    with open(path, "rb") as f:
+        params = pickle.load(f)["gcn"]
+    out = {"turns": {}}
+    for turn in PLAN_CACHE_TURNS:
+        if turn == "repair":
+            if group.rank == 0:
+                (plan_dir,) = [os.path.join(cache_dir, d) for d in os.listdir(cache_dir)]
+                shard = os.path.join(plan_dir, plan_shards.shard_filename(REPAIRED_SHARD))
+                with open(shard, "r+b") as f:
+                    f.truncate(os.path.getsize(shard) // 2)
+            group.barrier()
+        with watch_writes(cache_dir) as writes:
+            engine, batcher, graph = _built(group, "gcn", params, plan_cache=cache_dir)
+        rec = {"writes": writes, "plan": plan_leaves(graph.plan),
+               "world_size": engine.world_size}
+        if batcher is None:
+            rec["dispatches"] = engine.follow()
+        else:
+            batcher.stop()
+            try:
+                rec["full"] = engine.full_logits()
+                rec["rank_slot"] = engine.rank_slot(np.arange(engine.num_nodes))
+                rng = np.random.default_rng(5)
+                rec["served"] = [(ids, engine.infer(ids)) for ids in (
+                    rng.choice(engine.num_nodes, size=n, replace=False) for n in SIZES)]
+            finally:
+                engine.stop()
+            (plan_dir,) = os.listdir(cache_dir)
+            rec["plan_dir"] = plan_dir
+            rec["manifest"] = plan_shards.read_manifest(os.path.join(cache_dir, plan_dir))
+        rec["forwards"] = engine.forwards
+        out["turns"][turn] = rec
+        group.barrier()
+    real = plan_shards._sha256_file
+    if group.rank == 1:
+        plan_shards._sha256_file = lambda p, *a: (
+            "0" * 64 if p.endswith(plan_shards.shard_filename(0)) else real(p, *a))
+    try:
+        with watch_writes(cache_dir) as writes:
+            try:
+                _built(group, "gcn", params, plan_cache=cache_dir)
+                out["bad_shard"] = None
+            except Exception as e:  # noqa: BLE001 — reported to the test
+                out["bad_shard"] = f"{type(e).__name__}: {e}"
+        out["bad_shard_writes"] = writes
+    finally:
+        plan_shards._sha256_file = real
     return out
