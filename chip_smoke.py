@@ -79,7 +79,16 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    first engine's, 4 fused launches a forward; save and restore seconds and
    the checkpoint's bytes; the plan comes through ``--plan_cache`` on an
    empty directory: its one shard built and written (cold), seconds and
-   bytes logged;
+   bytes logged; then the hot swap (:func:`serve_swap`): a step 1 of the
+   params scaled by 1.0625 saved, and ``ServeEngine.swap_params`` to it
+   while a thread submits SWAP_REQUESTS mixed-size requests through a
+   MicroBatcher: every request answered, each reply wholly the old or the
+   new ``full_logits()`` rows, the swap adopted, every parameter's
+   ``data_ptr()`` kept, its validation launching the fused kernel 8 times
+   (two forwards) and nothing else, every bucket then serving the new
+   ``full_logits()``'s bits; a swap faulted at ``pre_swap`` rolled back,
+   the bits kept; the swap's seconds by stage (restore, stage, validate,
+   adopt, agree) and the in-flight requests' p50/p99 logged;
 5. serve SAGE — same width, a few requests, the segment-sum kernel's
    launches checked per forward; the plan loaded, verified, from phase 4's
    ``--plan_cache`` (warm: nothing written, the same ``plan_<key>``);
@@ -165,8 +174,11 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    and 10 timed steps; every step launches kernel 2 six times a head group
    and layer (four groups of one head), an eval forward twice; the loss
    falls; the CLI's model before its first step (``build_training``)
-   matches a CPU copy's plain forward at full size within 1e-4, and step 0's loss and gradients match the CPU
-   plain path within 1e-4 at V = 16,384. In every run no step after the
+   matches the same weights' plain forward on the CPU at full size within
+   1e-4 (computed in a process of its own, started with the phase beside
+   the card's work; its weights digest for digest the CLI model's), and
+   step 0's loss and gradients match the CPU plain path within 1e-4 at V =
+   16,384. In every run no step after the
    first computes CSR offsets (the sorted kernels' searchsorted runs once
    per ids tensor). Each run reports step ms p50/p99,
    the device-busy share and the peak device memory;
@@ -338,7 +350,20 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    timed in turn beside it, the library call and the bound; on four cards
    also kernel 5's NVLink bound (the bytes a rank puts over the sum of the
    link speeds ``nvidia-smi nvlink -s`` reports), there and at the
-   readings of KERNEL5_NVLINK_READINGS;
+   readings of KERNEL5_NVLINK_READINGS. The GCN pallas_p2p turn
+   (SERVE_W_SWAP_TURN) also swaps (:func:`serve_w_swap`): a second engine B
+   is built on the same ranks and graph (``from_checkpoint`` of A's step 0); global
+   rank 0 saves a step 1 of the params scaled by 1.0625 and swaps A to it
+   (every rank restores it; every bucket then serves the new
+   ``full_logits()``'s bits, every ``data_ptr()`` kept), then a swap that
+   the last rank's ``pre_swap`` faults must roll back on every rank; then a
+   ModelRegistry flips from A (step 1) to B (step 0) under
+   SERVE_W_FLIP_REQUESTS requests through one MicroBatcher (the followers
+   follow both engines, ``follow_all``): nothing hangs, each reply wholly
+   the rows of the engine that served it, B's after the flip. Each rank's
+   swap validation ran two forwards launching :func:`serve_w_want`'s twice
+   and nothing else, each rank serves step 1; the seconds by stage and each
+   rank's agreement times logged;
 then the kernels line (one JSON object) and the device line (last line).
 Every progress line carries the seconds since the start, and the end logs
 each phase's seconds.
@@ -365,6 +390,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -2025,14 +2051,18 @@ def serve_path(model: str, kernel: str, per_forward, n_requests: int,
     for b, rec in buckets.items():
         log(f"{model}: bucket {b}: n={rec['count']} p50 {rec['p50_ms']:.3f} ms "
             f"p99 {rec['p99_ms']:.3f} ms")
-    ckpt = (serve_checkpoint_fallback(engine, graph, full, served, kernel, per_forward)
-            if ckpt_dir else None)
+    ckpt = swap = None
+    if ckpt_dir:
+        ckpt = serve_checkpoint_fallback(engine, graph, full, served, kernel, per_forward)
+        swap = serve_swap(engine, full, kernel, per_forward)
+        # the swap window's launches join the path's
+        launches = {k: v + swap["launches"].get(k, 0) for k, v in launches.items()}
     del engine
     torch.cuda.empty_cache()
     return {"model": model, "requests": len(served), "forwards": forwards,
             "launches": launches, "cpu_max_abs_err": err, "buckets": buckets,
             "warmup_s": warm["warmup_s"], "build_s": build_s, "checkpoint": ckpt,
-            "plan_cache": cache}
+            "swap": swap, "plan_cache": cache}
 
 
 CKPT_SCALE = 1.0625  # the torn step's params: the seeded ones scaled (tests/test_serve.py)
@@ -2116,6 +2146,161 @@ def serve_checkpoint_fallback(engine, graph, full, served, kernel, per_forward) 
         f"in-memory engine's; {kernel} {per_forward} a forward")
     del again
     return rec
+
+
+SWAP_REQUESTS = 16  # requests a thread submits through the batcher across phase 4's swap
+SWAP_SPACING_S = 0.004  # between two of them: the swap starts after the fourth
+
+
+class ValidationProbe:
+    """Wraps ``engine._forward``: the kernel launches of each forward run on
+    staged parameters (a swap's validation forward; the dispatch lock keeps
+    every other forward out meanwhile), summed."""
+
+    def __init__(self, engine):
+        from dgraph_tpu_torch.ops import kernels
+
+        self.forwards, self.launches = 0, {}
+        real = engine._forward
+
+        def probe(params=None):
+            before = kernels.launch_counts()
+            out = real(params)
+            if params is not None:
+                self.forwards += 1
+                for k, v in kernels.launch_counts().items():
+                    self.launches[k] = self.launches.get(k, 0) + v - before[k]
+            return out
+
+        engine._forward = probe
+
+
+def swap_stage_ms(engine) -> dict:
+    return {k: round(v * 1e3, 3) for k, v in engine.last_swap_s.items()}
+
+
+def serve_swap(engine, full, kernel, per_forward) -> dict:
+    """Phase 4's swap leg, on the engine ``--ckpt_dir`` built from step 0
+    (after :func:`serve_checkpoint_fallback`): a step 1 of step 0's params
+    scaled by CKPT_SCALE is saved; a thread submits SWAP_REQUESTS mixed-size
+    requests through a MicroBatcher, SWAP_SPACING_S apart, while rank 0
+    swaps to step 1 after the fourth. Every request must be answered, each
+    reply wholly the old or the new ``full_logits()`` rows (the new ones if
+    it was submitted after the swap returned); the swap adopted, every
+    parameter's ``data_ptr()`` kept, the validation launching ``kernel``
+    exactly ``per_forward`` times a forward for two forwards and nothing
+    else; every bucket then serves the new ``full_logits()``'s bits. Then a
+    swap back to step 0 faulted at ``pre_swap`` must roll back, the bits
+    kept. Logs the swap's seconds by stage and the requests' p50/p99."""
+    import numpy as np
+
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.serve.__main__ import _raise_at_call
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.errors import SwapRejected
+    from dgraph_tpu_torch.train import checkpoint
+
+    ckpt = engine.ckpt_dir
+    state = checkpoint.restore_checkpoint(ckpt, step=0)
+    checkpoint.save_checkpoint(ckpt, {"params": {k: v * CKPT_SCALE for k, v in
+                                                 state["params"].items()}, "step": 1}, 1)
+    ptrs = {k: v.data_ptr() for k, v in engine.model.state_dict().items()}
+    probe = ValidationProbe(engine)
+    batcher = MicroBatcher(engine, registry=Metrics())
+    rng, sizes = request_sizes(SWAP_REQUESTS, engine.ladder, seed=4)
+    sent, fourth, errors = [], threading.Event(), []
+
+    def client():
+        try:
+            for i, n in enumerate(sizes):
+                ids = rng.choice(engine.num_nodes, size=n, replace=False)
+                sent.append((ids, time.perf_counter(), batcher.submit(ids)))
+                if i == 3:
+                    fourth.set()
+                time.sleep(SWAP_SPACING_S)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+            fourth.set()
+
+    kernels.reset_launch_counts()
+    forwards0 = engine.forwards
+    t = threading.Thread(target=client)
+    t.start()
+    fourth.wait(60)
+    t0 = time.perf_counter()
+    rec = engine.swap_params(step=1)
+    t_swap = time.perf_counter()
+    t.join(60)
+    replies = []
+    try:
+        for ids, t_sent, fut in sent:
+            out = fut.result(timeout=60)
+            replies.append((ids, t_sent, out, (time.perf_counter() - t_sent) * 1e3))
+    finally:
+        batcher.stop()
+    launches, forwards = kernels.launch_counts(), engine.forwards - forwards0
+    del engine._forward  # the probe
+    new = engine.full_logits()
+    if errors or t.is_alive() or len(replies) != SWAP_REQUESTS:
+        fail(f"serve swap: {len(replies)} of {SWAP_REQUESTS} requests answered: {errors}")
+    if not rec["adopted"] or rec["step"] != 1:
+        fail(f"serve swap: not adopted: {rec}")
+    if {k: v.data_ptr() for k, v in engine.model.state_dict().items()} != ptrs:
+        fail("serve swap: a parameter's data_ptr() moved (adoption must copy_ in place)")
+    if probe.forwards != 2 or {k: v for k, v in probe.launches.items() if v} != {
+            kernel: 2 * per_forward}:
+        fail(f"serve swap: the validation ran {probe.forwards} forwards launching "
+             f"{probe.launches} (want {kernel} {2 * per_forward}, nothing else)")
+    if launches[kernel] != per_forward * forwards:
+        fail(f"serve swap: {kernel} launched {launches[kernel]} times over {forwards} forwards")
+    if np.array_equal(new, full):
+        fail("serve swap: the adopted step 1 serves step 0's logits")
+    n_old = n_new = 0
+    for ids, t_sent, out, _ in replies:
+        r, s = engine.rank_slot(ids)
+        is_new, is_old = np.array_equal(out, new[r, s]), np.array_equal(out, full[r, s])
+        if is_new == is_old or (t_sent > t_swap and not is_new):
+            fail(f"serve swap: a reply of {len(ids)} rows (sent {t_sent - t0:+.4f} s from the "
+                 f"swap's start) is step 0's: {is_old}, step 1's: {is_new}")
+        n_old, n_new = n_old + is_old, n_new + is_new
+
+    def every_bucket_serves(want_full) -> bool:
+        for b in engine.ladder.sizes:
+            ids = np.arange(b) * 7 % engine.num_nodes
+            r, s = engine.rank_slot(ids)
+            if not np.array_equal(engine.infer(ids), want_full[r, s]):
+                return False
+        return True
+
+    if not every_bucket_serves(new):
+        fail("serve swap: rows served after the swap differ from the new full_logits()")
+    adopted_ms = swap_stage_ms(engine)
+    engine.pre_swap = _raise_at_call(0)
+    try:
+        engine.swap_params(step=0)
+        fail("serve swap: a swap faulted at pre_swap was adopted")
+    except SwapRejected as e:
+        if e.context.get("reason") != "fault" or not e.context.get("rolled_back"):
+            fail(f"serve swap: the faulted swap: {e.record()}")
+        fault_s = e.context["swap_s"]
+    finally:
+        engine.pre_swap = None
+    if not every_bucket_serves(new) or not np.array_equal(engine.full_logits(), new):
+        fail("serve swap: the rolled-back swap disturbed step 1's bits")
+    lat = [ms for *_, ms in replies]
+    out = {"swap_s": rec["swap_s"], "stages_ms": adopted_ms, "fault_swap_s": fault_s,
+           "validation_launches": probe.launches[kernel], "requests": len(replies),
+           "served_old": n_old, "served_new": n_new, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "launches": launches}
+    log(f"serve swap: step 1 adopted in {rec['swap_s']} s under traffic (stages ms "
+        f"{adopted_ms}); data_ptr()s kept; validation 2 forwards, {kernel} "
+        f"{probe.launches[kernel]}, nothing else; {len(replies)} requests in flight across it "
+        f"all answered, {n_old} step 0's and {n_new} step 1's rows, none mixed, p50 "
+        f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms; every bucket serves the new "
+        f"full_logits() bitwise; a swap faulted at pre_swap rolled back in {fault_s} s, the "
+        f"bits kept")
+    return out
 
 
 def sage_launches_per_forward(cfg) -> int:
@@ -3575,18 +3760,60 @@ def phase_train_gt(dtype_name: str = "float32", f32_step0_loss=None) -> dict:
     return rec
 
 
-def phase_train_gat() -> dict:
+def weight_digests(model) -> dict:
+    """Each parameter's and buffer's SHA-256, by name."""
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def gat_cpu_logits() -> dict:
+    """Phase 10's GAT oracle, in a spawned process of its own: the training
+    CLI's model as ``build_training`` makes it for gat_arxiv (seeded), on
+    the CPU, its plain forward at full size (no autograd). Returns the
+    logits, the weights' digests and the forward's seconds."""
+    import torch
+
+    from dgraph_tpu_torch.train import __main__ as cli
+    from dgraph_tpu_torch.train.loop import model_apply
+    from dgraph_tpu_torch.train.profile import gat_arxiv_config
+
+    t = cli.build_training(gat_arxiv_config(), device="cpu")
+    b = {k: v[0] for k, v in t.batches["train"].items()}
+    with torch.no_grad():
+        tc = time.perf_counter()
+        logits = model_apply(t.model, b, t.graph.plan.shard(0))
+        cpu_s = time.perf_counter() - tc
+    return {"logits": logits.numpy(), "weights": weight_digests(t.model), "cpu_forward_s": cpu_s}
+
+
+def start_gat_cpu_logits():
+    """:func:`gat_cpu_logits` in a spawned process (the whole run starts it
+    with phase 10, beside the graph transformer's card-bound steps); its
+    future."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(gat_cpu_logits)
+    pool.shutdown(wait=False)  # the process exits once the future is resolved
+    return future
+
+
+def phase_train_gat(cpu_logits=None) -> dict:
     """``python -m dgraph_tpu_torch.train --model gat`` at arxiv width
     (gat_arxiv: 4 heads of 128, 2 layers): 2 warm-up and 10 timed steps
     (steps 2-9 profiled); every step launches kernel 2 six times a head
     group and layer (the softmax denominator at width 1 and the message sum
     at width 128 forward; the backward of the src, dst, seg_max and denom
     takes), an eval forward two times. The logits of the CLI's model
-    (``build_training(cfg)``) before its first step match a CPU copy of the
-    same weights' plain forward (no autograd) at full size within 1e-4, and
+    (``build_training(cfg)``) before its first step match the same weights'
+    plain forward on the CPU (no autograd) at full size within 1e-4, and
     step 0's loss and every gradient match the CPU plain path at V = 16,384
     (the CPU's autograd at full size would keep about 40 GB of [E, 128]
-    activations)."""
+    activations). The CPU forward is :func:`gat_cpu_logits`, whose future
+    ``cpu_logits`` the whole run starts beside phase 10's card work (started
+    here otherwise); its weights must be the card model's, digest for
+    digest."""
     import dataclasses
 
     import torch
@@ -3605,24 +3832,31 @@ def phase_train_gat() -> dict:
     want["sorted_segment_sum"] = 6 * L * groups
     want_eval = dict.fromkeys(kernels.KERNELS, 0)
     want_eval["sorted_segment_sum"] = 2 * L * groups
+    cpu_logits = cpu_logits or start_gat_cpu_logits()
     res, rec, _ = train_cli_run("train gat_arxiv", cfg, want, want_eval, (2, 9))
     del res
     torch.cuda.empty_cache()
     t = cli.build_training(cfg)  # the CLI's own build: its model before the first step
     b = {k: v[0] for k, v in t.batches["train"].items()}
-    model_cpu = copy.deepcopy(t.model).cpu()
     with torch.no_grad():
         logits = model_apply(t.model, b, t.plan).cpu()
-        b = {k: v.cpu() for k, v in b.items()}
-        tc = time.perf_counter()
-        logits_cpu = model_apply(model_cpu, b, t.graph.plan.shard(0))
-        cpu_s = time.perf_counter() - tc
-    del t, b, model_cpu
+    weights = weight_digests(t.model)
+    del t, b
     torch.cuda.empty_cache()
+    tw = time.perf_counter()
+    cpu = cpu_logits.result(timeout=900)
+    wait_s = time.perf_counter() - tw
+    if cpu["weights"] != weights:
+        fail("train gat_arxiv: the CPU oracle's weights differ from the CLI's model: "
+             f"{sorted(k for k in weights if cpu['weights'].get(k) != weights[k])}")
+    logits_cpu, cpu_s = torch.from_numpy(cpu["logits"]), cpu["cpu_forward_s"]
     err = float((logits - logits_cpu).abs().max())
-    rec["full_size_logits_vs_cpu"] = {"max_abs_err": err, "cpu_forward_s": cpu_s}
-    log(f"train gat_arxiv: the CLI's model before its first step against a CPU copy's plain "
-        f"forward at full size: max abs err {err:.3g} (CPU forward {cpu_s:.1f} s)")
+    rec["full_size_logits_vs_cpu"] = {"max_abs_err": err, "cpu_forward_s": cpu_s,
+                                      "waited_s": wait_s}
+    log(f"train gat_arxiv: the CLI's model before its first step against the same weights' "
+        f"plain forward on the CPU at full size (a process of its own, beside the card's "
+        f"work; waited {wait_s:.1f} s for it): max abs err {err:.3g} (CPU forward "
+        f"{cpu_s:.1f} s)")
     if not torch.allclose(logits, logits_cpu, rtol=SERVE_TOL, atol=SERVE_TOL):
         fail(f"train gat_arxiv: full-size logits differ from the CPU plain forward by {err} "
              f"(tol {SERVE_TOL})")
@@ -3634,11 +3868,13 @@ def phase_train_gat() -> dict:
 def graph_model_phases(cfg) -> tuple:
     """Phase 10, in the form of :func:`one_rank_phases`."""
     log("phase 10: train ogb_gcn --model gt (f32, then bf16) and --model gat "
-        "(python -m dgraph_tpu_torch.train); phase 11's raw layout written beside")
+        "(python -m dgraph_tpu_torch.train); phase 11's raw layout and the GAT's full-size "
+        "CPU forward computed beside")
     start_ogb_raw_layout()
+    gat_cpu = start_gat_cpu_logits()
     gt_f32 = phase_train_gt()
     gt_bf16 = phase_train_gt("bfloat16", gt_f32["losses"][0])
-    gat = phase_train_gat()
+    gat = phase_train_gat(gat_cpu)
     if gt_bf16["launches"] != gt_f32["launches"]:
         fail(f"train gt_arxiv bfloat16 launched {gt_bf16['launches']}, the f32 run "
              f"{gt_f32['launches']}")
@@ -6214,6 +6450,158 @@ def plan_cache_kinds(turns) -> list:
 SERVE_W_REQUESTS = {"gcn": 16, "sage": 8, ("gcn", "auto"): 8}
 SERVE_W_REQUESTS_NCCL = {"gcn": 64, "sage": 32}
 SERVE_W_GROUP_TIMEOUT = 120.0  # s: a lost rank fails a request within it
+# the turn that swaps and flips (GCN under pallas_p2p, the cheapest on one
+# card): A swaps to step 1, then a swap faulted on the last rank alone, then
+# a registry flips A -> B (a second engine on the same ranks, step 0) under
+# SERVE_W_FLIP_REQUESTS requests through one batcher
+SERVE_W_SWAP_TURN = 1
+SERVE_W_FLIP_REQUESTS = 16
+
+
+class AgreeProbe:
+    """Wraps ``engine._agree``: the seconds of each agreement a swap makes
+    (``[(check, s)]``, in order)."""
+
+    def __init__(self, engine):
+        self.calls = []
+        real = engine._agree
+
+        def probe(what, failed_here):
+            t = time.perf_counter()
+            try:
+                return real(what, failed_here)
+            finally:
+                if "swap" in what:
+                    self.calls.append((what.split("'s ")[-1].removesuffix(" agreement"),
+                                       time.perf_counter() - t))
+
+        engine._agree = probe
+
+
+@contextlib.contextmanager
+def follower_swap_stages():
+    """A follower's stage seconds of each swap it ran (``engine.last_swap_s``
+    after each), while the block runs."""
+    from dgraph_tpu_torch.serve import rollover
+
+    seen, real = [], rollover.follow_swap
+
+    def probe(engine, payload):
+        try:
+            return real(engine, payload)
+        finally:
+            seen.append(swap_stage_ms(engine))
+
+    rollover.follow_swap = probe
+    try:
+        yield seen
+    finally:
+        rollover.follow_swap = real
+
+
+def serve_w_swap(a, b, full0) -> dict:
+    """Phase 16's swap leg on global rank 0 (the followers follow A and B):
+    step 1 (step 0's params scaled by CKPT_SCALE) saved into A's directory,
+    A swapped to it (every rank restores it), every bucket then serving the
+    new ``full_logits()``'s bits and every ``data_ptr()`` kept; a swap back
+    to step 0 that the last rank's ``pre_swap`` faults, rolled back on every
+    rank, the bits kept; then a ModelRegistry of A (active, step 1) and B
+    (step 0) behind one MicroBatcher: a client thread submits
+    SERVE_W_FLIP_REQUESTS requests one after another, and after half of
+    them rank 0 activates B. Each reply must be wholly A's or B's rows (B's
+    once submitted after the flip), none lost, nothing hung."""
+    import numpy as np
+
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.errors import SwapRejected
+    from dgraph_tpu_torch.serve.registry import ModelRegistry
+    from dgraph_tpu_torch.train import checkpoint
+
+    failures, out = [], {}
+    state = checkpoint.restore_checkpoint(a.ckpt_dir, step=0)
+    checkpoint.save_checkpoint(a.ckpt_dir, {"params": {k: v * CKPT_SCALE for k, v in
+                                                       state["params"].items()}, "step": 1}, 1)
+    ptrs = {k: v.data_ptr() for k, v in a.model.state_dict().items()}
+    rec = a.swap_params(step=1)
+    out["adopted"] = dict(rec, stages_ms=swap_stage_ms(a))
+    new = a.full_logits()
+
+    def every_bucket_serves(want) -> bool:
+        for n in a.ladder.sizes:
+            ids = np.arange(n) * 7 % a.num_nodes
+            r, s = a.rank_slot(ids)
+            if not np.array_equal(a.infer(ids), want[r, s]):
+                return False
+        return True
+
+    if not rec["adopted"] or rec["step"] != 1 or np.array_equal(new, full0):
+        failures.append(f"the swap to step 1: {rec}, new logits equal the old: "
+                        f"{np.array_equal(new, full0)}")
+    if not every_bucket_serves(new):
+        failures.append("rows served after the swap differ from the new full_logits()")
+    if {k: v.data_ptr() for k, v in a.model.state_dict().items()} != ptrs:
+        failures.append("a parameter's data_ptr() moved in the swap")
+    try:
+        a.swap_params(step=0)
+        failures.append("a swap faulted on the last rank was adopted")
+    except SwapRejected as e:
+        out["faulted"] = dict(e.context, stages_ms=swap_stage_ms(a))
+        if e.context.get("reason") != "fault" or f"[{SERVE_W - 1}]" not in e.context["detail"]:
+            failures.append(f"the faulted swap: {e.record()}")
+    if not every_bucket_serves(new) or not np.array_equal(a.full_logits(), new):
+        failures.append("the rolled-back swap disturbed step 1's bits")
+
+    b.warmup()
+    full_b = b.full_logits()
+    reg = ModelRegistry()
+    reg.register("a", a, activate=True)
+    reg.register("b", b)
+    batcher = MicroBatcher(reg, registry=Metrics())
+    rng, sizes = request_sizes(SERVE_W_FLIP_REQUESTS, a.ladder, seed=5)
+    replies, errors, flipped, half = [], [], threading.Event(), threading.Event()
+
+    def client():
+        try:
+            for i, n in enumerate(sizes):
+                ids = rng.choice(a.num_nodes, size=n, replace=False)
+                after, t = flipped.is_set(), time.perf_counter()
+                rows = batcher.submit(ids).result(timeout=SERVE_W_GROUP_TIMEOUT)
+                replies.append((ids, after, rows, (time.perf_counter() - t) * 1e3))
+                if i == len(sizes) // 2:
+                    half.set()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+            half.set()
+
+    t = threading.Thread(target=client)
+    t.start()
+    half.wait(SERVE_W_GROUP_TIMEOUT)
+    t_flip = time.perf_counter()
+    reg.activate("b")
+    flip_ms = (time.perf_counter() - t_flip) * 1e3
+    flipped.set()
+    t.join(SERVE_W_GROUP_TIMEOUT)
+    batcher.stop()
+    if errors or t.is_alive() or len(replies) != len(sizes):
+        failures.append(f"the flip's traffic: {len(replies)} of {len(sizes)} answered, "
+                        f"alive {t.is_alive()}: {errors}")
+    served_by = []
+    for ids, after, rows, _ in replies:
+        r, s = a.rank_slot(ids)
+        on_a, on_b = np.array_equal(rows, new[r, s]), np.array_equal(rows, full_b[r, s])
+        if on_a == on_b or (after and not on_b):
+            failures.append(f"a reply of {len(ids)} rows (after the flip: {after}) is A's: "
+                            f"{on_a}, B's: {on_b}")
+        served_by.append("a" if on_a else "b")
+    lat = [ms for *_, ms in replies] or [0.0]
+    out["flip"] = {"requests": len(replies), "served_by": "".join(served_by),
+                   "activate_ms": flip_ms, "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99))}
+    if "a" not in served_by or served_by[-1:] != ["b"]:
+        failures.append(f"the flip: served by {''.join(served_by)} (want A's, then B's)")
+    out["failures"] = failures
+    return out
 
 
 def serve_w_want(cfg, model: str, split: bool, p2p: bool) -> dict:
@@ -6306,7 +6694,10 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
     from dgraph_tpu_torch import config, plan_shards
     from dgraph_tpu_torch.comm import DistComm
     from dgraph_tpu_torch.ops import kernels
-    from dgraph_tpu_torch.serve.__main__ import build_serving
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve.__main__ import _raise_at_call, build_serving
+    from dgraph_tpu_torch.serve.engine import ServeEngine, follow_all
 
     start_s = time.time() - t_launch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6331,10 +6722,24 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
                 "build_s": time.perf_counter() - t0, "failures": [],
                 "restored_step": engine.restored_step, "plan_cache": pc,
                 "truncated": truncated}
+        engines, swap = [engine], i == SERVE_W_SWAP_TURN
+        if swap:  # B: a second engine on the same ranks and graph, from A's step 0
+            model_b = GCN(graph.features.shape[-1], cfg.hidden, cfg.num_classes,
+                          DistComm(group), num_layers=cfg.num_layers)
+            engines.append(ServeEngine.from_checkpoint(
+                model_b, graph, ckpt, step=0, device=engine.device, ladder=engine.ladder,
+                registry=Metrics()))
+            del model_b
+            probe, agreements = ValidationProbe(engine), AgreeProbe(engine)
+            if group.rank == SERVE_W - 1:
+                engine.pre_swap = _raise_at_call(1)  # the second swap's
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         if batcher is None:
-            turn["dispatches"] = engine.follow()
+            with follower_swap_stages() if swap else contextlib.nullcontext() as stages:
+                turn["dispatches"] = sum(follow_all(*engines))
+            if swap:
+                turn["swap_stages_ms"] = stages
         else:
             try:
                 turn["warmup_s"] = engine.warmup()["warmup_s"]
@@ -6348,9 +6753,13 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
                     lat.setdefault(engine.ladder.bucket_for(n), []).append(
                         (time.perf_counter() - t) * 1e3)
                 full = engine.full_logits()
+                if swap:
+                    turn["swap"] = serve_w_swap(engine, engines[1], full)
+                    turn["failures"] += turn["swap"].pop("failures")
             finally:
                 batcher.stop()
-                engine.stop()
+                for e in engines:
+                    e.stop()
             for ids, rows in served:
                 r, s = engine.rank_slot(ids)
                 if rows.shape != (len(ids), cfg.num_classes) or not np.array_equal(rows,
@@ -6367,7 +6776,14 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
                                for b, v in sorted(lat.items())}
         torch.cuda.synchronize(group.device)
         turn.update(serve_s=time.perf_counter() - t0, counts=kernels.launch_counts(),
-                    forwards=engine.forwards, hub_rows=cached_hub_rows())
+                    forwards=sum(e.forwards for e in engines), hub_rows=cached_hub_rows(),
+                    swaps=0, swap_forwards=0)
+        if swap:
+            del engine._forward, engine._agree  # the probes
+            turn.update(swaps=sum(r["event"] == "swap" for r in engine.lineage),
+                        swap_forwards=probe.forwards, swap_launches=probe.launches,
+                        agreements=agreements.calls, serving_step=engine.serving_step,
+                        swap_lineage=engine.lineage[1:])
         if group.global_rank == 0:
             t = time.perf_counter()
             turn["plan_digest"] = plan_digest(graph.plan)
@@ -6386,7 +6802,7 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
             rec, _ = p2p_real_case(group, gen, w4_halo_arrays(graph.plan), cfg.hidden,
                                    "float32", 1, failures, tag=" serve")
             turn["kernel_records"] = [dict(rec, failures=failures)]
-        del engine, batcher, graph
+        del engine, batcher, graph, engines
         torch.cuda.empty_cache()
         out["turns"].append(turn)
     config.halo_impl = "auto"
@@ -6409,6 +6825,41 @@ def serve_w_cpu_reference(models) -> dict:
         r, s = engine.rank_slot(np.arange(engine.num_nodes))
         out[model] = (full[r, s], time.perf_counter() - t)
     return out
+
+
+def serve_w_swap_checks(what: str, per_rank: list, want: dict) -> dict:
+    """The swap turn's checks over every rank's record: each ran the two
+    validation forwards of the adopted swap alone, launching ``want`` (a
+    forward's) twice and nothing else; each serves step 1 and recorded the
+    adopted swap, then the fault; logged with the seconds by stage and each
+    rank's agreement times. Returns the turn's swap record."""
+    front = per_rank[0]
+    twice = {k: 2 * v for k, v in want.items() if v}
+    for r, t in enumerate(per_rank):
+        got = {k: v for k, v in t["swap_launches"].items() if v}
+        if t["swap_forwards"] != 2 or got != twice:
+            fail(f"{what}: rank {r}'s swap validation ran {t['swap_forwards']} forwards "
+                 f"launching {got} (want 2 forwards, {twice})")
+        steps = [(x["adopted"], x.get("reason")) for x in t["swap_lineage"]]
+        if t["serving_step"] != 1 or steps != [(True, None), (False, "fault")]:
+            fail(f"{what}: rank {r} serves step {t['serving_step']} after swaps {steps} "
+                 "(want step 1 adopted, then the fault rolled back)")
+    agree_ms = [[round(s * 1e3, 3) for _, s in t["agreements"]] for t in per_rank]
+    checks = [c for c, _ in front["agreements"]]
+    stages = [front["swap"]["adopted"]["stages_ms"]] + [
+        t["swap_stages_ms"][0] for t in per_rank[1:]]
+    sw = front["swap"]
+    log(f"{what}: swap to step 1 adopted on every rank in {sw['adopted']['swap_s']} s (rank 0 "
+        f"stages ms {stages[0]}; the followers' {stages[1:]}); validation 2 forwards a rank, "
+        f"{twice} each, nothing else; data_ptr()s kept; every bucket serves the new "
+        f"full_logits() bitwise; a swap faulted on rank {SERVE_W - 1} rolled back on every "
+        f"rank in {sw['faulted']['swap_s']} s, the bits kept")
+    log(f"{what}: swap agreements ({checks}) ms a rank: {agree_ms}")
+    log(f"{what}: registry flip A (step 1) -> B (step 0) under {sw['flip']['requests']} "
+        f"requests: served by {sw['flip']['served_by']}, none lost or mixed, activate "
+        f"{sw['flip']['activate_ms']:.3f} ms, p50 {sw['flip']['p50_ms']:.3f} ms p99 "
+        f"{sw['flip']['p99_ms']:.3f} ms")
+    return dict(sw, agreements_ms=agree_ms, checks=checks, stages_ms=stages)
 
 
 def merged_rank_record(per_rank: list) -> dict:
@@ -6531,21 +6982,30 @@ def serve_w_phase(cfg) -> tuple:
         if impl != "auto" and resolved != {impl}:
             fail(f"{what}: the ranks resolved {resolved}")
         restored = [t["restored_step"] for t in per_rank]
-        if restored != [0] * SERVE_W or seeded[i] != [0]:
+        # the swap turn's rank 0 adds step 1, the step it swaps to
+        steps = [0, 1] if i == SERVE_W_SWAP_TURN else [0]
+        if restored != [0] * SERVE_W or seeded[i] != steps:
             fail(f"{what}: --ckpt_dir on an empty dir: the ranks restored steps {restored}, the "
-                 f"dir holds {seeded[i]} (want step 0 seeded once, restored on every rank)")
+                 f"dir holds {seeded[i]} (want step 0 seeded once, restored on every rank; "
+                 f"steps {steps} at the end)")
         halo = resolved.pop()
         want = serve_w_want(arxiv_config(model), model, halo in ("overlap", "pallas_p2p"),
                             halo == "pallas_p2p")
         for r, t in enumerate(per_rank):
-            if t["forwards"] != front["forwards"] or (r and t["dispatches"] != t["forwards"]):
+            # a follower's swap is one dispatch of two validation forwards
+            # (none when it rolled back before them)
+            if t["forwards"] != front["forwards"] or (
+                    r and t["dispatches"] - t["swaps"] + t["swap_forwards"] != t["forwards"]):
                 fail(f"{what}: rank {r} ran {t['forwards']} forwards and "
-                     f"{t.get('dispatches')} dispatches, rank 0 {front['forwards']}")
+                     f"{t.get('dispatches')} dispatches ({t['swaps']} swaps), rank 0 "
+                     f"{front['forwards']}")
             check_step_launches(f"{what} rank {r}", "all", t["counts"],
                                 {k: v * t["forwards"] for k, v in want.items()},
                                 hub_rows=t["hub_rows"])
         if not front["finite"] or front["shape"][0] != SERVE_W:
             fail(f"{what}: full logits non-finite or shape {front['shape']}")
+        if i == SERVE_W_SWAP_TURN:
+            swap_rec = serve_w_swap_checks(what, per_rank, want)
         ref, cpu_s = cpu[model]
         err = float(np.abs(front["logits"] - ref).max())
         if not np.allclose(front["logits"], ref, rtol=SERVE_TOL, atol=SERVE_TOL):
@@ -6553,6 +7013,7 @@ def serve_w_phase(cfg) -> tuple:
         for k in want:
             launched[k] = launched.get(k, 0) + sum(t["counts"][k] for t in per_rank)
         rec = {"config": what, "halo_impl": halo, "world_size": SERVE_W,
+               "swap": swap_rec if i == SERVE_W_SWAP_TURN else None,
                "backend": "nccl" if four else "gloo", "requests": front["requests"],
                "forwards": front["forwards"], "launches_per_forward": want,
                "cpu_max_abs_err": err, "buckets": front["buckets"],

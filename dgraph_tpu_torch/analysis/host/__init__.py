@@ -85,12 +85,15 @@ __all__ = [
 ]
 
 # the port's host modules (repo-relative posix prefixes): the serve
-# engine's RLock, the batcher's Condition and worker thread, the metrics
+# engine's RLock, the batcher's Condition and worker thread, the model
+# registry's lock, the rollover's swap under the dispatch lock, the metrics
 # registry, the kernel build module's library cache, the launcher, and the
 # plan cache's artifact IO (shards, manifest, layout sidecar)
 HOST_SCOPE = (
     "dgraph_tpu_torch/serve/engine.py",
     "dgraph_tpu_torch/serve/batcher.py",
+    "dgraph_tpu_torch/serve/registry.py",
+    "dgraph_tpu_torch/serve/rollover.py",
     "dgraph_tpu_torch/obs/metrics.py",
     "dgraph_tpu_torch/ops/_build.py",
     "dgraph_tpu_torch/comm/dist.py",

@@ -5,9 +5,16 @@ synthetic SBM graph (or an npz), warms every bucket, runs mixed-size
 closed-loop traffic through the micro-batcher and prints one ``serve_health``
 JSON record. ``--selftest`` adds hard checks: served logits equal the
 full-graph forward's bit-for-bit (over W ranks: the gathered
-``full_logits()``), and an over-ladder request is rejected with the
-structured ``too_large`` error. Runs on ``cuda`` unless ``--device cpu``;
-with no card it raises.
+``full_logits()``), an over-ladder request is rejected with the structured
+``too_large`` error, and the reference's swap leg runs: a step 1 of the
+served params scaled by 1.0625 (written by global rank 0 into a temporary
+``swap/`` directory, never into ``--ckpt_dir``) is hot-swapped in
+(``ServeEngine.swap_params``; over W ranks on every rank) and every bucket
+then serves the new ``full_logits()``'s bits, unlike the old; a swap back to
+the restored step whose ``pre_swap`` fault point raises (over W ranks on the
+last rank only) rolls back on every rank, the rows still step 1's bits. The
+``serve_health`` record's ``lineage`` holds both attempts. Runs on ``cuda``
+unless ``--device cpu``; with no card it raises.
 
 ``--ckpt_dir`` serves from a checkpoint directory (``train.checkpoint``),
 never from in-process state: an empty directory is first seeded with the
@@ -45,6 +52,7 @@ import argparse
 import contextlib
 import dataclasses
 import importlib
+import itertools
 import json
 import os
 import typing
@@ -193,32 +201,103 @@ def serve(cfg: Config, comm=None) -> dict:
     """One rank's run. Rank 0: warm every bucket, drive ``cfg.requests``
     mixed-size requests through the batcher (with ``cfg.selftest`` each
     checked against ``full_logits()`` bit for bit, then an over-ladder
-    request rejected), stop the followers and return the ``serve_health``
-    record. Ranks 1..W-1 follow and return what they ran. ``cfg.selftest``
-    without ``cfg.ckpt_dir`` or ``cfg.plan_cache`` serves from ``ckpt/``
-    and ``plans/`` in a temporary directory that global rank 0 makes (its
-    path agreed over the ranks; one host's)."""
+    request rejected and the swap leg), stop the followers and return the
+    ``serve_health`` record. Ranks 1..W-1 follow and return what they ran.
+    ``cfg.selftest`` runs in a temporary directory that global rank 0 makes
+    (its path agreed over the ranks; one host's): the swap leg's ``swap/``,
+    and ``ckpt/`` and ``plans/`` unless ``cfg.ckpt_dir`` and
+    ``cfg.plan_cache`` name others."""
     import tempfile
 
     from dgraph_tpu_torch.train.checkpoint import on_rank0
 
     with contextlib.ExitStack() as stack:
-        if cfg.selftest and not (cfg.ckpt_dir and cfg.plan_cache):
+        tmp = None
+        if cfg.selftest:
             tmp = on_rank0(comm.group if comm is not None else None, lambda: stack.enter_context(
                 tempfile.TemporaryDirectory(prefix="dgraph_serve_selftest_")))
             cfg = dataclasses.replace(cfg, ckpt_dir=cfg.ckpt_dir or os.path.join(tmp, "ckpt"),
                                       plan_cache=cfg.plan_cache or os.path.join(tmp, "plans"))
-        return _serve(cfg, comm)
+        return _serve(cfg, comm, tmp)
 
 
-def _serve(cfg: Config, comm=None) -> dict:
+def _raise_at_call(n: int):
+    """A ``pre_swap`` hook that raises at its call ``n`` (from 0), only then."""
+    calls = itertools.count()
+
+    def hook():
+        if next(calls) == n:
+            raise RuntimeError("fault injected mid-swap (the selftest's pre_swap)")
+
+    return hook
+
+
+def _scale_float_leaves(params: dict, factor: float) -> dict:
+    """Every floating tensor of a state dict times ``factor`` (an exact
+    power-of-two-ish factor keeps the perturbation bit-stable)."""
+    return {k: v * factor if v.is_floating_point() else v for k, v in params.items()}
+
+
+def _selftest_swap(cfg: Config, engine, scratch: str) -> list:
+    """The reference's swap leg (``_selftest_swap``) on rank 0: adopt a step
+    1 of the served params scaled by 1.0625, saved under ``scratch/swap``;
+    every bucket then serves the new ``full_logits()``'s bits, not the old
+    ones; then a swap back to the restored step whose ``pre_swap`` raises
+    (at W > 1 the last rank's, armed when it was built) must roll back with
+    the rows still step 1's bits."""
+    from dgraph_tpu_torch.serve.errors import SwapRejected
+    from dgraph_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    failures = []
+    old = engine.full_logits()
+    state = restore_checkpoint(cfg.ckpt_dir, step=engine.restored_step)
+    params = state["params"] if "params" in state else state
+    swap_dir = os.path.join(scratch, "swap")
+    save_checkpoint(swap_dir, {"params": _scale_float_leaves(params, 1.0625), "step": 1}, 1)
+    try:
+        engine.swap_params(swap_dir, step=1)
+    except SwapRejected as e:
+        return [f"hot swap not adopted: {e.record()}"]
+    new = engine.full_logits()
+
+    def served_rows_are(want) -> bool:
+        for b in engine.ladder.sizes:
+            ids = np.arange(min(b, engine.num_nodes))
+            r, s = engine.rank_slot(ids)
+            if not np.array_equal(engine.infer(ids), want[r, s]):
+                return False
+        return True
+
+    if not served_rows_are(new):
+        failures.append("post-swap served logits diverge from the new full_logits()")
+    if np.array_equal(new, old):
+        failures.append("the adopted step 1 serves step 0's logits")
+    if engine.world_size == 1:
+        engine.pre_swap = _raise_at_call(0)
+    try:
+        engine.swap_params(cfg.ckpt_dir, step=engine.restored_step)
+        failures.append("a swap faulted at pre_swap was adopted, not rolled back")
+    except SwapRejected as e:
+        if not (e.context.get("rolled_back") and e.context.get("reason") == "fault"):
+            failures.append(f"the faulted swap's rejection: {e.record()}")
+    finally:
+        engine.pre_swap = None
+    if not served_rows_are(new) or not np.array_equal(engine.full_logits(), new):
+        failures.append("the rollback disturbed the serving params")
+    return failures
+
+
+def _serve(cfg: Config, comm=None, scratch: Optional[str] = None) -> dict:
     from dgraph_tpu_torch.serve.errors import RequestTooLarge
 
     engine, batcher, _ = build_serving(cfg, comm=comm)
     if batcher is None:
+        if cfg.selftest and engine.rank == engine.world_size - 1:
+            engine.pre_swap = _raise_at_call(1)  # the swap leg's second swap
         dispatches = engine.follow()
         return {"kind": "serve_follower", "rank": engine.rank, "dispatches": dispatches,
-                "forwards": engine.forwards, "restored_step": engine.restored_step}
+                "forwards": engine.forwards, "restored_step": engine.restored_step,
+                "serving_step": engine.serving_step}
     failures = []
     try:
         try:
@@ -246,9 +325,7 @@ def _serve(cfg: Config, comm=None) -> dict:
                 failures.append("over-ladder request was not rejected")
             except RequestTooLarge:
                 pass
-            # the reference's swap leg (_selftest_swap: adopt a perturbed
-            # step-1 checkpoint, roll back a faulted swap) comes with
-            # swap_params, slice 9d
+            failures += _selftest_swap(cfg, engine, scratch)
     finally:
         engine.stop()
     rec = {
@@ -259,6 +336,7 @@ def _serve(cfg: Config, comm=None) -> dict:
         "ckpt_dir": engine.ckpt_dir,
         "plan_cache": cfg.plan_cache,
         "restored_step": engine.restored_step,
+        "serving_step": engine.serving_step,
         "lineage": engine.lineage,
         "warmup": warm,
         "forwards": engine.forwards,
@@ -280,7 +358,8 @@ def _serve_rank(group, cfg: dict) -> dict:
 def main(cfg: Config) -> dict:
     """Serve on ``cfg.world_size`` ranks; print and return rank 0's
     ``serve_health`` record (raises SystemExit when a selftest check
-    failed). Over ranks the record's ``restored_steps`` lists every rank's."""
+    failed). Over ranks the record's ``restored_steps`` and
+    ``serving_steps`` list every rank's."""
     from dgraph_tpu_torch.comm.dist import launch
     from dgraph_tpu_torch.train.__main__ import resolve_world_size
 
@@ -302,6 +381,7 @@ def main(cfg: Config) -> dict:
         if rec["kind"] != "serve_health":  # a follower under torchrun
             return rec
         rec["restored_steps"] = [r["restored_step"] for r in recs]
+        rec["serving_steps"] = [r["serving_step"] for r in recs]
     print(json.dumps(rec, default=str))
     if "error" in rec:
         raise SystemExit("selftest FAILED: " + rec["error"])

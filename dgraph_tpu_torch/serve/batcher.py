@@ -17,6 +17,12 @@ padded engine call, with the safety properties an online queue needs:
 One worker thread owns the engine (device work stays single-threaded);
 clients get a ``concurrent.futures.Future`` resolving to the logits slice
 or the structured error.
+
+The engine may be a :class:`~dgraph_tpu_torch.serve.registry.ModelRegistry`:
+then each flush resolves the ACTIVE engine once and runs the whole batch on
+it (a batch never spans two engines), after revalidating every request
+against that engine, so a flip between submit and flush fails a stale
+request alone (``serve.rejected_stale``) instead of the batch it joined.
 """
 
 from __future__ import annotations
@@ -67,12 +73,14 @@ class MicroBatcher:
     ):
         if max_batch_size < 1 or max_queue_depth < 1:
             raise ValueError("max_batch_size and max_queue_depth must be >= 1")
-        self.engine = engine
+        # a bare engine or a ModelRegistry, whose ACTIVE engine is resolved
+        # per batch: an adoption is then a flip between batches
+        self._source = engine
         self.max_batch_size = int(max_batch_size)
         self.max_delay_ms = float(max_delay_ms)
         self.max_queue_depth = int(max_queue_depth)
         self.default_timeout_s = float(default_timeout_s)
-        self.registry = registry if registry is not None else engine.registry
+        self.registry = registry if registry is not None else self.engine.registry
         self._q: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._stopped = False
@@ -83,6 +91,13 @@ class MicroBatcher:
             target=self._loop, name="serve-batcher", daemon=True
         )
         self._worker.start()
+
+    @property
+    def engine(self):
+        """The engine the next operation runs on: the bare engine, or the
+        registry's active entry (read at each call)."""
+        src = self._source
+        return src.active_engine if hasattr(src, "active_engine") else src
 
     def __len__(self) -> int:
         """Current queue depth (requests waiting, not in flight)."""
@@ -104,13 +119,14 @@ class MicroBatcher:
         # full validation up front: the worker concatenates requests, so an
         # impossible one must never reach the engine, where its failure
         # would fan out to every request coalesced with it
+        engine = self.engine
         try:
-            self.engine.ladder.bucket_for(ids.shape[0])
+            engine.ladder.bucket_for(ids.shape[0])
         except RequestTooLarge:
             self.registry.counter("serve.rejected_too_large")
             raise
-        num_nodes = self.engine.num_nodes
-        if ids.size and (ids.min() < 0 or ids.max() >= num_nodes):
+        num_nodes = getattr(engine, "num_nodes", None)
+        if num_nodes is not None and ids.size and (ids.min() < 0 or ids.max() >= num_nodes):
             raise ValueError(
                 f"node ids must be in [0, {num_nodes}), got [{ids.min()}, {ids.max()}]"
             )
@@ -219,8 +235,29 @@ class MicroBatcher:
             self.registry.gauge("serve.queue_depth", float(len(self._q)))
             return batch
 
+    def _revalidate(self, eng, p: _Pending):
+        """The error to fail ``p`` alone with if the engine that will run it
+        (a registry flip since submit may have changed it) cannot: a size
+        past its ladder or an id past its graph; else None."""
+        try:
+            eng.ladder.bucket_for(p.ids.shape[0])
+        except RequestTooLarge as e:
+            return e
+        num_nodes = getattr(eng, "num_nodes", None)
+        if num_nodes is not None and p.ids.size and (
+            p.ids.min() < 0 or p.ids.max() >= num_nodes
+        ):
+            return ValueError(
+                f"node ids must be in [0, {num_nodes}) on the engine now "
+                f"active, got [{p.ids.min()}, {p.ids.max()}]"
+            )
+        return None
+
     def _flush(self, batch) -> None:
         now = time.monotonic()
+        # the active engine ONCE a flush: a flip landing mid-flush must not
+        # split one batch across two engines
+        eng = self.engine
         live = []
         for p in batch:
             # claim the future atomically: a client-cancelled one is dropped
@@ -235,15 +272,34 @@ class MicroBatcher:
                     waited_s=round(now - p.enqueued_at, 4),
                 ))
                 continue
+            stale = self._revalidate(eng, p)
+            if stale is not None:
+                self.registry.counter("serve.rejected_stale")
+                p.future.set_exception(stale)
+                continue
             live.append(p)
         if not live:
             return  # expired/cancelled-only batch: no engine call
         for p in live:
             self.registry.histogram("serve.stage.queue_wait_ms",
                                     (p.popped_at - p.enqueued_at) * 1e3)
+        # re-chunk against the resolved engine's largest bucket: _collect
+        # split against the engine active at pop time
+        cap = eng.ladder.max_size
+        chunk, total = [], 0
+        for p in live:
+            n = int(p.ids.shape[0])
+            if chunk and total + n > cap:
+                self._dispatch(eng, chunk)
+                chunk, total = [], 0
+            chunk.append(p)
+            total += n
+        self._dispatch(eng, chunk)
+
+    def _dispatch(self, eng, live) -> None:
         ids = np.concatenate([p.ids for p in live]) if len(live) > 1 else live[0].ids
         try:
-            out = self.engine.infer(ids)
+            out = eng.infer(ids)
         except Exception as e:  # noqa: BLE001 — fan the failure to every waiter
             for p in live:
                 p.future.set_exception(e)

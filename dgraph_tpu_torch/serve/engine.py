@@ -46,10 +46,24 @@ reference's serving mesh (``make_graph_mesh(ranks_per_graph=world)``,
 :meth:`ServeEngine.from_checkpoint` restores the parameters from a
 checkpoint directory (``train.checkpoint``; over W ranks global rank 0
 resolves the step and every rank restores that step) and records it in
-``lineage``, against whose ``ckpt_dir`` a later ``swap_params`` resolves
-bare step numbers. PyTorch runs eagerly, so there is no compile to count
-(the reference's recompile counter has no counterpart); one CUDA graph per
-bucket is later work, as are ``swap_params`` and ``append_vertices``.
+``lineage``, against whose ``ckpt_dir`` :meth:`ServeEngine.swap_params`
+resolves bare step numbers. A swap (:mod:`~dgraph_tpu_torch.serve.rollover`)
+validates a new checkpoint through the live module and adopts it by
+``copy_`` into the live tensors, so every parameter keeps its
+``data_ptr()``: the torch meaning of the reference's zero-recompile pin
+(what a CUDA graph a bucket would capture is what a swap writes). PyTorch
+runs eagerly, so there is no compile to count and the reference's
+``recompile`` rejection has no counterpart; one CUDA graph per bucket is
+later work, as is ``append_vertices``. Over W ranks rank 0 announces a
+swap (the header op ``SWAP``) as it announces a dispatch, so every rank's
+parameters change between the same two dispatches.
+
+**Several engines over one set of ranks** (a :class:`~dgraph_tpu_torch.
+serve.registry.ModelRegistry` flipping between them): every engine of a
+process shares one dispatch lock, so two engines' dispatches never
+interleave their collectives on any rank; a follower runs each engine's
+:meth:`ServeEngine.follow` in a thread of its own (:func:`follow_all`),
+which takes that lock only once a header has arrived.
 """
 
 from __future__ import annotations
@@ -75,7 +89,11 @@ from dgraph_tpu_torch.train.loop import model_apply
 # serving lasts (rank 0's exit closes the group at once)
 CONTROL_TIMEOUT = datetime.timedelta(days=7)
 # the ops a header announces
-STOP, BUCKET, FULL = 0, 1, 2
+STOP, BUCKET, FULL, SWAP = 0, 1, 2, 3
+# one dispatch at a time in this process (a rank), whatever the engine: two
+# engines over the same ranks share the rank's process groups and device,
+# so their dispatches' collectives must never interleave
+_RANK_DISPATCH_LOCK = threading.Lock()
 
 
 class RankLost(RuntimeError):
@@ -150,12 +168,16 @@ class ServeEngine:
         # must not count toward the fresh degrade window
         self._failure_epoch = 0
         self._lock = threading.RLock()
-        # one dispatch at a time on this rank: over W ranks two dispatches
-        # whose collectives interleaved would deadlock or mix halos
-        self._dispatch_lock = threading.Lock()
+        # one dispatch at a time on this rank, shared by every engine of the
+        # process: over W ranks two dispatches whose collectives interleaved
+        # would deadlock or mix halos
+        self._dispatch_lock = _RANK_DISPATCH_LOCK
         # called on every rank before each attempt's forward; an exception
         # from it fails that attempt on every rank (a fault injection point)
         self.pre_forward: Optional[Callable[[], None]] = None
+        # called on every rank of a swap between its restore and its
+        # validation; an exception from it rolls the swap back on every rank
+        self.pre_swap: Optional[Callable[[], None]] = None
         self._stopped = False
         self._lost: Optional[str] = None  # why the ranks can run no dispatch
         self.model = model.to(self.device).eval()
@@ -169,11 +191,13 @@ class ServeEngine:
         self.forwards = 0  # full-graph forwards this rank ran so far
         self.last_stage_ms: dict = {}
         self.warmup_s: Optional[float] = None
-        # the checkpoint the parameters came from (from_checkpoint), and the
-        # record of each adoption
+        # the checkpoint the parameters came from (from_checkpoint), the
+        # step served now (a swap moves it), and the record of each attempt
         self.ckpt_dir: Optional[str] = None
         self.restored_step: Optional[int] = None
+        self.serving_step: Optional[int] = None
         self.lineage: list = []
+        self.last_swap_s: dict = {}  # the last swap's seconds a stage
         self._ctrl = None
         if W > 1:  # collective: every rank builds its engine at this point
             self._ctrl = dist.new_group([group.global_peer(r) for r in range(W)],
@@ -213,6 +237,7 @@ class ServeEngine:
         # the lineage root: swap_params(step=...) resolves bare step numbers
         # against this directory
         eng.ckpt_dir, eng.restored_step = ckpt_dir, s
+        eng.serving_step = s
         saved = state.get("step") if isinstance(state, dict) else None
         eng.lineage.append({
             "kind": "serve_rollover",
@@ -240,42 +265,74 @@ class ServeEngine:
 
     # --- forward ---
 
-    def _logits(self) -> torch.Tensor:
-        """Full-graph logits ``[W, n_pad, C]`` on the device (one rank)."""
+    def _forward(self, params: Optional[dict] = None) -> torch.Tensor:
+        """This rank's full-graph logits ``[n_pad, C]`` on the device, with
+        the live parameters or, for a swap's validation, with ``params`` (a
+        state dict on the device) through ``torch.func.functional_call``:
+        the live tensors are not touched."""
+        model = self.model if params is None else (
+            lambda *args: torch.func.functional_call(self.model, params, args))
         with torch.inference_mode():
-            out = model_apply(self.model, self._batch, self._plan)[None]
+            out = model_apply(model, self._batch, self._plan)
         self.forwards += 1
         return out
+
+    def _bucket_rows(self, slot_idx: torch.Tensor, params: Optional[dict] = None):
+        """A bucket's rows of this rank: the full forward, then its
+        ``slot_idx`` rows (the served path, swap validation included)."""
+        return self._forward(params)[slot_idx]
 
     def _run_bucket(self, rank_idx: np.ndarray, slot_idx: np.ndarray) -> np.ndarray:
         """One attempt of one bucket: the full forward, then the
         ``[bucket]`` row gather."""
         if self.world_size > 1:
             return self._dispatch(BUCKET, np.stack([rank_idx, slot_idx]))
-        with self._dispatch_lock, self._on_device(), torch.inference_mode():
+        with self._dispatch_lock, self._on_device():
             if self.pre_forward is not None:
                 self.pre_forward()
-            rows = self._logits()[torch.from_numpy(rank_idx).to(self.device),
-                                  torch.from_numpy(slot_idx).to(self.device)]
-            return rows.cpu().numpy()
+            return self._bucket_rows(torch.from_numpy(slot_idx).to(self.device)).cpu().numpy()
 
     def _dispatch(self, op: int, idx: Optional[np.ndarray] = None):
         """Rank 0's dispatch over W ranks: announce, then :meth:`_attempt`."""
         with self._dispatch_lock, self._on_device():
-            if self._stopped:
-                raise EngineStopped("engine stopped")
-            if self._lost is not None:
-                raise RankLost(f"the ranks can run no dispatch: {self._lost}")
-            try:
-                n = 0 if idx is None else idx.shape[1]
-                dist.broadcast(torch.tensor([op, n], dtype=torch.int64), self._src,
-                               group=self._ctrl)
-                if n:
-                    dist.broadcast(torch.from_numpy(np.ascontiguousarray(idx, np.int64)),
-                                   self._src, group=self._ctrl)
-            except Exception as e:  # noqa: BLE001 — a peer is gone
-                raise self._lose("announcing a dispatch", e) from e
+            self._announce(op, idx)
             return self._attempt(op, idx)
+
+    def _announce(self, op: int, idx: Optional[np.ndarray] = None, payload=None) -> None:
+        """Rank 0, the dispatch lock held: the header ``[op, rows]`` on the
+        control group, then a bucket's padded ``(rank_idx, slot_idx)`` or a
+        swap's payload (:mod:`~dgraph_tpu_torch.serve.rollover`)."""
+        if self._stopped:
+            raise EngineStopped("engine stopped")
+        if self._lost is not None:
+            raise RankLost(f"the ranks can run no dispatch: {self._lost}")
+        try:
+            n = 0 if idx is None else idx.shape[1]
+            dist.broadcast(torch.tensor([op, n], dtype=torch.int64), self._src,
+                           group=self._ctrl)
+            if n:
+                dist.broadcast(torch.from_numpy(np.ascontiguousarray(idx, np.int64)),
+                               self._src, group=self._ctrl)
+            if op == SWAP:
+                dist.broadcast_object_list([payload], self._src, group=self._ctrl)
+        except Exception as e:  # noqa: BLE001 — a peer is gone
+            raise self._lose("announcing a dispatch", e) from e
+
+    def _receive(self) -> tuple:
+        """A follower's side of :meth:`_announce`: ``(op, idx, payload)``."""
+        head = torch.empty(2, dtype=torch.int64)
+        dist.broadcast(head, self._src, group=self._ctrl)
+        op, rows = head.tolist()
+        idx = payload = None
+        if rows:
+            t = torch.empty(2, rows, dtype=torch.int64)
+            dist.broadcast(t, self._src, group=self._ctrl)
+            idx = t.numpy()
+        if op == SWAP:
+            box = [None]
+            dist.broadcast_object_list(box, self._src, group=self._ctrl)
+            payload = box[0]
+        return op, idx, payload
 
     @property
     def _src(self) -> int:
@@ -288,12 +345,8 @@ class ServeEngine:
         if op == BUCKET and self._agree_pre_forward():
             return None  # a follower: the attempt was dropped on every rank
         try:
-            with torch.inference_mode():
-                logits = model_apply(self.model, self._batch, self._plan)
-                self.forwards += 1
-                if op == BUCKET:
-                    logits = logits[torch.from_numpy(idx[1]).to(self.device)]
-                rows = logits.cpu()
+            rows = (self._bucket_rows(torch.from_numpy(idx[1]).to(self.device))
+                    if op == BUCKET else self._forward()).cpu()
             parts = ([torch.empty_like(rows) for _ in range(self.world_size)]
                      if self.rank == 0 else None)
             dist.gather(rows, parts, dst=self._src, group=self.group.host_pg)
@@ -314,18 +367,25 @@ class ServeEngine:
                 self.pre_forward()
         except Exception as e:  # noqa: BLE001 — agreed below, before any collective
             err = e
-        flags = torch.zeros(self.world_size, dtype=torch.int32)
-        flags[self.rank] = int(err is not None)
-        try:
-            dist.all_reduce(flags, group=self.group.host_pg)
-        except Exception as e:  # noqa: BLE001 — a peer is gone
-            raise self._lose("the pre-forward agreement", e) from e
-        failed = flags.nonzero().flatten().tolist()
+        failed = self._agree("the pre-forward agreement", err is not None)
         if failed and self.rank == 0:
             raise err if err is not None else RuntimeError(
                 f"rank(s) {failed} failed their pre-forward check; the attempt was dropped "
                 "on every rank")
         return bool(failed)
+
+    def _agree(self, what: str, failed_here: bool) -> list:
+        """The ranks that failed a check every rank ran: one all-reduce over
+        ``host_pg`` (this rank alone at one rank)."""
+        if self.world_size == 1:
+            return [0] if failed_here else []
+        flags = torch.zeros(self.world_size, dtype=torch.int32)
+        flags[self.rank] = int(failed_here)
+        try:
+            dist.all_reduce(flags, group=self.group.host_pg)
+        except Exception as e:  # noqa: BLE001 — a peer is gone
+            raise self._lose(what, e) from e
+        return flags.nonzero().flatten().tolist()
 
     def _lose(self, where: str, err: Exception) -> RankLost:
         self._lost = f"{where} failed on rank {self.rank}: {type(err).__name__}: {err}"
@@ -429,6 +489,22 @@ class ServeEngine:
         ids = np.asarray(node_ids)
         return self._id_rank[ids], self._id_slot[ids]
 
+    def swap_params(self, source=None, *, step: Optional[int] = None, params=None,
+                    parity_ids=None) -> dict:
+        """Hot-swap to a new checkpoint: restore, validate through the live
+        module with the new tensors, then adopt (``copy_`` into the live
+        tensors, every ``data_ptr()`` kept) or roll back. ``source`` is a
+        checkpoint directory (``step`` picks a step, default the newest
+        readable), defaulting to :attr:`ckpt_dir`; or pass ``params``, a
+        state dict. A rejection raises :class:`~dgraph_tpu_torch.serve.
+        errors.SwapRejected` with the prior parameters still serving; every
+        attempt lands one record in :attr:`lineage`. Over W ranks every rank
+        adopts or every rank rolls back. Rank 0's only; see
+        :func:`dgraph_tpu_torch.serve.rollover.swap_params`."""
+        from dgraph_tpu_torch.serve.rollover import swap_params
+
+        return swap_params(self, source, step=step, params=params, parity_ids=parity_ids)
+
     def full_logits(self) -> np.ndarray:
         """``[W, n_pad, C]`` logits for the whole graph (over W ranks every
         rank's shard, gathered on rank 0) — the oracle the bucketed path is
@@ -436,8 +512,8 @@ class ServeEngine:
         self._check_front("full_logits")
         if self.world_size > 1:
             return self._dispatch(FULL)
-        with self._dispatch_lock, self._on_device(), torch.inference_mode():
-            return self._logits().cpu().numpy()
+        with self._dispatch_lock, self._on_device():
+            return self._forward()[None].cpu().numpy()
 
     def warmup(self) -> dict:
         """Run every bucket once (and the full-logits forward), so the first
@@ -461,26 +537,28 @@ class ServeEngine:
     # --- ranks 1..W-1 ---
 
     def follow(self) -> int:
-        """Ranks 1..W-1: run every dispatch rank 0 announces, until it
-        announces stop. Returns the dispatches run. A :class:`RankLost`
-        propagates: this rank's part of the group is gone."""
+        """Ranks 1..W-1: run every dispatch rank 0 announces (a swap too),
+        until it announces stop. Returns the dispatches run. The dispatch
+        lock is taken only once a header has arrived, so another engine's
+        follower thread runs its dispatches meanwhile (:func:`follow_all`).
+        A :class:`RankLost` propagates: this rank's part of the group is
+        gone."""
+        from dgraph_tpu_torch.serve.rollover import follow_swap
+
         if self.rank == 0:
             raise RuntimeError("rank 0 is the front: it dispatches; follow() is for ranks "
                                "1..W-1")
         n = 0
         while True:
-            with self._dispatch_lock, self._on_device():
-                head = torch.empty(2, dtype=torch.int64)
-                dist.broadcast(head, self._src, group=self._ctrl)
-                op, rows = head.tolist()
+            with self._on_device():
+                op, idx, payload = self._receive()
                 if op == STOP:
                     break
-                idx = None
-                if rows:
-                    t = torch.empty(2, rows, dtype=torch.int64)
-                    dist.broadcast(t, self._src, group=self._ctrl)
-                    idx = t.numpy()
-                self._attempt(op, idx)
+                with self._dispatch_lock:
+                    if op == SWAP:
+                        follow_swap(self, payload)
+                    else:
+                        self._attempt(op, idx)
             n += 1
         with self._dispatch_lock:
             self._close()
@@ -506,3 +584,27 @@ class ServeEngine:
         if self._ctrl is not None:
             dist.destroy_process_group(self._ctrl)
             self._ctrl = None
+
+
+def follow_all(*engines) -> list:
+    """Ranks 1..W-1 of several engines over the same ranks (a registry on
+    rank 0 flipping between them): each engine's :meth:`ServeEngine.follow`
+    in a thread of its own, until rank 0 stops every engine. Returns each
+    engine's dispatches; raises the first error once every thread ended."""
+    counts, errors = [None] * len(engines), []
+
+    def run(i, engine):
+        try:
+            counts[i] = engine.follow()
+        except BaseException as e:  # noqa: BLE001 — raised below, on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, e), name=f"serve-follow-{i}")
+               for i, e in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return counts

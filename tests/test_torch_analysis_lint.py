@@ -91,7 +91,8 @@ def test_host_selftest_and_clean_audit():
     assert set(rep["classes"]) == {
         "dgraph_tpu_torch/obs/metrics.py::Metrics",
         "dgraph_tpu_torch/serve/batcher.py::MicroBatcher",
-        "dgraph_tpu_torch/serve/engine.py::ServeEngine"}
+        "dgraph_tpu_torch/serve/engine.py::ServeEngine",
+        "dgraph_tpu_torch/serve/registry.py::ModelRegistry"}
 
 
 @pytest.mark.parametrize("mutant", [

@@ -824,3 +824,62 @@ def test_p2p_landing_buffer_mapped_under_inference_mode_stays_writable(dev):
 
     assert launch(torch_serve_ranks.landing_after_inference, 2, device="cuda",
                   timeout=300) == [True, True]
+
+
+def test_hot_swap_on_the_card_keeps_pointers_and_serves_the_new_bits(dev, tmp_path):
+    """A GCN engine on the card served from ``--ckpt_dir`` swaps to a step 1
+    of its params scaled by 1.0625: adopted, every parameter's
+    ``data_ptr()`` kept, the validation launching the fused kernel for two
+    forwards and nothing else, every bucket then serving the new
+    ``full_logits()``'s bits (unlike the old), within 1e-4 of the same
+    model on the CPU with step 1's params; a swap faulted at ``pre_swap``
+    then leaves those bits."""
+    import copy
+    import math
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.serve.__main__ import Config, build_serving
+    from dgraph_tpu_torch.serve.errors import SwapRejected
+    from dgraph_tpu_torch.train import checkpoint
+    from dgraph_tpu_torch.train.loop import model_apply
+
+    cfg = Config(model="gcn", num_nodes=400, max_bucket=64, ckpt_dir=str(tmp_path / "ckpt"))
+    engine, batcher, graph = build_serving(cfg, device="cuda")
+    batcher.stop()
+    engine.warmup()
+    old = engine.full_logits()
+    ptrs = {k: v.data_ptr() for k, v in engine.model.state_dict().items()}
+    state = checkpoint.restore_checkpoint(cfg.ckpt_dir)
+    step1 = {k: v * 1.0625 for k, v in state["params"].items()}
+    checkpoint.save_checkpoint(cfg.ckpt_dir, {"params": step1, "step": 1}, 1)
+    kernels.reset_launch_counts()
+    rec = engine.swap_params(step=1)
+    counts = kernels.launch_counts()
+    assert rec["adopted"] and rec["step"] == 1
+    assert {k: v.data_ptr() for k, v in engine.model.state_dict().items()} == ptrs
+    per_forward = cfg.num_layers * math.ceil(cfg.hidden / config.gather_col_block)
+    assert counts["sorted_segment_sum_bias_relu"] == 2 * per_forward
+    assert not any(v for k, v in counts.items()
+                   if k in kernels.KERNELS and k != "sorted_segment_sum_bias_relu")
+    new = engine.full_logits()
+    assert not np.array_equal(new, old)
+    for b in engine.ladder.sizes:
+        ids = np.arange(b) * 3 % engine.num_nodes
+        r, s = engine.rank_slot(ids)
+        np.testing.assert_array_equal(engine.infer(ids).view(np.int32), new[r, s].view(np.int32))
+    cpu = copy.deepcopy(engine.model).cpu()
+    cpu.load_state_dict(step1)
+    batch = {"x": graph.features[0], "edge_weight": graph.edge_weight[0]}
+    with torch.inference_mode():
+        want = model_apply(cpu, batch, graph.plan.shard(0)).numpy()
+    np.testing.assert_allclose(new[0], want, rtol=1e-4, atol=1e-4)
+
+    def boom():
+        raise RuntimeError("fault injected mid-swap")
+
+    engine.pre_swap = boom
+    with pytest.raises(SwapRejected) as info:
+        engine.swap_params(step=0)
+    assert info.value.context["reason"] == "fault"
+    np.testing.assert_array_equal(engine.full_logits().view(np.int32), new.view(np.int32))
+    assert {k: v.data_ptr() for k, v in engine.model.state_dict().items()} == ptrs

@@ -211,6 +211,14 @@ def test_cli_selftest_on_cpu(capsys):
     assert rec["kind"] == "serve_health" and rec["device"] == "cpu"
     assert "error" not in rec
     assert rec["metrics"]["counters"]["serve.infer_calls"] >= 6
+    # the swap leg: step 1 adopted, then a swap faulted at pre_swap rolled back
+    swaps = [r for r in rec["lineage"] if r["event"] == "swap"]
+    assert [(r["adopted"], r["rolled_back"], r["step"]) for r in swaps] == [
+        (True, False, 1), (False, True, 0)]
+    assert swaps[1]["reason"] == "fault"
+    assert rec["serving_step"] == 1 and rec["restored_step"] == 0
+    counters = rec["metrics"]["counters"]
+    assert counters["serve.swaps_adopted"] == 1 and counters["serve.swap_rejected"] == 1
 
 
 def test_engine_refuses_multi_rank_plans():

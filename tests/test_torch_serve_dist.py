@@ -39,6 +39,13 @@ W on ``jax.devices()[:W]``, indexed by the reference's ``rank_slot``.
   ``full_logits()``'s bits within 1e-5 of the reference's, only global rank
   0 writes, a follower's bad shard raises on every rank; the CLI's selftest
   runs through a temporary ``plans/`` and an explicit ``--plan_cache``.
+- Checkpoint hot swap at W = 2 (``torch_serve_ranks.swap_cases``): an
+  adopted swap to step 1 leaves both ranks on step 1's parameters, its
+  ``full_logits()`` within 1e-5 of the reference's on step 1; a ``pre_swap``
+  fault on rank 1 alone, a torn step and a torn read only rank 1 meets are
+  rolled back on both ranks, the served bits unchanged; then a registry
+  flips between two engines on the same two ranks under traffic through
+  one batcher: no hang, each reply the rows of the engine that served it.
 """
 
 import json
@@ -74,12 +81,13 @@ TIMEOUT = 300
 LOST_BOUND_S = 20.0  # the lost-rank launch's group timeout
 
 
-def _jax_side(model: str, W: int, ckpt_dir: str = ""):
+def _jax_side(model: str, W: int, ckpt_dir: str = "", scale: float = 1.0):
     """(flax params, the reference's full_logits [W, n_pad, C], its
     rank_slot of every vertex) at W ranks on the CLI's default graph; with
     ``ckpt_dir`` the params are saved there at step 0 (the reference's
     ``save_checkpoint``) and the engine is built from what its
-    ``restore_checkpoint`` hands back."""
+    ``restore_checkpoint`` hands back; with ``scale`` every leaf of the
+    params is scaled first (the serve selftest's step 1)."""
     cfg = Config(model=model)
     data = jax_synthetic.sbm_classification_graph(
         num_nodes=cfg.num_nodes, num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
@@ -94,6 +102,8 @@ def _jax_side(model: str, W: int, ckpt_dir: str = ""):
         args.append(jnp.asarray(ref.edge_weight[0]))
     single = cls(cfg.hidden, cfg.num_classes, comm=Communicator.init_process_group("single"))
     params = single.init(jax.random.key(3), *args)
+    if scale != 1.0:
+        params = jax.tree.map(lambda a: np.asarray(a) * np.float32(scale), params)
     mesh = make_graph_mesh(ranks_per_graph=W, devices=jax.devices()[:W])
     jmodel = cls(cfg.hidden, cfg.num_classes,
                  comm=Communicator.init_process_group("tpu", world_size=W))
@@ -236,6 +246,14 @@ def test_cli_selftest_at_two_cpu_ranks():
     assert rec["metrics"]["counters"]["serve.infer_calls"] >= 8
     # through a temporary plan cache beside the temporary checkpoint dir
     assert rec["plan_cache"] == os.path.join(os.path.dirname(rec["ckpt_dir"]), "plans")
+    # the swap leg: step 1 adopted on both ranks, then a swap faulted on
+    # rank 1 alone rolled back
+    swaps = [r for r in rec["lineage"] if r["event"] == "swap"]
+    assert [(r["adopted"], r["rolled_back"], r["step"]) for r in swaps] == [
+        (True, False, 1), (False, True, 0)]
+    assert swaps[1]["reason"] == "fault" and "[1]" in swaps[1]["detail"]
+    assert rec["serving_steps"] == [1, 1] and rec["restored_steps"] == [0, 0]
+    assert rec["metrics"]["counters"]["serve.swaps_adopted"] == 1
 
 
 def test_cli_over_ranks_without_a_card_raises():
@@ -392,3 +410,79 @@ def test_cli_serves_from_an_explicit_plan_cache_at_two_ranks(tmp_path):
     man = plan_shards.read_manifest(str(plan_dir))
     assert man["complete"] and man["world_size"] == 2 and not plan_shards.bad_shards(
         str(plan_dir), man)
+
+
+# --- checkpoint hot swap and the registry flip --------------------------------
+
+
+def test_two_ranks_swap_roll_back_and_flip_between_two_engines(tmp_path):
+    W, scale = 2, 1.0625
+    p0, ref_full0, (ref_rank, ref_slot) = _jax_side("gcn", W)
+    p1, ref_full1, _ = _jax_side("gcn", W, scale=scale)
+    dirs = {k: str(tmp_path / k) for k in ("a", "b")}
+    for d in dirs.values():
+        port_ckpt.save_checkpoint(d, {"params": params_from_jax(p0), "step": 0}, 0)
+    want1 = {k: v.numpy() for k, v in params_from_jax(p1).items()}
+    path = tmp_path / "inputs.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"params1": want1}, f)
+    res = launch(torch_serve_ranks.swap_cases, W, str(path), dirs, device="cpu",
+                 timeout=TIMEOUT, threads=1)
+    front, follower = res
+    assert front["shared_lock"] and follower["shared_lock"]
+    rank, slot = front["rank_slot"]
+    np.testing.assert_allclose(front["full0"][rank, slot], ref_full0[ref_rank, ref_slot],
+                               rtol=TOL, atol=TOL)
+    adopt, *rejected, by_params = front["swaps"]
+    assert adopt["rec"]["adopted"] and adopt["rec"]["step"] == 1, adopt["rec"]
+    full1 = adopt["full"]
+    np.testing.assert_allclose(full1[rank, slot], ref_full1[ref_rank, ref_slot], rtol=TOL,
+                               atol=TOL)
+    assert not np.array_equal(full1, front["full0"])
+    assert set(adopt["stages"]) >= {"restore", "stage", "validate", "adopt", "agree"}
+    for (name, step, reason), case in zip(torch_serve_ranks.SWAPS[1:-1], rejected):
+        rec = case["rec"]
+        assert rec["error"] == "swap_rejected" and rec["reason"] == reason, (name, rec)
+        assert not rec.get("adopted"), name
+        if name == "torn":
+            # rank 0 rejects a torn step before announcing it: the error says
+            # nothing was staged (rolled_back False), as the reference's does
+            assert not rec["rolled_back"]
+        else:
+            assert rec["rolled_back"] and "rank(s) [1]" in rec["detail"], (name, rec["detail"])
+        _assert_bits_equal(case["full"], full1, name)
+    # the same state dict again, by params=: adopted on both ranks, the bits kept
+    assert by_params["rec"]["adopted"] and by_params["rec"]["ckpt_dir"] is None
+    _assert_bits_equal(by_params["full"], full1, "params=")
+    for case in front["swaps"]:
+        for ids, out in case["served"]:
+            _assert_bits_equal(out, case["full"][rank[ids], slot[ids]], case["name"])
+    assert front["ptrs_kept"]
+    # both ranks hold step 1's parameters, bit for bit (the last as "step 5")
+    assert [r["serving_step"] for r in res] == [5, 5]
+    for r in res:
+        assert set(r["params"]) == set(want1)
+        for k, v in want1.items():
+            _assert_bits_equal(r["params"][k], v, k)
+    # one lineage record an attempt: rank 0 every swap, rank 1 the three
+    # it was announced (a torn step never leaves rank 0)
+    assert [(x.get("reason"), x["rolled_back"]) for x in front["lineage"][1:]] == [
+        (None, False), ("fault", True), ("restore_failed", True), ("restore_failed", True),
+        (None, False)]
+    assert [(x.get("reason"), x["step"]) for x in follower["lineage"][1:]] == [
+        (None, 1), ("fault", 0), ("restore_failed", 3), (None, 5)]
+    assert follower["pre_swap_calls"] == 3  # adopt, fault (raising), params=
+    assert front["forwards"] == follower["forwards"]
+    # the registry flip: every reply one engine's rows, B's after the flip
+    flip = front["flip"]
+    assert flip["errors"] == [] and not flip["alive"] and flip["active"] == "b"
+    assert len(flip["replies"]) == torch_serve_ranks.FLIP_REQUESTS
+    served_by = []
+    for ids, after, out in flip["replies"]:
+        on_a = np.array_equal(out, full1[rank[ids], slot[ids]])
+        on_b = np.array_equal(out, front["full_b"][rank[ids], slot[ids]])
+        assert on_a != on_b and (on_b or not after), (len(ids), after)
+        served_by.append("a" if on_a else "b")
+    assert "a" in served_by and served_by[-1] == "b"
+    assert follower["dispatches"][1] == follower["forwards_b"] == front["forwards_b"]
+    assert _live_ranks() == []

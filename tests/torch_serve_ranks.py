@@ -395,3 +395,140 @@ def plan_cache_cases(group, path: str, cache_dir: str) -> dict:
     finally:
         plan_shards._sha256_file = real
     return out
+
+
+# --- checkpoint hot swap and the registry flip (slice 9d) -----------------------
+
+# the swaps swap_cases makes on engine A, in order: (name, step, what each
+# rank must end in). Rank 1's pre_swap raises at its second call (the
+# "fault" swap); step 2 is torn for every rank (rank 0 rejects it before
+# announcing); step 3 is a torn read only rank 1 meets; the last passes
+# step 1's state dict itself (params=, announced to every rank) as step 5
+SWAPS = (("adopt", 1, "adopted"), ("fault", 0, "fault"), ("torn", 2, "restore_failed"),
+         ("torn_on_rank_1", 3, "restore_failed"), ("params", 5, "adopted"))
+FLIP_REQUESTS = 24  # requests through one batcher across the registry flip
+
+
+def swap_cases(group, path: str, dirs: dict) -> dict:
+    """Two GCN engines over the same ranks, each from its ``--ckpt_dir``
+    (step 0; A from ``dirs['a']``, B from ``dirs['b']``). Global rank 0
+    saves steps 1 (``params1``), 2 (torn) and 3 (step 0's params) into A's
+    directory and makes SWAPS on A, each followed by rows of every bucket;
+    then a ModelRegistry holds A (now step 1) and B (step 0) behind one
+    batcher, a client thread submits FLIP_REQUESTS requests and rank 0 flips
+    to B midway. The followers run both engines' follow() in threads
+    (``follow_all``). Every rank reports A's step, lineage and parameters."""
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.engine import follow_all
+    from dgraph_tpu_torch.serve.errors import SwapRejected
+    from dgraph_tpu_torch.serve.registry import ModelRegistry
+    from dgraph_tpu_torch.train import checkpoint
+
+    with open(path, "rb") as f:
+        params1 = pickle.load(f)["params1"]
+    built = []
+    for name in ("a", "b"):
+        cfg = Config(model="gcn", world_size=group.world_size, ckpt_dir=dirs[name])
+        engine, batcher, _ = build_serving(cfg, comm=DistComm(group), device="cpu")
+        if batcher is not None:
+            batcher.stop()
+        built.append(engine)
+    a, b = built
+    out = {"shared_lock": a._dispatch_lock is b._dispatch_lock}
+    if group.rank != 0:
+        calls = {"pre_swap": 0}
+
+        def pre_swap():
+            calls["pre_swap"] += 1
+            if group.rank == 1 and calls["pre_swap"] == 2:
+                raise RuntimeError("fault injected on rank 1 mid-swap")
+
+        a.pre_swap = pre_swap
+        real = checkpoint.restore_checkpoint
+
+        def torn_read(ckpt_dir, template=None, step=None):
+            if group.rank == 1 and step == 3:
+                raise OSError("a torn read of step 3 on rank 1")
+            return real(ckpt_dir, template, step)
+
+        checkpoint.restore_checkpoint = torn_read
+        try:
+            out["dispatches"] = follow_all(a, b)
+        finally:
+            checkpoint.restore_checkpoint = real
+        out["pre_swap_calls"] = calls["pre_swap"]
+    else:
+        torch_params = {k: torch.from_numpy(v) for k, v in params1.items()}
+        checkpoint.save_checkpoint(dirs["a"], {"params": torch_params, "step": 1}, 1)
+        checkpoint.save_checkpoint(dirs["a"], {"params": torch_params, "step": 2}, 2)
+        for d, _, fs in os.walk(checkpoint.step_path(dirs["a"], 2)):
+            for fn in fs:
+                with open(os.path.join(d, fn), "r+b") as fh:
+                    fh.truncate(3)
+        state0 = checkpoint.restore_checkpoint(dirs["a"], step=0)
+        checkpoint.save_checkpoint(dirs["a"], {"params": state0["params"], "step": 3}, 3)
+        ptrs = {k: v.data_ptr() for k, v in a.model.state_dict().items()}
+        try:
+            a.warmup()
+            b.warmup()
+            out["full0"] = a.full_logits()
+            out["rank_slot"] = a.rank_slot(np.arange(a.num_nodes))
+            out["swaps"] = []
+            for name, step, _ in SWAPS:
+                try:
+                    rec = (a.swap_params(params=torch_params, step=step) if name == "params"
+                           else a.swap_params(step=step))
+                except SwapRejected as e:
+                    rec = e.record()
+                full = a.full_logits()
+                served = [(ids, a.infer(ids)) for ids in (
+                    np.arange(min(n, a.num_nodes)) * 5 % a.num_nodes for n in a.ladder.sizes)]
+                out["swaps"].append({"name": name, "rec": rec, "full": full,
+                                     "served": served, "stages": dict(a.last_swap_s)})
+            out["ptrs_kept"] = ptrs == {k: v.data_ptr() for k, v in a.model.state_dict().items()}
+            out["full_b"] = b.full_logits()
+            out["flip"] = _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics)
+        finally:
+            a.stop()
+            b.stop()
+    out.update(serving_step=a.serving_step, lineage=a.lineage, forwards=a.forwards,
+               forwards_b=b.forwards,
+               params={k: v.numpy().copy() for k, v in a.model.state_dict().items()})
+    return out
+
+
+def _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics) -> dict:
+    """Rank 0: a registry of A (active) and B behind one batcher; a client
+    thread submits FLIP_REQUESTS requests one after another, and once half
+    are answered the main thread activates B. Each reply with whether it was
+    submitted after the flip returned."""
+    reg = ModelRegistry()
+    reg.register("a", a, activate=True)
+    reg.register("b", b)
+    batcher = MicroBatcher(reg, max_batch_size=4, max_delay_ms=1.0, registry=Metrics())
+    replies, errors, flipped = [], [], threading.Event()
+    half = threading.Event()
+
+    def client():
+        rng = np.random.default_rng(3)
+        try:
+            for i in range(FLIP_REQUESTS):
+                ids = rng.choice(a.num_nodes, size=int(rng.integers(1, 65)), replace=False)
+                after = flipped.is_set()
+                replies.append((ids, after, batcher.submit(ids).result(timeout=120)))
+                if i == FLIP_REQUESTS // 2:
+                    half.set()
+        except Exception as e:  # noqa: BLE001 — reported to the test
+            errors.append(repr(e))
+            half.set()
+
+    t = threading.Thread(target=client)
+    t.start()
+    half.wait(120)
+    reg.activate("b")
+    flipped.set()
+    t.join(120)
+    batcher.stop()
+    return {"replies": replies, "errors": errors, "alive": t.is_alive(),
+            "active": reg.active_name, "record": reg.record()}
