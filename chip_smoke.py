@@ -88,7 +88,26 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    (two forwards) and nothing else, every bucket then serving the new
    ``full_logits()``'s bits; a swap faulted at ``pre_swap`` rolled back,
    the bits kept; the swap's seconds by stage (restore, stage, validate,
-   adopt, agree) and the in-flight requests' p50/p99 logged;
+   adopt, agree) and the in-flight requests' p50/p99 logged; then the delta
+   leg (:func:`serve_delta`): the same graph and seeded GCN in a delta
+   world (``serve.deltas.init_world``, pad multiple DELTA_PAD: 129 free pad
+   slots), its engine built (``deltas.build_engine``) and warmed, the
+   launch counts set to 0; two appends of 32 vertices (``append_delta``,
+   then ``append_vertices``) while a thread submits DELTA_REQUESTS
+   mixed-size requests through a MicroBatcher: every request answered, each
+   reply the post-append ``full_logits()`` rows (an old vertex's row keeps
+   its bits, so that is wholly pre- or post-append), appended ids served at
+   once, ``x`` and ``vmask`` keeping their ``data_ptr()``, no kernel launch
+   and no CSR offsets inside an append; an append past the free slots
+   raises the budget error; then ``replan``, generation 1's engine, and a
+   registry flip to it under DELTA_FLIP_REQUESTS requests (each reply
+   wholly the old or the new engine's rows; the appended ids the new
+   ``full_logits()``'s bits; the live placement generation 1's); the fused
+   kernel 4 times a forward over the leg and in one forward of the new
+   engine; every vertex bit-equal by original id to an engine built from
+   scratch on the composed graph by the monolithic ``build_edge_plan``; the
+   appends', re-plan's (build, snapshot), build's and warmup's seconds and
+   request p50/p99 before, during and after the appends logged;
 5. serve SAGE — same width, a few requests, the segment-sum kernel's
    launches checked per forward; the plan loaded, verified, from phase 4's
    ``--plan_cache`` (warm: nothing written, the same ``plan_<key>``);
@@ -363,7 +382,18 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the rows of the engine that served it, B's after the flip. Each rank's
    swap validation ran two forwards launching :func:`serve_w_want`'s twice
    and nothing else, each rank serves step 1; the seconds by stage and each
-   rank's agreement times logged;
+   rank's agreement times logged. After the turns, the delta leg under
+   pallas_p2p (:func:`serve_w_delta_rank`): global rank 0 writes a delta
+   world of the turns' graph at W = 4 (641 free pad slots), every rank
+   builds its engine on it from its own plan shard, and rank 0 runs phase
+   4's leg with appends of 64 vertices over the ``APPEND`` op and the
+   re-plan on global rank 0, the adoption over ``ADOPT`` (every rank builds
+   generation 1's engine at the same point, the followers then follow it
+   in a thread of their own) and the flip; the same checks on every rank
+   (:func:`serve_w_delta_checks`: kernel 1 8 and kernel 5 2 a forward a
+   rank, no follow thread left), then every rank builds the from-scratch W
+   = 4 engine on the monolithic plan, bit-equal by original id; each rank's
+   append and adoption agreement times logged;
 then the kernels line (one JSON object) and the device line (last line).
 Every progress line carries the seconds since the start, and the end logs
 each phase's seconds.
@@ -2303,6 +2333,455 @@ def serve_swap(engine, full, kernel, per_forward) -> dict:
     return out
 
 
+# --- live graph deltas (phases 4 and 16) -------------------------------------------
+
+# init_world's pad multiple: free pad slots for the appends (W = 1: n_pad
+# 169,472, 129 free; W = 4 on the random partition: 42,496 a rank, 641 free);
+# a multiple of 8, as pallas_p2p's tiles require
+DELTA_PAD = 256
+DELTA_APPENDS = {1: (32, 32), 4: (64, 64)}  # vertices an append, per world size
+DELTA_REQUESTS = 32  # requests a client thread submits across the appends
+DELTA_SPACING_S = 0.004  # between two of them
+DELTA_APPEND_AT = (12, 20)  # requests sent before each append starts
+DELTA_FLIP_REQUESTS = 16  # requests across the registry flip to the new generation
+
+
+def delta_appends(num_nodes: int, sizes, F: int, seed: int) -> list:
+    """``[(features, edge_index)]`` of appends of ``sizes`` vertices, from
+    the seed: each new vertex gets an edge from and to a random old vertex,
+    and a chain joins the vertices of one append."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out, base = [], num_nodes
+    for k in sizes:
+        new = base + np.arange(k)
+        old_in, old_out = rng.integers(0, num_nodes, size=(2, k))
+        edges = np.stack([np.concatenate([new, old_in, new[:-1]]),
+                          np.concatenate([old_out, new, new[1:]])])
+        out.append((rng.standard_normal((k, F)).astype(np.float32), edges))
+        base += k
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 numpy arrays hold the same bits."""
+    return a.shape == b.shape and bool((a.view("int32") == b.view("int32")).all())
+
+
+class AppendProbe:
+    """Wraps ``engine._append_on_rank`` (rank 0 and followers alike): each
+    append's seconds on this rank and the kernel launches and CSR offsets
+    computed inside it (the dispatch lock keeps every forward out)."""
+
+    def __init__(self, engine):
+        from dgraph_tpu_torch.ops import kernels
+        from dgraph_tpu_torch.ops import segment as seg
+
+        self.calls = []
+        real = engine._append_on_rank
+
+        def probe(*args):
+            before, csr, t = kernels.launch_counts(), seg.csr_offsets.computed, time.perf_counter()
+            try:
+                return real(*args)
+            finally:
+                self.calls.append({
+                    "s": time.perf_counter() - t, "csr": seg.csr_offsets.computed - csr,
+                    "launches": sum(v - before[k] for k, v in kernels.launch_counts().items())})
+
+        engine._append_on_rank = probe
+
+
+def latency_split(reqs: list, t_start: float, t_end: float) -> dict:
+    """p50/p99 (ms) of ``[(t_sent, t_done)]`` answered before ``t_start``,
+    across ``[t_start, t_end]`` and sent after ``t_end``."""
+    import numpy as np
+
+    parts = {"before": [], "during": [], "after": []}
+    for sent, done in reqs:
+        key = "before" if done < t_start else "after" if sent > t_end else "during"
+        parts[key].append((done - sent) * 1e3)
+    return {k: {"n": len(v), "p50_ms": float(np.percentile(v, 50)) if v else None,
+                "p99_ms": float(np.percentile(v, 99)) if v else None} for k, v in parts.items()}
+
+
+def delta_traffic(engine, batcher, appends, run_dir: str, seed: int) -> dict:
+    """Rank 0: a client thread submits DELTA_REQUESTS mixed-size requests
+    DELTA_SPACING_S apart, each over the ids the engine serves as it stands
+    (one appended id at least once there are some); once DELTA_APPEND_AT[j]
+    requests were sent, while the last of them are in flight, the main
+    thread stages (``append_delta``) and installs (``append_vertices``)
+    append j, and the client sends on once it returned."""
+    from dgraph_tpu_torch.serve import deltas
+
+    base = engine.num_nodes
+    rng, sizes = request_sizes(DELTA_REQUESTS, engine.ladder, seed)
+    sent, done, errors = [], {}, []
+    go, installed = threading.Semaphore(0), threading.Semaphore(0)
+
+    def client():
+        try:
+            for i, n in enumerate(sizes):
+                nodes = engine.num_nodes
+                ids = rng.choice(nodes, size=n, replace=False)
+                if nodes > base and not (ids >= base).any():
+                    ids[0] = int(rng.integers(base, nodes))
+                t = time.perf_counter()
+                fut = batcher.submit(ids)
+                fut.add_done_callback(lambda f, i=i: done.setdefault(i, time.perf_counter()))
+                sent.append((ids, t, fut))
+                if i + 1 in DELTA_APPEND_AT[:len(appends)]:
+                    go.release()
+                    installed.acquire(timeout=120)
+                time.sleep(DELTA_SPACING_S)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        for _ in appends:
+            go.release()
+
+    t = threading.Thread(target=client)
+    t.start()
+    stages = []
+    for feats, edges in appends:
+        go.acquire(timeout=120)
+        t0 = time.perf_counter()
+        rec = deltas.append_delta(run_dir, feats, edges)
+        t1 = time.perf_counter()
+        ids = engine.append_vertices(feats)
+        t2 = time.perf_counter()
+        stages.append({"stage_s": t1 - t0, "install_s": t2 - t1, "t0": t0, "t2": t2,
+                       "id_base": rec["id_base"], "ids": ids})
+        installed.release()
+    t.join(120)
+    replies = [(ids, t_sent, fut.result(timeout=120)) for ids, t_sent, fut in sent]
+    lat = latency_split([(t_sent, done[i]) for i, (_, t_sent, _) in enumerate(sent)],
+                        stages[0]["t0"], stages[-1]["t2"])
+    return {"replies": replies, "errors": errors, "alive": t.is_alive(), "stages": stages,
+            "latency": lat}
+
+
+@contextlib.contextmanager
+def replan_split():
+    """The seconds of the re-plan's sharded build and its graph snapshot
+    while the block runs (``{"build_s", "snapshot_s"}``)."""
+    from dgraph_tpu_torch import plan
+    from dgraph_tpu_torch.serve import deltas
+
+    out = {"build_s": 0.0, "snapshot_s": 0.0}
+    real_build, real_save = plan.build_plan_shards, deltas._atomic_savez
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                out[key] += time.perf_counter() - t
+        return run
+
+    plan.build_plan_shards = timed("build_s", real_build)
+    deltas._atomic_savez = timed("snapshot_s", real_save)
+    try:
+        yield out
+    finally:
+        plan.build_plan_shards, deltas._atomic_savez = real_build, real_save
+
+
+def flip_traffic(reg, activate, old, n_requests: int, seed: int, changed=None) -> dict:
+    """Rank 0: a client thread submits ``n_requests`` mixed-size requests
+    over ``old``'s ids through one MicroBatcher over ``reg``, one after
+    another; after half of them the main thread calls ``activate`` (the
+    registry flip). With ``changed``, each request names one of those ids
+    (rows that differ between the two engines: a reply of rows equal in
+    both would say nothing of the engine that served it). Returns the
+    replies (ids, whether sent after the flip returned, rows, ms), the
+    flip's ms and whether the client is still alive."""
+    import numpy as np
+
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+
+    batcher = MicroBatcher(reg, registry=Metrics())
+    rng, sizes = request_sizes(n_requests, old.ladder, seed)
+    replies, errors, flipped, half = [], [], threading.Event(), threading.Event()
+
+    def client():
+        try:
+            for i, n in enumerate(sizes):
+                ids = rng.choice(old.num_nodes, size=n, replace=False)
+                if changed is not None and not np.isin(ids, changed).any():
+                    ids[0] = rng.choice(changed)
+                after, t = flipped.is_set(), time.perf_counter()
+                rows = batcher.submit(ids).result(timeout=SERVE_W_GROUP_TIMEOUT)
+                replies.append((ids, after, rows, (time.perf_counter() - t) * 1e3))
+                if i == len(sizes) // 2:
+                    half.set()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+            half.set()
+
+    t = threading.Thread(target=client)
+    t.start()
+    half.wait(SERVE_W_GROUP_TIMEOUT)
+    t_flip = time.perf_counter()
+    activate()
+    flip_ms = (time.perf_counter() - t_flip) * 1e3
+    flipped.set()
+    t.join(SERVE_W_GROUP_TIMEOUT)
+    batcher.stop()
+    return {"replies": replies, "errors": errors, "alive": t.is_alive(), "activate_ms": flip_ms}
+
+
+def delta_leg(eng0, run_dir: str, appends, build_kw: dict, seed: int) -> tuple:
+    """The delta leg on rank 0 (W = 1, or rank 0 of W ranks whose followers
+    follow ``eng0``), ``eng0`` warmed on generation 0: traffic across the
+    appends (:func:`delta_traffic`), an append past the free slots, the
+    re-plan, generation 1's engine (``adopt_from=eng0``) built and warmed,
+    a registry flip to it under traffic (:func:`flip_traffic`), then ``eng0``
+    stopped. Returns ``(record, failures, eng1, full1)``."""
+    import numpy as np
+
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.registry import ModelRegistry
+
+    failures, out = [], {}
+    full0 = eng0.full_logits()
+    ptrs = {k: eng0._batch[k].data_ptr() for k in ("x", "vmask")}
+    base, free0 = eng0.num_nodes, eng0.free_pad_slots()
+    probe = AppendProbe(eng0)
+    batcher = MicroBatcher(eng0, registry=Metrics())
+    try:
+        tr = delta_traffic(eng0, batcher, appends, run_dir, seed)
+    finally:
+        batcher.stop()
+    del eng0._append_on_rank  # the probe
+    full_a = eng0.full_logits()
+    n_new = sum(len(f) for f, _ in appends)
+    if tr["errors"] or tr["alive"] or len(tr["replies"]) != DELTA_REQUESTS:
+        failures.append(f"the appends' traffic: {len(tr['replies'])} of {DELTA_REQUESTS} "
+                        f"answered: {tr['errors']}")
+    want_ids = np.arange(base, base + n_new)
+    got_ids = np.concatenate([s["ids"] for s in tr["stages"]])
+    if (not np.array_equal(got_ids, want_ids) or eng0.num_nodes != base + n_new
+            or free0 - eng0.free_pad_slots() != n_new
+            or [s["id_base"] for s in tr["stages"]] != [int(s["ids"][0]) for s in tr["stages"]]):
+        failures.append(f"the appends gave ids {got_ids[:3]}.. (want {base}..), num_nodes "
+                        f"{eng0.num_nodes}, free slots {free0} -> {eng0.free_pad_slots()}")
+    if {k: eng0._batch[k].data_ptr() for k in ("x", "vmask")} != ptrs:
+        failures.append("an append moved the data_ptr() of x or vmask")
+    if any(c["launches"] or c["csr"] for c in probe.calls) or len(probe.calls) != len(appends):
+        failures.append(f"the appends launched kernels or computed CSR offsets: {probe.calls}")
+    r, s = eng0.rank_slot(np.arange(eng0.num_nodes))
+    if not same_bits(full_a[r[:base], s[:base]], full0[r[:base], s[:base]]):
+        failures.append("an append changed a pre-existing vertex's row")
+    n_new_served = 0
+    for ids, _, rows in tr["replies"]:
+        # an old vertex's row is the same before and after: a reply is
+        # wholly pre- or post-append iff it is the post-append rows
+        if not np.array_equal(rows, full_a[r[ids], s[ids]]):
+            failures.append(f"a reply of {len(ids)} rows differs from the full_logits() rows")
+            break
+        n_new_served += int((ids >= base).sum())
+    appended = eng0.infer(want_ids[: eng0.ladder.max_size])
+    if not n_new_served:
+        failures.append("no request of the appends' traffic named an appended id")
+    if not np.array_equal(appended, full_a[r[want_ids[:len(appended)]],
+                                           s[want_ids[:len(appended)]]]):
+        failures.append("appended ids served differ from the new full_logits() rows")
+    free = eng0.free_pad_slots()
+    try:
+        eng0.append_vertices(np.zeros((free + 1, appends[0][0].shape[1]), np.float32))
+        failures.append(f"an append of {free + 1} vertices past {free} free slots went in")
+    except ValueError as e:
+        if "serve.deltas.replan" not in str(e):
+            failures.append(f"the budget error: {e}")
+    out.update(free_before=free0, free_after=free, appends=[
+        {"vertices": len(f), "stage_ms": st["stage_s"] * 1e3, "install_ms": st["install_s"] * 1e3,
+         "rank0_write_ms": c["s"] * 1e3} for (f, _), st, c in zip(appends, tr["stages"],
+                                                                probe.calls)],
+        latency=tr["latency"], requests=len(tr["replies"]), new_ids_served=n_new_served)
+
+    t = time.perf_counter()
+    with replan_split() as split:
+        world = deltas.replan(run_dir)
+    out["replan"] = dict(split, total_s=time.perf_counter() - t, world=world)
+    if world["generation"] != 1 or world["num_nodes"] != base + n_new:
+        failures.append(f"the re-plan adopted {world}")
+    t = time.perf_counter()
+    eng1 = deltas.build_engine(run_dir, eng0.model, adopt_from=eng0, **build_kw)
+    out["build_s"] = time.perf_counter() - t
+    out["warmup_s"] = eng1.warmup()["warmup_s"]
+    full1 = eng1.full_logits()
+    r1, s1 = eng1.rank_slot(np.arange(eng1.num_nodes))
+    changed = np.flatnonzero((full_a[r, s].view("int32") != full1[r1, s1].view("int32")).any(1))
+    if not np.isin(want_ids, changed).all():
+        failures.append("an appended vertex's row is the same in generations 0 and 1 (its "
+                        "edges should reach it only in 1)")
+    reg = ModelRegistry()
+    reg.register("gcn", eng0, activate=True)
+    flip = flip_traffic(reg, lambda: reg.activate("gcn", eng1, note={
+        "kind": "serve_adopt", "generation": eng1.generation}), eng0, DELTA_FLIP_REQUESTS,
+        seed + 1, changed)
+    eng0.stop()  # the flip has landed: the old generation's engine goes
+    if flip["errors"] or flip["alive"] or len(flip["replies"]) != DELTA_FLIP_REQUESTS:
+        failures.append(f"the flip's traffic: {len(flip['replies'])} answered, alive "
+                        f"{flip['alive']}: {flip['errors']}")
+    served_by = []
+    for ids, after, rows, _ in flip["replies"]:
+        on_old = np.array_equal(rows, full_a[r[ids], s[ids]])
+        on_new = np.array_equal(rows, full1[r1[ids], s1[ids]])
+        if on_old == on_new or (after and not on_new):
+            failures.append(f"a reply of {len(ids)} rows (after the flip: {after}) is the old "
+                            f"engine's: {on_old}, the new one's: {on_new}")
+        served_by.append("o" if on_old else "n")
+    if "o" not in served_by or served_by[-1:] != ["n"]:
+        failures.append(f"the flip: served by {''.join(served_by)} (want old, then new)")
+    newest = eng1.infer(want_ids[: eng1.ladder.max_size])
+    if not np.array_equal(newest, full1[r1[want_ids[:len(newest)]], s1[want_ids[:len(newest)]]]):
+        failures.append("the new engine serves the appended ids unlike its full_logits()")
+    if not (np.array_equal(r, r1) and np.array_equal(s, s1)):
+        failures.append("the adoption moved a vertex (live placement != generation 1's)")
+    g1 = np.load(deltas.graph_path(run_dir, 1))
+    if not np.array_equal(r1, g1["partition"]):
+        failures.append("the new engine's ranks differ from generation 1's partition")
+    lat = [ms for *_, ms in flip["replies"]] or [0.0]
+    out["flip"] = {"served_by": "".join(served_by), "activate_ms": flip["activate_ms"],
+                   "changed_rows": int(len(changed)),
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99))}
+    return out, failures, eng1, full1
+
+
+def from_scratch_engine(run_dir: str, generation: int, model, W: int, **engine_kw):
+    """An engine on ``generation``'s composed graph built by the monolithic
+    ``build_edge_plan`` (not the sharded artifact), with the CLI's
+    symmetric-norm weights (every rank at the same point over W ranks)."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.data.graph import symmetric_norm_weights
+    from dgraph_tpu_torch.partition import renumber_contiguous
+    from dgraph_tpu_torch.plan import build_edge_plan, shard_edge_data, shard_vertex_data
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.engine import ServeEngine
+
+    g = np.load(deltas.graph_path(run_dir, generation))
+    part = g["partition"]
+    ren = renumber_contiguous(part, W)
+    new_edges = ren.perm[g["edge_index"]]
+    plan, layout = build_edge_plan(new_edges, ren.partition, world_size=W,
+                                   pad_multiple=DELTA_PAD)
+    n = len(part)
+    batch = {
+        "x": torch.from_numpy(shard_vertex_data(g["features"][ren.inv], ren.counts,
+                                                plan.n_src_pad).astype(np.float32)),
+        "vmask": torch.from_numpy(shard_vertex_data(np.ones(n, np.float32), ren.counts,
+                                                    plan.n_src_pad)),
+        "edge_weight": torch.from_numpy(shard_edge_data(symmetric_norm_weights(new_edges, n),
+                                                        layout, plan.e_pad)),
+    }
+    id_rank = ren.partition[ren.perm]
+    return ServeEngine(model, plan, batch, id_rank, ren.perm - ren.offsets[id_rank],
+                       **engine_kw)
+
+
+def serve_delta(data, per_forward: int, device: str = "cuda") -> dict:
+    """Phase 4's delta leg at W = 1: phase 4's graph (``data``) and seeded
+    GCN in a delta world (``init_world``, pad multiple DELTA_PAD), its
+    engine built (``deltas.build_engine``) and warmed, the launch counts set
+    to 0 just before; then :func:`delta_leg`; then, the counts read, the
+    new engine's one forward launching kernel 1 ``per_forward`` times and
+    every vertex bit-equal to :func:`from_scratch_engine`'s by original
+    id. Logged: the appends' seconds, the re-plan's build and snapshot, the
+    new engine's build and warmup, request p50/p99 before, during and
+    after."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.bucketing import BucketLadder
+    from dgraph_tpu_torch.weights import init_params
+
+    cfg = arxiv_config("gcn")
+    kernel = "sorted_segment_sum_bias_relu"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_delta_") as run_dir:
+        t = time.perf_counter()
+        deltas.init_world(run_dir, data["edge_index"], data["features"], world_size=1,
+                          partition_method=cfg.partition, seed=cfg.seed, pad_multiple=DELTA_PAD)
+        init_s = time.perf_counter() - t
+        model = GCN(cfg.feat_dim, cfg.hidden, cfg.num_classes, SingleComm(),
+                    num_layers=cfg.num_layers)
+        init_params(model, cfg.seed)
+        kw = dict(add_symmetric_norm=True, device=device, registry=Metrics(),
+                  ladder=BucketLadder.geometric(cfg.min_bucket, cfg.max_bucket, cfg.growth))
+        t = time.perf_counter()
+        eng0 = deltas.build_engine(run_dir, model, **kw)
+        build0_s = time.perf_counter() - t
+        free = -(-cfg.num_nodes // DELTA_PAD) * DELTA_PAD - cfg.num_nodes  # arxiv: 129
+        if eng0.free_pad_slots() != free:
+            fail(f"serve delta: {eng0.free_pad_slots()} free pad slots at W = 1 (want {free})")
+        kernels.reset_launch_counts()
+        warm0 = eng0.warmup()["warmup_s"]
+        appends = delta_appends(cfg.num_nodes, DELTA_APPENDS[1], cfg.feat_dim, seed=24)
+        out, failures, eng1, full1 = delta_leg(eng0, run_dir, appends,
+                                               dict(kw, registry=Metrics()), seed=24)
+        launches = kernels.launch_counts()
+        forwards = eng0.forwards + eng1.forwards
+        if launches[kernel] != per_forward * forwards or any(
+                v for k, v in launches.items() if k in kernels.KERNELS and k != kernel):
+            failures.append(f"{kernel} launched {launches[kernel]} times over {forwards} "
+                            f"forwards (want {per_forward} a forward, nothing else): {launches}")
+        before = kernels.launch_counts()
+        eng1.infer(np.arange(8))
+        one = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
+        if one != {kernel: per_forward}:
+            failures.append(f"one forward of the new engine launched {one}")
+        t = time.perf_counter()
+        oracle = from_scratch_engine(run_dir, 1, eng1.model, 1, device=device,
+                                     ladder=eng1.ladder)
+        full_o = oracle.full_logits()
+        oracle_s = time.perf_counter() - t
+        ids = np.arange(eng1.num_nodes)
+        r1, s1 = eng1.rank_slot(ids)
+        ro, so = oracle.rank_slot(ids)
+        if not same_bits(full1[r1, s1], full_o[ro, so]):
+            failures.append("generation 1's engine differs from the from-scratch monolithic "
+                            "build's (by original id)")
+        eng1.stop()
+        del eng0, eng1, oracle
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"serve delta: {failures[:5]}")
+    out.update(init_s=init_s, build0_s=build0_s, warmup0_s=warm0, launches=launches,
+               forwards=forwards, oracle_s=oracle_s)
+    log(f"serve delta (W = 1): init_world {init_s:.2f} s, generation 0's engine "
+        f"{build0_s:.2f} s + warmup {warm0} s; free pad slots {out['free_before']}; appends "
+        f"{out['appends']} under {out['requests']} requests ({out['new_ids_served']} appended "
+        f"ids served in them), each reply the full_logits() rows, old rows' bits kept, "
+        f"data_ptr()s kept, no launch or CSR offsets inside an append; an append past "
+        f"{out['free_after']} free slots raised the budget error")
+    log(f"serve delta (W = 1): replan {out['replan']['total_s']:.2f} s (sharded build "
+        f"{out['replan']['build_s']:.2f} s, graph snapshot {out['replan']['snapshot_s']:.2f} s); "
+        f"generation 1's engine {out['build_s']:.2f} s + warmup {out['warmup_s']} s; registry "
+        f"flip under {DELTA_FLIP_REQUESTS} requests (each naming one of the "
+        f"{out['flip']['changed_rows']} rows generation 1 changed): served by "
+        f"{out['flip']['served_by']}, "
+        f"activate {out['flip']['activate_ms']:.3f} ms, p50 {out['flip']['p50_ms']:.3f} ms "
+        f"p99 {out['flip']['p99_ms']:.3f} ms; {kernel} {per_forward} a forward on the new "
+        f"engine; every vertex bit-equal to the from-scratch monolithic build ({oracle_s:.1f} "
+        f"s); live placement == generation 1's")
+    log(f"serve delta (W = 1): request latency before / during / after the appends: "
+        f"{out['latency']}")
+    return out
+
+
 def sage_launches_per_forward(cfg) -> int:
     """Sorted segment sums per GraphSAGE forward: each layer's feature
     chunks plus its degree count."""
@@ -3907,7 +4386,6 @@ def one_rank_phases(cfg) -> tuple:
         data["edge_index"], data["features"], data["labels"], data["masks"],
         world_size=1, partition_method=cfg.partition, add_symmetric_norm=True,
     )
-    del data
     kernels = phase_kernels(graph)
     del graph
     torch.cuda.empty_cache()
@@ -3920,6 +4398,12 @@ def one_rank_phases(cfg) -> tuple:
         gcn = serve_path("gcn", "sorted_segment_sum_bias_relu", gcn_chunks, 32,
                          ckpt_dir=os.path.join(ckpt, "gcn"), plan_cache=plans,
                          cache_kind="cold")
+        log("phase 4: the delta leg (append, replan, adopt through a registry flip)")
+        gcn["delta"] = serve_delta(data, gcn_chunks)
+        del data
+        # the delta leg's launches join the path's
+        gcn["launches"] = {k: v + gcn["delta"]["launches"].get(k, 0)
+                           for k, v in gcn["launches"].items()}
 
         log("phase 5: serve SAGE (the same --plan_cache, warm)")
         sage = serve_path("sage", "sorted_segment_sum",
@@ -6459,10 +6943,11 @@ SERVE_W_FLIP_REQUESTS = 16
 
 
 class AgreeProbe:
-    """Wraps ``engine._agree``: the seconds of each agreement a swap makes
-    (``[(check, s)]``, in order)."""
+    """Wraps ``engine._agree``: the seconds of each agreement whose
+    description holds one of ``words`` (a swap's by default; ``[(check,
+    s)]``, in order)."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, words=("swap",)):
         self.calls = []
         real = engine._agree
 
@@ -6471,7 +6956,7 @@ class AgreeProbe:
             try:
                 return real(what, failed_here)
             finally:
-                if "swap" in what:
+                if any(w in what for w in words):
                     self.calls.append((what.split("'s ")[-1].removesuffix(" agreement"),
                                        time.perf_counter() - t))
 
@@ -6512,8 +6997,6 @@ def serve_w_swap(a, b, full0) -> dict:
     once submitted after the flip), none lost, nothing hung."""
     import numpy as np
 
-    from dgraph_tpu_torch.obs.metrics import Metrics
-    from dgraph_tpu_torch.serve.batcher import MicroBatcher
     from dgraph_tpu_torch.serve.errors import SwapRejected
     from dgraph_tpu_torch.serve.registry import ModelRegistry
     from dgraph_tpu_torch.train import checkpoint
@@ -6557,35 +7040,11 @@ def serve_w_swap(a, b, full0) -> dict:
     reg = ModelRegistry()
     reg.register("a", a, activate=True)
     reg.register("b", b)
-    batcher = MicroBatcher(reg, registry=Metrics())
-    rng, sizes = request_sizes(SERVE_W_FLIP_REQUESTS, a.ladder, seed=5)
-    replies, errors, flipped, half = [], [], threading.Event(), threading.Event()
-
-    def client():
-        try:
-            for i, n in enumerate(sizes):
-                ids = rng.choice(a.num_nodes, size=n, replace=False)
-                after, t = flipped.is_set(), time.perf_counter()
-                rows = batcher.submit(ids).result(timeout=SERVE_W_GROUP_TIMEOUT)
-                replies.append((ids, after, rows, (time.perf_counter() - t) * 1e3))
-                if i == len(sizes) // 2:
-                    half.set()
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(repr(e))
-            half.set()
-
-    t = threading.Thread(target=client)
-    t.start()
-    half.wait(SERVE_W_GROUP_TIMEOUT)
-    t_flip = time.perf_counter()
-    reg.activate("b")
-    flip_ms = (time.perf_counter() - t_flip) * 1e3
-    flipped.set()
-    t.join(SERVE_W_GROUP_TIMEOUT)
-    batcher.stop()
-    if errors or t.is_alive() or len(replies) != len(sizes):
-        failures.append(f"the flip's traffic: {len(replies)} of {len(sizes)} answered, "
-                        f"alive {t.is_alive()}: {errors}")
+    flip = flip_traffic(reg, lambda: reg.activate("b"), a, SERVE_W_FLIP_REQUESTS, seed=5)
+    replies = flip["replies"]
+    if flip["errors"] or flip["alive"] or len(replies) != SERVE_W_FLIP_REQUESTS:
+        failures.append(f"the flip's traffic: {len(replies)} of {SERVE_W_FLIP_REQUESTS} "
+                        f"answered, alive {flip['alive']}: {flip['errors']}")
     served_by = []
     for ids, after, rows, _ in replies:
         r, s = a.rank_slot(ids)
@@ -6596,7 +7055,7 @@ def serve_w_swap(a, b, full0) -> dict:
         served_by.append("a" if on_a else "b")
     lat = [ms for *_, ms in replies] or [0.0]
     out["flip"] = {"requests": len(replies), "served_by": "".join(served_by),
-                   "activate_ms": flip_ms, "p50_ms": float(np.percentile(lat, 50)),
+                   "activate_ms": flip["activate_ms"], "p50_ms": float(np.percentile(lat, 50)),
                    "p99_ms": float(np.percentile(lat, 99))}
     if "a" not in served_by or served_by[-1:] != ["b"]:
         failures.append(f"the flip: served by {''.join(served_by)} (want A's, then B's)")
@@ -6667,8 +7126,105 @@ def serve_w_kernel_cases(group, graph, gen, model: str) -> list:
              "bound_ms": b_ms, "bound_by": b_by, "failures": failures}]
 
 
+def serve_w_delta_rank(group, run_dir: str, data) -> dict:
+    """Phase 16's delta leg on one of SERVE_W ranks, under ``pallas_p2p``:
+    global rank 0 writes generation 0 (``init_world`` of ``data``, the
+    turns' graph, at pad multiple DELTA_PAD); every rank builds its engine
+    on it (``deltas.build_engine``: its own plan shard and rows) with the
+    seeded GCN, the launch counts set to 0 just after; rank 0 warms it and
+    runs :func:`delta_leg` (the appends over the ``APPEND`` op, the
+    re-plan on global rank 0 alone, the adoption over ``ADOPT``, the flip),
+    the followers follow (the new engine in a thread of its own); the counts
+    read once both engines stopped. Then every rank builds
+    :func:`from_scratch_engine` on generation 1, and rank 0 holds the new
+    engine's rows to its by original id, bit for bit."""
+    import numpy as np
+    import torch
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import DistComm
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.bucketing import BucketLadder
+    from dgraph_tpu_torch.weights import init_params
+
+    config.halo_impl = "pallas_p2p"
+    cfg = arxiv_config("gcn")
+    out = {"failures": []}
+    t = time.perf_counter()
+    if group.global_rank == 0:
+        deltas.init_world(run_dir, data["edge_index"], data["features"], world_size=SERVE_W,
+                          partition_method=cfg.partition, seed=cfg.seed, pad_multiple=DELTA_PAD)
+    out["init_s"] = time.perf_counter() - t
+    group.barrier()
+    model = GCN(cfg.feat_dim, cfg.hidden, cfg.num_classes, DistComm(group),
+                num_layers=cfg.num_layers)
+    init_params(model, cfg.seed)
+    kw = dict(add_symmetric_norm=True, registry=Metrics(),
+              ladder=BucketLadder.geometric(cfg.min_bucket, cfg.max_bucket, cfg.growth))
+    t = time.perf_counter()
+    eng0 = deltas.build_engine(run_dir, model, **kw)
+    out.update(build0_s=time.perf_counter() - t, free_pad_slots=eng0.free_pad_slots(),
+               halo_impl=eng0.halo_impl)
+    agreements = AgreeProbe(eng0, words=("append", "adoption"))
+    kernels.reset_launch_counts()
+    if group.rank != 0:
+        probe = AppendProbe(eng0)
+        out["dispatches"] = eng0.follow()
+        eng1 = eng0.successors[0] if eng0.successors else None
+        out["appends"] = probe.calls
+        out["threads_left"] = [t.name for t in threading.enumerate()
+                               if t.name.startswith("serve-follow")]
+    else:
+        eng1 = None
+        try:
+            out["warmup0_s"] = eng0.warmup()["warmup_s"]
+            appends = delta_appends(cfg.num_nodes, DELTA_APPENDS[SERVE_W], cfg.feat_dim, seed=16)
+            rec, failures, eng1, full1 = delta_leg(eng0, run_dir, appends, kw, seed=16)
+            out["failures"] += failures
+            before = kernels.launch_counts()
+            eng1.infer(np.arange(8))
+            out["one_forward"] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                                  if v - before[k]}
+            out["record"] = rec
+        finally:
+            eng0.stop()
+            if eng1 is not None:
+                eng1.stop()
+    torch.cuda.synchronize(group.device)
+    out.update(counts=kernels.launch_counts(),
+               forwards=eng0.forwards + (eng1.forwards if eng1 is not None else 0),
+               generation=None if eng1 is None else eng1.generation,
+               agreements=agreements.calls, hub_rows=cached_hub_rows(),
+               n_pad=int(eng0._batch["x"].shape[0]))
+    del eng0._agree
+    t = time.perf_counter()
+    oracle = from_scratch_engine(run_dir, 1, model, SERVE_W, ladder=kw["ladder"],
+                                 registry=Metrics())
+    if group.rank != 0:
+        oracle.follow()
+    else:
+        try:
+            full_o = oracle.full_logits()
+        finally:
+            oracle.stop()
+        ids = np.arange(eng1.num_nodes)
+        r1, s1 = eng1.rank_slot(ids)
+        ro, so = oracle.rank_slot(ids)
+        if not same_bits(full1[r1, s1], full_o[ro, so]):
+            out["failures"].append("generation 1's engine differs from the from-scratch "
+                                   "monolithic W = 4 build's (by original id)")
+    out["oracle_s"] = time.perf_counter() - t
+    del eng0, eng1, oracle
+    torch.cuda.empty_cache()
+    config.halo_impl = "auto"
+    return out
+
+
 def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
-                 plan_cache: str) -> dict:
+                 plan_cache: str, delta_dir: str) -> dict:
     """One of phase 16's ranks: each turn of ``turns`` pins its lowering,
     builds its engine through ``build_serving`` with ``--ckpt_dir`` (an empty
     directory a turn, ``ckpt_dirs``: global rank 0 seeds step 0, every rank
@@ -6687,7 +7243,8 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
     manifest. Then (not counted)
     the turn's kernel at this rank's shape, on a (model, lowering)'s first
     turn: kernel 1 or 2 under the default lowering, kernel 5 at the exchange
-    under pallas_p2p."""
+    under pallas_p2p. Then, on the last turn's graph,
+    :func:`serve_w_delta_rank` in ``delta_dir``."""
     import numpy as np
     import torch
 
@@ -6802,10 +7359,17 @@ def serve_w_rank(group, turns, requests: dict, t_launch: float, ckpt_dirs: list,
             rec, _ = p2p_real_case(group, gen, w4_halo_arrays(graph.plan), cfg.hidden,
                                    "float32", 1, failures, tag=" serve")
             turn["kernel_records"] = [dict(rec, failures=failures)]
+        if group.global_rank == 0 and i == len(turns) - 1:  # the delta leg's graph
+            rank, slot = graph.id_map()
+            delta_data = {"edge_index": graph.ren.inv[graph.edge_index],
+                          "features": graph.features[torch.from_numpy(rank),
+                                                     torch.from_numpy(slot)].numpy()}
         del engine, batcher, graph, engines
         torch.cuda.empty_cache()
         out["turns"].append(turn)
     config.halo_impl = "auto"
+    out["delta"] = serve_w_delta_rank(group, delta_dir,
+                                      delta_data if group.global_rank == 0 else None)
     return out
 
 
@@ -6860,6 +7424,64 @@ def serve_w_swap_checks(what: str, per_rank: list, want: dict) -> dict:
         f"{sw['flip']['activate_ms']:.3f} ms, p50 {sw['flip']['p50_ms']:.3f} ms p99 "
         f"{sw['flip']['p99_ms']:.3f} ms")
     return dict(sw, agreements_ms=agree_ms, checks=checks, stages_ms=stages)
+
+
+def serve_w_delta_checks(per_rank: list) -> dict:
+    """Phase 16's delta leg over every rank's record (see
+    :func:`serve_w_delta_rank`): no failure on any rank; every rank under
+    ``pallas_p2p`` ran the same forwards on generation 0 and 1, launching
+    :func:`serve_w_want`'s split-route ``pallas_p2p`` counts a forward
+    (rank 0's one request on the new engine exactly those) and nothing
+    else; each follower wrote both appends with no launch and no CSR
+    offsets, followed the new engine in its own thread and left none
+    behind. Logs the seconds of each stage and each rank's agreements."""
+    front = per_rank[0]
+    what = f"serve delta W={SERVE_W} pallas_p2p"
+    failures = [f"rank {r}: {f}" for r, d in enumerate(per_rank) for f in d["failures"]]
+    if failures:
+        fail(f"{what}: {failures[:5]}")
+    want = serve_w_want(arxiv_config("gcn"), "gcn", True, True)
+    for r, d in enumerate(per_rank):
+        if d["halo_impl"] != "pallas_p2p" or d["generation"] != 1 or (
+                d["forwards"] != front["forwards"]):
+            fail(f"{what}: rank {r} resolved {d['halo_impl']}, adopted generation "
+                 f"{d['generation']}, ran {d['forwards']} forwards (rank 0 {front['forwards']})")
+        check_step_launches(f"{what} rank {r}", "all", d["counts"],
+                            {k: v * d["forwards"] for k, v in want.items()},
+                            hub_rows=d["hub_rows"])
+        if r and (len(d["appends"]) != len(DELTA_APPENDS[SERVE_W]) or d["threads_left"]
+                  or any(c["launches"] or c["csr"] for c in d["appends"])):
+            fail(f"{what}: rank {r}'s appends {d['appends']}, follow threads left "
+                 f"{d['threads_left']}")
+    if front["one_forward"] != {k: v for k, v in want.items() if v}:
+        fail(f"{what}: one request on the new engine launched {front['one_forward']} on rank 0")
+    rec = front["record"]
+    agree_ms = [[(c, round(x * 1e3, 3)) for c, x in d["agreements"]] for d in per_rank]
+    write_ms = [[round(a["rank0_write_ms"], 3) for a in rec["appends"]]] + [
+        [round(c["s"] * 1e3, 3) for c in d["appends"]] for d in per_rank[1:]]
+    appends = [(a["vertices"], round(a["stage_ms"], 3), round(a["install_ms"], 3))
+               for a in rec["appends"]]
+    log(f"{what}: init_world {front['init_s']:.2f} s on global rank 0; generation 0's engines "
+        f"{[round(d['build0_s'], 2) for d in per_rank]} s a rank, warmup {front['warmup0_s']} s; "
+        f"n_pad {front['n_pad']} a rank, {rec['free_before']} free pad slots; appends "
+        f"{appends} (vertices, staged ms, installed ms) under {rec['requests']} requests "
+        f"({rec['new_ids_served']} appended ids served), each rank's write ms {write_ms}; every "
+        f"reply the full_logits() rows, old rows' bits and data_ptr()s kept, no launch or CSR "
+        f"offsets inside an append on any rank; the budget error past {rec['free_after']}")
+    log(f"{what}: replan {rec['replan']['total_s']:.2f} s (sharded build "
+        f"{rec['replan']['build_s']:.2f} s, snapshot {rec['replan']['snapshot_s']:.2f} s); the "
+        f"W-rank adoption {rec['build_s']:.2f} s + warmup {rec['warmup_s']} s; flip (requests "
+        f"naming the {rec['flip']['changed_rows']} changed rows) served by "
+        f"{rec['flip']['served_by']}, activate {rec['flip']['activate_ms']:.3f} ms, p50 "
+        f"{rec['flip']['p50_ms']:.3f} ms p99 {rec['flip']['p99_ms']:.3f} ms; launches a forward "
+        f"a rank {dict((k, v) for k, v in want.items() if v)} over {front['forwards']} forwards; "
+        f"generation 1 bit-equal to the from-scratch W = 4 build "
+        f"({[round(d['oracle_s'], 1) for d in per_rank]} s a rank)")
+    log(f"{what}: agreements (check, ms) a rank: {agree_ms}")
+    log(f"{what}: request latency before / during / after the appends: {rec['latency']}")
+    return dict(rec, agreements_ms=agree_ms, write_ms=write_ms,
+                build0_s=[d["build0_s"] for d in per_rank], init_s=front["init_s"],
+                forwards=front["forwards"], oracle_s=[d["oracle_s"] for d in per_rank])
 
 
 def merged_rank_record(per_rank: list) -> dict:
@@ -6938,7 +7560,7 @@ def serve_w_phase(cfg) -> tuple:
         t_launch = time.time()
         t0 = time.perf_counter()
         ranks = launch(serve_w_rank, SERVE_W, turns, requests, t_launch, ckpt_dirs,
-                       os.path.join(root, "plans"),
+                       os.path.join(root, "plans"), os.path.join(root, "delta"),
                        device="cuda", timeout=900, group_timeout=SERVE_W_GROUP_TIMEOUT,
                        threads=max(1, (os.cpu_count() or 1) // SERVE_W))
         run_s = time.perf_counter() - t0
@@ -7047,6 +7669,9 @@ def serve_w_phase(cfg) -> tuple:
                 records.append(k5)
             else:
                 records.append(merged_rank_record(rows))
+    delta = serve_w_delta_checks([r["delta"] for r in ranks])
+    for k in launched:
+        launched[k] += sum(r["delta"]["counts"][k] for r in ranks)
     if rate:
         for what, n, S, F, b in KERNEL5_NVLINK_READINGS:
             log(f"kernel 5 NVLink bound, {what} [{n}, {S}, {F}]: "
@@ -7055,7 +7680,8 @@ def serve_w_phase(cfg) -> tuple:
     for rec in records:
         main_case.setdefault(rec["kernel"], []).append(
             (rec["case"], launched, f"serve_w{SERVE_W}"))
-    return records, main_case, {"train": [], "serve_w": recs, "nvlink_bytes_per_s": rate}
+    return records, main_case, {"train": [], "serve_w": recs, "serve_w_delta": delta,
+                                "nvlink_bytes_per_s": rate}
 
 
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")

@@ -86,22 +86,25 @@ __all__ = [
 
 # the port's host modules (repo-relative posix prefixes): the serve
 # engine's RLock, the batcher's Condition and worker thread, the model
-# registry's lock, the rollover's swap under the dispatch lock, the metrics
-# registry, the kernel build module's library cache, the launcher, and the
-# plan cache's artifact IO (shards, manifest, layout sidecar)
+# registry's lock, the rollover's swap under the dispatch lock, the graph
+# deltas' run lock and generation pointer, the metrics registry, the kernel
+# build module's library cache, the launcher, and the plan cache's artifact
+# IO (shards, manifest, layout sidecar)
 HOST_SCOPE = (
     "dgraph_tpu_torch/serve/engine.py",
     "dgraph_tpu_torch/serve/batcher.py",
     "dgraph_tpu_torch/serve/registry.py",
     "dgraph_tpu_torch/serve/rollover.py",
+    "dgraph_tpu_torch/serve/deltas.py",
     "dgraph_tpu_torch/obs/metrics.py",
     "dgraph_tpu_torch/ops/_build.py",
     "dgraph_tpu_torch/comm/dist.py",
     "dgraph_tpu_torch/plan_shards.py",
 )
 
-# the durable-write rules cover the same modules and the checkpoint and plan
-# cache writer (the port writes no generation pointer or tuning record yet)
+# the durable-write rules cover the same modules (the graph deltas'
+# generation pointer and snapshots among them) and the checkpoint and plan
+# cache writer (the port writes no tuning record yet)
 DURABLE_SCOPE = HOST_SCOPE + ("dgraph_tpu_torch/train/checkpoint.py",)
 
 LOCK_CONSTRUCTORS = frozenset({"Lock", "RLock", "Condition"})

@@ -12,6 +12,9 @@
   every rank together);
 - :mod:`~dgraph_tpu_torch.serve.registry` — :class:`ModelRegistry`: named
   engines with one active, which the batcher flips between batches;
+- :mod:`~dgraph_tpu_torch.serve.deltas` — live graph growth: appends staged
+  on disk and written into reserved pad slots, a background re-plan into the
+  next generation, adopted by one pointer write and a registry flip;
 - :mod:`~dgraph_tpu_torch.serve.errors` — the structured rejections.
 
 ``build_serving`` and the CLI live in ``serve/__main__.py`` (``python -m

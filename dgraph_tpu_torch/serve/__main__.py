@@ -337,6 +337,7 @@ def _serve(cfg: Config, comm=None, scratch: Optional[str] = None) -> dict:
         "plan_cache": cfg.plan_cache,
         "restored_step": engine.restored_step,
         "serving_step": engine.serving_step,
+        "generation": engine.generation,
         "lineage": engine.lineage,
         "warmup": warm,
         "forwards": engine.forwards,

@@ -54,9 +54,29 @@ validates a new checkpoint through the live module and adopts it by
 (what a CUDA graph a bucket would capture is what a swap writes). PyTorch
 runs eagerly, so there is no compile to count and the reference's
 ``recompile`` rejection has no counterpart; one CUDA graph per bucket is
-later work, as is ``append_vertices``. Over W ranks rank 0 announces a
-swap (the header op ``SWAP``) as it announces a dispatch, so every rank's
-parameters change between the same two dispatches.
+later work. Over W ranks rank 0 announces a swap (the header op ``SWAP``)
+as it announces a dispatch, so every rank's parameters change between the
+same two dispatches.
+
+**Live graph deltas** (:mod:`~dgraph_tpu_torch.serve.deltas`). The engine
+owns its vertex data (a copy of the caller's). :meth:`ServeEngine.
+append_vertices` writes new vertices into the reserved pad slots above
+each rank's real rows, in place (``index_copy_`` into ``x``,
+``index_fill_`` into ``vmask``) under the dispatch lock, so a batch sees
+the whole old graph or the whole new one and every tensor keeps its
+``data_ptr()``; the reference flips to new arrays instead. No plan tensor
+is touched (the CSR offset caches stay valid) and no shape changes: an
+appended vertex is served at once, as an isolated vertex until a
+re-planned generation is adopted. Over W ranks rank 0 checks the width and
+the pad budget, places the vertices (the reference's waterfill over its
+global slot occupancy) and announces them (``APPEND``); every rank writes
+the rows it owns, one all-reduce says every rank wrote, and only then do
+the id maps grow. Adopting a generation builds a new engine on it
+(:func:`~dgraph_tpu_torch.serve.deltas.build_engine`); over W ranks rank 0
+announces the build on the serving engine (``ADOPT``), so that every rank
+builds the new engine at the same point, and a follower then follows it in
+a thread of its own until rank 0 stops it. A failure after an
+announcement is a :class:`RankLost`, as for a dispatch.
 
 **Several engines over one set of ranks** (a :class:`~dgraph_tpu_torch.
 serve.registry.ModelRegistry` flipping between them): every engine of a
@@ -89,7 +109,9 @@ from dgraph_tpu_torch.train.loop import model_apply
 # serving lasts (rank 0's exit closes the group at once)
 CONTROL_TIMEOUT = datetime.timedelta(days=7)
 # the ops a header announces
-STOP, BUCKET, FULL, SWAP = 0, 1, 2, 3
+STOP, BUCKET, FULL, SWAP, APPEND, ADOPT = 0, 1, 2, 3, 4, 5
+# the ops whose header is followed by a pickled payload
+PAYLOAD_OPS = (SWAP, APPEND, ADOPT)
 # one dispatch at a time in this process (a rank), whatever the engine: two
 # engines over the same ranks share the rank's process groups and device,
 # so their dispatches' collectives must never interleave
@@ -134,6 +156,7 @@ class ServeEngine:
         max_retries: int = 2,
         degrade_after: int = 3,
         retry_backoff_s: float = 0.05,
+        open_control: bool = True,
     ):
         comm = model_comm(model)
         group = comm.group
@@ -182,12 +205,25 @@ class ServeEngine:
         self._lost: Optional[str] = None  # why the ranks can run no dispatch
         self.model = model.to(self.device).eval()
         self._plan = (plan if plan.per_rank else plan.shard(self.rank)).to(self.device)
-        self._batch = {k: v[self.rank].to(self.device) for k, v in batch.items()}
+        # a rank-subset plan (deltas.build_engine over W ranks) comes with
+        # its ranks' rows of the batch only
+        row = self.rank if plan.ranks is None else list(plan.ranks).index(self.rank)
+        # a copy of our own (.to would hand back the caller's CPU tensor):
+        # append_vertices writes into it in place
+        self._batch = {k: v[row].to(self.device, copy=True) for k, v in batch.items()}
         self._id_rank = np.asarray(id_rank, np.int64)
         self._id_slot = np.asarray(id_slot, np.int64)
         if self._id_rank.shape != self._id_slot.shape:
             raise ValueError("id_rank / id_slot length mismatch")
         self.num_nodes = int(self._id_rank.shape[0])
+        # real vertices a rank: the pad slots above them are the append
+        # budget until the next adopted generation
+        self._slot_fill = np.bincount(self._id_rank, minlength=W).astype(np.int64)
+        # the adopted graph generation (deltas.build_engine stamps it)
+        self.generation: Optional[int] = None
+        # a follower's engines of later generations (ADOPT), each followed
+        # in a thread: [(engine, thread, {"error": its exception, if any})]
+        self._successors: list = []
         self.forwards = 0  # full-graph forwards this rank ran so far
         self.last_stage_ms: dict = {}
         self.warmup_s: Optional[float] = None
@@ -199,9 +235,19 @@ class ServeEngine:
         self.lineage: list = []
         self.last_swap_s: dict = {}  # the last swap's seconds a stage
         self._ctrl = None
-        if W > 1:  # collective: every rank builds its engine at this point
-            self._ctrl = dist.new_group([group.global_peer(r) for r in range(W)],
-                                        backend="gloo", timeout=CONTROL_TIMEOUT)
+        if open_control:
+            self._open_control()
+
+    def _open_control(self) -> None:
+        """The engine's gloo control group over its W ranks (none at one
+        rank). Collective: every rank opens it at the same point, and no
+        other group may be made meanwhile. ``open_control=False`` defers it
+        to an adoption, which first agrees that every rank built its
+        engine."""
+        if self.world_size > 1:
+            self._ctrl = dist.new_group(
+                [self.group.global_peer(r) for r in range(self.world_size)],
+                backend="gloo", timeout=CONTROL_TIMEOUT)
 
     @classmethod
     def from_distributed_graph(cls, model, g, **kwargs) -> "ServeEngine":
@@ -300,8 +346,9 @@ class ServeEngine:
 
     def _announce(self, op: int, idx: Optional[np.ndarray] = None, payload=None) -> None:
         """Rank 0, the dispatch lock held: the header ``[op, rows]`` on the
-        control group, then a bucket's padded ``(rank_idx, slot_idx)`` or a
-        swap's payload (:mod:`~dgraph_tpu_torch.serve.rollover`)."""
+        control group, then a bucket's padded ``(rank_idx, slot_idx)`` or
+        the payload of a swap (:mod:`~dgraph_tpu_torch.serve.rollover`), an
+        append or an adoption."""
         if self._stopped:
             raise EngineStopped("engine stopped")
         if self._lost is not None:
@@ -313,7 +360,7 @@ class ServeEngine:
             if n:
                 dist.broadcast(torch.from_numpy(np.ascontiguousarray(idx, np.int64)),
                                self._src, group=self._ctrl)
-            if op == SWAP:
+            if op in PAYLOAD_OPS:
                 dist.broadcast_object_list([payload], self._src, group=self._ctrl)
         except Exception as e:  # noqa: BLE001 — a peer is gone
             raise self._lose("announcing a dispatch", e) from e
@@ -328,7 +375,7 @@ class ServeEngine:
             t = torch.empty(2, rows, dtype=torch.int64)
             dist.broadcast(t, self._src, group=self._ctrl)
             idx = t.numpy()
-        if op == SWAP:
+        if op in PAYLOAD_OPS:
             box = [None]
             dist.broadcast_object_list(box, self._src, group=self._ctrl)
             payload = box[0]
@@ -505,6 +552,141 @@ class ServeEngine:
 
         return swap_params(self, source, step=step, params=params, parity_ids=parity_ids)
 
+    # --- live graph deltas ---
+
+    def free_pad_slots(self) -> int:
+        """Reserved pad capacity left for live vertex appends before a
+        re-planned generation must be adopted (``serve.deltas.replan``); 0
+        when the batch has no ``x`` to append into."""
+        if self._batch.get("x") is None:
+            return 0
+        fill = self._slot_fill
+        return int((self._batch["x"].shape[0] - fill).sum())
+
+    def append_vertices(self, features) -> np.ndarray:
+        """Write new vertices into reserved pad slots, live; returns their
+        ids (original numbering), ``num_nodes .. num_nodes + k``.
+
+        They are served at once: their features enter ``x`` and their
+        vertex mask turns 1 in place, under the dispatch lock (a batch sees
+        the whole old graph or the whole new one), and then the id maps
+        grow. No shape changes and no plan tensor is touched. Edges of the
+        appended vertices are not live until a re-planned generation is
+        adopted (:mod:`~dgraph_tpu_torch.serve.deltas`): until then an
+        appended vertex aggregates nothing, as an isolated vertex. Raises
+        ValueError when the pad budget is spent (the signal to re-plan).
+        Over W ranks see the module docstring (``APPEND``). Rank 0's only."""
+        from dgraph_tpu_torch.serve.deltas import assign_new_vertices
+
+        self._check_front("append_vertices")
+        with self._dispatch_lock, self._on_device():
+            x = self._batch.get("x")
+            if x is None:
+                raise ValueError("engine batch has no 'x' leaf to append into")
+            feats = np.asarray(features, np.float32)
+            if feats.ndim != 2 or feats.shape[1] != x.shape[1]:
+                raise ValueError(f"features must be [k, {x.shape[1]}], got {feats.shape}")
+            k = int(feats.shape[0])
+            if k > self.free_pad_slots():
+                raise ValueError(
+                    f"{k} new vertices exceed the {self.free_pad_slots()} free pad slots; "
+                    "adopt a re-planned generation first (serve.deltas.replan)")
+            # the waterfill serve.deltas.replan replays, so adoption never
+            # moves a vertex already served from a pad slot
+            fill = self._slot_fill.copy()
+            new_rank = assign_new_vertices(fill, k)
+            new_slot = np.empty(k, np.int64)
+            for i, r in enumerate(new_rank):
+                new_slot[i] = self._slot_fill[r] + np.count_nonzero(new_rank[:i] == r)
+            ids = np.arange(self.num_nodes, self.num_nodes + k, dtype=np.int64)
+            if self.world_size > 1:
+                self._announce(APPEND, payload={"rank": new_rank, "slot": new_slot,
+                                                "features": feats})
+            self._append_on_rank(new_rank, new_slot, feats)
+        self.registry.counter("serve.vertices_appended", float(k))
+        return ids
+
+    def _append_on_rank(self, new_rank, new_slot, feats) -> None:
+        """One rank's side of an append (the dispatch lock held): write the
+        rows it owns in place, agree that every rank wrote, grow the id
+        maps. A failure over W ranks is a :class:`RankLost`: the ranks may
+        hold different graphs now."""
+        err = None
+        try:
+            mine = np.asarray(new_rank) == self.rank
+            if mine.any():
+                rows = torch.from_numpy(np.asarray(new_slot, np.int64)[mine]).to(self.device)
+                x = self._batch["x"]
+                x.index_copy_(0, rows, torch.from_numpy(feats[mine]).to(self.device, x.dtype))
+                vmask = self._batch.get("vmask")
+                if vmask is not None:
+                    vmask.index_fill_(0, rows, 1.0)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        except Exception as e:  # noqa: BLE001 — agreed below (raised at one rank)
+            if self.world_size == 1:
+                raise
+            err = e
+        failed = self._agree("the append agreement", err is not None)
+        if failed:
+            raise self._lose("an append", err or RuntimeError(
+                f"rank(s) {failed} failed to write their appended rows"))
+        self._id_rank = np.concatenate([self._id_rank, np.asarray(new_rank, np.int64)])
+        self._id_slot = np.concatenate([self._id_slot, np.asarray(new_slot, np.int64)])
+        self._slot_fill = self._slot_fill + np.bincount(new_rank,
+                                                        minlength=self.world_size)
+        # last: a request that passes the id range check sees the grown maps
+        self.num_nodes += len(new_rank)
+
+    def _adopt_generation(self, run_dir: str, *, add_symmetric_norm: bool, verify: bool,
+                          **engine_kwargs) -> "ServeEngine":
+        """Rank 0 of W ranks (:func:`~dgraph_tpu_torch.serve.deltas.
+        build_engine` with ``adopt_from=self``): announce the adopted
+        generation, then build its engine on every rank at once, under the
+        dispatch lock. This engine keeps serving until the caller stops
+        it."""
+        from dgraph_tpu_torch.serve.deltas import read_world
+
+        self._check_front("adopting a generation")
+        payload = {"run_dir": run_dir, "generation": int(read_world(run_dir)["generation"]),
+                   "add_symmetric_norm": bool(add_symmetric_norm), "verify": bool(verify)}
+        kwargs = dict({"device": self.device, "ladder": self.ladder}, **engine_kwargs)
+        with self._dispatch_lock, self._on_device():
+            self._announce(ADOPT, payload=payload)
+            return self._adopt_on_rank(payload, kwargs)
+
+    def _adopt_on_rank(self, payload: dict, engine_kwargs: dict) -> Optional["ServeEngine"]:
+        """One rank's side of an adoption (the dispatch lock held): load
+        its shard of the announced generation and build its engine on this
+        engine's module, agree that every rank did, then open the new
+        engine's control group (collective). A generation some rank could
+        not load is dropped on every rank: rank 0 raises
+        :class:`~dgraph_tpu_torch.serve.deltas.DeltaError`, a follower
+        returns None."""
+        from dgraph_tpu_torch.serve.deltas import DeltaError, engine_inputs
+
+        gen, err, eng = int(payload["generation"]), None, None
+        try:
+            info = engine_inputs(payload["run_dir"], ranks=[self.rank], generation=gen,
+                                 add_symmetric_norm=payload["add_symmetric_norm"],
+                                 verify=payload["verify"])
+            eng = ServeEngine(self.model, info["plan"], info["batch"], info["id_rank"],
+                              info["id_slot"], open_control=False, **engine_kwargs)
+        except Exception as e:  # noqa: BLE001 — agreed below, before any group is made
+            err = f"{type(e).__name__}: {e}"
+        failed = self._agree("the adoption's load agreement", err is not None)
+        if failed:
+            if self.rank != 0:
+                return None
+            raise DeltaError(f"generation {gen} could not be loaded on rank(s) {failed}"
+                             f"{': ' + err if err else ''}; the serving engine stays")
+        try:
+            eng._open_control()
+        except Exception as e:  # noqa: BLE001 — the ranks may be out of step now
+            raise self._lose("opening the adopted generation's control group", e) from e
+        eng.generation = gen
+        return eng
+
     def full_logits(self) -> np.ndarray:
         """``[W, n_pad, C]`` logits for the whole graph (over W ranks every
         rank's shard, gathered on rank 0) — the oracle the bucketed path is
@@ -537,11 +719,14 @@ class ServeEngine:
     # --- ranks 1..W-1 ---
 
     def follow(self) -> int:
-        """Ranks 1..W-1: run every dispatch rank 0 announces (a swap too),
-        until it announces stop. Returns the dispatches run. The dispatch
-        lock is taken only once a header has arrived, so another engine's
-        follower thread runs its dispatches meanwhile (:func:`follow_all`).
-        A :class:`RankLost` propagates: this rank's part of the group is
+        """Ranks 1..W-1: run every dispatch rank 0 announces (a swap, an
+        append and an adoption too), until it announces stop. Returns the
+        dispatches run. The dispatch lock is taken only once a header has
+        arrived, so another engine's follower thread runs its dispatches
+        meanwhile (:func:`follow_all`). An adopted generation's engine is
+        followed in a thread of its own, which this call waits for after
+        its stop: it returns once every engine it started is stopped. A
+        :class:`RankLost` propagates: this rank's part of the group is
         gone."""
         from dgraph_tpu_torch.serve.rollover import follow_swap
 
@@ -557,12 +742,47 @@ class ServeEngine:
                 with self._dispatch_lock:
                     if op == SWAP:
                         follow_swap(self, payload)
+                    elif op == APPEND:
+                        self._append_on_rank(payload["rank"], payload["slot"],
+                                             payload["features"])
+                    elif op == ADOPT:
+                        self._follow_successor(self._adopt_on_rank(payload, {
+                            "device": self.device, "ladder": self.ladder,
+                            "registry": self.registry}))
                     else:
                         self._attempt(op, idx)
             n += 1
         with self._dispatch_lock:
             self._close()
+        for _, thread, _ in self._successors:
+            thread.join()
+        err = next((box["error"] for *_, box in self._successors if "error" in box), None)
+        if err is not None:
+            raise err
         return n
+
+    def _follow_successor(self, engine: Optional["ServeEngine"]) -> None:
+        """A follower: follow an adopted generation's engine in a thread of
+        its own (nothing when the adoption was dropped)."""
+        if engine is None:
+            return
+        box: dict = {}
+
+        def run():
+            try:
+                engine.follow()
+            except BaseException as e:  # noqa: BLE001 — raised by follow() after the join
+                box["error"] = e
+
+        thread = threading.Thread(target=run, name=f"serve-follow-g{engine.generation}")
+        thread.start()
+        self._successors.append((engine, thread, box))
+
+    @property
+    def successors(self) -> list:
+        """A follower's engines of the generations adopted while it followed
+        this one."""
+        return [e for e, _, _ in self._successors]
 
     def stop(self) -> None:
         """Rank 0: announce stop, so that every follower leaves

@@ -883,3 +883,72 @@ def test_hot_swap_on_the_card_keeps_pointers_and_serves_the_new_bits(dev, tmp_pa
     assert info.value.context["reason"] == "fault"
     np.testing.assert_array_equal(engine.full_logits().view(np.int32), new.view(np.int32))
     assert {k: v.data_ptr() for k, v in engine.model.state_dict().items()} == ptrs
+
+
+def test_delta_append_replan_and_flip_on_the_card(dev, tmp_path):
+    """A GCN engine on the card over a one-rank delta world (``serve/deltas.py``):
+    an append of 8 vertices launches no kernel, keeps the ``data_ptr()`` of
+    ``x`` and ``vmask`` and computes no CSR offsets; the appended ids are
+    served as the new ``full_logits()``'s bits and the old rows keep theirs;
+    after a re-plan, generation 1's engine (a registry flip behind one
+    batcher) launches the fused kernel per_forward times a forward, serves
+    the appended ids as its ``full_logits()``'s bits, and is within 1e-4 of
+    the same model and generation on the CPU."""
+    import copy
+    import math
+
+    from dgraph_tpu_torch import config
+    from dgraph_tpu_torch.comm import SingleComm
+    from dgraph_tpu_torch.data import synthetic
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.bucketing import BucketLadder
+    from dgraph_tpu_torch.serve.registry import ModelRegistry
+    from dgraph_tpu_torch.weights import init_params
+
+    run_dir = str(tmp_path / "world")
+    d = synthetic.sbm_classification_graph(num_nodes=400, num_classes=4, feat_dim=16, seed=0)
+    deltas.init_world(run_dir, d["edge_index"], d["features"], world_size=1, pad_multiple=64)
+    model = GCN(16, 16, 4, SingleComm(), num_layers=2)
+    init_params(model, 0)
+    kw = dict(add_symmetric_norm=True, device=dev, ladder=BucketLadder((8, 16)))
+    eng0 = deltas.build_engine(run_dir, model, **kw)
+    eng0.warmup()
+    before = eng0.full_logits()
+    ptrs = {k: eng0._batch[k].data_ptr() for k in ("x", "vmask")}
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(8, 16)).astype(np.float32)
+    deltas.append_delta(run_dir, feats, np.array([[0, 400, 401], [400, 3, 407]]))
+    computed = seg.csr_offsets.computed
+    kernels.reset_launch_counts()
+    ids = eng0.append_vertices(feats)
+    assert not any(kernels.launch_counts().values())
+    assert {k: eng0._batch[k].data_ptr() for k in ("x", "vmask")} == ptrs
+    after = eng0.full_logits()
+    assert seg.csr_offsets.computed == computed
+    r, s = eng0.rank_slot(ids)
+    np.testing.assert_array_equal(eng0.infer(ids).view(np.int32), after[r, s].view(np.int32))
+    np.testing.assert_array_equal(after[0, :400].view(np.int32), before[0, :400].view(np.int32))
+    deltas.replan(run_dir)
+    eng1 = deltas.build_engine(run_dir, eng0.model, adopt_from=eng0, **kw)
+    eng1.warmup()
+    reg = ModelRegistry()
+    reg.register("default", eng0, activate=True)
+    bat = MicroBatcher(reg)
+    try:
+        bat.infer(np.arange(5))
+        reg.activate("default", eng1)
+        kernels.reset_launch_counts()
+        forwards = eng1.forwards
+        out = bat.infer(ids)
+        counts, forwards = kernels.launch_counts(), eng1.forwards - forwards
+    finally:
+        bat.stop()
+    per_forward = 2 * math.ceil(16 / config.gather_col_block)
+    assert forwards == 1 and counts["sorted_segment_sum_bias_relu"] == per_forward
+    full1 = eng1.full_logits()
+    r1, s1 = eng1.rank_slot(ids)
+    np.testing.assert_array_equal(out.view(np.int32), full1[r1, s1].view(np.int32))
+    cpu = deltas.build_engine(run_dir, copy.deepcopy(eng0.model), **dict(kw, device="cpu"))
+    np.testing.assert_allclose(full1, cpu.full_logits(), rtol=1e-4, atol=1e-4)

@@ -210,6 +210,9 @@ def test_cli_selftest_on_cpu(capsys):
     rec = main(Config(selftest=True, device="cpu", requests=6))
     assert rec["kind"] == "serve_health" and rec["device"] == "cpu"
     assert "error" not in rec
+    # the graph generation, as the reference's record carries it (None: the
+    # CLI's graph is no delta world's)
+    assert "generation" in rec and rec["generation"] is None
     assert rec["metrics"]["counters"]["serve.infer_calls"] >= 6
     # the swap leg: step 1 adopted, then a swap faulted at pre_swap rolled back
     swaps = [r for r in rec["lineage"] if r["event"] == "swap"]

@@ -46,6 +46,12 @@ W on ``jax.devices()[:W]``, indexed by the reference's ``rank_slot``.
   rolled back on both ranks, the served bits unchanged; then a registry
   flips between two engines on the same two ranks under traffic through
   one batcher: no hang, each reply the rows of the engine that served it.
+- Live graph deltas at W = 2 (``torch_serve_ranks.delta_cases``, under the
+  default lowering and ``pallas_p2p``): appends over the ``APPEND`` op
+  under traffic, each reply wholly one graph's rows; a re-plan on rank 0,
+  the W-rank adoption (``ADOPT``) and a registry flip under traffic with no
+  hang; generation 1 within 1e-4 of the reference's ``full_logits()`` at
+  W = 2 on the same run directory; no follower thread or rank process left.
 """
 
 import json
@@ -486,3 +492,80 @@ def test_two_ranks_swap_roll_back_and_flip_between_two_engines(tmp_path):
     assert "a" in served_by and served_by[-1] == "b"
     assert follower["dispatches"][1] == follower["forwards_b"] == front["forwards_b"]
     assert _live_ranks() == []
+
+
+# --- live graph deltas over two ranks -------------------------------------------
+
+
+def test_two_ranks_append_replan_adopt_and_flip_under_traffic(tmp_path):
+    """``torch_serve_ranks.delta_cases`` under the default lowering and
+    ``pallas_p2p``: two appends (the ``APPEND`` op) under a client thread's
+    traffic, each reply wholly the rows of the graph it ran on; a re-plan on
+    rank 0, then the W-rank adoption (``ADOPT``) and a registry flip under
+    traffic with no hang, every reply wholly one engine's rows; generation
+    1's ``full_logits()`` within 1e-4 of the reference's at W = 2 on the
+    same run directory; the old engine stopped, every follower thread
+    returned, no rank process left."""
+    from dgraph_tpu.serve import deltas as ref_deltas
+    from test_torch_deltas import PAD, V, _appends, _graph, _ref_engine, flax_gcn_params
+
+    W = 2
+    params = flax_gcn_params()
+    data = _graph()
+    inputs = {"gcn": {k: v.numpy() for k, v in params_from_jax(params).items()},
+              "graph": (np.asarray(data["edge_index"]), np.asarray(data["features"])),
+              "appends": _appends(), "pad": PAD}
+    path, root = tmp_path / "inputs.pkl", tmp_path / "runs"
+    with open(path, "wb") as f:
+        pickle.dump(inputs, f)
+    res = launch(torch_serve_ranks.delta_cases, W, str(path), str(root), device="cpu",
+                 timeout=TIMEOUT, threads=1)
+    assert _live_ranks() == []
+    n_new = sum(len(f) for f, _ in inputs["appends"])
+    for impl in torch_serve_ranks.DELTA_IMPLS:
+        front, follower = (r[impl] for r in res)
+        assert front["halo_impl"] == follower["halo_impl"] == (
+            "all_to_all" if impl == "auto" else impl)
+        app = front["append"]
+        assert app["errors"] == [] and not app["alive"], app["errors"]
+        assert len(app["replies"]) == torch_serve_ranks.DELTA_REQUESTS
+        assert [b for b, _ in app["appended"]] == [V, V + 4]
+        assert front["free_before"] - front["free_after"] == n_new
+        rank, slot = front["rank_slot0"]
+        full = front["full_after"]
+        saw_new = False
+        for ids, out in app["replies"]:
+            _assert_bits_equal(out, full[rank[ids], slot[ids]], f"{impl}: {ids}")
+            saw_new |= bool((ids >= V).any())
+        assert saw_new
+        # old rows keep their bits across the appends; the ids were served at once
+        rb, sb = rank[:V], slot[:V]
+        _assert_bits_equal(front["full_before"][rb, sb], full[rb, sb], "old rows")
+        assert front["x_ptr_kept"] and follower["x_ptr_kept"]
+        assert follower["num_nodes"] == V + n_new  # the follower's id maps grew too
+        # the adoption: generation 1 on every rank, placement kept
+        assert front["world1"]["generation"] == front["generation1"] == 1
+        assert follower["successor_generations"] == [1]
+        rank1, slot1 = front["rank_slot1"]
+        np.testing.assert_array_equal(rank1, rank)
+        np.testing.assert_array_equal(slot1, slot)
+        full1 = front["full1"]
+        _assert_bits_equal(front["full1_after_stop"], full1, "the new engine after the old stopped")
+        ref = _ref_engine(str(root / impl), params, W=W)
+        assert ref.generation == 1
+        r, s = ref.rank_slot(np.arange(V + n_new))
+        np.testing.assert_allclose(full1[rank1, slot1], ref.full_logits()[r, s], rtol=1e-4,
+                                   atol=1e-4)
+        flip = front["flip"]
+        assert flip["errors"] == [] and not flip["alive"] and flip["active"] == "b"
+        served_by = []
+        for ids, after, out in flip["replies"]:
+            on_a = np.array_equal(out, full[rank[ids], slot[ids]])
+            on_b = np.array_equal(out, full1[rank1[ids], slot1[ids]])
+            assert on_a != on_b and (on_b or not after), (impl, ids, after)
+            served_by.append("a" if on_a else "b")
+        assert "a" in served_by and served_by[-1] == "b"
+        assert follower["forwards"] == front["forwards"]
+        assert follower["successor_forwards"] == [front["forwards1"]]
+        assert follower["follow_threads"] == []
+    assert ref_deltas.read_world(str(root / "auto"))["deltas_adopted"] == 2

@@ -498,7 +498,7 @@ def swap_cases(group, path: str, dirs: dict) -> dict:
     return out
 
 
-def _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics) -> dict:
+def _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics, max_size: int = 64) -> dict:
     """Rank 0: a registry of A (active) and B behind one batcher; a client
     thread submits FLIP_REQUESTS requests one after another, and once half
     are answered the main thread activates B. Each reply with whether it was
@@ -514,7 +514,8 @@ def _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics) -> dict:
         rng = np.random.default_rng(3)
         try:
             for i in range(FLIP_REQUESTS):
-                ids = rng.choice(a.num_nodes, size=int(rng.integers(1, 65)), replace=False)
+                ids = rng.choice(a.num_nodes, size=int(rng.integers(1, max_size + 1)),
+                                 replace=False)
                 after = flipped.is_set()
                 replies.append((ids, after, batcher.submit(ids).result(timeout=120)))
                 if i == FLIP_REQUESTS // 2:
@@ -532,3 +533,137 @@ def _flip_traffic(a, b, ModelRegistry, MicroBatcher, Metrics) -> dict:
     batcher.stop()
     return {"replies": replies, "errors": errors, "alive": t.is_alive(),
             "active": reg.active_name, "record": reg.record()}
+
+
+# --- live graph deltas (slice 9e) ------------------------------------------------
+
+# the lowerings a delta case runs under, each in a run directory of its own
+# (pallas_p2p through the transport's plain version: the split route)
+DELTA_IMPLS = ("auto", "pallas_p2p")
+DELTA_REQUESTS = 24  # requests a client thread submits across the appends
+DELTA_APPEND_AFTER = (4, 12)  # replies answered before each append starts
+
+
+def _delta_traffic(engine, batcher, inputs: dict, run_dir: str) -> dict:
+    """Rank 0: a client thread submits DELTA_REQUESTS requests one after
+    another, each over ids below the engine's ``num_nodes`` as it stands
+    then (appended ids too, once served), while the main thread stages and
+    installs each append of ``inputs['appends']`` after DELTA_APPEND_AFTER
+    replies."""
+    from dgraph_tpu_torch.serve import deltas
+
+    replies, errors, answered = [], [], threading.Semaphore(0)
+
+    def client():
+        rng = np.random.default_rng(11)
+        try:
+            for _ in range(DELTA_REQUESTS):
+                n = engine.num_nodes
+                ids = rng.choice(n, size=int(rng.integers(1, 9)), replace=False)
+                if n > 96:  # always one appended id once there are some
+                    ids[0] = n - 1 - int(rng.integers(0, n - 96))
+                    ids = np.unique(ids)
+                replies.append((ids, batcher.submit(ids).result(timeout=120)))
+                answered.release()
+        except Exception as e:  # noqa: BLE001 — reported to the test
+            errors.append(repr(e))
+            for _ in DELTA_APPEND_AFTER:
+                answered.release()
+
+    t = threading.Thread(target=client)
+    t.start()
+    appended, seen = [], 0
+    for after, (feats, edges) in zip(DELTA_APPEND_AFTER, inputs["appends"]):
+        while seen < after:
+            answered.acquire(timeout=120)
+            seen += 1
+        rec = deltas.append_delta(run_dir, feats, edges)
+        ids = engine.append_vertices(feats)
+        appended.append((rec["id_base"], ids))
+    t.join(120)
+    return {"replies": replies, "errors": errors, "alive": t.is_alive(), "appended": appended}
+
+
+def _delta_case(group, run_dir: str, inputs: dict) -> dict:
+    """Global rank 0 writes generation 0 (``init_world``, pad multiple
+    ``inputs['pad']``); every rank builds its engine on it. Rank 0 warms
+    it, serves traffic across two appends (the ``APPEND`` op), re-plans,
+    adopts generation 1 (``build_engine(adopt_from=...)``: the followers
+    build the new engine inside the old one's ``follow()``), warms it,
+    flips a registry from the old engine to the new one under traffic
+    (``_flip_traffic``), and stops both. Every rank reports its forwards,
+    its successors' and the follower threads left."""
+    from dgraph_tpu_torch.models import GCN
+    from dgraph_tpu_torch.obs.metrics import Metrics
+    from dgraph_tpu_torch.serve import deltas
+    from dgraph_tpu_torch.serve.batcher import MicroBatcher
+    from dgraph_tpu_torch.serve.bucketing import BucketLadder
+    from dgraph_tpu_torch.serve.registry import ModelRegistry
+
+    edges, feats = inputs["graph"]
+    if group.global_rank == 0:
+        deltas.init_world(run_dir, edges, feats, world_size=group.world_size,
+                          pad_multiple=inputs["pad"])
+    group.barrier()
+    model = GCN(feats.shape[1], 8, 3, DistComm(group), num_layers=2)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["gcn"].items()})
+    eng0 = deltas.build_engine(run_dir, model, add_symmetric_norm=True, device="cpu",
+                               ladder=BucketLadder((8,)), registry=Metrics())
+    out = {"generation0": eng0.generation, "halo_impl": eng0.halo_impl}
+    x_ptr = eng0._batch["x"].data_ptr()
+    if group.rank != 0:
+        out["dispatches"] = eng0.follow()
+        succ = eng0.successors
+        out.update(forwards=eng0.forwards, successor_forwards=[e.forwards for e in succ],
+                   successor_generations=[e.generation for e in succ],
+                   num_nodes=eng0.num_nodes, x_ptr_kept=eng0._batch["x"].data_ptr() == x_ptr,
+                   follow_threads=[t.name for t in threading.enumerate()
+                                   if t.name.startswith("serve-follow")])
+        return out
+    try:
+        eng0.warmup()
+        out["full_before"] = eng0.full_logits()
+        out["free_before"] = eng0.free_pad_slots()
+        batcher = MicroBatcher(eng0, max_batch_size=4, max_delay_ms=1.0, registry=Metrics())
+        try:
+            out["append"] = _delta_traffic(eng0, batcher, inputs, run_dir)
+        finally:
+            batcher.stop()
+        out["free_after"] = eng0.free_pad_slots()
+        out["full_after"] = eng0.full_logits()
+        out["x_ptr_kept"] = eng0._batch["x"].data_ptr() == x_ptr
+        out["rank_slot0"] = eng0.rank_slot(np.arange(eng0.num_nodes))
+        out["world1"] = deltas.replan(run_dir)
+        eng1 = deltas.build_engine(run_dir, eng0.model, adopt_from=eng0,
+                                   add_symmetric_norm=True, registry=Metrics())
+        out["generation1"] = eng1.generation
+        try:
+            eng1.warmup()
+            out["full1"] = eng1.full_logits()
+            out["rank_slot1"] = eng1.rank_slot(np.arange(eng1.num_nodes))
+            out["flip"] = _flip_traffic(eng0, eng1, ModelRegistry, MicroBatcher, Metrics,
+                                        max_size=8)
+            eng0.stop()
+            out["full1_after_stop"] = eng1.full_logits()
+        finally:
+            eng1.stop()
+        out["forwards1"] = eng1.forwards
+    finally:
+        eng0.stop()
+    out["forwards"] = eng0.forwards
+    return out
+
+
+def delta_cases(group, path: str, root: str) -> dict:
+    """:func:`_delta_case` under each of DELTA_IMPLS, in ``root/<impl>``."""
+    with open(path, "rb") as f:
+        inputs = pickle.load(f)
+    out = {}
+    try:
+        config.use_pallas_p2p = True
+        for impl in DELTA_IMPLS:
+            config.halo_impl = impl
+            out[impl] = _delta_case(group, os.path.join(root, impl), inputs)
+    finally:
+        config.halo_impl, config.use_pallas_p2p = "auto", None
+    return out
